@@ -1,0 +1,173 @@
+"""Lens projection (port of the dual-fisheye subset of
+``ice_halo_sim_tpu.core.projection``).
+
+``make_proj_plan`` resolves a render's parameters on the host exactly as
+the JAX package does, for every lens. ``project_components`` implements the
+dual-fisheye lenses without inverse trig (equal-area and orthographic),
+with the overlap pass; the other lenses raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ice_halo_sim_tpu.config.schema import LensType, RenderConfig
+from ice_halo_sim_tpu_torch.core.bits import I32, sdiv
+
+# Lenses whose forward projection the port implements (plain and CUDA).
+SUPPORTED_LENSES = frozenset(
+    int(t) for t in (LensType.DUAL_FISHEYE_EQUAL_AREA, LensType.DUAL_FISHEYE_ORTHOGRAPHIC)
+)
+
+
+class ProjPlan(NamedTuple):
+    lens_type: int
+    width: int
+    height: int
+    visible: int
+    shift_x: int
+    shift_y: int
+    scale: float
+    az0: float
+    r_scale: float
+    max_abs_dz: float
+    rot: np.ndarray
+
+
+def _rotation_z(rad):
+    c, s = math.cos(rad), math.sin(rad)
+    return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float64)
+
+
+def _rotation_y(rad):
+    c, s = math.cos(rad), math.sin(rad)
+    return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float64)
+
+
+def camera_rotation(view) -> np.ndarray:
+    rad = math.radians
+    return (
+        _rotation_z(rad(view.az))
+        @ _rotation_y(rad(90.0 - view.el))
+        @ _rotation_z(rad(-90.0 + view.ro))
+    )
+
+
+def compute_scale_az0(lens_type, fov_deg, short_pix, res_w, res_h, rot) -> tuple:
+    fov = math.radians(fov_deg)
+    scale, az0 = 1.0, 0.0
+    if lens_type in (LensType.LINEAR, LensType.GLOBE):
+        scale = short_pix / 2.0 / math.tan(fov / 2.0)
+    elif lens_type == LensType.FISHEYE_EQUAL_AREA:
+        scale = short_pix / 2.0 / math.sqrt(2.0) / math.sin(fov / 4.0)
+    elif lens_type == LensType.FISHEYE_EQUIDISTANT:
+        scale = short_pix * (math.pi / 2.0) / fov
+    elif lens_type == LensType.FISHEYE_STEREOGRAPHIC:
+        scale = short_pix / 2.0 / math.tan(fov / 4.0)
+    elif lens_type == LensType.FISHEYE_ORTHOGRAPHIC:
+        scale = short_pix / 2.0 / math.sin(fov / 2.0)
+    elif lens_type == LensType.RECTANGULAR:
+        short_res = min(res_w // 2, res_h)
+        scale = short_res / math.pi
+        ax_z = rot @ np.array([0.0, 0.0, 1.0])
+        az0 = math.atan2(ax_z[1], ax_z[0])
+    return scale, az0
+
+
+def dual_fisheye_r_scale(lens_type, overlap: float) -> tuple:
+    if overlap <= 0:
+        return 1.0, 0.0
+    if lens_type == LensType.DUAL_FISHEYE_EQUAL_AREA:
+        return 1.0 / math.sqrt(1.0 + overlap), overlap
+    if lens_type == LensType.DUAL_FISHEYE_EQUIDISTANT:
+        return (math.pi / 2) / (math.pi / 2 + math.asin(overlap)), overlap
+    if lens_type == LensType.DUAL_FISHEYE_STEREOGRAPHIC:
+        return 1.0 / math.tan((math.pi / 2 + math.asin(overlap)) / 2.0), overlap
+    return 1.0, 0.0
+
+
+def make_proj_plan(cfg: RenderConfig) -> ProjPlan:
+    rot = camera_rotation(cfg.view)
+    short_pix = float(min(cfg.resolution[0], cfg.resolution[1]))
+    scale, az0 = compute_scale_az0(cfg.lens.type, cfg.lens.fov, short_pix,
+                                   cfg.resolution[0], cfg.resolution[1], rot)
+    r_scale, max_abs_dz = 1.0, 0.0
+    if cfg.lens.type in (
+        LensType.DUAL_FISHEYE_EQUAL_AREA,
+        LensType.DUAL_FISHEYE_EQUIDISTANT,
+        LensType.DUAL_FISHEYE_STEREOGRAPHIC,
+        LensType.DUAL_FISHEYE_ORTHOGRAPHIC,
+    ):
+        r_scale, max_abs_dz = dual_fisheye_r_scale(cfg.lens.type, cfg.overlap)
+    return ProjPlan(
+        lens_type=int(cfg.lens.type),
+        width=int(cfg.resolution[0]),
+        height=int(cfg.resolution[1]),
+        visible=int(cfg.visible),
+        shift_x=int(cfg.lens_shift[0]),
+        shift_y=int(cfg.lens_shift[1]),
+        scale=float(scale),
+        az0=float(az0),
+        r_scale=float(r_scale),
+        max_abs_dz=float(max_abs_dz),
+        rot=rot.astype(np.float32),
+    )
+
+
+def _fisheye_forward(lens_type: int, dx, dy, dz, r_scale: float):
+    """Equal-area and orthographic forwards; returns (x, y, valid)."""
+    if lens_type in (LensType.FISHEYE_EQUAL_AREA, LensType.DUAL_FISHEYE_EQUAL_AREA):
+        k = sdiv(r_scale, torch.sqrt(1.0 + torch.clamp(dz, -1.0 + 1e-6, 1.0)))
+        return k * dx, k * dy, torch.ones_like(dz, dtype=torch.bool)
+    if lens_type in (LensType.FISHEYE_ORTHOGRAPHIC, LensType.DUAL_FISHEYE_ORTHOGRAPHIC):
+        return r_scale * dx, r_scale * dy, dz >= 0.0
+    raise NotImplementedError(f"lens type {lens_type} is not ported yet")
+
+
+def _dual_fisheye_pixel(x_norm, y_norm, is_upper, width: int, height: int):
+    short_res = min(width // 2, height)
+    r = short_res / 2.0
+    cy = height / 2.0
+    cx_u = width / 2.0 - r
+    cx_l = width / 2.0 + r
+    fx = torch.where(is_upper, -y_norm * r + cx_u, y_norm * r + cx_l)
+    fy = x_norm * r + cy
+    return torch.floor(fx + 0.5).to(I32), torch.floor(fy + 0.5).to(I32)
+
+
+class PixelHits(NamedTuple):
+    main: torch.Tensor     # int32 flattened pixel or -1
+    overlap: torch.Tensor  # int32 flattened pixel or -1
+
+
+def project_components(plan: ProjPlan, wx, wy, wz) -> PixelHits:
+    """World exit directions (components) -> pixel hits."""
+    t = plan.lens_type
+    if t not in SUPPORTED_LENSES:
+        raise NotImplementedError(
+            f"lens type {LensType(t).name} is not ported yet (dual fisheye "
+            "equal-area / orthographic only)"
+        )
+    W, H = plan.width, plan.height
+
+    def in_bounds(px, py, valid):
+        ok = valid & (px >= 0) & (px < W) & (py >= 0) & (py < H)
+        return torch.where(ok, py * W + px, -1).to(I32)
+
+    sx, sy, sz = -wx, -wy, -wz
+    is_upper = sz >= 0.0
+    z_hemi = torch.abs(sz)
+    x, y, _ = _fisheye_forward(t, sx, sy, z_hemi, plan.r_scale)
+    px, py = _dual_fisheye_pixel(x, y, is_upper, W, H)
+    main = in_bounds(px, py, torch.ones_like(is_upper))
+    overlap = torch.full_like(main, -1)
+    if plan.max_abs_dz > 0.0:
+        x2, y2, _ = _fisheye_forward(t, sx, sy, -z_hemi, plan.r_scale)
+        px2, py2 = _dual_fisheye_pixel(x2, y2, ~is_upper, W, H)
+        band = torch.abs(sz) < plan.max_abs_dz
+        overlap = in_bounds(px2, py2, band)
+    return PixelHits(main=main, overlap=overlap)

@@ -1,0 +1,79 @@
+"""Fused basis expansion + segmented inclusive scan (port of K4,
+``ice_halo_sim_tpu.core.pallas_scan.fused_scan_call``).
+
+Over sorted fold rows (key u32 bits in int32, weight f32):
+  chans[c][i] = tbl[(key >> 1) & (K-1), c] * w      (float32 product)
+  seg[c][i]   = inclusive sum of chans[c] over the run of equal key >> shift
+  key2[i]     = key >> shift at marker rows (low bits 2K-1), else 0xFFFFFFFF
+
+Both versions sum in float64 and round once to float32, so they agree to
+about an ulp; against the TPU kernel (float32 sums in another order) the
+tolerance is the summation order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ice_halo_sim_tpu_torch.core.bits import F32, I32, I64, from_bits, to_bits
+from ice_halo_sim_tpu_torch.kernels import build
+
+_TILE = 4096
+_MAX_K = 4096
+
+
+def fused_scan_call_plain(sk, sw, basis_tbl, shift: int, k_pool: int,
+                          emit_key2: bool = False):
+    """Plain twin: (chans [3 x M f32], key2 [M] int32 bits) or chans."""
+    k = from_bits(sk)
+    M = k.shape[0]
+    wl = (k >> 1) & (k_pool - 1)
+    tbl = basis_tbl.to(device=sk.device, dtype=F32)
+    vals = (tbl[wl] * sw[:, None]).to(torch.float64)
+    pix = k >> shift
+    flag = torch.ones(M, dtype=torch.bool, device=sk.device)
+    if M > 1:
+        flag[1:] = pix[1:] != pix[:-1]
+    seg_id = torch.cumsum(flag.to(I64), dim=0) - 1
+    cs = torch.cumsum(vals, dim=0)
+    before = torch.cat([torch.zeros((1, 3), dtype=cs.dtype, device=cs.device), cs[:-1]])
+    seg_base = before[flag]
+    out = (cs - seg_base[seg_id]).to(F32)
+    chans = [out[:, c].contiguous() for c in range(3)]
+    if not emit_key2:
+        return chans
+    mmask = 2 * k_pool - 1
+    key2 = to_bits(torch.where((k & mmask) == mmask, pix, 0xFFFFFFFF))
+    return chans, key2
+
+
+def fused_scan_call(sk, sw, basis_tbl, shift: int, k_pool: int,
+                    emit_key2: bool = False):
+    """K4 wrapper: plain twin on the CPU, CUDA kernel (csrc/seg_scan.cu) on
+    a CUDA tensor."""
+    if sk.device.type == "cpu":
+        return fused_scan_call_plain(sk, sw, basis_tbl, shift, k_pool, emit_key2)
+    if k_pool & (k_pool - 1) or not 1 <= k_pool <= _MAX_K:
+        raise ValueError(f"k_pool must be a power of two <= {_MAX_K}, got {k_pool}")
+    if sk.dtype != I32 or sw.dtype != F32 or sk.shape != sw.shape:
+        raise ValueError("fused_scan_call takes int32 key bits and float32 weights")
+    dev = sk.device
+    sk = sk.contiguous()
+    sw = sw.contiguous()
+    tbl = basis_tbl.to(device=dev, dtype=F32).contiguous()
+    if tuple(tbl.shape) != (k_pool, 3):
+        raise ValueError(f"basis table must be [{k_pool}, 3], got {tuple(tbl.shape)}")
+    M = sk.shape[0]
+    n_tiles = max(1, -(-M // _TILE))
+    chans = [torch.empty(M, dtype=F32, device=dev) for _ in range(3)]
+    key2 = torch.empty(M, dtype=I32, device=dev) if emit_key2 else None
+    agg = torch.empty(n_tiles * 4, dtype=torch.float64, device=dev)
+    carry = torch.empty(n_tiles * 3, dtype=torch.float64, device=dev)
+    code = build.lib().iht_fused_scan(
+        sk.data_ptr(), sw.data_ptr(), tbl.data_ptr(), k_pool, shift, M,
+        chans[0].data_ptr(), chans[1].data_ptr(), chans[2].data_ptr(),
+        build.ptr(key2), agg.data_ptr(), carry.data_ptr(), build.stream_ptr(dev),
+    )
+    build.check(code, "fused_scan")
+    build.LAUNCHES["fused_scan"] += 1
+    return (chans, key2) if emit_key2 else chans

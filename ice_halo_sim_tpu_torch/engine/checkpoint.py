@@ -1,0 +1,51 @@
+"""Resume a JAX-package checkpoint in the port.
+
+The JAX package's checkpoint (``ice_halo_sim_tpu.engine.checkpoint``) is an
+.npz with a JSON ``header`` (format_version, project, seed, batch_size,
+batch_counter, stats, n_accum) and ``accum_0..accum_{n-1}``: one [P, 3(+L)]
+image per render, then the [R] landed weights. It is read here with numpy
+alone; the returned port Engine continues the same random streams from the
+saved batch counter.
+"""
+
+from __future__ import annotations
+
+import json
+
+import numpy as np
+import torch
+
+from ice_halo_sim_tpu.config.loader import load_project
+from ice_halo_sim_tpu_torch.engine.simulator import Engine, Stats
+
+FORMAT_VERSION = 1
+
+
+def load_jax_checkpoint(path: str, device="cuda", kernels=None) -> Engine:
+    with np.load(path, allow_pickle=False) as data:
+        header = json.loads(str(data["header"]))
+        if header["format_version"] != FORMAT_VERSION:
+            raise ValueError(
+                f"checkpoint format {header['format_version']} != {FORMAT_VERSION}"
+            )
+        cfg = load_project(header["project"])
+        engine = Engine(cfg, seed=header["seed"], batch_size=header["batch_size"],
+                        device=device, kernels=kernels)
+        arrays = [np.asarray(data[f"accum_{i}"]) for i in range(header["n_accum"])]
+    if len(arrays) != len(engine.accum):
+        raise ValueError("checkpoint accumulator count mismatch")
+    accum = []
+    for saved, fresh in zip(arrays[:-1], engine.accum[:-1]):
+        if saved.shape[0] != fresh.shape[0] or saved.ndim != 2 or saved.shape[1] < 3:
+            raise ValueError(f"checkpoint accumulator shape {saved.shape} != {tuple(fresh.shape)}")
+        accum.append(torch.as_tensor(saved[:, :3].astype(np.float32)).to(engine.device))
+    landed = arrays[-1]
+    if landed.shape != tuple(engine.accum[-1].shape):
+        raise ValueError(f"checkpoint landed shape {landed.shape} mismatch")
+    accum.append(torch.as_tensor(landed.astype(np.float32)).to(engine.device))
+    engine.accum = accum
+    engine.batch_counter = int(header["batch_counter"])
+    fields = set(Stats._fields)
+    engine.stats = Stats(**{k: v for k, v in header["stats"].items() if k in fields})
+    return engine
+

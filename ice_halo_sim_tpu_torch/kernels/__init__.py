@@ -1,0 +1,31 @@
+"""CUDA kernel build/launch plumbing and the two kernel sets an Engine can
+run: ``"cuda"`` (the wrappers, which launch the CUDA kernels on CUDA
+tensors) and ``"plain"`` (the plain PyTorch twins, on any device)."""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+
+class KernelSet(NamedTuple):
+    name: str
+    trace_emit: Callable
+    pack_payload_blocks: Callable
+    scatter_blocks_multi: Callable
+    fused_scan_call: Callable
+
+
+def kernel_set(kind: str) -> KernelSet:
+    from ice_halo_sim_tpu_torch.core import block_ops, seg_scan, trace_emit
+
+    if kind == "cuda":
+        return KernelSet("cuda", trace_emit.trace_emit,
+                         block_ops.pack_payload_blocks,
+                         block_ops.scatter_blocks_multi,
+                         seg_scan.fused_scan_call)
+    if kind == "plain":
+        return KernelSet("plain", trace_emit.trace_emit_plain,
+                         block_ops.pack_payload_blocks_plain,
+                         block_ops.scatter_blocks_multi_plain,
+                         seg_scan.fused_scan_call_plain)
+    raise ValueError(f"kernels must be 'cuda' or 'plain', got {kind!r}")

@@ -1,0 +1,149 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by nvcc, by hand, into ONE shared
+library with a plain C interface, loaded with ctypes. The library is built
+at first use from the sources in this checkout into
+``ice_halo_sim_tpu_torch/_build/`` (listed in .gitignore); its file name
+carries a hash of the sources and flags, so an edit rebuilds it.
+
+Flags: ``-gencode arch=compute_90a,code=sm_90a -O3``, no fast math, and
+``--fmad=false``: without contraction the kernels round every multiply and
+add as the plain PyTorch twins do, so integer decisions fed by floats
+(entry triangle, TIR, pixel floor) agree between the two.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+``check`` raises on a non-zero code. Nothing here falls back to the plain
+versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+# Launch counts per kernel wrapper: each wrapper adds one where it launches
+# its kernel, and nowhere else.
+LAUNCHES = {
+    "trace_emit": 0,
+    "pack_rows": 0,
+    "pack_payload_blocks": 0,
+    "scatter_blocks_multi": 0,
+    "fused_scan": 0,
+}
+
+_lib = None
+build_seconds = None
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _sources():
+    return sorted(
+        os.path.join(CSRC, f) for f in os.listdir(CSRC)
+        if f.endswith((".cu", ".cuh"))
+    )
+
+
+def _nvcc() -> str:
+    cand = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(cand):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return cand
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + f.read())
+    return os.path.join(BUILD_DIR, f"libiht_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the library if this source state has not been built."""
+    global build_seconds
+    out = library_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    cu = [s for s in _sources() if s.endswith(".cu")]
+    tmp = out + f".tmp{os.getpid()}"
+    t0 = time.time()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cu],
+        capture_output=True, text=True,
+    )
+    with open(out + ".log", "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
+    os.replace(tmp, out)
+    build_seconds = time.time() - t0
+    return out
+
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+_U = ctypes.c_uint32
+_LL = ctypes.c_longlong
+
+_SIGNATURES = {
+    "iht_trace_emit": [_VP, _VP, _VP, _VP, _VP, _VP, _VP],
+    "iht_pack_blocks": [_VP, _VP, _VP, _VP, _I, _U, _I, _I,
+                        _VP, _VP, _VP, _VP, _VP, _VP],
+    "iht_scatter_blocks": [_VP, _VP, _VP, _I, _VP, _I, _I, _LL,
+                           _VP, _VP, _VP, _I, _LL, _LL, _I, _U, _VP],
+    "iht_fused_scan": [_VP, _VP, _VP, _I, _I, _LL, _VP, _VP, _VP, _VP,
+                       _VP, _VP, _VP],
+}
+
+
+def lib():
+    """The loaded kernel library (built at first use)."""
+    global _lib
+    if _lib is None:
+        path = build()
+        handle = ctypes.CDLL(path)
+        for name, args in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        handle.iht_error_string.argtypes = [_I]
+        handle.iht_error_string.restype = ctypes.c_char_p
+        _lib = handle
+    return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if code != 0:
+        msg = lib().iht_error_string(code).decode()
+        raise RuntimeError(f"CUDA kernel {what} failed: cudaError {code} ({msg})")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()

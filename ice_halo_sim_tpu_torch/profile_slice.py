@@ -1,0 +1,84 @@
+"""Profile the port's main path on one CUDA device: bench.py's BENCH_CFG at
+batch 229376, calibrated steady state, under torch.profiler.
+
+    python -m ice_halo_sim_tpu_torch.profile_slice [--batches 10] [--out FILE]
+
+Prints the card (nvidia-smi name and power limit), the wall time per
+batch, the device time per kernel name (CUDA time summed over the window)
+and the device idle share = 1 - (sum of kernel time) / wall time (kernels
+of one stream do not overlap here).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--batches", type=int, default=10)
+    ap.add_argument("--batch-size", type=int, default=112 * 2048)
+    ap.add_argument("--out", default=None, help="also write the report here")
+    args = ap.parse_args(argv)
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("profile_slice: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.getcwd())
+    from bench import BENCH_CFG
+    from ice_halo_sim_tpu.config.loader import load_project
+    from ice_halo_sim_tpu_torch.engine.simulator import Engine
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    eng = Engine(load_project(BENCH_CFG), seed=7, batch_size=args.batch_size,
+                 device="cuda")
+    eng.run(n_batches=1)
+    eng.run(n_batches=3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run(n_batches=args.batches)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue  # CPU ops: their kernels are listed as CUDA events
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append((dev_us, e.count, e.key))
+    rows.sort(reverse=True)
+    busy_us = sum(r[0] for r in rows)
+    lines = [
+        f"card: {card}",
+        f"batch {args.batch_size}, {args.batches} batches, wall {wall * 1e3 / args.batches:.4f} "
+        f"ms/batch, {args.batches * args.batch_size / wall:.6g} rays/s",
+        f"device busy {busy_us / 1e3 / args.batches:.4f} ms/batch, idle share "
+        f"{1.0 - busy_us / 1e6 / wall:.4f}",
+        "device time by kernel (ms/batch, share of busy, launches):",
+    ]
+    for us, n, key in rows:
+        lines.append(f"  {us / 1e3 / args.batches:9.4f}  {us / busy_us:6.3f}  {n:5d}  {key[:90]}")
+    report = "\n".join(lines)
+    print(report)
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write(report + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

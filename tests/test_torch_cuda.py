@@ -1,0 +1,93 @@
+"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+
+Marked ``cuda``: skipped where no CUDA device exists. On a machine with a
+card:  python -m pytest -m cuda tests/test_torch_cuda.py -q
+Shapes are small; chip_smoke.py repeats the comparison at the main path's
+shapes. Integer outputs must be bit-equal; the scan's floats within rtol
+1e-6 (both versions sum in float64 and round once).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from bench import BENCH_CFG
+from ice_halo_sim_tpu.config.loader import load_project
+from ice_halo_sim_tpu_torch.core import accum, block_ops, seg_scan, trace_emit
+from ice_halo_sim_tpu_torch.engine.simulator import Engine
+
+# Tier-1 runs six workers; keep each one to two torch threads.
+torch.set_num_threads(2)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _eq(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_trace_emit_kernel(dev):
+    eng = Engine(load_project(BENCH_CFG), seed=7, batch_size=8192, device=dev)
+    for base in ((0, 0, 8192), (0xFFFFF000, 2, 5000)):
+        a = trace_emit.trace_emit(eng._trace_plan, *base, dev)
+        b = trace_emit.trace_emit_plain(eng._trace_plan, *base, dev)
+        d = trace_emit.trace_output_diff(a[0], b[0])
+        assert d["rows_diff"] == 0 and d["w_rel"] <= 1e-6, d
+        assert int(a[3]) == int(b[3])
+
+
+def test_pack_and_scatter_kernels(dev):
+    g = np.random.default_rng(1)
+    key = torch.as_tensor(g.integers(-(1 << 31), 1 << 31, 3 * 4096, dtype=np.int64)
+                          .astype(np.int32), device=dev)
+    cols = [torch.randn(3 * 4096, device=dev) for _ in range(3)]
+    a = block_ops.pack_payload_blocks(key, cols, 1 << 31, 4096)
+    b = block_ops.pack_payload_blocks_plain(key, cols, 1 << 31, 4096)
+    assert all(_eq(x, y) for x, y in zip(a[0], b[0])) and _eq(a[1], b[1])
+    vals = [torch.randn(5, 1024, device=dev), key[:5 * 1024].view(5, 1024)]
+    start = torch.tensor([0, 700, 700, 1500, 9000], dtype=torch.int32, device=dev)
+    for tail in (None, (4096, 2048, 7, 127)):
+        a = block_ops.scatter_blocks_multi(vals, start, 8192, 1024, marker_tail=tail)
+        b = block_ops.scatter_blocks_multi_plain(vals, start, 8192, 1024, marker_tail=tail)
+        assert all(_eq(x, y) for x, y in zip(a, b))
+
+
+def test_fused_scan_kernel(dev):
+    g = np.random.default_rng(2)
+    key = np.sort(g.integers(0, 1 << 20, 100_000, dtype=np.int64)).astype(np.int32)
+    sk = torch.as_tensor(key, device=dev)
+    sw = torch.rand(sk.numel(), device=dev)
+    tbl = torch.rand(64, 3, device=dev)
+    a, ka = seg_scan.fused_scan_call(sk, sw, tbl, 7, 64, emit_key2=True)
+    b, kb = seg_scan.fused_scan_call_plain(sk, sw, tbl, 7, 64, emit_key2=True)
+    assert _eq(ka, kb)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("spectrum", ["D65", "discrete-4"])
+def test_engine_cuda_matches_plain(dev, spectrum):
+    import copy
+
+    doc = copy.deepcopy(BENCH_CFG)
+    if spectrum != "D65":
+        doc["scene"]["light_source"] = {
+            "type": "sun", "altitude": 20.0,
+            "spectrum": [{"wavelength": w, "weight": 1.0 + i}
+                         for i, w in enumerate([450.0, 500.0, 550.0, 600.0])]}
+    cfg = load_project(doc)
+    imgs = []
+    for kernels in ("cuda", "plain"):
+        eng = Engine(cfg, seed=3, batch_size=8192, device=dev, kernels=kernels)
+        eng.run(n_batches=1)
+        eng.run(n_batches=2)
+        imgs.append(eng.raw_xyz(0))
+    np.testing.assert_allclose(imgs[0], imgs[1], rtol=1e-5, atol=1e-6 * imgs[1].max())
+    assert accum.BLOCK == 4096

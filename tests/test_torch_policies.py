@@ -1,0 +1,101 @@
+"""Structural rules of the PyTorch port:
+  - the port (and what chip_smoke.py imports) never imports jax;
+  - no file of the port refers to the reference checkout's absolute path;
+  - every CUDA entry point returns cudaGetLastError() after its launches,
+    and every wrapper checks the code it returns;
+  - each kernel's launch counter is bumped in exactly one place.
+"""
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import torch
+
+import ice_halo_sim_tpu_torch
+
+# Tier-1 runs six workers; keep each one to two torch threads.
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.dirname(ice_halo_sim_tpu_torch.__file__)
+
+
+def _port_files(exts):
+    out = []
+    for d, _, files in os.walk(PKG):
+        if "_build" in d or "__pycache__" in d:
+            continue
+        out += [os.path.join(d, f) for f in files if f.endswith(exts)]
+    return sorted(out)
+
+
+def test_port_imports_no_jax():
+    mods = [m.name for m in pkgutil.walk_packages([PKG], "ice_halo_sim_tpu_torch.")]
+    assert "ice_halo_sim_tpu_torch.engine.simulator" in mods
+    code = (
+        "import sys, importlib\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "import ice_halo_sim_tpu_torch\n"
+        "ice_halo_sim_tpu_torch.Engine, ice_halo_sim_tpu_torch.load_jax_checkpoint\n"
+        "import chip_smoke, bench, ice_halo_sim_tpu.config.loader\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-3000:]
+
+
+def test_no_reference_checkout_paths():
+    files = _port_files((".py", ".cu", ".cuh")) + [os.path.join(ROOT, "chip_smoke.py")]
+    files += [os.path.join(ROOT, "tests", f) for f in os.listdir(os.path.join(ROOT, "tests"))
+              if f.startswith("test_torch_")]
+    needle = os.sep + os.path.join("root", "reference")
+    for path in files:
+        with open(path) as f:
+            assert needle not in f.read(), path
+
+
+def test_cuda_entry_points_return_launch_error():
+    entries = 0
+    for path in _port_files((".cu",)):
+        src = open(path).read()
+        for m in re.finditer(r'extern "C" int (iht_\w+)\([^)]*\)\s*\{', src):
+            depth, i = 1, m.end()
+            while depth:
+                depth += {"{": 1, "}": -1}.get(src[i], 0)
+                i += 1
+            body = src[m.end():i]
+            entries += 1
+            assert body.rstrip().rstrip("}").rstrip().endswith(
+                "return (int)cudaGetLastError();"), m.group(1)
+            # Every launch is followed by a launch-error read before the next.
+            parts = body.split("<<<")
+            for after in parts[1:]:
+                assert "cudaGetLastError()" in after, m.group(1)
+    assert entries == 4
+
+
+def test_wrappers_check_every_kernel_call():
+    calls = 0
+    for path in _port_files((".py",)):
+        src = open(path).read()
+        for m in re.finditer(r"code = build\.lib\(\)\.(iht_\w+)\(", src):
+            calls += 1
+            assert re.search(r"build\.check\(code, ", src[m.end():m.end() + 600]), (
+                path, m.group(1))
+    assert calls == 4
+
+
+def test_each_launch_counter_bumped_once():
+    from ice_halo_sim_tpu_torch.kernels import build
+
+    srcs = "".join(open(p).read() for p in _port_files((".py",)))
+    for name in build.LAUNCHES:
+        assert srcs.count(f'build.LAUNCHES["{name}"] += 1') == 1, name

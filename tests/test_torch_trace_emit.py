@@ -1,0 +1,141 @@
+"""Port trace_emit (plain twin of the CUDA trace kernel) against the JAX
+trace megakernel run in the Pallas interpreter, on bench.py's BENCH_CFG at
+one 2048-ray block, with the default Russian-roulette emit floor.
+
+Tolerances:
+  - rows: the (block, key) multisets must be equal; torch and XLA round a
+    few transcendentals differently in the last bit, which could flip a
+    float-fed decision (entry triangle, TIR, pixel floor) -- such a ray
+    would move rows, and the test names it. The budget is FLIP_ROWS.
+  - weights of matching rows: rtol 1e-3 per row (ulp-level differences in
+    sin/cos of the orientation reach the Fresnel weights, and near the
+    critical angle the weight's derivative is large: 2.5e-4 was measured);
+    the per-block weight sums hold to rtol 1e-5.
+  - landed and dropped weight: rtol 1e-5 (block sums in another order).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from bench import BENCH_CFG
+from ice_halo_sim_tpu.config.loader import load_project
+from ice_halo_sim_tpu_torch.core import trace_emit
+from ice_halo_sim_tpu_torch.engine.simulator import Engine as TEngine
+
+# Tier-1 runs six workers; keep each one to two torch threads.
+torch.set_num_threads(2)
+
+BATCH = 2048
+FLIP_ROWS = 4
+W_RTOL = 1e-3
+SUM_RTOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def jax_engine():
+    from ice_halo_sim_tpu.core import pallas_ops, pallas_scan, pallas_trace
+    from ice_halo_sim_tpu.engine.simulator import Engine
+
+    with pytest.MonkeyPatch.context() as mp:
+        for mod in (pallas_trace, pallas_ops, pallas_scan):
+            mp.setattr(mod, "INTERPRET", True)
+        mp.delenv("IHT_MIN_EMIT_W", raising=False)
+        eng = Engine(load_project(BENCH_CFG), seed=7, batch_size=BATCH,
+                     accum_method="sort")
+        assert eng.trace_path == "pallas-megakernel", eng._kernel_reason
+        yield eng
+
+
+@pytest.fixture(scope="module")
+def port_engine():
+    with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("IHT_MIN_EMIT_W", raising=False)
+        yield TEngine(load_project(BENCH_CFG), seed=7, batch_size=BATCH, device="cpu")
+
+
+def test_plan_arrays_match_jax_trace_plan(jax_engine, port_engine):
+    import jax.numpy as jnp
+
+    from ice_halo_sim_tpu.core import color
+
+    jp = jax_engine._trace_plan
+    pa = port_engine.plan_arrays()
+    # Geometry tables: closed-form prism in float32 on both sides; XLA and
+    # torch round a few products/cross terms differently (1 ulp, ~6e-8 at
+    # the unit scale of these coordinates).
+    np.testing.assert_allclose(pa["planes"], np.asarray(jp.planes, np.float32),
+                               rtol=0, atol=2e-7)
+    np.testing.assert_allclose(pa["tris"], np.asarray(jp.tris, np.float32),
+                               rtol=0, atol=2e-7)
+    np.testing.assert_array_equal(pa["spd"], np.asarray(jp.spd, np.float32))
+    assert pa["w_scale"] == jp.w_scale
+    assert port_engine._trace_plan.rows_block == jp.rows_block
+    assert port_engine._trace_plan.emit_cut == np.float32(jp.emit_frac * jp.w_scale)
+    tbl = np.asarray(color.cmf_eval(jax_engine._wl_from_idx(
+        jnp.arange(jax_engine.k_pool, dtype=jnp.uint32), jnp.uint32(0))))
+    # Chebyshev evaluation: float32 Clenshaw in both, same coefficients.
+    np.testing.assert_allclose(pa["basis_tbl"], tbl, rtol=1e-6, atol=1e-7)
+    ap = jax_engine.layers[0].axis_params
+    np.testing.assert_array_equal(pa["lut_cdf"], ap.lut_cdf[0])
+    np.testing.assert_array_equal(pa["lut_flip"], ap.lut_flip[0])
+    for r, pp in enumerate(jax_engine.proj_plans):
+        np.testing.assert_array_equal(
+            pa[f"proj_{r}"],
+            [pp.lens_type, pp.width, pp.height, pp.scale, pp.r_scale, pp.max_abs_dz],
+        )
+        np.testing.assert_array_equal(pa[f"proj_rot_{r}"], pp.rot)
+
+
+def _named_flips(port_plan, jax_rows, port_slabs, base_lo, base_hi, n_active):
+    """Rays (by lane) whose uncompacted port rows hold keys absent from the
+    JAX rows: the float flips the tolerance allows."""
+    jk = set(np.asarray(jax_rows).view(np.uint32).ravel().tolist())
+    keys = port_slabs[0][0].numpy().view(np.uint32)[0]
+    nr = port_plan.nr
+    lanes = sorted({i % nr for i, k in enumerate(keys)
+                    if k != 0xFFFFFFFF and int(k) not in jk})
+    return lanes
+
+
+@pytest.mark.parametrize(
+    "base_lo, base_hi, n_active",
+    [(0, 0, BATCH), (0xFFFFFC00, 1, 1500)],
+    ids=["batch0", "hi-epoch-wrap-tail"],
+)
+def test_trace_emit_matches_jax_megakernel(jax_engine, port_engine, base_lo,
+                                           base_hi, n_active):
+    import jax
+    import jax.numpy as jnp
+
+    run = jax.jit(jax_engine._trace_emit)
+    per_render, landed, dropped, segs = run(
+        jnp.uint32(base_lo), jnp.uint32(base_hi), jnp.uint32(n_active)
+    )
+    jax_out = [tuple(np.asarray(x) for x in pr) for pr in per_render]
+    jax_out = [(k.view(np.int32), w, c) for k, w, c in jax_out]
+
+    plan = port_engine._trace_plan
+    out = trace_emit.trace_emit_plain(plan, base_lo, base_hi, n_active,
+                                      torch.device("cpu"))
+    port_out = [tuple(x.numpy() for x in pr) for pr in out[0]]
+    d = trace_emit.trace_output_diff(port_out, jax_out)
+    flips = []
+    if d["rows_diff"]:
+        slabs, *_ = trace_emit.trace_rows_plain(plan, base_lo, base_hi, n_active,
+                                                torch.device("cpu"))
+        flips = _named_flips(plan, jax_out[0][0], slabs, base_lo, base_hi, n_active)
+    assert d["rows_diff"] <= FLIP_ROWS, (d, "flipped lanes", flips)
+    assert d["blocks_diff"] == 0 or d["rows_diff"], d
+    if d["rows_diff"] == 0:
+        assert d["w_rel"] <= W_RTOL, d
+        assert int(out[3]) == int(segs)
+    else:
+        assert abs(int(out[3]) - int(segs)) <= 7 * len(flips), (int(out[3]), int(segs))
+    for (_, wp, _), (_, wj, _) in zip(port_out, jax_out):
+        np.testing.assert_allclose(wp.astype(np.float64).sum(1),
+                                   wj.astype(np.float64).sum(1), rtol=SUM_RTOL)
+    np.testing.assert_allclose(out[1].numpy(), np.asarray(landed), rtol=SUM_RTOL)
+    np.testing.assert_allclose(float(out[2]), float(dropped), rtol=1e-4,
+                               atol=1e-6 * float(np.asarray(landed).sum()))
+    assert int(port_out[0][2].sum()) > 0
