@@ -6,20 +6,26 @@
 Phases (any failure raises; the exit code is then non-zero):
   1. device: a CUDA device must be present; prints the card's name and
      power limit (nvidia-smi);
-  2. build: compiles the port's CUDA kernels from csrc/ (nvcc, ctypes);
+  2. build: compiles the port's CUDA kernels from csrc/ (nvcc, ctypes) and
+     prints the trace kernel's register and spill report;
   3. kernels: each kernel against its plain PyTorch twin on the card, at
-     the main path's shapes (bench.py's BENCH_CFG, batch 229376 = 112 x
-     2048 rays, P = 131072 pixels, K = 64), with its error and both
-     device times per call (torch.profiler);
-  4. slice: Engine(BENCH_CFG, device="cuda") renders several batches with
-     the launch counters reset first; every kernel must have launched; the
-     image and stats must match kernels="plain" on the card, and the
-     fixture configuration must match tests/data/torch_port_bench_ref.npz
-     (the JAX engine's render) within the CPU test's tolerance;
-  5. steady rays/s of the slice (informational).
+     the main paths' shapes, with its error, both device times per call
+     (torch.profiler) and its bound (the least time the card could take).
+     The static trace kernel and the block and scan kernels run at
+     BENCH_CFG's shapes (batch 229376 = 112 x 2048 rays, P = 131072
+     pixels, K = 64); the blocked-pool trace kernel at POOL_CFG's (the same
+     batch as 1792 sampled pyramids, NF = 20 face slots, two renders);
+  4. slices: Engine(cfg, device="cuda") renders BENCH_CFG, then POOL_CFG,
+     each with the launch counters reset just before and read just after;
+     every kernel of the path must have launched; image and stats must
+     match kernels="plain" on the card, and each scene's fixture
+     configuration must match its committed JAX render
+     (tests/data/torch_port_*_ref.npz) within the CPU tests' tolerances;
+  5. steady rays/s of both slices (informational).
 
-The last two lines of standard output are the kernels JSON object and the
-device JSON object. Imports nothing of JAX.
+The last lines of standard output are the kernels JSON object, the card
+(nvidia-smi) and the device JSON object. Imports nothing of JAX and
+nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -32,13 +38,27 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 112 * 2048
-FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_bench_ref.npz")
+FIXTURES = {
+    "bench": os.path.join(ROOT, "tests", "data", "torch_port_bench_ref.npz"),
+    "pool": os.path.join(ROOT, "tests", "data", "torch_port_pool_ref.npz"),
+}
 
-# Tolerances (shared with tests/test_torch_engine.py for the fixture).
+# Tolerances (shared with tests/test_torch_engine.py for the fixtures).
 IMG_RTOL, IMG_ATOL_FRAC = 1e-4, 1e-6   # per pixel, atol = frac * image max
 SUM_RTOL = 1e-5                        # image sum and landed weight
 SCAN_RTOL = 1e-6                       # K4 kernel vs twin: both sum in f64
 FLIP_ROWS = 64                         # K2 rows allowed to move (float flips)
+# The pool fixture's budget (the sampled heights go through logf/cosf, which
+# differ by an ulp between XLA-CPU and CUDA; a ray at an edge may flip).
+POOL_FIX_PIXELS, POOL_FIX_SEGMENTS = 8, 8
+
+# Peak rates of one H100 SXM (NVIDIA's data sheet): device memory, float32
+# outside the tensor cores. The special-function rate follows from the SM's
+# layout: 16 special-function lanes beside 128 float32 lanes that count two
+# operations (multiply-add) each, so 1/16 of the float32 rate.
+HBM_BYTES_S = 3.35e12
+FP32_OPS_S = 67e12
+SFU_OPS_S = FP32_OPS_S / 16
 
 
 def _time_ms(fn, reps: int = 10) -> float:
@@ -72,7 +92,129 @@ def _max_abs(x, y) -> float:
     return float((x.double() - y.double()).abs().max()) if x.numel() else 0.0
 
 
-def phase_kernels(cfg, device):
+def _bound(nbytes: float, ops: float = 0.0, sfu: float = 0.0):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over their peak rates."""
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = max(ops / FP32_OPS_S, sfu / SFU_OPS_S)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def trace_work(plan):
+    """(bytes, arithmetic operations, special-function operations) of one
+    trace_emit call, counted from the plan's loops (every ray runs every
+    loop to its end: nothing here depends on the data).
+
+    Units per ray. U = 24: one uniform draw (two PCG hashes of 9 integer
+    operations, the index mix, the convert and scale). A float division or
+    square root counts 1 special-function operation (rcp/rsqrt) plus 8
+    arithmetic ones (its Newton steps); sin, cos and log count 20
+    arithmetic ones (range reduction and polynomial). With multiply-add
+    contraction off, every multiply and add is one operation.
+      set-up: epoch seed 12, wavelength U + 6, refractive index 12 + 5
+        div/sqrt, sun cap 2 U + 20 + 1 sqrt + 2 trig;
+      orientation: 5 U, the latitude path (inverse-CDF table: 5 per node
+        + 12 + 2 div; else about 30 + 1 sqrt), 6 trig, rotation 22, its
+        inverse apply 15;
+      entry: 16 per triangle row (two passes of a dot, max, add and the
+        CDF compare), 3 U, point 12, plane distances 7 per face slot;
+      Fresnel split (entry and every bounce): 42 + 7 div/sqrt;
+      bounce (max_hits - 1): per face slot 15 + 1 div and 2 for the
+        distance update; exit cosine 5, rotation 15, state selects 8;
+      emit slot (max_hits): segment 2, roulette U + 4 when the floor is
+        on, gate U + 2 when prob > 0; per render: a dual fisheye pass 22 +
+        2 div/sqrt (two passes with the overlap band), a single lens or
+        globe 26 + 18 camera rotation + 2 div/sqrt.
+    Bytes: the slabs written (8 per row), the tables read once."""
+    from ice_halo_sim_tpu_torch.core import sampling
+    from ice_halo_sim_tpu_torch.core.latlut import N_NODES
+
+    U, DS, TRIG = 24, 8, 20
+    n_tris = plan.n_tris if plan.pool_k else len(plan.tris)
+    ops = 12 + (U + 6) + 12 + 5 * DS + 2 * U + 20 + DS + 2 * TRIG
+    sfu = 5 + 1
+    lut = int(plan.axis_params.lat_path[0]) == sampling.LAT_LUT_INVERSE_CDF
+    ops += 5 * U + (5 * N_NODES + 12 + 2 * DS if lut else 30 + DS) + 6 * TRIG + 22 + 15
+    sfu += 2 if lut else 1
+    ops += 16 * n_tris + 3 * U + 12 + 7 * plan.nf
+    fres_ops, fres_sfu = 42 + 7 * DS, 7
+    bounce_ops = plan.nf * (15 + DS + 2) + fres_ops + 5 + 15 + 8
+    bounce_sfu = plan.nf + fres_sfu
+    ops += fres_ops + (plan.h - 1) * bounce_ops
+    sfu += fres_sfu + (plan.h - 1) * bounce_sfu
+    slot_ops = 2 + (U + 4 if plan.emit_frac > 0 else 0) + (U + 2 if plan.prob > 0 else 0)
+    slot_sfu = 0
+    for pp in plan.renders:
+        if pp.lens_type in (4, 9):
+            passes = 2 if pp.max_abs_dz > 0 else 1
+            slot_ops += passes * (22 + 2 * DS)
+            slot_sfu += passes * 2
+        else:
+            slot_ops += 26 + 18 + 2 * DS
+            slot_sfu += 2
+    ops += plan.h * slot_ops
+    sfu += plan.h * slot_sfu
+    rows = plan.n_blocks * sum(plan.rows_block)
+    nbytes = 8 * rows + 4 * plan.ftab()[0].size
+    if plan.pool_k:
+        nbytes += 4 * plan.pool_k * (plan.nf * 5 + plan.n_tris * 13)
+    return nbytes, ops * plan.batch, sfu * plan.batch
+
+
+def _trace_bound(name, plan):
+    """The bound of one trace_emit call, with its counts written out."""
+    nbytes, ops, sfu = trace_work(plan)
+    print(f"  {name} work: {nbytes} bytes; per ray {ops // plan.batch} arithmetic and "
+          f"{sfu // plan.batch} special-function operations "
+          f"({1e3 * nbytes / HBM_BYTES_S:.5f} ms of bytes, {1e3 * ops / FP32_OPS_S:.5f} ms "
+          f"of arithmetic, {1e3 * sfu / SFU_OPS_S:.5f} ms of special functions)", flush=True)
+    return _bound(nbytes, ops, sfu)
+
+
+def _add(res: list, name, source, replaces, err, ms, plain_ms, bound, why_no_library):
+    """Append one entry of the kernels line. No kernel here has a library
+    call (one PyTorch call that computes the same function); the entry
+    says why."""
+    bound_ms, bound_by = bound
+    res.append({
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "why_no_library": why_no_library})
+    print(f"  {name}: max_abs_err {err:.3g}, kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by}, library "
+          f"none: {why_no_library}", flush=True)
+
+
+def _check_trace(name, out_k, out_p):
+    """Hold one trace_emit output against its twin's; returns max_abs_err."""
+    import torch
+
+    from ice_halo_sim_tpu_torch.core import trace_emit
+
+    d = trace_emit.trace_output_diff(out_k[0], out_p[0])
+    if d["rows_diff"] > FLIP_ROWS:
+        raise AssertionError(f"{name} rows differ beyond the flip budget: {d}")
+    if d["rows_diff"] == 0 and d["w_rel"] > 1e-6:
+        raise AssertionError(f"{name} weights differ: {d}")
+    if int(out_k[3]) != int(out_p[3]) and d["rows_diff"] == 0:
+        raise AssertionError(f"{name} segments {int(out_k[3])} != {int(out_p[3])}")
+    # landed: sums of positive weights; dropped: a difference of two large
+    # float32 sums (the roulette adds mass as well as removing it), so its
+    # tolerance is absolute, a millionth of the landed weight.
+    landed_tot = float(out_p[1].double().sum())
+    if not torch.allclose(out_k[1].double(), out_p[1].double(), rtol=SUM_RTOL):
+        raise AssertionError(f"{name} landed differs: {out_k[1]} vs {out_p[1]}")
+    if abs(float(out_k[2]) - float(out_p[2])) > 1e-6 * landed_tot:
+        raise AssertionError(f"{name} dropped differs: {out_k[2]} vs {out_p[2]}")
+    live = [int(c.sum()) for _, _, c in out_k[0]]
+    print(f"  {name} diff {d}, live rows {live}", flush=True)
+    if d["rows_diff"]:
+        return float(d["w_rel"])
+    return max(_max_abs(a[1], b[1]) for a, b in zip(out_k[0], out_p[0]))
+
+
+def phase_kernels(cfg, device, res: list):
     import torch
 
     from ice_halo_sim_tpu_torch.core import accum, block_ops, seg_scan, trace_emit
@@ -84,41 +226,21 @@ def phase_kernels(cfg, device):
     K = eng.k_pool
     shift = accum.key_shift(K)
     base = 5 * BATCH * 2
-    results = []
-
-    def entry(name, source, replaces, err, ms, plain_ms):
-        results.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": 0, "max_abs_err": err,
-                        "ms": ms, "plain_ms": plain_ms})
-        print(f"  {name}: max_abs_err {err:.3g}, kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms", flush=True)
+    no_lib_pack = ("a per-block stable partition takes a sort of flags plus a "
+                   "gather, no single call")
 
     # K2 (+ K1 inside the wrapper) against the plain twin.
     args = (plan, base & 0xFFFFFFFF, base >> 32, BATCH, device)
     out_k = trace_emit.trace_emit(*args)
     out_p = trace_emit.trace_emit_plain(*args)
-    d = trace_emit.trace_output_diff(out_k[0], out_p[0])
-    if d["rows_diff"] > FLIP_ROWS:
-        raise AssertionError(f"trace_emit rows differ beyond the flip budget: {d}")
-    if d["rows_diff"] == 0 and d["w_rel"] > 1e-6:
-        raise AssertionError(f"trace_emit weights differ: {d}")
-    if int(out_k[3]) != int(out_p[3]) and d["rows_diff"] == 0:
-        raise AssertionError(f"segments {int(out_k[3])} != {int(out_p[3])}")
-    # landed: sums of positive weights; dropped: a difference of two large
-    # float32 sums (the roulette adds mass as well as removing it), so its
-    # tolerance is absolute, a millionth of the landed weight.
-    landed_tot = float(out_p[1].double().sum())
-    if not torch.allclose(out_k[1].double(), out_p[1].double(), rtol=SUM_RTOL):
-        raise AssertionError(f"trace_emit landed differs: {out_k[1]} vs {out_p[1]}")
-    if abs(float(out_k[2]) - float(out_p[2])) > 1e-6 * landed_tot:
-        raise AssertionError(f"trace_emit dropped differs: {out_k[2]} vs {out_p[2]}")
+    err = _check_trace("trace_emit", out_k, out_p)
     keys, wts, counts = out_k[0][0]
-    err = _max_abs(wts, out_p[0][0][1]) if d["rows_diff"] == 0 else float(d["w_rel"])
-    print(f"  trace_emit diff {d}, live rows {int(counts.sum())}", flush=True)
-    entry("trace_emit", "ice_halo_sim_tpu_torch/csrc/trace_emit.cu",
-          "ice_halo_sim_tpu/core/pallas_trace.py:318", err,
-          _time_ms(lambda: trace_emit.trace_emit(*args), 5),
-          _time_ms(lambda: trace_emit.trace_emit_plain(*args), 2))
+    _add(res, "trace_emit", "ice_halo_sim_tpu_torch/csrc/trace_emit.cu",
+            "ice_halo_sim_tpu/core/pallas_trace.py:318", err,
+            _time_ms(lambda: trace_emit.trace_emit(*args), 5),
+            _time_ms(lambda: trace_emit.trace_emit_plain(*args), 2),
+            _trace_bound("trace_emit", plan),
+            "a per-ray Monte-Carlo trace loop is no library function")
 
     # K1: the trace rows' in-block pack, on the uncompacted slab.
     slabs, *_ = trace_emit.trace_rows_plain(*args)
@@ -128,10 +250,12 @@ def phase_kernels(cfg, device):
     b = block_ops.pack_rows_plain(sk_, sw_, rb)
     if not all(_bits_equal(x, y) for x, y in zip(a, b)):
         raise AssertionError("pack_rows (K1) differs from its plain twin")
-    entry("pack_rows", "ice_halo_sim_tpu_torch/csrc/block_ops.cu",
-          "ice_halo_sim_tpu/core/pallas_ops.py:245", 0.0,
-          _time_ms(lambda: block_ops.pack_rows(sk_, sw_, rb)),
-          _time_ms(lambda: block_ops.pack_rows_plain(sk_, sw_, rb)))
+    n = sk_.numel()
+    _add(res, "pack_rows", "ice_halo_sim_tpu_torch/csrc/block_ops.cu",
+            "ice_halo_sim_tpu/core/pallas_ops.py:245", 0.0,
+            _time_ms(lambda: block_ops.pack_rows(sk_, sw_, rb)),
+            _time_ms(lambda: block_ops.pack_rows_plain(sk_, sw_, rb)),
+            _bound(16 * n + 4 * (n // rb), 2 * n), no_lib_pack)
 
     # K3 with V=2 and the marker tail (the premerged fold's input), V=1.
     live = int(counts.sum())
@@ -148,10 +272,19 @@ def phase_kernels(cfg, device):
     b1 = block_ops.scatter_blocks_plain(wts, start, keep, rb)
     if not _bits_equal(a1, b1):
         raise AssertionError("scatter_blocks (K3', V=1) differs from its plain twin")
-    entry("scatter_blocks_multi", "ice_halo_sim_tpu_torch/csrc/block_ops.cu",
-          "ice_halo_sim_tpu/core/pallas_ops.py:436", 0.0,
-          _time_ms(lambda: block_ops.scatter_blocks_multi(*sargs, marker_tail=tail)),
-          _time_ms(lambda: block_ops.scatter_blocks_multi_plain(*sargs, marker_tail=tail)))
+    # The scatter reads the live rows it places and writes every output row.
+    _add(res, "scatter_blocks_multi", "ice_halo_sim_tpu_torch/csrc/block_ops.cu",
+            "ice_halo_sim_tpu/core/pallas_ops.py:436", 0.0,
+            _time_ms(lambda: block_ops.scatter_blocks_multi(*sargs, marker_tail=tail)),
+            _time_ms(lambda: block_ops.scatter_blocks_multi_plain(*sargs, marker_tail=tail)),
+            _bound(8 * live + 4 * start.numel() + 8 * out_total, 2 * out_total),
+            "blocks overwrite each other in order; scatter_ and "
+                           "index_copy_ leave overlapping writes undefined")
+    k3p = _time_ms(lambda: block_ops.scatter_blocks(wts, start, keep, rb))
+    k3p_plain = _time_ms(lambda: block_ops.scatter_blocks_plain(wts, start, keep, rb))
+    k3p_bound = _bound(4 * live + 4 * start.numel() + 4 * keep, keep)
+    print(f"  scatter_blocks (K3', V=1, the K3 kernel): kernel {k3p:.4f} ms, plain "
+          f"{k3p_plain:.4f} ms, bound {k3p_bound[0]:.5f} ms by {k3p_bound[1]}", flush=True)
 
     # K4 with key2, on the sorted premerged rows.
     ck, cw = a
@@ -165,35 +298,77 @@ def phase_kernels(cfg, device):
     for x, y in zip(ca, cb):
         if not torch.allclose(x, y, rtol=SCAN_RTOL, atol=1e-6):
             raise AssertionError(f"fused_scan channels differ (max abs {err})")
-    entry("fused_scan", "ice_halo_sim_tpu_torch/csrc/seg_scan.cu",
-          "ice_halo_sim_tpu/core/pallas_scan.py:144", err,
-          _time_ms(lambda: seg_scan.fused_scan_call(sk, sw, tbl, shift, K, True)),
-          _time_ms(lambda: seg_scan.fused_scan_call_plain(sk, sw, tbl, shift, K, True)))
+    m = sk.numel()
+    _add(res, "fused_scan", "ice_halo_sim_tpu_torch/csrc/seg_scan.cu",
+            "ice_halo_sim_tpu/core/pallas_scan.py:144", err,
+            _time_ms(lambda: seg_scan.fused_scan_call(sk, sw, tbl, shift, K, True)),
+            _time_ms(lambda: seg_scan.fused_scan_call_plain(sk, sw, tbl, shift, K, True)),
+            _bound(8 * m + 4 * tbl.numel() + 16 * m, 8 * m),
+            "a segmented scan with a basis expansion; cumsum has "
+                           "no segments")
 
     # K5 on the scan output (the marker extraction's pack).
     a = block_ops.pack_payload_blocks(k2a, ca, P, accum.BLOCK)
     b = block_ops.pack_payload_blocks_plain(k2a, ca, P, accum.BLOCK)
     if not (all(_bits_equal(x, y) for x, y in zip(a[0], b[0])) and _bits_equal(a[1], b[1])):
         raise AssertionError("pack_payload_blocks (K5) differs from its plain twin")
-    entry("pack_payload_blocks", "ice_halo_sim_tpu_torch/csrc/block_ops.cu",
-          "ice_halo_sim_tpu/core/pallas_ops.py:365", 0.0,
-          _time_ms(lambda: block_ops.pack_payload_blocks(k2a, ca, P, accum.BLOCK)),
-          _time_ms(lambda: block_ops.pack_payload_blocks_plain(k2a, ca, P, accum.BLOCK)))
-    del eng
-    return results
+    _add(res, "pack_payload_blocks", "ice_halo_sim_tpu_torch/csrc/block_ops.cu",
+            "ice_halo_sim_tpu/core/pallas_ops.py:365", 0.0,
+            _time_ms(lambda: block_ops.pack_payload_blocks(k2a, ca, P, accum.BLOCK)),
+            _time_ms(lambda: block_ops.pack_payload_blocks_plain(k2a, ca, P, accum.BLOCK)),
+            _bound(16 * m + 12 * m + 4 * (m // accum.BLOCK), 2 * m),
+            no_lib_pack)
 
 
-def _close_images(a, b, what):
+def phase_kernel_pool(cfg, device, res: list):
+    """K2b at POOL_CFG's full width: 1792 sampled pyramids (NF = 20, T = 80)
+    of one batch, kernel against twin on the same tables."""
+    import torch
+
+    from ice_halo_sim_tpu_torch.core import trace_emit
+    from ice_halo_sim_tpu_torch.engine.simulator import Engine
+
+    eng = Engine(cfg, seed=7, batch_size=BATCH, device=device)
+    plan = eng._trace_plan
+    if (plan.pool_k, plan.nf, plan.n_tris) != (BATCH // 128, 20, 80):
+        raise AssertionError(f"pool plan {plan.pool_k}, {plan.nf}, {plan.n_tris}")
+    bc = 5
+    base = bc * BATCH * 2
+    ptbl, ttbl = eng._pool_tables(bc)
+    present = ptbl.view(plan.pool_k, plan.nf, 5)[..., 4]
+    print(f"  pool: {plan.pool_k} shapes, present faces per shape "
+          f"{float(present.sum(1).mean()):.2f}, ptbl {ptbl.numel() * 4 / 1e6:.2f} MB, "
+          f"ttbl {ttbl.numel() * 4 / 1e6:.2f} MB", flush=True)
+    args = (plan, base & 0xFFFFFFFF, base >> 32, BATCH, device, ptbl, ttbl)
+    out_k = trace_emit.trace_emit(*args)
+    torch.cuda.synchronize()
+    out_p = trace_emit.trace_emit_plain(*args)
+    err = _check_trace("trace_emit_pool", out_k, out_p)
+    _add(res, "trace_emit_pool", "ice_halo_sim_tpu_torch/csrc/trace_emit.cu",
+            "ice_halo_sim_tpu/core/pallas_trace.py:382", err,
+            _time_ms(lambda: trace_emit.trace_emit(*args), 5),
+            _time_ms(lambda: trace_emit.trace_emit_plain(*args), 1),
+            _trace_bound("trace_emit_pool", plan),
+            "a per-ray Monte-Carlo trace loop is no library function")
+    sampler_ms = _time_ms(lambda: eng._pool_tables(bc), 3)
+    print(f"  pool sampler (plain torch, {plan.pool_k} pyramids): {sampler_ms:.4f} ms "
+          "device time per batch", flush=True)
+
+
+def _images_off(a, b, what) -> int:
+    """Pixels outside the per-pixel tolerance, after the image-sum check."""
     import numpy as np
 
     if not np.isclose(a.sum(), b.sum(), rtol=SUM_RTOL):
         raise AssertionError(f"{what}: image sum {a.sum()} vs {b.sum()}")
     tol = IMG_RTOL * np.abs(b) + IMG_ATOL_FRAC * np.abs(b).max()
-    bad = int((np.abs(a - b) > tol).any(-1).sum())
-    return bad
+    return int((np.abs(a - b) > tol).any(-1).sum())
 
 
-def phase_slice(cfg, device, counts_out):
+def phase_slice(name, cfg, device, path_kernels, steady: int = 3):
+    """Render `cfg` through the CUDA kernels with the launch counters reset
+    just before and read just after; compare with kernels="plain" on the
+    card. Returns (engine, launch counts)."""
     import numpy as np
     import torch
 
@@ -205,43 +380,51 @@ def phase_slice(cfg, device, counts_out):
         raise AssertionError(f"trace path {eng.trace_path}")
     build.reset_launch_counts()
     eng.run(n_batches=1)
-    eng.run(n_batches=3)
+    first = dict(build.LAUNCHES)
+    eng.run(n_batches=steady)
     torch.cuda.synchronize()
-    counts_out.update(build.LAUNCHES)
-    print(f"  launches {build.LAUNCHES}, keep {eng._compact_keep}, "
+    counts = dict(build.LAUNCHES)
+    per_batch = {k: (counts[k] - first[k]) / steady for k in counts}
+    print(f"  {name}: launches {counts}, keep {eng._compact_keep}, "
           f"host syncs {eng.host_syncs}", flush=True)
-    for name, n in build.LAUNCHES.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+    print(f"  {name}: launches per steady batch {per_batch}", flush=True)
+    for k in path_kernels:
+        if counts[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the {name} path")
     st = eng.drain_stats()
 
     ref = Engine(cfg, seed=7, batch_size=BATCH, device=device, kernels="plain")
     ref.run(n_batches=1)
-    ref.run(n_batches=3)
+    ref.run(n_batches=steady)
     rst = ref.drain_stats()
-    a, b = eng.raw_xyz(0), ref.raw_xyz(0)
-    bad = _close_images(a, b, "cuda vs plain")
     seg_diff = abs(st.ray_segments - rst.ray_segments)
-    print(f"  cuda vs plain: segments {st.ray_segments} / {rst.ray_segments}, "
-          f"landed {st.landed_weight} / {rst.landed_weight}, pixels off {bad}",
-          flush=True)
-    if bad > FLIP_ROWS or seg_diff > FLIP_ROWS * 7:
-        raise AssertionError("cuda slice differs from the plain slice")
+    for r in range(len(eng.proj_plans)):
+        bad = _images_off(eng.raw_xyz(r), ref.raw_xyz(r), f"{name} render {r} cuda vs plain")
+        print(f"  {name} render {r} cuda vs plain: pixels off {bad}", flush=True)
+        if bad > FLIP_ROWS:
+            raise AssertionError(f"{name}: cuda slice differs from the plain slice")
+    print(f"  {name} cuda vs plain: segments {st.ray_segments} / {rst.ray_segments}, "
+          f"landed {st.landed_weight} / {rst.landed_weight}, shape samples "
+          f"{st.stochastic_crystal_samples}", flush=True)
+    if seg_diff > FLIP_ROWS * 7 or st.stochastic_crystal_samples != rst.stochastic_crystal_samples:
+        raise AssertionError(f"{name}: cuda slice differs from the plain slice")
     if not np.isclose(st.landed_weight, rst.landed_weight, rtol=SUM_RTOL):
-        raise AssertionError("landed weight differs")
-    img = eng.snapshot()[0]
-    if img.max() == 0:
-        raise AssertionError("snapshot is black")
-    print(f"  snapshot max {img.max()}, mean {img.mean():.3f}", flush=True)
-    return eng
+        raise AssertionError(f"{name}: landed weight differs")
+    for r, img in enumerate(eng.snapshot()):
+        if img.max() == 0:
+            raise AssertionError(f"{name}: snapshot {r} is black")
+        print(f"  {name} snapshot {r}: max {img.max()}, mean {img.mean():.3f}", flush=True)
+    return eng, counts
 
 
-def phase_fixture(cfg, device):
+def phase_fixture(name, cfg, device, pixel_budget: int, segment_budget: int):
+    """The small-batch fixture configuration against the committed JAX
+    render (made by scripts/make_torch_port_ref.py, emit floor off)."""
     import numpy as np
 
     from ice_halo_sim_tpu_torch.engine.simulator import Engine
 
-    ref = np.load(FIXTURE)
+    ref = np.load(FIXTURES[name])
     old = os.environ.get("IHT_MIN_EMIT_W")
     os.environ["IHT_MIN_EMIT_W"] = "0"
     try:
@@ -255,23 +438,25 @@ def phase_fixture(cfg, device):
     eng.run(n_batches=1)
     eng.run(n_batches=int(ref["n_batches"]) - 1)
     st = eng.drain_stats()
-    a, b = eng.raw_xyz(0), ref["raw_xyz"]
-    bad = _close_images(a, b, "fixture")
-    print(f"  fixture: segments {st.ray_segments} / {int(ref['ray_segments'])}, "
-          f"landed {st.landed_weight} / {float(ref['landed_weight'])}, "
-          f"image sum {a.sum()} / {b.sum()}, pixels off {bad}", flush=True)
-    if bad or st.ray_segments != int(ref["ray_segments"]):
-        raise AssertionError("the CUDA slice does not match the JAX fixture")
+    bad = 0
+    for r in range(len(eng.proj_plans)):
+        key = "raw_xyz" if r == 0 else f"raw_xyz_{r}"
+        bad += _images_off(eng.raw_xyz(r), ref[key], f"{name} fixture render {r}")
+    seg_diff = abs(st.ray_segments - int(ref["ray_segments"]))
+    print(f"  {name} fixture: segments {st.ray_segments} / {int(ref['ray_segments'])}, "
+          f"landed {st.landed_weight} / {float(ref['landed_weight'])}, pixels off {bad}",
+          flush=True)
+    if bad > pixel_budget or seg_diff > segment_budget:
+        raise AssertionError(f"the CUDA {name} slice does not match the JAX fixture")
     if not np.isclose(st.landed_weight, float(ref["landed_weight"]), rtol=SUM_RTOL):
-        raise AssertionError("landed weight differs from the fixture")
+        raise AssertionError(f"{name}: landed weight differs from the fixture")
 
 
-def phase_rate(eng):
+def phase_rate(eng, n: int = 20):
     import torch
 
     eng.run(n_batches=2)
     torch.cuda.synchronize()
-    n = 20
     t0 = time.perf_counter()
     eng.run(n_batches=n)
     torch.cuda.synchronize()
@@ -286,9 +471,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from bench import BENCH_CFG
-    from ice_halo_sim_tpu.config.loader import load_project
+    from ice_halo_sim_tpu_torch.config.loader import load_project
     from ice_halo_sim_tpu_torch.kernels import build
+    from ice_halo_sim_tpu_torch.scenes import BENCH_CFG, POOL_CFG
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -303,22 +488,30 @@ def main() -> int:
     build.lib()
     print(f"[2] build: {time.time() - t0:.1f} s -> {os.path.relpath(path, ROOT)}",
           flush=True)
+    for line in build.ptxas_report("trace_emit_kernel"):
+        print(f"  {line}", flush=True)
 
-    cfg = load_project(BENCH_CFG)
-    print("[3] kernels vs plain twins at the main path's shapes", flush=True)
-    kernels = phase_kernels(cfg, device)
+    bench, pool = load_project(BENCH_CFG), load_project(POOL_CFG)
+    print("[3] kernels vs plain twins at the main paths' shapes", flush=True)
+    res = []
+    phase_kernels(bench, device, res)
+    phase_kernel_pool(pool, device, res)
 
-    print("[4] slice", flush=True)
-    counts = {}
-    eng = phase_slice(cfg, device, counts)
-    phase_fixture(cfg, device)
-    for k in kernels:
-        k["launches"] = counts[k["name"]]
+    print("[4] slices", flush=True)
+    common = ["pack_rows", "pack_payload_blocks", "scatter_blocks_multi", "fused_scan"]
+    eng_b, counts_b = phase_slice("bench", bench, device, ["trace_emit"] + common)
+    phase_fixture("bench", bench, device, 0, 0)
+    eng_p, counts_p = phase_slice("pool", pool, device, ["trace_emit_pool"] + common)
+    phase_fixture("pool", pool, device, POOL_FIX_PIXELS, POOL_FIX_SEGMENTS)
+    for k in res:
+        k["launches"] = (counts_p if k["name"] == "trace_emit_pool" else counts_b)[k["name"]]
 
-    rate = phase_rate(eng)
-    print(f"[5] steady rate: {rate:.6g} rays/s (batch {BATCH}) on {smi}", flush=True)
+    for name, eng in (("bench", eng_b), ("pool", eng_p)):
+        rate = phase_rate(eng)
+        print(f"[5] {name} steady rate: {rate:.6g} rays/s (batch {BATCH}) on {smi}",
+              flush=True)
 
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": res}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

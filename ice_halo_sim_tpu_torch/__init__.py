@@ -7,11 +7,16 @@ Each kernel has a plain PyTorch twin in the same module: the twin runs on
 the CPU, and on a CUDA device when an Engine is built with
 ``kernels="plain"``.
 
-Configuration parsing, knobs, logging, PNG output and the latitude LUT are
-imported from the JAX package's JAX-free modules; nothing here imports jax.
+Configuration parsing (``config/``), knobs, logging and PNG output
+(``utils/``), the latitude LUT (``core/latlut.py``) and the CIE tables
+(``data/``) are the port's own copies of the JAX package's JAX-free modules,
+under the same names; nothing here imports jax or the JAX package.
 """
 
 __version__ = "0.1.0"
+
+from ice_halo_sim_tpu_torch.config.builder import SceneBuilder  # noqa: F401
+from ice_halo_sim_tpu_torch.config.loader import load_project, load_project_file  # noqa: F401
 
 
 def __getattr__(name):

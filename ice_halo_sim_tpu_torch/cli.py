@@ -21,6 +21,10 @@ def main(argv=None) -> int:
     parser.add_argument("--batch-size", type=int, default=None,
                         help="rays per batch (default: IHT_BATCH_SIZE env knob, "
                              "else 229376 on cuda, 16384 on cpu)")
+    parser.add_argument("--geom-clock", type=int, default=None,
+                        help="rays per sampled crystal shape (default: "
+                             "IHT_GEOM_CLOCK env knob, else 32; a stochastic "
+                             "shape needs 128 and moves the default there)")
     parser.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
     parser.add_argument("--kernels", default=None, choices=("cuda", "plain"),
                         help="kernel set (default: cuda on a CUDA device, else plain)")
@@ -28,9 +32,9 @@ def main(argv=None) -> int:
 
     import torch
 
-    from ice_halo_sim_tpu.config.loader import load_project_file
-    from ice_halo_sim_tpu.utils import env_knobs
-    from ice_halo_sim_tpu.utils.png import write_png
+    from ice_halo_sim_tpu_torch.config.loader import load_project_file
+    from ice_halo_sim_tpu_torch.utils import env_knobs
+    from ice_halo_sim_tpu_torch.utils.png import write_png
     from ice_halo_sim_tpu_torch.engine.simulator import Engine
 
     cfg = load_project_file(args.config)
@@ -40,6 +44,8 @@ def main(argv=None) -> int:
         return 2
     device = torch.device(args.device)
     seed = args.seed if args.seed is not None else env_knobs.get("IHT_SEED", 1)
+    geom_clock = (args.geom_clock if args.geom_clock is not None
+                  else env_knobs.get("IHT_GEOM_CLOCK", 32))
     batch = args.batch_size or env_knobs.get("IHT_BATCH_SIZE") or (
         112 * 2048 if device.type == "cuda" else 1 << 14
     )
@@ -47,7 +53,7 @@ def main(argv=None) -> int:
 
     t0 = time.time()
     engine = Engine(cfg, seed=seed, batch_size=batch, device=device,
-                    kernels=args.kernels)
+                    kernels=args.kernels, geom_clock=geom_clock)
     engine.run(total_rays=total)
     stats = engine.drain_stats()
     print(f"simulated {stats.rays_traced} rays in {time.time() - t0:.1f}s "

@@ -2,9 +2,9 @@
 ``ice_halo_sim_tpu.core.color``): the piecewise-Chebyshev CMF fit, the
 daylight-series illuminant SPD and the sRGB snapshot post-process.
 
-The CIE tables are read from the JAX package's data file by path; the
-Chebyshev coefficients are fitted from them with the same numpy code, so
-they are the same float32 values.
+The CIE tables are read from the port's own copy of the JAX package's data
+file (``data/cie_data.npz``); the Chebyshev coefficients are fitted from
+them with the same numpy code, so they are the same float32 values.
 """
 
 from __future__ import annotations
@@ -14,11 +14,11 @@ import os
 import numpy as np
 import torch
 
-import ice_halo_sim_tpu
 from ice_halo_sim_tpu_torch.core.bits import F32, I32, divs, sdiv
 
 _DATA = np.load(
-    os.path.join(os.path.dirname(ice_halo_sim_tpu.__file__), "data", "cie_data.npz")
+    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                 "data", "cie_data.npz")
 )
 
 CMF_WL_MIN = int(_DATA["cmf_wl_min"])

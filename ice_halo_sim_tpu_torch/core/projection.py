@@ -1,10 +1,12 @@
-"""Lens projection (port of the dual-fisheye subset of
-``ice_halo_sim_tpu.core.projection``).
+"""Lens projection (port of the forward maps of
+``ice_halo_sim_tpu.core.projection`` that the trace kernel takes).
 
 ``make_proj_plan`` resolves a render's parameters on the host exactly as
 the JAX package does, for every lens. ``project_components`` implements the
-dual-fisheye lenses without inverse trig (equal-area and orthographic),
-with the overlap pass; the other lenses raise NotImplementedError.
+six lenses without inverse trig in their forward math: linear, fisheye
+equal-area and orthographic, their dual forms with the overlap pass, and
+globe; the other lenses raise NotImplementedError. Same float32 operation
+order as the JAX function.
 """
 
 from __future__ import annotations
@@ -15,13 +17,23 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ice_halo_sim_tpu.config.schema import LensType, RenderConfig
+from ice_halo_sim_tpu_torch.config.schema import LensType, RenderConfig, VisibleRange
 from ice_halo_sim_tpu_torch.core.bits import I32, sdiv
 
-# Lenses whose forward projection the port implements (plain and CUDA).
+# Lenses whose forward projection the port implements (plain and CUDA): the
+# six of the JAX trace kernel.
 SUPPORTED_LENSES = frozenset(
-    int(t) for t in (LensType.DUAL_FISHEYE_EQUAL_AREA, LensType.DUAL_FISHEYE_ORTHOGRAPHIC)
+    int(t) for t in (
+        LensType.LINEAR,
+        LensType.FISHEYE_EQUAL_AREA,
+        LensType.FISHEYE_ORTHOGRAPHIC,
+        LensType.DUAL_FISHEYE_EQUAL_AREA,
+        LensType.DUAL_FISHEYE_ORTHOGRAPHIC,
+        LensType.GLOBE,
+    )
 )
+
+GLOBE_CAMERA_D = 4.0
 
 
 class ProjPlan(NamedTuple):
@@ -125,7 +137,7 @@ def _fisheye_forward(lens_type: int, dx, dy, dz, r_scale: float):
         return k * dx, k * dy, torch.ones_like(dz, dtype=torch.bool)
     if lens_type in (LensType.FISHEYE_ORTHOGRAPHIC, LensType.DUAL_FISHEYE_ORTHOGRAPHIC):
         return r_scale * dx, r_scale * dy, dz >= 0.0
-    raise NotImplementedError(f"lens type {lens_type} is not ported yet")
+    raise NotImplementedError(f"lens type {lens_type} needs inverse trig")
 
 
 def _dual_fisheye_pixel(x_norm, y_norm, is_upper, width: int, height: int):
@@ -149,14 +161,57 @@ def project_components(plan: ProjPlan, wx, wy, wz) -> PixelHits:
     t = plan.lens_type
     if t not in SUPPORTED_LENSES:
         raise NotImplementedError(
-            f"lens type {LensType(t).name} is not ported yet (dual fisheye "
-            "equal-area / orthographic only)"
+            f"lens type {LensType(t).name} needs inverse trig: not on the "
+            "trace kernel path"
         )
     W, H = plan.width, plan.height
+    r = plan.rot
+
+    def cam(wx, wy, wz):
+        """Camera frame c = R^T (-w), componentwise."""
+        return (
+            -(float(r[0, 0]) * wx + float(r[1, 0]) * wy + float(r[2, 0]) * wz),
+            -(float(r[0, 1]) * wx + float(r[1, 1]) * wy + float(r[2, 1]) * wz),
+            -(float(r[0, 2]) * wx + float(r[1, 2]) * wy + float(r[2, 2]) * wz),
+        )
 
     def in_bounds(px, py, valid):
         ok = valid & (px >= 0) & (px < W) & (py >= 0) & (py < H)
         return torch.where(ok, py * W + px, -1).to(I32)
+
+    def pixel(x, y):
+        px = torch.floor(x * plan.scale + W / 2.0 + 0.5 + plan.shift_x).to(I32)
+        py = torch.floor(y * plan.scale + H / 2.0 + 0.5 + plan.shift_y).to(I32)
+        return px, py
+
+    if t in (LensType.LINEAR, LensType.FISHEYE_EQUAL_AREA, LensType.FISHEYE_ORTHOGRAPHIC):
+        valid = torch.ones_like(wx, dtype=torch.bool)
+        if plan.visible == VisibleRange.UPPER:
+            valid = valid & (wz <= 0.0)
+        elif plan.visible == VisibleRange.LOWER:
+            valid = valid & (wz >= 0.0)
+        cx, cy, cz = cam(wx, wy, wz)
+        valid = valid & (cz > 0.0)
+        if t == LensType.LINEAR:
+            # An invalid ray divides by 1, never by a non-positive cz.
+            safe_cz = torch.where(cz > 0, cz, 1.0)
+            x, y = cx / safe_cz, cy / safe_cz
+        else:
+            x, y, v2 = _fisheye_forward(t, cx, cy, cz, 1.0)
+            valid = valid & v2
+        px, py = pixel(-x, y)  # screen handedness
+        return PixelHits(main=in_bounds(px, py, valid),
+                         overlap=torch.full_like(px, -1))
+
+    if t == LensType.GLOBE:
+        cx, cy, cz = cam(wx, wy, wz)
+        # Valid rays have cz in [-1, -1/D), so their denominator is > 0; an
+        # invalid ray's quotient (possibly inf) is masked by in_bounds.
+        valid = cz < -1.0 / GLOBE_CAMERA_D
+        denom = GLOBE_CAMERA_D + cz
+        px, py = pixel(-cx / denom, cy / denom)
+        return PixelHits(main=in_bounds(px, py, valid),
+                         overlap=torch.full_like(px, -1))
 
     sx, sy, sz = -wx, -wy, -wz
     is_upper = sz >= 0.0

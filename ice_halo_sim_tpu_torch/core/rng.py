@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from ice_halo_sim_tpu.config.schema import DistType
+from ice_halo_sim_tpu_torch.config.schema import DistType
 from ice_halo_sim_tpu_torch.core.bits import F32, I64, MASK32
 
 NONCE_WL = 0x9E3779B9

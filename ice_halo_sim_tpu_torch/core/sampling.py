@@ -11,8 +11,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ice_halo_sim_tpu.config.schema import AxisDistribution, DistType
-from ice_halo_sim_tpu.core.latlut import N_NODES
+from ice_halo_sim_tpu_torch.config.schema import AxisDistribution, DistType
+from ice_halo_sim_tpu_torch.core.latlut import N_NODES
 from ice_halo_sim_tpu_torch.core import rng
 from ice_halo_sim_tpu_torch.core.bits import F32, I32, divs
 from ice_halo_sim_tpu_torch.core.geometry import CrystalGeom
@@ -201,32 +201,39 @@ def sample_rot_row(seed, idx, params: AxisParams, s: int, lut_loop: bool = True)
 
 
 class EntryTris(NamedTuple):
-    v0: torch.Tensor          # [T, 3]
-    e1: torch.Tensor          # [T, 3]
-    e2: torch.Tensor          # [T, 3]
-    cross_half: torch.Tensor  # [T, 3]
-    face_idx: torch.Tensor    # [T] int32
+    """Per-shape fan sub-triangle table, [..., T, ...] with T = NF * 4."""
+
+    v0: torch.Tensor          # [..., T, 3]
+    e1: torch.Tensor          # [..., T, 3]
+    e2: torch.Tensor          # [..., T, 3]
+    cross_half: torch.Tensor  # [..., T, 3]
+    face_idx: torch.Tensor    # [..., T] int32
 
 
 def build_entry_tris(geom: CrystalGeom) -> EntryTris:
-    """Fan sub-triangles (v0, v[k], v[k+1]) of every face, T = NF * 4."""
+    """Fan sub-triangles (v0, v[k], v[k+1]) of every face, T = NF * 4; any
+    leading pool dimensions of `geom` carry through (the JAX package maps
+    this function over the pool with jax.vmap). Absent faces and triangles
+    past a face's vertex count keep their rows with a zero cross_half."""
     nf = geom.face_vtx.shape[-3]
     mv = min(geom.face_vtx.shape[-2], 6)
-    face_vtx = geom.face_vtx[:, :mv, :]
-    v0 = face_vtx[:, 0:1, :]
-    e1 = face_vtx[:, 1:-1, :] - v0
-    e2 = face_vtx[:, 2:, :] - v0
+    lead = tuple(geom.face_vtx.shape[:-3])
+    dev = geom.face_vtx.device
+    face_vtx = geom.face_vtx[..., :mv, :]
+    v0 = face_vtx[..., 0:1, :]
+    e1 = face_vtx[..., 1:-1, :] - v0
+    e2 = face_vtx[..., 2:, :] - v0
     cross_half = 0.5 * torch.linalg.cross(e1, e2, dim=-1)
-    k = torch.arange(1, mv - 1)
-    valid = (k[None, :] + 1 < geom.face_vtx_cnt[:, None]) & geom.face_present[:, None]
+    k = torch.arange(1, mv - 1, device=dev)
+    valid = (k + 1 < geom.face_vtx_cnt[..., None]) & geom.face_present[..., None]
     cross_half = torch.where(valid[..., None], cross_half, 0.0)
     t = nf * (mv - 2)
-    face_idx = torch.arange(nf, dtype=I32)[:, None].expand(nf, mv - 2)
+    face_idx = torch.arange(nf, dtype=I32, device=dev)[:, None].expand(
+        lead + (nf, mv - 2))
     return EntryTris(
-        v0=v0.expand(e1.shape).reshape(t, 3),
-        e1=e1.reshape(t, 3),
-        e2=e2.reshape(t, 3),
-        cross_half=cross_half.reshape(t, 3),
-        face_idx=face_idx.reshape(t),
+        v0=v0.expand(e1.shape).reshape(lead + (t, 3)),
+        e1=e1.reshape(lead + (t, 3)),
+        e2=e2.reshape(lead + (t, 3)),
+        cross_half=cross_half.reshape(lead + (t, 3)),
+        face_idx=face_idx.reshape(lead + (t,)),
     )
-

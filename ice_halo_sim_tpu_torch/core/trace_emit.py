@@ -1,12 +1,16 @@
 """Trace-and-emit: sample -> trace -> project -> key-pack -> block pack
-(port of K2, ``ice_halo_sim_tpu.core.pallas_trace.make_trace_emit``, in its
-static-geometry mode, with K1 ``pallas_ops._pack_one_block``).
+(port of K2 and K2b, ``ice_halo_sim_tpu.core.pallas_trace.make_trace_emit``
+in its static-geometry and blocked-pool modes, with K1
+``pallas_ops._pack_one_block``).
 
 ``build_plan`` resolves the scene into a host-side TracePlan, refusing
 exactly the scenes the JAX ``pallas_trace.build_plan`` refuses (same reason
-text) plus what the port does not implement yet (stochastic-shape
-blocked-pool mode, pyramids, lenses other than the dual fisheyes); a
-refusal raises NotImplementedError, there is no other trace path.
+text); a refusal raises NotImplementedError, there is no other trace path.
+A deterministic crystal shape gives the static mode (one geometry, baked
+into the plan's tables); a stochastic one gives the blocked-pool mode: the
+engine samples a K-shape pool per batch and hands it over as ``ptbl``
+[K, NF*5] and ``ttbl`` [K, T*13], and rays 128 s .. 128 s + 127 trace
+shape s.
 
 ``trace_emit_plain`` is the plain PyTorch twin; ``trace_emit`` runs it on
 the CPU and, on a CUDA device, the CUDA kernel csrc/trace_emit.cu followed
@@ -24,8 +28,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ice_halo_sim_tpu.config.schema import LensType, PrismShape
-from ice_halo_sim_tpu.core.latlut import N_NODES
+from ice_halo_sim_tpu_torch.core.latlut import N_NODES
 from ice_halo_sim_tpu_torch.core import (
     block_ops,
     geometry,
@@ -42,15 +45,9 @@ from ice_halo_sim_tpu_torch.kernels import build
 LAYER_NONCE = 0xA5A5
 MAX_RENDERS = 4
 _THREADS = 128  # trace kernel block size (csrc/trace_emit.cu kThreads)
-
-# Lenses the JAX kernel accepts (no inverse trig in their forward math).
-_JAX_KERNEL_LENSES = frozenset(
-    int(t) for t in (
-        LensType.LINEAR, LensType.FISHEYE_EQUAL_AREA, LensType.FISHEYE_ORTHOGRAPHIC,
-        LensType.DUAL_FISHEYE_EQUAL_AREA, LensType.DUAL_FISHEYE_ORTHOGRAPHIC,
-        LensType.GLOBE,
-    )
-)
+# Blocked-pool mode: one shape per thread block, so the engine's geom_clock
+# must equal the block size.
+POOL_GEOM_CLOCK = _THREADS
 
 
 @dataclass
@@ -71,14 +68,18 @@ class TracePlan:
     sun_alt: float
     sun_diam: float
     axis_params: sampling.AxisParams
-    planes: np.ndarray        # [n_planes, 5]: slot, nx, ny, nz, d per present face
-    tris: np.ndarray          # [T, 13]: cross_half, v0, e1, e2, face slot
+    planes: np.ndarray        # static: [n_planes, 5] slot, nx, ny, nz, d per present face
+    tris: np.ndarray          # static: [T, 13] cross_half, v0, e1, e2, face slot (live)
     emit_frac: float
     emit_mode: str
     w_scale: float
     renders: tuple
     rows_block: tuple
-    _dev_tables: dict = field(default_factory=dict, repr=False)
+    nf: int = geometry.PRISM_FACES  # face slots per shape (8, or 20 with a pyramid)
+    pool_k: int = 0           # 0 = static geometry; else pool rows per batch
+    n_tris: int = 0           # blocked-pool mode: triangle rows per shape (nf * 4)
+    gc: int = 0               # blocked-pool mode: geom clock (128)
+    _cache: dict = field(default_factory=dict, repr=False)
 
     @property
     def n_blocks(self) -> int:
@@ -88,13 +89,25 @@ class TracePlan:
     def emit_cut(self) -> float:
         return float(np.float32(self.emit_frac * self.w_scale))
 
+    def face_table(self) -> np.ndarray:
+        """The kernel's face table [nf, 5]: nx, ny, nz, d, present, indexed
+        by face slot (the layout of a ptbl row). Static mode: the plan's
+        present faces, every other slot zero; blocked-pool mode: zeros that
+        each thread block overwrites with its shape's row."""
+        tbl = np.zeros((self.nf, 5), np.float32)
+        if not self.pool_k:
+            for slot, nx, ny, nz, d in self.planes:
+                tbl[int(slot)] = (nx, ny, nz, d, 1.0)
+        return tbl
+
     def ftab(self):
         """The kernel's float table and section offsets."""
         parts, offs, pos = [], {}, 0
         lut_cdf = np.asarray(self.axis_params.lut_cdf[0], np.float32)
         lut_flip = np.asarray(self.axis_params.lut_flip[0], np.float32)[: N_NODES - 1]
+        tris = np.zeros((self.n_tris, 13), np.float32) if self.pool_k else self.tris
         for name, arr in (
-            ("planes", self.planes), ("tris", self.tris), ("spd", self.spd),
+            ("planes", self.face_table()), ("tris", tris), ("spd", self.spd),
             ("wl", self.wl_values), ("wlw", self.wl_weights),
             ("cdf", lut_cdf), ("flip", lut_flip),
         ):
@@ -106,14 +119,14 @@ class TracePlan:
 
     def device_table(self, device) -> torch.Tensor:
         key = str(device)
-        if key not in self._dev_tables:
-            self._dev_tables[key] = torch.as_tensor(self.ftab()[0]).to(device)
-        return self._dev_tables[key]
+        if key not in self._cache:
+            self._cache[key] = torch.as_tensor(self.ftab()[0]).to(device)
+        return self._cache[key]
 
 
 def refusal_reason(engine):
-    """Why the trace kernel cannot render this scene, or None. The first
-    checks are the JAX ``pallas_trace.build_plan`` refusals, same text."""
+    """Why the trace kernel cannot render this scene, or None: the JAX
+    ``pallas_trace.build_plan`` refusals, same text."""
     cfg = engine.cfg
     layers = cfg.scene.layers
     if not engine.spectral_ok:
@@ -122,26 +135,23 @@ def refusal_reason(engine):
         return "multi-layer scattering (continuation emit not in kernel v1)"
     if len(layers[0].entries) != 1:
         return "multiple crystal settings per layer"
-    crystal = cfg.crystals[layers[0].entries[0].crystal_id]
-    if not crystal.shape.is_deterministic():
-        return ("stochastic crystal shape: the blocked-pool trace mode is not "
-                "ported yet")
+    if (not engine.layer0.deterministic_shape[0]
+            and engine.geom_clock != POOL_GEOM_CLOCK):
+        return ("stochastic crystal shape needs geom_clock == 128 "
+                "(one shape per 128-lane row; engine auto-bumps the "
+                "default, a pinned IHT_GEOM_CLOCK is respected)")
     if layers[0].entries[0].filter_id != 0:
         return "ray-path filter attached"
     if cfg.raypath_color is not None and cfg.raypath_color.classes:
         return "raypath-color classes need the mask column"
-    if any(int(r.lens.type) not in _JAX_KERNEL_LENSES for r in cfg.renders):
-        return "lens type needs inverse trig (no Mosaic lowering)"
     if any(int(r.lens.type) not in projection.SUPPORTED_LENSES for r in cfg.renders):
-        return "lens type not ported yet (dual fisheye equal-area/orthographic only)"
+        return "lens type needs inverse trig (no Mosaic lowering)"
     if engine.wl_mode == "discrete":
         n_wl = len(engine.wl_values)
         if n_wl & (n_wl - 1):
             return "discrete spectrum size not a power of two (lane % n_wl)"
     if len(cfg.renders) > MAX_RENDERS:
         return "more than 4 renderers (kernel VMEM slab budget)"
-    if not isinstance(crystal.shape, PrismShape):
-        return "pyramid geometry not ported yet"
     nr = min(2048, engine.batch_size)
     if engine.batch_size % nr:
         return f"batch size {engine.batch_size} not a multiple of {nr}"
@@ -155,29 +165,36 @@ def build_plan(engine) -> TracePlan:
     if reason is not None:
         raise NotImplementedError(f"scene outside the trace kernel path: {reason}")
     cfg = engine.cfg
-    ms = cfg.scene.layers[0]
-    crystal = cfg.crystals[ms.entries[0].crystal_id]
-    shape = crystal.shape
-    h = abs(float(np.float32(shape.height.center)))
-    dists = [float(np.float32(d.center)) for d in shape.face_distance]
-    g = geometry.pad_geom_faces(geometry.prism_geom(h, dists), geometry.PRISM_FACES)
-    tris = sampling.build_entry_tris(g)
-    present = g.face_present.numpy()
-    pn, pd = g.plane_n.numpy(), g.plane_d.numpy()
-    planes = np.array(
-        [(f, *pn[f], pd[f]) for f in range(pn.shape[0]) if present[f]], np.float32
-    ).reshape(-1, 5)
-    ch = tris.cross_half.numpy()
-    live = np.abs(ch).sum(axis=1) > 0
-    tt = np.concatenate(
-        [ch, tris.v0.numpy(), tris.e1.numpy(), tris.e2.numpy(),
-         tris.face_idx.numpy().astype(np.float32)[:, None]], axis=1
-    )[live].astype(np.float32)
-    if not len(tt) or not len(planes):
-        raise NotImplementedError(
-            "scene outside the trace kernel path: degenerate geometry (no live "
-            "entry faces)"
-        )
+    plan0 = engine.layer0
+    nf = geometry.PYRAMID_FACES if engine.any_pyramid else geometry.PRISM_FACES
+    planes = np.zeros((0, 5), np.float32)
+    tt = np.zeros((0, 13), np.float32)
+    pool_k = n_tris = gc = 0
+    if plan0.deterministic_shape[0]:
+        # One geometry for every batch (NO_RANDOM draws ignore the seed and
+        # the counter): sample the K = 1 pool once on the host and keep its
+        # present faces and live triangles.
+        pool = engine._sample_layer_pool(0, device="cpu")
+        present = pool.face_present[0].numpy()
+        pn, pd = pool.plane_n[0].numpy(), pool.plane_d[0].numpy()
+        planes = np.array(
+            [(f, *pn[f], pd[f]) for f in range(pn.shape[0]) if present[f]], np.float32
+        ).reshape(-1, 5)
+        ch = pool.tri_cross_half[0].numpy()
+        live = np.abs(ch).sum(axis=1) > 0
+        tt = np.concatenate(
+            [ch, pool.tri_v0[0].numpy(), pool.tri_e1[0].numpy(), pool.tri_e2[0].numpy(),
+             pool.tri_face[0].numpy().astype(np.float32)[:, None]], axis=1
+        )[live].astype(np.float32)
+        if not len(tt) or not len(planes):
+            raise NotImplementedError(
+                "scene outside the trace kernel path: degenerate geometry (no live "
+                "entry faces)"
+            )
+    else:
+        pool_k = plan0.k_per_setting[0]
+        gc = engine.geom_clock
+        n_tris = nf * 4   # build_entry_tris: T = NF * (6 - 2)
 
     if engine.wl_mode == "illuminant":
         spd = engine.spd_table.cpu().numpy().astype(np.float32)
@@ -199,13 +216,14 @@ def build_plan(engine) -> TracePlan:
     sun = cfg.light.sun
     return TracePlan(
         batch=engine.batch_size, nr=nr, h=H, k_pool=engine.k_pool,
-        seed=engine.seed, prob=float(ms.prob), wl_mode=engine.wl_mode,
+        seed=engine.seed, prob=float(plan0.prob), wl_mode=engine.wl_mode,
         spd=spd, wl_values=wl_values, wl_weights=wl_weights,
         sun_az=float(sun.azimuth), sun_alt=float(sun.altitude),
         sun_diam=float(sun.diameter), axis_params=engine.axis_params,
         planes=planes, tris=tt, emit_frac=float(engine.min_emit_frac),
         emit_mode=str(engine.emit_floor_mode), w_scale=w_scale,
         renders=tuple(engine.proj_plans), rows_block=tuple(rows_block),
+        nf=nf, pool_k=pool_k, n_tris=n_tris, gc=gc,
     )
 
 
@@ -219,10 +237,33 @@ def _pack_spectral(pix, w, wl_idx, P: int, K: int, shift: int):
     return to_bits(key), torch.where(valid, w, 0.0)
 
 
+def _check_pool_tables(plan: TracePlan, ptbl, ttbl, device) -> None:
+    """Raise unless the tables are what the plan's mode takes."""
+    if not plan.pool_k:
+        if ptbl is not None or ttbl is not None:
+            raise ValueError("pool tables given to a static-geometry plan")
+        return
+    if plan.gc != POOL_GEOM_CLOCK or plan.pool_k * plan.gc != plan.batch:
+        raise ValueError(
+            f"blocked-pool plan needs batch == pool_k * {POOL_GEOM_CLOCK}, got "
+            f"batch {plan.batch}, pool_k {plan.pool_k}, geom clock {plan.gc}")
+    for name, t, cols in (("ptbl", ptbl, plan.nf * 5), ("ttbl", ttbl, plan.n_tris * 13)):
+        on_device = t is not None and t.device.type == device.type and (
+            device.index is None or t.device.index == device.index)
+        if (not on_device or t.dtype != F32 or tuple(t.shape) != (plan.pool_k, cols)
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"{name} must be a contiguous float32 [{plan.pool_k}, {cols}] tensor "
+                f"on {device}")
+
+
 def trace_rows_plain(plan: TracePlan, base_lo: int, base_hi: int, n_active: int,
-                     device):
+                     device, ptbl=None, ttbl=None):
     """The uncompacted slabs: per render keys/w [G, rows_block] in slab
-    order, plus (landed [R], dropped, segs)."""
+    order, plus (landed [R], dropped, segs). Blocked-pool plans take the
+    batch's ptbl/ttbl; ray `lane` reads row lane // 128 of both."""
+    device = torch.device(device)
+    _check_pool_tables(plan, ptbl, ttbl, device)
     B, NR, H, K = plan.batch, plan.nr, plan.h, plan.k_pool
     G = B // NR
     shift = key_shift(K)
@@ -255,14 +296,53 @@ def trace_rows_plain(plan: TracePlan, base_lo: int, base_hi: int, n_active: int,
                                   plan.axis_params, 0, lut_loop=True)
     dx, dy, dz = trace_soa.rot_apply_inv(rot, wx, wy, wz)
 
+    # Geometry accessors: the plan's static tables (python floats), or the
+    # ray's row of the pool tables (every face slot and triangle row stays,
+    # absent faces masked by their `present` column, dead triangles adding
+    # a zero cross_half to the CDF).
+    if plan.pool_k:
+        sidx = lane // plan.gc
+        face_ids = list(range(plan.nf))
+        fgeo = {f: (ptbl[sidx, 5 * f], ptbl[sidx, 5 * f + 1], ptbl[sidx, 5 * f + 2],
+                    ptbl[sidx, 5 * f + 3], ptbl[sidx, 5 * f + 4] > 0.5)
+                for f in face_ids}
+        T = plan.n_tris
+
+        def tri_val(t, c):
+            return ttbl[sidx, 13 * t + c]
+
+        def tri_pick(sel, c):
+            return ttbl[sidx, 13 * sel + c]
+
+        def normal_of(fidx):
+            col = 5 * torch.clamp(fidx.to(I64), 0, plan.nf - 1)
+            return ptbl[sidx, col], ptbl[sidx, col + 1], ptbl[sidx, col + 2]
+    else:
+        face_ids = [int(r[0]) for r in plan.planes]
+        fgeo = {int(r[0]): (float(r[1]), float(r[2]), float(r[3]), float(r[4]), None)
+                for r in plan.planes}
+        tri_rows = [tuple(float(x) for x in row) for row in plan.tris]
+        T = len(tri_rows)
+        tris_dev = torch.as_tensor(plan.tris, device=device)
+        normals = torch.as_tensor(plan.face_table()[:, :3].copy(), device=device)
+
+        def tri_val(t, c):
+            return tri_rows[t][c]
+
+        def tri_pick(sel, c):
+            return tris_dev[sel, c]
+
+        def normal_of(fidx):
+            n = normals[torch.clamp(fidx.to(I64), 0, plan.nf - 1)]
+            return n[:, 0], n[:, 1], n[:, 2]
+
     # Entry-face sampling over the fan-triangle table (slots 10-12).
-    tri_rows = [tuple(float(x) for x in row) for row in plan.tris]
-    T = len(tri_rows)
     entry_seed = layer_seed ^ rng.NONCE_ENTRY
     ws = []
     total = torch.zeros(B, dtype=F32, device=device)
-    for tr in tri_rows:
-        wt = torch.clamp_min(-(tr[0] * dx + tr[1] * dy + tr[2] * dz), 0.0)
+    for t in range(T):
+        wt = torch.clamp_min(
+            -(tri_val(t, 0) * dx + tri_val(t, 1) * dy + tri_val(t, 2) * dz), 0.0)
         ws.append(wt)
         total = total + wt
     entry_ok = total > 0.0
@@ -278,22 +358,11 @@ def trace_rows_plain(plan: TracePlan, base_lo: int, base_hi: int, n_active: int,
     over = u + v > 1.0
     u = torch.where(over, 1.0 - u, u)
     v = torch.where(over, 1.0 - v, v)
-    tt = torch.as_tensor(plan.tris, device=device)[sel]
-    px = tt[:, 3] + u * tt[:, 6] + v * tt[:, 9]
-    py = tt[:, 4] + u * tt[:, 7] + v * tt[:, 10]
-    pz = tt[:, 5] + u * tt[:, 8] + v * tt[:, 11]
-    f0 = (tt[:, 12] + 0.5).to(I32)
+    px = tri_pick(sel, 3) + u * tri_pick(sel, 6) + v * tri_pick(sel, 9)
+    py = tri_pick(sel, 4) + u * tri_pick(sel, 7) + v * tri_pick(sel, 10)
+    pz = tri_pick(sel, 5) + u * tri_pick(sel, 8) + v * tri_pick(sel, 11)
+    f0 = (tri_pick(sel, 12) + 0.5).to(I32)
     w = torch.where(entry_ok, w0, 0.0)
-
-    planes = [(int(r[0]), float(r[1]), float(r[2]), float(r[3]), float(r[4]))
-              for r in plan.planes]
-    normals = torch.zeros((geometry.PRISM_FACES + 1, 3), dtype=F32, device=device)
-    for f, nx, ny, nz, _d in planes:
-        normals[f] = torch.tensor([nx, ny, nz], dtype=F32)
-
-    def normal_of(fidx):
-        n = normals[torch.clamp(fidx.to(I64), 0, geometry.PRISM_FACES)]
-        return n[:, 0], n[:, 1], n[:, 2]
 
     n0x, n0y, n0z = normal_of(f0)
     (rx, ry, rz), (tx, ty, tz), w_r, w_t, _ = trace_soa._fresnel_split_soa(
@@ -301,7 +370,8 @@ def trace_rows_plain(plan: TracePlan, base_lo: int, base_hi: int, n_active: int,
     )
     e0x, e0y, e0z = trace_soa.rot_apply(rot, rx, ry, rz)
     exit0_w = torch.where(entry_ok, w_r, 0.0)
-    dists = {f: px * nx + py * ny + pz * nz + d for f, nx, ny, nz, d in planes}
+    dists = {f: px * fgeo[f][0] + py * fgeo[f][1] + pz * fgeo[f][2] + fgeo[f][3]
+             for f in face_ids}
 
     n_r = len(plan.renders)
     slabs = [[] for _ in range(n_r)]
@@ -352,11 +422,14 @@ def trace_rows_plain(plan: TracePlan, base_lo: int, base_hi: int, n_active: int,
         t_best = torch.full((B,), 1e30, dtype=F32, device=device)
         fi = torch.zeros(B, dtype=I32, device=device)
         denoms = {}
-        for f, nx, ny, nz, _d in planes:
+        for f in face_ids:
+            nx, ny, nz, _d, pres = fgeo[f]
             denom = cx * nx + cy * ny + cz * nz
             denoms[f] = denom
             t_f = -dists[f] / torch.where(torch.abs(denom) > 1e-30, denom, 1e-30)
             cand = (denom > optics.SLAB_EPS) & (prev_f != f)
+            if pres is not None:
+                cand = cand & pres
             t_m = torch.where(cand, t_f, 1e30)
             upd = t_m < t_best
             fi = torch.where(upd, f, fi).to(I32)
@@ -364,7 +437,7 @@ def trace_rows_plain(plan: TracePlan, base_lo: int, base_hi: int, n_active: int,
         found = (t_best < 5e29) & (t_best > -optics.SLAB_EPS)
         alive = found & (cw > 0.0)
         nfx, nfy, nfz = normal_of(fi)
-        for f, *_ in planes:
+        for f in face_ids:
             dists[f] = torch.where(alive, dists[f] + t_best * denoms[f], dists[f])
         (rx, ry, rz), (tx2, ty2, tz2), w_r, w_t2, is_tir = trace_soa._fresnel_split_soa(
             cx, cy, cz, nfx, nfy, nfz, cw, n_ior
@@ -395,11 +468,11 @@ def trace_rows_plain(plan: TracePlan, base_lo: int, base_hi: int, n_active: int,
 
 
 def trace_emit_plain(plan: TracePlan, base_lo: int, base_hi: int, n_active: int,
-                     device):
+                     device, ptbl=None, ttbl=None):
     """Plain twin: per_render [(keys [G, rb] int32, w [G, rb], counts [G])],
     landed [R], dropped, segs."""
     slabs, landed, dropped, segs = trace_rows_plain(plan, base_lo, base_hi,
-                                                    n_active, device)
+                                                    n_active, device, ptbl, ttbl)
     per_render = []
     for (keys, wts), rb in zip(slabs, plan.rows_block):
         G = keys.shape[0]
@@ -433,19 +506,36 @@ class TraceParams(ctypes.Structure):
     ] + [(n, ctypes.c_float) for n in (
         "lut_t0", "lut_dt", "lut_tspan0", "lut_span", "lut_c_first", "lut_c_last")] + [
         ("lut_n", ctypes.c_int32), ("lut_has_span", ctypes.c_int32),
-        ("n_planes", ctypes.c_int32), ("n_tris", ctypes.c_int32),
-        ("n_renders", ctypes.c_int32),
+        ("nf", ctypes.c_int32), ("n_tris", ctypes.c_int32),
+        ("pool", ctypes.c_int32), ("n_renders", ctypes.c_int32),
         ("lens", ctypes.c_int32 * MAX_RENDERS), ("width", ctypes.c_int32 * MAX_RENDERS),
         ("height", ctypes.c_int32 * MAX_RENDERS),
         ("rows_block", ctypes.c_int32 * MAX_RENDERS),
+        ("visible", ctypes.c_int32 * MAX_RENDERS),
         ("r_scale", ctypes.c_float * MAX_RENDERS),
         ("max_abs_dz", ctypes.c_float * MAX_RENDERS),
+        ("scale", ctypes.c_float * MAX_RENDERS),
+        ("shift_x", ctypes.c_float * MAX_RENDERS),
+        ("shift_y", ctypes.c_float * MAX_RENDERS),
+        ("rot", ctypes.c_float * (9 * MAX_RENDERS)),
     ] + [(n, ctypes.c_int32) for n in (
         "off_planes", "off_tris", "off_spd", "off_wl", "off_wlw", "off_cdf",
         "off_flip", "n_ftab")]
 
 
 def make_params(plan: TracePlan, base_lo: int, base_hi: int, n_active: int):
+    """The kernel's parameter block: the plan's part is filled once and
+    kept, the batch's three words are set per call (a launch copies the
+    block, so the next call may overwrite it)."""
+    p = plan._cache.get("params")
+    if p is None:
+        p = plan._cache["params"] = _plan_params(plan)
+    p.base_lo, p.base_hi = int(base_lo) & MASK32, int(base_hi) & MASK32
+    p.n_active = int(n_active)
+    return p
+
+
+def _plan_params(plan: TracePlan):
     p = TraceParams()
     ftab, offs = plan.ftab()
     G = plan.n_blocks
@@ -453,8 +543,8 @@ def make_params(plan: TracePlan, base_lo: int, base_hi: int, n_active: int):
     for r, rb in enumerate(plan.rows_block):
         p.slab_off[r] = off
         off += G * rb
-    p.seed, p.base_lo, p.base_hi = plan.seed, int(base_lo) & MASK32, int(base_hi) & MASK32
-    p.n_active, p.batch, p.nr, p.h = int(n_active), plan.batch, plan.nr, plan.h
+    p.seed = plan.seed
+    p.batch, p.nr, p.h = plan.batch, plan.nr, plan.h
     p.k_pool = plan.k_pool
     p.wl_discrete = int(plan.wl_mode != "illuminant")
     p.n_wl = len(plan.wl_values)
@@ -478,12 +568,18 @@ def make_params(plan: TracePlan, base_lo: int, base_hi: int, n_active: int):
     p.lut_has_span = int(span > 0)
     p.lut_c_first, p.lut_c_last = float(cdf[0]), float(cdf[-1])
     p.lut_n = N_NODES
-    p.n_planes, p.n_tris = len(plan.planes), len(plan.tris)
+    p.nf = plan.nf
+    p.n_tris = plan.n_tris if plan.pool_k else len(plan.tris)
+    p.pool = int(plan.pool_k > 0)
     p.n_renders = len(plan.renders)
     for r, (pp, rb) in enumerate(zip(plan.renders, plan.rows_block)):
         p.lens[r], p.width[r], p.height[r] = pp.lens_type, pp.width, pp.height
         p.rows_block[r] = rb
+        p.visible[r] = pp.visible
         p.r_scale[r], p.max_abs_dz[r] = pp.r_scale, pp.max_abs_dz
+        p.scale[r], p.shift_x[r], p.shift_y[r] = pp.scale, pp.shift_x, pp.shift_y
+        for i in range(9):
+            p.rot[9 * r + i] = float(pp.rot[i // 3, i % 3])
     p.off_planes, p.off_tris, p.off_spd = offs["planes"], offs["tris"], offs["spd"]
     p.off_wl, p.off_wlw = offs["wl"], offs["wlw"]
     p.off_cdf, p.off_flip = offs["cdf"], offs["flip"]
@@ -491,12 +587,17 @@ def make_params(plan: TracePlan, base_lo: int, base_hi: int, n_active: int):
     return p
 
 
-def trace_emit(plan: TracePlan, base_lo: int, base_hi: int, n_active: int, device):
-    """K2 wrapper: the plain twin on the CPU; on a CUDA device the trace
-    kernel, then the K1 pack kernel per render."""
+def trace_emit(plan: TracePlan, base_lo: int, base_hi: int, n_active: int, device,
+               ptbl=None, ttbl=None):
+    """K2/K2b wrapper: the plain twin on the CPU; on a CUDA device the trace
+    kernel (static mode, or blocked-pool mode when the plan has a pool and
+    the batch's ptbl/ttbl are given), then the K1 pack kernel per render."""
     device = torch.device(device)
     if device.type == "cpu":
-        return trace_emit_plain(plan, base_lo, base_hi, n_active, device)
+        return trace_emit_plain(plan, base_lo, base_hi, n_active, device, ptbl, ttbl)
+    _check_pool_tables(plan, ptbl, ttbl, device)
+    if plan.nf not in (geometry.PRISM_FACES, geometry.PYRAMID_FACES):
+        raise ValueError(f"the trace kernel is built for 8 or 20 face slots, not {plan.nf}")
     params = make_params(plan, base_lo, base_hi, n_active)
     ftab = plan.device_table(device)
     G = plan.n_blocks
@@ -507,12 +608,21 @@ def trace_emit(plan: TracePlan, base_lo: int, base_hi: int, n_active: int, devic
     n_tb = -(-plan.batch // _THREADS)
     fpart = torch.empty(n_tb * (R + 1), dtype=F32, device=device)
     spart = torch.empty(n_tb, dtype=I32, device=device)
-    code = build.lib().iht_trace_emit(
-        ctypes.addressof(params), ftab.data_ptr(), keys.data_ptr(), wts.data_ptr(),
-        fpart.data_ptr(), spart.data_ptr(), build.stream_ptr(device),
-    )
-    build.check(code, "trace_emit")
-    build.LAUNCHES["trace_emit"] += 1
+    if plan.pool_k:
+        code = build.lib().iht_trace_emit_pool(
+            ctypes.addressof(params), ftab.data_ptr(), ptbl.data_ptr(), ttbl.data_ptr(),
+            keys.data_ptr(), wts.data_ptr(), fpart.data_ptr(), spart.data_ptr(),
+            build.stream_ptr(device),
+        )
+        build.check(code, "trace_emit_pool")
+        build.LAUNCHES["trace_emit_pool"] += 1
+    else:
+        code = build.lib().iht_trace_emit(
+            ctypes.addressof(params), ftab.data_ptr(), keys.data_ptr(), wts.data_ptr(),
+            fpart.data_ptr(), spart.data_ptr(), build.stream_ptr(device),
+        )
+        build.check(code, "trace_emit")
+        build.LAUNCHES["trace_emit"] += 1
     per_render = []
     off = 0
     for rb in plan.rows_block:
@@ -522,7 +632,6 @@ def trace_emit(plan: TracePlan, base_lo: int, base_hi: int, n_active: int, devic
         off += n
     fp = fpart.view(n_tb, R + 1)
     return per_render, fp[:, 1:].sum(dim=0), fp[:, 0].sum(), spart.to(I64).sum()
-
 
 
 def _np(x) -> np.ndarray:

@@ -1,29 +1,44 @@
 // Trace-and-emit kernel for Hopper (sm_90a), one thread per ray.
 //
-// Replaces K2, ice_halo_sim_tpu/core/pallas_trace.py: make_trace_emit (:299),
-// kernel body (:318-601), in its static-geometry (K == 1) mode. Per ray:
-// counter-PCG streams with the 64-bit epoch mix -> wavelength and SPD weight
-// -> sun-cap direction -> orientation -> entry-triangle CDF -> entry Fresnel
-// -> bounce loop over the face planes (slab min-t, Fresnel split, TIR) for
+// Replaces K2 and K2b, ice_halo_sim_tpu/core/pallas_trace.py:
+// make_trace_emit (:299), kernel body (:318-601), in its static-geometry
+// (K == 1) mode and in its blocked-pool mode (:382-399: per-batch ptbl/ttbl
+// inputs, one sampled crystal shape per 128 rays). Per ray: counter-PCG
+// streams with the 64-bit epoch mix -> wavelength and SPD weight -> sun-cap
+// direction -> orientation -> entry-triangle CDF -> entry Fresnel -> bounce
+// loop over the face planes (slab min-t, Fresnel split, TIR) for
 // max_hits - 1 bounces -> probability gate and Russian-roulette emit floor
-// -> dual-fisheye projection with its overlap pass -> spectral key pack.
+// -> lens projection (linear, fisheye equal-area / orthographic, their dual
+// forms with the overlap pass, globe) -> spectral key pack.
 //
 // The TPU kernel selects every table value with one-hot where-chains
-// (_sel_const/_sel_many: Mosaic has no gathers) and packs each 2048-ray
-// block in VMEM with a butterfly. Here the plan's tables (face planes,
-// entry triangles, SPD pool or discrete spectrum, latitude LUT) are copied
-// into shared memory once per thread block and indexed directly, and the
-// rows go UNCOMPACTED to a scratch slab in the JAX slab order (per 2048-ray
-// block: slot-major; main pass then overlap pass; ray within that; padded
-// with key 0xFFFFFFFF, weight 0). The pack kernel (block_ops.cu, K1) then
-// compacts each slab stably, which gives the JAX kernel's counts and order.
-// Stats (dropped weight, traced segments, landed weight per render) go to
-// per-thread-block partials that the wrapper sums.
+// (_sel_const/_sel_many: Mosaic has no gathers), reads a pooled shape as a
+// lane broadcast of its table row, and packs each 2048-ray block in VMEM
+// with a butterfly. Here the plan's tables (face table, entry triangles,
+// SPD pool or discrete spectrum, latitude LUT) are copied into shared
+// memory once per thread block and indexed directly. A thread block is 128
+// threads and the pool's geom clock is 128, so in blocked-pool mode ONE
+// THREAD BLOCK TRACES EXACTLY ONE SHAPE: it copies its own row of ptbl
+// (NF x 5 floats) and ttbl (NF x 4 x 13 floats; 4.6 KB for a pyramid) over
+// the face and triangle sections of the shared table, and the ray code is
+// the same in both modes. Every face slot and triangle row of a pooled
+// shape stays (absent faces masked by their `present` column, dead
+// triangles adding a zero cross_half to the CDF), as in the TPU kernel.
+// The rows go UNCOMPACTED to a scratch slab in the JAX slab order (per
+// 2048-ray block: slot-major; main pass then overlap pass; ray within that;
+// padded with key 0xFFFFFFFF, weight 0). The pack kernel (block_ops.cu, K1)
+// then compacts each slab stably, which gives the JAX kernel's counts and
+// order. Stats (dropped weight, traced segments, landed weight per render)
+// go to per-thread-block partials that the wrapper sums.
+//
+// The kernel is a template on the face-slot count NF (8 prism, 20 with a
+// pyramid): the per-ray plane distances are NF registers.
 //
 // Arithmetic follows the JAX order operation by operation and is built
 // with --fmad=false, so it rounds as the plain PyTorch twin does.
 // Bound: arithmetic and special functions (about 30 transcendental calls
-// and a few hundred flops per ray); the slab writes are 8 bytes per row.
+// and, per ray, some 20 operations per face and bounce plus 16 per entry
+// triangle); the slab writes are 8 bytes per row.
 //
 // Every entry point returns cudaGetLastError() after its launch.
 
@@ -33,8 +48,9 @@
 namespace {
 
 constexpr int kMaxR = 4;
-constexpr int kMaxF = 8;
-constexpr int kThreads = 128;
+constexpr int kMaxF = 20;    // face slots of the pyramid layout
+constexpr int kThreads = 128;  // == the pool's geom clock
+constexpr float GLOBE_CAMERA_D = 4.0f;
 
 constexpr uint32_t NONCE_WL = 0x9E3779B9u;
 constexpr uint32_t NONCE_ORIENT = 0xC2B2AE35u;
@@ -68,9 +84,14 @@ struct TraceParams {
   float roll_mean, roll_std;
   float lut_t0, lut_dt, lut_tspan0, lut_span, lut_c_first, lut_c_last;
   int32_t lut_n, lut_has_span;
-  int32_t n_planes, n_tris, n_renders;
+  int32_t nf, n_tris;  // face slots (8 or 20); triangle rows of the table
+  int32_t pool;        // 1: blocked-pool mode (block b reads row b of ptbl/ttbl)
+  int32_t n_renders;
   int32_t lens[kMaxR], width[kMaxR], height[kMaxR], rows_block[kMaxR];
+  int32_t visible[kMaxR];  // 0 upper, 1 lower, 2 full (single-lens family)
   float r_scale[kMaxR], max_abs_dz[kMaxR];
+  float scale[kMaxR], shift_x[kMaxR], shift_y[kMaxR];
+  float rot[kMaxR][9];     // camera rotation, row-major
   int32_t off_planes, off_tris, off_spd, off_wl, off_wlw, off_cdf, off_flip;
   int32_t n_ftab;
 };
@@ -167,20 +188,26 @@ __device__ __forceinline__ int in_bounds(int px, int py, bool valid, int W, int 
   return (valid && px >= 0 && px < W && py >= 0 && py < H) ? py * W + px : -1;
 }
 
+// Equal-area / orthographic fisheye forward of a direction with z = zc.
+__device__ __forceinline__ void fisheye_xy(bool equal_area, float dx, float dy, float dz,
+                                           float r_scale, float& x, float& y) {
+  if (equal_area) {
+    const float zc = fminf(fmaxf(dz, (float)(-1.0 + 1e-6)), 1.0f);
+    const float k = r_scale / sqrtf(1.0f + zc);
+    x = k * dx;
+    y = k * dy;
+  } else {
+    x = r_scale * dx;
+    y = r_scale * dy;
+  }
+}
+
 // Dual-fisheye pixel of sky direction (sx, sy, +-z_hemi) on one hemisphere.
 __device__ __forceinline__ void dual_pixel(int lens, float sx, float sy, float zh,
                                            float r_scale, bool upper, int W, int H,
                                            int& px, int& py) {
   float x, y;
-  if (lens == 4) {  // equal area
-    const float zc = fminf(fmaxf(zh, (float)(-1.0 + 1e-6)), 1.0f);
-    const float k = r_scale / sqrtf(1.0f + zc);
-    x = k * sx;
-    y = k * sy;
-  } else {  // 9: orthographic
-    x = r_scale * sx;
-    y = r_scale * sy;
-  }
+  fisheye_xy(lens == 4, sx, sy, zh, r_scale, x, y);
   const int short_res = (W / 2 < H) ? W / 2 : H;
   const float r = (float)(short_res / 2.0);
   const float cy = (float)(H / 2.0);
@@ -190,6 +217,47 @@ __device__ __forceinline__ void dual_pixel(int lens, float sx, float sy, float z
   const float fy = x * r + cy;
   px = (int)floorf(fx + 0.5f);
   py = (int)floorf(fy + 0.5f);
+}
+
+// Single-lens family (0 linear, 1 fisheye equal-area, 8 fisheye
+// orthographic) and globe (10): flattened pixel of exit direction
+// (ex, ey, ez), or -1.
+__device__ __forceinline__ int single_pixel(const TraceParams& p, int r, float ex,
+                                            float ey, float ez) {
+  const int lens = p.lens[r], W = p.width[r], H = p.height[r];
+  const float* m = p.rot[r];
+  // Camera frame c = R^T (-w).
+  const float cx = -(m[0] * ex + m[3] * ey + m[6] * ez);
+  const float cy = -(m[1] * ex + m[4] * ey + m[7] * ez);
+  const float cz = -(m[2] * ex + m[5] * ey + m[8] * ez);
+  bool valid;
+  float x, y;
+  if (lens == 10) {
+    // Valid rays have cz in [-1, -1/D): their denominator is positive. An
+    // invalid ray's quotient may be inf; `valid` masks its pixel.
+    valid = cz < (float)(-1.0 / GLOBE_CAMERA_D);
+    const float denom = GLOBE_CAMERA_D + cz;
+    x = -cx / denom;
+    y = cy / denom;
+  } else {
+    valid = true;
+    if (p.visible[r] == 0) valid = ez <= 0.0f;
+    else if (p.visible[r] == 1) valid = ez >= 0.0f;
+    valid = valid && cz > 0.0f;
+    if (lens == 0) {
+      // An invalid ray divides by 1, never by a non-positive cz.
+      const float safe_cz = cz > 0.0f ? cz : 1.0f;
+      x = cx / safe_cz;
+      y = cy / safe_cz;
+    } else {
+      fisheye_xy(lens == 1, cx, cy, cz, 1.0f, x, y);
+      if (lens == 8) valid = valid && cz >= 0.0f;
+    }
+    x = -x;  // screen handedness
+  }
+  const float fx = x * p.scale[r] + (float)(W / 2.0) + 0.5f + p.shift_x[r];
+  const float fy = y * p.scale[r] + (float)(H / 2.0) + 0.5f + p.shift_y[r];
+  return in_bounds((int)floorf(fx), (int)floorf(fy), valid, W, H);
 }
 
 __device__ __forceinline__ uint32_t pack_key(int pix, float w, uint32_t wl_idx,
@@ -236,9 +304,14 @@ __device__ void emit_slot(const TraceParams& p, int h, float ex, float ey, float
     const int W = p.width[r], H = p.height[r], P = W * H;
     const int passes = p.max_abs_dz[r] > 0.0f ? 2 : 1;
     const long long base = p.slab_off[r] + (long long)g * p.rows_block[r];
-    int px, py;
-    dual_pixel(p.lens[r], sx, sy, zh, p.r_scale[r], upper, W, H, px, py);
-    const int main_pix = in_bounds(px, py, true, W, H);
+    const bool dual = p.lens[r] == 4 || p.lens[r] == 9;
+    int px, py, main_pix;
+    if (dual) {
+      dual_pixel(p.lens[r], sx, sy, zh, p.r_scale[r], upper, W, H, px, py);
+      main_pix = in_bounds(px, py, true, W, H);
+    } else {
+      main_pix = single_pixel(p, r, ex, ey, ez);
+    }
     const bool main_ok = main_pix >= 0 && acc_w > 0.0f;
     float wz;
     const uint32_t key = pack_key(main_ok ? main_pix : -1, main_ok ? acc_w : 0.0f,
@@ -262,14 +335,27 @@ __device__ void emit_slot(const TraceParams& p, int h, float ex, float ey, float
   }
 }
 
+template <int NF>
 __global__ void __launch_bounds__(kThreads)
 trace_emit_kernel(const TraceParams p, const float* __restrict__ ftab,
+                  const float* __restrict__ ptbl, const float* __restrict__ ttbl,
                   uint32_t* __restrict__ keys, float* __restrict__ wts,
                   float* __restrict__ fpart, int32_t* __restrict__ spart) {
+  static_assert(NF <= kMaxF, "face slots");
   extern __shared__ float tab[];
   __shared__ float red_f[kMaxR + 1][kThreads];
   __shared__ int red_s[kThreads];
   for (int i = threadIdx.x; i < p.n_ftab; i += blockDim.x) tab[i] = ftab[i];
+  if (p.pool) {
+    // This block's shape: row blockIdx.x of the pool tables (blockDim.x ==
+    // the geom clock, so every ray of the block shares it).
+    __syncthreads();
+    const float* prow = ptbl + (size_t)blockIdx.x * (NF * 5);
+    const float* trow = ttbl + (size_t)blockIdx.x * (p.n_tris * 13);
+    for (int i = threadIdx.x; i < NF * 5; i += blockDim.x) tab[p.off_planes + i] = prow[i];
+    for (int i = threadIdx.x; i < p.n_tris * 13; i += blockDim.x)
+      tab[p.off_tris + i] = trow[i];
+  }
   __syncthreads();
 
   RayState st;
@@ -420,28 +506,22 @@ trace_emit_kernel(const TraceParams p, const float* __restrict__ ftab,
     const int f0 = (int)(ts[12] + 0.5f);
     const float w = entry_ok ? w0 : 0.0f;
 
-    const float* pl = tab + p.off_planes;  // per present face: slot, nx, ny, nz, d
-    const int NP = p.n_planes;
-    float n0x = 0.0f, n0y = 0.0f, n0z = 0.0f;
-    for (int i = 0; i < NP; ++i) {
-      if ((int)pl[5 * i] == f0) {
-        n0x = pl[5 * i + 1]; n0y = pl[5 * i + 2]; n0z = pl[5 * i + 3];
-      }
-    }
+    // Face table, indexed by slot: nx, ny, nz, d, present.
+    const float* pl = tab + p.off_planes;
+    const int f0c = f0 < 0 ? 0 : (f0 > NF - 1 ? NF - 1 : f0);
+    const float n0x = pl[5 * f0c], n0y = pl[5 * f0c + 1], n0z = pl[5 * f0c + 2];
     const Split s0 = fresnel(dx, dy, dz, n0x, n0y, n0z, w, n_ior);
     const float e0x = r00 * s0.rx + r01 * s0.ry + r02 * s0.rz;
     const float e0y = r10 * s0.rx + r11 * s0.ry + r12 * s0.rz;
     const float e0z = r20 * s0.rx + r21 * s0.ry + r22 * s0.rz;
     const float exit0_w = entry_ok ? s0.wr : 0.0f;
 
-    float dists[kMaxF], denoms[kMaxF];
+    float dists[NF], denoms[NF];
 #pragma unroll
-    for (int i = 0; i < kMaxF; ++i) {
-      dists[i] = 0.0f;
+    for (int i = 0; i < NF; ++i) {
       denoms[i] = 0.0f;
-      if (i < NP)
-        dists[i] = px0 * pl[5 * i + 1] + py0 * pl[5 * i + 2] + pz0 * pl[5 * i + 3] +
-                   pl[5 * i + 4];
+      dists[i] = px0 * pl[5 * i] + py0 * pl[5 * i + 1] + pz0 * pl[5 * i + 2] +
+                 pl[5 * i + 3];
     }
 
     const uint32_t gate_seed = layer_seed ^ NONCE_GATE;
@@ -455,31 +535,23 @@ trace_emit_kernel(const TraceParams p, const float* __restrict__ ftab,
       float t_best = 1e30f;
       int fi = 0;
 #pragma unroll
-      for (int i = 0; i < kMaxF; ++i) {
-        if (i < NP) {
-          const int slot = (int)pl[5 * i];
-          const float denom = cx * pl[5 * i + 1] + cy * pl[5 * i + 2] + cz * pl[5 * i + 3];
-          denoms[i] = denom;
-          const float t_f = -dists[i] / (fabsf(denom) > 1e-30f ? denom : 1e-30f);
-          const bool cand = denom > SLAB_EPS && prev_f != slot;
-          const float t_m = cand ? t_f : 1e30f;
-          if (t_m < t_best) {
-            fi = slot;
-            t_best = t_m;
-          }
+      for (int i = 0; i < NF; ++i) {
+        const float denom = cx * pl[5 * i] + cy * pl[5 * i + 1] + cz * pl[5 * i + 2];
+        denoms[i] = denom;
+        const float t_f = -dists[i] / (fabsf(denom) > 1e-30f ? denom : 1e-30f);
+        const bool cand = denom > SLAB_EPS && prev_f != i && pl[5 * i + 4] > 0.5f;
+        const float t_m = cand ? t_f : 1e30f;
+        if (t_m < t_best) {
+          fi = i;
+          t_best = t_m;
         }
       }
       const bool found = t_best < 5e29f && t_best > -SLAB_EPS;
       const bool alive = found && cw > 0.0f;
-      float nfx = 0.0f, nfy = 0.0f, nfz = 0.0f;
+      const float nfx = pl[5 * fi], nfy = pl[5 * fi + 1], nfz = pl[5 * fi + 2];
+      if (alive) {
 #pragma unroll
-      for (int i = 0; i < kMaxF; ++i) {
-        if (i < NP) {
-          if ((int)pl[5 * i] == fi) {
-            nfx = pl[5 * i + 1]; nfy = pl[5 * i + 2]; nfz = pl[5 * i + 3];
-          }
-          if (alive) dists[i] = dists[i] + t_best * denoms[i];
-        }
+        for (int i = 0; i < NF; ++i) dists[i] = dists[i] + t_best * denoms[i];
       }
       const Split sp = fresnel(cx, cy, cz, nfx, nfy, nfz, cw, n_ior);
       const float cos_exit = sp.tx * nfx + sp.ty * nfy + sp.tz * nfz;
@@ -532,17 +604,41 @@ trace_emit_kernel(const TraceParams p, const float* __restrict__ ftab,
 
 }  // namespace
 
+namespace {
+
+// Launch for the plan's face-slot count; the caller reads the launch error.
+void launch_trace(const TraceParams& p, const void* ftab, const void* ptbl,
+                  const void* ttbl, void* keys, void* wts, void* fpart, void* spart,
+                  void* stream) {
+  const int grid = (p.batch + kThreads - 1) / kThreads;
+  const size_t smem = (size_t)p.n_ftab * sizeof(float);
+  auto kernel = p.nf == 8 ? trace_emit_kernel<8> : trace_emit_kernel<kMaxF>;
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  }
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      p, (const float*)ftab, (const float*)ptbl, (const float*)ttbl, (uint32_t*)keys,
+      (float*)wts, (float*)fpart, (int32_t*)spart);
+}
+
+}  // namespace
+
+// Static-geometry mode (K2): the face and triangle tables are in ftab.
 extern "C" int iht_trace_emit(const void* params, const void* ftab, void* keys,
                               void* wts, void* fpart, void* spart, void* stream) {
   const TraceParams& p = *(const TraceParams*)params;
-  const int grid = (p.batch + kThreads - 1) / kThreads;
-  const size_t smem = (size_t)p.n_ftab * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(trace_emit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  }
-  trace_emit_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      p, (const float*)ftab, (uint32_t*)keys, (float*)wts, (float*)fpart,
-      (int32_t*)spart);
+  if (p.pool || (p.nf != 8 && p.nf != kMaxF)) return (int)cudaErrorInvalidValue;
+  launch_trace(p, ftab, nullptr, nullptr, keys, wts, fpart, spart, stream);
+  return (int)cudaGetLastError();
+}
+
+// Blocked-pool mode (K2b): block b traces the shape in row b of ptbl
+// [batch / 128, nf * 5] and ttbl [batch / 128, n_tris * 13].
+extern "C" int iht_trace_emit_pool(const void* params, const void* ftab,
+                                   const void* ptbl, const void* ttbl, void* keys,
+                                   void* wts, void* fpart, void* spart, void* stream) {
+  const TraceParams& p = *(const TraceParams*)params;
+  if (!p.pool || (p.nf != 8 && p.nf != kMaxF)) return (int)cudaErrorInvalidValue;
+  launch_trace(p, ftab, ptbl, ttbl, keys, wts, fpart, spart, stream);
   return (int)cudaGetLastError();
 }

@@ -2,10 +2,11 @@
 
 The JAX package's checkpoint (``ice_halo_sim_tpu.engine.checkpoint``) is an
 .npz with a JSON ``header`` (format_version, project, seed, batch_size,
-batch_counter, stats, n_accum) and ``accum_0..accum_{n-1}``: one [P, 3(+L)]
+geom_clock, batch_counter, stats, n_accum) and ``accum_0..accum_{n-1}``: one [P, 3(+L)]
 image per render, then the [R] landed weights. It is read here with numpy
 alone; the returned port Engine continues the same random streams from the
-saved batch counter.
+saved batch counter. A JAX engine that raised its geom_clock to 128 for a
+stochastic shape saved 128, so the resumed engine samples the same pool.
 """
 
 from __future__ import annotations
@@ -15,8 +16,8 @@ import json
 import numpy as np
 import torch
 
-from ice_halo_sim_tpu.config.loader import load_project
-from ice_halo_sim_tpu_torch.engine.simulator import Engine, Stats
+from ice_halo_sim_tpu_torch.config.loader import load_project
+from ice_halo_sim_tpu_torch.engine.simulator import DEFAULT_GEOM_CLOCK, Engine, Stats
 
 FORMAT_VERSION = 1
 
@@ -30,7 +31,8 @@ def load_jax_checkpoint(path: str, device="cuda", kernels=None) -> Engine:
             )
         cfg = load_project(header["project"])
         engine = Engine(cfg, seed=header["seed"], batch_size=header["batch_size"],
-                        device=device, kernels=kernels)
+                        device=device, kernels=kernels,
+                        geom_clock=header.get("geom_clock", DEFAULT_GEOM_CLOCK))
         arrays = [np.asarray(data[f"accum_{i}"]) for i in range(header["n_accum"])]
     if len(arrays) != len(engine.accum):
         raise ValueError("checkpoint accumulator count mismatch")

@@ -1,7 +1,8 @@
 """The port's engine: host loop over batches on one torch device (the
 kernel-path subset of ``ice_halo_sim_tpu.engine.simulator.Engine``).
 
-One batch = trace_emit (K2 + K1) -> per render: the sort fold. Before
+One batch = [the K-shape pool sampler, for a stochastic crystal shape] ->
+trace_emit (K2 or K2b, + K1) -> per render: the sort fold. Before
 calibration the fold takes every trace row (``fold_spectral_keys``); after
 the first batch, ``keep`` = the measured live rows times _KEEP_MARGIN,
 rounded up to the 4096-row extraction block, and a batch whose live rows
@@ -27,16 +28,68 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ice_halo_sim_tpu.config.schema import ProjectConfig
-from ice_halo_sim_tpu.core import latlut
-from ice_halo_sim_tpu.utils import env_knobs
+from ice_halo_sim_tpu_torch.config.schema import (
+    PrismShape,
+    ProjectConfig,
+    PyramidShape,
+    sync_group_leaders,
+)
+from ice_halo_sim_tpu_torch.core import latlut
+from ice_halo_sim_tpu_torch.utils import env_knobs
 from ice_halo_sim_tpu_torch.core import accum as accum_mod
-from ice_halo_sim_tpu_torch.core import color, projection, sampling, trace_emit
-from ice_halo_sim_tpu_torch.core.bits import F32, I32, I64
+from ice_halo_sim_tpu_torch.core import (
+    color,
+    geometry,
+    projection,
+    pyramid,
+    rng,
+    sampling,
+    trace,
+    trace_emit,
+)
+from ice_halo_sim_tpu_torch.core.bits import F32, I32, I64, MASK32
 from ice_halo_sim_tpu_torch.kernels import kernel_set
 
 DEFAULT_BATCH = 1 << 17
+DEFAULT_GEOM_CLOCK = 32
 LAYER_STRIDE = 2  # ray-base stride in batches: batch_size * (n_layers + 1)
+
+
+def largest_remainder_partition(total: int, proportions) -> list:
+    """Exact integer split of `total` by proportions."""
+    props = np.maximum(np.asarray(proportions, np.float64), 0.0)
+    s = props.sum()
+    if s <= 0 or total == 0:
+        return [0] * len(props)
+    ideal = props / s * total
+    alloc = np.floor(ideal).astype(np.int64)
+    deficit = total - alloc.sum()
+    order = np.argsort(-(ideal - alloc))
+    for i in range(int(deficit)):
+        alloc[order[i % len(props)]] += 1
+    return [int(x) for x in alloc]
+
+
+class LayerPlan(NamedTuple):
+    """Host-side plan of the first scattering layer, per crystal setting."""
+
+    prob: float
+    setting_counts: list        # rays per setting
+    k_per_setting: list         # shapes per setting in the pool
+    axis_params: sampling.AxisParams
+    shape_kinds: list           # "prism" | "pyramid" per setting
+    shape_param_arrays: list    # per setting: distribution params and RNG slots
+    deterministic_shape: list   # per setting bool
+    deterministic_axis: list    # per setting bool
+
+
+def _dist_params(d) -> tuple:
+    return (int(d.type), float(d.center), float(d.spread))
+
+
+def _sample_shape_scalars(seed, k_idx, slot0, dist_tuple):
+    dtype, center, spread = dist_tuple
+    return rng.sample_dist(seed, k_idx, slot0, dtype, center, spread)
 
 
 class Stats(NamedTuple):
@@ -54,6 +107,9 @@ class Engine:
     """Commit a config, pump batches, snapshot images.
 
     device: the torch device everything lives on (default "cuda").
+    geom_clock: rays per sampled crystal shape; a stochastic shape needs
+    128 (one shape per 128-thread block of the trace kernel), and the
+    default is raised to that, while a pinned other value raises.
     kernels: "cuda" (the CUDA kernels; the default on a CUDA device) or
     "plain" (the plain PyTorch twins; the only choice on the CPU).
     """
@@ -62,10 +118,12 @@ class Engine:
 
     def __init__(self, cfg: ProjectConfig, seed: int = 1,
                  batch_size: int = DEFAULT_BATCH, device="cuda",
-                 kernels: Optional[str] = None):
+                 kernels: Optional[str] = None,
+                 geom_clock: int = DEFAULT_GEOM_CLOCK):
         self.cfg = cfg
         self.seed = int(seed) & 0xFFFFFFFF
         self.batch_size = int(batch_size)
+        self.geom_clock = int(geom_clock)
         self.device = torch.device(device)
         if kernels is None:
             kernels = "cuda" if self.device.type == "cuda" else "plain"
@@ -81,6 +139,15 @@ class Engine:
         self._build_plan()
         self._build_wavelengths()
         self._build_renders()
+        reason = trace_emit.refusal_reason(self)
+        if (reason is not None and reason.startswith("stochastic crystal")
+                and self.geom_clock == DEFAULT_GEOM_CLOCK):
+            # The blocked-pool trace mode needs one shape per 128 rays;
+            # geom_clock is a sharing granularity that does not change the
+            # image's expectation, so the default moves. A pinned value is
+            # respected (and refused).
+            self.geom_clock = trace_emit.POOL_GEOM_CLOCK
+            self._build_plan()
         self._trace_plan = trace_emit.build_plan(self)
         self._compact_keep = None
         self._calibrated = False
@@ -92,16 +159,71 @@ class Engine:
     # ------------------------------------------------------------------
 
     def _build_plan(self) -> None:
-        """Axis parameters of the (single) setting and the two-rule stats
-        constants."""
+        """The first layer's per-setting plan (the trace kernel path takes
+        single-layer, single-setting scenes; build_plan refuses the rest)
+        and the two-rule stats constants over every layer."""
         cfg = self.cfg
-        layers = cfg.scene.layers
-        axes = [cfg.crystals[e.crystal_id].axis for e in layers[0].entries]
+        g = self.geom_clock
+        # Whole geom-clock blocks, so the ray -> pool-shape map is exactly
+        # lane // geom_clock.
+        self.batch_size = -(-self.batch_size // g) * g
+        ms = cfg.scene.layers[0]
+        blocks = largest_remainder_partition(
+            self.batch_size // g, [e.proportion for e in ms.entries])
+        counts = [b * g for b in blocks]
+        axes, kinds, params, det_shape, det_axis = [], [], [], [], []
+        for e in ms.entries:
+            crystal = cfg.crystals[e.crystal_id]
+            axes.append(crystal.axis)
+            det_axis.append(crystal.axis.is_deterministic())
+            shape = crystal.shape
+            det_shape.append(shape.is_deterministic())
+            # A synced member consumes its group leader's RNG slot, so the
+            # group shares one raw draw per crystal instance.
+            leaders = sync_group_leaders(shape.sync_group)
+            if isinstance(shape, PrismShape):
+                kinds.append("prism")
+                slot_of = [0] + [2 + 2 * i for i in range(6)]
+                params.append({
+                    "h": _dist_params(shape.height),
+                    "d": [_dist_params(x) for x in shape.face_distance],
+                    "h_slot": slot_of[leaders[0]],
+                    "d_slots": [slot_of[leaders[1 + i]] for i in range(6)],
+                })
+            elif isinstance(shape, PyramidShape):
+                kinds.append("pyramid")
+                slot_of = [0, 2, 4] + [6 + 2 * i for i in range(6)]
+                params.append({
+                    "u": _dist_params(shape.upper_h),
+                    "p": _dist_params(shape.prism_h),
+                    "l": _dist_params(shape.lower_h),
+                    "au": float(shape.wedge_angle_u),
+                    "al": float(shape.wedge_angle_l),
+                    "d": [_dist_params(x) for x in shape.face_distance],
+                    "u_slot": slot_of[leaders[0]],
+                    "p_slot": slot_of[leaders[1]],
+                    "l_slot": slot_of[leaders[2]],
+                    "d_slots": [slot_of[leaders[3 + i]] for i in range(6)],
+                })
+            else:
+                raise ValueError(f"unsupported shape {type(shape)}")
         luts = [latlut.build_lat_lut(a.latitude) for a in axes]
-        self.axis_params = sampling.make_axis_params(axes, luts)
-        entries = [cfg.crystals[e.crystal_id] for ms in layers for e in ms.entries]
+        # A deterministic shape is ONE pool row: every geom-clock block
+        # would sample the identical crystal.
+        k_per = [0 if c == 0 else (1 if det else max(1, b))
+                 for c, b, det in zip(counts, blocks, det_shape)]
+        self.layer0 = LayerPlan(
+            prob=float(ms.prob),
+            setting_counts=counts, k_per_setting=k_per,
+            axis_params=sampling.make_axis_params(axes, luts),
+            shape_kinds=kinds, shape_param_arrays=params,
+            deterministic_shape=det_shape, deterministic_axis=det_axis,
+        )
+        self.axis_params = self.layer0.axis_params
+        entries = [cfg.crystals[e.crystal_id] for l in cfg.scene.layers for e in l.entries]
         self.det_crystal_count = sum(c.shape.is_deterministic() for c in entries)
         self.det_orientation_count = sum(c.axis.is_deterministic() for c in entries)
+        self.any_pyramid = any(isinstance(c.shape, PyramidShape) for c in entries)
 
     def _build_wavelengths(self) -> None:
         light = self.cfg.light
@@ -174,12 +296,65 @@ class Engine:
     # Batch step
     # ------------------------------------------------------------------
 
+    def _sample_layer_pool(self, batch_counter: int, device=None) -> trace.GeomPool:
+        """The first layer's K-shape geometry pool of one batch (plain torch
+        on `device`; the JAX package samples it in XLA, outside any kernel).
+
+        The shape index is 64 bits wide: batch_counter * k_total passes
+        2^32 within a long render, and its high word is mixed into the seed
+        as the ray-base epoch is."""
+        plan = self.layer0
+        device = self.device if device is None else device
+        seed0 = self.seed ^ rng.NONCE_GEOM_SHAPE
+        kb = (int(batch_counter) & MASK32) * sum(plan.k_per_setting)
+        kb_lo, kb_hi = kb & MASK32, (kb >> 32) & MASK32
+        layer_nf = geometry.PYRAMID_FACES if "pyramid" in plan.shape_kinds \
+            else geometry.PRISM_FACES
+        geoms = []
+        k_off = 0
+        for s, kind in enumerate(plan.shape_kinds):
+            k = plan.k_per_setting[s]
+            k_idx = (kb_lo + k_off + torch.arange(k, dtype=I64, device=device)) & MASK32
+            seed = rng.epoch_seed(seed0, kb_lo, kb_hi, k_idx)
+            sp = plan.shape_param_arrays[s]
+            dists = torch.stack(
+                [_sample_shape_scalars(seed, k_idx, sp["d_slots"][i], sp["d"][i])
+                 for i in range(6)], dim=-1)
+            if kind == "prism":
+                h = torch.abs(_sample_shape_scalars(seed, k_idx, sp["h_slot"], sp["h"]))
+                g = geometry.prism_geom_batch(h, dists)
+            else:
+                h1, h2, h3 = (
+                    torch.abs(_sample_shape_scalars(seed, k_idx, sp[c + "_slot"], sp[c]))
+                    for c in "upl")
+                g = pyramid.pyramid_geom_batch(h1, h2, h3, sp["au"], sp["al"], dists)
+            geoms.append(geometry.pad_geom_faces(g, layer_nf))
+            k_off += k
+        g = geoms[0] if len(geoms) == 1 else geometry.CrystalGeom(
+            *(torch.cat(xs, dim=0) for xs in zip(*geoms)))
+        return trace.make_geom_pool(g, sampling.build_entry_tris(g))
+
+    def _pool_tables(self, batch_counter: int):
+        """The blocked-pool kernel inputs of one batch: ptbl [K, NF*5] rows
+        of (nx, ny, nz, d, present) per face, ttbl [K, T*13] rows of
+        (cross_half, v0, e1, e2, face) per entry triangle."""
+        pool = self._sample_layer_pool(batch_counter)
+        feat = torch.cat(
+            [pool.plane_n, pool.plane_d[..., None],
+             pool.face_present.to(F32)[..., None]], dim=-1)          # [K, NF, 5]
+        tfeat = torch.cat(
+            [pool.tri_cross_half, pool.tri_v0, pool.tri_e1, pool.tri_e2,
+             pool.tri_face.to(F32)[..., None]], dim=-1)              # [K, T, 13]
+        return (feat.reshape(feat.shape[0], -1).contiguous(),
+                tfeat.reshape(tfeat.shape[0], -1).contiguous())
+
     def _step_kernel_impl(self, base_lo: int, base_hi: int, n_active: int,
                           keep) -> list:
         """One batch through trace_emit and the fold; returns the live row
         count per render (host ints when keep is set, else tensors)."""
+        tables = self._pool_tables(self.batch_counter) if self._trace_plan.pool_k else ()
         per_render, landed_add, dropped, segs = self.ks.trace_emit(
-            self._trace_plan, base_lo, base_hi, n_active, self.device
+            self._trace_plan, base_lo, base_hi, n_active, self.device, *tables
         )
         self.accum[-1] = self.accum[-1] + landed_add
         self._pending_dropped.append(dropped)
@@ -249,8 +424,14 @@ class Engine:
                 self._maybe_calibrate(lives)
         self.stats = self.stats._replace(
             rays_traced=self.stats.rays_traced + rays_requested,
+            stochastic_crystal_samples=self.stats.stochastic_crystal_samples
+            + n_batches * sum(
+                k for k, det in zip(self.layer0.k_per_setting,
+                                    self.layer0.deterministic_shape) if not det),
             stochastic_orientation_samples=self.stats.stochastic_orientation_samples
-            + n_batches * (0 if self.det_orientation_count else self.batch_size),
+            + n_batches * sum(
+                c for c, det in zip(self.layer0.setting_counts,
+                                    self.layer0.deterministic_axis) if not det),
         )
         return self.stats
 

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by nvcc, by hand, into ONE shared
-library with a plain C interface, loaded with ctypes. The library is built
-at first use from the sources in this checkout into
-``ice_halo_sim_tpu_torch/_build/`` (listed in .gitignore); its file name
-carries a hash of the sources and flags, so an edit rebuilds it.
+Every ``csrc/*.cu`` file is compiled by nvcc, by hand (one nvcc process per
+source, all started together), and linked into ONE shared library with a
+plain C interface, loaded with ctypes. The library is built at first use
+from the sources in this checkout into ``ice_halo_sim_tpu_torch/_build/``
+(listed in .gitignore); its file name carries a hash of the sources and
+flags, so an edit rebuilds it. nvcc's ``-Xptxas -v`` report (registers,
+shared memory and spills per kernel) is kept in the ``.log`` beside it.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -O3``, no fast math, and
 ``--fmad=false``: without contraction the kernels round every multiply and
@@ -32,13 +34,14 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 # Launch counts per kernel wrapper: each wrapper adds one where it launches
 # its kernel, and nowhere else.
 LAUNCHES = {
     "trace_emit": 0,
+    "trace_emit_pool": 0,
     "pack_rows": 0,
     "pack_payload_blocks": 0,
     "scatter_blocks_multi": 0,
@@ -84,19 +87,52 @@ def build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
     cu = [s for s in _sources() if s.endswith(".cu")]
     tmp = out + f".tmp{os.getpid()}"
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in cu]
     t0 = time.time()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cu],
-        capture_output=True, text=True,
-    )
-    with open(out + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o", obj, src],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for src, obj in zip(cu, objs)
+    ]
+    log, failed = "", None
+    for src, proc in zip(cu, procs):
+        so, se = proc.communicate()
+        log += f"== {os.path.basename(src)}\n{so}{se}"
+        if proc.returncode != 0 and failed is None:
+            failed = (proc.returncode, se)
+    try:
+        if failed is None:
+            link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                                  capture_output=True, text=True)
+            log += f"== link\n{link.stdout}{link.stderr}"
+            if link.returncode != 0:
+                failed = (link.returncode, link.stderr)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+        with open(out + ".log", "w") as f:
+            f.write(log)
+    if failed is not None:
+        raise RuntimeError(f"nvcc failed ({failed[0]}):\n{failed[1][-8000:]}")
     os.replace(tmp, out)
     build_seconds = time.time() - t0
+    return out
+
+
+def ptxas_report(kernel: str) -> list:
+    """The ``-Xptxas -v`` lines (registers, spills, shared memory) of every
+    compiled kernel whose mangled name contains `kernel`, from the build
+    log of the current library."""
+    with open(library_path() + ".log") as f:
+        lines = f.read().splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            out.append(" | ".join(x.strip() for x in lines[i:i + 4]))
     return out
 
 
@@ -107,6 +143,7 @@ _LL = ctypes.c_longlong
 
 _SIGNATURES = {
     "iht_trace_emit": [_VP, _VP, _VP, _VP, _VP, _VP, _VP],
+    "iht_trace_emit_pool": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP],
     "iht_pack_blocks": [_VP, _VP, _VP, _VP, _I, _U, _I, _I,
                         _VP, _VP, _VP, _VP, _VP, _VP],
     "iht_scatter_blocks": [_VP, _VP, _VP, _I, _VP, _I, _I, _LL,

@@ -1,7 +1,10 @@
-"""Profile the port's main path on one CUDA device: bench.py's BENCH_CFG at
-batch 229376, calibrated steady state, under torch.profiler.
+"""Profile one of the port's main paths on one CUDA device: BENCH_CFG (the
+static trace mode) or POOL_CFG (the blocked-pool mode with its per-batch
+pool sampler) of scenes.py, at batch 229376, calibrated steady state, under
+torch.profiler.
 
-    python -m ice_halo_sim_tpu_torch.profile_slice [--batches 10] [--out FILE]
+    python -m ice_halo_sim_tpu_torch.profile_slice [--scene bench|pool]
+        [--batches 10] [--out FILE]
 
 Prints the card (nvidia-smi name and power limit), the wall time per
 batch, the device time per kernel name (CUDA time summed over the window)
@@ -20,6 +23,7 @@ import time
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--scene", choices=("bench", "pool"), default="bench")
     ap.add_argument("--batches", type=int, default=10)
     ap.add_argument("--batch-size", type=int, default=112 * 2048)
     ap.add_argument("--out", default=None, help="also write the report here")
@@ -31,16 +35,17 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_slice: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.getcwd())
-    from bench import BENCH_CFG
-    from ice_halo_sim_tpu.config.loader import load_project
+    from ice_halo_sim_tpu_torch import scenes
+    from ice_halo_sim_tpu_torch.config.loader import load_project
     from ice_halo_sim_tpu_torch.engine.simulator import Engine
+
+    doc = scenes.BENCH_CFG if args.scene == "bench" else scenes.POOL_CFG
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    eng = Engine(load_project(BENCH_CFG), seed=7, batch_size=args.batch_size,
+    eng = Engine(load_project(doc), seed=7, batch_size=args.batch_size,
                  device="cuda")
     eng.run(n_batches=1)
     eng.run(n_batches=3)
@@ -61,12 +66,27 @@ def main(argv=None) -> int:
             rows.append((dev_us, e.count, e.key))
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
+    sampler_line = None
+    if eng._trace_plan.pool_k:
+        # The pool sampler alone (plain torch ops, no kernel of the port).
+        with profile(activities=[ProfilerActivity.CUDA]) as sprof:
+            for i in range(args.batches):
+                eng._pool_tables(1000 + i)
+            torch.cuda.synchronize()
+        ev = [e for e in sprof.key_averages() if str(e.device_type).endswith("CUDA")]
+        s_us = sum(e.self_device_time_total for e in ev)
+        sampler_line = (
+            f"pool sampler alone: {s_us / 1e3 / args.batches:.4f} ms/batch device time in "
+            f"{sum(e.count for e in ev) / args.batches:.0f} device kernels per batch "
+            f"({s_us / busy_us:.3f} of device busy)")
     lines = [
         f"card: {card}",
-        f"batch {args.batch_size}, {args.batches} batches, wall {wall * 1e3 / args.batches:.4f} "
+        f"scene {args.scene}, batch {args.batch_size}, {args.batches} batches, wall {wall * 1e3 / args.batches:.4f} "
         f"ms/batch, {args.batches * args.batch_size / wall:.6g} rays/s",
         f"device busy {busy_us / 1e3 / args.batches:.4f} ms/batch, idle share "
         f"{1.0 - busy_us / 1e6 / wall:.4f}",
+        f"device kernels per batch: {sum(r[1] for r in rows) / args.batches:.0f}",
+    ] + ([sampler_line] if sampler_line else []) + [
         "device time by kernel (ms/batch, share of busy, launches):",
     ]
     for us, n, key in rows:

@@ -11,9 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from bench import BENCH_CFG
-from ice_halo_sim_tpu.config.loader import load_project
+from ice_halo_sim_tpu_torch.config.loader import load_project
 from ice_halo_sim_tpu_torch.core import accum, block_ops, seg_scan, trace_emit
+from ice_halo_sim_tpu_torch.scenes import BENCH_CFG, POOL_CFG
 from ice_halo_sim_tpu_torch.engine.simulator import Engine
 
 # Tier-1 runs six workers; keep each one to two torch threads.
@@ -41,6 +41,59 @@ def test_trace_emit_kernel(dev):
         d = trace_emit.trace_output_diff(a[0], b[0])
         assert d["rows_diff"] == 0 and d["w_rel"] <= 1e-6, d
         assert int(a[3]) == int(b[3])
+
+
+def _stochastic_prism_doc():
+    import copy
+
+    doc = copy.deepcopy(POOL_CFG)
+    doc["crystal"][0] = {
+        "id": 1, "type": "prism",
+        "shape": {"height": {"type": "gauss", "mean": 1.1, "std": 0.15}},
+        "axis": doc["crystal"][0]["axis"]}
+    return doc
+
+
+@pytest.mark.parametrize("kind", ["pyramid", "prism"])
+def test_trace_emit_pool_kernel(dev, kind):
+    """K2b against its twin on the engine's own pool tables: NF = 20
+    (POOL_CFG's pyramid, two renders) and NF = 8 (a stochastic prism)."""
+    doc = POOL_CFG if kind == "pyramid" else _stochastic_prism_doc()
+    eng = Engine(load_project(doc), seed=7, batch_size=8192, device=dev)
+    plan = eng._trace_plan
+    assert plan.pool_k == 64 and plan.nf == (20 if kind == "pyramid" else 8)
+    for bc, base in ((0, (0, 0, 8192)), (9, (0xFFFFF000, 2, 5000))):
+        ptbl, ttbl = eng._pool_tables(bc)
+        a = trace_emit.trace_emit(plan, *base, dev, ptbl, ttbl)
+        b = trace_emit.trace_emit_plain(plan, *base, dev, ptbl, ttbl)
+        d = trace_emit.trace_output_diff(a[0], b[0])
+        assert d["rows_diff"] == 0 and d["w_rel"] <= 1e-6, d
+        assert int(a[3]) == int(b[3])
+    with pytest.raises(ValueError, match="ptbl must be"):
+        trace_emit.trace_emit(plan, 0, 0, 8192, dev, ptbl.cpu(), ttbl)
+
+
+@pytest.mark.parametrize("lens, view", [
+    ("linear", {"azimuth": 30.0, "elevation": 20.0, "roll": 10.0}),
+    ("fisheye_equal_area", {"elevation": 90.0}),
+    ("fisheye_orthographic", {"elevation": 90.0}),
+    ("globe", {"azimuth": 60.0, "elevation": 35.0, "roll": 15.0}),
+    ("dual_fisheye_orthographic", {"azimuth": 0.0, "elevation": 0.0, "roll": 0.0}),
+])
+def test_trace_emit_kernel_lenses(dev, lens, view):
+    """The static kernel's other lens branches against the twin."""
+    import copy
+
+    doc = copy.deepcopy(BENCH_CFG)
+    doc["render"] = [{"id": 1, "lens": {"type": lens, "fov": 120.0 if lens != "globe" else 40.0},
+                      "resolution": [256, 192], "view": view, "visible": "upper",
+                      "lens_shift": [5, -3]}]
+    eng = Engine(load_project(doc), seed=7, batch_size=8192, device=dev)
+    a = trace_emit.trace_emit(eng._trace_plan, 0, 0, 8192, dev)
+    b = trace_emit.trace_emit_plain(eng._trace_plan, 0, 0, 8192, dev)
+    d = trace_emit.trace_output_diff(a[0], b[0])
+    assert d["rows_diff"] == 0 and d["w_rel"] <= 1e-6, d
+    assert int(a[0][0][2].sum()) > 0
 
 
 def test_pack_and_scatter_kernels(dev):
@@ -72,12 +125,12 @@ def test_fused_scan_kernel(dev):
         torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("spectrum", ["D65", "discrete-4"])
+@pytest.mark.parametrize("spectrum", ["D65", "discrete-4", "pool"])
 def test_engine_cuda_matches_plain(dev, spectrum):
     import copy
 
-    doc = copy.deepcopy(BENCH_CFG)
-    if spectrum != "D65":
+    doc = copy.deepcopy(POOL_CFG if spectrum == "pool" else BENCH_CFG)
+    if spectrum == "discrete-4":
         doc["scene"]["light_source"] = {
             "type": "sun", "altitude": 20.0,
             "spectrum": [{"wavelength": w, "weight": 1.0 + i}
@@ -88,6 +141,7 @@ def test_engine_cuda_matches_plain(dev, spectrum):
         eng = Engine(cfg, seed=3, batch_size=8192, device=dev, kernels=kernels)
         eng.run(n_batches=1)
         eng.run(n_batches=2)
-        imgs.append(eng.raw_xyz(0))
-    np.testing.assert_allclose(imgs[0], imgs[1], rtol=1e-5, atol=1e-6 * imgs[1].max())
+        imgs.append([eng.raw_xyz(r) for r in range(len(eng.proj_plans))])
+    for a, b in zip(*imgs):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6 * b.max())
     assert accum.BLOCK == 4096

@@ -1,5 +1,8 @@
 """Structural rules of the PyTorch port:
-  - the port (and what chip_smoke.py imports) never imports jax;
+  - the port (and what chip_smoke.py imports) never imports jax, the JAX
+    package or bench.py;
+  - the port's copies of the JAX package's JAX-free modules still equal
+    their sources after the import rewrite;
   - no file of the port refers to the reference checkout's absolute path;
   - every CUDA entry point returns cudaGetLastError() after its launches,
     and every wrapper checks the code it returns;
@@ -16,7 +19,7 @@ import torch
 
 import ice_halo_sim_tpu_torch
 
-# Tier-1 runs six workers; keep each one to two torch threads.
+# The suite runs under several xdist workers; keep each to two torch threads.
 torch.set_num_threads(2)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -40,8 +43,10 @@ def test_port_imports_no_jax():
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "import ice_halo_sim_tpu_torch\n"
         "ice_halo_sim_tpu_torch.Engine, ice_halo_sim_tpu_torch.load_jax_checkpoint\n"
-        "import chip_smoke, bench, ice_halo_sim_tpu.config.loader\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        "ice_halo_sim_tpu_torch.load_project, ice_halo_sim_tpu_torch.SceneBuilder\n"
+        "import chip_smoke\n"
+        "roots = ('jax', 'jaxlib', 'ice_halo_sim_tpu', 'bench')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in roots)\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -50,6 +55,32 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-3000:]
+
+
+COPIED_MODULES = [
+    "config/__init__.py", "config/schema.py", "config/loader.py", "config/builder.py",
+    "config/serialize.py", "config/validation.py", "core/latlut.py",
+    "utils/__init__.py", "utils/env_knobs.py", "utils/log.py", "utils/png.py",
+]
+
+
+def test_copied_modules_equal_their_sources():
+    """The port keeps its own copy of every JAX-free module it uses. Each
+    copy is its source with the package name rewritten in imports and the
+    reference checkout's path made relative; anything else is drift."""
+    jax_pkg = os.path.join(ROOT, "ice_halo_sim_tpu")
+    checkout = os.sep + os.path.join("root", "reference")
+    for rel in COPIED_MODULES:
+        with open(os.path.join(jax_pkg, rel)) as f:
+            want = f.read().replace("ice_halo_sim_tpu", "ice_halo_sim_tpu_torch")
+        want = want.replace(checkout, "reference")
+        with open(os.path.join(PKG, rel)) as f:
+            assert f.read() == want, rel
+    with open(os.path.join(jax_pkg, "data", "cie_data.npz"), "rb") as a, \
+            open(os.path.join(PKG, "data", "cie_data.npz"), "rb") as b:
+        assert a.read() == b.read()
+    assert ice_halo_sim_tpu_torch.load_project.__module__ == \
+        "ice_halo_sim_tpu_torch.config.loader"
 
 
 def test_no_reference_checkout_paths():
@@ -79,7 +110,7 @@ def test_cuda_entry_points_return_launch_error():
             parts = body.split("<<<")
             for after in parts[1:]:
                 assert "cudaGetLastError()" in after, m.group(1)
-    assert entries == 4
+    assert entries == 5
 
 
 def test_wrappers_check_every_kernel_call():
@@ -90,12 +121,13 @@ def test_wrappers_check_every_kernel_call():
             calls += 1
             assert re.search(r"build\.check\(code, ", src[m.end():m.end() + 600]), (
                 path, m.group(1))
-    assert calls == 4
+    assert calls == 5
 
 
 def test_each_launch_counter_bumped_once():
     from ice_halo_sim_tpu_torch.kernels import build
 
     srcs = "".join(open(p).read() for p in _port_files((".py",)))
+    assert len(build.LAUNCHES) == 6 and "trace_emit_pool" in build.LAUNCHES
     for name in build.LAUNCHES:
         assert srcs.count(f'build.LAUNCHES["{name}"] += 1') == 1, name

@@ -101,3 +101,33 @@ def test_sample_dist(pairs, dtype, center, spread):
     else:
         # log / cos / sin: a few ulps apart between torch and XLA.
         np.testing.assert_allclose(got, want, rtol=2e-6, atol=4e-7 * max(1.0, abs(s32)))
+
+
+@pytest.mark.parametrize(
+    "dtype", [DistType.UNIFORM, DistType.GAUSS, DistType.GAUSS_LEGACY, DistType.ZIGZAG,
+              DistType.LAPLACIAN], ids=lambda v: v.name)
+def test_sample_dist_at_pool_shape_indices(dtype):
+    """The K-shape pool sampler's inputs: shape index = batch_counter * K
+    as 64 bits (mul_u32_split), the low word wrapping inside the batch's K
+    indices, the high word mixed into the seed (epoch_seed). The port's
+    engine forms the product with python ints; here both forms are held
+    against the JAX functions."""
+    k_total, counter = 1792, (1 << 32) // 1792          # the wrap falls inside this batch
+    lo, hi = jrng.mul_u32_split(jnp.uint32(counter), k_total)
+    tlo, thi = trng.mul_u32_split(torch.tensor(counter), k_total)
+    prod = counter * k_total
+    assert (int(lo), int(hi)) == (int(tlo), int(thi)) == (prod & 0xFFFFFFFF, prod >> 32)
+    k_idx = ((prod & 0xFFFFFFFF) + np.arange(k_total, dtype=np.uint64)) & 0xFFFFFFFF
+    assert k_idx.min() == 0                             # wrapped
+    seed0 = 7 ^ trng.NONCE_GEOM_SHAPE
+    jseed = jrng.epoch_seed(jnp.uint32(seed0), lo, hi, jnp.asarray(k_idx.astype(np.uint32)))
+    tseed = trng.epoch_seed(seed0, int(tlo), int(thi), _t(k_idx))
+    np.testing.assert_array_equal(tseed.numpy().astype(np.uint32), np.asarray(jseed))
+    assert len(np.unique(np.asarray(jseed))) == 2       # two hi epochs in one pool
+    want = np.asarray(jrng.sample_dist(jseed, jnp.asarray(k_idx.astype(np.uint32)), 2,
+                                       int(dtype), 0.9, 0.1))
+    got = trng.sample_dist(tseed, _t(k_idx), 2, int(dtype), 0.9, 0.1).numpy()
+    if dtype == DistType.UNIFORM:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=2e-6, atol=4e-7)

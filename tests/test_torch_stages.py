@@ -14,6 +14,7 @@ import torch
 
 from bench import BENCH_CFG
 from ice_halo_sim_tpu.config.loader import load_project
+from ice_halo_sim_tpu_torch.config.loader import load_project as port_load_project
 from ice_halo_sim_tpu.config.schema import AxisDistribution, Distribution, DistType, LensType
 from ice_halo_sim_tpu.core import color as jcolor
 from ice_halo_sim_tpu.core import geometry as jgeom
@@ -160,7 +161,7 @@ def test_project_components_dual_fisheye(g, lens):
     doc = dict(BENCH_CFG)
     doc["render"] = [dict(BENCH_CFG["render"][0], lens={"type": lens, "fov": 180.0})]
     cfg = load_project(doc)
-    tp = projection.make_proj_plan(cfg.renders[0])
+    tp = projection.make_proj_plan(port_load_project(doc).renders[0])
     jp = jproj.make_proj_plan(cfg.renders[0])
     for f in ("lens_type", "width", "height", "scale", "r_scale", "max_abs_dz"):
         assert getattr(tp, f) == getattr(jp, f)
@@ -176,11 +177,61 @@ def test_project_components_dual_fisheye(g, lens):
     assert (n_ov > 0) == (lens == "dual_fisheye_equal_area")
 
 
-def test_other_lenses_not_ported():
+_SINGLE_LENSES = [
+    ("linear", 90.0, "full", [0, 0], {"azimuth": 0.0, "elevation": 0.0, "roll": 0.0}),
+    ("linear", 60.0, "upper", [7, -5], {"azimuth": 30.0, "elevation": 20.0, "roll": 10.0}),
+    ("fisheye_equal_area", 165.0, "full", [0, 0], {"elevation": 90.0}),
+    ("fisheye_equal_area", 180.0, "lower", [-9, 4],
+     {"azimuth": -40.0, "elevation": -60.0, "roll": 5.0}),
+    ("fisheye_orthographic", 170.0, "upper", [3, 3], {"elevation": 90.0}),
+    ("fisheye_orthographic", 120.0, "full", [0, 0],
+     {"azimuth": 100.0, "elevation": 10.0, "roll": -20.0}),
+    ("globe", 40.0, "full", [0, 0], {"azimuth": 0.0, "elevation": 0.0, "roll": 0.0}),
+    ("globe", 30.0, "upper", [11, -6], {"azimuth": 60.0, "elevation": 35.0, "roll": 15.0}),
+]
+
+
+@pytest.mark.parametrize("lens, fov, visible, shift, view", _SINGLE_LENSES,
+                         ids=[f"{c[0]}-{c[2]}-{i}" for i, c in enumerate(_SINGLE_LENSES)])
+def test_project_components_single_lenses_and_globe(lens, fov, visible, shift, view):
+    """Linear, fisheye equal-area / orthographic and globe: pixel indices
+    EXACT on 10k seeded directions, invalid ones (behind the camera, outside
+    the visible range or the image) included. These maps take no
+    transcendental but sqrt and the divide, which round alike."""
     doc = dict(BENCH_CFG)
-    doc["render"] = [dict(BENCH_CFG["render"][0], lens={"type": "linear", "fov": 90.0})]
-    tp = projection.make_proj_plan(load_project(doc).renders[0])
-    assert tp.lens_type == int(LensType.LINEAR)
+    doc["render"] = [{"id": 1, "lens": {"type": lens, "fov": fov}, "resolution": [192, 128],
+                      "view": view, "visible": visible, "lens_shift": shift}]
+    tp = projection.make_proj_plan(port_load_project(doc).renders[0])
+    jp = jproj.make_proj_plan(load_project(doc).renders[0])
+    assert tp.lens_type in projection.SUPPORTED_LENSES
+    for f in ("lens_type", "width", "height", "visible", "shift_x", "shift_y", "scale",
+              "r_scale", "max_abs_dz"):
+        assert getattr(tp, f) == getattr(jp, f), f
+    np.testing.assert_array_equal(tp.rot, jp.rot)
+    d = np.random.default_rng(11).normal(size=(3, 10_000)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0)
+    got = projection.project_components(tp, *[torch.as_tensor(x) for x in d])
+    want = jproj.project_components(jp, *[jnp.asarray(x) for x in d])
+    np.testing.assert_array_equal(got.main.numpy(), np.asarray(want.main))
+    np.testing.assert_array_equal(got.overlap.numpy(), np.asarray(want.overlap))
+    n_hit = int((got.main.numpy() >= 0).sum())
+    assert 0 < n_hit < d.shape[1]           # valid and invalid rays both occur
+    assert int(got.main.max()) < 192 * 128 and bool((got.overlap == -1).all())
+
+
+def test_other_lenses_not_ported():
+    """The lenses with inverse trig in their forward map are outside the
+    trace kernel path, in the port as in the JAX kernel."""
+    assert projection.SUPPORTED_LENSES == frozenset(
+        int(t) for t in (LensType.LINEAR, LensType.FISHEYE_EQUAL_AREA,
+                         LensType.FISHEYE_ORTHOGRAPHIC, LensType.DUAL_FISHEYE_EQUAL_AREA,
+                         LensType.DUAL_FISHEYE_ORTHOGRAPHIC, LensType.GLOBE))
     z = torch.zeros(4)
-    with pytest.raises(NotImplementedError):
-        projection.project_components(tp, z, z, z + 1)
+    for lens in ("fisheye_equidistant", "fisheye_stereographic", "rectangular",
+                 "dual_fisheye_equidistant"):
+        doc = dict(BENCH_CFG)
+        doc["render"] = [dict(BENCH_CFG["render"][0], lens={"type": lens, "fov": 120.0})]
+        tp = projection.make_proj_plan(port_load_project(doc).renders[0])
+        assert tp.lens_type not in projection.SUPPORTED_LENSES
+        with pytest.raises(NotImplementedError):
+            projection.project_components(tp, z, z, z + 1)
