@@ -14,14 +14,20 @@ Phases (any failure raises; the exit code is then non-zero):
      The static trace kernel and the block and scan kernels run at
      BENCH_CFG's shapes (batch 229376 = 112 x 2048 rays, P = 131072
      pixels, K = 64); the blocked-pool trace kernel at POOL_CFG's (the same
-     batch as 1792 sampled pyramids, NF = 20 face slots, two renders);
-  4. slices: Engine(cfg, device="cuda") renders BENCH_CFG, then POOL_CFG,
-     each with the launch counters reset just before and read just after;
-     every kernel of the path must have launched; image and stats must
-     match kernels="plain" on the card, and each scene's fixture
-     configuration must match its committed JAX render
+     batch as 1792 sampled pyramids, NF = 20 face slots, two renders); the
+     fold prepass (pack_valid_blocks with one column, and scatter_blocks
+     after it) at the rows of MS_CFG's dual render, and pack_valid_blocks
+     with two columns at COLOR_CFG's;
+  4. slices: Engine(cfg, device="cuda") renders BENCH_CFG and POOL_CFG (the
+     trace kernel path), then MS_CFG and COLOR_CFG (the general trace
+     path), each with the launch counters reset just before and read just
+     after; every kernel of the path must have launched, on its steady
+     batches too; image, lanes and stats must match kernels="plain" on the
+     card; each fixture configuration must match its committed JAX render
      (tests/data/torch_port_*_ref.npz) within the CPU tests' tolerances;
-  5. steady rays/s of both slices (informational).
+     and BENCH_CFG through the general path must match the kernel path
+     (emit floor and slot cap off);
+  5. steady rays/s of the four slices (informational).
 
 The last lines of standard output are the kernels JSON object, the card
 (nvidia-smi) and the device JSON object. Imports nothing of JAX and
@@ -30,6 +36,7 @@ nothing of the JAX package.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import subprocess
@@ -41,6 +48,7 @@ BATCH = 112 * 2048
 FIXTURES = {
     "bench": os.path.join(ROOT, "tests", "data", "torch_port_bench_ref.npz"),
     "pool": os.path.join(ROOT, "tests", "data", "torch_port_pool_ref.npz"),
+    "ms": os.path.join(ROOT, "tests", "data", "torch_port_ms_ref.npz"),
 }
 
 # Tolerances (shared with tests/test_torch_engine.py for the fixtures).
@@ -51,6 +59,10 @@ FLIP_ROWS = 64                         # K2 rows allowed to move (float flips)
 # The pool fixture's budget (the sampled heights go through logf/cosf, which
 # differ by an ulp between XLA-CPU and CUDA; a ray at an edge may flip).
 POOL_FIX_PIXELS, POOL_FIX_SEGMENTS = 8, 8
+# The general path against JAX: a direction on a pixel edge may land one
+# pixel over (the projection's last bit), a ray on a face edge may flip.
+EDGE_PIXELS, EDGE_SEGMENTS = 8, 8
+DROPPED_ATOL_FRAC = 1e-6               # of the landed weight
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet): device memory, float32
 # outside the tensor cores. The special-function rate follows from the SM's
@@ -283,8 +295,9 @@ def phase_kernels(cfg, device, res: list):
     k3p = _time_ms(lambda: block_ops.scatter_blocks(wts, start, keep, rb))
     k3p_plain = _time_ms(lambda: block_ops.scatter_blocks_plain(wts, start, keep, rb))
     k3p_bound = _bound(4 * live + 4 * start.numel() + 4 * keep, keep)
-    print(f"  scatter_blocks (K3', V=1, the K3 kernel): kernel {k3p:.4f} ms, plain "
-          f"{k3p_plain:.4f} ms, bound {k3p_bound[0]:.5f} ms by {k3p_bound[1]}", flush=True)
+    print(f"  scatter_blocks (K3', V=1, the K3 kernel) at the bench rows: kernel {k3p:.4f} "
+          f"ms, plain {k3p_plain:.4f} ms, bound {k3p_bound[0]:.5f} ms by {k3p_bound[1]}",
+          flush=True)
 
     # K4 with key2, on the sorted premerged rows.
     ck, cw = a
@@ -355,6 +368,106 @@ def phase_kernel_pool(cfg, device, res: list):
           "device time per batch", flush=True)
 
 
+def _fold_rows(eng, render: int, batch_counter: int):
+    """One steady batch's packed fold rows of a general-path engine: (key,
+    weight, mask or None), padded to the 4096-row block."""
+    import torch
+
+    from ice_halo_sim_tpu_torch.core import accum
+    from ice_halo_sim_tpu_torch.core.bits import to_bits
+
+    base = eng.ray_base(batch_counter)
+    contribs = eng._trace_batch_impl(base & 0xFFFFFFFF, base >> 32, batch_counter)[0]
+    pix, w, wl_idx, mask = contribs[render]
+    P = eng.accum[render].shape[0]
+    key, wz = accum.pack_spectral_keys(pix, w, wl_idx, P, eng.k_pool)
+    cols = [wz]
+    if eng.color_classes:
+        cols.append(to_bits(torch.where(key != -1, mask, 0)))
+    key, cols = accum._pad_cols(key, cols, accum.BLOCK)
+    return key, cols
+
+
+def phase_kernels_general(ms_cfg, color_cfg, device, res: list):
+    """K6 against pack_valid_blocks_plain at the rows of MS_CFG's dual render
+    (one column) and of COLOR_CFG's render (two columns), and K3' at
+    compact_valid's shape after it. Bit-equal or the run fails."""
+    import torch
+
+    from ice_halo_sim_tpu_torch.core import accum, block_ops
+    from ice_halo_sim_tpu_torch.engine.simulator import Engine
+
+    block = accum.BLOCK
+    no_lib_pack = ("a per-block stable partition takes a sort of flags plus a "
+                   "gather, no single call")
+    for name, cfg in (("ms", ms_cfg), ("color", color_cfg)):
+        eng = Engine(cfg, seed=7, batch_size=BATCH, device=device)
+        if eng.trace_path != "general":
+            raise AssertionError(f"{name}: trace path {eng.trace_path}")
+        eng.run(n_batches=1)                         # calibrates cap, lanes, keep
+        keep = eng._compact_keep[0] if eng._compact_keep else None
+        key, cols = _fold_rows(eng, 0, 5)
+        N, G, C = key.numel(), key.numel() // block, len(cols)
+        print(f"  {name}: rows per render {eng._rows_per_render} (slot cap {eng._slot_cap}, "
+              f"lanes per layer {[l.cont_cap for l in eng.layers]}), K6 input N = {N} rows "
+              f"in {G} blocks, {C} column(s), keep {eng._compact_keep}", flush=True)
+        if N < eng._rows_per_render[0] or N - eng._rows_per_render[0] >= block:
+            raise AssertionError(f"{name}: K6 rows {N} vs plan {eng._rows_per_render[0]}")
+        a = block_ops.pack_valid_blocks(key, cols, 0xFFFFFFFF, block)
+        b = block_ops.pack_valid_blocks_plain(key, cols, 0xFFFFFFFF, block)
+        flat_a = [a[0], *a[1], a[2]]
+        flat_b = [b[0], *b[1], b[2]]
+        if not all(_bits_equal(x, y) for x, y in zip(flat_a, flat_b)):
+            raise AssertionError(f"pack_valid_blocks (K6) differs from its plain version "
+                                 f"at the {name} rows")
+        # A general threshold besides: rows below a pixel's first key.
+        thresh = (eng.accum[0].shape[0] // 3) << accum.key_shift(eng.k_pool)
+        a2 = block_ops.pack_valid_blocks(key, cols, thresh, block)
+        b2 = block_ops.pack_valid_blocks_plain(key, cols, thresh, block)
+        if not all(_bits_equal(x, y) for x, y in
+                   zip([a2[0], *a2[1], a2[2]], [b2[0], *b2[1], b2[2]])):
+            raise AssertionError(f"pack_valid_blocks (K6) differs at threshold {thresh}")
+        live = int(a[2].sum())
+        ms_k = _time_ms(lambda: block_ops.pack_valid_blocks(key, cols, 0xFFFFFFFF, block))
+        ms_p = _time_ms(lambda: block_ops.pack_valid_blocks_plain(key, cols, 0xFFFFFFFF, block), 3)
+        bound = _bound((1 + C) * 8 * N + 4 * G, 2 * N)
+        if name == "ms":
+            _add(res, "pack_valid_blocks", "ice_halo_sim_tpu_torch/csrc/block_ops.cu",
+                 "ice_halo_sim_tpu/core/pallas_ops.py:301", 0.0, ms_k, ms_p, bound, no_lib_pack)
+            res[-1]["rows"] = N
+        else:
+            print(f"  pack_valid_blocks at the color rows (two columns): bit-equal, kernel "
+                  f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {bound[0]:.5f} ms by {bound[1]}",
+                  flush=True)
+        print(f"  {name}: live rows {live} of {N}", flush=True)
+        if name != "ms":
+            continue
+        # K3' as compact_valid calls it: one column, out_len = keep.
+        if keep is None or live > keep:
+            raise AssertionError(f"ms: keep {keep} does not hold the {live} live rows")
+        start = accum._exclusive_starts(a[2])
+        col = a[1][0].view(G, block)
+        x = block_ops.scatter_blocks(col, start, keep, block)
+        y = block_ops.scatter_blocks_plain(col, start, keep, block)
+        if not _bits_equal(x, y):
+            raise AssertionError("scatter_blocks (K3') differs from its plain version")
+        _add(res, "scatter_blocks", "ice_halo_sim_tpu_torch/csrc/block_ops.cu",
+             "ice_halo_sim_tpu/core/pallas_ops.py:549", 0.0,
+             _time_ms(lambda: block_ops.scatter_blocks(col, start, keep, block)),
+             _time_ms(lambda: block_ops.scatter_blocks_plain(col, start, keep, block)),
+             _bound(4 * live + 4 * G + 4 * keep, keep),
+             "blocks overwrite each other in order; scatter_ and index_copy_ leave "
+             "overlapping writes undefined")
+        # compact_valid whole against its plain composition.
+        cv = accum.compact_valid(key, cols, keep, eng.ks)
+        from ice_halo_sim_tpu_torch.kernels import kernel_set
+        cp = accum.compact_valid(key, cols, keep, kernel_set("plain"))
+        if not all(_bits_equal(p, q) for p, q in zip(cv[0], cp[0])) or int(cv[1]) != int(cp[1]):
+            raise AssertionError("compact_valid differs between the kernel sets")
+        del eng
+        torch.cuda.empty_cache()
+
+
 def _images_off(a, b, what) -> int:
     """Pixels outside the per-pixel tolerance, after the image-sum check."""
     import numpy as np
@@ -365,10 +478,13 @@ def _images_off(a, b, what) -> int:
     return int((np.abs(a - b) > tol).any(-1).sum())
 
 
-def phase_slice(name, cfg, device, path_kernels, steady: int = 3):
+def phase_slice(name, cfg, device, path_kernels, steady: int = 3,
+                path: str = "cuda-trace-kernel"):
     """Render `cfg` through the CUDA kernels with the launch counters reset
     just before and read just after; compare with kernels="plain" on the
-    card. Returns (engine, launch counts)."""
+    card. Every kernel of path_kernels must have launched, and on the steady
+    (calibrated) batches too. Returns (engine, launch counts, launches per
+    steady batch)."""
     import numpy as np
     import torch
 
@@ -376,8 +492,8 @@ def phase_slice(name, cfg, device, path_kernels, steady: int = 3):
     from ice_halo_sim_tpu_torch.kernels import build
 
     eng = Engine(cfg, seed=7, batch_size=BATCH, device=device)
-    if eng.trace_path != "cuda-trace-kernel":
-        raise AssertionError(f"trace path {eng.trace_path}")
+    if eng.trace_path != path:
+        raise AssertionError(f"{name}: trace path {eng.trace_path}, not {path}")
     build.reset_launch_counts()
     eng.run(n_batches=1)
     first = dict(build.LAUNCHES)
@@ -385,12 +501,14 @@ def phase_slice(name, cfg, device, path_kernels, steady: int = 3):
     torch.cuda.synchronize()
     counts = dict(build.LAUNCHES)
     per_batch = {k: (counts[k] - first[k]) / steady for k in counts}
-    print(f"  {name}: launches {counts}, keep {eng._compact_keep}, "
+    print(f"  {name}: launches {counts}, keep {eng._compact_keep}, slot cap "
+          f"{eng._slot_cap}, lanes per layer {[l.cont_cap for l in eng.layers]}, "
           f"host syncs {eng.host_syncs}", flush=True)
     print(f"  {name}: launches per steady batch {per_batch}", flush=True)
     for k in path_kernels:
-        if counts[k] <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the {name} path")
+        if counts[k] <= 0 or per_batch[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the {name} path "
+                                 f"(total {counts[k]}, per steady batch {per_batch[k]})")
     st = eng.drain_stats()
 
     ref = Engine(cfg, seed=7, batch_size=BATCH, device=device, kernels="plain")
@@ -403,9 +521,24 @@ def phase_slice(name, cfg, device, path_kernels, steady: int = 3):
         print(f"  {name} render {r} cuda vs plain: pixels off {bad}", flush=True)
         if bad > FLIP_ROWS:
             raise AssertionError(f"{name}: cuda slice differs from the plain slice")
+        if eng.color_classes:
+            la, lb = eng.lane_y(r), ref.lane_y(r)
+            tol = IMG_RTOL * np.abs(lb) + IMG_ATOL_FRAC * np.abs(lb).max()
+            lbad = int((np.abs(la - lb) > tol).any(0).sum())
+            print(f"  {name} render {r} class lanes cuda vs plain: pixels off {lbad}, lane "
+                  f"sums {la.sum((1, 2)).tolist()}", flush=True)
+            if lbad > 0 or not np.allclose(la.sum((1, 2)), lb.sum((1, 2)), rtol=SUM_RTOL):
+                raise AssertionError(f"{name}: class lanes differ between the kernel sets")
     print(f"  {name} cuda vs plain: segments {st.ray_segments} / {rst.ray_segments}, "
-          f"landed {st.landed_weight} / {rst.landed_weight}, shape samples "
+          f"landed {st.landed_weight} / {rst.landed_weight}, dropped "
+          f"{st.dropped_cont_weight} / {rst.dropped_cont_weight}, shape samples "
           f"{st.stochastic_crystal_samples}", flush=True)
+    if abs(st.dropped_cont_weight - rst.dropped_cont_weight) > \
+            DROPPED_ATOL_FRAC * rst.landed_weight:
+        raise AssertionError(f"{name}: dropped weight differs")
+    if (eng._slot_cap, eng._compact_keep, [l.cont_cap for l in eng.layers]) != \
+            (ref._slot_cap, ref._compact_keep, [l.cont_cap for l in ref.layers]):
+        raise AssertionError(f"{name}: calibration differs between the kernel sets")
     if seg_diff > FLIP_ROWS * 7 or st.stochastic_crystal_samples != rst.stochastic_crystal_samples:
         raise AssertionError(f"{name}: cuda slice differs from the plain slice")
     if not np.isclose(st.landed_weight, rst.landed_weight, rtol=SUM_RTOL):
@@ -414,27 +547,70 @@ def phase_slice(name, cfg, device, path_kernels, steady: int = 3):
         if img.max() == 0:
             raise AssertionError(f"{name}: snapshot {r} is black")
         print(f"  {name} snapshot {r}: max {img.max()}, mean {img.mean():.3f}", flush=True)
-    return eng, counts
+    return eng, counts, per_batch
 
 
-def phase_fixture(name, cfg, device, pixel_budget: int, segment_budget: int):
+class _knobs:
+    """Set environment knobs for the construction of an Engine (the engine
+    reads them in its constructor), and restore them."""
+
+    def __init__(self, **kv):
+        self.kv = kv
+
+    def __enter__(self):
+        self.old = {k: os.environ.get(k) for k in self.kv}
+        os.environ.update(self.kv)
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def phase_paths_agree(cfg, device, n_after: int = 2):
+    """BENCH_CFG's scene through the general path against the trace kernel
+    path on the card, with the emit floor and the slot cap off (the two
+    paths differ there on purpose). Tolerances of the CPU test: segments
+    exact, landed weight rtol 1e-5, no pixel outside rtol 1e-4 / atol 1e-6
+    of the maximum."""
+    import numpy as np
+
+    from ice_halo_sim_tpu_torch.engine.simulator import Engine
+
+    with _knobs(IHT_MIN_EMIT_W="0", IHT_SLOT_CAP="off"):
+        k = Engine(cfg, seed=7, batch_size=BATCH, device=device)
+        with _knobs(IHT_PALLAS_TRACE="0"):
+            g = Engine(cfg, seed=7, batch_size=BATCH, device=device)
+    if (k.trace_path, g.trace_path) != ("cuda-trace-kernel", "general"):
+        raise AssertionError(f"paths {k.trace_path}, {g.trace_path}")
+    for eng in (k, g):
+        eng.run(n_batches=1)
+        eng.run(n_batches=n_after)
+    ks, gs = k.drain_stats(), g.drain_stats()
+    bad = _images_off(g.raw_xyz(0), k.raw_xyz(0), "general vs kernel path")
+    print(f"  bench general path vs kernel path: segments {gs.ray_segments} / "
+          f"{ks.ray_segments}, landed {gs.landed_weight} / {ks.landed_weight}, pixels off "
+          f"{bad}, keep {g._compact_keep} / {k._compact_keep}", flush=True)
+    if bad or gs.ray_segments != ks.ray_segments or not np.isclose(
+            gs.landed_weight, ks.landed_weight, rtol=SUM_RTOL):
+        raise AssertionError("the general path and the kernel path disagree on BENCH_CFG")
+
+
+def phase_fixture(name, cfg, device, pixel_budget: int, segment_budget: int,
+                  emit_floor_off: bool = True):
     """The small-batch fixture configuration against the committed JAX
-    render (made by scripts/make_torch_port_ref.py, emit floor off)."""
+    render (made by scripts/make_torch_port_ref.py: bench and pool with the
+    emit floor off, ms at the default knobs)."""
     import numpy as np
 
     from ice_halo_sim_tpu_torch.engine.simulator import Engine
 
     ref = np.load(FIXTURES[name])
-    old = os.environ.get("IHT_MIN_EMIT_W")
-    os.environ["IHT_MIN_EMIT_W"] = "0"
-    try:
+    with _knobs(**({"IHT_MIN_EMIT_W": "0"} if emit_floor_off else {})):
         eng = Engine(cfg, seed=int(ref["seed"]), batch_size=int(ref["batch_size"]),
                      device=device)
-    finally:
-        if old is None:
-            del os.environ["IHT_MIN_EMIT_W"]
-        else:
-            os.environ["IHT_MIN_EMIT_W"] = old
     eng.run(n_batches=1)
     eng.run(n_batches=int(ref["n_batches"]) - 1)
     st = eng.drain_stats()
@@ -450,6 +626,12 @@ def phase_fixture(name, cfg, device, pixel_budget: int, segment_budget: int):
         raise AssertionError(f"the CUDA {name} slice does not match the JAX fixture")
     if not np.isclose(st.landed_weight, float(ref["landed_weight"]), rtol=SUM_RTOL):
         raise AssertionError(f"{name}: landed weight differs from the fixture")
+    if "slot_cap" in ref.files and eng._slot_cap != int(ref["slot_cap"]):
+        raise AssertionError(f"{name}: slot cap {eng._slot_cap} != {int(ref['slot_cap'])}")
+    if "dropped_cont_weight" in ref.files and abs(
+            st.dropped_cont_weight - float(ref["dropped_cont_weight"])) > \
+            DROPPED_ATOL_FRAC * float(ref["landed_weight"]):
+        raise AssertionError(f"{name}: dropped weight differs from the fixture")
 
 
 def phase_rate(eng, n: int = 20):
@@ -473,7 +655,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from ice_halo_sim_tpu_torch.config.loader import load_project
     from ice_halo_sim_tpu_torch.kernels import build
-    from ice_halo_sim_tpu_torch.scenes import BENCH_CFG, POOL_CFG
+    from ice_halo_sim_tpu_torch.scenes import BENCH_CFG, COLOR_CFG, MS_CFG, POOL_CFG
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -483,7 +665,7 @@ def main() -> int:
           f"cuda {torch.version.cuda}", flush=True)
     device = torch.device("cuda", 0)
 
-    t0 = time.time()
+    t_start = t0 = time.time()
     path = build.build()
     build.lib()
     print(f"[2] build: {time.time() - t0:.1f} s -> {os.path.relpath(path, ROOT)}",
@@ -492,24 +674,48 @@ def main() -> int:
         print(f"  {line}", flush=True)
 
     bench, pool = load_project(BENCH_CFG), load_project(POOL_CFG)
+    ms, colour = load_project(MS_CFG), load_project(COLOR_CFG)
+    ms_first = copy.deepcopy(MS_CFG)
+    ms_first["scene"]["scattering"] = ms_first["scene"]["scattering"][:1]
+    ms_first["filter"] = []
     print("[3] kernels vs plain twins at the main paths' shapes", flush=True)
     res = []
     phase_kernels(bench, device, res)
     phase_kernel_pool(pool, device, res)
+    phase_kernels_general(ms, colour, device, res)
 
     print("[4] slices", flush=True)
     common = ["pack_rows", "pack_payload_blocks", "scatter_blocks_multi", "fused_scan"]
-    eng_b, counts_b = phase_slice("bench", bench, device, ["trace_emit"] + common)
-    phase_fixture("bench", bench, device, 0, 0)
-    eng_p, counts_p = phase_slice("pool", pool, device, ["trace_emit_pool"] + common)
-    phase_fixture("pool", pool, device, POOL_FIX_PIXELS, POOL_FIX_SEGMENTS)
+    prepass = ["pack_valid_blocks", "scatter_blocks", "pack_payload_blocks",
+               "scatter_blocks_multi"]
+    engines, counts, per_batch = {}, {}, {}
+    for name, cfg, kernels, steady, path in (
+            ("bench", bench, ["trace_emit"] + common, 3, "cuda-trace-kernel"),
+            ("pool", pool, ["trace_emit_pool"] + common, 2, "cuda-trace-kernel"),
+            ("ms", ms, prepass + ["fused_scan"], 3, "general"),
+            ("color", colour, prepass, 2, "general")):
+        engines[name], counts[name], per_batch[name] = phase_slice(
+            name, cfg, device, kernels, steady, path)
+        if name == "bench":
+            phase_fixture("bench", bench, device, 0, 0)
+            phase_paths_agree(bench, device)
+        elif name == "pool":
+            phase_fixture("pool", pool, device, POOL_FIX_PIXELS, POOL_FIX_SEGMENTS)
+        elif name == "ms":
+            phase_fixture("ms", load_project(ms_first), device, EDGE_PIXELS, EDGE_SEGMENTS,
+                          emit_floor_off=False)
+    # Launches of a kernel on the main path that runs it: the pool scene for
+    # the blocked-pool trace, MS_CFG for the fold prepass, else BENCH_CFG.
+    home = {"trace_emit_pool": "pool", "pack_valid_blocks": "ms", "scatter_blocks": "ms"}
     for k in res:
-        k["launches"] = (counts_p if k["name"] == "trace_emit_pool" else counts_b)[k["name"]]
+        k["launches"] = counts[home.get(k["name"], "bench")][k["name"]]
+        k["launches_per_steady_batch"] = {n: per_batch[n][k["name"]] for n in per_batch}
 
-    for name, eng in (("bench", eng_b), ("pool", eng_p)):
-        rate = phase_rate(eng)
-        print(f"[5] {name} steady rate: {rate:.6g} rays/s (batch {BATCH}) on {smi}",
-              flush=True)
+    for name, eng in engines.items():
+        rate = phase_rate(eng, 20 if name in ("bench", "pool") else 8)
+        print(f"[5] {name} steady rate: {rate:.6g} rays/s (batch {BATCH}, "
+              f"{eng.trace_path}) on {smi}", flush=True)
+    print(f"total {time.time() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": res}))
     print(smi)

@@ -1,5 +1,6 @@
-"""Spectral sort fold (port of the kernel-path subset of
-``ice_halo_sim_tpu.core.accum``).
+"""Spectral sort fold and the block compactions before it (port of
+``ice_halo_sim_tpu.core.accum`` without the legacy dense-value fold
+``sort_accumulate``).
 
 Scatter-add of (pixel, wavelength-pool index, weight) rows into an
 [P, 3] XYZ image as: one unstable sort of u32 keys ``pixel * 2K | wl * 2``
@@ -13,6 +14,19 @@ kernel). Key and weight ride as one int64 per row: the key XOR 0x80000000
 the low word; ties between equal keys land in any order, which every
 consumer ignores.
 
+With colour-class lanes (L > 0) the JAX package leaves its fused scan
+kernel: it expands the basis, builds the lanes from the mask column and
+takes the per-pixel totals in XLA. Here that part is plain PyTorch
+(``_segmented_totals``, a float64 running sum instead of the TPU's chunked
+two-level float32 scan: same totals, rounded once), and the extraction
+still goes through K5 and K3, in groups of at most three payloads.
+
+``compact_valid`` (K6, then one K3' per column) and ``compact_by_key`` (a
+sort inside each block, then one K3' per column) shorten the rows to a
+static prefix. The TPU's block sort is unstable; here the order inside a
+block is a function of the rows (key, then row index), so the CPU and the
+card agree.
+
 Kernel-backed stages take a ``ks`` KernelSet (kernels/__init__.py):
 the wrappers or the plain twins.
 """
@@ -21,7 +35,7 @@ from __future__ import annotations
 
 import torch
 
-from ice_halo_sim_tpu_torch.core.bits import F32, I32, I64, MASK32, to_bits
+from ice_halo_sim_tpu_torch.core.bits import F32, I32, I64, MASK32, from_bits, to_bits
 
 # Row-block size of the marker extraction (pack + scatter).
 BLOCK = 4096
@@ -76,41 +90,167 @@ def sort_keys(keys, w):
     return sk, sw
 
 
+_MAX_PAYLOADS = 3  # columns per launch of the pack and scatter kernels
+
+
+def _exclusive_starts(counts):
+    c = counts.to(I64)
+    return (torch.cumsum(c, dim=0) - c).to(I32)
+
+
 def _marker_extract(key2, seg_cols, P: int, ks, block: int = BLOCK):
-    """Dense [P, 3] from scanned rows: key2 is the pixel id at marker rows
+    """Dense [P, C] from scanned rows: key2 is the pixel id at marker rows
     (in global pixel order) and >= P elsewhere. Pack each block's markers
     to its front (K5), then scatter block g's rows to the exclusive cumsum
-    of the marker counts (K3)."""
+    of the marker counts (K3); more than three columns go in groups."""
     M = key2.shape[0]
     G = M // block
     if G * block != M:
         raise ValueError(f"{M} rows are not a multiple of block {block}")
-    pcols, m_cnt = ks.pack_payload_blocks(key2, list(seg_cols), P, block)
-    start = torch.cumsum(m_cnt.to(I64), dim=0) - m_cnt.to(I64)
-    dense = ks.scatter_blocks_multi(
-        [c.view(G, block) for c in pcols], start.to(I32), P, block
-    )
+    seg_cols = list(seg_cols)
+    dense = []
+    start = None
+    for i in range(0, len(seg_cols), _MAX_PAYLOADS):
+        pcols, m_cnt = ks.pack_payload_blocks(key2, seg_cols[i:i + _MAX_PAYLOADS], P, block)
+        if start is None:
+            start = _exclusive_starts(m_cnt)
+        dense += ks.scatter_blocks_multi([c.view(G, block) for c in pcols], start, P, block)
     return torch.stack(dense, dim=-1)
 
 
-def _pad_to_block(keys, w, block: int = BLOCK):
-    pad = -(-keys.shape[0] // block) * block - keys.shape[0]
+def _pad_cols(key, cols, block: int):
+    """Pad rows to a block multiple with (0xFFFFFFFF, 0...)."""
+    pad = -(-key.shape[0] // block) * block - key.shape[0]
     if pad:
-        keys = torch.cat([keys, torch.full((pad,), -1, dtype=I32, device=keys.device)])
-        w = torch.cat([w, torch.zeros(pad, dtype=w.dtype, device=w.device)])
-    return keys, w
+        key = torch.cat([key, torch.full((pad,), -1, dtype=I32, device=key.device)])
+        cols = [torch.cat([c, torch.zeros(pad, dtype=c.dtype, device=c.device)])
+                for c in cols]
+    return key, list(cols)
 
 
-def fold_spectral_keys(acc, key, w, k_pool: int, basis_tbl, ks):
-    """Full fold (no lane specs): contribution rows + P markers -> sort ->
-    K4 -> marker extraction, added to acc [P, 3]."""
+def _sort_word(k, row):
+    """One signed int64 per row that orders by (u32 key, row index): the key
+    less 2^31 in the high word, the row (< 2^32) in the low word."""
+    return (k - (1 << 31)) * (1 << 32) + row
+
+
+def compact_valid(key, cols, keep: int, ks, block: int = BLOCK):
+    """Rows with key != 0xFFFFFFFF into a prefix of `keep` rows, in their
+    original order block by block (the fold's prepass; its sort follows, so
+    the order does not matter). K6 packs each block, one K3' per column
+    places block g at the exclusive cumsum of the counts.
+
+    Returns ((key', cols'...), n_valid tensor). Exact when n_valid <= keep,
+    which the caller guards. Rows past the last valid row are (0xFFFFFFFF,
+    0) from the last block's tail, then (0, 0): zero-weight rows that fold
+    to nothing."""
+    key, cols = _pad_cols(key, cols, block)
+    G = key.shape[0] // block
+    pk, pcols, counts = ks.pack_valid_blocks(key, cols, MASK32, block)
+    start = _exclusive_starts(counts)
+    outs = [ks.scatter_blocks(x.view(G, block), start, keep, block)
+            for x in (pk, *pcols)]
+    return tuple(outs), counts.to(I64).sum()
+
+
+def compact_by_key(key, cols, keep: int, ks, block: int = BLOCK):
+    """Rows with key != 0xFFFFFFFF into a prefix of `keep` rows, each block
+    sorted by key (ties by row: the order is a function of the rows), then
+    one K3' per column. The continuation between layers uses it: its key
+    orders a block's rows by weight bucket and a hash of the row.
+
+    Returns ((key', cols'...), n_valid tensor), as compact_valid does."""
+    key, cols = _pad_cols(key, cols, block)
+    G = key.shape[0] // block
+    kb = from_bits(key).view(G, block)
+    counts = (kb != MASK32).sum(dim=1)
+    start = _exclusive_starts(counts)
+    row = torch.arange(block, dtype=I64, device=key.device)
+    order = torch.argsort(_sort_word(kb, row[None, :]), dim=1)
+    outs = [ks.scatter_blocks(x.view(G, block).gather(1, order).contiguous(),
+                              start, keep, block)
+            for x in (key, *cols)]
+    return tuple(outs), counts.sum()
+
+
+def _segmented_totals(sk, chans, shift: int, n_pixels: int):
+    """Per-pixel running sums over sorted rows: the last row of each run of
+    equal ``key >> shift`` holds that pixel's total. chans: list of [M]
+    float32 >= 0. Summed in float64, rounded once.
+
+    Each channel is one flat running sum, and a run's base (the sum before
+    its first row) goes through a table indexed by the pixel: the first row
+    of each run writes it, every row of the run reads it. Rows past the
+    pixels (the dead key) are one run, slot n_pixels; rows that are no
+    first row write to a spare slot that nobody reads."""
+    pix = torch.clamp_max(from_bits(sk) >> shift, n_pixels)
+    first = torch.ones_like(pix, dtype=torch.bool)
+    first[1:] = pix[1:] != pix[:-1]
+    slot = torch.where(first, pix, n_pixels + 1)
+    out = []
+    for ch in chans:
+        v = ch.to(torch.float64)
+        cs = torch.cumsum(v, dim=0)
+        base = torch.zeros(n_pixels + 2, dtype=torch.float64, device=sk.device)
+        base.scatter_(0, slot, cs - v)
+        out.append((cs - base[pix]).to(F32))
+    return out
+
+
+def lane_members(mask, lane_specs):
+    """Per colour class, which rows belong: mask [N] int64-held u32 bits;
+    lane_specs ((bits, combine_all), ...)."""
+    return [((mask & b) == b) if combine_all else ((mask & b) != 0)
+            for b, combine_all in lane_specs]
+
+
+def fold_spectral_keys(acc, key, w, k_pool: int, basis_tbl, ks, lane_specs=(),
+                       mask=None, prefix_len=None):
+    """Full fold: contribution rows + P markers -> one sort -> per-pixel
+    totals -> marker extraction, added to acc [P, 3 + L].
+
+    Without lanes the totals come from K4. With lane_specs ((bits,
+    combine_all) per colour class) the mask column (int32 u32 bits) rides
+    the sort, and the basis, the lanes and the totals are plain torch.
+    prefix_len (a multiple of the block): scan and extract only that many
+    sorted rows, which is exact iff live rows + P <= prefix_len (the
+    caller's to guard)."""
     P = acc.shape[0]
+    L = len(lane_specs)
+    if acc.shape[1] != 3 + L:
+        raise ValueError(f"accumulator has {acc.shape[1]} channels, not {3 + L}")
+    shift = key_shift(k_pool)
     keys = torch.cat([key, marker_keys(P, k_pool, key.device)])
     w_all = torch.cat([w, torch.zeros(P, dtype=w.dtype, device=w.device)])
-    keys, w_all = _pad_to_block(keys, w_all)
-    sk, sw = sort_keys(keys, w_all)
-    seg, key2 = ks.fused_scan_call(sk, sw, basis_tbl, key_shift(k_pool), k_pool,
-                                   emit_key2=True)
+    keys, (w_all,) = _pad_cols(keys, [w_all], BLOCK)
+    M = keys.shape[0]
+    if prefix_len is not None and prefix_len < M and prefix_len % BLOCK:
+        raise ValueError(f"prefix_len {prefix_len} is not a multiple of {BLOCK}")
+    cut = prefix_len if prefix_len is not None and prefix_len < M else M
+    if L == 0:
+        sk, sw = sort_keys(keys, w_all)
+        seg, key2 = ks.fused_scan_call(sk[:cut], sw[:cut], basis_tbl, shift, k_pool,
+                                       emit_key2=True)
+        return acc + _marker_extract(key2, seg, P, ks)
+    if mask is None:
+        raise ValueError("lane_specs need the mask column")
+    # Sort (key, row) pairs and gather the two payload columns by row.
+    row = torch.arange(M, dtype=I64, device=keys.device)
+    s, _ = torch.sort(_sort_word(from_bits(keys), row))
+    s = s[:cut]
+    order = s & MASK32
+    k_sorted = (s >> 32) + (1 << 31)
+    sk = to_bits(k_sorted)
+    sw = w_all[order]
+    n = mask.shape[0]
+    smask = torch.where(order < n, from_bits(mask)[torch.clamp_max(order, n - 1)], 0)
+    basis = basis_tbl.to(device=keys.device, dtype=F32)[(k_sorted >> 1) & (k_pool - 1)]
+    chans = [basis[:, c] * sw for c in range(3)]
+    y = chans[1]
+    chans += [torch.where(m, y, 0.0) for m in lane_members(smask, lane_specs)]
+    seg = _segmented_totals(sk, chans, shift, P)
+    mmask = 2 * k_pool - 1
+    key2 = to_bits(torch.where((k_sorted & mmask) == mmask, k_sorted >> shift, MASK32))
     return acc + _marker_extract(key2, seg, P, ks)
 
 

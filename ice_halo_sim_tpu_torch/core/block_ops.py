@@ -1,6 +1,6 @@
 """Block pack and block scatter (port of ``ice_halo_sim_tpu.core.pallas_ops``:
-K1 ``_pack_one_block``, K5 ``pack_payload_blocks``, K3
-``scatter_blocks_multi`` and K3' ``scatter_blocks``).
+K1 ``_pack_one_block``, K6 ``pack_valid_blocks``, K5 ``pack_payload_blocks``,
+K3 ``scatter_blocks_multi`` and K3' ``scatter_blocks``).
 
 Each function has a plain PyTorch twin (``*_plain``, any device) beside
 its wrapper. The wrapper runs the twin for a CPU tensor and the CUDA
@@ -104,6 +104,35 @@ def pack_payload_blocks(key, cols, thresh: int, block: int):
     return [o.view(c.dtype) for o, c in zip(outs, cols)], counts
 
 
+def pack_valid_blocks_plain(key, cols, thresh: int, block: int):
+    """K6 plain version: per block of `block` rows, the rows whose u32 key is
+    below `thresh` move to the block's front in their original order, with
+    the key and every payload column; the rest of the block is (key
+    0xFFFFFFFF, payload 0). Returns (packed key, packed cols, counts [G]
+    int32)."""
+    pk, pcols, counts = pack_blocks_plain(key, cols, thresh, block, carry_key=True)
+    return pk, pcols, counts
+
+
+def pack_valid_blocks(key, cols, thresh: int, block: int):
+    """K6 wrapper (the fold prepass of ``accum.compact_valid``): one or two
+    payload columns of any 32-bit dtypes, a general threshold. The plain
+    version on the CPU, the CUDA kernel on a CUDA tensor.
+
+    The TPU kernel routes rows by a butterfly of lane rolls, since Mosaic has
+    no scatter; that routing is dropped. Here the rank of a row is a
+    block-wide exclusive prefix sum of the valid flags (warp ballots, then a
+    scan of the warp totals in shared memory) and each kept row is one
+    indexed write. The values (order, tail, counts) are the TPU kernel's."""
+    if key.device.type == "cpu":
+        return pack_valid_blocks_plain(key, cols, thresh, block)
+    if not 1 <= len(cols) <= 2:
+        raise ValueError("pack_valid_blocks takes 1 or 2 payload columns")
+    pk, outs, counts = _pack_blocks_cuda(key, cols, thresh, block, carry_key=True)
+    build.LAUNCHES["pack_valid_blocks"] += 1
+    return pk, [o.view(c.dtype) for o, c in zip(outs, cols)], counts
+
+
 def pack_rows(key, w, block: int):
     """K1 wrapper as the trace path uses it: keep rows with key !=
     0xFFFFFFFF, carry the key and one float payload."""
@@ -154,13 +183,11 @@ def scatter_blocks_multi_plain(vals_list, start, out_len: int, block: int,
     return outs
 
 
-def scatter_blocks_multi(vals_list, start, out_len: int, block: int,
+def _scatter_blocks_cuda(vals_list, start, out_len: int, block: int,
                          marker_tail=None):
-    """K3 wrapper (1 to 3 payloads sharing one start vector): plain twin on
-    the CPU, CUDA kernel on a CUDA tensor."""
+    """Launch scatter_blocks_kernel on CUDA tensors (no launch count: K3 and
+    K3' count their own)."""
     dev = vals_list[0].device
-    if dev.type == "cpu":
-        return scatter_blocks_multi_plain(vals_list, start, out_len, block, marker_tail)
     has_tail, t0, tlen, shift, low_or = 0, 0, 0, 0, 0
     if marker_tail is not None:
         t0, tlen, shift, low_or = _check_marker_tail(marker_tail, out_len)
@@ -179,8 +206,18 @@ def scatter_blocks_multi(vals_list, start, out_len: int, block: int,
         build.stream_ptr(dev),
     )
     build.check(code, "scatter_blocks")
-    build.LAUNCHES["scatter_blocks_multi"] += 1
     return [o.view(v.dtype) for o, v in zip(outs, vals_list)]
+
+
+def scatter_blocks_multi(vals_list, start, out_len: int, block: int,
+                         marker_tail=None):
+    """K3 wrapper (1 to 3 payloads sharing one start vector): plain twin on
+    the CPU, CUDA kernel on a CUDA tensor."""
+    if vals_list[0].device.type == "cpu":
+        return scatter_blocks_multi_plain(vals_list, start, out_len, block, marker_tail)
+    outs = _scatter_blocks_cuda(vals_list, start, out_len, block, marker_tail)
+    build.LAUNCHES["scatter_blocks_multi"] += 1
+    return outs
 
 
 def scatter_blocks_plain(vals, start, out_len: int, block: int):
@@ -190,5 +227,9 @@ def scatter_blocks_plain(vals, start, out_len: int, block: int):
 
 def scatter_blocks(vals, start, out_len: int, block: int):
     """K3' wrapper: the K3 kernel with one payload (the TPU VMEM/HBM
-    variants are one kernel here)."""
-    return scatter_blocks_multi([vals], start, out_len, block)[0]
+    variants are one kernel here), counted on its own."""
+    if vals.device.type == "cpu":
+        return scatter_blocks_plain(vals, start, out_len, block)
+    out = _scatter_blocks_cuda([vals], start, out_len, block)[0]
+    build.LAUNCHES["scatter_blocks"] += 1
+    return out

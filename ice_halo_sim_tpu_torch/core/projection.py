@@ -1,12 +1,16 @@
 """Lens projection (port of the forward maps of
-``ice_halo_sim_tpu.core.projection`` that the trace kernel takes).
+``ice_halo_sim_tpu.core.projection``, all eleven lenses).
 
 ``make_proj_plan`` resolves a render's parameters on the host exactly as
-the JAX package does, for every lens. ``project_components`` implements the
-six lenses without inverse trig in their forward math: linear, fisheye
-equal-area and orthographic, their dual forms with the overlap pass, and
-globe; the other lenses raise NotImplementedError. Same float32 operation
-order as the JAX function.
+the JAX package does. ``project_components`` maps exit directions to pixels
+in the same float32 operation order as the JAX function. The six lenses
+without inverse trig in their forward math (``SUPPORTED_LENSES``: linear,
+fisheye equal-area and orthographic, their dual forms, globe) are the ones
+the trace kernel takes; fisheye equidistant and stereographic, their dual
+forms and rectangular go through arccos, tan, arctan2 and arcsin, whose last
+bit differs between XLA, torch on the CPU and CUDA, so a direction on a
+pixel edge may land one pixel over. ``unproject`` is not ported (only the
+overlay of the host side calls it).
 """
 
 from __future__ import annotations
@@ -20,8 +24,8 @@ import torch
 from ice_halo_sim_tpu_torch.config.schema import LensType, RenderConfig, VisibleRange
 from ice_halo_sim_tpu_torch.core.bits import I32, sdiv
 
-# Lenses whose forward projection the port implements (plain and CUDA): the
-# six of the JAX trace kernel.
+# Lenses the trace kernel takes (plain twin and CUDA): the six of the JAX
+# trace kernel. The general trace path renders all eleven.
 SUPPORTED_LENSES = frozenset(
     int(t) for t in (
         LensType.LINEAR,
@@ -34,6 +38,9 @@ SUPPORTED_LENSES = frozenset(
 )
 
 GLOBE_CAMERA_D = 4.0
+PI_F = float(np.float32(np.pi))
+HALF_PI_F = float(np.float32(np.pi / 2))
+TWO_PI_F = float(np.float32(2 * np.pi))
 
 
 class ProjPlan(NamedTuple):
@@ -131,13 +138,25 @@ def make_proj_plan(cfg: RenderConfig) -> ProjPlan:
 
 
 def _fisheye_forward(lens_type: int, dx, dy, dz, r_scale: float):
-    """Equal-area and orthographic forwards; returns (x, y, valid)."""
+    """The four fisheye forwards; returns (x, y, valid)."""
+    all_ok = torch.ones_like(dz, dtype=torch.bool)
     if lens_type in (LensType.FISHEYE_EQUAL_AREA, LensType.DUAL_FISHEYE_EQUAL_AREA):
         k = sdiv(r_scale, torch.sqrt(1.0 + torch.clamp(dz, -1.0 + 1e-6, 1.0)))
-        return k * dx, k * dy, torch.ones_like(dz, dtype=torch.bool)
+        return k * dx, k * dy, all_ok
     if lens_type in (LensType.FISHEYE_ORTHOGRAPHIC, LensType.DUAL_FISHEYE_ORTHOGRAPHIC):
         return r_scale * dx, r_scale * dy, dz >= 0.0
-    raise NotImplementedError(f"lens type {lens_type} needs inverse trig")
+    rho = torch.sqrt(dx * dx + dy * dy)
+    safe_rho = torch.clamp_min(rho, 1e-10)
+    theta = torch.arccos(torch.clamp(dz, -1.0, 1.0))
+    if lens_type in (LensType.FISHEYE_EQUIDISTANT, LensType.DUAL_FISHEYE_EQUIDISTANT):
+        s = r_scale * theta / (HALF_PI_F * safe_rho)
+    elif lens_type in (LensType.FISHEYE_STEREOGRAPHIC,
+                       LensType.DUAL_FISHEYE_STEREOGRAPHIC):
+        s = r_scale * torch.tan(theta * 0.5) / safe_rho
+    else:
+        raise ValueError(f"not a fisheye lens: {lens_type}")
+    s = torch.where(rho < 1e-10, 0.0, s)
+    return s * dx, s * dy, all_ok
 
 
 def _dual_fisheye_pixel(x_norm, y_norm, is_upper, width: int, height: int):
@@ -159,11 +178,6 @@ class PixelHits(NamedTuple):
 def project_components(plan: ProjPlan, wx, wy, wz) -> PixelHits:
     """World exit directions (components) -> pixel hits."""
     t = plan.lens_type
-    if t not in SUPPORTED_LENSES:
-        raise NotImplementedError(
-            f"lens type {LensType(t).name} needs inverse trig: not on the "
-            "trace kernel path"
-        )
     W, H = plan.width, plan.height
     r = plan.rot
 
@@ -184,7 +198,8 @@ def project_components(plan: ProjPlan, wx, wy, wz) -> PixelHits:
         py = torch.floor(y * plan.scale + H / 2.0 + 0.5 + plan.shift_y).to(I32)
         return px, py
 
-    if t in (LensType.LINEAR, LensType.FISHEYE_EQUAL_AREA, LensType.FISHEYE_ORTHOGRAPHIC):
+    if t in (LensType.LINEAR, LensType.FISHEYE_EQUAL_AREA, LensType.FISHEYE_EQUIDISTANT,
+             LensType.FISHEYE_STEREOGRAPHIC, LensType.FISHEYE_ORTHOGRAPHIC):
         valid = torch.ones_like(wx, dtype=torch.bool)
         if plan.visible == VisibleRange.UPPER:
             valid = valid & (wz <= 0.0)
@@ -213,6 +228,21 @@ def project_components(plan: ProjPlan, wx, wy, wz) -> PixelHits:
         return PixelHits(main=in_bounds(px, py, valid),
                          overlap=torch.full_like(px, -1))
 
+    if t == LensType.RECTANGULAR:
+        sx, sy, sz = -wx, -wy, -wz
+        lon = torch.arctan2(sy, sx) - plan.az0
+        lon = torch.remainder(lon + PI_F, TWO_PI_F) - PI_F
+        lat = torch.arcsin(torch.clamp(sz, -1.0, 1.0))
+        raw_x = torch.floor(lon * plan.scale + W / 2.0 + 0.5).to(I32)
+        px = torch.remainder(raw_x, W)
+        py = torch.floor(-lat * plan.scale + H / 2.0 + 0.5).to(I32)
+        valid = (py >= 0) & (py < H)
+        return PixelHits(main=torch.where(valid, py * W + px, -1).to(I32),
+                         overlap=torch.full_like(px, -1))
+
+    if t not in (LensType.DUAL_FISHEYE_EQUAL_AREA, LensType.DUAL_FISHEYE_EQUIDISTANT,
+                 LensType.DUAL_FISHEYE_STEREOGRAPHIC, LensType.DUAL_FISHEYE_ORTHOGRAPHIC):
+        raise ValueError(f"unknown lens type {t}")
     sx, sy, sz = -wx, -wy, -wz
     is_upper = sz >= 0.0
     z_hemi = torch.abs(sz)

@@ -5,7 +5,8 @@ in its static-geometry and blocked-pool modes, with K1
 
 ``build_plan`` resolves the scene into a host-side TracePlan, refusing
 exactly the scenes the JAX ``pallas_trace.build_plan`` refuses (same reason
-text); a refusal raises NotImplementedError, there is no other trace path.
+text, ``refusal_reason``); the engine sends a refused scene down its general
+trace path.
 A deterministic crystal shape gives the static mode (one geometry, baked
 into the plan's tables); a stochastic one gives the blocked-pool mode: the
 engine samples a K-shape pool per batch and hands it over as ``ptbl``

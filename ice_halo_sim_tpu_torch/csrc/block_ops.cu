@@ -2,6 +2,8 @@
 //
 // Replaces, in ice_halo_sim_tpu/core/pallas_ops.py:
 //   K1 _pack_one_block (:245)        stable in-block compaction
+//   K6 pack_valid_blocks (:301)      K1 per 4096-row block with the key carried,
+//                                    one or two payload columns, any threshold
 //   K5 pack_payload_blocks (:365)    K1 per 4096-row block, key as mask only
 //   K3 scatter_blocks_multi (:436)   forward-overwrite block scatter + marker tail
 //   K3' scatter_blocks (:549) with _scatter_vmem (:104) / _scatter_hbm (:147)

@@ -2,11 +2,14 @@
 
 The JAX package's checkpoint (``ice_halo_sim_tpu.engine.checkpoint``) is an
 .npz with a JSON ``header`` (format_version, project, seed, batch_size,
-geom_clock, batch_counter, stats, n_accum) and ``accum_0..accum_{n-1}``: one [P, 3(+L)]
-image per render, then the [R] landed weights. It is read here with numpy
+geom_clock, batch_counter, stats, n_accum, slot_cap) and
+``accum_0..accum_{n-1}``: one [P, 3 + L] image per render (XYZ and one Y lane
+per colour class), then the [R] landed weights. It is read here with numpy
 alone; the returned port Engine continues the same random streams from the
 saved batch counter. A JAX engine that raised its geom_clock to 128 for a
 stochastic shape saved 128, so the resumed engine samples the same pool.
+The saved exit-slot cap changes which (accounted) exit rows accumulate, so
+the resumed engine takes it instead of calibrating its own.
 """
 
 from __future__ import annotations
@@ -38,9 +41,9 @@ def load_jax_checkpoint(path: str, device="cuda", kernels=None) -> Engine:
         raise ValueError("checkpoint accumulator count mismatch")
     accum = []
     for saved, fresh in zip(arrays[:-1], engine.accum[:-1]):
-        if saved.shape[0] != fresh.shape[0] or saved.ndim != 2 or saved.shape[1] < 3:
+        if saved.shape != tuple(fresh.shape):
             raise ValueError(f"checkpoint accumulator shape {saved.shape} != {tuple(fresh.shape)}")
-        accum.append(torch.as_tensor(saved[:, :3].astype(np.float32)).to(engine.device))
+        accum.append(torch.as_tensor(saved.astype(np.float32)).to(engine.device))
     landed = arrays[-1]
     if landed.shape != tuple(engine.accum[-1].shape):
         raise ValueError(f"checkpoint landed shape {landed.shape} mismatch")
@@ -49,5 +52,8 @@ def load_jax_checkpoint(path: str, device="cuda", kernels=None) -> Engine:
     engine.batch_counter = int(header["batch_counter"])
     fields = set(Stats._fields)
     engine.stats = Stats(**{k: v for k, v in header["stats"].items() if k in fields})
+    if header.get("slot_cap") is not None and engine._trace_plan is None:
+        engine._slot_cap = int(header["slot_cap"])
+        engine._recompute_rows_per_render()
     return engine
 

@@ -1,24 +1,46 @@
-"""The port's engine: host loop over batches on one torch device (the
-kernel-path subset of ``ice_halo_sim_tpu.engine.simulator.Engine``).
+"""The port's engine: host loop over batches on one torch device (port of
+``ice_halo_sim_tpu.engine.simulator.Engine`` with the sort fold).
 
-One batch = [the K-shape pool sampler, for a stochastic crystal shape] ->
-trace_emit (K2 or K2b, + K1) -> per render: the sort fold. Before
-calibration the fold takes every trace row (``fold_spectral_keys``); after
-the first batch, ``keep`` = the measured live rows times _KEEP_MARGIN,
-rounded up to the 4096-row extraction block, and a batch whose live rows
-fit runs the block scatter (K3) with the marker tail straight into the
-premerged fold. The live count needs one device-to-host read per batch
-and render (``host_syncs`` counts them).
+A scene takes one of two trace paths, as in the JAX engine:
+  - the trace kernel (K2 or K2b, + K1) when ``trace_emit.refusal_reason`` is
+    None: one layer, one crystal setting, no filter, no colour class, a lens
+    the kernel takes. One batch = [the K-shape pool sampler, for a
+    stochastic shape] -> trace_emit -> per render the sort fold; after
+    calibration the block scatter (K3) with the marker tail feeds the
+    premerged fold;
+  - the general path otherwise, or when IHT_PALLAS_TRACE is 0/off: every
+    layer's pool sampler and ``trace_soa.trace_layer_soa`` in plain torch on
+    the device (they are XLA, not Pallas, in the JAX package), the filter,
+    probability and emit-floor gates, colour bits, the slot cap, projection
+    into every render, the continuation between layers, then per render
+    ``pack_spectral_keys`` and the sort fold; after calibration
+    ``accum.compact_valid`` (K6 + K3') shortens the rows to ``keep`` first.
+``Engine.trace_path`` says which one ran. The two differ on purpose, as in
+the JAX package: the emit-floor scale is analytic on the kernel path and the
+batch mean of the initial weights on the general path, and only the general
+path has a slot cap. With IHT_MIN_EMIT_W=0 and IHT_SLOT_CAP=off they give
+the same image.
+
+Calibration after the first batch (one host read): the exit-slot cap from
+the per-rank mass histogram, the continuation capacities from the measured
+demand, and ``keep`` per render = live rows times _KEEP_MARGIN rounded up to
+the 4096-row block. The live counts of a batch are read once per batch, and
+the continuation's live count once per layer boundary (``host_syncs``).
 
 Differences from the JAX engine, all deliberate:
-  - no silent degrade: a scene outside the kernel path raises
-    NotImplementedError, a failing kernel raises, the engine never moves
-    to another device;
+  - no silent degrade: a failing kernel raises, the engine never moves to
+    another device or path; keys that do not pack (the legacy dense-value
+    fold) and the sandwich fold are not ported and raise or are absent;
   - batches are a Python loop (no multi-batch dispatch), so calibration
-    reads the first batch alone;
-  - the premerged fold runs whenever keep is set (the JAX engine also
-    needs its scatter's VMEM output budget), and the v5e sort-size snap
-    of keep is gone.
+    reads the first batch alone, and the choice between the compacted and
+    the full fold, and between the block-sorted and the globally sorted
+    continuation, is a host branch on a count read from the device;
+  - the sort-size snap of ``keep`` and the scatter-output row budget, both
+    tuned to another accelerator's memory, are gone;
+  - the continuation's order inside a block is a function of the rows (the
+    JAX block sort is unstable), so the CPU and the card agree with each
+    other; against JAX a multi-layer image agrees statistically, not ray
+    for ray.
 """
 
 from __future__ import annotations
@@ -29,9 +51,13 @@ import numpy as np
 import torch
 
 from ice_halo_sim_tpu_torch.config.schema import (
+    FilterAction,
+    FilterConfig,
+    NoneFilter,
     PrismShape,
     ProjectConfig,
     PyramidShape,
+    RaypathFilter,
     sync_group_leaders,
 )
 from ice_halo_sim_tpu_torch.core import latlut
@@ -39,20 +65,26 @@ from ice_halo_sim_tpu_torch.utils import env_knobs
 from ice_halo_sim_tpu_torch.core import accum as accum_mod
 from ice_halo_sim_tpu_torch.core import (
     color,
+    filters,
     geometry,
+    optics,
     projection,
     pyramid,
     rng,
     sampling,
     trace,
     trace_emit,
+    trace_soa,
 )
-from ice_halo_sim_tpu_torch.core.bits import F32, I32, I64, MASK32
+from ice_halo_sim_tpu_torch.core.bits import F32, I32, I64, MASK32, from_bits, to_bits
 from ice_halo_sim_tpu_torch.kernels import kernel_set
 
 DEFAULT_BATCH = 1 << 17
 DEFAULT_GEOM_CLOCK = 32
-LAYER_STRIDE = 2  # ray-base stride in batches: batch_size * (n_layers + 1)
+# Component-mask bit budget of the colour classes; predicates past it stop
+# producing bits (colouring degrades, the commit does not fail).
+COLOR_PREDICATE_CAP = 32
+LAYER_NONCE = 0xA5A5
 
 
 def largest_remainder_partition(total: int, proportions) -> list:
@@ -71,9 +103,12 @@ def largest_remainder_partition(total: int, proportions) -> list:
 
 
 class LayerPlan(NamedTuple):
-    """Host-side plan of the first scattering layer, per crystal setting."""
+    """Host-side plan of one scattering layer, per crystal setting."""
 
     prob: float
+    n_settings: int
+    setting_idx: np.ndarray     # [B_layer] lane -> setting
+    shape_base: np.ndarray      # [B_layer] lane -> geom-clock block
     setting_counts: list        # rays per setting
     k_per_setting: list         # shapes per setting in the pool
     axis_params: sampling.AxisParams
@@ -81,6 +116,10 @@ class LayerPlan(NamedTuple):
     shape_param_arrays: list    # per setting: distribution params and RNG slots
     deterministic_shape: list   # per setting bool
     deterministic_axis: list    # per setting bool
+    filter_plans: list          # per setting Optional[filters.FilterPlan]
+    color_plans: list           # per setting [(bit index, filters.FilterPlan)]
+    crystal_ids: list           # per setting crystal id of the config
+    cont_cap: int               # lanes of the continuation buffer feeding this layer
 
 
 def _dist_params(d) -> tuple:
@@ -103,15 +142,43 @@ class Stats(NamedTuple):
     deterministic_orientation_count: int = 0
 
 
+def _uniform_slots(seed_vec, ray_idx, slots):
+    """One uniform draw per (slot, ray): stream (seed, ray index), draw slot
+    slots[h] ([H, 1] int64). Returns [H, B]."""
+    idx = rng._t(ray_idx)[None, :]
+    inner = rng.pcg_hash((idx * 1000003 + slots) & MASK32)
+    return rng.u01(rng.pcg_hash(rng._t(seed_vec)[None, :] ^ inner))
+
+
+def weight_bucket(w):
+    """clip(floor(log2(max(w, 1e-30))) + 130, 2, 255) of float32 weights, as
+    int64: the continuation's weight bucket. floor(log2) of a positive
+    normal float32 is its exponent field less 127, so this is an integer
+    stage with no transcendental in it, the same on every device. (A log2
+    rounded to float32 gives the integer above for the last float32 below a
+    power of two; the exponent field gives the exact floor there.)"""
+    bits = torch.clamp_min(w, 1e-30).contiguous().view(I32).to(I64)
+    return torch.clamp(((bits >> 23) & 0xFF) - 127 + 130, 2, 255)
+
+
+def shuffle_hash(n_rows: int, layer_seed: int, batch_counter: int, device):
+    """The continuation's per-row hash: fresh per layer and per batch."""
+    salt = (int(layer_seed) ^ rng.NONCE_SHUFFLE
+            ^ int(rng.pcg_hash(int(batch_counter) & MASK32))) & MASK32
+    return rng.pcg_hash(torch.arange(n_rows, dtype=I64, device=device) ^ salt)
+
+
 class Engine:
     """Commit a config, pump batches, snapshot images.
 
     device: the torch device everything lives on (default "cuda").
-    geom_clock: rays per sampled crystal shape; a stochastic shape needs
-    128 (one shape per 128-thread block of the trace kernel), and the
-    default is raised to that, while a pinned other value raises.
+    geom_clock: rays per sampled crystal shape; on the kernel path a
+    stochastic shape needs 128 (one shape per 128-thread block of the trace
+    kernel), and the default is raised to that.
     kernels: "cuda" (the CUDA kernels; the default on a CUDA device) or
-    "plain" (the plain PyTorch twins; the only choice on the CPU).
+    "plain" (the plain PyTorch versions; the only choice on the CPU).
+    accum_method: "sort" (the default on every device) or "scatter"
+    (index_add_, the oracle of the tests; general path only).
     """
 
     _KEEP_MARGIN = 1.06
@@ -119,7 +186,8 @@ class Engine:
     def __init__(self, cfg: ProjectConfig, seed: int = 1,
                  batch_size: int = DEFAULT_BATCH, device="cuda",
                  kernels: Optional[str] = None,
-                 geom_clock: int = DEFAULT_GEOM_CLOCK):
+                 geom_clock: int = DEFAULT_GEOM_CLOCK,
+                 accum_method: str = "sort"):
         self.cfg = cfg
         self.seed = int(seed) & 0xFFFFFFFF
         self.batch_size = int(batch_size)
@@ -129,8 +197,10 @@ class Engine:
             kernels = "cuda" if self.device.type == "cuda" else "plain"
         if kernels == "cuda" and self.device.type != "cuda":
             raise ValueError("kernels='cuda' needs a CUDA device; use kernels='plain'")
+        if accum_method not in ("sort", "scatter"):
+            raise ValueError(f"accum_method must be 'sort' or 'scatter', got {accum_method!r}")
+        self.accum_method = accum_method
         self.ks = kernel_set(kernels)
-        self.max_hits = int(cfg.scene.max_hits)
         self.min_emit_frac = float(env_knobs.get("IHT_MIN_EMIT_W", 1e-3))
         self.emit_floor_mode = str(env_knobs.get("IHT_EMIT_FLOOR", "rr")).lower()
         self._compact_enabled = str(env_knobs.get("IHT_COMPACT", "1")) not in (
@@ -139,91 +209,189 @@ class Engine:
         self._build_plan()
         self._build_wavelengths()
         self._build_renders()
+        if not self.spectral_ok:
+            raise NotImplementedError(
+                "the scene's (pixel, wavelength) keys do not pack into 32 bits: the "
+                "legacy dense-value fold is not ported")
+        # Exit-slot cap of the general path. None = calibrating: the first
+        # batch measures the per-live-rank mass histogram and the smallest
+        # cap whose dropped tail is under 1e-4 of the emitted mass is taken.
+        # IHT_SLOT_CAP: "off" disables, an int pins it.
+        cap_knob = env_knobs.get("IHT_SLOT_CAP")
+        if cap_knob is None or str(cap_knob) == "auto":
+            self._slot_cap = None
+        elif str(cap_knob).lower() in ("off", "0"):
+            self._slot_cap = self.max_hits
+        else:
+            self._slot_cap = max(1, min(self.max_hits, int(cap_knob)))
+        self._choose_trace_path()
+        self._recompute_rows_per_render()
+        self._compact_keep = None
+        self._calibrated = False
+        self.host_syncs = 0
+        self.reset()
+
+    def _choose_trace_path(self) -> None:
+        """The trace kernel when it takes the scene, the general path
+        otherwise; IHT_PALLAS_TRACE=0 (or off) forces the general path."""
+        self._trace_plan = None
+        if str(env_knobs.get("IHT_PALLAS_TRACE", "auto")).lower() in ("0", "off"):
+            self._kernel_reason = "trace kernel switched off (IHT_PALLAS_TRACE)"
+            return
+        if self.accum_method != "sort":
+            self._kernel_reason = "needs the sort fold with packable spectral keys"
+            return
         reason = trace_emit.refusal_reason(self)
         if (reason is not None and reason.startswith("stochastic crystal")
                 and self.geom_clock == DEFAULT_GEOM_CLOCK):
             # The blocked-pool trace mode needs one shape per 128 rays;
             # geom_clock is a sharing granularity that does not change the
             # image's expectation, so the default moves. A pinned value is
-            # respected (and refused).
+            # respected (the scene then takes the general path).
             self.geom_clock = trace_emit.POOL_GEOM_CLOCK
             self._build_plan()
-        self._trace_plan = trace_emit.build_plan(self)
-        self._compact_keep = None
-        self._calibrated = False
-        self.host_syncs = 0
-        self.reset()
+            reason = trace_emit.refusal_reason(self)
+        self._kernel_reason = reason
+        if reason is None:
+            self._trace_plan = trace_emit.build_plan(self)
+            # The kernel keeps every live exit row: no slot cap there.
+            self._slot_cap = self.max_hits
 
     # ------------------------------------------------------------------
     # Plan build (host)
     # ------------------------------------------------------------------
 
-    def _build_plan(self) -> None:
-        """The first layer's per-setting plan (the trace kernel path takes
-        single-layer, single-setting scenes; build_plan refuses the rest)
-        and the two-rule stats constants over every layer."""
+    def _build_color_bits(self):
+        """One component bit per raypath-colour predicate, with its match
+        plan. Returns ({(layer, crystal_id): [(bit, plan)]}, [(class mask,
+        combine_all)]). Predicates past COLOR_PREDICATE_CAP produce no bit
+        and are counted in color_overflow_count."""
+        by_placement = {}
+        class_defs = []
+        bit = 0
+        self.color_overflow_count = 0
+        rc = self.cfg.raypath_color
+        if rc is None:
+            return by_placement, class_defs
+        for cls in rc.classes:
+            mask = 0
+            for pred in cls.predicates:
+                if bit >= COLOR_PREDICATE_CAP:
+                    self.color_overflow_count += 1
+                    continue
+                crystal = self.cfg.crystals[pred.crystal_id]
+                param = RaypathFilter(raypath=pred.raypath) if pred.raypath else NoneFilter()
+                plan = filters.build_filter_plan(
+                    FilterConfig(id=0, param=param, symmetry=pred.symmetry,
+                                 action=FilterAction.FILTER_IN),
+                    crystal.axis, self.cfg.filters, pred.crystal_id,
+                )
+                by_placement.setdefault((pred.layer, pred.crystal_id), []).append((bit, plan))
+                mask |= 1 << bit
+                bit += 1
+            class_defs.append((mask, cls.combine_all))
+        return by_placement, class_defs
+
+    def _build_plan(self, cont_caps=None) -> None:
+        """Per-layer plans and the two-rule stats constants. cont_caps:
+        optional per-layer lane counts (index >= 1) that override the
+        continuation-capacity heuristic (the calibrated path)."""
         cfg = self.cfg
+        self.max_hits = int(cfg.scene.max_hits)
+        color_by_placement, self.color_classes = self._build_color_bits()
         g = self.geom_clock
         # Whole geom-clock blocks, so the ray -> pool-shape map is exactly
         # lane // geom_clock.
         self.batch_size = -(-self.batch_size // g) * g
-        ms = cfg.scene.layers[0]
-        blocks = largest_remainder_partition(
-            self.batch_size // g, [e.proportion for e in ms.entries])
-        counts = [b * g for b in blocks]
-        axes, kinds, params, det_shape, det_axis = [], [], [], [], []
-        for e in ms.entries:
-            crystal = cfg.crystals[e.crystal_id]
-            axes.append(crystal.axis)
-            det_axis.append(crystal.axis.is_deterministic())
-            shape = crystal.shape
-            det_shape.append(shape.is_deterministic())
-            # A synced member consumes its group leader's RNG slot, so the
-            # group shares one raw draw per crystal instance.
-            leaders = sync_group_leaders(shape.sync_group)
-            if isinstance(shape, PrismShape):
-                kinds.append("prism")
-                slot_of = [0] + [2 + 2 * i for i in range(6)]
-                params.append({
-                    "h": _dist_params(shape.height),
-                    "d": [_dist_params(x) for x in shape.face_distance],
-                    "h_slot": slot_of[leaders[0]],
-                    "d_slots": [slot_of[leaders[1 + i]] for i in range(6)],
-                })
-            elif isinstance(shape, PyramidShape):
-                kinds.append("pyramid")
-                slot_of = [0, 2, 4] + [6 + 2 * i for i in range(6)]
-                params.append({
-                    "u": _dist_params(shape.upper_h),
-                    "p": _dist_params(shape.prism_h),
-                    "l": _dist_params(shape.lower_h),
-                    "au": float(shape.wedge_angle_u),
-                    "al": float(shape.wedge_angle_l),
-                    "d": [_dist_params(x) for x in shape.face_distance],
-                    "u_slot": slot_of[leaders[0]],
-                    "p_slot": slot_of[leaders[1]],
-                    "l_slot": slot_of[leaders[2]],
-                    "d_slots": [slot_of[leaders[3 + i]] for i in range(6)],
-                })
+        layers = []
+        b_prev = self.batch_size
+        det_crystals = det_orients = 0
+        for li, ms in enumerate(cfg.scene.layers):
+            if li == 0:
+                b_layer = self.batch_size
             else:
-                raise ValueError(f"unsupported shape {type(shape)}")
-        luts = [latlut.build_lat_lut(a.latitude) for a in axes]
-        # A deterministic shape is ONE pool row: every geom-clock block
-        # would sample the identical crystal.
-        k_per = [0 if c == 0 else (1 if det else max(1, b))
-                 for c, b, det in zip(counts, blocks, det_shape)]
-        self.layer0 = LayerPlan(
-            prob=float(ms.prob),
-            setting_counts=counts, k_per_setting=k_per,
-            axis_params=sampling.make_axis_params(axes, luts),
-            shape_kinds=kinds, shape_param_arrays=params,
-            deterministic_shape=det_shape, deterministic_axis=det_axis,
-        )
+                # Continuation capacity: the expected continuations with
+                # slack (a prism ray leaves about 0.67 * max_hits exit slots
+                # live, each continuing with probability p), clamped by the
+                # hard maximum. Overflow drops the lowest-weight rows first
+                # and is accounted in dropped_cont_weight.
+                p_prev = cfg.scene.layers[li - 1].prob
+                expect = b_prev * min(1.3 * p_prev * 0.67 * self.max_hits,
+                                      float(self.max_hits))
+                b_layer = int(min(max(expect, 1024), b_prev * self.max_hits))
+                if cont_caps is not None and cont_caps[li] is not None:
+                    b_layer = min(b_layer, max(int(cont_caps[li]), 1024))
+                b_layer = -(-b_layer // (256 * g)) * (256 * g)
+            blocks = largest_remainder_partition(
+                b_layer // g, [e.proportion for e in ms.entries])
+            counts = [b * g for b in blocks]
+            axes, kinds, params, det_shape, det_axis = [], [], [], [], []
+            filter_plans, color_plans, crystal_ids = [], [], []
+            for e in ms.entries:
+                crystal = cfg.crystals[e.crystal_id]
+                axes.append(crystal.axis)
+                det_axis.append(crystal.axis.is_deterministic())
+                det_orients += crystal.axis.is_deterministic()
+                shape = crystal.shape
+                det_shape.append(shape.is_deterministic())
+                det_crystals += shape.is_deterministic()
+                # A synced member consumes its group leader's RNG slot, so the
+                # group shares one raw draw per crystal instance.
+                leaders = sync_group_leaders(shape.sync_group)
+                if isinstance(shape, PrismShape):
+                    kinds.append("prism")
+                    slot_of = [0] + [2 + 2 * i for i in range(6)]
+                    params.append({
+                        "h": _dist_params(shape.height),
+                        "d": [_dist_params(x) for x in shape.face_distance],
+                        "h_slot": slot_of[leaders[0]],
+                        "d_slots": [slot_of[leaders[1 + i]] for i in range(6)],
+                    })
+                elif isinstance(shape, PyramidShape):
+                    kinds.append("pyramid")
+                    slot_of = [0, 2, 4] + [6 + 2 * i for i in range(6)]
+                    params.append({
+                        "u": _dist_params(shape.upper_h),
+                        "p": _dist_params(shape.prism_h),
+                        "l": _dist_params(shape.lower_h),
+                        "au": float(shape.wedge_angle_u),
+                        "al": float(shape.wedge_angle_l),
+                        "d": [_dist_params(x) for x in shape.face_distance],
+                        "u_slot": slot_of[leaders[0]],
+                        "p_slot": slot_of[leaders[1]],
+                        "l_slot": slot_of[leaders[2]],
+                        "d_slots": [slot_of[leaders[3 + i]] for i in range(6)],
+                    })
+                else:
+                    raise ValueError(f"unsupported shape {type(shape)}")
+                crystal_ids.append(e.crystal_id)
+                filter_plans.append(
+                    None if e.filter_id == 0 else filters.build_filter_plan(
+                        cfg.filters[e.filter_id], crystal.axis, cfg.filters, e.crystal_id))
+                color_plans.append(color_by_placement.get((li, e.crystal_id), []))
+            luts = [latlut.build_lat_lut(a.latitude) for a in axes]
+            # A deterministic shape is ONE pool row: every geom-clock block
+            # would sample the identical crystal.
+            k_per = [0 if c == 0 else (1 if det else max(1, b))
+                     for c, b, det in zip(counts, blocks, det_shape)]
+            layers.append(LayerPlan(
+                prob=float(ms.prob), n_settings=len(ms.entries),
+                setting_idx=np.repeat(np.arange(len(ms.entries), dtype=np.int32), counts),
+                shape_base=np.arange(b_layer, dtype=np.int32) // g,
+                setting_counts=counts, k_per_setting=k_per,
+                axis_params=sampling.make_axis_params(axes, luts),
+                shape_kinds=kinds, shape_param_arrays=params,
+                deterministic_shape=det_shape, deterministic_axis=det_axis,
+                filter_plans=filter_plans, color_plans=color_plans,
+                crystal_ids=crystal_ids, cont_cap=b_layer,
+            ))
+            b_prev = b_layer
+        self.layers = layers
+        self.layer0 = layers[0]
         self.axis_params = self.layer0.axis_params
-        entries = [cfg.crystals[e.crystal_id] for l in cfg.scene.layers for e in l.entries]
-        self.det_crystal_count = sum(c.shape.is_deterministic() for c in entries)
-        self.det_orientation_count = sum(c.axis.is_deterministic() for c in entries)
-        self.any_pyramid = any(isinstance(c.shape, PyramidShape) for c in entries)
+        self.det_crystal_count = int(det_crystals)
+        self.det_orientation_count = int(det_orients)
+        self.any_pyramid = any(k == "pyramid" for l in layers for k in l.shape_kinds)
 
     def _build_wavelengths(self) -> None:
         light = self.cfg.light
@@ -251,24 +419,62 @@ class Engine:
         self.spd_table = (color.illuminant_spd_fast(self.illuminant, pool_wl)
                           if self.wl_mode == "illuminant" else None)
         self.basis_tbl = color.cmf_eval(pool_wl).to(self.device)
+        # Device copies of the per-ray wavelength tables.
+        if self.wl_mode == "illuminant":
+            self._w0_tbl = self.spd_table.to(self.device)
+            self._wl_tbl = None
+        else:
+            self._w0_tbl = torch.as_tensor(self.wl_weights).to(self.device)
+            self._wl_tbl = torch.as_tensor(self.wl_values).to(self.device)
 
     def _wl_from_idx(self, wl_idx):
-        """Wavelength of pool entry wl_idx (host, float32)."""
+        """Wavelength of pool entry wl_idx (float32, on wl_idx's device)."""
         if self.wl_mode == "discrete":
             # Pool entries past the table clamp to its last wavelength, as
-            # the JAX gather does (only a refused, non-power-of-two table
-            # has them).
+            # the JAX gather does.
             n = len(self.wl_values)
-            return torch.as_tensor(self.wl_values)[torch.clamp(wl_idx.long(), max=n - 1)]
+            tbl = torch.as_tensor(self.wl_values).to(wl_idx.device)
+            return tbl[torch.clamp(wl_idx.long(), max=n - 1)]
         k = float(np.float32(400.0 / self.k_pool))
         return 380.0 + (wl_idx.to(F32) + 0.5) * k
+
+    def _wavelength_draw(self, ray_idx, seed_vec):
+        """Per-ray (wavelength, initial weight, pool index). Discrete
+        spectra cycle through their table by ray index; an illuminant draws
+        a continuous wavelength for the physics, and its pool stratum
+        quantises only the SPD weight and the fold's CIE basis."""
+        if self.wl_mode == "discrete":
+            wl_idx = ray_idx % len(self.wl_values)
+            return self._wl_tbl[wl_idx], self._w0_tbl[wl_idx], wl_idx
+        seed = seed_vec ^ rng.NONCE_WL ^ 0x6A09E667
+        u = rng.uniform(seed, ray_idx, 0)
+        wl = 380.0 + u * 400.0
+        wl_idx = torch.clamp_max((u * self.k_pool).to(I32), self.k_pool - 1).to(I64)
+        return wl, self._w0_tbl[wl_idx], wl_idx
 
     def _build_renders(self) -> None:
         self.proj_plans = [projection.make_proj_plan(r) for r in self.cfg.renders]
 
+    def _recompute_rows_per_render(self) -> None:
+        """Contribution rows per render and batch (static)."""
+        if self._trace_plan is not None:
+            g = self._trace_plan.n_blocks
+            self._rows_per_render = [g * rb for rb in self._trace_plan.rows_block]
+            return
+        cap = min(self._slot_cap if self._slot_cap is not None else self.max_hits,
+                  self.max_hits)
+        self._rows_per_render = [
+            sum(plan.cont_cap * cap for plan in self.layers)
+            * (2 if p.max_abs_dz > 0.0 else 1)
+            for p in self.proj_plans
+        ]
+
     def reset(self) -> None:
+        """One accumulator per render, [H*W, 3 + n_classes] (XYZ plus one Y
+        lane per colour class), then the [R] landed weights."""
+        n_ch = 3 + len(self.color_classes)
         self.accum = [
-            torch.zeros((p.height * p.width, 3), dtype=F32, device=self.device)
+            torch.zeros((p.height * p.width, n_ch), dtype=F32, device=self.device)
             for p in self.proj_plans
         ] + [torch.zeros(len(self.proj_plans), dtype=F32, device=self.device)]
         self.stats = Stats(
@@ -285,27 +491,31 @@ class Engine:
 
     @property
     def trace_path(self) -> str:
-        """'cuda-trace-kernel' or 'plain-torch'."""
-        return "cuda-trace-kernel" if self.ks.name == "cuda" else "plain-torch"
+        """'cuda-trace-kernel', 'general', or 'plain-torch' with the path
+        named when the plain kernel set runs."""
+        path = "trace-kernel" if self._trace_plan is not None else "general"
+        if self.ks.name == "cuda":
+            return "cuda-trace-kernel" if path == "trace-kernel" else "general"
+        return "plain-torch" if path == "trace-kernel" else "plain-torch (general)"
 
     @property
     def fold_kind(self) -> str:
-        return "sort"
+        return self.accum_method
 
     # ------------------------------------------------------------------
-    # Batch step
+    # Pool sampler
     # ------------------------------------------------------------------
 
-    def _sample_layer_pool(self, batch_counter: int, device=None) -> trace.GeomPool:
-        """The first layer's K-shape geometry pool of one batch (plain torch
-        on `device`; the JAX package samples it in XLA, outside any kernel).
+    def _sample_layer_pool(self, batch_counter: int, device=None, li: int = 0) -> trace.GeomPool:
+        """Layer li's K-shape geometry pool of one batch (plain torch on
+        `device`; the JAX package samples it in XLA, outside any kernel).
 
         The shape index is 64 bits wide: batch_counter * k_total passes
         2^32 within a long render, and its high word is mixed into the seed
         as the ray-base epoch is."""
-        plan = self.layer0
+        plan = self.layers[li]
         device = self.device if device is None else device
-        seed0 = self.seed ^ rng.NONCE_GEOM_SHAPE
+        seed0 = self.seed ^ rng.NONCE_GEOM_SHAPE ^ ((li * 0x9E37) & MASK32)
         kb = (int(batch_counter) & MASK32) * sum(plan.k_per_setting)
         kb_lo, kb_hi = kb & MASK32, (kb >> 32) & MASK32
         layer_nf = geometry.PYRAMID_FACES if "pyramid" in plan.shape_kinds \
@@ -348,6 +558,331 @@ class Engine:
         return (feat.reshape(feat.shape[0], -1).contiguous(),
                 tfeat.reshape(tfeat.shape[0], -1).contiguous())
 
+    # ------------------------------------------------------------------
+    # General trace path
+    # ------------------------------------------------------------------
+
+    def _segment_masks(self, plan: LayerPlan, per_setting, H: int):
+        """Concatenate one [H, count_s] tensor per non-empty setting."""
+        parts = []
+        off = 0
+        for s, c in enumerate(plan.setting_counts):
+            if c == 0:
+                continue
+            parts.append(per_setting(s, slice(off, off + c), c))
+            off += c
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+    def _trace_batch_impl(self, base_lo: int, base_hi: int, batch_counter: int,
+                          n_active: Optional[int] = None):
+        """One batch through every layer: sample -> trace -> gates ->
+        project. Returns (contribs, landed_add [R], dropped_w, seg_count,
+        cont_demand, slot_mass); contribs holds per render the spectral
+        contribution rows (pix int32, w, wl_idx, mask), and cont_demand the
+        live continuation count of every layer boundary (host ints, one
+        read each). Lanes >= n_active start with zero weight (the
+        exact-budget tail batch)."""
+        dev = self.device
+        B = self.batch_size
+        H = self.max_hits
+        base_lo = int(base_lo) & MASK32
+        base_hi = int(base_hi) & MASK32
+        seed0 = self.seed
+        lane = torch.arange(B, dtype=I64, device=dev)
+        ray_idx = (base_lo + lane) & MASK32
+        seed_vec = rng.epoch_seed(seed0, base_lo, base_hi, ray_idx)
+        wl, w0, wl_idx = self._wavelength_draw(ray_idx, seed_vec)
+        # Emit-floor scale of the general path: the batch's mean initial
+        # weight (the kernel path takes the analytic mean of the table).
+        w_scale = torch.mean(w0)
+        if n_active is not None:
+            w0 = torch.where(lane < int(n_active), w0, 0.0)
+        n_ior = optics.ice_refractive_index(wl)
+        sun = self.cfg.light.sun
+        d_world = sampling.sample_sun_dirs_soa(
+            seed_vec ^ rng.NONCE_SUN, ray_idx, sun.azimuth, sun.altitude, sun.diameter)
+
+        n_renders = len(self.proj_plans)
+        n_classes = len(self.color_classes)
+        contrib_rows = [[] for _ in range(n_renders)]
+        landed_add = [torch.zeros((), dtype=F32, device=dev) for _ in range(n_renders)]
+        dropped_w = torch.zeros((), dtype=F32, device=dev)
+        carried_mask = torch.zeros(B, dtype=I64, device=dev)
+        seg_count = torch.zeros((), dtype=I64, device=dev)
+        slot_mass = torch.zeros(H, dtype=F32, device=dev)
+        cont_demand = []
+        n_layers = len(self.layers)
+        slot_ids = torch.arange(H, dtype=I64, device=dev)[:, None]
+        slot_len = torch.arange(1, H + 1, dtype=I64, device=dev)[:, None]
+        for li, plan in enumerate(self.layers):
+            layer_nonce = (LAYER_NONCE * (li + 1)) & MASK32
+            layer_seed = seed0 ^ layer_nonce          # scalar: the shuffle hash
+            pool = self._sample_layer_pool(batch_counter, li=li)
+            layer_seed_vec = seed_vec ^ layer_nonce
+
+            # Orientation: one contiguous segment of lanes per setting.
+            rot_parts = []
+            off = 0
+            for s, c in enumerate(plan.setting_counts):
+                if c == 0:
+                    continue
+                rot_parts.append(sampling.sample_rot_row(
+                    layer_seed_vec[off:off + c] ^ rng.NONCE_ORIENT,
+                    ray_idx[off:off + c], plan.axis_params, s, lut_loop=True))
+                off += c
+            rot = tuple(rot_parts[0][i] if len(rot_parts) == 1
+                        else torch.cat([p[i] for p in rot_parts]) for i in range(9))
+
+            exits = trace_soa.trace_layer_soa(
+                layer_seed_vec, ray_idx, d_world, w0, rot, pool, n_ior, H,
+                setting_blocks=tuple(zip(plan.k_per_setting, plan.setting_counts)))
+            exit_w = exits.w                                   # [H, B_l]
+            b_l = exit_w.shape[1]
+            # Traced segments = the deepest live exit slot of each ray.
+            seg_count = seg_count + torch.where(exit_w > 0.0, slot_len, 0).amax(dim=0).sum()
+
+            def check(fplan, sl, live_slots):
+                return filters.check_exits_prefix_soa(
+                    fplan, exits.path[:, sl], live_slots[:, sl],
+                    (exits.dx[:, sl], exits.dy[:, sl], exits.dz[:, sl]))
+
+            # Filter gate: a failing exit neither accumulates nor continues.
+            if any(fp is not None for fp in plan.filter_plans):
+                live_slots = exit_w > 0.0
+
+                def verdict(s, sl, c, live_slots=live_slots):
+                    fp = plan.filter_plans[s]
+                    if fp is None:
+                        return torch.ones((H, c), dtype=torch.bool, device=dev)
+                    return check(fp, sl, live_slots)
+
+                exit_w = torch.where(self._segment_masks(plan, verdict, H), exit_w, 0.0)
+
+            # Probability gate per exit slot (stream: ray index, slot 100 + h).
+            is_last = li == n_layers - 1
+            to_continue = None
+            acc_mask = None
+            if plan.prob > 0.0:
+                u = _uniform_slots(layer_seed_vec ^ rng.NONCE_GATE, ray_idx, 100 + slot_ids)
+                if is_last:
+                    acc_mask = u >= plan.prob      # would-continue rays are dropped
+                else:
+                    to_continue = (u < plan.prob) & (exit_w > 0.0)
+                    acc_mask = ~to_continue
+
+            # Component mask per exit: the carried bits OR the bits of this
+            # layer's colour predicates, matched per setting on the exit's path.
+            exit_mask = carried_mask[None, :].expand(H, b_l)
+            if n_classes and any(plan.color_plans):
+                live_slots = exit_w > 0.0
+
+                def bits_of(s, sl, c, live_slots=live_slots):
+                    bits = torch.zeros((H, c), dtype=I64, device=dev)
+                    for bit_idx, cplan in plan.color_plans[s]:
+                        bits = bits | torch.where(check(cplan, sl, live_slots),
+                                                  1 << bit_idx, 0)
+                    return bits
+
+                exit_mask = exit_mask | self._segment_masks(plan, bits_of, H)
+
+            acc_w = exit_w if acc_mask is None else torch.where(acc_mask, exit_w, 0.0)
+            if self.min_emit_frac > 0.0:
+                # Emit-time weight floor: sub-threshold exits are thinned from
+                # accumulation only, never from continuation; the net mass
+                # change goes into the dropped weight.
+                w_cut = w_scale * float(np.float32(self.min_emit_frac))
+                tiny = (acc_w > 0.0) & (acc_w < w_cut)
+                if self.emit_floor_mode == "rr":
+                    u_rr = _uniform_slots(layer_seed_vec ^ rng.NONCE_EMIT, ray_idx, slot_ids)
+                    new_w = torch.where(
+                        tiny, torch.where(u_rr * w_cut < acc_w, w_cut, 0.0), acc_w)
+                else:
+                    new_w = torch.where(tiny, 0.0, acc_w)
+                dropped_w = dropped_w + torch.sum(acc_w) - torch.sum(new_w)
+                acc_w = new_w
+            cap = self._slot_cap if self._slot_cap is not None else H
+            if self._slot_cap is None:
+                # Calibrating: mass per live rank; rank c's mass is what a cap
+                # of c would drop from that slot downward.
+                lv = acc_w > 0.0
+                rank = torch.cumsum(lv.to(I64), dim=0) - lv.to(I64)
+                slot_mass = slot_mass + torch.stack([
+                    torch.sum(torch.where(lv & (rank == c), acc_w, 0.0)) for c in range(H)])
+            wl_rows = wl_idx[None, :]
+            if cap < H:
+                # Per-ray live-first slot compaction; rays with more than
+                # `cap` live exits lose their deepest ones, accounted below.
+                comp, keep_m, _ = trace_soa.compact_slots(
+                    acc_w > 0.0,
+                    [acc_w, exits.dx, exits.dy, exits.dz] + ([exit_mask] if n_classes else []),
+                    cap)
+                cw = torch.where(keep_m, comp[0], 0.0)
+                dropped_w = dropped_w + torch.sum(acc_w) - torch.sum(cw)
+                flat_w = cw.reshape(-1)
+                flat_dx, flat_dy, flat_dz = (comp[i].reshape(-1) for i in (1, 2, 3))
+                flat_mask = (torch.where(keep_m, comp[4], 0).reshape(-1) if n_classes
+                             else torch.zeros_like(flat_w, dtype=I64))
+                flat_idx = wl_rows.expand(cap, b_l).reshape(-1)
+            else:
+                flat_w = acc_w.reshape(-1)
+                flat_dx, flat_dy, flat_dz = (x.reshape(-1) for x in
+                                             (exits.dx, exits.dy, exits.dz))
+                flat_mask = exit_mask.reshape(-1)
+                flat_idx = wl_rows.expand(H, b_l).reshape(-1)
+
+            for r, pplan in enumerate(self.proj_plans):
+                hits = projection.project_components(pplan, flat_dx, flat_dy, flat_dz)
+                main_ok = (hits.main >= 0) & (flat_w > 0.0)
+                w_row = torch.where(main_ok, flat_w, 0.0)
+                contrib_rows[r].append(
+                    (torch.where(main_ok, hits.main, -1), w_row, flat_idx, flat_mask))
+                landed_add[r] = landed_add[r] + torch.sum(w_row)
+                # Overlap writes do not enter the landed weight.
+                if pplan.max_abs_dz > 0.0:
+                    ov_ok = (hits.overlap >= 0) & (flat_w > 0.0)
+                    contrib_rows[r].append(
+                        (torch.where(ov_ok, hits.overlap, -1),
+                         torch.where(ov_ok, flat_w, 0.0), flat_idx, flat_mask))
+
+            if not is_last:
+                cap_next = self.layers[li + 1].cont_cap
+                if to_continue is None:
+                    cont_w_all = torch.zeros(H * b_l, dtype=F32, device=dev)
+                else:
+                    cont_w_all = torch.where(to_continue, exit_w, 0.0).reshape(-1)
+                # The columns come from the uncapped [H, B] exits: the slot
+                # cap trims accumulation rows only.
+                # (32-bit columns: the block scatter moves 32-bit payloads.)
+                cols = [cont_w_all, wl_rows.expand(H, b_l).reshape(-1).to(I32)]
+                if n_classes:
+                    cols.append(to_bits(exit_mask.reshape(-1)))
+                cols += [exits.dx.reshape(-1), exits.dy.reshape(-1), exits.dz.reshape(-1)]
+                picked, n_live = self._continuation(
+                    cont_w_all, cols, cap_next, layer_seed, batch_counter)
+                cont_demand.append(n_live)
+                s_w = picked[0]
+                live = s_w > 0.0
+                cont_wv = torch.where(live, s_w, 0.0)
+                # Empty lanes keep pool entry 0 (any pool wavelength is
+                # benign there: the weight is zero).
+                wl_idx = torch.where(live, picked[1], 0).to(I64)
+                carried_mask = (torch.where(live, from_bits(picked[2]), 0) if n_classes
+                                else torch.zeros_like(wl_idx))
+                d_world = tuple(torch.where(live, x, 0.0) for x in picked[-3:])
+                dropped_w = dropped_w + torch.sum(cont_w_all) - torch.sum(cont_wv)
+                w0 = cont_wv
+                ray_idx = (base_lo + B * (li + 1)
+                           + torch.arange(cap_next, dtype=I64, device=dev)) & MASK32
+                seed_vec = rng.epoch_seed(seed0, base_lo, base_hi, ray_idx)
+                n_ior = optics.ice_refractive_index(self._wl_from_idx(wl_idx))
+
+        contribs = []
+        for parts in contrib_rows:
+            contribs.append(parts[0] if len(parts) == 1 else tuple(
+                torch.cat([p[c] for p in parts]) for c in range(4)))
+        return (contribs, torch.stack(landed_add), dropped_w, seg_count,
+                cont_demand, slot_mass)
+
+    def _continuation(self, cont_w_all, cols, cap: int, layer_seed: int,
+                      batch_counter: int):
+        """Compact the continuing exits of one layer into the next layer's
+        `cap` lanes. Live rows key to (inverted weight bucket) << 23 | 23
+        bits of a hash of the row, dead rows to 0xFFFFFFFF: a sort by that
+        key puts heavier rows first and shuffles within a bucket, which
+        decorrelates the ray -> crystal pairing of the next layer.
+
+        When the live rows fit (the count is read on the host, once), each
+        4096-row block is sorted by the key and the blocks are packed
+        (``accum.compact_by_key``). When they overflow, one global sort by
+        the key keeps the heaviest rows; the lowest-weight rows are dropped
+        (the caller accounts them). Returns (columns [cap] without the key,
+        live count)."""
+        n_rows = cont_w_all.shape[0]
+        dev = cont_w_all.device
+        cont_live = cont_w_all > 0.0
+        n_live = int(cont_live.sum())
+        self.host_syncs += 1
+        key = to_bits(torch.where(
+            cont_live,
+            ((255 - weight_bucket(cont_w_all)) << 23)
+            | (shuffle_hash(n_rows, layer_seed, batch_counter, dev) & 0x7FFFFF),
+            MASK32))
+        eff_cap = min(cap, n_rows)
+        if n_live <= eff_cap:
+            outs, _ = accum_mod.compact_by_key(key, cols, eff_cap, self.ks)
+            picked = list(outs[1:])
+        else:
+            row = torch.arange(n_rows, dtype=I64, device=dev)
+            s, _ = torch.sort(accum_mod._sort_word(from_bits(key), row))
+            order = s[:eff_cap] & MASK32
+            picked = [c[order] for c in cols]
+        if eff_cap < cap:
+            picked = [torch.cat([c, torch.zeros(cap - eff_cap, dtype=c.dtype, device=dev)])
+                      for c in picked]
+        return picked, n_live
+
+    def _expand_vals(self, w, wl_idx, mask):
+        """Dense [N, 3 + L] channel rows from spectral rows (the scatter
+        fold of the tests)."""
+        basis = self.basis_tbl[wl_idx]
+        chans = [basis * w[:, None]]
+        y = basis[:, 1] * w
+        chans += [torch.where(m, y, 0.0)[:, None]
+                  for m in accum_mod.lane_members(mask, self.color_classes)]
+        return torch.cat(chans, dim=-1)
+
+    def _step_impl(self, base_lo: int, base_hi: int, n_active: Optional[int], keep):
+        """One batch of the general path, folded into the accumulators.
+        Returns (live rows per render, continuation demand, slot mass)."""
+        contribs, landed_add, dropped_w, segs, cont_demand, slot_mass = (
+            self._trace_batch_impl(base_lo, base_hi, self.batch_counter, n_active))
+        self.accum[-1] = self.accum[-1] + landed_add
+        self._pending_dropped.append(dropped_w)
+        self._pending_segments.append(segs)
+        return self._fold_batch(contribs, keep), cont_demand, slot_mass
+
+    def _fold_batch(self, contribs, keep) -> list:
+        """Fold one batch's contribution rows into every render's
+        accumulator; returns the live rows per render."""
+        n_classes = len(self.color_classes)
+        lanes = tuple(self.color_classes)
+        if self.accum_method == "scatter":
+            lives = []
+            for r, (pix, w, wl_idx, mask) in enumerate(contribs):
+                lives.append((w > 0.0).sum())
+                self.accum[r] = accum_mod.scatter_accumulate(
+                    self.accum[r], pix, self._expand_vals(w, wl_idx, mask))
+            return lives
+        packed = []
+        for r, (pix, w, wl_idx, mask) in enumerate(contribs):
+            P = self.accum[r].shape[0]
+            key, wz = accum_mod.pack_spectral_keys(pix, w, wl_idx, P, self.k_pool)
+            mcol = to_bits(torch.where(key != -1, mask, 0)) if n_classes else None
+            packed.append((key, wz, mcol, (wz > 0.0).sum()))
+        lives = [p[3] for p in packed]
+        if keep is not None:
+            # One read of every render's live count: the compacted fold is
+            # exact only when the live rows fit the prefix.
+            lives = [int(x) for x in torch.stack(lives).tolist()]
+            self.host_syncs += 1
+        for r, (key, wz, mcol, _) in enumerate(packed):
+            kr = keep[r] if keep is not None else None
+            if kr is not None and lives[r] <= kr:
+                # Compaction prepass: K6 packs the live rows of each block,
+                # K3' makes them dense; the fold's sort then runs on keep + P
+                # rows instead of every contribution row.
+                (key, wz, *rest), _ = accum_mod.compact_valid(
+                    key, [wz] + ([mcol] if n_classes else []), kr, self.ks)
+                mcol = rest[0] if n_classes else None
+            self.accum[r] = accum_mod.fold_spectral_keys(
+                self.accum[r], key, wz, self.k_pool, self.basis_tbl, self.ks,
+                lane_specs=lanes, mask=mcol)
+        return lives
+
+    # ------------------------------------------------------------------
+    # Kernel trace path
+    # ------------------------------------------------------------------
+
     def _step_kernel_impl(self, base_lo: int, base_hi: int, n_active: int,
                           keep) -> list:
         """One batch through trace_emit and the fold; returns the live row
@@ -386,15 +921,24 @@ class Engine:
             P = acc.shape[0]
             block = accum_mod.BLOCK
             out_total = -(-(kr + P) // block) * block
-            start = torch.cumsum(counts.to(I64), 0) - counts.to(I64)
             ck, cw = self.ks.scatter_blocks_multi(
-                [keys, wvals], start.to(I32), out_total, blk,
+                [keys, wvals], accum_mod._exclusive_starts(counts), out_total, blk,
                 marker_tail=(kr, P, shift, 2 * k_pool - 1),
             )
             self.accum[r] = accum_mod.fold_spectral_keys_premerged(
                 acc, ck, cw, k_pool, self.basis_tbl, self.ks
             )
         return lives
+
+    # ------------------------------------------------------------------
+    # Host loop
+    # ------------------------------------------------------------------
+
+    def ray_base(self, batch_counter: int) -> int:
+        """64-bit ray base of a batch: layer li of batch c owns the ray
+        indices c * stride + li * batch_size + lane, so the stride is
+        batch_size * (layers + 1)."""
+        return int(batch_counter) * self.batch_size * max(1, len(self.layers) + 1)
 
     def run(self, total_rays: Optional[int] = None,
             n_batches: Optional[int] = None) -> Stats:
@@ -411,42 +955,76 @@ class Engine:
             rays_requested = total
         else:
             rays_requested = n_batches * self.batch_size
-        stride = self.batch_size * LAYER_STRIDE
         for i in range(n_batches):
             is_tail = bool(tail) and i == n_batches - 1
-            base = self.batch_counter * stride
-            lives = self._step_kernel_impl(
-                base & 0xFFFFFFFF, (base >> 32) & 0xFFFFFFFF,
-                tail if is_tail else self.batch_size, self._compact_keep,
-            )
+            base = self.ray_base(self.batch_counter)
+            lo, hi = base & 0xFFFFFFFF, (base >> 32) & 0xFFFFFFFF
+            cont, smass = [], None
+            if self._trace_plan is not None:
+                lives = self._step_kernel_impl(
+                    lo, hi, tail if is_tail else self.batch_size, self._compact_keep)
+            else:
+                lives, cont, smass = self._step_impl(
+                    lo, hi, tail if is_tail else None, self._compact_keep)
             self.batch_counter += 1
             if not self._calibrated and not is_tail:
-                self._maybe_calibrate(lives)
+                self._maybe_calibrate(lives, cont, smass)
         self.stats = self.stats._replace(
             rays_traced=self.stats.rays_traced + rays_requested,
             stochastic_crystal_samples=self.stats.stochastic_crystal_samples
             + n_batches * sum(
-                k for k, det in zip(self.layer0.k_per_setting,
-                                    self.layer0.deterministic_shape) if not det),
+                k for plan in self.layers
+                for k, det in zip(plan.k_per_setting, plan.deterministic_shape) if not det),
             stochastic_orientation_samples=self.stats.stochastic_orientation_samples
             + n_batches * sum(
-                c for c, det in zip(self.layer0.setting_counts,
-                                    self.layer0.deterministic_axis) if not det),
+                c for plan in self.layers
+                for c, det in zip(plan.setting_counts, plan.deterministic_axis) if not det),
         )
         return self.stats
 
-    def _maybe_calibrate(self, lives) -> None:
-        """keep per render from the first batch's live rows (one host read);
-        None where compaction would not shorten the fold enough."""
+    def _maybe_calibrate(self, lives, cont=(), slot_mass=None) -> None:
+        """One-shot calibration from the first batch's measured counts (one
+        host read): the exit-slot cap, the continuation capacities and
+        `keep` per render. All are functions of (scene, seed, batch size),
+        so equal runs stay comparable; a bad calibration costs speed, never
+        correctness (an overflowing batch takes the full fold)."""
         self._calibrated = True
         self.host_syncs += 1
-        if not self._compact_enabled:
+        H = self.max_hits
+        if self._slot_cap is None and slot_mass is not None:
+            # The smallest cap whose dropped per-ray live-rank tail is under
+            # 1e-4 of the emitted mass (and is still accounted every batch).
+            m = slot_mass.detach().cpu().numpy().astype(np.float64)
+            total = float(m.sum())
+            cap = H
+            if total > 0:
+                tail = np.cumsum(m[::-1])[::-1]        # tail[c] = mass at rank >= c
+                for c in range(1, H):
+                    if tail[c] <= 1e-4 * total:
+                        cap = c
+                        break
+            self._slot_cap = cap
+        elif self._slot_cap is None:
+            self._slot_cap = H
+        if len(cont):
+            # Trim the continuation buffers to 1.25 times the measured
+            # demand (never grow).
+            caps = [None]
+            for li in range(1, len(self.layers)):
+                cur = self.layers[li].cont_cap
+                want = int(float(cont[li - 1]) * 1.25)
+                caps.append(want if want < 0.85 * cur else None)
+            if any(c is not None for c in caps):
+                self._build_plan(cont_caps=caps)
+        self._recompute_rows_per_render()
+        if not self._compact_enabled or self.accum_method != "sort":
             return
         block = accum_mod.BLOCK
-        G = self._trace_plan.n_blocks
         keep = []
-        for r, live in enumerate(lives):
-            n_rows = G * self._trace_plan.rows_block[r]
+        for n_rows, live in zip(self._rows_per_render, lives):
+            # The compaction prepass pays when well under 60% of the
+            # contribution rows are live; the margin absorbs the batch-to-
+            # batch fluctuation of the live count.
             target = int(np.ceil(int(live) * self._KEEP_MARGIN / block)) * block
             if n_rows >= 2 * block and target <= 0.6 * n_rows:
                 keep.append(max(block, target))
@@ -479,7 +1057,30 @@ class Engine:
 
     def raw_xyz(self, render_idx: int = 0) -> np.ndarray:
         p = self.proj_plans[render_idx]
-        return self.accum[render_idx].cpu().numpy().reshape(p.height, p.width, 3)
+        return self.accum[render_idx][:, :3].cpu().numpy().reshape(p.height, p.width, 3)
+
+    def lane_y(self, render_idx: int = 0) -> Optional[np.ndarray]:
+        """Raw per-colour-class Y lanes [C, H, W] of one render."""
+        if not self.color_classes:
+            return None
+        p = self.proj_plans[render_idx]
+        arr = self.accum[render_idx][:, 3:].cpu().numpy()           # [P, C]
+        return arr.T.reshape(len(self.color_classes), p.height, p.width)
+
+    def composite(self, render_idx: int = 0, display_exposure_scale: float = 1.0):
+        """Colour-class composite image (linear RGB [H, W, 3]) or None."""
+        from ice_halo_sim_tpu_torch.engine.compositor import composite_color_classes
+
+        lanes = self.lane_y(render_idx)
+        if lanes is None or self.cfg.raypath_color is None:
+            return None
+        rcfg = self.cfg.renders[render_idx]
+        return composite_color_classes(
+            lanes, self.cfg.raypath_color.classes,
+            self.cfg.raypath_color.composite_mode,
+            intensity_factor=rcfg.intensity_factor,
+            display_exposure_scale=display_exposure_scale,
+        )
 
     def snapshot(self):
         """uint8 sRGB image per render."""
@@ -494,10 +1095,12 @@ class Engine:
         return images
 
     def plan_arrays(self) -> dict:
-        """The static tables as numpy, for comparison with the JAX engine:
-        face planes, entry tris, SPD pool, CIE basis table, axis LUT and the
-        projection plan of each render."""
+        """The static tables of the trace kernel path as numpy, for
+        comparison with the JAX engine: face planes, entry tris, SPD pool,
+        CIE basis table, axis LUT and the projection plan of each render."""
         tp = self._trace_plan
+        if tp is None:
+            raise ValueError("plan_arrays: the scene is not on the trace kernel path")
         out = {
             "planes": tp.planes.copy(),
             "tris": tp.tris.copy(),

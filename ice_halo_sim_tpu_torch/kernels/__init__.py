@@ -10,8 +10,10 @@ from typing import Callable, NamedTuple
 class KernelSet(NamedTuple):
     name: str
     trace_emit: Callable
+    pack_valid_blocks: Callable
     pack_payload_blocks: Callable
     scatter_blocks_multi: Callable
+    scatter_blocks: Callable
     fused_scan_call: Callable
 
 
@@ -20,12 +22,16 @@ def kernel_set(kind: str) -> KernelSet:
 
     if kind == "cuda":
         return KernelSet("cuda", trace_emit.trace_emit,
+                         block_ops.pack_valid_blocks,
                          block_ops.pack_payload_blocks,
                          block_ops.scatter_blocks_multi,
+                         block_ops.scatter_blocks,
                          seg_scan.fused_scan_call)
     if kind == "plain":
         return KernelSet("plain", trace_emit.trace_emit_plain,
+                         block_ops.pack_valid_blocks_plain,
                          block_ops.pack_payload_blocks_plain,
                          block_ops.scatter_blocks_multi_plain,
+                         block_ops.scatter_blocks_plain,
                          seg_scan.fused_scan_call_plain)
     raise ValueError(f"kernels must be 'cuda' or 'plain', got {kind!r}")

@@ -43,8 +43,10 @@ LAUNCHES = {
     "trace_emit": 0,
     "trace_emit_pool": 0,
     "pack_rows": 0,
+    "pack_valid_blocks": 0,
     "pack_payload_blocks": 0,
     "scatter_blocks_multi": 0,
+    "scatter_blocks": 0,
     "fused_scan": 0,
 }
 

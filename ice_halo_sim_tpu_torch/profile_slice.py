@@ -1,15 +1,20 @@
 """Profile one of the port's main paths on one CUDA device: BENCH_CFG (the
-static trace mode) or POOL_CFG (the blocked-pool mode with its per-batch
-pool sampler) of scenes.py, at batch 229376, calibrated steady state, under
-torch.profiler.
+static trace mode), POOL_CFG (the blocked-pool mode with its per-batch pool
+sampler), MS_CFG or COLOR_CFG (the general trace path) of scenes.py, at batch
+229376, calibrated steady state, under torch.profiler.
 
-    python -m ice_halo_sim_tpu_torch.profile_slice [--scene bench|pool]
+    python -m ice_halo_sim_tpu_torch.profile_slice [--scene bench|pool|ms|color]
         [--batches 10] [--out FILE]
 
 Prints the card (nvidia-smi name and power limit), the wall time per
 batch, the device time per kernel name (CUDA time summed over the window)
 and the device idle share = 1 - (sum of kernel time) / wall time (kernels
-of one stream do not overlap here).
+of one stream do not overlap here). The plain-torch stages that have no
+kernel of the port are also run alone under the profiler, so that each reads
+off one line: the pool sampler (every layer's), and on the general path the
+whole general trace (samplers, trace, gates, projection, continuation) and
+the continuation alone (on the inputs of a captured batch); the folds are
+the rest.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import time
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scene", choices=("bench", "pool"), default="bench")
+    ap.add_argument("--scene", choices=("bench", "pool", "ms", "color"), default="bench")
     ap.add_argument("--batches", type=int, default=10)
     ap.add_argument("--batch-size", type=int, default=112 * 2048)
     ap.add_argument("--out", default=None, help="also write the report here")
@@ -39,7 +44,8 @@ def main(argv=None) -> int:
     from ice_halo_sim_tpu_torch.config.loader import load_project
     from ice_halo_sim_tpu_torch.engine.simulator import Engine
 
-    doc = scenes.BENCH_CFG if args.scene == "bench" else scenes.POOL_CFG
+    doc = {"bench": scenes.BENCH_CFG, "pool": scenes.POOL_CFG, "ms": scenes.MS_CFG,
+           "color": scenes.COLOR_CFG}[args.scene]
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -52,9 +58,11 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        syncs = eng.host_syncs
         eng.run(n_batches=args.batches)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        syncs = eng.host_syncs - syncs
     rows = []
     for e in prof.key_averages():
         if not str(e.device_type).endswith("CUDA"):
@@ -66,19 +74,44 @@ def main(argv=None) -> int:
             rows.append((dev_us, e.count, e.key))
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
-    sampler_line = None
-    if eng._trace_plan.pool_k:
-        # The pool sampler alone (plain torch ops, no kernel of the port).
+    def alone(fn):
+        """(device us, device kernels) of args.batches calls of fn(i)."""
         with profile(activities=[ProfilerActivity.CUDA]) as sprof:
             for i in range(args.batches):
-                eng._pool_tables(1000 + i)
+                fn(i)
             torch.cuda.synchronize()
         ev = [e for e in sprof.key_averages() if str(e.device_type).endswith("CUDA")]
-        s_us = sum(e.self_device_time_total for e in ev)
-        sampler_line = (
-            f"pool sampler alone: {s_us / 1e3 / args.batches:.4f} ms/batch device time in "
-            f"{sum(e.count for e in ev) / args.batches:.0f} device kernels per batch "
-            f"({s_us / busy_us:.3f} of device busy)")
+        return sum(e.self_device_time_total for e in ev), sum(e.count for e in ev)
+
+    def line(what, us, n):
+        return (f"{what} alone: {us / 1e3 / args.batches:.4f} ms/batch device time in "
+                f"{n / args.batches:.0f} device kernels per batch "
+                f"({us / busy_us:.3f} of device busy)")
+
+    label_lines = []
+    if any(not all(l.deterministic_shape) for l in eng.layers):
+        # The pool samplers (plain torch ops, no kernel of the port).
+        label_lines.append(line("pool sampler", *alone(lambda i: [
+            eng._sample_layer_pool(1000 + i, li=li) for li in range(len(eng.layers))])))
+    if eng._trace_plan is None:
+        def trace(i):
+            base = eng.ray_base(2000 + i)
+            eng._trace_batch_impl(base & 0xFFFFFFFF, base >> 32, 2000 + i)
+
+        label_lines.append(line("general trace (samplers, trace, gates, projection, "
+                                "continuation)", *alone(trace)))
+        if len(eng.layers) > 1:
+            captured = []
+            inner = eng._continuation
+            eng._continuation = lambda *a: captured.append(a) or inner(*a)
+            trace(0)
+            eng._continuation = inner
+            label_lines.append(line(f"continuation ({len(captured)} per batch)", *alone(
+                lambda i: [inner(*a) for a in captured])))
+        label_lines.append(
+            f"trace path {eng.trace_path}: slot cap {eng._slot_cap}, keep {eng._compact_keep}, "
+            f"lanes per layer {[l.cont_cap for l in eng.layers]}, host syncs per batch "
+            f"{syncs / args.batches:.1f}")
     lines = [
         f"card: {card}",
         f"scene {args.scene}, batch {args.batch_size}, {args.batches} batches, wall {wall * 1e3 / args.batches:.4f} "
@@ -86,7 +119,7 @@ def main(argv=None) -> int:
         f"device busy {busy_us / 1e3 / args.batches:.4f} ms/batch, idle share "
         f"{1.0 - busy_us / 1e6 / wall:.4f}",
         f"device kernels per batch: {sum(r[1] for r in rows) / args.batches:.0f}",
-    ] + ([sampler_line] if sampler_line else []) + [
+    ] + label_lines + [
         "device time by kernel (ms/batch, share of busy, launches):",
     ]
     for us, n, key in rows:

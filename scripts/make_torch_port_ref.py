@@ -17,7 +17,14 @@ ones):
     and pyramid scenes of tests/test_pallas_trace.py (one 2048-ray block,
     batch counter 3): the pool tables it was fed and the rows it returned.
 
-    JAX_PLATFORMS=cpu python scripts/make_torch_port_ref.py [bench|pool|kernel]
+  tests/data/torch_port_ms_ref.npz  the first layer of the port's MS_CFG as
+    a scene of its own (a plate and a stochastic column, two settings; prob
+    0.3 on what is now the last layer, so would-continue exits are dropped;
+    both renders), through the JAX engine's XLA trace path at its default
+    knobs: roulette emit floor, the slot cap and keep calibrated after the
+    first batch (IHT_STEPS_PER_DISPATCH=1), sort fold.
+
+    JAX_PLATFORMS=cpu python scripts/make_torch_port_ref.py [bench|pool|kernel|ms]
 """
 
 from __future__ import annotations
@@ -187,8 +194,53 @@ def jax_pool_kernel_reference(kind: str) -> dict:
     }
 
 
+MS_OUT = os.path.join(ROOT, "tests", "data", "torch_port_ms_ref.npz")
+MS_ENV = {"IHT_PALLAS_TRACE": "0", "IHT_FOLD": "sort", "IHT_STEPS_PER_DISPATCH": "1"}
+
+
+def ms_first_layer_doc() -> dict:
+    """MS_CFG cut to its first scattering layer."""
+    import copy
+
+    sys.path.insert(0, ROOT)
+    from ice_halo_sim_tpu_torch.scenes import MS_CFG
+
+    doc = copy.deepcopy(MS_CFG)
+    doc["scene"]["scattering"] = doc["scene"]["scattering"][:1]
+    doc["filter"] = []
+    return doc
+
+
+def jax_ms_reference() -> dict:
+    """Run the JAX engine's XLA path on MS_CFG's first layer (env knobs in
+    MS_ENV must already be set; every other knob at its default)."""
+    sys.path.insert(0, ROOT)
+    from ice_halo_sim_tpu.config.loader import load_project
+    from ice_halo_sim_tpu.engine.simulator import Engine
+
+    eng = Engine(load_project(ms_first_layer_doc()), seed=SEED, batch_size=BATCH,
+                 accum_method="sort")
+    assert eng.trace_path == "xla" and eng.fold_kind == "sort"
+    eng.run(n_batches=1)
+    eng.run(n_batches=2)
+    st = eng.drain_stats()
+    return {
+        "raw_xyz": eng.raw_xyz(0).astype(np.float32),
+        "raw_xyz_1": eng.raw_xyz(1).astype(np.float32),
+        "landed_weight": np.float64(st.landed_weight),
+        "dropped_cont_weight": np.float64(st.dropped_cont_weight),
+        "ray_segments": np.int64(st.ray_segments),
+        "rays_traced": np.int64(st.rays_traced),
+        "stochastic_crystal_samples": np.int64(st.stochastic_crystal_samples),
+        "slot_cap": np.int64(eng._slot_cap),
+        "seed": np.int64(SEED),
+        "batch_size": np.int64(BATCH),
+        "n_batches": np.int64(3),
+    }
+
+
 def main(argv=None) -> int:
-    which = (argv if argv is not None else sys.argv[1:]) or ["bench", "pool", "kernel"]
+    which = (argv if argv is not None else sys.argv[1:]) or ["bench", "pool", "kernel", "ms"]
     if "kernel" in which:
         os.environ["IHT_MIN_EMIT_W"] = "0"
         out = {}
@@ -211,6 +263,13 @@ def main(argv=None) -> int:
         np.savez_compressed(POOL_OUT, **ref)
         print(f"wrote {POOL_OUT}: image sums {ref['raw_xyz'].sum():.6g}, "
               f"{ref['raw_xyz_1'].sum():.6g}, segments {int(ref['ray_segments'])}")
+    if "ms" in which:
+        os.environ.update(MS_ENV)
+        ref = jax_ms_reference()
+        np.savez_compressed(MS_OUT, **ref)
+        print(f"wrote {MS_OUT}: image sums {ref['raw_xyz'].sum():.6g}, "
+              f"{ref['raw_xyz_1'].sum():.6g}, segments {int(ref['ray_segments'])}, "
+              f"slot cap {int(ref['slot_cap'])}")
     return 0
 
 

@@ -141,3 +141,75 @@ def test_scatter_blocks_hbm_sized_output_bit_equal(interpret):
     got = block_ops.scatter_blocks(torch.as_tensor(vw), torch.as_tensor(start),
                                    out_len, blk)
     np.testing.assert_array_equal(_u32(got.numpy()), _u32(want))
+
+
+# --------------------------------------------------------------------------
+# K6: pack_valid_blocks (the key carried, one or two columns, any threshold)
+# --------------------------------------------------------------------------
+
+def _one_row_keys(g, block, thresh):
+    k = g.integers(thresh, 1 << 32, block, dtype=np.uint64) if thresh < (1 << 32) - 1 \
+        else np.full(block, 0xFFFFFFFF, np.uint64)
+    k[block // 3] = thresh - 1
+    return k.astype(np.uint32)
+
+
+# G = 3 and 5 are no multiples of the TPU kernel's 8-block step.
+K6_CASES = {
+    "f32-all-live-thresh": (["mixed", "full", "empty"], 0xFFFFFFFF, 1),
+    "f32-small-thresh": (["mixed", "empty", "full", "mixed", "one"], 131072, 1),
+    "f32-u32-all-live-thresh": (["one", "mixed", "full"], 0xFFFFFFFF, 2),
+    "f32-u32-small-thresh": (["full", "mixed", "one", "empty", "mixed"], 1 << 20, 2),
+}
+
+
+@pytest.mark.parametrize("case", list(K6_CASES))
+def test_pack_valid_blocks_bit_equal(interpret, case):
+    """pack_valid_blocks_plain (and the wrapper on a CPU tensor) against the
+    JAX kernel in the interpreter: keys, columns and counts bit-equal."""
+    kinds, thresh, ncols = K6_CASES[case]
+    g = np.random.default_rng(21)
+    block = 4096
+    parts = []
+    for kind in kinds:
+        if kind == "one":
+            parts.append(_one_row_keys(g, block, thresh))
+        elif thresh == 0xFFFFFFFF:
+            # "valid" means any key but 0xFFFFFFFF
+            k = g.integers(0, 0xFFFFFFFF, block, dtype=np.uint64).astype(np.uint32)
+            if kind == "empty":
+                k[:] = 0xFFFFFFFF
+            elif kind == "mixed":
+                k[g.random(block) < 0.6] = 0xFFFFFFFF
+            parts.append(k)
+        else:
+            parts.append(_keys(g, 1, block, thresh, [kind]))
+    key = np.concatenate(parts)
+    cols = [g.normal(size=key.size).astype(np.float32)]
+    if ncols == 2:
+        cols.append(g.integers(0, 1 << 32, key.size, dtype=np.uint64).astype(np.uint32))
+    jk, jcols, jcnt = pallas_ops.pack_valid_blocks(
+        jnp.asarray(key), [jnp.asarray(c) for c in cols], thresh, block)
+    tcols_in = [torch.as_tensor(c if c.dtype == np.float32 else c.view(np.int32)) for c in cols]
+    tkey = torch.as_tensor(key.view(np.int32))
+    for fn in (block_ops.pack_valid_blocks_plain, block_ops.pack_valid_blocks):
+        tk, tcols, tcnt = fn(tkey, tcols_in, thresh, block)
+        np.testing.assert_array_equal(tcnt.numpy(), np.asarray(jcnt))
+        np.testing.assert_array_equal(_u32(tk.numpy()), np.asarray(jk))
+        for a, b in zip(tcols, jcols):
+            np.testing.assert_array_equal(_u32(a.numpy()), _u32(b))
+    want = {"full": block, "empty": 0, "one": 1}
+    for i, kind in enumerate(kinds):
+        if kind in want:
+            assert int(tcnt[i]) == want[kind], (i, kind)
+    # The tail of every block is (0xFFFFFFFF, 0).
+    for i in range(len(kinds)):
+        n = int(tcnt[i])
+        assert (_u32(tk.numpy())[i * block + n:(i + 1) * block] == 0xFFFFFFFF).all()
+        assert (_u32(tcols[-1].numpy())[i * block + n:(i + 1) * block] == 0).all()
+
+
+def test_pack_valid_blocks_checks_its_arguments():
+    key = torch.zeros(4096 + 5, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        block_ops.pack_valid_blocks(key, [torch.zeros(4101)], 7, 4096)

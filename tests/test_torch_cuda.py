@@ -145,3 +145,63 @@ def test_engine_cuda_matches_plain(dev, spectrum):
     for a, b in zip(*imgs):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6 * b.max())
     assert accum.BLOCK == 4096
+
+
+@pytest.mark.parametrize("ncols, thresh", [(1, 0xFFFFFFFF), (2, 0xFFFFFFFF), (2, 1 << 20)])
+def test_pack_valid_blocks_kernel(dev, ncols, thresh):
+    """K6 against its plain version: one and two columns (float32, u32
+    bits), the all-live threshold and a smaller one, with full, empty and
+    one-row blocks; bit-equal. Then compact_valid and compact_by_key through
+    both kernel sets."""
+    from ice_halo_sim_tpu_torch.kernels import kernel_set
+
+    g = torch.Generator().manual_seed(5)
+    block, G = 4096, 5
+    key = torch.randint(0, 1 << 21, (G * block,), generator=g, dtype=torch.int64)
+    key[torch.rand(G * block, generator=g) < 0.6] = 0xFFFFFFFF
+    key[block:2 * block] = 0xFFFFFFFF                    # an empty block
+    key[2 * block:3 * block] = 7                         # a full block
+    key[3 * block:4 * block] = 0xFFFFFFFF
+    key[3 * block + 99] = 3                              # one row
+    key = torch.where(key >= 1 << 31, key - (1 << 32), key).to(torch.int32).to(dev)
+    cols = [torch.rand(G * block, generator=g).to(dev)]
+    if ncols == 2:
+        cols.append(torch.randint(-(1 << 31), 1 << 31, (G * block,), generator=g,
+                                  dtype=torch.int64).to(torch.int32).to(dev))
+    a = block_ops.pack_valid_blocks(key, cols, thresh, block)
+    b = block_ops.pack_valid_blocks_plain(key, cols, thresh, block)
+    assert _eq(a[0], b[0]) and _eq(a[2], b[2])
+    assert all(_eq(x, y) for x, y in zip(a[1], b[1]))
+    assert a[2].tolist()[1:4] == [0, block, 1]
+    with pytest.raises(ValueError):
+        block_ops.pack_valid_blocks(key[:-1], [c[:-1] for c in cols], thresh, block)
+    with pytest.raises(ValueError):
+        block_ops.pack_valid_blocks(key, cols * 3, thresh, block)
+    for fn in (accum.compact_valid, accum.compact_by_key):
+        x = fn(key, cols, 3 * block, kernel_set("cuda"))
+        y = fn(key, cols, 3 * block, kernel_set("plain"))
+        assert int(x[1]) == int(y[1])
+        assert all(_eq(p, q) for p, q in zip(x[0], y[0]))
+
+
+def test_general_path_engine_cuda_matches_plain(dev):
+    """The general trace path (two layers, two settings, a filter; then
+    colour classes) through the CUDA kernel set against the plain set on the
+    card: the same torch trace, so segments and images agree."""
+    from ice_halo_sim_tpu_torch.scenes import COLOR_CFG, MS_CFG
+
+    for doc in (MS_CFG, COLOR_CFG):
+        a = Engine(load_project(doc), seed=3, batch_size=16384, device=dev)
+        b = Engine(load_project(doc), seed=3, batch_size=16384, device=dev, kernels="plain")
+        assert (a.trace_path, b.trace_path) == ("general", "plain-torch (general)")
+        for eng in (a, b):
+            eng.run(n_batches=1)
+            eng.run(n_batches=2)
+        assert a._compact_keep == b._compact_keep and a._compact_keep is not None
+        assert a.drain_stats().ray_segments == b.drain_stats().ray_segments
+        for r in range(len(a.proj_plans)):
+            x, y = a.raw_xyz(r), b.raw_xyz(r)
+            np.testing.assert_allclose(x, y, rtol=1e-4, atol=1e-6 * float(y.max()))
+        if a.color_classes:
+            np.testing.assert_allclose(a.lane_y(0), b.lane_y(0), rtol=1e-4,
+                                       atol=1e-6 * float(b.lane_y(0).max()))

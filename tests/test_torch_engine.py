@@ -126,13 +126,19 @@ def test_exact_ray_budget_tail_batch():
 
 
 def test_kernel_choice_and_scene_refusals():
+    """What the trace kernel refuses (the JAX build_plan's reasons) takes the
+    general trace path; nothing of it raises any more."""
     cfg = load_project(BENCH_CFG)
     with pytest.raises(ValueError):
         Engine(cfg, batch_size=4096, device="cpu", kernels="cuda")
+    with pytest.raises(ValueError):
+        Engine(cfg, batch_size=4096, device="cpu", accum_method="sandwich")
+    general = "plain-torch (general)"
     doc = dict(BENCH_CFG)
     doc["render"] = [dict(BENCH_CFG["render"][0], lens={"type": "rectangular", "fov": 360.0})]
-    with pytest.raises(NotImplementedError, match="lens type needs inverse trig"):
-        Engine(load_project(doc), batch_size=4096, device="cpu")
+    eng = Engine(load_project(doc), batch_size=4096, device="cpu")
+    assert eng.trace_path == general
+    assert eng._kernel_reason == "lens type needs inverse trig (no Mosaic lowering)"
     doc = dict(BENCH_CFG)
     doc["render"] = [dict(BENCH_CFG["render"][0], lens={"type": "linear", "fov": 90.0})]
     assert Engine(load_project(doc), batch_size=4096, device="cpu").trace_path == "plain-torch"
@@ -140,10 +146,13 @@ def test_kernel_choice_and_scene_refusals():
     doc["scene"] = dict(BENCH_CFG["scene"], scattering=[
         {"prob": 0.5, "entries": [{"crystal": 1, "proportion": 10}]},
         {"prob": 0.0, "entries": [{"crystal": 1, "proportion": 10}]}])
-    with pytest.raises(NotImplementedError, match="multi-layer scattering"):
-        Engine(load_project(doc), batch_size=4096, device="cpu")
-    with pytest.raises(NotImplementedError, match="not a multiple of 2048"):
-        Engine(cfg, batch_size=5000, device="cpu")
+    eng = Engine(load_project(doc), batch_size=4096, device="cpu")
+    assert eng.trace_path == general and eng._kernel_reason.startswith("multi-layer scattering")
+    eng = Engine(cfg, batch_size=5000, device="cpu")
+    assert eng.trace_path == general and "not a multiple of 2048" in eng._kernel_reason
+    assert eng.batch_size == 5024                   # whole geom-clock blocks of 32
+    assert Engine(cfg, batch_size=4096, device="cpu",
+                  accum_method="scatter").fold_kind == "scatter"
 
 
 def test_cli_writes_png(tmp_path):
@@ -182,7 +191,9 @@ def test_discrete_spectrum_matches_jax_engine(monkeypatch):
     j = JEngine(jax_load_project(doc), seed=5, batch_size=4096, accum_method="sort")
     j.run(n_batches=1)
     jst = j.drain_stats()
+    monkeypatch.delenv("IHT_PALLAS_TRACE")          # the port reads the same knob
     t = Engine(cfg, seed=5, batch_size=4096, device="cpu")
+    assert t.trace_path == "plain-torch"
     t.run(n_batches=1)
     tst = t.drain_stats()
     assert tst.ray_segments == jst.ray_segments
@@ -236,6 +247,7 @@ def test_stochastic_engine_matches_jax_engine(monkeypatch, kind):
                 geom_clock=128)
     j.run(n_batches=2)
     jst = j.drain_stats()
+    monkeypatch.delenv("IHT_PALLAS_TRACE")          # the port reads the same knob
     t = Engine(load_project(doc), seed=11, batch_size=4096, device="cpu")
     assert t.geom_clock == 128                      # moved from the default of 32
     plan = t._trace_plan
@@ -256,9 +268,11 @@ def test_geom_clock_auto_bump_and_pinned_refusal():
     assert DEFAULT_GEOM_CLOCK == 32
     assert Engine(cfg, batch_size=4096, device="cpu").geom_clock == 128
     assert Engine(cfg, batch_size=4096, device="cpu", geom_clock=128).geom_clock == 128
-    with pytest.raises(NotImplementedError, match="stochastic crystal shape needs "
-                                                  "geom_clock == 128"):
-        Engine(cfg, batch_size=4096, device="cpu", geom_clock=64)
+    # A pinned clock is respected: the scene then takes the general path.
+    eng = Engine(cfg, batch_size=4096, device="cpu", geom_clock=64)
+    assert eng.geom_clock == 64 and eng.trace_path == "plain-torch (general)"
+    assert eng._kernel_reason.startswith("stochastic crystal shape needs geom_clock == 128")
+    assert eng.layers[0].k_per_setting == [64]
     # A deterministic shape keeps whatever clock it is given, and the batch
     # is rounded up to whole clock blocks.
     eng = Engine(load_project(BENCH_CFG), batch_size=6100, device="cpu", geom_clock=48)
@@ -336,6 +350,7 @@ def test_resume_jax_checkpoint_carries_geom_clock(tmp_path, monkeypatch):
     save_checkpoint(path, j)
     j.run(n_batches=1)
     jst = j.drain_stats()
+    monkeypatch.delenv("IHT_PALLAS_TRACE")          # the port reads the same knob
     eng = load_jax_checkpoint(path, device="cpu")
     assert eng.geom_clock == 128 and eng.batch_counter == 1
     eng.run(n_batches=1)
@@ -355,8 +370,8 @@ def test_cli_geom_clock_flag(tmp_path):
     args = [str(path), "-o", str(tmp_path), "--ray-num", "4096", "--device", "cpu"]
     assert cli.main(args) == 0
     assert cli.main(args + ["--geom-clock", "128"]) == 0
-    with pytest.raises(NotImplementedError, match="geom_clock == 128"):
-        cli.main(args + ["--geom-clock", "16"])
+    # A pinned clock the trace kernel cannot take renders on the general path.
+    assert cli.main(args + ["--geom-clock", "16"]) == 0
 
 
 @pytest.mark.parametrize("lens, fov", [("linear", 90.0), ("globe", 40.0),
@@ -383,6 +398,7 @@ def test_static_pyramid_and_lenses_match_jax_engine(monkeypatch, lens, fov):
     j = JEngine(jax_load_project(doc), seed=5, batch_size=4096, accum_method="sort")
     j.run(n_batches=1)
     jst = j.drain_stats()
+    monkeypatch.delenv("IHT_PALLAS_TRACE")          # the port reads the same knob
     t = Engine(load_project(doc), seed=5, batch_size=4096, device="cpu")
     plan = t._trace_plan
     assert plan.pool_k == 0 and plan.nf == 20 and t.geom_clock == DEFAULT_GEOM_CLOCK

@@ -128,6 +128,52 @@ def test_each_launch_counter_bumped_once():
     from ice_halo_sim_tpu_torch.kernels import build
 
     srcs = "".join(open(p).read() for p in _port_files((".py",)))
-    assert len(build.LAUNCHES) == 6 and "trace_emit_pool" in build.LAUNCHES
+    assert len(build.LAUNCHES) == 8 and "trace_emit_pool" in build.LAUNCHES
+    assert "pack_valid_blocks" in build.LAUNCHES and "scatter_blocks" in build.LAUNCHES
     for name in build.LAUNCHES:
         assert srcs.count(f'build.LAUNCHES["{name}"] += 1') == 1, name
+
+
+def test_compositor_is_a_copy_but_for_its_docstring():
+    """engine/compositor.py is a copy of the JAX package's numpy module; only
+    the module docstring differs (it names no file outside the repo)."""
+    def body(path):
+        return open(path).read().split('"""', 2)[2]
+
+    assert body(os.path.join(PKG, "engine", "compositor.py")) == \
+        body(os.path.join(ROOT, "ice_halo_sim_tpu", "engine", "compositor.py"))
+
+
+def test_pack_valid_blocks_never_falls_to_the_plain_version():
+    """A tensor that is not on the CPU goes to the kernel or raises: bad
+    arguments raise ValueError before any launch, good ones reach the kernel
+    build (absent here), and nothing computes the plain version instead.
+    Meta tensors stand in for CUDA tensors: the wrappers branch on
+    ``device.type == "cpu"`` alone."""
+    import pytest
+
+    from ice_halo_sim_tpu_torch.core import block_ops
+    from ice_halo_sim_tpu_torch.kernels import build
+
+    def meta(n, dtype=torch.float32):
+        return torch.empty(n, dtype=dtype, device="meta")
+
+    before = dict(build.LAUNCHES)
+    with pytest.raises(ValueError, match="multiple of block|N % block"):
+        block_ops.pack_valid_blocks(meta(4096 + 7, torch.int32), [meta(4096 + 7)], 9, 4096)
+    with pytest.raises(ValueError, match="1 or 2 payload columns"):
+        block_ops.pack_valid_blocks(meta(4096, torch.int32), [meta(4096)] * 3, 9, 4096)
+    with pytest.raises(ValueError, match="1 or 2 payload columns"):
+        block_ops.pack_valid_blocks(meta(4096, torch.int32), [], 9, 4096)
+    with pytest.raises(ValueError, match="32-bit"):
+        block_ops.pack_valid_blocks(meta(4096, torch.int32), [meta(4096, torch.float64)],
+                                    9, 4096)
+    for call in (
+        lambda: block_ops.pack_valid_blocks(meta(4096, torch.int32), [meta(4096)], 9, 4096),
+        lambda: block_ops.scatter_blocks(torch.empty((1, 4096), device="meta"),
+                                         meta(1, torch.int32), 4096, 4096),
+    ):
+        with pytest.raises(Exception) as exc:
+            call()
+        assert not isinstance(exc.value, (ValueError, AssertionError)), exc.value
+    assert build.LAUNCHES == before

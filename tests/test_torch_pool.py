@@ -143,7 +143,7 @@ def test_sample_layer_pool_matches_jax(monkeypatch, kind, batch_counter):
     doc = _doc(kind)
     j = JEngine(jax_load_project(doc), seed=11, batch_size=4096, accum_method="sort",
                 geom_clock=128)
-    t = Engine(load_project(doc), seed=11, batch_size=4096, device="cpu")
+    t = Engine(load_project(doc), seed=11, batch_size=4096, device="cpu", geom_clock=128)
     assert t.layer0.k_per_setting == j.layers[0].k_per_setting == [32]
     assert t.layer0.shape_param_arrays == j.layers[0].shape_param_arrays
     want = j._sample_layer_pool(0, j.layers[0], jnp.uint32(batch_counter))

@@ -220,18 +220,80 @@ def test_project_components_single_lenses_and_globe(lens, fov, visible, shift, v
 
 
 def test_other_lenses_not_ported():
-    """The lenses with inverse trig in their forward map are outside the
-    trace kernel path, in the port as in the JAX kernel."""
+    """The lenses with inverse trig in their forward map stay outside the
+    trace kernel path (SUPPORTED_LENSES is the kernel's set), in the port as
+    in the JAX kernel; the general path projects them."""
     assert projection.SUPPORTED_LENSES == frozenset(
         int(t) for t in (LensType.LINEAR, LensType.FISHEYE_EQUAL_AREA,
                          LensType.FISHEYE_ORTHOGRAPHIC, LensType.DUAL_FISHEYE_EQUAL_AREA,
                          LensType.DUAL_FISHEYE_ORTHOGRAPHIC, LensType.GLOBE))
     z = torch.zeros(4)
     for lens in ("fisheye_equidistant", "fisheye_stereographic", "rectangular",
-                 "dual_fisheye_equidistant"):
+                 "dual_fisheye_equidistant", "dual_fisheye_stereographic"):
         doc = dict(BENCH_CFG)
         doc["render"] = [dict(BENCH_CFG["render"][0], lens={"type": lens, "fov": 120.0})]
         tp = projection.make_proj_plan(port_load_project(doc).renders[0])
         assert tp.lens_type not in projection.SUPPORTED_LENSES
-        with pytest.raises(NotImplementedError):
-            projection.project_components(tp, z, z, z + 1)
+        hits = projection.project_components(tp, z, z, z - 1)
+        assert hits.main.dtype == torch.int32 and hits.main.shape == (4,)
+
+
+_TRIG_LENSES = [
+    ("fisheye_equidistant", 180.0, "full", [0, 0], {"elevation": 90.0}, 0.0),
+    ("fisheye_equidistant", 120.0, "upper", [5, -3],
+     {"azimuth": 30.0, "elevation": 40.0, "roll": 10.0}, 0.0),
+    ("fisheye_stereographic", 180.0, "full", [0, 0], {"elevation": 90.0}, 0.0),
+    ("fisheye_stereographic", 150.0, "lower", [-4, 6],
+     {"azimuth": -70.0, "elevation": -50.0, "roll": 5.0}, 0.0),
+    ("dual_fisheye_equidistant", 180.0, "full", [0, 0], {}, 0.0872),
+    ("dual_fisheye_equidistant", 180.0, "full", [0, 0], {}, 0.0),
+    ("dual_fisheye_stereographic", 180.0, "full", [0, 0], {}, 0.0872),
+    ("rectangular", 360.0, "full", [0, 0], {"azimuth": 0.0, "elevation": 0.0, "roll": 0.0}, 0.0),
+    ("rectangular", 360.0, "full", [0, 0], {"azimuth": 50.0, "elevation": 20.0, "roll": 0.0}, 0.0),
+]
+# arccos, tan, arctan2 and arcsin differ in the last bit between XLA and
+# torch, so a direction on a pixel edge lands one pixel over: at most
+# TRIG_FLIPS of the 20000 directions, each by one pixel in x or in y.
+TRIG_FLIPS = 8
+
+
+@pytest.mark.parametrize("lens, fov, visible, shift, view, overlap", _TRIG_LENSES,
+                         ids=[f"{c[0]}-{i}" for i, c in enumerate(_TRIG_LENSES)])
+def test_project_components_inverse_trig_lenses(lens, fov, visible, shift, view, overlap):
+    """The five lenses of the general path (fisheye equidistant and
+    stereographic, their dual forms with the overlap band, rectangular)
+    against the JAX function: equal plans; equal pixels but for the flip
+    budget, a flipped direction moving by one pixel."""
+    W, Hh = 256, 128
+    doc = dict(BENCH_CFG)
+    doc["render"] = [{"id": 1, "lens": {"type": lens, "fov": fov}, "resolution": [W, Hh],
+                      "view": view, "visible": visible, "lens_shift": shift,
+                      "overlap": overlap}]
+    tp = projection.make_proj_plan(port_load_project(doc).renders[0])
+    jp = jproj.make_proj_plan(load_project(doc).renders[0])
+    for f in ("lens_type", "width", "height", "visible", "shift_x", "shift_y", "scale", "az0",
+              "r_scale", "max_abs_dz"):
+        assert getattr(tp, f) == getattr(jp, f), f
+    np.testing.assert_array_equal(tp.rot, jp.rot)
+    assert tp.lens_type not in projection.SUPPORTED_LENSES
+    d = np.random.default_rng(13).normal(size=(3, 20_000)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0)
+    d[:, :4] = [[0, 0, 1e-12, 1], [0, 0, 1e-12, 0], [1, -1, 0, 0]]      # the poles and the seam
+    got = projection.project_components(tp, *[torch.as_tensor(x) for x in d])
+    want = jproj.project_components(jp, *[jnp.asarray(x) for x in d])
+    flips = 0
+    for a, b in zip(got, want):
+        a, b = a.numpy(), np.asarray(b)
+        assert a.dtype == np.int32
+        diff = a != b
+        flips += int(diff.sum())
+        both = diff & (a >= 0) & (b >= 0)
+        dx = np.abs(a[both] % W - b[both] % W)
+        dy = np.abs(a[both] // W - b[both] // W)
+        # One pixel in x (or across the rectangular map's wrap) or in y.
+        assert (((dx == 1) | (dx == W - 1)) & (dy == 0) | (dx == 0) & (dy == 1)).all()
+    print(f"{lens}: {flips} of {d.shape[1]} directions flipped a pixel")
+    assert flips <= TRIG_FLIPS, flips
+    n_hit = int((got.main.numpy() >= 0).sum())
+    assert n_hit > 2000 and int(got.main.max()) < W * Hh
+    assert (int((got.overlap.numpy() >= 0).sum()) > 0) == (overlap > 0)
