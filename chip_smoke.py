@@ -7,7 +7,7 @@ Phases (any failure raises; the exit code is then non-zero):
   1. device: a CUDA device must be present; prints the card's name and
      power limit (nvidia-smi);
   2. build: compiles the port's CUDA kernels from csrc/ (nvcc, ctypes) and
-     prints the trace kernel's register and spill report;
+     prints the trace and sandwich kernels' register and spill reports;
   3. kernels: each kernel against its plain PyTorch twin on the card, at
      the main paths' shapes, with its error, both device times per call
      (torch.profiler) and its bound (the least time the card could take).
@@ -17,7 +17,17 @@ Phases (any failure raises; the exit code is then non-zero):
      batch as 1792 sampled pyramids, NF = 20 face slots, two renders); the
      fold prepass (pack_valid_blocks with one column, and scatter_blocks
      after it) at the rows of MS_CFG's dual render, and pack_valid_blocks
-     with two columns at COLOR_CFG's;
+     with two columns at COLOR_CFG's; the sandwich kernels (K7 lane, K8
+     sublane) at the one-channel count pass of the calibration batch (the
+     raw rows of MS_CFG's dual render over all 1024 chunks) and, printed as
+     extra lines, at the raw rows against the 256 chunks that hold most of
+     them, plain and two-term; the probe forms P1 and P2 at their probes'
+     shapes. The entries of K7 and K8 in the kernels line are taken after
+     the ms-sandwich slice of [4] has calibrated: one steady batch's rows go
+     through every level of both renders' cascades as the engine routes
+     them (compacted to the level's keep, decoded, misses onward), and at
+     each (rows, chunk list) pair the kernel is held against its plain
+     version and timed beside it and beside index_add_ on the same rows;
   4. slices: Engine(cfg, device="cuda") renders BENCH_CFG and POOL_CFG (the
      trace kernel path), then MS_CFG and COLOR_CFG (the general trace
      path), each with the launch counters reset just before and read just
@@ -26,8 +36,15 @@ Phases (any failure raises; the exit code is then non-zero):
      card; each fixture configuration must match its committed JAX render
      (tests/data/torch_port_*_ref.npz) within the CPU tests' tolerances;
      and BENCH_CFG through the general path must match the kernel path
-     (emit floor and slot cap off);
-  5. steady rays/s of the four slices (informational).
+     (emit floor and slot cap off). These engines fold by sort
+     (IHT_FOLD=sort), as the JAX fixtures were. Then MS_CFG under
+     IHT_FOLD=sandwich (slice ms-sandwich): one calibration batch and
+     three steady ones, K7 launched on every steady batch, held against
+     kernels="plain" on the card and against the sort fold of the ms slice;
+     the same through K8; MS_CFG and BENCH_CFG (general path) under
+     IHT_FOLD=auto with the dispatch's decision and modeled costs; and the
+     two probes' own main paths (P1, P2);
+  5. steady rays/s of the five slices (informational).
 
 The last lines of standard output are the kernels JSON object, the card
 (nvidia-smi) and the device JSON object. Imports nothing of JAX and
@@ -63,6 +80,15 @@ POOL_FIX_PIXELS, POOL_FIX_SEGMENTS = 8, 8
 # pixel over (the projection's last bit), a ray on a face edge may flip.
 EDGE_PIXELS, EDGE_SEGMENTS = 8, 8
 DROPPED_ATOL_FRAC = 1e-6               # of the landed weight
+# Sandwich tile entries, kernel against plain version: the tensor cores add
+# the products of a 16-row step and the running float32 sum without the
+# rounding of a sequential IEEE sum, and the row splits' partial tiles are
+# added in float32; the plain version sums in float64 and rounds once.
+# atol is a fraction of the largest entry. `matched` is bit-equal.
+TILE_RTOL, TILE_ATOL_FRAC = 1e-4, 1e-5
+# The sandwich fold against the sort fold: each row's values are rounded to
+# bf16 (about 0.4% per row, unbiased, averaging down per pixel).
+BF16_MASS, BF16_L1 = 2e-3, 6e-3
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet): device memory, float32
 # outside the tensor cores. The special-function rate follows from the SM's
@@ -71,27 +97,32 @@ DROPPED_ATOL_FRAC = 1e-6               # of the landed weight
 HBM_BYTES_S = 3.35e12
 FP32_OPS_S = 67e12
 SFU_OPS_S = FP32_OPS_S / 16
+TC_BF16_OPS_S = 989e12                 # dense bf16 on the tensor cores
+
+
+class _Ms(float):
+    """A time in ms that remembers how it was taken."""
+    by = "profiler"
 
 
 def _time_ms(fn, reps: int = 10) -> float:
     """Device milliseconds per call: the CUDA time of every kernel, copy and
     memset that `reps` calls put on the card (torch.profiler), over reps.
     A wall-clock or CUDA-event time would measure the host's launch
-    overhead for kernels shorter than their Python wrapper."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    overhead for kernels shorter than their Python wrapper; the port's
+    `device_ms` falls back to events only when the profiler returns nothing,
+    and the time then says so (`by`, `timed_by` in the kernels line)."""
+    from ice_halo_sim_tpu_torch.probe_sandwich import device_ms, timed_by
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if str(e.device_type).endswith("CUDA"))
-    if us <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return us / 1e3 / reps
+    timed_by()
+    ms = _Ms(device_ms(fn, reps))
+    ms.by = timed_by()
+    return ms
+
+
+def _timed_by(*times) -> str:
+    return "cuda events" if any(getattr(t, "by", "profiler") != "profiler"
+                                for t in times) else "profiler"
 
 
 def _bits_equal(x, y) -> bool:
@@ -104,11 +135,12 @@ def _max_abs(x, y) -> float:
     return float((x.double() - y.double()).abs().max()) if x.numel() else 0.0
 
 
-def _bound(nbytes: float, ops: float = 0.0, sfu: float = 0.0):
+def _bound(nbytes: float, ops: float = 0.0, sfu: float = 0.0, tc: float = 0.0):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over their peak rates."""
+    operations over their peak rates (float32, special functions, bf16 on
+    the tensor cores)."""
     t_bytes = nbytes / HBM_BYTES_S
-    t_ops = max(ops / FP32_OPS_S, sfu / SFU_OPS_S)
+    t_ops = max(ops / FP32_OPS_S, sfu / SFU_OPS_S, tc / TC_BF16_OPS_S)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -183,19 +215,24 @@ def _trace_bound(name, plan):
     return _bound(nbytes, ops, sfu)
 
 
-def _add(res: list, name, source, replaces, err, ms, plain_ms, bound, why_no_library):
-    """Append one entry of the kernels line. No kernel here has a library
-    call (one PyTorch call that computes the same function); the entry
-    says why."""
+def _add(res: list, name, source, replaces, err, ms, plain_ms, bound, why_no_library=None,
+         library_ms=None, library=None):
+    """Append one entry of the kernels line. Where one PyTorch call computes
+    the same function, its time on the same inputs and its name (it is
+    timed here and used nowhere in the port); else the entry says why there
+    is none."""
     bound_ms, bound_by = bound
     res.append({
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "why_no_library": why_no_library})
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "library": library, "why_no_library": why_no_library,
+        "timed_by": _timed_by(ms, plain_ms, library_ms)})
+    lib = f"{library} {library_ms:.4f} ms" if library_ms is not None else \
+        f"none: {why_no_library}"
     print(f"  {name}: max_abs_err {err:.3g}, kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by}, library "
-          f"none: {why_no_library}", flush=True)
+          f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by}, library {lib}, "
+          f"timed by {res[-1]['timed_by']}", flush=True)
 
 
 def _check_trace(name, out_k, out_p):
@@ -468,6 +505,155 @@ def phase_kernels_general(ms_cfg, color_cfg, device, res: list):
         torch.cuda.empty_cache()
 
 
+SANDWICH_SRC = "ice_halo_sim_tpu_torch/csrc/sandwich.cu"
+
+
+def _tile_err(what, got, want, gm=None, wm=None) -> float:
+    """Hold a sandwich tile (and `matched`) against the plain version's;
+    returns the largest absolute difference."""
+    import torch
+
+    if gm is not None and not _bits_equal(gm, wm):
+        raise AssertionError(f"{what}: matched differs from the plain version")
+    top = float(want.abs().max())
+    if not torch.allclose(got, want, rtol=TILE_RTOL, atol=TILE_ATOL_FRAC * top):
+        raise AssertionError(f"{what}: tile differs from the plain version (max abs "
+                             f"{_max_abs(got, want):.3g}, largest entry {top:.3g})")
+    return _max_abs(got, want)
+
+
+def _sandwich_bound(n, n_matched, nc, c_out, k_pool, terms=1, matched_out=True):
+    """((bound_ms, bound_by), product_ms). The bound is the function's: a
+    scatter-add. Bytes: the three row operands read and `matched` written
+    once, the list, the table, the tile read and written. Operations: one
+    multiply and one add per channel and term of each row in the list
+    (float32). product_ms is not a bound of the function but the ceiling of
+    this design, which computes it as a one-hot product on the tensor cores:
+    2 * rows in the list * NC * C * 128 bf16 operations per term at the
+    card's peak (a row outside the list is a zero column and needs none)."""
+    nbytes = 12 * n + (4 * n if matched_out else 0) + 4 * nc + 4 * k_pool * c_out \
+        + 2 * 4 * nc * c_out * 128
+    product_ms = 1e3 * 2.0 * n_matched * nc * c_out * 128 * terms / TC_BF16_OPS_S
+    return _bound(nbytes, ops=2.0 * n_matched * c_out * terms), product_ms
+
+
+def phase_kernels_sandwich(ms_cfg, device, res: list):
+    """K7 and K8 against sandwich_pass_plain at the calibration batch's count
+    pass and, as extra lines, at the raw rows of MS_CFG's dual render (no
+    steady launch has that shape: see phase_kernels_cascade for those); P1
+    and P2 at their probes' shapes."""
+    import torch
+
+    from ice_halo_sim_tpu_torch import probe_sandwich, probe_scatter
+    from ice_halo_sim_tpu_torch.core import accum, sandwich
+    from ice_halo_sim_tpu_torch.core.bits import from_bits
+    from ice_halo_sim_tpu_torch.engine.simulator import Engine
+
+    F32, I32 = torch.float32, torch.int32
+    NLO = sandwich.NLO
+    eng = Engine(ms_cfg, seed=7, batch_size=BATCH, device=device)
+    eng.run(n_batches=1)                             # calibrates the slot cap and lanes
+    K, tbl = eng.k_pool, eng.basis_tbl
+    P = eng.proj_plans[0].height * eng.proj_plans[0].width
+    n_chunks = P // NLO
+    key, cols = _fold_rows(eng, 0, 5)
+    wz = cols[0]
+    shift = accum.key_shift(K)
+    kk = from_bits(key)
+    pix, wl = (kk >> shift).to(I32), ((kk >> 1) & (K - 1)).to(I32)
+    N = key.numel()
+    live = wz > 0.0
+    n_live = int(live.sum())
+    chunk = torch.div(pix[live], NLO, rounding_mode="floor").long()
+    rows_per_chunk = torch.bincount(chunk, minlength=n_chunks)
+    hot = torch.sort(torch.argsort(rows_per_chunk, descending=True)[:256])[0].to(I32)
+    full = torch.arange(n_chunks, dtype=I32, device=device)
+    n_hot = int(rows_per_chunk[hot.long()].sum())
+    print(f"  ms dual render: {N} decoded rows, {n_live} live, {n_hot} of them in the 256 "
+          f"chunks that hold most rows (of {n_chunks})", flush=True)
+
+    tile256 = torch.zeros((256, 3 * NLO), dtype=F32, device=device)
+    for name, layout in (("sandwich_lane", "lane"), ("sandwich_sublane", "sublane")):
+        def run(t=tile256, cl=hot, p=pix, w=wz, l=wl, tb=tbl, precise=False, lay=layout):
+            return sandwich.sandwich_pass(t, cl, p, w, l, tb, k_pool=K, precise=precise,
+                                          layout=lay)
+
+        # Extra lines, not a shape of the path: every raw row against the 256
+        # hottest chunks, with one bf16 term and with two.
+        for precise in (False, True):
+            got, gm = run(precise=precise)
+            want, wm = sandwich.sandwich_pass_plain(tile256, hot, pix, wz, wl, tbl, k_pool=K,
+                                                    precise=precise)
+            torch.cuda.synchronize()
+            err = _tile_err(f"{name} raw rows, NC 256, precise {precise}", got, want, gm, wm)
+            if int(gm.sum()) != n_hot:
+                raise AssertionError(f"{name}: {int(gm.sum())} rows matched, {n_hot} expected")
+            bound, product = _sandwich_bound(N, n_hot, 256, 3, K, terms=2 if precise else 1)
+            print(f"  {name} at the {N} raw rows, NC 256, {'two bf16 terms' if precise else 'one term'}"
+                  f" (extra: no launch of the path has this shape): max_abs_err {err:.3g}, "
+                  f"kernel {_time_ms(lambda: run(precise=precise), 3):.4f} ms, bound "
+                  f"{bound[0]:.5f} ms by {bound[1]}, one-hot product at peak {product:.5f} ms",
+                  flush=True)
+
+        # The calibration batch's count pass, at its shape on the path: one
+        # channel, an all-ones table, the raw rows over every chunk. Exact.
+        ones = torch.ones((K, 1), dtype=F32, device=device)
+        tile_cnt = torch.zeros((n_chunks, NLO), dtype=F32, device=device)
+        flags = live.to(F32)
+        got, gm = run(tile_cnt, full, pix, flags, wl, ones)
+        want, wm = sandwich.sandwich_pass_plain(tile_cnt, full, pix, flags, wl, ones, k_pool=K)
+        if not _bits_equal(got, want) or not _bits_equal(gm, wm) or int(got.sum()) != n_live:
+            raise AssertionError(f"{name}: the count pass is not exact")
+        b4, p4 = _sandwich_bound(N, n_live, n_chunks, 1, K)
+        print(f"  {name} count pass (C = 1, {N} rows, NC {n_chunks}): exact, kernel "
+              f"{_time_ms(lambda: run(tile_cnt, full, pix, flags, wl, ones), 5):.4f} ms, bound "
+              f"{b4[0]:.5f} ms by {b4[1]}, one-hot product at peak {p4:.5f} ms", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+
+    # P1 at the probe's shape: N = 3342336 rows over 131072 pixels, K = 64.
+    PP, PK, PN = 512 * 256, 64, 3_342_336
+    rows = [torch.as_tensor(x).to(device) for x in probe_sandwich.probe_rows(PN, PP, PK)]
+    ppix, pw, pwl, ptbl = rows
+    for nhi in (256, 1024):
+        got = probe_sandwich.sandwich_iota(ppix, pw, pwl, ptbl, nhi=nhi, k_pool=PK)
+        want = probe_sandwich.sandwich_iota_plain(ppix, pw, pwl, ptbl, nhi=nhi, k_pool=PK)
+        err = _tile_err(f"sandwich_iota NHI {nhi}", got, want)
+        inside = (ppix >= 0) & (ppix < nhi * NLO)
+        pidx = torch.where(inside, ppix.long(), torch.arange(PN, device=device) % (nhi * NLO))
+        pimg = torch.zeros((nhi * NLO, 3), dtype=F32, device=device)
+        pvals = torch.where(inside[:, None], ptbl[pwl.long()] * pw[:, None], 0.0)
+        ms_k = _time_ms(lambda: probe_sandwich.sandwich_iota(ppix, pw, pwl, ptbl, nhi=nhi,
+                                                             k_pool=PK), 5)
+        ms_p = _time_ms(lambda: probe_sandwich.sandwich_iota_plain(ppix, pw, pwl, ptbl, nhi=nhi,
+                                                                   k_pool=PK), 2)
+        ms_l = _time_ms(lambda: pimg.index_add_(0, pidx, pvals), 5)
+        bound, product = _sandwich_bound(PN, int(inside.sum()), nhi, 3, PK, matched_out=False)
+        if nhi == 256:
+            _add(res, "sandwich_iota", SANDWICH_SRC, "scripts/probe_sandwich.py:90", err, ms_k,
+                 ms_p, bound, library_ms=ms_l, library="index_add_")
+            res[-1].update(rows=PN, listed_chunks=nhi, product_bound_ms=product)
+        else:
+            print(f"  sandwich_iota NHI {nhi}: max_abs_err {err:.3g}, kernel {ms_k:.4f} ms, "
+                  f"plain {ms_p:.4f} ms, bound {bound[0]:.5f} ms by {bound[1]}, one-hot "
+                  f"product at peak {product:.5f} ms, index_add_ {ms_l:.4f} ms", flush=True)
+
+    # P2 at the probe's shape: G = 192 blocks of 16384 into P = 131072.
+    vals, start, n_out, block = probe_scatter.probe_inputs(device)
+    got = probe_scatter.extract_blocks(vals, start, n_out, block)
+    want = probe_scatter.extract_blocks_plain(vals, start, n_out, block)
+    if not _bits_equal(got, want):
+        raise AssertionError("extract_blocks (P2) differs from its plain version")
+    _add(res, "extract_blocks", "ice_halo_sim_tpu_torch/csrc/block_ops.cu",
+         "scripts/probe_pallas_scatter.py:121", 0.0,
+         _time_ms(lambda: probe_scatter.extract_blocks(vals, start, n_out, block)),
+         _time_ms(lambda: probe_scatter.extract_blocks_plain(vals, start, n_out, block), 3),
+         # Each output entry takes one value of the block that wrote it last.
+         _bound(4 * n_out + 4 * start.numel() + 4 * n_out, n_out),
+         "blocks overwrite each other in order; scatter_ and index_copy_ leave overlapping "
+         "writes undefined")
+
+
 def _images_off(a, b, what) -> int:
     """Pixels outside the per-pixel tolerance, after the image-sum check."""
     import numpy as np
@@ -550,6 +736,255 @@ def phase_slice(name, cfg, device, path_kernels, steady: int = 3,
     return eng, counts, per_batch
 
 
+def _sandwich_agrees_with_sort(what, eng, sort_eng):
+    """An engine that folded (some batches) by sandwich against the sort fold
+    of the same batches: segments and landed weight equal, image mass and L1
+    within the bf16 tolerance."""
+    import numpy as np
+
+    st, rst = eng.drain_stats(), sort_eng.drain_stats()
+    if st.ray_segments != rst.ray_segments or not np.isclose(
+            st.landed_weight, rst.landed_weight, rtol=1e-6):
+        raise AssertionError(f"{what}: segments {st.ray_segments} / {rst.ray_segments}, landed "
+                             f"{st.landed_weight} / {rst.landed_weight} against the sort fold")
+    for r in range(len(eng.proj_plans)):
+        a, b = eng.raw_xyz(r).astype(np.float64), sort_eng.raw_xyz(r).astype(np.float64)
+        mass = abs(a.sum() - b.sum()) / b.sum()
+        l1 = np.abs(a - b).sum() / np.abs(b).sum()
+        print(f"  {what} render {r} against the sort fold: mass off {mass:.3g}, L1 {l1:.3g}",
+              flush=True)
+        if mass > BF16_MASS or l1 > BF16_L1:
+            raise AssertionError(f"{what}: render {r} differs from the sort fold")
+
+
+class _layout:
+    """Set core/sandwich.LAYOUT, the kernel a pass launches when its caller
+    names no layout (the engine names none), and restore it."""
+
+    def __init__(self, layout: str):
+        self.layout = layout
+
+    def __enter__(self):
+        from ice_halo_sim_tpu_torch.core import sandwich
+
+        self.old, sandwich.LAYOUT = sandwich.LAYOUT, self.layout
+
+    def __exit__(self, *exc):
+        from ice_halo_sim_tpu_torch.core import sandwich
+
+        sandwich.LAYOUT = self.old
+
+
+def phase_sandwich(name, cfg, device, sort_eng, steady: int = 3):
+    """MS_CFG under IHT_FOLD=sandwich through the kernel that
+    core/sandwich.LAYOUT names (K7 for "lane", the default; K8 for
+    "sublane"): one calibration batch, `steady` batches with the kernel
+    launched on each, the launch counters reset just before and read just
+    after; against kernels="plain" on the card and against `sort_eng` (the
+    ms slice after as many batches). Returns (engine, counts, per batch)."""
+    import numpy as np
+    import torch
+
+    from ice_halo_sim_tpu_torch.core import sandwich
+    from ice_halo_sim_tpu_torch.engine.simulator import Engine
+    from ice_halo_sim_tpu_torch.kernels import build
+
+    counter = "sandwich_lane" if sandwich.LAYOUT == "lane" else "sandwich_sublane"
+    with _knobs(IHT_FOLD="sandwich"):
+        eng = Engine(cfg, seed=7, batch_size=BATCH, device=device)
+        ref = Engine(cfg, seed=7, batch_size=BATCH, device=device, kernels="plain")
+    if eng.fold_kind != "sandwich" or eng._trace_plan is not None:
+        raise AssertionError(f"{name}: fold {eng.fold_kind} ({eng.fold_decision})")
+    build.reset_launch_counts()
+    eng.run(n_batches=1)
+    first = dict(build.LAUNCHES)
+    syncs = eng.host_syncs
+    for _ in range(steady):
+        before = build.LAUNCHES[counter]
+        eng.run(n_batches=1)
+        if build.LAUNCHES[counter] <= before:
+            raise AssertionError(f"{name}: {counter} was not launched on a steady batch")
+    torch.cuda.synchronize()
+    counts = dict(build.LAUNCHES)
+    per_batch = {k: (counts[k] - first[k]) / steady for k in counts}
+    levels = [[(int(cl.shape[0]), keep) for cl, keep in lv] for lv in eng._levels]
+    print(f"  {name}: fold {eng.fold_kind} ({eng.fold_decision}), levels (listed chunks, "
+          f"keep) {levels}, rows into the last level {[int(n) for n in eng.last_level_rows]}, "
+          f"host syncs per steady batch {(eng.host_syncs - syncs) / steady:.1f}", flush=True)
+    print(f"  {name}: launches {counts}", flush=True)
+    print(f"  {name}: launches per steady batch {per_batch}", flush=True)
+    if eng.fold_kind != "sandwich":
+        raise AssertionError(f"{name}: the engine left the sandwich fold")
+    compacts = any(keep is not None for lv in eng._levels for _cl, keep in lv)
+    for k in [counter] + (["pack_valid_blocks", "scatter_blocks"] if compacts else []):
+        if per_batch[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the steady {name} batches")
+    ref.run(n_batches=1)
+    ref.run(n_batches=steady)
+    if levels != [[(int(cl.shape[0]), keep) for cl, keep in lv] for lv in ref._levels] or any(
+            not torch.equal(a[0], b[0]) for la, lb in zip(eng._levels, ref._levels)
+            for a, b in zip(la, lb)):
+        raise AssertionError(f"{name}: the planned levels differ between the kernel sets")
+    for r in range(len(eng.proj_plans)):
+        a, b = eng.raw_xyz(r), ref.raw_xyz(r)
+        err = float(np.abs(a - b).max())
+        print(f"  {name} render {r} cuda vs plain: max abs {err:.3g} of {float(b.max()):.3g}",
+              flush=True)
+        if not np.allclose(a, b, rtol=TILE_RTOL, atol=TILE_ATOL_FRAC * float(b.max())):
+            raise AssertionError(f"{name}: render {r} differs from the plain kernel set")
+    _sandwich_agrees_with_sort(name, eng, sort_eng)
+    for r, img in enumerate(eng.snapshot()):
+        if img.max() == 0:
+            raise AssertionError(f"{name}: snapshot {r} is black")
+    return eng, counts, per_batch
+
+
+def phase_kernels_cascade(eng, device, res: list, batch_counter: int = 5):
+    """K7 and K8 at the shapes the ms-sandwich path gives them: the rows of
+    one steady batch go through every level of both renders' calibrated
+    cascades (`eng._levels`) as `_sandwich_fold_r` routes them: compacted to
+    the level's keep (K6 + K3'), decoded, folded, the misses sent onward. At
+    each (rows, chunk list) pair both kernels are held against the plain
+    version and timed beside it and beside one index_add_ of the same rows
+    into the image. The kernels line takes a kernel's largest launch (render
+    0, level 0) as its entry, every launch under "levels", and the sums over
+    the batch's launches under "batch"."""
+    import torch
+
+    from ice_halo_sim_tpu_torch.core import accum, sandwich
+    from ice_halo_sim_tpu_torch.core.bits import from_bits
+
+    F32, I32 = torch.float32, torch.int32
+    NLO = sandwich.NLO
+    K, tbl = eng.k_pool, eng.basis_tbl
+    shift = accum.key_shift(K)
+    kernels = (("sandwich_lane", "lane", "ice_halo_sim_tpu/core/pallas_sandwich.py:283"),
+               ("sandwich_sublane", "sublane", "ice_halo_sim_tpu/core/pallas_sandwich.py:314"))
+    levels_of = {name: [] for name, _l, _r in kernels}
+    base = eng.ray_base(batch_counter)
+    contribs = eng._trace_batch_impl(base & 0xFFFFFFFF, base >> 32, batch_counter)[0]
+    for r, (cpix, cw_, cwl, _mask) in enumerate(contribs):
+        P = eng.proj_plans[r].height * eng.proj_plans[r].width
+        img = torch.zeros((P, 3), dtype=F32, device=device)
+        carry_key, carry_w = accum.pack_spectral_keys(cpix, cw_, cwl, P, K)
+        for li, (clist, keep) in enumerate(eng._levels[r]):
+            ck, cw = carry_key, carry_w
+            n_in = int((carry_w > 0.0).sum())
+            if keep is not None and keep < carry_key.shape[0]:
+                if n_in > keep:
+                    raise AssertionError(f"render {r} level {li}: {n_in} entrants overflow "
+                                         f"keep {keep} on the captured batch")
+                (ck, cw), _ = accum.compact_valid(carry_key, [carry_w], keep, eng.ks)
+            kk = from_bits(ck)
+            pix, wl = (kk >> shift).to(I32), ((kk >> 1) & (K - 1)).to(I32)
+            n, nc = ck.shape[0], int(clist.shape[0])
+            tile = torch.zeros((nc, 3 * NLO), dtype=F32, device=device)
+            want, wm = sandwich.sandwich_pass_plain(tile, clist, pix, cw, wl, tbl, k_pool=K)
+            hit = (wm == 1) & (cw > 0.0)
+            n_hit = int(hit.sum())
+            ms_p = _time_ms(lambda: sandwich.sandwich_pass_plain(tile, clist, pix, cw, wl, tbl,
+                                                                 k_pool=K), 2)
+            # The library call on the same rows: a row outside the list adds
+            # zeros to a pixel of its own, not to one dump row on which
+            # millions of atomic adds would queue.
+            vals = torch.where(hit[:, None], tbl[wl.long()] * cw[:, None], 0.0)
+            idx = torch.where(hit, pix.long(), torch.arange(n, device=device) % P)
+            ms_l = _time_ms(lambda: img.index_add_(0, idx, vals), 5)
+            bound, product = _sandwich_bound(n, n_hit, nc, 3, K)
+            for name, layout, _replaces in kernels:
+                def run(lay=layout):
+                    return sandwich.sandwich_pass(tile, clist, pix, cw, wl, tbl, k_pool=K,
+                                                  layout=lay)
+
+                got, gm = run()
+                torch.cuda.synchronize()
+                err = _tile_err(f"{name} render {r} level {li}", got, want, gm, wm)
+                if not _bits_equal(run()[0], got):
+                    raise AssertionError(f"{name}: two runs on the same rows differ")
+                ms_k = _time_ms(run, 5)
+                levels_of[name].append({
+                    "render": r, "level": li, "rows": n, "entrants": n_in,
+                    "listed_chunks": nc, "rows_in_list": n_hit, "max_abs_err": err,
+                    "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound[0], "bound_by": bound[1],
+                    "product_bound_ms": product, "library_ms": ms_l,
+                    "timed_by": _timed_by(ms_k, ms_p, ms_l)})
+                print(f"  {name} render {r} level {li}: {n} rows ({n_in} entrants, {n_hit} in "
+                      f"the list of {nc}), max_abs_err {err:.3g}, kernel {ms_k:.4f} ms, plain "
+                      f"{ms_p:.4f} ms, bound {bound[0]:.5f} ms by {bound[1]}, one-hot product "
+                      f"at peak {product:.5f} ms, index_add_ {ms_l:.4f} ms", flush=True)
+            miss = wm == 0
+            carry_key = torch.where(miss & (cw > 0.0), ck, -1)
+            carry_w = torch.where(miss, cw, 0.0)
+        if int((carry_w > 0.0).sum()) != 0:
+            raise AssertionError(f"render {r}: live rows left after the full-coverage level")
+    for name, _layout_name, replaces in kernels:
+        lv = levels_of[name]
+        top = lv[0]
+        _add(res, name, SANDWICH_SRC, replaces, max(x["max_abs_err"] for x in lv),
+             top["ms"], top["plain_ms"], (top["bound_ms"], top["bound_by"]),
+             library_ms=top["library_ms"], library="index_add_")
+        res[-1].update(
+            rows=top["rows"], listed_chunks=top["listed_chunks"],
+            product_bound_ms=top["product_bound_ms"], timed_by=top["timed_by"], levels=lv,
+            batch={k: sum(x[k] for x in lv) for k in
+                   ("ms", "plain_ms", "bound_ms", "product_bound_ms", "library_ms")})
+        print(f"  {name}: the {len(lv)} launches of one steady batch: "
+              f"{json.dumps(res[-1]['batch'])}", flush=True)
+
+
+def phase_fold_auto(scenes, device, n_after: int = 3):
+    """IHT_FOLD=auto on general-path scenes: what calibration decides, with
+    both modeled costs, and beside them what the card takes: the device time
+    of one steady batch of the auto engine and of an IHT_FOLD=sort engine of
+    the same scene. Whatever it decides, the image agrees with the sort
+    fold's (a demotion carries the settled tiles over once). `scenes` holds
+    (name, config, sort engine after 1 + n_after batches or None)."""
+    from ice_halo_sim_tpu_torch.engine.simulator import Engine
+
+    for what, cfg, other in scenes:
+        with _knobs(IHT_FOLD="auto", IHT_PALLAS_TRACE="0"):
+            eng = Engine(cfg, seed=7, batch_size=BATCH, device=device)
+        if eng.fold_kind != "sandwich" or eng.fold_decision != "startup":
+            raise AssertionError(f"auto {what}: starts on {eng.fold_kind} ({eng.fold_decision})")
+        eng.run(n_batches=1)
+        eng.run(n_batches=n_after)
+        if other is None:
+            with _knobs(IHT_FOLD="sort", IHT_PALLAS_TRACE="0"):
+                other = Engine(cfg, seed=7, batch_size=BATCH, device=device)
+            other.run(n_batches=1)
+            other.run(n_batches=n_after)
+        print(f"  IHT_FOLD=auto on {what}: fold {eng.fold_kind}; {eng.fold_decision}; modeled "
+              f"ms per batch {eng.fold_costs}; rows per render {eng._rows_per_render}, sort "
+              f"fold's keep {other._compact_keep}", flush=True)
+        if not eng.fold_decision.startswith("calibrated: ") or eng.fold_costs is None:
+            raise AssertionError(f"auto {what}: no calibrated decision")
+        if eng.fold_kind == "sandwich":
+            print(f"  auto {what} keeps the cascade: levels (listed chunks, keep) "
+                  f"{[[(int(cl.shape[0]), keep) for cl, keep in lv] for lv in eng._levels]}",
+                  flush=True)
+        _sandwich_agrees_with_sort(f"auto {what}", eng, other)
+        # One more batch on each engine, under the profiler: the whole batch's
+        # device time, trace and fold; the difference is the folds'.
+        t_auto = _time_ms(lambda: eng.run(n_batches=1), 3)
+        t_sort = _time_ms(lambda: other.run(n_batches=1), 3)
+        print(f"  auto {what}: device ms per steady batch {t_auto:.4f} as decided "
+              f"({eng.fold_kind}), {t_sort:.4f} under IHT_FOLD=sort (timed by "
+              f"{_timed_by(t_auto, t_sort)})", flush=True)
+
+
+def phase_probe(name, main_fn):
+    """A probe's own main path, the launch counters reset just before and
+    read just after."""
+    from ice_halo_sim_tpu_torch.kernels import build
+
+    build.reset_launch_counts()
+    rc = main_fn()
+    counts = dict(build.LAUNCHES)
+    if rc != 0 or counts[name] <= 0:
+        raise AssertionError(f"probe of {name}: exit code {rc}, launches {counts[name]}")
+    return counts
+
+
 class _knobs:
     """Set environment knobs for the construction of an Engine (the engine
     reads them in its constructor), and restore them."""
@@ -581,7 +1016,7 @@ def phase_paths_agree(cfg, device, n_after: int = 2):
 
     with _knobs(IHT_MIN_EMIT_W="0", IHT_SLOT_CAP="off"):
         k = Engine(cfg, seed=7, batch_size=BATCH, device=device)
-        with _knobs(IHT_PALLAS_TRACE="0"):
+        with _knobs(IHT_PALLAS_TRACE="0", IHT_FOLD="sort"):
             g = Engine(cfg, seed=7, batch_size=BATCH, device=device)
     if (k.trace_path, g.trace_path) != ("cuda-trace-kernel", "general"):
         raise AssertionError(f"paths {k.trace_path}, {g.trace_path}")
@@ -670,8 +1105,9 @@ def main() -> int:
     build.lib()
     print(f"[2] build: {time.time() - t0:.1f} s -> {os.path.relpath(path, ROOT)}",
           flush=True)
-    for line in build.ptxas_report("trace_emit_kernel"):
-        print(f"  {line}", flush=True)
+    for kernel in ("trace_emit_kernel", "sandwich_lane_kernel", "sandwich_sublane_kernel"):
+        for line in build.ptxas_report(kernel):
+            print(f"  {line}", flush=True)
 
     bench, pool = load_project(BENCH_CFG), load_project(POOL_CFG)
     ms, colour = load_project(MS_CFG), load_project(COLOR_CFG)
@@ -682,31 +1118,63 @@ def main() -> int:
     res = []
     phase_kernels(bench, device, res)
     phase_kernel_pool(pool, device, res)
-    phase_kernels_general(ms, colour, device, res)
+    with _knobs(IHT_FOLD="sort"):
+        phase_kernels_general(ms, colour, device, res)
+        phase_kernels_sandwich(ms, device, res)
 
     print("[4] slices", flush=True)
     common = ["pack_rows", "pack_payload_blocks", "scatter_blocks_multi", "fused_scan"]
     prepass = ["pack_valid_blocks", "scatter_blocks", "pack_payload_blocks",
                "scatter_blocks_multi"]
     engines, counts, per_batch = {}, {}, {}
-    for name, cfg, kernels, steady, path in (
-            ("bench", bench, ["trace_emit"] + common, 3, "cuda-trace-kernel"),
-            ("pool", pool, ["trace_emit_pool"] + common, 2, "cuda-trace-kernel"),
-            ("ms", ms, prepass + ["fused_scan"], 3, "general"),
-            ("color", colour, prepass, 2, "general")):
-        engines[name], counts[name], per_batch[name] = phase_slice(
-            name, cfg, device, kernels, steady, path)
-        if name == "bench":
-            phase_fixture("bench", bench, device, 0, 0)
-            phase_paths_agree(bench, device)
-        elif name == "pool":
-            phase_fixture("pool", pool, device, POOL_FIX_PIXELS, POOL_FIX_SEGMENTS)
-        elif name == "ms":
-            phase_fixture("ms", load_project(ms_first), device, EDGE_PIXELS, EDGE_SEGMENTS,
-                          emit_floor_off=False)
+    # These slices and fixtures fold by sort, as the JAX fixtures did (the
+    # knob touches only the general path); the sandwich fold has slices of
+    # its own below.
+    with _knobs(IHT_FOLD="sort"):
+        for name, cfg, kernels, steady, path in (
+                ("bench", bench, ["trace_emit"] + common, 3, "cuda-trace-kernel"),
+                ("pool", pool, ["trace_emit_pool"] + common, 2, "cuda-trace-kernel"),
+                ("ms", ms, prepass + ["fused_scan"], 3, "general"),
+                ("color", colour, prepass, 2, "general")):
+            engines[name], counts[name], per_batch[name] = phase_slice(
+                name, cfg, device, kernels, steady, path)
+            if name == "bench":
+                phase_fixture("bench", bench, device, 0, 0)
+                phase_paths_agree(bench, device)
+            elif name == "pool":
+                phase_fixture("pool", pool, device, POOL_FIX_PIXELS, POOL_FIX_SEGMENTS)
+            elif name == "ms":
+                phase_fixture("ms", load_project(ms_first), device, EDGE_PIXELS, EDGE_SEGMENTS,
+                              emit_floor_off=False)
+    # MS_CFG through the sandwich cascade: K7, then the A/B form K8, each
+    # against the plain kernel set and the ms slice's sort fold (1 + 3 batches).
+    engines["ms-sandwich"], counts["ms-sandwich"], per_batch["ms-sandwich"] = phase_sandwich(
+        "ms-sandwich", ms, device, engines["ms"])
+    print("[3, after calibration] K7 and K8 vs plain at every launch of a steady ms-sandwich "
+          "batch", flush=True)
+    phase_kernels_cascade(engines["ms-sandwich"], device, res)
+    with _layout("sublane"):
+        _, counts["ms-sandwich-sublane"], _ = phase_sandwich(
+            "ms-sandwich-sublane", ms, device, engines["ms"])
+    # A scene whose rows are few and concentrated, where the dispatch's model
+    # favours the cascade most: one population of horizontal plates, only the
+    # ray path 3-5 (the parhelia), on BENCH_CFG's render.
+    sundog = copy.deepcopy(BENCH_CFG)
+    sundog["crystal"] = [copy.deepcopy(MS_CFG["crystal"][0])]
+    sundog["filter"] = copy.deepcopy(MS_CFG["filter"])
+    sundog["scene"]["scattering"][0]["entries"][0]["filter"] = 1
+    phase_fold_auto([("ms", ms, engines["ms"]), ("bench (general path)", bench, None),
+                     ("sundog (plates, ray path 3-5)", load_project(sundog), None)], device)
+    from ice_halo_sim_tpu_torch import probe_sandwich, probe_scatter
+    counts["probe_sandwich"] = phase_probe("sandwich_iota", probe_sandwich.main)
+    counts["probe_scatter"] = phase_probe("extract_blocks", probe_scatter.main)
     # Launches of a kernel on the main path that runs it: the pool scene for
-    # the blocked-pool trace, MS_CFG for the fold prepass, else BENCH_CFG.
-    home = {"trace_emit_pool": "pool", "pack_valid_blocks": "ms", "scatter_blocks": "ms"}
+    # the blocked-pool trace, MS_CFG for the fold prepass, MS_CFG under the
+    # sandwich fold for K7 and K8, the probes' own runs for P1 and P2, else
+    # BENCH_CFG.
+    home = {"trace_emit_pool": "pool", "pack_valid_blocks": "ms", "scatter_blocks": "ms",
+            "sandwich_lane": "ms-sandwich", "sandwich_sublane": "ms-sandwich-sublane",
+            "sandwich_iota": "probe_sandwich", "extract_blocks": "probe_scatter"}
     for k in res:
         k["launches"] = counts[home.get(k["name"], "bench")][k["name"]]
         k["launches_per_steady_batch"] = {n: per_batch[n][k["name"]] for n in per_batch}
@@ -714,7 +1182,7 @@ def main() -> int:
     for name, eng in engines.items():
         rate = phase_rate(eng, 20 if name in ("bench", "pool") else 8)
         print(f"[5] {name} steady rate: {rate:.6g} rays/s (batch {BATCH}, "
-              f"{eng.trace_path}) on {smi}", flush=True)
+              f"{eng.trace_path}, fold {eng.fold_kind}) on {smi}", flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": res}))

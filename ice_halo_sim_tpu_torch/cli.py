@@ -75,6 +75,7 @@ def main(argv=None) -> int:
     stats = engine.drain_stats()
     print(f"simulated {stats.rays_traced} rays in {time.time() - t0:.1f}s "
           f"({engine.trace_path}, {device})")
+    print(f"fold: {engine.fold_kind} ({engine.fold_decision})")
 
     os.makedirs(args.output, exist_ok=True)
     stem = args.scene or os.path.splitext(os.path.basename(args.config))[0]

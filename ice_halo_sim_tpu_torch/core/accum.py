@@ -1,6 +1,6 @@
 """Spectral sort fold and the block compactions before it (port of
-``ice_halo_sim_tpu.core.accum`` without the legacy dense-value fold
-``sort_accumulate``).
+``ice_halo_sim_tpu.core.accum``), with the dense-value fold
+``sort_accumulate`` for scenes whose keys do not pack.
 
 Scatter-add of (pixel, wavelength-pool index, weight) rows into an
 [P, 3] XYZ image as: one unstable sort of u32 keys ``pixel * 2K | wl * 2``
@@ -77,6 +77,53 @@ def scatter_accumulate(acc, pix, vals):
     out = acc.clone()
     out.index_add_(0, pix[ok].to(I64), vals[ok])
     return out
+
+
+def sort_accumulate(acc, pix, vals, ks):
+    """Scatter-free accumulate of dense value rows: acc + the per-pixel sums
+    of vals. acc [P, C] float32; pix [N] (rows outside [0, P) are dropped);
+    vals [N, C] float32 >= 0. The fold of a scene whose (pixel, wavelength)
+    keys do not pack into 32 bits: keys are pixel * 2 for a row and pixel *
+    2 + 1 for the pixel's marker, one sort by (key, row), the per-pixel
+    totals in float64 and the marker extraction (K5 + K3)."""
+    P, C = acc.shape
+    dev = acc.device
+    if 2 * P + 2 > MASK32:
+        raise ValueError(f"{P} pixels do not fit the 32-bit marker keys")
+    n = pix.shape[0]
+    if n == 0:
+        return acc.clone()
+    pix = pix.to(I64)
+    valid = (pix >= 0) & (pix < P)
+    keys = torch.cat([torch.where(valid, pix * 2, 2 * P),
+                      torch.arange(P, dtype=I64, device=dev) * 2 + 1])
+    M = keys.shape[0]
+    pad = -(-M // BLOCK) * BLOCK - M
+    if pad:
+        keys = torch.cat([keys, torch.full((pad,), 2 * P + 2, dtype=I64, device=dev)])
+    row = torch.arange(M + pad, dtype=I64, device=dev)
+    s, _ = torch.sort(_sort_word(keys, row))
+    order = s & MASK32
+    sk = (s >> 32) + (1 << 31)
+    src = torch.clamp_max(order, n - 1)
+    live = (order < n) & valid[src]
+    chans = [torch.where(live, vals[src, c], 0.0) for c in range(C)]
+    seg = _segmented_totals(to_bits(sk), chans, 1, P)
+    key2 = to_bits(torch.where((sk & 1) == 1, sk >> 1, 0x7FFFFFFF))
+    return acc + _marker_extract(key2, seg, P, ks)
+
+
+def accumulate(acc, pix, vals, method: str, ks):
+    """Dense-value accumulate by 'scatter' (index_add_), 'sort'
+    (sort_accumulate) or 'auto' (sort on a CUDA device, scatter on the
+    CPU)."""
+    if method == "auto":
+        method = "sort" if acc.device.type == "cuda" else "scatter"
+    if method == "sort":
+        return sort_accumulate(acc, pix, vals, ks)
+    if method == "scatter":
+        return scatter_accumulate(acc, pix, vals)
+    raise ValueError(f"method must be 'scatter', 'sort' or 'auto', got {method!r}")
 
 
 def sort_keys(keys, w):

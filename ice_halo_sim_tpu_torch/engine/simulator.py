@@ -1,5 +1,5 @@
 """The port's engine: host loop over batches on one torch device (port of
-``ice_halo_sim_tpu.engine.simulator.Engine`` with the sort fold).
+``ice_halo_sim_tpu.engine.simulator.Engine``).
 
 A scene takes one of two trace paths, as in the JAX engine:
   - the trace kernel (K2 or K2b, + K1) when ``trace_emit.refusal_reason`` is
@@ -15,7 +15,17 @@ A scene takes one of two trace paths, as in the JAX engine:
     into every render, the continuation between layers, then per render
     ``pack_spectral_keys`` and the sort fold; after calibration
     ``accum.compact_valid`` (K6 + K3') shortens the rows to ``keep`` first.
-``Engine.trace_path`` says which one ran. The two differ on purpose, as in
+``Engine.trace_path`` says which one ran, ``Engine.fold_kind`` and
+``Engine.fold_decision`` which fold. On the general path a scene with
+packable keys, no colour class, at most 128 pool entries and at most 4096
+pixel chunks per render starts on the sandwich fold (core/sandwich.py, K7)
+when the device has it: per render a cascade of chunk lists, each pass over
+the compacted misses of the one before, the tiles kept on the device and the
+dense image assembled on the host at read-out. The first batch also counts
+rows per chunk; calibration plans the cascade from that histogram and, under
+IHT_FOLD=auto, keeps it or demotes to the sort fold by a cost model measured
+on the card. Keys that do not pack take the dense-value fold
+``accum.sort_accumulate`` (``sort-legacy``). The two trace paths differ on purpose, as in
 the JAX package: the emit-floor scale is analytic on the kernel path and the
 batch mean of the initial weights on the general path, and only the general
 path has a slot cap. With IHT_MIN_EMIT_W=0 and IHT_SLOT_CAP=off they give
@@ -29,14 +39,16 @@ the continuation's live count once per layer boundary (``host_syncs``).
 
 Differences from the JAX engine, all deliberate:
   - no silent degrade: a failing kernel raises, the engine never moves to
-    another device or path; keys that do not pack (the legacy dense-value
-    fold) and the sandwich fold are not ported and raise or are absent;
+    another device or path; the JAX engine's run-time escape from a failing
+    sandwich kernel to the sort fold (``+degraded``) is absent;
   - batches are a Python loop (no multi-batch dispatch), so calibration
     reads the first batch alone, and the choice between the compacted and
     the full fold, and between the block-sorted and the globally sorted
-    continuation, is a host branch on a count read from the device;
-  - the sort-size snap of ``keep`` and the scatter-output row budget, both
-    tuned to another accelerator's memory, are gone;
+    continuation, is a host branch on a count read from the device; so is
+    the overflow test of every compacted sandwich level;
+  - the sort-size snap of ``keep`` and the scatter-output row budget of the
+    sandwich levels' ``keep``, both tuned to another accelerator's memory,
+    are gone; the fold dispatch's cost constants are measured on the H100;
   - the continuation's order inside a block is a function of the rows (the
     JAX block sort is unstable), so the CPU and the card agree with each
     other; against JAX a multi-layer image agrees statistically, not ray
@@ -63,6 +75,7 @@ from ice_halo_sim_tpu_torch.config.schema import (
 from ice_halo_sim_tpu_torch.core import latlut
 from ice_halo_sim_tpu_torch.utils import env_knobs
 from ice_halo_sim_tpu_torch.core import accum as accum_mod
+from ice_halo_sim_tpu_torch.core import sandwich as sandwich_mod
 from ice_halo_sim_tpu_torch.core import (
     color,
     filters,
@@ -209,10 +222,6 @@ class Engine:
         self._build_plan()
         self._build_wavelengths()
         self._build_renders()
-        if not self.spectral_ok:
-            raise NotImplementedError(
-                "the scene's (pixel, wavelength) keys do not pack into 32 bits: the "
-                "legacy dense-value fold is not ported")
         # Exit-slot cap of the general path. None = calibrating: the first
         # batch measures the per-live-rank mass histogram and the smallest
         # cap whose dropped tail is under 1e-4 of the emitted mass is taken.
@@ -229,6 +238,7 @@ class Engine:
         self._compact_keep = None
         self._calibrated = False
         self.host_syncs = 0
+        self._sandwich_setup()
         self.reset()
 
     def _choose_trace_path(self) -> None:
@@ -469,14 +479,338 @@ class Engine:
             for p in self.proj_plans
         ]
 
+    # ------------------------------------------------------------------
+    # Sandwich fold (host side)
+    # ------------------------------------------------------------------
+
+    _SANDWICH_NHI = 256          # chunks of the first level before calibration
+    _SANDWICH_MAX_CHUNKS = 4096  # chunks per render the fold takes
+    # Cost model of the fold dispatch, ms per unit, measured with
+    # `python -m ice_halo_sim_tpu_torch.probe_sandwich` (3342336 rows over
+    # 131072 pixels, a quarter dead) on an NVIDIA H100 80GB HBM3 at a power
+    # limit of 700.00 W, device time by torch.profiler: K7 1.5875 ms at 256
+    # listed chunks and 4.7691 ms at 1024, decode and routing 0.1779 ms,
+    # compact_valid 0.0904 ms, the sort fold 0.3459 ms at 835584 rows and
+    # 1.0854 ms at 3342336. They choose the level structure and between the
+    # folds; exactness never depends on them.
+    _C_PREP = 5.32e-8      # per row: decode of the packed key, routing of the misses
+    _C_BASE = 1.58e-7      # per row: K7 extrapolated to an empty list (staging, search)
+    _C_CHUNKROW = 1.24e-9  # per row and listed chunk: K7's product
+    _C_PACK = 2.70e-8      # per input row: compact_valid (K6 + two K3')
+    _C_SORT_FIX = 0.0607   # the sort fold of keep + P rows: fixed part
+    _C_SORT_ROW = 2.95e-7  # and per row
+
+    def _sandwich_setup(self) -> None:
+        """Decide whether the sandwich fold (core/sandwich.py) replaces the
+        sort fold, and build its per-render state.
+
+        The fold is a cascade of chunk lists per render (``self._levels[r]``:
+        (chunk list, keep) pairs, the last list covering every chunk): each
+        level folds the rows whose chunk it lists and routes the misses,
+        compacted to the next level's ``keep`` rows, onward. Exactness never
+        depends on the lists or budgets: a row matches exactly one list, and
+        a level whose entrants overflow its ``keep`` folds them all into the
+        full-coverage tile instead (slower, never wrong).
+
+        The conditions are the JAX engine's, in its order; the first that
+        holds is the reason in ``fold_decision``."""
+        nlo = sandwich_mod.NLO
+        self._n_chunks = [-(-(p.height * p.width) // nlo) for p in self.proj_plans]
+        # "auto" calibrates between the cascade and the sort fold from the
+        # measured rows per chunk; "sandwich" and "sort" pin the fold.
+        self._fold_choice = str(env_knobs.get("IHT_FOLD", "auto")).lower()
+        self.fold_decision = "startup"
+        self.fold_costs = None     # the dispatch's modeled ms per batch, once calibrated
+        self.last_level_rows = []  # per render, the last batch's rows into the last level
+        method = self._resolved_accum_method()
+        reason = None
+        if self._trace_plan is not None:
+            reason = "the trace kernel emits packed sort keys"
+        elif self._fold_choice == "sort":
+            reason = "pinned by IHT_FOLD=sort"
+        elif method != "sort":
+            reason = f"accum method {method!r}"
+        elif not self.spectral_ok:
+            reason = "spectral keys do not pack into u32"
+        elif self.color_classes:
+            reason = ("raypath_color classes need per-class Y lanes, which the tile "
+                      "layout does not carry")
+        elif self.k_pool > sandwich_mod.MAX_POOL:
+            reason = f"wavelength pool {self.k_pool} > {sandwich_mod.MAX_POOL}"
+        elif any(nc > self._SANDWICH_MAX_CHUNKS for nc in self._n_chunks):
+            reason = (f"image chunks {max(self._n_chunks)} > {self._SANDWICH_MAX_CHUNKS}")
+        elif not sandwich_mod.available(self.device):
+            reason = "sandwich kernel unavailable on this device"
+        self._sandwich_on = reason is None
+        self._calibrating = False
+        if not self._sandwich_on:
+            self.fold_decision = f"sort fold (sandwich ineligible: {reason})"
+            return
+        # Before calibration: [the first NHI chunks, every chunk], or one
+        # full-coverage level for a small image. The first list is a guess;
+        # its misses route onward and calibration replaces it.
+        blk = accum_mod.BLOCK
+        dev = self.device
+        self._levels = []
+        self._calibrating = True
+        for nc, n_rows in zip(self._n_chunks, self._rows_per_render):
+            full = torch.arange(nc, dtype=I32, device=dev)
+            if nc <= self._SANDWICH_NHI:
+                self._levels.append([(full, None)])
+                continue
+            kl = min(n_rows, -(-int(n_rows * 0.6) // blk) * blk)
+            kc = max(2048, -(-int(n_rows * 0.125) // 2048) * 2048)
+            self._levels.append([
+                (torch.arange(self._SANDWICH_NHI, dtype=I32, device=dev), kl),
+                (full, min(kc, n_rows)),
+            ])
+        self._set_tile_slices()
+        self._settled = [np.zeros((p.height * p.width, 3), np.float64)
+                         for p in self.proj_plans]
+        self._ones_tbl = torch.ones((self.k_pool, 1), dtype=F32, device=dev)
+
+    def _set_tile_slices(self) -> None:
+        """Where each render's level tiles lie in self.accum."""
+        self._tile_slices = []
+        off = 0
+        for levels in self._levels:
+            self._tile_slices.append((off, off + len(levels)))
+            off += len(levels)
+
+    def _count_tile_index(self, r: int):
+        """Index of render r's calibration count tile in self.accum, or None
+        (a render with one level needs no histogram)."""
+        if not self._calibrating or len(self._levels[r]) == 1:
+            return None
+        return self._tile_slices[-1][1] + sum(
+            1 for q in range(r) if len(self._levels[q]) > 1)
+
+    def _host_count(self, x) -> int:
+        """A count as a host int; reading a device tensor is a host sync."""
+        if isinstance(x, torch.Tensor):
+            self.host_syncs += 1
+            return int(x)
+        return x
+
+    def _sandwich_fold_r(self, r: int, tiles, key, wz, n_live, count_rows=None):
+        """One render's cascade over the packed rows (key, wz) of a batch.
+
+        tiles: one [NC_l, 3*128] tile per level. n_live: the live rows, a
+        host int where the first level compacts. count_rows (the calibration
+        batch only): (count tile, pix, wl_idx); the tile [chunks, 128] takes
+        a one-channel pass of the live flags over every chunk, the histogram
+        calibration plans from. Returns (tiles', count tile', rows that
+        entered the last level). Exact for any lists and budgets: where a
+        level's entrants overflow its keep (a host read of their count) they
+        all go, uncompacted, into the full-coverage last tile."""
+        K = self.k_pool
+        shift = accum_mod.key_shift(K)
+        levels = self._levels[r]
+        full_list = levels[-1][0]
+        tiles = list(tiles)
+        tbl = self.basis_tbl
+
+        def level_pass(tile, clist, k, w_in):
+            # The dead key 0xFFFFFFFF decodes to a pixel past every chunk and
+            # carries weight 0.
+            kk = from_bits(k)
+            return self.ks.sandwich_pass(
+                tile, clist, (kk >> shift).to(I32), w_in, ((kk >> 1) & (K - 1)).to(I32),
+                tbl, k_pool=K)
+
+        count_tile = None
+        if count_rows is not None:
+            count_tile, pix, wl_idx = count_rows
+            count_tile, _ = self.ks.sandwich_pass(
+                count_tile, full_list, pix.to(I32), (wz > 0.0).to(F32), wl_idx.to(I32),
+                self._ones_tbl, k_pool=K)
+
+        carry_key, carry_w = key, wz
+        n_in = n_live
+        n_last = n_live
+        for li, (clist, keep) in enumerate(levels):
+            is_last = li == len(levels) - 1
+            if is_last:
+                n_last = n_in
+            ck, cw = carry_key, carry_w
+            if keep is not None and keep < carry_key.shape[0]:
+                n_in = self._host_count(n_in)
+                if n_in > keep:
+                    tiles[-1], _ = level_pass(tiles[-1], full_list, carry_key, carry_w)
+                    n_last = n_in
+                    break
+                (ck, cw), _ = accum_mod.compact_valid(carry_key, [carry_w], keep, self.ks)
+            tiles[li], m = level_pass(tiles[li], clist, ck, cw)
+            if is_last:
+                break
+            miss = m == 0
+            carry_key = torch.where(miss & (cw > 0.0), ck, -1)
+            carry_w = torch.where(miss, cw, 0.0)
+            n_in = (carry_w > 0.0).sum()
+        return tiles, count_tile, n_last
+
+    def _sandwich_dense64(self, r: int) -> np.ndarray:
+        """Host side: render r's dense [P, 3] float64 image, the settled mass
+        plus the level tiles."""
+        P = self.proj_plans[r].height * self.proj_plans[r].width
+        s0, _s1 = self._tile_slices[r]
+        return self._settled[r] + sandwich_mod.assemble_image(
+            [(self.accum[s0 + li], clist)
+             for li, (clist, _keep) in enumerate(self._levels[r])], P, 3)
+
+    def _sandwich_dense(self, r: int) -> np.ndarray:
+        return self._sandwich_dense64(r).astype(np.float32)
+
+    def _sandwich_plan_levels(self, nc: int, n_rows: int, live_rows: float,
+                              rows_per_chunk: np.ndarray):
+        """Choose one render's cascade from its measured rows per chunk:
+        enumerate (first list length, second list length or none) and take
+        the least modeled cost, a level costing its row budget times (row
+        cost + listed chunks times chunk-row cost) plus its compaction.
+        Returns ([(chunk list, keep)], cost in ms per batch); the last list
+        covers every chunk. A pure function of its arguments and the cost
+        constants."""
+        blk = accum_mod.BLOCK
+
+        def ceil_to(x, m):
+            return -(-int(x) // m) * m
+
+        order = np.argsort(rows_per_chunk)[::-1]
+        prefix = np.concatenate([[0.0], np.cumsum(rows_per_chunk[order])])
+        keep0 = min(n_rows, max(blk, ceil_to(live_rows * self._KEEP_MARGIN, blk)))
+        if keep0 > 0.75 * n_rows:
+            keep0 = None          # mostly live rows: level 0 takes them raw
+
+        def level_cost(keep, ncj):
+            rows = n_rows if keep is None else keep
+            return rows * (self._C_PREP + self._C_BASE + ncj * self._C_CHUNKROW)
+
+        best = None
+        for nc0 in (128, 256):
+            if nc0 >= nc:
+                continue
+            rows1 = max(0.0, live_rows - prefix[min(nc0, len(order))])
+            for nc1 in (0, 256, 512):
+                if nc1 and nc0 + nc1 >= nc:
+                    continue
+                plan = [(nc0, keep0)]
+                if nc1:
+                    keep1 = min(n_rows, max(blk, ceil_to(rows1 * 1.3, blk)))
+                    rows2 = max(0.0, live_rows - prefix[min(nc0 + nc1, len(order))])
+                    keep2 = min(n_rows, max(2048, ceil_to(rows2 * 1.5, 2048)))
+                    plan += [(nc1, keep1), (nc, keep2)]
+                else:
+                    keep1 = min(n_rows, max(2048, ceil_to(rows1 * 1.5, 2048)))
+                    plan += [(nc, keep1)]
+                cost = 0.0 if keep0 is None else self._C_PACK * n_rows
+                prev = n_rows if keep0 is None else keep0
+                for j, (ncj, keepj) in enumerate(plan):
+                    if j > 0:
+                        cost += self._C_PACK * prev
+                        prev = keepj
+                    cost += level_cost(keepj, ncj)
+                if best is None or cost < best[0]:
+                    best = (cost, plan)
+
+        cost, plan = best
+        levels = []
+        covered = 0
+        for j, (ncj, keepj) in enumerate(plan):
+            if j == len(plan) - 1:
+                clist = np.arange(nc, dtype=np.int32)
+            else:
+                clist = np.sort(order[covered:covered + ncj]).astype(np.int32)
+                covered += ncj
+            levels.append((torch.as_tensor(clist, device=self.device),
+                           None if keepj is None else int(keepj)))
+        return levels, cost
+
+    def _sandwich_recalibrate(self, live_avg, n_steps: int = 1) -> bool:
+        """Plan every render's cascade from the calibration batch's rows per
+        chunk, after settling the tiles into the float64 host images; the
+        count tiles go (calibration happens once).
+
+        The dispatch compares the planned cascades' modeled cost per batch
+        with the sort fold's on the same live rows. Where the sort fold wins
+        and IHT_FOLD is "auto" the engine demotes to it: the settled images
+        become the dense accumulators, once. Returns True if demoted (the
+        caller then calibrates the sort fold's prepass)."""
+        R = len(self.proj_plans)
+        nlo = sandwich_mod.NLO
+        for r in range(R):
+            self._settled[r] = self._sandwich_dense64(r)
+        new_levels = []
+        sandwich_ms = sort_ms = 0.0
+        for r in range(R):
+            nc = self._n_chunks[r]
+            n_rows = self._rows_per_render[r]
+            live = float(live_avg[r])
+            ci = self._count_tile_index(r)
+            if ci is None:
+                new_levels.append(self._levels[r])
+                sandwich_ms += n_rows * (self._C_PREP + self._C_BASE + nc * self._C_CHUNKROW)
+            else:
+                counts = self.accum[ci].cpu().numpy().astype(np.float64)     # [nc, 128]
+                levels, cost = self._sandwich_plan_levels(
+                    nc, n_rows, live, counts.sum(axis=1) / max(1, n_steps))
+                new_levels.append(levels)
+                sandwich_ms += cost
+            keep_s = min(n_rows, max(1.0, live * self._KEEP_MARGIN))
+            sort_ms += (self._C_PACK * n_rows + self._C_SORT_FIX
+                        + (keep_s + nc * nlo) * self._C_SORT_ROW)
+        self.fold_costs = {"sandwich_ms": sandwich_ms, "sort_ms": sort_ms}
+        landed = self.accum[-1]
+        self._calibrating = False
+        if self._fold_choice == "auto" and sort_ms < sandwich_ms:
+            self.fold_decision = (
+                f"calibrated: sort fold (modeled sort {sort_ms:.3f} ms < "
+                f"sandwich {sandwich_ms:.3f} ms per batch)")
+            # The tiles are already in _settled: it is the image, taken once.
+            self._sandwich_on = False
+            self.accum = [torch.as_tensor(img.astype(np.float32)).to(self.device)
+                          for img in self._settled] + [landed]
+            return True
+        self.fold_decision = (
+            f"calibrated: sandwich cascade (modeled sandwich {sandwich_ms:.3f} ms <= "
+            f"sort {sort_ms:.3f} ms per batch)"
+            if self._fold_choice == "auto" else f"pinned by IHT_FOLD={self._fold_choice}")
+        self._levels = new_levels
+        self._set_tile_slices()
+        # New tiles in the new layout; the mass so far lives in _settled.
+        self.accum = [
+            torch.zeros((int(clist.shape[0]), 3 * nlo), dtype=F32, device=self.device)
+            for levels in self._levels for clist, _keep in levels
+        ] + [landed]
+        return False
+
     def reset(self) -> None:
         """One accumulator per render, [H*W, 3 + n_classes] (XYZ plus one Y
-        lane per colour class), then the [R] landed weights."""
-        n_ch = 3 + len(self.color_classes)
-        self.accum = [
-            torch.zeros((p.height * p.width, n_ch), dtype=F32, device=self.device)
-            for p in self.proj_plans
-        ] + [torch.zeros(len(self.proj_plans), dtype=F32, device=self.device)]
+        lane per colour class), then the [R] landed weights. On the sandwich
+        fold: per render one [NC, 3*128] tile per level, then (while
+        calibrating) one [chunks, 128] row-count tile per render with several
+        levels, then the landed weights; the dense image is assembled on the
+        host at read-out."""
+        dev = self.device
+        if self._sandwich_on:
+            nlo = sandwich_mod.NLO
+            self.accum = [
+                torch.zeros((int(clist.shape[0]), 3 * nlo), dtype=F32, device=dev)
+                for levels in self._levels for clist, _keep in levels
+            ]
+            if self._calibrating:
+                self.accum += [
+                    torch.zeros((self._n_chunks[r], nlo), dtype=F32, device=dev)
+                    for r in range(len(self.proj_plans)) if len(self._levels[r]) > 1
+                ]
+            self._settled = [np.zeros((p.height * p.width, 3), np.float64)
+                             for p in self.proj_plans]
+        else:
+            n_ch = 3 + len(self.color_classes)
+            self.accum = [
+                torch.zeros((p.height * p.width, n_ch), dtype=F32, device=dev)
+                for p in self.proj_plans
+            ]
+        self.accum.append(torch.zeros(len(self.proj_plans), dtype=F32, device=dev))
         self.stats = Stats(
             deterministic_crystal_count=self.det_crystal_count,
             deterministic_orientation_count=self.det_orientation_count,
@@ -498,9 +832,19 @@ class Engine:
             return "cuda-trace-kernel" if path == "trace-kernel" else "general"
         return "plain-torch" if path == "trace-kernel" else "plain-torch (general)"
 
+    def _resolved_accum_method(self) -> str:
+        """'sort', 'scatter', or 'sort-legacy' when the sort fold was asked
+        for and the (pixel, wavelength) keys do not pack into 32 bits."""
+        if self.accum_method == "sort" and not self.spectral_ok:
+            return "sort-legacy"
+        return self.accum_method
+
     @property
     def fold_kind(self) -> str:
-        return self.accum_method
+        """The fold this engine runs now: 'sandwich', 'sort', 'sort-legacy'
+        or 'scatter'. An engine that started on the sandwich and was demoted
+        at calibration says 'sort'; ``fold_decision`` says why."""
+        return "sandwich" if self._sandwich_on else self._resolved_accum_method()
 
     # ------------------------------------------------------------------
     # Pool sampler
@@ -846,12 +1190,18 @@ class Engine:
         accumulator; returns the live rows per render."""
         n_classes = len(self.color_classes)
         lanes = tuple(self.color_classes)
-        if self.accum_method == "scatter":
+        if self._sandwich_on:
+            return self._fold_batch_sandwich(contribs)
+        method = self._resolved_accum_method()
+        if method != "sort":
+            # Dense value rows: the scatter oracle, or the sort fold of keys
+            # that do not pack.
             lives = []
             for r, (pix, w, wl_idx, mask) in enumerate(contribs):
                 lives.append((w > 0.0).sum())
-                self.accum[r] = accum_mod.scatter_accumulate(
-                    self.accum[r], pix, self._expand_vals(w, wl_idx, mask))
+                self.accum[r] = accum_mod.accumulate(
+                    self.accum[r], pix, self._expand_vals(w, wl_idx, mask),
+                    "sort" if method == "sort-legacy" else method, self.ks)
             return lives
         packed = []
         for r, (pix, w, wl_idx, mask) in enumerate(contribs):
@@ -877,6 +1227,35 @@ class Engine:
             self.accum[r] = accum_mod.fold_spectral_keys(
                 self.accum[r], key, wz, self.k_pool, self.basis_tbl, self.ks,
                 lane_specs=lanes, mask=mcol)
+        return lives
+
+    def _fold_batch_sandwich(self, contribs) -> list:
+        """The sandwich fold of one batch: per render the cascade of
+        `_sandwich_fold_r`. The live counts are read once for all renders
+        where some first level compacts."""
+        packed = []
+        for r, (pix, w, wl_idx, _mask) in enumerate(contribs):
+            P = self.proj_plans[r].height * self.proj_plans[r].width
+            key, wz = accum_mod.pack_spectral_keys(pix, w, wl_idx, P, self.k_pool)
+            packed.append((key, wz, (wz > 0.0).sum()))
+        lives = [p[2] for p in packed]
+        if any(levels[0][1] is not None and levels[0][1] < p[0].shape[0]
+               for levels, p in zip(self._levels, packed)):
+            lives = [int(x) for x in torch.stack(lives).tolist()]
+            self.host_syncs += 1
+        lasts = []
+        for r, (key, wz, _) in enumerate(packed):
+            s0, s1 = self._tile_slices[r]
+            ci = self._count_tile_index(r)
+            pix, _w, wl_idx, _mask = contribs[r]
+            tiles, ct, n_last = self._sandwich_fold_r(
+                r, self.accum[s0:s1], key, wz, lives[r],
+                None if ci is None else (self.accum[ci], pix, wl_idx))
+            self.accum[s0:s1] = tiles
+            if ci is not None:
+                self.accum[ci] = ct
+            lasts.append(n_last)
+        self.last_level_rows = lasts
         return lives
 
     # ------------------------------------------------------------------
@@ -1017,7 +1396,12 @@ class Engine:
             if any(c is not None for c in caps):
                 self._build_plan(cont_caps=caps)
         self._recompute_rows_per_render()
-        if not self._compact_enabled or self.accum_method != "sort":
+        if self._sandwich_on:
+            if not self._sandwich_recalibrate([float(x) for x in lives]):
+                return
+            # Demoted to the sort fold: its prepass is calibrated from the
+            # same live counts.
+        if not self._compact_enabled or self._resolved_accum_method() != "sort":
             return
         block = accum_mod.BLOCK
         keep = []
@@ -1057,6 +1441,8 @@ class Engine:
 
     def raw_xyz(self, render_idx: int = 0) -> np.ndarray:
         p = self.proj_plans[render_idx]
+        if self._sandwich_on:
+            return self._sandwich_dense(render_idx).reshape(p.height, p.width, 3)
         return self.accum[render_idx][:, :3].cpu().numpy().reshape(p.height, p.width, 3)
 
     def lane_y(self, render_idx: int = 0) -> Optional[np.ndarray]:

@@ -15,10 +15,11 @@ class KernelSet(NamedTuple):
     scatter_blocks_multi: Callable
     scatter_blocks: Callable
     fused_scan_call: Callable
+    sandwich_pass: Callable
 
 
 def kernel_set(kind: str) -> KernelSet:
-    from ice_halo_sim_tpu_torch.core import block_ops, seg_scan, trace_emit
+    from ice_halo_sim_tpu_torch.core import block_ops, sandwich, seg_scan, trace_emit
 
     if kind == "cuda":
         return KernelSet("cuda", trace_emit.trace_emit,
@@ -26,12 +27,14 @@ def kernel_set(kind: str) -> KernelSet:
                          block_ops.pack_payload_blocks,
                          block_ops.scatter_blocks_multi,
                          block_ops.scatter_blocks,
-                         seg_scan.fused_scan_call)
+                         seg_scan.fused_scan_call,
+                         sandwich.sandwich_pass)
     if kind == "plain":
         return KernelSet("plain", trace_emit.trace_emit_plain,
                          block_ops.pack_valid_blocks_plain,
                          block_ops.pack_payload_blocks_plain,
                          block_ops.scatter_blocks_multi_plain,
                          block_ops.scatter_blocks_plain,
-                         seg_scan.fused_scan_call_plain)
+                         seg_scan.fused_scan_call_plain,
+                         sandwich.sandwich_pass_plain)
     raise ValueError(f"kernels must be 'cuda' or 'plain', got {kind!r}")

@@ -48,6 +48,10 @@ LAUNCHES = {
     "scatter_blocks_multi": 0,
     "scatter_blocks": 0,
     "fused_scan": 0,
+    "sandwich_lane": 0,
+    "sandwich_sublane": 0,
+    "sandwich_iota": 0,
+    "extract_blocks": 0,
 }
 
 _lib = None
@@ -152,6 +156,11 @@ _SIGNATURES = {
                            _VP, _VP, _VP, _I, _LL, _LL, _I, _U, _VP],
     "iht_fused_scan": [_VP, _VP, _VP, _I, _I, _LL, _VP, _VP, _VP, _VP,
                        _VP, _VP, _VP],
+    "iht_sandwich_lane": [_VP, _VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _I, _LL, _I,
+                          _VP, _VP, _VP, _VP, _VP],
+    "iht_sandwich_sublane": [_VP, _VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _I, _LL, _I,
+                             _VP, _VP, _VP, _VP, _VP],
+    "iht_sandwich_iota": [_VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _LL, _I, _VP, _VP, _VP],
 }
 
 

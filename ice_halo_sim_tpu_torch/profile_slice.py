@@ -14,7 +14,9 @@ kernel of the port are also run alone under the profiler, so that each reads
 off one line: the pool sampler (every layer's), and on the general path the
 whole general trace (samplers, trace, gates, projection, continuation) and
 the continuation alone (on the inputs of a captured batch); the folds are
-the rest.
+the rest. On the general path the report names the fold (``Engine.fold_kind``
+and ``fold_decision``; the knob IHT_FOLD=sandwich|sort|auto chooses, as for
+any run of the engine) and, on the sandwich fold, its levels.
 """
 
 from __future__ import annotations
@@ -108,6 +110,14 @@ def main(argv=None) -> int:
             eng._continuation = inner
             label_lines.append(line(f"continuation ({len(captured)} per batch)", *alone(
                 lambda i: [inner(*a) for a in captured])))
+        costs = "" if eng.fold_costs is None else (
+            f"; modeled ms per batch: sandwich {eng.fold_costs['sandwich_ms']:.4f}, sort "
+            f"{eng.fold_costs['sort_ms']:.4f}")
+        label_lines.append(f"fold {eng.fold_kind} ({eng.fold_decision}){costs}")
+        if eng.fold_kind == "sandwich":
+            label_lines.append("sandwich levels (listed chunks, keep) per render: " + str(
+                [[(int(cl.shape[0]), keep) for cl, keep in lv] for lv in eng._levels])
+                + f"; rows into the last level {[int(n) for n in eng.last_level_rows]}")
         label_lines.append(
             f"trace path {eng.trace_path}: slot cap {eng._slot_cap}, keep {eng._compact_keep}, "
             f"lanes per layer {[l.cont_cap for l in eng.layers]}, host syncs per batch "

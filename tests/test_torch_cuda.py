@@ -4,7 +4,12 @@ Marked ``cuda``: skipped where no CUDA device exists. On a machine with a
 card:  python -m pytest -m cuda tests/test_torch_cuda.py -q
 Shapes are small; chip_smoke.py repeats the comparison at the main path's
 shapes. Integer outputs must be bit-equal; the scan's floats within rtol
-1e-6 (both versions sum in float64 and round once).
+1e-6 (both versions sum in float64 and round once). The sandwich kernels'
+tile entries: rtol 1e-4 with atol 1e-5 of the largest entry (the tensor
+cores add the products of a 16-row step and the running float32 sum without
+the rounding of a sequential IEEE sum, and the partial tiles of the row
+splits are added in float32; the plain version sums in float64 and rounds
+once); ``matched`` is bit-equal.
 """
 
 import numpy as np
@@ -184,12 +189,13 @@ def test_pack_valid_blocks_kernel(dev, ncols, thresh):
         assert all(_eq(p, q) for p, q in zip(x[0], y[0]))
 
 
-def test_general_path_engine_cuda_matches_plain(dev):
+def test_general_path_engine_cuda_matches_plain(dev, monkeypatch):
     """The general trace path (two layers, two settings, a filter; then
     colour classes) through the CUDA kernel set against the plain set on the
     card: the same torch trace, so segments and images agree."""
     from ice_halo_sim_tpu_torch.scenes import COLOR_CFG, MS_CFG
 
+    monkeypatch.setenv("IHT_FOLD", "sort")
     for doc in (MS_CFG, COLOR_CFG):
         a = Engine(load_project(doc), seed=3, batch_size=16384, device=dev)
         b = Engine(load_project(doc), seed=3, batch_size=16384, device=dev, kernels="plain")
@@ -205,3 +211,140 @@ def test_general_path_engine_cuda_matches_plain(dev):
         if a.color_classes:
             np.testing.assert_allclose(a.lane_y(0), b.lane_y(0), rtol=1e-4,
                                        atol=1e-6 * float(b.lane_y(0).max()))
+
+
+TILE_RTOL, TILE_ATOL_FRAC = 1e-4, 1e-5
+
+
+def _sandwich_rows(dev, n, n_pixels, k_pool, c_out=3, seed=0):
+    g = np.random.default_rng(seed)
+    pix = g.integers(0, n_pixels, n).astype(np.int32)
+    dead = g.random(n) < 0.3
+    pix[dead] = -1
+    w = (g.random(n) * 2).astype(np.float32)
+    w[dead] = 0.0
+    wl = g.integers(0, k_pool, n).astype(np.int32)
+    tbl = g.random((k_pool, c_out)).astype(np.float32)
+    return tuple(torch.as_tensor(x).to(dev) for x in (pix, w, wl, tbl))
+
+
+def _assert_tile_close(got, want):
+    torch.testing.assert_close(got, want, rtol=TILE_RTOL,
+                               atol=TILE_ATOL_FRAC * float(want.abs().max()) + 1e-30)
+
+
+@pytest.mark.parametrize("layout", ["lane", "sublane"])
+@pytest.mark.parametrize("c_out, precise, n, nc", [
+    (3, False, 100_000, 8), (3, True, 33_333, 100), (1, False, 70_001, 300),
+    (3, False, 255, 64), (3, False, 1, 1), (3, False, 60_000, 4096), (1, False, 60_000, 4096)])
+def test_sandwich_kernels(dev, layout, c_out, precise, n, nc):
+    """K7 (lane) and K8 (sublane) against the plain version: a shuffled list
+    with padding ids and ids outside the image, row counts that are no
+    multiple of a slab, lists shorter and longer than a block's 64 entries
+    up to the engine's limits (4096 chunks, 128 pool entries), a running tile
+    that is not zero."""
+    from ice_halo_sim_tpu_torch.core import sandwich
+
+    n_chunks, K = (4096, 128) if nc == 4096 else (400, 64)
+    pix, w, wl, tbl = _sandwich_rows(dev, n, n_chunks * sandwich.NLO, K, c_out, seed=n)
+    g = np.random.default_rng(nc)
+    cl = g.permutation(n_chunks + 20)[:nc].astype(np.int32)    # some ids hold no pixel
+    cl[g.random(nc) < 0.1] = -1
+    cl = torch.as_tensor(cl).to(dev)
+    tile = torch.rand((nc, c_out * sandwich.NLO), device=dev)
+    got, gm = sandwich.sandwich_pass(tile, cl, pix, w, wl, tbl, k_pool=K, precise=precise,
+                                     layout=layout)
+    want, wm = sandwich.sandwich_pass_plain(tile, cl, pix, w, wl, tbl, k_pool=K,
+                                            precise=precise)
+    torch.cuda.synchronize()
+    assert gm.dtype == torch.int32 and torch.equal(gm, wm)
+    _assert_tile_close(got, want)
+    # Run after run the same bits: the partial tiles are summed in a fixed order.
+    again, _ = sandwich.sandwich_pass(tile, cl, pix, w, wl, tbl, k_pool=K, precise=precise,
+                                      layout=layout)
+    assert torch.equal(again, got)
+
+
+def test_sandwich_dead_rows_and_decoded_dead_keys(dev):
+    """A dead row's pixel -1 (chunk -1 by floor division) and the decoded
+    dead key (a pixel past every chunk) match no list, chunk 0 included."""
+    from ice_halo_sim_tpu_torch.core import sandwich
+
+    K = 16
+    pix = torch.tensor([-1, -128, -129, (1 << 25) - 1, 5, 127, 128], dtype=torch.int32,
+                       device=dev)
+    w = torch.ones(7, device=dev)
+    wl = torch.zeros(7, dtype=torch.int32, device=dev)
+    tbl = torch.ones((K, 3), device=dev)
+    cl = torch.tensor([0, -1], dtype=torch.int32, device=dev)
+    tile = torch.zeros((2, 384), device=dev)
+    for layout in ("lane", "sublane"):
+        out, m = sandwich.sandwich_pass(tile, cl, pix, w, wl, tbl, k_pool=K, layout=layout)
+        assert m.tolist() == [0, 0, 0, 0, 1, 1, 0]
+        assert float(out.sum()) == 6.0 and float(out[0, 5]) == 1.0 and not out[1].any()
+
+
+@pytest.mark.parametrize("nhi, n", [(8, 50_000), (256, 200_000), (100, 777)])
+def test_sandwich_iota_kernel(dev, nhi, n):
+    """P1 against its plain version; rows of chunks past the tile drop."""
+    from ice_halo_sim_tpu_torch import probe_sandwich
+
+    K = 64
+    pix, w, wl, tbl = _sandwich_rows(dev, n, (nhi + 40) * 128, K, seed=nhi)
+    got = probe_sandwich.sandwich_iota(pix, w, wl, tbl, nhi=nhi, k_pool=K)
+    want = probe_sandwich.sandwich_iota_plain(pix, w, wl, tbl, nhi=nhi, k_pool=K)
+    assert got.shape == (nhi, 384)
+    _assert_tile_close(got, want)
+
+
+def test_extract_blocks_kernel(dev):
+    """P2 against its plain version at a small shape and with equal starts
+    (the later block wins) and a start at the end of the output; bit-equal."""
+    from ice_halo_sim_tpu_torch import probe_scatter
+
+    vals, start, n_out, block = probe_scatter.probe_inputs(dev, seed=3, n_out=8192, block=1024,
+                                                           n_rows=24 * 1024)
+    assert _eq(probe_scatter.extract_blocks(vals, start, n_out, block),
+               probe_scatter.extract_blocks_plain(vals, start, n_out, block))
+    start2 = torch.tensor([0, 100, 100, n_out], dtype=torch.int32, device=dev)
+    assert _eq(probe_scatter.extract_blocks(vals[:4], start2, n_out, block),
+               probe_scatter.extract_blocks_plain(vals[:4], start2, n_out, block))
+    vals, start, n_out, block = probe_scatter.probe_inputs(dev)
+    assert vals.shape == (192, 16384)
+    assert _eq(probe_scatter.extract_blocks(vals, start, n_out, block),
+               probe_scatter.extract_blocks_plain(vals, start, n_out, block))
+
+
+@pytest.mark.parametrize("fold", ["sandwich", "auto"])
+def test_sandwich_engine_cuda_matches_plain_and_sort(dev, monkeypatch, fold):
+    """MS_CFG through the sandwich cascade (K7, with K6 + K3' before each
+    compacted level) against the plain kernel set on the card (the tile
+    tolerance) and against the sort fold (bf16 rounding of each row's values:
+    image mass within 2e-3, L1 within 6e-3; landed weight and segments
+    equal). Under IHT_FOLD=auto the engine may demote at calibration; both
+    kernel sets then decide alike."""
+    from ice_halo_sim_tpu_torch.kernels import build
+    from ice_halo_sim_tpu_torch.scenes import MS_CFG
+
+    monkeypatch.setenv("IHT_FOLD", fold)
+    a = Engine(load_project(MS_CFG), seed=3, batch_size=16384, device=dev)
+    b = Engine(load_project(MS_CFG), seed=3, batch_size=16384, device=dev, kernels="plain")
+    monkeypatch.setenv("IHT_FOLD", "sort")
+    s = Engine(load_project(MS_CFG), seed=3, batch_size=16384, device=dev)
+    assert a.fold_kind == b.fold_kind == "sandwich" and s.fold_kind == "sort"
+    before = build.LAUNCHES["sandwich_lane"]
+    for eng in (a, b, s):
+        eng.run(n_batches=1)
+        eng.run(n_batches=2)
+    assert build.LAUNCHES["sandwich_lane"] > before
+    assert a.fold_kind == b.fold_kind and a.fold_decision == b.fold_decision
+    if fold == "sandwich":
+        assert a.fold_kind == "sandwich" and a.fold_decision == "pinned by IHT_FOLD=sandwich"
+    sa, sb, ss = a.drain_stats(), b.drain_stats(), s.drain_stats()
+    assert sa.ray_segments == sb.ray_segments == ss.ray_segments
+    np.testing.assert_allclose(sa.landed_weight, ss.landed_weight, rtol=1e-6)
+    for r in range(len(a.proj_plans)):
+        x, y, z = a.raw_xyz(r), b.raw_xyz(r), s.raw_xyz(r)
+        np.testing.assert_allclose(x, y, rtol=TILE_RTOL, atol=TILE_ATOL_FRAC * float(y.max()))
+        assert abs(float(x.sum()) - float(z.sum())) / float(z.sum()) < 2e-3
+        assert np.abs(x - z).sum() / np.abs(z).sum() < 6e-3

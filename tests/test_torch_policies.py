@@ -110,25 +110,27 @@ def test_cuda_entry_points_return_launch_error():
             parts = body.split("<<<")
             for after in parts[1:]:
                 assert "cudaGetLastError()" in after, m.group(1)
-    assert entries == 5
+    assert entries == 8
 
 
 def test_wrappers_check_every_kernel_call():
     calls = 0
     for path in _port_files((".py",)):
         src = open(path).read()
-        for m in re.finditer(r"code = build\.lib\(\)\.(iht_\w+)\(", src):
+        for m in re.finditer(r"code = (?:build\.lib\(\)|lib)\.(iht_\w+)\(", src):
             calls += 1
             assert re.search(r"build\.check\(code, ", src[m.end():m.end() + 600]), (
                 path, m.group(1))
-    assert calls == 5
+    assert calls == 8
 
 
 def test_each_launch_counter_bumped_once():
     from ice_halo_sim_tpu_torch.kernels import build
 
     srcs = "".join(open(p).read() for p in _port_files((".py",)))
-    assert len(build.LAUNCHES) == 8 and "trace_emit_pool" in build.LAUNCHES
+    assert len(build.LAUNCHES) == 12 and "trace_emit_pool" in build.LAUNCHES
+    assert {"sandwich_lane", "sandwich_sublane", "sandwich_iota", "extract_blocks"} <= \
+        set(build.LAUNCHES)
     assert "pack_valid_blocks" in build.LAUNCHES and "scatter_blocks" in build.LAUNCHES
     for name in build.LAUNCHES:
         assert srcs.count(f'build.LAUNCHES["{name}"] += 1') == 1, name
@@ -177,3 +179,70 @@ def test_pack_valid_blocks_never_falls_to_the_plain_version():
             call()
         assert not isinstance(exc.value, (ValueError, AssertionError)), exc.value
     assert build.LAUNCHES == before
+
+
+def test_sandwich_wrappers_never_fall_to_the_plain_version():
+    """K7, K8, P1 and P2 on a tensor that is not on the CPU: bad arguments
+    raise ValueError before any launch, good ones reach the kernel build
+    (absent here); nothing computes the plain version instead and no counter
+    moves. Meta tensors stand in for CUDA tensors."""
+    import pytest
+
+    from ice_halo_sim_tpu_torch import probe_sandwich, probe_scatter
+    from ice_halo_sim_tpu_torch.core import sandwich
+    from ice_halo_sim_tpu_torch.kernels import build, kernel_set
+
+    def meta(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def rows(n=1000, k=16, c=3):
+        return (meta(n, torch.int32), meta(n), meta(n, torch.int32), meta((k, c)))
+
+    tile, cl = meta((8, 384)), meta(8, torch.int32)
+    before = dict(build.LAUNCHES)
+    with pytest.raises(ValueError, match="layout"):
+        sandwich.sandwich_pass(tile, cl, *rows(), k_pool=16, layout="rows")
+    with pytest.raises(ValueError, match="1 or 3 channels"):
+        sandwich.sandwich_pass(meta((8, 256)), cl, *rows(c=2), k_pool=16)
+    with pytest.raises(ValueError, match="k_pool"):
+        sandwich.sandwich_pass(tile, cl, *rows(k=256), k_pool=256)
+    with pytest.raises(ValueError, match="table must be"):
+        sandwich.sandwich_pass(tile, cl, *rows(k=8), k_pool=16)
+    with pytest.raises(ValueError, match="chunk list"):
+        sandwich.sandwich_pass(tile, meta(9, torch.int32), *rows(), k_pool=16)
+    with pytest.raises(ValueError, match="one length"):
+        sandwich.sandwich_pass(tile, cl, meta(999, torch.int32), *rows()[1:], k_pool=16)
+    with pytest.raises(ValueError, match="extract_blocks takes"):
+        probe_scatter.extract_blocks(meta((4, 512)), meta(4, torch.int32), 4096, 1024)
+    for call in (
+        lambda: sandwich.sandwich_pass(tile, cl, *rows(), k_pool=16),
+        lambda: sandwich.sandwich_pass(tile, cl, *rows(), k_pool=16, layout="sublane",
+                                       precise=True),
+        lambda: sandwich.sandwich_pass(meta((8, 128)), cl, *rows(c=1), k_pool=16),
+        lambda: probe_sandwich.sandwich_iota(*rows(), nhi=8, k_pool=16),
+        lambda: probe_scatter.extract_blocks(meta((4, 1024)), meta(4, torch.int32), 4096, 1024),
+    ):
+        with pytest.raises(Exception) as exc:
+            call()
+        assert not isinstance(exc.value, (ValueError, AssertionError)), exc.value
+    assert build.LAUNCHES == before
+    # The kernel sets: the wrapper in "cuda", the plain version in "plain".
+    assert kernel_set("cuda").sandwich_pass is sandwich.sandwich_pass
+    assert kernel_set("plain").sandwich_pass is sandwich.sandwich_pass_plain
+
+
+def test_sandwich_source_holds_no_library_product():
+    """The sandwich path multiplies on the tensor cores by hand: mma.sync and
+    wmma in the CUDA source, and no library product or scatter in the
+    wrapper module outside the plain version."""
+    cu = open(os.path.join(PKG, "csrc", "sandwich.cu")).read()
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in cu
+    assert "wmma::mma_sync" in cu and "atomicAdd" not in cu
+    for entry in ("iht_sandwich_lane", "iht_sandwich_sublane", "iht_sandwich_iota"):
+        assert f'extern "C" int {entry}(' in cu
+    src = open(os.path.join(PKG, "core", "sandwich.py")).read()
+    wrapper = src[src.index("def sandwich_pass("):src.index("def assemble_image(")]
+    for word in ("matmul", "index_add", "scatter_add", "torch.compile", "einsum", "@"):
+        assert word not in wrapper, word
+    sim = open(os.path.join(PKG, "engine", "simulator.py")).read()
+    assert "degraded" not in sim.replace("``+degraded``", "")
