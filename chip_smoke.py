@@ -21,13 +21,15 @@ Phases (any failure raises; the exit code is then non-zero):
      sublane) at the one-channel count pass of the calibration batch (the
      raw rows of MS_CFG's dual render over all 1024 chunks) and, printed as
      extra lines, at the raw rows against the 256 chunks that hold most of
-     them, plain and two-term; the probe forms P1 and P2 at their probes'
-     shapes. The entries of K7 and K8 in the kernels line are taken after
+     them, plain and two-term; a stress launch of both on hot pixels (2^21
+     rows, 90% on three pixels: the plain version and the same bits twice);
+     the probe forms P1 and P2 at their probes' shapes. The entries of K7 and K8 in the kernels line are taken after
      the ms-sandwich slice of [4] has calibrated: one steady batch's rows go
      through every level of both renders' cascades as the engine routes
      them (compacted to the level's keep, decoded, misses onward), and at
      each (rows, chunk list) pair the kernel is held against its plain
-     version and timed beside it and beside index_add_ on the same rows;
+     version and timed beside it and beside index_add_ on the same rows,
+     K7, K8 and index_add_ printed side by side per launch;
   4. slices: Engine(cfg, device="cuda") renders BENCH_CFG and POOL_CFG (the
      trace kernel path), then MS_CFG and COLOR_CFG (the general trace
      path), each with the launch counters reset just before and read just
@@ -42,7 +44,8 @@ Phases (any failure raises; the exit code is then non-zero):
      three steady ones, K7 launched on every steady batch, held against
      kernels="plain" on the card and against the sort fold of the ms slice;
      the same through K8; MS_CFG and BENCH_CFG (general path) under
-     IHT_FOLD=auto with the dispatch's decision and modeled costs; and the
+     IHT_FOLD=auto with the dispatch's decision and modeled costs (and
+     with IHT_FOLD unset: the card's default, the sort fold); and the
      two probes' own main paths (P1, P2);
   5. steady rays/s of the five slices (informational).
 
@@ -80,9 +83,8 @@ POOL_FIX_PIXELS, POOL_FIX_SEGMENTS = 8, 8
 # pixel over (the projection's last bit), a ray on a face edge may flip.
 EDGE_PIXELS, EDGE_SEGMENTS = 8, 8
 DROPPED_ATOL_FRAC = 1e-6               # of the landed weight
-# Sandwich tile entries, kernel against plain version: the tensor cores add
-# the products of a 16-row step and the running float32 sum without the
-# rounding of a sequential IEEE sum, and the row splits' partial tiles are
+# Sandwich tile entries, kernel against plain version: a block adds its rows
+# to a cell one by one in float32, and the row splits' partial tiles are
 # added in float32; the plain version sums in float64 and rounds once.
 # atol is a fraction of the largest entry. `matched` is bit-equal.
 TILE_RTOL, TILE_ATOL_FRAC = 1e-4, 1e-5
@@ -97,7 +99,6 @@ BF16_MASS, BF16_L1 = 2e-3, 6e-3
 HBM_BYTES_S = 3.35e12
 FP32_OPS_S = 67e12
 SFU_OPS_S = FP32_OPS_S / 16
-TC_BF16_OPS_S = 989e12                 # dense bf16 on the tensor cores
 
 
 class _Ms(float):
@@ -135,12 +136,11 @@ def _max_abs(x, y) -> float:
     return float((x.double() - y.double()).abs().max()) if x.numel() else 0.0
 
 
-def _bound(nbytes: float, ops: float = 0.0, sfu: float = 0.0, tc: float = 0.0):
+def _bound(nbytes: float, ops: float = 0.0, sfu: float = 0.0):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over their peak rates (float32, special functions, bf16 on
-    the tensor cores)."""
+    operations over their peak rates (float32, special functions)."""
     t_bytes = nbytes / HBM_BYTES_S
-    t_ops = max(ops / FP32_OPS_S, sfu / SFU_OPS_S, tc / TC_BF16_OPS_S)
+    t_ops = max(ops / FP32_OPS_S, sfu / SFU_OPS_S)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -523,18 +523,56 @@ def _tile_err(what, got, want, gm=None, wm=None) -> float:
 
 
 def _sandwich_bound(n, n_matched, nc, c_out, k_pool, terms=1, matched_out=True):
-    """((bound_ms, bound_by), product_ms). The bound is the function's: a
-    scatter-add. Bytes: the three row operands read and `matched` written
-    once, the list, the table, the tile read and written. Operations: one
-    multiply and one add per channel and term of each row in the list
-    (float32). product_ms is not a bound of the function but the ceiling of
-    this design, which computes it as a one-hot product on the tensor cores:
-    2 * rows in the list * NC * C * 128 bf16 operations per term at the
-    card's peak (a row outside the list is a zero column and needs none)."""
+    """(bound_ms, bound_by) of one pass: a scatter-add. Bytes: the three row
+    operands read and `matched` written once, the list, the table, the tile
+    read and written. Operations: one multiply and one add per channel and
+    term of each row in the list (float32)."""
     nbytes = 12 * n + (4 * n if matched_out else 0) + 4 * nc + 4 * k_pool * c_out \
         + 2 * 4 * nc * c_out * 128
-    product_ms = 1e3 * 2.0 * n_matched * nc * c_out * 128 * terms / TC_BF16_OPS_S
-    return _bound(nbytes, ops=2.0 * n_matched * c_out * terms), product_ms
+    return _bound(nbytes, ops=2.0 * n_matched * c_out * terms)
+
+
+def phase_sandwich_stress(device, K, tbl, n_chunks, n: int = 1 << 21):
+    """Hot pixels: n rows, 90% of them on three pixels (at least 2^20 on
+    them), the rest spread over the image, against every chunk of the
+    image. K7 and K8 against the plain version, `matched` bit-equal, and a
+    second run with the same bits; printed with their times beside
+    index_add_ on the same rows."""
+    import torch
+
+    from ice_halo_sim_tpu_torch.core import sandwich
+
+    NLO = sandwich.NLO
+    g = torch.Generator(device=device).manual_seed(11)
+    hot = torch.tensor([77, 5 * NLO + 3, (n_chunks - 1) * NLO + 127], dtype=torch.int32,
+                       device=device)
+    pix = hot[torch.randint(0, 3, (n,), generator=g, device=device)]
+    spread = torch.rand(n, generator=g, device=device) < 0.1
+    pix = torch.where(spread, torch.randint(0, n_chunks * NLO, (n,), generator=g,
+                                            device=device, dtype=torch.int32), pix)
+    w = torch.rand(n, generator=g, device=device) + 0.5
+    wl = torch.randint(0, K, (n,), generator=g, device=device, dtype=torch.int32)
+    on_hot = int((~spread).sum())
+    if on_hot < (1 << 20):
+        raise AssertionError(f"stress: {on_hot} rows on the hot pixels")
+    full = torch.arange(n_chunks, dtype=torch.int32, device=device)
+    tile = torch.zeros((n_chunks, 3 * NLO), dtype=torch.float32, device=device)
+    want, wm = sandwich.sandwich_pass_plain(tile, full, pix, w, wl, tbl, k_pool=K)
+    img = torch.zeros((n_chunks * NLO, 3), dtype=torch.float32, device=device)
+    vals = tbl[wl.long()] * w[:, None]
+    ms_l = _time_ms(lambda: img.index_add_(0, pix.long(), vals), 5)
+    for name, layout in (("sandwich_lane", "lane"), ("sandwich_sublane", "sublane")):
+        def run(lay=layout):
+            return sandwich.sandwich_pass(tile, full, pix, w, wl, tbl, k_pool=K, layout=lay)
+
+        got, gm = run()
+        torch.cuda.synchronize()
+        err = _tile_err(f"{name} stress", got, want, gm, wm)
+        if not _bits_equal(run()[0], got):
+            raise AssertionError(f"{name} stress: two runs on the same rows differ")
+        print(f"  {name} stress ({n} rows, {on_hot} on three pixels, NC {n_chunks}): "
+              f"max_abs_err {err:.3g} of {float(want.abs().max()):.4g}, same bits twice, "
+              f"kernel {_time_ms(run, 5):.4f} ms, index_add_ {ms_l:.4f} ms", flush=True)
 
 
 def phase_kernels_sandwich(ms_cfg, device, res: list):
@@ -588,11 +626,11 @@ def phase_kernels_sandwich(ms_cfg, device, res: list):
             err = _tile_err(f"{name} raw rows, NC 256, precise {precise}", got, want, gm, wm)
             if int(gm.sum()) != n_hot:
                 raise AssertionError(f"{name}: {int(gm.sum())} rows matched, {n_hot} expected")
-            bound, product = _sandwich_bound(N, n_hot, 256, 3, K, terms=2 if precise else 1)
+            bound = _sandwich_bound(N, n_hot, 256, 3, K, terms=2 if precise else 1)
             print(f"  {name} at the {N} raw rows, NC 256, {'two bf16 terms' if precise else 'one term'}"
                   f" (extra: no launch of the path has this shape): max_abs_err {err:.3g}, "
                   f"kernel {_time_ms(lambda: run(precise=precise), 3):.4f} ms, bound "
-                  f"{bound[0]:.5f} ms by {bound[1]}, one-hot product at peak {product:.5f} ms",
+                  f"{bound[0]:.5f} ms by {bound[1]}",
                   flush=True)
 
         # The calibration batch's count pass, at its shape on the path: one
@@ -604,12 +642,13 @@ def phase_kernels_sandwich(ms_cfg, device, res: list):
         want, wm = sandwich.sandwich_pass_plain(tile_cnt, full, pix, flags, wl, ones, k_pool=K)
         if not _bits_equal(got, want) or not _bits_equal(gm, wm) or int(got.sum()) != n_live:
             raise AssertionError(f"{name}: the count pass is not exact")
-        b4, p4 = _sandwich_bound(N, n_live, n_chunks, 1, K)
+        b4 = _sandwich_bound(N, n_live, n_chunks, 1, K)
         print(f"  {name} count pass (C = 1, {N} rows, NC {n_chunks}): exact, kernel "
               f"{_time_ms(lambda: run(tile_cnt, full, pix, flags, wl, ones), 5):.4f} ms, bound "
-              f"{b4[0]:.5f} ms by {b4[1]}, one-hot product at peak {p4:.5f} ms", flush=True)
+              f"{b4[0]:.5f} ms by {b4[1]}", flush=True)
     del eng
     torch.cuda.empty_cache()
+    phase_sandwich_stress(device, K, tbl, n_chunks)
 
     # P1 at the probe's shape: N = 3342336 rows over 131072 pixels, K = 64.
     PP, PK, PN = 512 * 256, 64, 3_342_336
@@ -628,15 +667,15 @@ def phase_kernels_sandwich(ms_cfg, device, res: list):
         ms_p = _time_ms(lambda: probe_sandwich.sandwich_iota_plain(ppix, pw, pwl, ptbl, nhi=nhi,
                                                                    k_pool=PK), 2)
         ms_l = _time_ms(lambda: pimg.index_add_(0, pidx, pvals), 5)
-        bound, product = _sandwich_bound(PN, int(inside.sum()), nhi, 3, PK, matched_out=False)
+        bound = _sandwich_bound(PN, int(inside.sum()), nhi, 3, PK, matched_out=False)
         if nhi == 256:
             _add(res, "sandwich_iota", SANDWICH_SRC, "scripts/probe_sandwich.py:90", err, ms_k,
                  ms_p, bound, library_ms=ms_l, library="index_add_")
-            res[-1].update(rows=PN, listed_chunks=nhi, product_bound_ms=product)
+            res[-1].update(rows=PN, listed_chunks=nhi)
         else:
             print(f"  sandwich_iota NHI {nhi}: max_abs_err {err:.3g}, kernel {ms_k:.4f} ms, "
-                  f"plain {ms_p:.4f} ms, bound {bound[0]:.5f} ms by {bound[1]}, one-hot "
-                  f"product at peak {product:.5f} ms, index_add_ {ms_l:.4f} ms", flush=True)
+                  f"plain {ms_p:.4f} ms, bound {bound[0]:.5f} ms by {bound[1]}, "
+                  f"index_add_ {ms_l:.4f} ms", flush=True)
 
     # P2 at the probe's shape: G = 192 blocks of 16384 into P = 131072.
     vals, start, n_out, block = probe_scatter.probe_inputs(device)
@@ -890,7 +929,7 @@ def phase_kernels_cascade(eng, device, res: list, batch_counter: int = 5):
             vals = torch.where(hit[:, None], tbl[wl.long()] * cw[:, None], 0.0)
             idx = torch.where(hit, pix.long(), torch.arange(n, device=device) % P)
             ms_l = _time_ms(lambda: img.index_add_(0, idx, vals), 5)
-            bound, product = _sandwich_bound(n, n_hit, nc, 3, K)
+            bound = _sandwich_bound(n, n_hit, nc, 3, K)
             for name, layout, _replaces in kernels:
                 def run(lay=layout):
                     return sandwich.sandwich_pass(tile, clist, pix, cw, wl, tbl, k_pool=K,
@@ -906,12 +945,16 @@ def phase_kernels_cascade(eng, device, res: list, batch_counter: int = 5):
                     "render": r, "level": li, "rows": n, "entrants": n_in,
                     "listed_chunks": nc, "rows_in_list": n_hit, "max_abs_err": err,
                     "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound[0], "bound_by": bound[1],
-                    "product_bound_ms": product, "library_ms": ms_l,
+                    "library_ms": ms_l,
                     "timed_by": _timed_by(ms_k, ms_p, ms_l)})
                 print(f"  {name} render {r} level {li}: {n} rows ({n_in} entrants, {n_hit} in "
                       f"the list of {nc}), max_abs_err {err:.3g}, kernel {ms_k:.4f} ms, plain "
-                      f"{ms_p:.4f} ms, bound {bound[0]:.5f} ms by {bound[1]}, one-hot product "
-                      f"at peak {product:.5f} ms, index_add_ {ms_l:.4f} ms", flush=True)
+                      f"{ms_p:.4f} ms, bound {bound[0]:.5f} ms by {bound[1]}, index_add_ "
+                      f"{ms_l:.4f} ms", flush=True)
+            k7, k8 = levels_of["sandwich_lane"][-1], levels_of["sandwich_sublane"][-1]
+            print(f"  render {r} level {li} side by side ({n} rows, {n_hit} in the list of "
+                  f"{nc}): K7 {k7['ms']:.4f} ms, K8 {k8['ms']:.4f} ms, index_add_ {ms_l:.4f} "
+                  f"ms, bound {bound[0]:.5f} ms", flush=True)
             miss = wm == 0
             carry_key = torch.where(miss & (cw > 0.0), ck, -1)
             carry_w = torch.where(miss, cw, 0.0)
@@ -925,9 +968,9 @@ def phase_kernels_cascade(eng, device, res: list, batch_counter: int = 5):
              library_ms=top["library_ms"], library="index_add_")
         res[-1].update(
             rows=top["rows"], listed_chunks=top["listed_chunks"],
-            product_bound_ms=top["product_bound_ms"], timed_by=top["timed_by"], levels=lv,
+            timed_by=top["timed_by"], levels=lv,
             batch={k: sum(x[k] for x in lv) for k in
-                   ("ms", "plain_ms", "bound_ms", "product_bound_ms", "library_ms")})
+                   ("ms", "plain_ms", "bound_ms", "library_ms")})
         print(f"  {name}: the {len(lv)} launches of one steady batch: "
               f"{json.dumps(res[-1]['batch'])}", flush=True)
 
@@ -941,6 +984,18 @@ def phase_fold_auto(scenes, device, n_after: int = 3):
     (name, config, sort engine after 1 + n_after batches or None)."""
     from ice_halo_sim_tpu_torch.engine.simulator import Engine
 
+    # With IHT_FOLD unset the card folds by sort (ROADMAP item 10).
+    unset = os.environ.pop("IHT_FOLD", None)
+    try:
+        with _knobs(IHT_PALLAS_TRACE="0"):
+            eng = Engine(scenes[0][1], seed=7, batch_size=BATCH, device=device)
+    finally:
+        if unset is not None:
+            os.environ["IHT_FOLD"] = unset
+    print(f"  IHT_FOLD unset: fold {eng.fold_kind} ({eng.fold_decision})", flush=True)
+    if eng.fold_kind != "sort" or "default on a CUDA device" not in eng.fold_decision:
+        raise AssertionError(f"the card's default fold is {eng.fold_kind} ({eng.fold_decision})")
+    del eng
     for what, cfg, other in scenes:
         with _knobs(IHT_FOLD="auto", IHT_PALLAS_TRACE="0"):
             eng = Engine(cfg, seed=7, batch_size=BATCH, device=device)
@@ -1105,9 +1160,12 @@ def main() -> int:
     build.lib()
     print(f"[2] build: {time.time() - t0:.1f} s -> {os.path.relpath(path, ROOT)}",
           flush=True)
-    for kernel in ("trace_emit_kernel", "sandwich_lane_kernel", "sandwich_sublane_kernel"):
+    for kernel in ("trace_emit_kernel", "sandwich_"):
         for line in build.ptxas_report(kernel):
             print(f"  {line}", flush=True)
+    lib = build.lib()
+    print("  sandwich blocks' dynamic shared memory (bytes, C = 3 / 1, one or two bf16 "
+          f"terms): {[lib.iht_sandwich_smem(c, t) for c in (3, 1) for t in (0, 1)]}", flush=True)
 
     bench, pool = load_project(BENCH_CFG), load_project(POOL_CFG)
     ms, colour = load_project(MS_CFG), load_project(COLOR_CFG)

@@ -1,6 +1,6 @@
-"""The sandwich fold: scatter-add as a one-hot product, no sort (port of
-``ice_halo_sim_tpu.core.pallas_sandwich``: K7 ``_kernel_lane`` and K8
-``_kernel``).
+"""The sandwich fold: a scatter-add of contribution rows into a tile of
+listed pixel chunks, no sort (port of ``ice_halo_sim_tpu.core.pallas_sandwich``:
+K7 ``_kernel_lane`` and K8 ``_kernel``).
 
 Binning N spectral contribution rows into pixels splits the pixel id as
 p = chunk * NLO + lo (NLO = 128). For a LIST of chunks ``cl[0..NC)`` (any
@@ -9,10 +9,10 @@ subset of the image's chunks, in any order):
     out[k, c*NLO + lo] = sum_r [chunk_r == cl[k]] * vals[r, c] * [lo_r == lo]
 
 with vals[r, c] = tbl[wl_r, c] * w_r rebuilt from the wavelength-pool table,
-so a pass reads (pix, w, wl_idx) per row, as the sort fold does. The one-hot
-factors are exact in bf16; ``vals`` is rounded to bf16 (about 0.4% per row,
-unbiased), or split into two bf16 terms (``precise``, about 2^-16 relative)
-at twice the product's cost. Sums are float32.
+so a pass reads (pix, w, wl_idx) per row, as the sort fold does. ``vals`` is
+rounded to bf16 (about 0.4% per row, unbiased), or split into two bf16 terms
+(``precise``, about 2^-16 relative), as the TPU kernels' one-hot product
+rounds it. Sums are float32.
 
 The cost grows with NC, so the engine runs a cascade of passes
 (engine/simulator.py): the chunks that hold most rows over all rows, then the
@@ -22,10 +22,22 @@ the image, so the result is exact for any split of the chunks; the lists
 change the speed, never the image.
 
 ``sandwich_pass`` launches the CUDA kernels of csrc/sandwich.cu on CUDA
-tensors (``layout="lane"``: K7, ``"sublane"``: K8, the A/B form) and runs
-``sandwich_pass_plain`` on CPU tensors; it never falls back. The plain
-version repeats the kernels' rounding (float32 product, bf16 terms) and sums
-in float64, rounded once.
+tensors and runs ``sandwich_pass_plain`` on CPU tensors; it never falls back.
+Both kernels add the rows into a [S, C*128] float32 slice of the tile held in
+shared memory (S = 384 / C list entries, ``list_block``), 1024 rows at a time
+as a reduction by key (a stable sort by cell, a segmented scan, one add per
+cell), so the bits do not depend on the schedule:
+  - ``layout="lane"``, K7: output-stationary. The grid is (row splits,
+    slices of the list); every block streams its split's rows and finds each
+    row's slot by a binary search of its sorted slice, so a row is read once
+    per slice;
+  - ``layout="sublane"``, K8: row-stationary. The rows are grouped by slice
+    first (a sort of the list, a count per tile of 1024 rows and slice, a
+    scan, a stable scatter); then each block reads only its slice's rows.
+A pass with several row splits adds their partial tiles in split order
+(``_splits`` chooses the splits). The plain version repeats the kernels'
+rounding (float32 product, bf16 terms) and sums in float64, rounded once;
+``slice_slots_plain`` is the plain form of the kernels' slot search.
 
 Not carried over from the TPU module, because they exist for Mosaic's tiling
 and VMEM: ``prep_rows`` with the [1, N] / [N, 1] relayouts, ``DEFAULT_RB``
@@ -45,8 +57,11 @@ from ice_halo_sim_tpu_torch.utils import env_knobs
 NLO = 128               # lo width; chunk = pix // NLO
 MAX_POOL = 128          # wavelength-pool entries the kernels' table holds
 _PAD_ID = -0x40000000   # what a negative list id becomes: equals no row's chunk
-_LIST_BLOCK = 64        # list entries per thread block (csrc/sandwich.cu kBM)
-_SLAB = 256             # rows a thread block stages per step (kSlab)
+_SLICE_CELLS = 384      # list entries * channels of a block's tile slice (kCells)
+_SLAB = 1024            # rows a thread block stages per step (kSlab)
+_GROUP_TILE = 1024      # K8: rows per counting block (kGroupTile)
+_MAX_SLICES = 64        # K8: slices of the list (kMaxSlices)
+_MAX_SORTED = 8192      # K8: list entries its one-block sort takes (kMaxSorted)
 
 # The kernel a pass launches when its caller names no layout: "lane" is K7,
 # "sublane" is K8, the A/B form (the TPU module's LAYOUT). The engine names
@@ -109,15 +124,62 @@ def sandwich_pass_plain(tile, chunk_list, pix, w, wl_idx, tbl, *, k_pool: int,
     return (tile.to(torch.float64) + add.view(nc, cw)).to(F32), matched
 
 
-def _splits(n_rows: int, nc: int, device):
-    """(row splits, rows per split, padded list length) of one launch: two
-    thread blocks per multiprocessor over the (split, list slice) grid."""
-    m_tiles = -(-nc // _LIST_BLOCK)
+def list_block(c_out: int) -> int:
+    """List entries in one block's tile slice: 128 at three channels, 384
+    for a count tile (192 KB of shared memory either way)."""
+    return _SLICE_CELLS // c_out
+
+
+def _splits(n_rows: int, nc: int, c_out: int, sms: int):
+    """(row splits, rows per split, padded list length) of one launch. The
+    grid is (splits, slices of the list) at one block per multiprocessor:
+    as many splits as fill the card once (at least one, at most one per slab
+    of rows). Filling the card comes first: where the list has few slices the
+    partial tiles (splits x padded list x C*128 floats) may outgrow the rows'
+    own 12 bytes each. K8 cuts each slice's grouped rows into as many equal
+    parts."""
+    s = list_block(c_out)
+    n_slices = -(-nc // s)
     n_slabs = -(-n_rows // _SLAB)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = max(1, min(n_slabs, (2 * sms) // m_tiles))
+    want = max(1, min(n_slabs, sms // n_slices))
     rows_per_split = -(-n_slabs // want) * _SLAB
-    return -(-n_rows // rows_per_split), rows_per_split, m_tiles * _LIST_BLOCK
+    return -(-n_rows // rows_per_split), rows_per_split, n_slices * s
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+def _sublane_scratch_ints(n_rows: int, nc: int, nc_pad: int, c_out: int) -> int:
+    """int32 scratch of K8 and P1 (csrc/sandwich.cu run_sublane): the sorted
+    list ids and positions, the rows' list positions, the counts per (tile,
+    slice) and the grouped key, weight and pool index, each rounded up to 4."""
+    def r4(x):
+        return -(-x // 4) * 4
+    n_tiles = -(-n_rows // _GROUP_TILE)
+    m = n_tiles * (nc_pad // list_block(c_out))
+    return 2 * r4(_pow2_at_least(nc)) + 4 * r4(n_rows) + r4(m + 1)
+
+
+def slice_slots_plain(chunk_list, chunk, c_out: int):
+    """Plain form of the kernels' slot search: per row its list position k
+    (-1: not listed), found as K7 finds it, by a binary search of the sorted
+    ids of each slice of list_block(c_out) entries (negative ids padded)."""
+    s = list_block(c_out)
+    cl = torch.where(chunk_list.to(I64) < 0, _PAD_ID, chunk_list.to(I64))
+    chunk = chunk.to(I64)
+    pos = torch.full(chunk.shape, -1, dtype=I64, device=chunk.device)
+    for m0 in range(0, cl.shape[0], s):
+        ids, order = torch.sort(cl[m0:m0 + s])
+        at = torch.clamp_max(torch.searchsorted(ids, chunk), ids.shape[0] - 1)
+        pos = torch.where(ids[at] == chunk, order[at] + m0, pos)
+    return pos
+
+
+def _aligned(x):
+    """x, or a copy where its data is not 16-byte aligned (the kernels load
+    four rows at a time)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _check_rows(pix, w, wl_idx, tbl, k_pool: int, c_out: int):
@@ -167,6 +229,8 @@ def sandwich_pass(tile, chunk_list, pix, w, wl_idx, tbl, *, k_pool: int,
     if chunk_list.shape != (nc,) or chunk_list.device != tile.device or \
             pix.device != tile.device:
         raise ValueError("the chunk list must be [NC], on the tile's device like the rows")
+    if layout == "sublane" and nc > _MAX_SORTED:
+        raise ValueError(f"K8 takes a list of at most {_MAX_SORTED} chunks, got {nc}")
     pix, w, wl_idx, tbl = _check_rows(pix, w, wl_idx, tbl, k_pool, c_out)
     lib = build.lib()
     dev = tile.device
@@ -176,21 +240,25 @@ def sandwich_pass(tile, chunk_list, pix, w, wl_idx, tbl, *, k_pool: int,
         return tile.clone(), matched
     tile = tile.contiguous()
     cl = chunk_list.to(I32).contiguous()
-    n_split, rows_per_split, nc_pad = _splits(n, nc, dev)
-    partial = torch.empty((n_split, nc_pad, cw), dtype=F32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_split, rows_per_split, nc_pad = _splits(n, nc, c_out, sms)
+    partial = torch.empty((n_split, nc_pad, cw) if n_split > 1 else (4,), dtype=F32, device=dev)
     out = torch.empty_like(tile)
-    args = (
-        pix.data_ptr(), w.data_ptr(), wl_idx.data_ptr(), tbl.data_ptr(), cl.data_ptr(),
-        n, nc, c_out, k_pool, int(bool(precise)), n_split, rows_per_split, nc_pad,
-        tile.data_ptr(), partial.data_ptr(), matched.data_ptr(), out.data_ptr(),
-        build.stream_ptr(dev),
-    )
+    pix, w, wl_idx = _aligned(pix), _aligned(w), _aligned(wl_idx)
+    rows = (pix.data_ptr(), w.data_ptr(), wl_idx.data_ptr(), tbl.data_ptr(), cl.data_ptr(),
+            n, nc, c_out, k_pool, int(bool(precise)), n_split)
     if layout == "lane":
-        code = lib.iht_sandwich_lane(*args)
+        code = lib.iht_sandwich_lane(
+            *rows, rows_per_split, nc_pad, tile.data_ptr(), partial.data_ptr(),
+            matched.data_ptr(), out.data_ptr(), build.stream_ptr(dev))
         build.check(code, "sandwich_lane")
         build.LAUNCHES["sandwich_lane"] += 1
     else:
-        code = lib.iht_sandwich_sublane(*args)
+        n_ints = _sublane_scratch_ints(n, nc, nc_pad, c_out)
+        scratch = torch.empty(n_ints, dtype=I32, device=dev)
+        code = lib.iht_sandwich_sublane(
+            *rows, nc_pad, tile.data_ptr(), partial.data_ptr(), matched.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), n_ints, build.stream_ptr(dev))
         build.check(code, "sandwich_sublane")
         build.LAUNCHES["sandwich_sublane"] += 1
     return out, matched

@@ -1,9 +1,9 @@
-// The sandwich fold for Hopper (sm_90a): scatter-add as a one-hot product on
-// the tensor cores.
+// The sandwich fold for Hopper (sm_90a): a deterministic scatter-add into
+// shared memory.
 //
 // Replaces, in ice_halo_sim_tpu/core/pallas_sandwich.py and scripts/:
-//   K7 _kernel_lane (:143, pallas_call :283)   A @ B^T, rows in lanes
-//   K8 _kernel (:77, pallas_call :314)         A @ B, the second factor untransposed
+//   K7 _kernel_lane (:143, pallas_call :283)   layout "lane"
+//   K8 _kernel (:77, pallas_call :314)         layout "sublane", the A/B form
 //   P1 scripts/probe_sandwich.py (:44, pallas_call :90)   K8 with an iota list
 //
 // The function (p = chunk * 128 + lo, list cl[0..NC), C channels):
@@ -12,377 +12,630 @@
 //   matched[r] = 1 iff pix_r // 128 is in cl
 // with // the floor division (a dead row, pix -1, has chunk -1), a negative
 // list id matching nothing, the product tbl * w rounded to bf16 (or split into
-// two bf16 terms when `precise`), and the sum taken in float32.
+// two bf16 terms when `precise`), and the sum taken in float32. The bf16
+// rounding is part of what the TPU kernels compute and is kept.
 //
-// What is kept from the TPU kernels is that function. Their 2048-row grid
-// step, the 256-chunk sub-loop, the [1, N] / [N, 1] relayouts and the tile
-// that stays in fast memory across a sequential grid exist for Mosaic and
-// VMEM and are gone. Here:
-//   - thread blocks run in no order, and a [256, 384] float32 tile is larger
-//     than a block's shared memory and registers. The grid is (row splits,
-//     64-entry slices of the list); each block sums its [64, C*128] part over
-//     its rows in registers and writes it to partial[split]; a second kernel
-//     adds the partials to the tile in split order, so the result does not
-//     depend on the schedule;
-//   - a row's list slot is found once, in integers, while the block stages
-//     256 rows in shared memory (slot, lo and the bf16 values as bf16 pairs).
-//     `matched` falls out of it: a row matches in at most one slice, whose
-//     block writes the 1 (the wrapper zeroes the vector);
-//   - 16-row steps in which no row hit the block's slice are skipped.
-// K7 (lane): every warp builds its mma.sync m16n8k16 fragments in registers
-// from the staged pairs: the chunk one-hot is one bf16x2 compare per
-// register, the second factor one compare per 8 columns (shared by the
-// channels) and one multiply; the B operand's "col" fragment is the
-// transposed second factor. K8 (sublane): both factors are written out in
-// shared memory, the second one row-major [rows, C*128] as the TPU kernel's
-// bmat, and multiplied with nvcuda::wmma; between steps only the poked
-// entries are cleared. P1 is K8's kernel with slot = chunk - first entry.
+// Bound: bytes. A row is read once (12 B: pix, w, wl) and its `matched` flag
+// written (4 B); the tile is read and written once. The adds are 2 float32
+// operations per listed row and channel, far below the memory's rate.
 //
-// Bound: operations. The dense one-hot product is 2 * N * NC * C * 128 bf16
-// operations on the tensor cores (twice that when precise) against 12 bytes
-// read per row.
+// Why not the tensor cores. The TPU has no atomics and used its matrix unit
+// as the scatter: a one-hot product of 2 * rows * NC * C * 128 operations
+// where the scatter needs 2 * rows * C. On this card that product's ceiling
+// at the tensor cores' 989e12 bf16 op/s is 0.83 ms over the six launches of a
+// steady ms-sandwich batch, 3.7 times index_add_ (0.22 ms) on the same rows
+// and 37 times the bytes bound (0.022 ms) (an H100 80GB HBM3 at 700 W; the
+// ceiling computed from the launches' listed rows and NC). No product
+// version can win, so both kernels add into a tile held in shared memory.
 //
-// The tensor cores' float32 accumulation is not a sequential IEEE sum, so a
-// tile entry agrees with the plain version to a tolerance, `matched` bit for
-// bit. Every entry point returns cudaGetLastError() after its launches.
+// K7 (lane), output-stationary. The grid is (row splits, slices of S list
+// entries), S = 384 / C: the block's [S, C*128] float32 part of the tile
+// (192 KB) lives in dynamic shared memory. The block sorts its slice's ids
+// (with their list positions) in shared memory, then streams the rows of its
+// split 1024 at a time (16-byte loads, four rows a thread, the next rows'
+// loads in flight meanwhile); a row's slot is a binary search of the sorted
+// slice, and only the rows in the slice go on, in row order, into the slab
+// that is added to the tile when full. Every row is read once per slice.
+//
+// K8 (sublane), row-stationary. The rows are first grouped by slice: the
+// whole list is sorted once (one block), a count pass finds each row's list
+// position and counts the rows per (tile of 1024 rows, slice), a scan turns
+// the counts into offsets, and a stable scatter writes each listed row's
+// (slot, lo), w and wl in slice order. The accumulating grid is (splits of a
+// slice's rows, slices): each block reads only its slice's rows, once. P1 is
+// K8 with slot = chunk (no list, no sort). K8 pays about 52 bytes per row
+// for the grouping against K7's 12 per row and slice: it should win where a
+// list has many slices.
+//
+// Inside a block the adds are a reduction by key over each staged slab of
+// 1024 rows: a stable block radix sort of the rows by cell (CUB's
+// BlockRadixSort, a building block inside this kernel), a segmented scan of
+// their values in that order (CUB's BlockScan), and one add of each cell's
+// sum to the tile by the thread holding the cell's last row. A hot pixel
+// costs no more than any other: its rows are summed by the scan's tree, not
+// one by one, and no two threads write one cell.
+//
+// The order of every add is fixed, so the bits are the same run after run:
+//   - a slab holds the split's rows in row order (K7: the split's rows; K8:
+//     the stable grouping keeps row order inside a slice), the sort is
+//     stable, the scan's tree depends only on the positions, and the slabs
+//     are added one after another;
+//   - the splits' partial tiles are added to the tile in split order by
+//     sandwich_reduce_kernel (a single split writes the tile directly);
+//   - the grouping counts and ranks rows with warp votes and a block-wide
+//     cursor, never with atomics.
+// `matched` needs no reduction: a row's chunk is in at most one slice, whose
+// block writes the 1 (the wrapper zeroes the vector).
+//
+// No fallback: every entry point returns the first CUDA error of its
+// launches (the shared-memory attribute included) and the wrapper raises.
 
+#include <climits>
 #include <cstdint>
+#include <cub/block/block_radix_sort.cuh>
+#include <cub/block/block_scan.cuh>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 namespace {
 
 constexpr int kNlo = 128;          // pixels per chunk
-constexpr int kBM = 64;            // list entries per thread block
+constexpr int kCells = 384;        // slots * channels a block holds: S = kCells / C
 constexpr int kThreads = 256;
-constexpr int kSlab = 256;         // rows staged per step, one per thread
+constexpr int kSlab = 1024;        // rows staged per step, four per thread
 constexpr int kMaxPool = 128;      // wavelength-pool entries
 constexpr int kPadId = -0x40000000;
+constexpr int kNone = 0xFFFF;      // the staged key of a row outside the block's slice
+constexpr int kKeyBits = 16;       // slot * 128 + lo < 384 * 128 <= kNone
+constexpr int kPlaceBits = 10;     // a row's place in the slab
+static_assert(kSlab == 1 << kPlaceBits && kCells * kNlo <= kNone, "slab key layout");
+constexpr int kGroupTile = 1024;   // K8: rows per counting block
+constexpr int kMaxSlices = 64;     // K8: slices of the list
+constexpr int kMaxSorted = 8192;   // K8: list entries the one-block sort takes
+constexpr unsigned kFull = 0xffffffffu;
 
-struct Rows {
-  const int32_t* pix;
-  const float* w;
-  const int32_t* wl;
-  const float* tbl;     // [k_pool, C]
-  const int32_t* list;  // [nc], unused by the iota form
-  long long n_rows;
-  int nc;
-  int k_pool;
-  long long rows_per_split;
-  float* partial;       // [splits, nc_pad, C*128]
-  int nc_pad;
-  int32_t* matched;     // [n_rows] zeroed, or null
-};
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
 
 __device__ __forceinline__ uint16_t bf16_bits(float x) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(x));
 }
 
-__device__ __forceinline__ uint32_t eq2(uint32_t a, uint32_t b) {
-  const __nv_bfloat162 r = __heq2(*reinterpret_cast<const __nv_bfloat162*>(&a),
-                                  *reinterpret_cast<const __nv_bfloat162*>(&b));
-  return *reinterpret_cast<const uint32_t*>(&r);
+__device__ __forceinline__ float bf16_float(uint16_t b) {
+  return __bfloat162float(__ushort_as_bfloat16(b));
 }
 
-__device__ __forceinline__ uint32_t mul2(uint32_t a, uint32_t b) {
-  const __nv_bfloat162 r = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&a),
-                                   *reinterpret_cast<const __nv_bfloat162*>(&b));
-  return *reinterpret_cast<const uint32_t*>(&r);
+// Bitonic sort of n (a power of two) (key, value) pairs in shared memory,
+// ascending by key, by all threads of the block; nothing to do where the keys
+// are in order already (the engine's lists are sorted).
+__device__ void sort_pairs(int* keys, int* vals, int n) {
+  bool ordered = true;
+  for (int i = threadIdx.x; i + 1 < n; i += blockDim.x) ordered &= keys[i] <= keys[i + 1];
+  if (__syncthreads_and(ordered)) return;
+  for (int k = 2; k <= n; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        const int ixj = i ^ j;
+        if (ixj > i) {
+          const bool up = (i & k) == 0;
+          const int a = keys[i], b = keys[ixj];
+          if ((a > b) == up) {
+            keys[i] = b;
+            keys[ixj] = a;
+            const int t = vals[i];
+            vals[i] = vals[ixj];
+            vals[ixj] = t;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
 }
 
-__device__ __forceinline__ uint32_t pair_of(int i) {
-  const uint32_t b = bf16_bits((float)i);
-  return b | (b << 16);
+// The value beside `x` in n sorted keys, or -1 if x is not among them.
+__device__ __forceinline__ int lookup(const int* keys, const int* vals, int n, int x) {
+  int lo = 0;
+  for (int half = n >> 1; half > 0; half >>= 1)
+    if (keys[lo + half - 1] < x) lo += half;
+  return keys[lo] == x ? vals[lo] : -1;
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// A list id as the kernels compare it: negative ids become the pad id,
+// which no row's chunk (at least -2^24) equals.
+__device__ __forceinline__ int list_id(int id) { return id < 0 ? kPadId : id; }
 
-// The block's slice of the list (negative and past-the-end ids match
-// nothing) and the basis table, into shared memory.
+// The block's staged rows: key[i] = slot * 128 + lo, or kNone, and the row's
+// value per channel, val[c * kSlab + i]: the bf16 term, or the sum of the two
+// bf16 terms when precise (one float32 rounding at most).
 template <int kC>
-__device__ __forceinline__ void load_tables(const Rows& a, int m0, int* list_s,
-                                            float* tbl_s) {
-  const int tid = threadIdx.x;
-  if (tid < kBM) {
-    const int k = m0 + tid;
-    const int id = (a.list != nullptr && k < a.nc) ? a.list[k] : -1;
-    list_s[tid] = id < 0 ? kPadId : id;
+struct Slab {
+  int key[kSlab];
+  float val[kC * kSlab];
+};
+
+template <int kC, int kTerms>
+__device__ __forceinline__ void stage_value(Slab<kC>& s, int i, int key, const float* tbl_s,
+                                            int k_pool, float w, int l) {
+  s.key[i] = key;
+  if (key == kNone) return;
+#pragma unroll
+  for (int c = 0; c < kC; ++c) {
+    const float v = (unsigned)l < (unsigned)k_pool ? tbl_s[l * kC + c] * w : 0.0f;
+    const float hi = bf16_float(bf16_bits(v));
+    s.val[c * kSlab + i] = kTerms == 2 ? hi + bf16_float(bf16_bits(v - hi)) : hi;
   }
-  for (int i = tid; i < a.k_pool * kC; i += kThreads) tbl_s[i] = a.tbl[i];
 }
 
-// One row: its slot in the block's slice (-1: none), lo, and the float32
-// products tbl[wl, c] * w.
-template <int kC, bool kIota>
-__device__ __forceinline__ void stage_row(const Rows& a, long long r, long long r_end,
-                                          int m0, const int* list_s, const float* tbl_s,
-                                          int p, float ww, int l, int& slot, int& lo,
-                                          float (&v)[kC]) {
-  slot = -1;
-  lo = 0;
+// A segment of equal cells in the sorted slab: its head flag and running sum.
+template <int kC>
+struct SegVal {
+  int head;
+  float v[kC];
+};
+
+template <int kC>
+struct SegSum {
+  __device__ __forceinline__ SegVal<kC> operator()(const SegVal<kC>& a,
+                                                  const SegVal<kC>& b) const {
+    SegVal<kC> r;
+    r.head = a.head | b.head;
 #pragma unroll
-  for (int c = 0; c < kC; ++c) v[c] = 0.0f;
-  if (r >= r_end) return;
-  const int chunk = p >> 7;  // floor division by 128
-  lo = p & (kNlo - 1);
-  if (kIota) {
-    const int d = chunk - m0;
-    if (d >= 0 && d < kBM && chunk < a.nc) slot = d;
-  } else {
-#pragma unroll
-    for (int i = 0; i < kBM; ++i)
-      if (list_s[i] == chunk) slot = i;
+    for (int c = 0; c < kC; ++c) r.v[c] = b.head ? b.v[c] : a.v[c] + b.v[c];
+    return r;
   }
-  if ((unsigned)l < (unsigned)a.k_pool) {
+};
+
+constexpr int kItems = kSlab / kThreads;   // staged rows per thread
+
+template <int kC>
+struct SlabWork {
+  using Sort = cub::BlockRadixSort<unsigned, kThreads, kItems>;
+  using Scan = cub::BlockScan<SegVal<kC>, kThreads>;
+  using Count = cub::BlockScan<int, kThreads>;   // K7: places of the slice's rows in the slab
+  union Temp {
+    typename Sort::TempStorage sort;
+    typename Scan::TempStorage scan;
+    typename Count::TempStorage count;
+  };
+};
+
+// Add the staged rows to the block's tile [S, C*128] as a reduction by key:
+// a stable sort of the slab by cell (equal cells keep row order), a
+// segmented scan of the values in that order, and one add per cell, by the
+// thread that holds the cell's last row. Each cell takes one add per slab,
+// so no two threads write one cell, and the order of every add is fixed.
+template <int kC>
+__device__ __forceinline__ void add_slab(float* tile_s, Slab<kC>& s,
+                                         typename SlabWork<kC>::Temp& tmp) {
+  const int t = threadIdx.x;
+  // One word per row: the cell above the row's place in the slab, so that a
+  // sort of the cell bits alone also carries the place.
+  unsigned word[kItems], key[kItems];
+  int idx[kItems];
 #pragma unroll
-    for (int c = 0; c < kC; ++c) v[c] = tbl_s[l * kC + c] * ww;
-  }
-  if (slot >= 0 && a.matched != nullptr) a.matched[r] = 1;
-}
-
-// --------------------------------------------------------------------------
-// K7: fragments built in registers, mma.sync m16n8k16
-// --------------------------------------------------------------------------
-
-template <int kC, bool kPrecise>
-__global__ void __launch_bounds__(kThreads, 1) sandwich_lane_kernel(const Rows a) {
-  constexpr int kTerms = kPrecise ? 2 : 1;
-  constexpr int kWords = 2 + kC * kTerms;  // per row pair: slots, los, values
-  constexpr int kMT = 2;                   // 16-entry tiles per warp (2 warps over 64)
-  constexpr int kJ = 4;                    // 8-column tiles per warp and channel
-  __shared__ uint32_t rec_s[(kSlab / 2) * kWords];
-  __shared__ int list_s[kBM];
-  __shared__ float tbl_s[kMaxPool * kC];
-  __shared__ uint32_t hit_s[kSlab / 16];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int wm = warp & 1, wn = warp >> 1;  // the warp's 32 entries, its 32 lo values
-  const int m0 = blockIdx.y * kBM;
-  load_tables<kC>(a, m0, list_s, tbl_s);
+  for (int q = 0; q < kItems; ++q)
+    word[q] = ((unsigned)s.key[kItems * t + q] << kPlaceBits) | (unsigned)(kItems * t + q);
+  typename SlabWork<kC>::Sort(tmp.sort).Sort(word, kPlaceBits, kPlaceBits + kKeyBits);
   __syncthreads();
-
-  uint32_t mrow[kMT][2], ncol[kJ];
 #pragma unroll
-  for (int mt = 0; mt < kMT; ++mt) {
-    mrow[mt][0] = pair_of(wm * 32 + mt * 16 + gid);
-    mrow[mt][1] = pair_of(wm * 32 + mt * 16 + gid + 8);
+  for (int q = 0; q < kItems; ++q) {
+    key[q] = word[q] >> kPlaceBits;
+    idx[q] = (int)(word[q] & (kSlab - 1));
+    s.key[kItems * t + q] = (int)key[q];
+  }
+  __syncthreads();
+  SegVal<kC> x[kItems];
+#pragma unroll
+  for (int q = 0; q < kItems; ++q) {
+    const int i = kItems * t + q;
+    x[q].head = i == 0 || s.key[i - 1] != (int)key[q];
+#pragma unroll
+    for (int c = 0; c < kC; ++c) x[q].v[c] = key[q] == kNone ? 0.0f : s.val[c * kSlab + idx[q]];
+  }
+  typename SlabWork<kC>::Scan(tmp.scan).InclusiveScan(x, x, SegSum<kC>());
+#pragma unroll
+  for (int q = 0; q < kItems; ++q) {
+    const int i = kItems * t + q;
+    if (key[q] == kNone || (i + 1 < kSlab && s.key[i + 1] == (int)key[q])) continue;
+    float* cell = tile_s + (key[q] >> 7) * (kC * kNlo) + (key[q] & (kNlo - 1));
+#pragma unroll
+    for (int c = 0; c < kC; ++c) cell[c * kNlo] += x[q].v[c];
+  }
+}
+
+struct Pass {
+  const float* tbl;       // [k_pool, C]
+  int nc;
+  int k_pool;
+  int nc_pad;
+  const float* tile_in;   // [nc, C*128] or null
+  float* partial;         // [splits, nc_pad, C*128]
+  float* out;             // [nc, C*128]
+};
+
+template <int kC>
+__device__ __forceinline__ void load_table(const Pass& a, float* tbl_s) {
+  for (int i = threadIdx.x; i < a.k_pool * kC; i += kThreads) tbl_s[i] = a.tbl[i];
+}
+
+template <int kC>
+__device__ __forceinline__ void zero_tile(float* tile_s) {
+  float4* t4 = reinterpret_cast<float4*>(tile_s);
+  for (int i = threadIdx.x; i < kCells * kNlo / 4; i += kThreads)
+    t4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// The block's slice [m0, m0 + S) of the tile: into partial[split], or with
+// one split straight into out (tile_in + 0 + part, the reduce kernel's sum).
+template <int kC>
+__device__ __forceinline__ void write_tile(const Pass& a, const float* tile_s, int m0) {
+  constexpr int kS = kCells / kC, kCW = kC * kNlo;
+  const int split = blockIdx.x;
+  if (gridDim.x == 1) {
+    const int rows = min(kS, a.nc - m0);
+    for (int i = threadIdx.x; i < rows * kCW; i += kThreads) {
+      const long long g = (long long)m0 * kCW + i;
+      const float s = 0.0f + tile_s[i];
+      a.out[g] = a.tile_in != nullptr ? a.tile_in[g] + s : s;
+    }
+    return;
+  }
+  float4* dst = reinterpret_cast<float4*>(a.partial + ((long long)split * a.nc_pad + m0) * kCW);
+  const float4* src = reinterpret_cast<const float4*>(tile_s);
+  for (int i = threadIdx.x; i < kS * kCW / 4; i += kThreads) dst[i] = src[i];
+}
+
+// A K7 or K8 block's dynamic shared memory: its tile slice, the staged
+// slab, the sort's and scan's storage, the sorted slice of the list (K7) and
+// the basis table.
+template <int kC>
+struct BlockSmem {
+  static constexpr int kSort = pow2_at_least(kCells / kC);
+  static constexpr size_t kTemp = (sizeof(typename SlabWork<kC>::Temp) + 15) / 16 * 16;
+  static constexpr size_t kBytes = sizeof(float) * kCells * kNlo + sizeof(Slab<kC>) + kTemp +
+                                   sizeof(int) * 2 * kSort + sizeof(float) * kMaxPool * kC;
+  float* tile;
+  Slab<kC>* slab;
+  typename SlabWork<kC>::Temp* tmp;
+  int* ids;
+  int* pos;
+  float* tbl;
+  __device__ explicit BlockSmem(unsigned char* p) {
+    tile = reinterpret_cast<float*>(p);
+    p += sizeof(float) * kCells * kNlo;
+    slab = reinterpret_cast<Slab<kC>*>(p);
+    p += sizeof(Slab<kC>);
+    tmp = reinterpret_cast<typename SlabWork<kC>::Temp*>(p);
+    p += kTemp;
+    ids = reinterpret_cast<int*>(p);
+    pos = ids + kSort;
+    tbl = reinterpret_cast<float*>(pos + kSort);
+  }
+};
+static_assert(BlockSmem<3>::kBytes <= 232448 && BlockSmem<1>::kBytes <= 232448,
+              "a block's shared memory exceeds the H100's 227 KB");
+
+// --------------------------------------------------------------------------
+// K7: output-stationary, every row read once per slice
+// --------------------------------------------------------------------------
+
+struct LaneRows {
+  const int32_t* pix;
+  const float* w;
+  const int32_t* wl;
+  const int32_t* list;    // [nc]
+  long long n_rows;
+  long long rows_per_split;
+  int32_t* matched;       // [n_rows] zeroed
+};
+
+// Rows r0 .. r0 + 3 (16-byte loads where all four lie before r_end: split
+// starts are multiples of four rows).
+__device__ __forceinline__ void load_rows(const LaneRows& rows, long long r0, long long r_end,
+                                          int (&p)[4], float (&w)[4], int (&l)[4]) {
+  if (r0 + 3 < r_end) {
+    const int4 p4 = *reinterpret_cast<const int4*>(rows.pix + r0);
+    const float4 w4 = *reinterpret_cast<const float4*>(rows.w + r0);
+    const int4 l4 = *reinterpret_cast<const int4*>(rows.wl + r0);
+    p[0] = p4.x; p[1] = p4.y; p[2] = p4.z; p[3] = p4.w;
+    w[0] = w4.x; w[1] = w4.y; w[2] = w4.z; w[3] = w4.w;
+    l[0] = l4.x; l[1] = l4.y; l[2] = l4.z; l[3] = l4.w;
+    return;
   }
 #pragma unroll
-  for (int j = 0; j < kJ; ++j) ncol[j] = pair_of(wn * 32 + j * 8 + gid);
+  for (int q = 0; q < 4; ++q) {
+    const bool in = r0 + q < r_end;
+    p[q] = in ? rows.pix[r0 + q] : -1;
+    w[q] = in ? rows.w[r0 + q] : 0.0f;
+    l[q] = in ? rows.wl[r0 + q] : 0;
+  }
+}
 
-  float acc[kMT][kC * kJ][4];
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-    for (int n = 0; n < kC * kJ; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][n][i] = 0.0f;
+// Add the first `fill` staged rows (the rest padded out) to the tile.
+template <int kC>
+__device__ __forceinline__ void flush_slab(const BlockSmem<kC>& sm, int fill) {
+  for (int i = fill + threadIdx.x; i < kSlab; i += kThreads) sm.slab->key[i] = kNone;
+  __syncthreads();
+  add_slab<kC>(sm.tile, *sm.slab, *sm.tmp);
+  __syncthreads();
+}
 
-  const long long r_begin = (long long)blockIdx.x * a.rows_per_split;
-  const long long r_end = min(a.n_rows, r_begin + a.rows_per_split);
-  uint16_t* rec16 = reinterpret_cast<uint16_t*>(rec_s);
-  const int q = tid >> 1, h = tid & 1;
+template <int kC, int kTerms>
+__global__ void __launch_bounds__(kThreads, 1)
+    sandwich_lane_kernel(const LaneRows rows, const Pass a) {
+  static_assert(kItems == 4, "K7 stages four rows a thread");
+  constexpr int kS = kCells / kC, kSort = BlockSmem<kC>::kSort;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const BlockSmem<kC> sm(smem);
 
-  // The next slab's row is loaded while this one is multiplied.
-  long long r = r_begin + tid;
-  int p = -1, l = 0;
-  float ww = 0.0f;
-  if (r < r_end) { p = a.pix[r]; ww = a.w[r]; l = a.wl[r]; }
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * kS;
+  for (int i = tid; i < kSort; i += kThreads) {
+    const int k = m0 + i;
+    sm.ids[i] = (i < kS && k < a.nc) ? list_id(rows.list[k]) : INT_MAX;
+    sm.pos[i] = i;
+  }
+  load_table<kC>(a, sm.tbl);
+  zero_tile<kC>(sm.tile);
+  __syncthreads();
+  sort_pairs(sm.ids, sm.pos, kSort);
+
+  // The rows of the slice fill the slab in row order, 1024 rows of the
+  // split at a time; a full slab is added to the tile and emptied.
+  const long long r_begin = (long long)blockIdx.x * rows.rows_per_split;
+  const long long r_end = min(rows.n_rows, r_begin + rows.rows_per_split);
+  int p[4], l[4], pn[4], ln[4];
+  float w[4], wn[4];
+  load_rows(rows, r_begin + 4 * tid, r_end, pn, wn, ln);
+  int fill = 0;
   for (long long base = r_begin; base < r_end; base += kSlab) {
-    int slot, lo;
-    float v[kC];
-    stage_row<kC, false>(a, r, r_end, m0, list_s, tbl_s, p, ww, l, slot, lo, v);
-    rec16[(q * kWords + 0) * 2 + h] = bf16_bits((float)slot);
-    rec16[(q * kWords + 1) * 2 + h] = bf16_bits((float)lo);
+    const long long r0 = base + 4 * tid;
 #pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      const __nv_bfloat16 hi = __float2bfloat16_rn(v[c]);
-      rec16[(q * kWords + 2 + c) * 2 + h] = __bfloat16_as_ushort(hi);
-      if (kPrecise)
-        rec16[(q * kWords + 2 + kC + c) * 2 + h] = bf16_bits(v[c] - __bfloat162float(hi));
+    for (int q = 0; q < 4; ++q) { p[q] = pn[q]; w[q] = wn[q]; l[q] = ln[q]; }
+    load_rows(rows, r0 + kSlab, r_end, pn, wn, ln);   // the next rows, in flight meanwhile
+    int slot[4], mine = 0, before, total;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      slot[q] = r0 + q < r_end ? lookup(sm.ids, sm.pos, kSort, p[q] >> 7) : -1;
+      if (slot[q] >= 0) rows.matched[r0 + q] = 1;
+      mine += slot[q] >= 0;
     }
-    const unsigned bal = __ballot_sync(0xffffffffu, slot >= 0);
-    if (lane == 0) {
-      hit_s[2 * warp] = bal & 0xFFFFu;
-      hit_s[2 * warp + 1] = bal >> 16;
+    typename SlabWork<kC>::Count(sm.tmp->count).ExclusiveSum(mine, before, total);
+    if (fill + total > kSlab) {   // the same for the whole block
+      flush_slab<kC>(sm, fill);
+      fill = 0;
     }
-    r += kSlab;
-    p = -1; ww = 0.0f; l = 0;
-    if (r < r_end) { p = a.pix[r]; ww = a.w[r]; l = a.wl[r]; }
-    __syncthreads();
-
-#pragma unroll 1
-    for (int j = 0; j < kSlab / 16; ++j) {
-      if (hit_s[j] == 0u) continue;  // the same for the whole block
-      // Rows 16j + 2*tig + {0, 1} and the same + 8: the k indices of this
-      // thread's A and B fragment registers.
-      const uint32_t* r0 = rec_s + (8 * j + tig) * kWords;
-      const uint32_t* r1 = r0 + 4 * kWords;
-      const uint32_t s0 = r0[0], s1 = r1[0], l0 = r0[1], l1 = r1[1];
-      uint32_t af[kMT][4];
+    int at = fill + before;
 #pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        af[mt][0] = eq2(s0, mrow[mt][0]);
-        af[mt][1] = eq2(s0, mrow[mt][1]);
-        af[mt][2] = eq2(s1, mrow[mt][0]);
-        af[mt][3] = eq2(s1, mrow[mt][1]);
-      }
-      uint32_t e0[kJ], e1[kJ];
-#pragma unroll
-      for (int jj = 0; jj < kJ; ++jj) {
-        e0[jj] = eq2(l0, ncol[jj]);
-        e1[jj] = eq2(l1, ncol[jj]);
-      }
-#pragma unroll
-      for (int t = 0; t < kTerms; ++t)
-#pragma unroll
-        for (int c = 0; c < kC; ++c) {
-          const uint32_t v0 = r0[2 + t * kC + c], v1 = r1[2 + t * kC + c];
-#pragma unroll
-          for (int jj = 0; jj < kJ; ++jj) {
-            const uint32_t b0 = mul2(e0[jj], v0), b1 = mul2(e1[jj], v1);
-#pragma unroll
-            for (int mt = 0; mt < kMT; ++mt) mma_bf16(acc[mt][c * kJ + jj], af[mt], b0, b1);
-          }
-        }
-    }
+    for (int q = 0; q < 4; ++q)
+      if (slot[q] >= 0)
+        stage_value<kC, kTerms>(*sm.slab, at++, slot[q] * kNlo + (p[q] & (kNlo - 1)), sm.tbl,
+                                a.k_pool, w[q], l[q]);
+    fill += total;
     __syncthreads();
   }
-
-  // C fragment: rows gid and gid + 8, columns 2*tig and 2*tig + 1.
-  float* out = a.partial + ((long long)blockIdx.x * a.nc_pad + m0) * (kC * kNlo);
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-    for (int c = 0; c < kC; ++c)
-#pragma unroll
-      for (int jj = 0; jj < kJ; ++jj) {
-        const int row = wm * 32 + mt * 16 + gid;
-        const int col = c * kNlo + wn * 32 + jj * 8 + 2 * tig;
-        const float (&d)[4] = acc[mt][c * kJ + jj];
-        *reinterpret_cast<float2*>(out + (long long)row * (kC * kNlo) + col) =
-            make_float2(d[0], d[1]);
-        *reinterpret_cast<float2*>(out + (long long)(row + 8) * (kC * kNlo) + col) =
-            make_float2(d[2], d[3]);
-      }
+  if (fill > 0) flush_slab<kC>(sm, fill);
+  write_tile<kC>(a, sm.tile, m0);
 }
 
 // --------------------------------------------------------------------------
-// K8 and P1: both factors in shared memory, nvcuda::wmma
+// K8 and P1: group the rows by slice, then each block adds its slice's rows
 // --------------------------------------------------------------------------
 
-template <int kC, bool kPrecise, bool kIota>
-__global__ void __launch_bounds__(kThreads, 1) sandwich_sublane_kernel(const Rows a) {
-  using namespace nvcuda;
-  constexpr int kTerms = kPrecise ? 2 : 1;
-  constexpr int kKS = 32;            // rows per product step
-  constexpr int kBN = kC * kNlo;
-  constexpr int kLda = kKS + 8;      // padded leading dimensions (bf16 elements)
-  constexpr int kLdb = kBN + 8;
-  constexpr int kMT = 2;             // 16-entry tiles per warp
-  constexpr int kWN = kBN / 4;       // columns per warp
-  constexpr int kNT = kWN / 16;
-  __shared__ __align__(32) __nv_bfloat16 a_s[kBM * kLda];   // [entry][row] one-hot
-  __shared__ __align__(32) __nv_bfloat16 b_s[kKS * kLdb];   // [row][c*128 + lo]
-  __shared__ int slot_s[kSlab];
-  __shared__ int lo_s[kSlab];
-  __shared__ __nv_bfloat16 v_s[kTerms][kC][kSlab];
-  __shared__ int list_s[kBM];
-  __shared__ float tbl_s[kMaxPool * kC];
-  __shared__ uint32_t hit_s[kSlab / kKS];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 1, wn = warp >> 1;
-  const int m0 = blockIdx.y * kBM;
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f), one = __float2bfloat16_rn(1.0f);
-  load_tables<kC>(a, m0, list_s, tbl_s);
-  for (int i = tid; i < kBM * kLda; i += kThreads) a_s[i] = zero;
-  for (int i = tid; i < kKS * kLdb; i += kThreads) b_s[i] = zero;
+// The whole list, sorted by id with the list positions beside (one block).
+__global__ void sandwich_sort_list_kernel(const int32_t* __restrict__ list, int nc, int n2,
+                                          int* __restrict__ ids_out, int* __restrict__ pos_out) {
+  extern __shared__ int sort_smem[];
+  int* ids = sort_smem;
+  int* pos = sort_smem + n2;
+  for (int i = threadIdx.x; i < n2; i += blockDim.x) {
+    ids[i] = i < nc ? list_id(list[i]) : INT_MAX;
+    pos[i] = i;
+  }
   __syncthreads();
+  sort_pairs(ids, pos, n2);
+  for (int i = threadIdx.x; i < n2; i += blockDim.x) {
+    ids_out[i] = ids[i];
+    pos_out[i] = pos[i];
+  }
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kMT][kNT];
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) wmma::fill_fragment(acc[mt][nt], 0.0f);
-
-  const long long r_begin = (long long)blockIdx.x * a.rows_per_split;
-  const long long r_end = min(a.n_rows, r_begin + a.rows_per_split);
-  const int pk = tid % kKS, pc = tid / kKS;  // the (row, channel) this thread pokes
-
-  for (long long base = r_begin; base < r_end; base += kSlab) {
-    const long long r = base + tid;
-    int p = -1, l = 0;
-    float ww = 0.0f;
-    if (r < r_end) { p = a.pix[r]; ww = a.w[r]; l = a.wl[r]; }
-    int slot, lo;
-    float v[kC];
-    stage_row<kC, kIota>(a, r, r_end, m0, list_s, tbl_s, p, ww, l, slot, lo, v);
-    slot_s[tid] = slot;
-    lo_s[tid] = lo;
-#pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      const __nv_bfloat16 hi = __float2bfloat16_rn(v[c]);
-      v_s[0][c][tid] = hi;
-      if (kPrecise) v_s[kTerms - 1][c][tid] = __float2bfloat16_rn(v[c] - __bfloat162float(hi));
+// One round of kThreads rows of a tile, one per thread in row order: the
+// row's position among the tile's rows of its slice s (-1: none), from the
+// running per-slice cursor, which then moves past the round's rows. Warp
+// votes and a fixed sum over the warps in order: no atomics, so the
+// positions keep row order inside each slice.
+__device__ __forceinline__ int rank_round(int s, int n_slices, int* wcnt, int* cursor) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned peers = __match_any_sync(kFull, s);
+  const int rank = __popc(peers & ((1u << lane) - 1u));
+  if (s >= 0 && rank == 0) wcnt[warp * kMaxSlices + s] = __popc(peers);
+  __syncthreads();
+  int pos = -1;
+  if (s >= 0) {
+    pos = cursor[s] + rank;
+    for (int w2 = 0; w2 < warp; ++w2) pos += wcnt[w2 * kMaxSlices + s];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n_slices; i += kThreads) {
+    int t = 0;
+    for (int w2 = 0; w2 < kThreads / 32; ++w2) {
+      t += wcnt[w2 * kMaxSlices + i];
+      wcnt[w2 * kMaxSlices + i] = 0;
     }
-    const unsigned bal = __ballot_sync(0xffffffffu, slot >= 0);
-    if (lane == 0) hit_s[warp] = bal;  // kKS == 32: one product step per staging warp
-    __syncthreads();
+    cursor[i] += t;
+  }
+  __syncthreads();
+  return pos;
+}
 
-#pragma unroll 1
-    for (int ss = 0; ss < kSlab / kKS; ++ss) {
-      if (hit_s[ss] == 0u) continue;  // the same for the whole block
-      const int k = ss * kKS + pk;
-      const int sl = tid < kKS ? slot_s[k] : -1;
-      if (sl >= 0) a_s[sl * kLda + pk] = one;
-      const int bidx = pk * kLdb + pc * kNlo + (pc < kC ? lo_s[k] : 0);
-#pragma unroll
-      for (int t = 0; t < kTerms; ++t) {
-        if (pc < kC) b_s[bidx] = v_s[t][pc][k];
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < kKS / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af[kMT];
-#pragma unroll
-          for (int mt = 0; mt < kMT; ++mt)
-            wmma::load_matrix_sync(af[mt], a_s + (wm * 32 + mt * 16) * kLda + kk * 16, kLda);
-#pragma unroll
-          for (int nt = 0; nt < kNT; ++nt) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf;
-            wmma::load_matrix_sync(bf, b_s + kk * 16 * kLdb + wn * kWN + nt * 16, kLdb);
-#pragma unroll
-            for (int mt = 0; mt < kMT; ++mt)
-              wmma::mma_sync(acc[mt][nt], af[mt], bf, acc[mt][nt]);
-          }
-        }
-        __syncthreads();
+struct Group {
+  const int32_t* pix;
+  const float* w;
+  const int32_t* wl;
+  long long n_rows;
+  const int* ids;      // [n2] sorted list ids (K8), or null (P1: slot = chunk)
+  const int* pos;      // [n2] their list positions
+  int n2;
+  int nc;
+  int slice;           // S
+  int n_slices;
+  int n_tiles;
+  int* slotlo;         // [n_rows] list position << 7 | lo, or -1
+  int* counts;         // [n_slices * n_tiles + 1] counts, then offsets
+  int32_t* matched;    // [n_rows] zeroed, or null
+  int* gkey;           // [n_rows] the listed rows in slice order: slot << 7 | lo
+  float* gw;           //          their weights
+  int* gwl;            //          their pool indices
+};
+
+__device__ __forceinline__ void init_cursor(int n_slices, int* wcnt, int* cursor) {
+  for (int i = threadIdx.x; i < (kThreads / 32) * kMaxSlices; i += kThreads) wcnt[i] = 0;
+  for (int i = threadIdx.x; i < n_slices; i += kThreads) cursor[i] = 0;
+  __syncthreads();
+}
+
+// Per row its list position (written to slotlo, and matched), per tile the
+// rows of each slice.
+__global__ void __launch_bounds__(kThreads) sandwich_group_count_kernel(const Group g) {
+  __shared__ int wcnt[(kThreads / 32) * kMaxSlices];
+  __shared__ int cursor[kMaxSlices];
+  extern __shared__ int list_smem[];   // the sorted list (K8), searched for every row
+  int* ids = list_smem;
+  int* pos = list_smem + g.n2;
+  if (g.ids != nullptr)
+    for (int i = threadIdx.x; i < g.n2; i += kThreads) {
+      ids[i] = g.ids[i];
+      pos[i] = g.pos[i];
+    }
+  init_cursor(g.n_slices, wcnt, cursor);
+  const long long t0 = (long long)blockIdx.x * kGroupTile;
+  for (int q = 0; q < kGroupTile; q += kThreads) {
+    const long long r = t0 + q + threadIdx.x;
+    int s = -1;
+    if (r < g.n_rows) {
+      const int p = g.pix[r], chunk = p >> 7;
+      int k;
+      if (g.ids == nullptr)
+        k = (chunk >= 0 && chunk < g.nc) ? chunk : -1;
+      else
+        k = lookup(ids, pos, g.n2, chunk);
+      g.slotlo[r] = k >= 0 ? (k << 7) | (p & (kNlo - 1)) : -1;
+      if (k >= 0) {
+        s = k / g.slice;
+        if (g.matched != nullptr) g.matched[r] = 1;
       }
-      // Clear what this thread poked; nobody else writes these entries.
-      if (sl >= 0) a_s[sl * kLda + pk] = zero;
-      if (pc < kC) b_s[bidx] = zero;
     }
+    rank_round(s, g.n_slices, wcnt, cursor);
+  }
+  for (int i = threadIdx.x; i < g.n_slices; i += kThreads)
+    g.counts[i * g.n_tiles + blockIdx.x] = cursor[i];
+}
+
+// counts[0..m) into exclusive offsets in place, counts[m] = the total (one
+// block of 1024 threads).
+__global__ void sandwich_group_scan_kernel(int* counts, int m) {
+  __shared__ int part[1024];
+  const int tid = threadIdx.x;
+  const int per = (m + 1023) / 1024;
+  const int begin = min(m, tid * per), end = min(m, begin + per);
+  int s = 0;
+  for (int i = begin; i < end; ++i) s += counts[i];
+  part[tid] = s;
+  __syncthreads();
+  for (int off = 1; off < 1024; off <<= 1) {
+    const int v = tid >= off ? part[tid - off] : 0;
+    __syncthreads();
+    part[tid] += v;
     __syncthreads();
   }
+  int run = part[tid] - s;
+  for (int i = begin; i < end; ++i) {
+    const int c = counts[i];
+    counts[i] = run;
+    run += c;
+  }
+  if (tid == 1023) counts[m] = part[1023];
+}
 
-  float* out = a.partial + ((long long)blockIdx.x * a.nc_pad + m0) * kBN;
+// The stable scatter: each listed row's (slot, lo), weight and pool index at
+// its slice's offset for this tile plus its rank in the tile.
+__global__ void __launch_bounds__(kThreads) sandwich_group_scatter_kernel(const Group g) {
+  __shared__ int wcnt[(kThreads / 32) * kMaxSlices];
+  __shared__ int cursor[kMaxSlices];
+  init_cursor(g.n_slices, wcnt, cursor);
+  const long long t0 = (long long)blockIdx.x * kGroupTile;
+  for (int q = 0; q < kGroupTile; q += kThreads) {
+    const long long r = t0 + q + threadIdx.x;
+    const int kl = r < g.n_rows ? g.slotlo[r] : -1;
+    const int k = kl >> 7;
+    const int s = kl >= 0 ? k / g.slice : -1;
+    const int rank = rank_round(s, g.n_slices, wcnt, cursor);
+    if (s >= 0) {
+      const long long at = (long long)g.counts[s * g.n_tiles + blockIdx.x] + rank;
+      g.gkey[at] = ((k - s * g.slice) << 7) | (kl & (kNlo - 1));
+      g.gw[at] = g.w[r];
+      g.gwl[at] = g.wl[r];
+    }
+  }
+}
+
+struct Grouped {
+  const int* key;
+  const float* w;
+  const int* wl;
+  const int* offsets;   // the scanned counts: slice s starts at offsets[s * n_tiles]
+  int n_tiles;
+};
+
+// K8 proper: block (split j, slice s) adds the j-th of n_split equal parts
+// of slice s's grouped rows into its tile.
+template <int kC, int kTerms>
+__global__ void __launch_bounds__(kThreads, 1)
+    sandwich_sublane_kernel(const Grouped g, const Pass a) {
+  constexpr int kS = kCells / kC;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const BlockSmem<kC> sm(smem);
+
+  const int s = blockIdx.y;
+  const long long start = g.offsets[s * g.n_tiles], end = g.offsets[(s + 1) * g.n_tiles];
+  const long long len = end - start;
+  const long long a0 = start + len * blockIdx.x / gridDim.x;
+  const long long a1 = start + len * (blockIdx.x + 1) / gridDim.x;
+  load_table<kC>(a, sm.tbl);
+  zero_tile<kC>(sm.tile);
+  __syncthreads();
+  // Row i of a slab is base + q * kThreads + threadIdx.x: the slab holds
+  // the rows in order, which the sort keeps. The next slab's rows are loaded
+  // while this one is added.
+  int key[kItems], l[kItems];
+  float w[kItems];
+  auto load = [&](long long base) {
 #pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
+    for (int q = 0; q < kItems; ++q) {
+      const long long r = base + q * kThreads + threadIdx.x;
+      const bool in = r < a1;
+      key[q] = in ? g.key[r] : kNone;
+      w[q] = in ? g.w[r] : 0.0f;
+      l[q] = in ? g.wl[r] : 0;
+    }
+  };
+  load(a0);
+  for (long long base = a0; base < a1; base += kSlab) {
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-      wmma::store_matrix_sync(out + (long long)(wm * 32 + mt * 16) * kBN + wn * kWN + nt * 16,
-                              acc[mt][nt], kBN, wmma::mem_row_major);
+    for (int q = 0; q < kItems; ++q)
+      stage_value<kC, kTerms>(*sm.slab, q * kThreads + threadIdx.x, key[q], sm.tbl, a.k_pool,
+                              w[q], l[q]);
+    load(base + kSlab);
+    __syncthreads();
+    add_slab<kC>(sm.tile, *sm.slab, *sm.tmp);
+    __syncthreads();
+  }
+  write_tile<kC>(a, sm.tile, s * kS);
 }
 
 // out = tile_in + partial[0] + partial[1] + ..., in that order.
@@ -399,87 +652,167 @@ __global__ void sandwich_reduce_kernel(const float* __restrict__ tile_in,
   }
 }
 
-enum Form { kLane = 0, kSublane = 1, kIotaForm = 2 };
+// --------------------------------------------------------------------------
+// Launches
+// --------------------------------------------------------------------------
 
-template <int kC, bool kPrecise>
-cudaError_t launch_product(int form, const Rows& a, dim3 grid, cudaStream_t stream) {
-  if (form == kLane)
-    sandwich_lane_kernel<kC, kPrecise><<<grid, kThreads, 0, stream>>>(a);
-  else if (form == kSublane)
-    sandwich_sublane_kernel<kC, kPrecise, false><<<grid, kThreads, 0, stream>>>(a);
-  else
-    sandwich_sublane_kernel<kC, kPrecise, true><<<grid, kThreads, 0, stream>>>(a);
-  return cudaGetLastError();
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-cudaError_t launch_form(int form, const Rows& a, int c_out, int precise, int n_split,
-                        cudaStream_t stream) {
-  if (a.k_pool < 1 || a.k_pool > kMaxPool || a.nc < 1 || a.nc_pad % kBM || a.nc_pad < a.nc ||
-      n_split < 1 || a.rows_per_split < 1)
-    return cudaErrorInvalidValue;
-  const dim3 grid(n_split, a.nc_pad / kBM);
-  if (c_out == 3) return precise ? launch_product<3, true>(form, a, grid, stream)
-                                 : launch_product<3, false>(form, a, grid, stream);
-  if (c_out == 1) return precise ? launch_product<1, true>(form, a, grid, stream)
-                                 : launch_product<1, false>(form, a, grid, stream);
-  return cudaErrorInvalidValue;
-}
-
-// One product launch and the ordered sum of its partials.
-cudaError_t run_form(int form, const void* pix, const void* w, const void* wl,
-                     const void* tbl, const void* list, long long n_rows, int nc, int c_out,
-                     int k_pool, int precise, int n_split, long long rows_per_split,
-                     int nc_pad, const void* tile_in, void* partial, void* matched, void* out,
-                     void* stream) {
-  const Rows a{(const int32_t*)pix, (const float*)w, (const int32_t*)wl, (const float*)tbl,
-               (const int32_t*)list, n_rows, nc, k_pool, rows_per_split, (float*)partial,
-               nc_pad, (int32_t*)matched};
-  const cudaError_t err = launch_form(form, a, c_out, precise, n_split, (cudaStream_t)stream);
-  if (err != cudaSuccess) return err;
+cudaError_t reduce(const Pass& a, int c_out, int n_split, cudaStream_t stream) {
+  if (n_split == 1) return cudaSuccess;   // the blocks wrote the tile
   const int cw = c_out * kNlo;
-  const long long want = ((long long)nc * cw + 255) / 256;
+  const long long want = ((long long)a.nc * cw + 255) / 256;
   const int grid = (int)(want < 132LL * 8 ? want : 132LL * 8);
-  sandwich_reduce_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const float*)tile_in, (const float*)partial, n_split, nc, nc_pad, cw, (float*)out);
+  sandwich_reduce_kernel<<<grid, 256, 0, stream>>>(a.tile_in, a.partial, n_split, a.nc,
+                                                   a.nc_pad, cw, a.out);
   return cudaGetLastError();
+}
+
+bool pass_ok(const Pass& a, int c_out, int n_split) {
+  return (c_out == 1 || c_out == 3) && a.k_pool >= 1 && a.k_pool <= kMaxPool && a.nc >= 1 &&
+         a.nc_pad >= a.nc && a.nc_pad % (kCells / c_out) == 0 && n_split >= 1;
+}
+
+template <int kC, int kTerms>
+cudaError_t launch_lane(const LaneRows& rows, const Pass& a, int n_split, cudaStream_t stream) {
+  constexpr size_t smem = BlockSmem<kC>::kBytes;
+  cudaError_t err = allow_smem(sandwich_lane_kernel<kC, kTerms>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(n_split, a.nc_pad / (kCells / kC));
+  sandwich_lane_kernel<kC, kTerms><<<grid, kThreads, smem, stream>>>(rows, a);
+  return cudaGetLastError();
+}
+
+template <int kC, int kTerms>
+cudaError_t launch_sublane(const Grouped& g, const Pass& a, int n_split, cudaStream_t stream) {
+  constexpr size_t smem = BlockSmem<kC>::kBytes;
+  cudaError_t err = allow_smem(sandwich_sublane_kernel<kC, kTerms>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(n_split, a.nc_pad / (kCells / kC));
+  sandwich_sublane_kernel<kC, kTerms><<<grid, kThreads, smem, stream>>>(g, a);
+  return cudaGetLastError();
+}
+
+long long round4(long long n) { return (n + 3) / 4 * 4; }
+
+// K8 and P1 (list null): group, add, reduce. The scratch holds, in ints and
+// each part rounded up to 4: the sorted list ids and positions (2 * n2), the
+// rows' list positions (N), the counts (slices * tiles + 1) and the grouped
+// key, weight and pool index (3 * N).
+cudaError_t run_sublane(const int32_t* pix, const float* w, const int32_t* wl,
+                        const int32_t* list, long long n_rows, int c_out, int precise,
+                        int n_split, const Pass& a, int32_t* matched, int* scratch,
+                        long long scratch_ints, cudaStream_t stream) {
+  const int slice = kCells / c_out;
+  const int n_slices = a.nc_pad / slice;
+  const long long n_tiles = (n_rows + kGroupTile - 1) / kGroupTile;
+  const int n2 = pow2_at_least(a.nc);
+  if (!pass_ok(a, c_out, n_split) || n_rows < 1 || n_slices > kMaxSlices ||
+      (list != nullptr && a.nc > kMaxSorted) || n_tiles * n_slices >= INT_MAX / 2 ||
+      n_rows >= INT_MAX / 2)
+    return cudaErrorInvalidValue;
+  const long long m = n_tiles * n_slices;
+  const long long need = 2 * round4(n2) + 4 * round4(n_rows) + round4(m + 1);
+  if (scratch_ints < need) return cudaErrorInvalidValue;
+  Group g{pix, w, wl, n_rows, nullptr, nullptr, n2, a.nc, slice, n_slices, (int)n_tiles,
+          nullptr, nullptr, matched, nullptr, nullptr, nullptr};
+  int* at = scratch;
+  int* ids = at; at += round4(n2);
+  int* pos = at; at += round4(n2);
+  g.slotlo = at; at += round4(n_rows);
+  g.counts = at; at += round4(m + 1);
+  g.gkey = at; at += round4(n_rows);
+  g.gw = reinterpret_cast<float*>(at); at += round4(n_rows);
+  g.gwl = at;
+  cudaError_t err;
+  if (list != nullptr) {
+    const size_t smem = sizeof(int) * 2 * n2;
+    if ((err = allow_smem(sandwich_sort_list_kernel, smem)) != cudaSuccess) return err;
+    sandwich_sort_list_kernel<<<1, 1024, smem, stream>>>(list, a.nc, n2, ids, pos);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    g.ids = ids;
+    g.pos = pos;
+  }
+  const size_t list_bytes = list != nullptr ? sizeof(int) * 2 * n2 : 0;
+  if ((err = allow_smem(sandwich_group_count_kernel, list_bytes)) != cudaSuccess) return err;
+  sandwich_group_count_kernel<<<(unsigned)n_tiles, kThreads, list_bytes, stream>>>(g);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  sandwich_group_scan_kernel<<<1, 1024, 0, stream>>>(g.counts, (int)m);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  sandwich_group_scatter_kernel<<<(unsigned)n_tiles, kThreads, 0, stream>>>(g);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const Grouped gr{g.gkey, g.gw, g.gwl, g.counts, (int)n_tiles};
+  if (c_out == 3)
+    err = precise ? launch_sublane<3, 2>(gr, a, n_split, stream)
+                  : launch_sublane<3, 1>(gr, a, n_split, stream);
+  else
+    err = precise ? launch_sublane<1, 2>(gr, a, n_split, stream)
+                  : launch_sublane<1, 1>(gr, a, n_split, stream);
+  if (err != cudaSuccess) return err;
+  return reduce(a, c_out, n_split, stream);
 }
 
 }  // namespace
 
-// K7: fragments in registers, mma.sync.
+// K7: output-stationary, each block a slice of the list over a split of rows.
 extern "C" int iht_sandwich_lane(const void* pix, const void* w, const void* wl,
                                  const void* tbl, const void* list, long long n_rows, int nc,
                                  int c_out, int k_pool, int precise, int n_split,
                                  long long rows_per_split, int nc_pad, const void* tile_in,
                                  void* partial, void* matched, void* out, void* stream) {
-  const cudaError_t err = run_form(kLane, pix, w, wl, tbl, list, n_rows, nc, c_out, k_pool,
-                                   precise, n_split, rows_per_split, nc_pad, tile_in, partial,
-                                   matched, out, stream);
+  const Pass a{(const float*)tbl, nc, k_pool, nc_pad, (const float*)tile_in, (float*)partial,
+               (float*)out};
+  const LaneRows rows{(const int32_t*)pix, (const float*)w, (const int32_t*)wl,
+                      (const int32_t*)list, n_rows, rows_per_split, (int32_t*)matched};
+  if (!pass_ok(a, c_out, n_split) || n_rows < 1 || rows_per_split < 1 || rows_per_split % 4 ||
+      (long long)n_split * rows_per_split < n_rows)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
+  if (c_out == 3)
+    err = precise ? launch_lane<3, 2>(rows, a, n_split, s) : launch_lane<3, 1>(rows, a, n_split, s);
+  else
+    err = precise ? launch_lane<1, 2>(rows, a, n_split, s) : launch_lane<1, 1>(rows, a, n_split, s);
+  if (err == cudaSuccess) err = reduce(a, c_out, n_split, s);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// K8: both factors in shared memory, the second one untransposed, wmma.
+// K8: the rows grouped by slice first, then each block reads its slice's rows once.
 extern "C" int iht_sandwich_sublane(const void* pix, const void* w, const void* wl,
                                     const void* tbl, const void* list, long long n_rows,
                                     int nc, int c_out, int k_pool, int precise, int n_split,
-                                    long long rows_per_split, int nc_pad, const void* tile_in,
-                                    void* partial, void* matched, void* out, void* stream) {
-  const cudaError_t err = run_form(kSublane, pix, w, wl, tbl, list, n_rows, nc, c_out, k_pool,
-                                   precise, n_split, rows_per_split, nc_pad, tile_in, partial,
-                                   matched, out, stream);
+                                    int nc_pad, const void* tile_in, void* partial,
+                                    void* matched, void* out, void* scratch,
+                                    long long scratch_ints, void* stream) {
+  const Pass a{(const float*)tbl, nc, k_pool, nc_pad, (const float*)tile_in, (float*)partial,
+               (float*)out};
+  const cudaError_t err = run_sublane(
+      (const int32_t*)pix, (const float*)w, (const int32_t*)wl, (const int32_t*)list, n_rows,
+      c_out, precise, n_split, a, (int32_t*)matched, (int*)scratch, scratch_ints,
+      (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// P1: K8's kernel with the list 0, 1, ..., nc - 1; no list, tile or matched.
+// P1: K8 with the list 0, 1, ..., nc - 1 (slot = chunk); no tile or matched.
 extern "C" int iht_sandwich_iota(const void* pix, const void* w, const void* wl,
                                  const void* tbl, long long n_rows, int nc, int c_out,
-                                 int k_pool, int n_split, long long rows_per_split, int nc_pad,
-                                 void* partial, void* out, void* stream) {
-  const cudaError_t err = run_form(kIotaForm, pix, w, wl, tbl, nullptr, n_rows, nc, c_out,
-                                   k_pool, 0, n_split, rows_per_split, nc_pad, nullptr, partial,
-                                   nullptr, out, stream);
+                                 int k_pool, int n_split, int nc_pad, void* partial, void* out,
+                                 void* scratch, long long scratch_ints, void* stream) {
+  const Pass a{(const float*)tbl, nc, k_pool, nc_pad, nullptr, (float*)partial, (float*)out};
+  const cudaError_t err = run_sublane((const int32_t*)pix, (const float*)w, (const int32_t*)wl,
+                                      nullptr, n_rows, c_out, 0, n_split, a, nullptr,
+                                      (int*)scratch, scratch_ints, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The dynamic shared memory of a K7 or K8 block, in bytes.
+extern "C" long long iht_sandwich_smem(int c_out, int precise) {
+  (void)precise;   // the staged value is one float either way
+  return (long long)(c_out == 3 ? BlockSmem<3>::kBytes : BlockSmem<1>::kBytes);
 }

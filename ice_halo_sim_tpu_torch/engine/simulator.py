@@ -24,7 +24,8 @@ the compacted misses of the one before, the tiles kept on the device and the
 dense image assembled on the host at read-out. The first batch also counts
 rows per chunk; calibration plans the cascade from that histogram and, under
 IHT_FOLD=auto, keeps it or demotes to the sort fold by a cost model measured
-on the card. Keys that do not pack take the dense-value fold
+on the card. On a CUDA device the sort fold is the default: the cascade runs
+under IHT_FOLD=sandwich or auto. Keys that do not pack take the dense-value fold
 ``accum.sort_accumulate`` (``sort-legacy``). The two trace paths differ on purpose, as in
 the JAX package: the emit-floor scale is analytic on the kernel path and the
 batch mean of the initial weights on the general path, and only the general
@@ -488,17 +489,17 @@ class Engine:
     # Cost model of the fold dispatch, ms per unit, measured with
     # `python -m ice_halo_sim_tpu_torch.probe_sandwich` (3342336 rows over
     # 131072 pixels, a quarter dead) on an NVIDIA H100 80GB HBM3 at a power
-    # limit of 700.00 W, device time by torch.profiler: K7 1.5875 ms at 256
-    # listed chunks and 4.7691 ms at 1024, decode and routing 0.1779 ms,
-    # compact_valid 0.0904 ms, the sort fold 0.3459 ms at 835584 rows and
-    # 1.0854 ms at 3342336. They choose the level structure and between the
-    # folds; exactness never depends on them.
-    _C_PREP = 5.32e-8      # per row: decode of the packed key, routing of the misses
-    _C_BASE = 1.58e-7      # per row: K7 extrapolated to an empty list (staging, search)
-    _C_CHUNKROW = 1.24e-9  # per row and listed chunk: K7's product
-    _C_PACK = 2.70e-8      # per input row: compact_valid (K6 + two K3')
-    _C_SORT_FIX = 0.0607   # the sort fold of keep + P rows: fixed part
-    _C_SORT_ROW = 2.95e-7  # and per row
+    # limit of 700.00 W, device time by torch.profiler: K7 (the scatter-add
+    # into shared memory) 0.1478 ms at 256 listed chunks and 0.5492 ms at
+    # 1024, decode and routing 0.1801 ms, compact_valid 0.0946 ms, the sort
+    # fold 0.3504 ms at 835584 rows and 1.0885 ms at 3342336. They choose the
+    # level structure and between the folds; exactness never depends on them.
+    _C_PREP = 5.39e-8      # per row: decode of the packed key, routing of the misses
+    _C_BASE = 4.17e-9      # per row: K7 extrapolated to an empty list (loads, slot search)
+    _C_CHUNKROW = 1.56e-10  # per row and listed chunk: K7 reading the row once per slice
+    _C_PACK = 2.83e-8      # per input row: compact_valid (K6 + two K3')
+    _C_SORT_FIX = 0.0659   # the sort fold of keep + P rows: fixed part
+    _C_SORT_ROW = 2.94e-7  # and per row
 
     def _sandwich_setup(self) -> None:
         """Decide whether the sandwich fold (core/sandwich.py) replaces the
@@ -517,8 +518,14 @@ class Engine:
         nlo = sandwich_mod.NLO
         self._n_chunks = [-(-(p.height * p.width) // nlo) for p in self.proj_plans]
         # "auto" calibrates between the cascade and the sort fold from the
-        # measured rows per chunk; "sandwich" and "sort" pin the fold.
-        self._fold_choice = str(env_knobs.get("IHT_FOLD", "auto")).lower()
+        # measured rows per chunk; "sandwich" and "sort" pin the fold. With
+        # the knob unset a CUDA device folds by sort: on the H100 the cascade
+        # gained under 0.1 ms per batch even on the scene that favours it most,
+        # and the model chose it where it lost (PERF.md §7). Elsewhere the
+        # JAX engine's default, "auto", holds.
+        knob = env_knobs.get("IHT_FOLD")
+        default = "sort" if torch.device(self.device).type == "cuda" else "auto"
+        self._fold_choice = str(knob if knob is not None else default).lower()
         self.fold_decision = "startup"
         self.fold_costs = None     # the dispatch's modeled ms per batch, once calibrated
         self.last_level_rows = []  # per render, the last batch's rows into the last level
@@ -527,7 +534,8 @@ class Engine:
         if self._trace_plan is not None:
             reason = "the trace kernel emits packed sort keys"
         elif self._fold_choice == "sort":
-            reason = "pinned by IHT_FOLD=sort"
+            reason = ("pinned by IHT_FOLD=sort" if knob is not None else
+                      "the default on a CUDA device; IHT_FOLD=auto or sandwich turns it on")
         elif method != "sort":
             reason = f"accum method {method!r}"
         elif not self.spectral_ok:

@@ -158,9 +158,9 @@ _SIGNATURES = {
                        _VP, _VP, _VP],
     "iht_sandwich_lane": [_VP, _VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _I, _LL, _I,
                           _VP, _VP, _VP, _VP, _VP],
-    "iht_sandwich_sublane": [_VP, _VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _I, _LL, _I,
-                             _VP, _VP, _VP, _VP, _VP],
-    "iht_sandwich_iota": [_VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _LL, _I, _VP, _VP, _VP],
+    "iht_sandwich_sublane": [_VP, _VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _I, _I,
+                             _VP, _VP, _VP, _VP, _VP, _LL, _VP],
+    "iht_sandwich_iota": [_VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _I, _VP, _VP, _VP, _LL, _VP],
 }
 
 
@@ -174,6 +174,8 @@ def lib():
             fn = getattr(handle, name)
             fn.argtypes = args
             fn.restype = ctypes.c_int
+        handle.iht_sandwich_smem.argtypes = [_I, _I]
+        handle.iht_sandwich_smem.restype = ctypes.c_longlong
         handle.iht_error_string.argtypes = [_I]
         handle.iht_error_string.restype = ctypes.c_char_p
         _lib = handle

@@ -4,16 +4,16 @@ kernel is P1).
 
     python -m ice_halo_sim_tpu_torch.probe_sandwich
 
-Binning N contribution rows into P pixels as a two-level one-hot product on
-the tensor cores, with p = hi * 128 + lo:
+Binning N contribution rows into P pixels as a two-level scatter-add, with
+p = hi * 128 + lo:
 
     out[hi, c*128 + lo] = sum_r [hi_r == hi] * bf16(w_r * tbl[wl_r, c]) * [lo_r == lo]
 
 ``sandwich_iota`` is the probe's form of it: the chunk list is 0, 1, ...,
 NHI - 1 (``hi_r == k``), there is no ``matched`` output and no padding id. On
-CUDA tensors it launches csrc/sandwich.cu's ``iht_sandwich_iota`` (K8's
-kernel with the slot computed, not searched); on CPU tensors its plain
-version.
+CUDA tensors it launches csrc/sandwich.cu's ``iht_sandwich_iota`` (K8 with
+the slot computed, not searched: the rows grouped by slice of the image,
+then added into shared memory); on CPU tensors its plain version.
 
 On one CUDA device the probe measures, at the TPU probe's row count
 (N = 3342336 rows over P = 131072 pixels, K = 64, a quarter of them dead):
@@ -65,19 +65,25 @@ def sandwich_iota(pix, w, wl_idx, tbl, *, nhi: int, k_pool: int):
         raise ValueError("sandwich_iota takes a [k_pool, C] table and nhi >= 1")
     c_out = tbl.shape[1]
     pix, w, wl_idx, tbl = sandwich._check_rows(pix, w, wl_idx, tbl, k_pool, c_out)
+    if nhi > sandwich._MAX_SLICES * sandwich.list_block(c_out):
+        raise ValueError(f"sandwich_iota takes at most "
+                         f"{sandwich._MAX_SLICES * sandwich.list_block(c_out)} chunks")
     lib = build.lib()
     dev = pix.device
     n = pix.shape[0]
     cw = c_out * NLO
     if n == 0:
         return torch.zeros((nhi, cw), dtype=F32, device=dev)
-    n_split, rows_per_split, nc_pad = sandwich._splits(n, nhi, dev)
-    partial = torch.empty((n_split, nc_pad, cw), dtype=F32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_split, _rows_per_split, nc_pad = sandwich._splits(n, nhi, c_out, sms)
+    partial = torch.empty((n_split, nc_pad, cw) if n_split > 1 else (4,), dtype=F32, device=dev)
     out = torch.empty((nhi, cw), dtype=F32, device=dev)
+    n_ints = sandwich._sublane_scratch_ints(n, nhi, nc_pad, c_out)
+    scratch = torch.empty(n_ints, dtype=I32, device=dev)
     code = lib.iht_sandwich_iota(
         pix.data_ptr(), w.data_ptr(), wl_idx.data_ptr(), tbl.data_ptr(), n, nhi, c_out,
-        k_pool, n_split, rows_per_split, nc_pad, partial.data_ptr(), out.data_ptr(),
-        build.stream_ptr(dev),
+        k_pool, n_split, nc_pad, partial.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        n_ints, build.stream_ptr(dev),
     )
     build.check(code, "sandwich_iota")
     build.LAUNCHES["sandwich_iota"] += 1

@@ -5,11 +5,10 @@ card:  python -m pytest -m cuda tests/test_torch_cuda.py -q
 Shapes are small; chip_smoke.py repeats the comparison at the main path's
 shapes. Integer outputs must be bit-equal; the scan's floats within rtol
 1e-6 (both versions sum in float64 and round once). The sandwich kernels'
-tile entries: rtol 1e-4 with atol 1e-5 of the largest entry (the tensor
-cores add the products of a 16-row step and the running float32 sum without
-the rounding of a sequential IEEE sum, and the partial tiles of the row
+tile entries: rtol 1e-4 with atol 1e-5 of the largest entry (each block adds
+its rows to a cell one by one in float32, and the partial tiles of the row
 splits are added in float32; the plain version sums in float64 and rounds
-once); ``matched`` is bit-equal.
+once); ``matched`` is bit-equal, and two runs give the same bits.
 """
 
 import numpy as np
@@ -236,13 +235,14 @@ def _assert_tile_close(got, want):
 @pytest.mark.parametrize("layout", ["lane", "sublane"])
 @pytest.mark.parametrize("c_out, precise, n, nc", [
     (3, False, 100_000, 8), (3, True, 33_333, 100), (1, False, 70_001, 300),
-    (3, False, 255, 64), (3, False, 1, 1), (3, False, 60_000, 4096), (1, False, 60_000, 4096)])
+    (3, False, 255, 64), (3, False, 1, 1), (3, False, 60_000, 4096), (1, False, 60_000, 4096),
+    (1, True, 50_000, 390)])
 def test_sandwich_kernels(dev, layout, c_out, precise, n, nc):
     """K7 (lane) and K8 (sublane) against the plain version: a shuffled list
     with padding ids and ids outside the image, row counts that are no
-    multiple of a slab, lists shorter and longer than a block's 64 entries
-    up to the engine's limits (4096 chunks, 128 pool entries), a running tile
-    that is not zero."""
+    multiple of a slab, lists shorter and longer than a block's slice of the
+    list up to the engine's limits (4096 chunks, 128 pool entries), a
+    running tile that is not zero, one channel with two bf16 terms."""
     from ice_halo_sim_tpu_torch.core import sandwich
 
     n_chunks, K = (4096, 128) if nc == 4096 else (400, 64)
@@ -259,10 +259,85 @@ def test_sandwich_kernels(dev, layout, c_out, precise, n, nc):
     torch.cuda.synchronize()
     assert gm.dtype == torch.int32 and torch.equal(gm, wm)
     _assert_tile_close(got, want)
-    # Run after run the same bits: the partial tiles are summed in a fixed order.
+    # Run after run the same bits: every add has a fixed place in the order.
     again, _ = sandwich.sandwich_pass(tile, cl, pix, w, wl, tbl, k_pool=K, precise=precise,
                                       layout=layout)
     assert torch.equal(again, got)
+
+
+def _sandwich_case(dev, layout, pix, w, wl, tbl, cl, K, precise=False, tile=None):
+    """Kernel against plain version: matched equal, tile close, and a second
+    run with the same bits. Returns the kernel's tile."""
+    from ice_halo_sim_tpu_torch.core import sandwich
+
+    c_out = tbl.shape[1]
+    if tile is None:
+        tile = torch.zeros((cl.shape[0], c_out * sandwich.NLO), device=dev)
+    got, gm = sandwich.sandwich_pass(tile, cl, pix, w, wl, tbl, k_pool=K, precise=precise,
+                                     layout=layout)
+    want, wm = sandwich.sandwich_pass_plain(tile, cl, pix, w, wl, tbl, k_pool=K,
+                                            precise=precise)
+    torch.cuda.synchronize()
+    assert torch.equal(gm, wm)
+    _assert_tile_close(got, want)
+    again, am = sandwich.sandwich_pass(tile, cl, pix, w, wl, tbl, k_pool=K, precise=precise,
+                                       layout=layout)
+    assert torch.equal(again.view(torch.int32), got.view(torch.int32)) and torch.equal(am, gm)
+    return got
+
+
+@pytest.mark.parametrize("layout", ["lane", "sublane"])
+@pytest.mark.parametrize("c_out", [3, 1])
+@pytest.mark.parametrize("extra", [-1, 0, 1, "2S+1"])
+def test_sandwich_slice_edges(dev, layout, c_out, extra):
+    """List lengths S - 1, S, S + 1 and 2S + 1 around the block's slice of
+    S = list_block(C) entries (128 at three channels, 384 at one), the list
+    shuffled, rows on every listed chunk and on chunks outside the list."""
+    from ice_halo_sim_tpu_torch.core import sandwich
+
+    S = sandwich.list_block(c_out)
+    nc = 2 * S + 1 if extra == "2S+1" else S + extra
+    K = 32
+    pix, w, wl, tbl = _sandwich_rows(dev, 200_003, (nc + 30) * sandwich.NLO, K, c_out,
+                                     seed=nc)
+    cl = torch.as_tensor(np.random.default_rng(nc).permutation(nc + 30)[:nc].astype(np.int32),
+                         device=dev)
+    _sandwich_case(dev, layout, pix, w, wl, tbl, cl, K)
+
+
+@pytest.mark.parametrize("layout", ["lane", "sublane"])
+def test_sandwich_hot_pixel(dev, layout):
+    """2^20 + 5 live rows on one pixel (one warp's cell takes them all, in
+    order) beside a few elsewhere: the tile close to the plain sum and the
+    same bits twice."""
+    from ice_halo_sim_tpu_torch.core import sandwich
+
+    K, n = 16, (1 << 20) + 5
+    g = np.random.default_rng(4)
+    pix = np.full(n, 5 * sandwich.NLO + 77, np.int32)
+    pix[::100_000] = g.integers(0, 8 * sandwich.NLO, pix[::100_000].shape[0])
+    w = (g.random(n) + 0.5).astype(np.float32)
+    wl = g.integers(0, K, n).astype(np.int32)
+    tbl = g.random((K, 3)).astype(np.float32)
+    rows = [torch.as_tensor(x, device=dev) for x in (pix, w, wl, tbl)]
+    cl = torch.tensor([3, 5, 0, 7], dtype=torch.int32, device=dev)
+    got = _sandwich_case(dev, layout, *rows, cl, K)
+    assert float(got[1, 77]) > 0.25 * n * float(tbl[:, 0].min())
+
+
+@pytest.mark.parametrize("layout", ["lane", "sublane"])
+def test_sandwich_all_dead(dev, layout):
+    """Every row dead (pix -1, weight 0): nothing matches, the tile passes
+    through unchanged."""
+    K, n = 16, 70_000
+    pix = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    w = torch.zeros(n, device=dev)
+    wl = torch.zeros(n, dtype=torch.int32, device=dev)
+    tbl = torch.rand((K, 3), device=dev)
+    cl = torch.arange(300, dtype=torch.int32, device=dev)
+    tile = torch.rand((300, 384), device=dev)
+    got = _sandwich_case(dev, layout, pix, w, wl, tbl, cl, K, tile=tile)
+    assert torch.equal(got, tile)
 
 
 def test_sandwich_dead_rows_and_decoded_dead_keys(dev):
@@ -348,3 +423,18 @@ def test_sandwich_engine_cuda_matches_plain_and_sort(dev, monkeypatch, fold):
         np.testing.assert_allclose(x, y, rtol=TILE_RTOL, atol=TILE_ATOL_FRAC * float(y.max()))
         assert abs(float(x.sum()) - float(z.sum())) / float(z.sum()) < 2e-3
         assert np.abs(x - z).sum() / np.abs(z).sum() < 6e-3
+
+
+def test_fold_default_on_the_card_is_sort(dev, monkeypatch):
+    """With IHT_FOLD unset a CUDA engine folds by sort and says why; the
+    cascade stays one knob away (auto starts on it, sandwich pins it)."""
+    from ice_halo_sim_tpu_torch.scenes import MS_CFG
+
+    monkeypatch.delenv("IHT_FOLD", raising=False)
+    e = Engine(load_project(MS_CFG), seed=3, batch_size=16384, device=dev)
+    assert e.fold_kind == "sort" and not e._sandwich_on
+    assert "the default on a CUDA device" in e.fold_decision
+    for knob, decision in (("auto", "startup"), ("sandwich", "startup")):
+        monkeypatch.setenv("IHT_FOLD", knob)
+        e = Engine(load_project(MS_CFG), seed=3, batch_size=16384, device=dev)
+        assert e.fold_kind == "sandwich" and e.fold_decision == decision

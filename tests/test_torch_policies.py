@@ -232,12 +232,15 @@ def test_sandwich_wrappers_never_fall_to_the_plain_version():
 
 
 def test_sandwich_source_holds_no_library_product():
-    """The sandwich path multiplies on the tensor cores by hand: mma.sync and
-    wmma in the CUDA source, and no library product or scatter in the
-    wrapper module outside the plain version."""
+    """The sandwich path is a scatter-add written by hand into shared memory:
+    no one-hot product (no mma.sync, no wmma), no atomics (a reduction by
+    key per slab of rows; the grouping ranks rows by warp votes), and no
+    library product or scatter in the wrapper module outside the plain
+    version."""
     cu = open(os.path.join(PKG, "csrc", "sandwich.cu")).read()
-    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in cu
-    assert "wmma::mma_sync" in cu and "atomicAdd" not in cu
+    for word in ("mma.sync", "wmma", "mma_sync", "<mma.h>", "atomicAdd", "atomicCAS"):
+        assert word not in cu, word
+    assert "__match_any_sync" in cu and "cudaFuncAttributeMaxDynamicSharedMemorySize" in cu
     for entry in ("iht_sandwich_lane", "iht_sandwich_sublane", "iht_sandwich_iota"):
         assert f'extern "C" int {entry}(' in cu
     src = open(os.path.join(PKG, "core", "sandwich.py")).read()

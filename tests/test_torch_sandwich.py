@@ -244,6 +244,69 @@ def test_extract_blocks_plain_matches_np_reference():
 
 
 # --------------------------------------------------------------------------
+# The wrapper's host-side plan (the CUDA kernels themselves run only on the
+# card: tests/test_torch_cuda.py)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_rows, nc, c_out", [
+    (1388544, 256, 3), (243712, 2048, 3), (6553600, 1024, 1), (1, 1, 3), (1000, 4096, 1),
+    (3342336, 1024, 3), (1 << 21, 1024, 3), (255, 129, 3)])
+def test_splits_plan(n_rows, nc, c_out):
+    """Every row in exactly one split, splits that start on a slab (16-byte
+    loads of four rows), a padded list of whole slices; one wave of blocks
+    (one per multiprocessor) that fills the card where the rows allow it."""
+    sms = 132
+    n_split, per, nc_pad = sandwich._splits(n_rows, nc, c_out, sms)
+    s = sandwich.list_block(c_out)
+    assert s * c_out == 384 and nc_pad % s == 0 and nc <= nc_pad < nc + s
+    assert per % sandwich._SLAB == 0 and (n_split - 1) * per < n_rows <= n_split * per
+    n_slices = nc_pad // s
+    assert 1 <= n_split <= max(1, sms // n_slices)
+    n_slabs = -(-n_rows // sandwich._SLAB)
+    if n_slabs >= 4 * sms:
+        assert n_split * n_slices > 0.9 * sms - n_slices
+
+
+@pytest.mark.parametrize("n_rows, nc, c_out", [(1, 1, 3), (4097, 129, 3), (6553600, 1024, 1),
+                                                (243712, 2048, 3)])
+def test_sublane_scratch_holds_every_part(n_rows, nc, c_out):
+    """K8's scratch: the sorted list (ids and positions), the rows' list
+    positions, the counts per (tile, slice) plus the total, and the grouped
+    key, weight and pool index, each part rounded to 16 bytes."""
+    nc_pad = sandwich._splits(n_rows, nc, c_out, 132)[2]
+    n_tiles = -(-n_rows // sandwich._GROUP_TILE)
+    parts = [sandwich._pow2_at_least(nc)] * 2 + [n_rows] * 4 + \
+        [n_tiles * (nc_pad // sandwich.list_block(c_out)) + 1]
+    assert sandwich._sublane_scratch_ints(n_rows, nc, nc_pad, c_out) == \
+        sum(-(-x // 4) * 4 for x in parts)
+    assert sandwich._pow2_at_least(nc) >= nc > sandwich._pow2_at_least(nc) // 2
+
+
+@pytest.mark.parametrize("c_out", [3, 1])
+@pytest.mark.parametrize("nc", [1, 127, 128, 129, 383, 384, 385, 1000])
+def test_slice_slots_plain_matches_list_slots(c_out, nc):
+    """The kernels' slot search (binary search of each sorted slice) finds
+    the list position `_list_slots` finds, for listed rows, dead rows (chunk
+    -1), padding ids and ids outside the image."""
+    g = np.random.default_rng(nc * 7 + c_out)
+    cl = g.permutation(nc + 50)[:nc].astype(np.int32)
+    cl[g.random(nc) < 0.1] = -1
+    chunk = torch.as_tensor(g.integers(-1, nc + 60, 20000))
+    pos = sandwich.slice_slots_plain(torch.as_tensor(cl), chunk, c_out)
+    k, hit = sandwich._list_slots(torch.as_tensor(cl), chunk)
+    assert torch.equal(pos, torch.where(hit, k, -1))
+    assert int((pos >= 0).sum()) > 0 or (cl < 0).all()
+
+
+def test_aligned_copies_only_misaligned_rows():
+    x = torch.arange(64, dtype=torch.int32)
+    assert sandwich._aligned(x) is x
+    y = x[1:]
+    z = sandwich._aligned(y)
+    assert z is not y and z.data_ptr() % 16 == 0 and torch.equal(z, y)
+
+
+# --------------------------------------------------------------------------
 # Engine level
 # --------------------------------------------------------------------------
 
