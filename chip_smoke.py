@@ -7,11 +7,15 @@ Phases (any failure raises; the exit code is then non-zero):
   1. device: a CUDA device must be present; prints the card's name and
      power limit (nvidia-smi);
   2. build: compiles the port's CUDA kernels from csrc/ (nvcc, ctypes) and
-     prints the trace and sandwich kernels' register and spill reports;
+     prints the trace, scan and sandwich kernels' register and spill
+     reports;
   3. kernels: each kernel against its plain PyTorch twin on the card, at
      the main paths' shapes, with its error, both device times per call
-     (torch.profiler) and its bound (the least time the card could take).
-     The static trace kernel and the block and scan kernels run at
+     (torch.profiler; a timing that falls back to CUDA events is repeated
+     and listed) and its bound (the least time the card could take), and
+     the trace and scan kernels give the same bits twice.
+     The static trace kernel (which packs its own blocks), the block kernels
+     and the scan in both forms (per row; with the marker extraction) run at
      BENCH_CFG's shapes (batch 229376 = 112 x 2048 rays, P = 131072
      pixels, K = 64); the blocked-pool trace kernel at POOL_CFG's (the same
      batch as 1792 sampled pyramids, NF = 20 face slots, two renders); the
@@ -34,7 +38,9 @@ Phases (any failure raises; the exit code is then non-zero):
      trace kernel path), then MS_CFG and COLOR_CFG (the general trace
      path), each with the launch counters reset just before and read just
      after; every kernel of the path must have launched, on its steady
-     batches too; image, lanes and stats must match kernels="plain" on the
+     batches too, and none that the path no longer runs (K1 after the trace
+     kernel, K5 and the per-row scan on the spectral folds); image, lanes
+     and stats must match kernels="plain" on the
      card; each fixture configuration must match its committed JAX render
      (tests/data/torch_port_*_ref.npz) within the CPU tests' tolerances;
      and BENCH_CFG through the general path must match the kernel path
@@ -43,9 +49,10 @@ Phases (any failure raises; the exit code is then non-zero):
      IHT_FOLD=sandwich (slice ms-sandwich): one calibration batch and
      three steady ones, K7 launched on every steady batch, held against
      kernels="plain" on the card and against the sort fold of the ms slice;
-     the same through K8; MS_CFG and BENCH_CFG (general path) under
-     IHT_FOLD=auto with the dispatch's decision and modeled costs (and
-     with IHT_FOLD unset: the card's default, the sort fold); and the
+     the same through K8; MS_CFG, BENCH_CFG (general path) and SUNDOG_CFG
+     under IHT_FOLD=auto with the dispatch's decision and modeled costs (and
+     with IHT_FOLD unset: the card's default, the sort fold), and whether
+     each decision is within 0.1 ms of the faster fold; and the
      two probes' own main paths (P1, P2);
   5. steady rays/s of the five slices (informational).
 
@@ -91,6 +98,9 @@ TILE_RTOL, TILE_ATOL_FRAC = 1e-4, 1e-5
 # The sandwich fold against the sort fold: each row's values are rounded to
 # bf16 (about 0.4% per row, unbiased, averaging down per pixel).
 BF16_MASS, BF16_L1 = 2e-3, 6e-3
+# IHT_FOLD=auto's check: each engine's steady batch is timed this many times,
+# in turns with the other engines of the scene.
+FOLD_TURNS = 5
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet): device memory, float32
 # outside the tensor cores. The special-function rate follows from the SM's
@@ -106,18 +116,32 @@ class _Ms(float):
     by = "profiler"
 
 
-def _time_ms(fn, reps: int = 10) -> float:
+# Every timing whose first measurement fell back to CUDA events: (what,
+# reps, how the repeats went). Printed at the end of the run.
+FALLBACKS: list = []
+
+
+def _time_ms(fn, reps: int = 10, what: str = "") -> float:
     """Device milliseconds per call: the CUDA time of every kernel, copy and
     memset that `reps` calls put on the card (torch.profiler), over reps.
     A wall-clock or CUDA-event time would measure the host's launch
     overhead for kernels shorter than their Python wrapper; the port's
     `device_ms` falls back to events only when the profiler returns nothing,
-    and the time then says so (`by`, `timed_by` in the kernels line)."""
+    and the time then says so (`by`, `timed_by` in the kernels line). A
+    measurement that fell back is repeated, up to twice, and the fallback
+    recorded in FALLBACKS."""
     from ice_halo_sim_tpu_torch.probe_sandwich import device_ms, timed_by
 
-    timed_by()
-    ms = _Ms(device_ms(fn, reps))
-    ms.by = timed_by()
+    tries = []
+    for _ in range(3):
+        timed_by()
+        ms = _Ms(device_ms(fn, reps))
+        ms.by = timed_by()
+        tries.append(ms.by)
+        if ms.by == "profiler":
+            break
+    if len(tries) > 1 or tries[0] != "profiler":
+        FALLBACKS.append({"what": what, "reps": reps, "tries": tries})
     return ms
 
 
@@ -152,33 +176,40 @@ def trace_work(plan):
     Units per ray. U = 24: one uniform draw (two PCG hashes of 9 integer
     operations, the index mix, the convert and scale). A float division or
     square root counts 1 special-function operation (rcp/rsqrt) plus 8
-    arithmetic ones (its Newton steps); sin, cos and log count 20
-    arithmetic ones (range reduction and polynomial). With multiply-add
-    contraction off, every multiply and add is one operation.
+    arithmetic ones (its Newton steps); a lone sin, cos or log counts 20
+    arithmetic ones (range reduction and polynomial), a sine and cosine of
+    one angle (sincosf) 30. With multiply-add contraction off, every
+    multiply and add is one operation.
       set-up: epoch seed 12, wavelength U + 6, refractive index 12 + 5
-        div/sqrt, sun cap 2 U + 20 + 1 sqrt + 2 trig;
+        div/sqrt, sun cap 2 U + 20 + 1 sqrt + 1 sincos;
       orientation: 5 U, the latitude path (inverse-CDF table: 5 per node
-        + 12 + 2 div; else about 30 + 1 sqrt), 6 trig, rotation 22, its
-        inverse apply 15;
+        + 12 + 2 div and 3 sincos; uniform: about 30 + 1 sqrt and 2
+        sincos), rotation 22, its inverse apply 15;
       entry: 16 per triangle row (two passes of a dot, max, add and the
         CDF compare), 3 U, point 12, plane distances 7 per face slot;
       Fresnel split (entry and every bounce): 42 + 7 div/sqrt;
       bounce (max_hits - 1): per face slot 15 + 1 div and 2 for the
-        distance update; exit cosine 5, rotation 15, state selects 8;
+        distance update (the function's need, with the denominators held;
+        the kernel recomputes them, which is its own cost); exit cosine 5,
+        rotation 15, state selects 8;
       emit slot (max_hits): segment 2, roulette U + 4 when the floor is
-        on, gate U + 2 when prob > 0; per render: a dual fisheye pass 22 +
+        on, gate U + 2 when prob > 0; per render: a dual fisheye pass 16 +
         2 div/sqrt (two passes with the overlap band), a single lens or
-        globe 26 + 18 camera rotation + 2 div/sqrt.
-    Bytes: the slabs written (8 per row), the tables read once."""
+        globe 20 + 18 camera rotation + 2 div/sqrt.
+    The pack in the kernel is counted by its bytes only: a stable compaction
+    needs no arithmetic beyond moving each row once.
+    Bytes: each render's packed rows written once (8 per row of rows_block,
+    the tail included) and its counts, the tables read once."""
     from ice_halo_sim_tpu_torch.core import sampling
     from ice_halo_sim_tpu_torch.core.latlut import N_NODES
 
-    U, DS, TRIG = 24, 8, 20
+    U, DS, SINCOS = 24, 8, 30
     n_tris = plan.n_tris if plan.pool_k else len(plan.tris)
-    ops = 12 + (U + 6) + 12 + 5 * DS + 2 * U + 20 + DS + 2 * TRIG
+    ops = 12 + (U + 6) + 12 + 5 * DS + 2 * U + 20 + DS + SINCOS
     sfu = 5 + 1
     lut = int(plan.axis_params.lat_path[0]) == sampling.LAT_LUT_INVERSE_CDF
-    ops += 5 * U + (5 * N_NODES + 12 + 2 * DS if lut else 30 + DS) + 6 * TRIG + 22 + 15
+    ops += 5 * U + (5 * N_NODES + 12 + 2 * DS + 3 * SINCOS if lut else 30 + DS + 2 * SINCOS)
+    ops += 22 + 15
     sfu += 2 if lut else 1
     ops += 16 * n_tris + 3 * U + 12 + 7 * plan.nf
     fres_ops, fres_sfu = 42 + 7 * DS, 7
@@ -191,15 +222,15 @@ def trace_work(plan):
     for pp in plan.renders:
         if pp.lens_type in (4, 9):
             passes = 2 if pp.max_abs_dz > 0 else 1
-            slot_ops += passes * (22 + 2 * DS)
+            slot_ops += passes * (16 + 2 * DS)
             slot_sfu += passes * 2
         else:
-            slot_ops += 26 + 18 + 2 * DS
+            slot_ops += 20 + 18 + 2 * DS
             slot_sfu += 2
     ops += plan.h * slot_ops
     sfu += plan.h * slot_sfu
     rows = plan.n_blocks * sum(plan.rows_block)
-    nbytes = 8 * rows + 4 * plan.ftab()[0].size
+    nbytes = 8 * rows + 4 * plan.n_blocks * len(plan.renders) + 4 * plan.ftab()[0].size
     if plan.pool_k:
         nbytes += 4 * plan.pool_k * (plan.nf * 5 + plan.n_tris * 13)
     return nbytes, ops * plan.batch, sfu * plan.batch
@@ -235,12 +266,18 @@ def _add(res: list, name, source, replaces, err, ms, plain_ms, bound, why_no_lib
           f"timed by {res[-1]['timed_by']}", flush=True)
 
 
-def _check_trace(name, out_k, out_p):
-    """Hold one trace_emit output against its twin's; returns max_abs_err."""
+def _check_trace(name, out_k, out_p, again):
+    """Hold one trace_emit output against its twin's, and against `again`,
+    a second launch on the same inputs (the same bits); returns
+    max_abs_err."""
     import torch
 
     from ice_halo_sim_tpu_torch.core import trace_emit
 
+    same = all(_bits_equal(x, y) for ra, rb in zip(out_k[0], again[0]) for x, y in zip(ra, rb))
+    if not same or not all(_bits_equal(x.reshape(-1), y.reshape(-1))
+                           for x, y in zip(out_k[1:3], again[1:3])):
+        raise AssertionError(f"{name}: two launches on the same inputs differ")
     d = trace_emit.trace_output_diff(out_k[0], out_p[0])
     if d["rows_diff"] > FLIP_ROWS:
         raise AssertionError(f"{name} rows differ beyond the flip budget: {d}")
@@ -278,20 +315,21 @@ def phase_kernels(cfg, device, res: list):
     no_lib_pack = ("a per-block stable partition takes a sort of flags plus a "
                    "gather, no single call")
 
-    # K2 (+ K1 inside the wrapper) against the plain twin.
+    # K2 (with the block pack inside) against the plain twin.
     args = (plan, base & 0xFFFFFFFF, base >> 32, BATCH, device)
     out_k = trace_emit.trace_emit(*args)
     out_p = trace_emit.trace_emit_plain(*args)
-    err = _check_trace("trace_emit", out_k, out_p)
+    err = _check_trace("trace_emit", out_k, out_p, trace_emit.trace_emit(*args))
     keys, wts, counts = out_k[0][0]
     _add(res, "trace_emit", "ice_halo_sim_tpu_torch/csrc/trace_emit.cu",
             "ice_halo_sim_tpu/core/pallas_trace.py:318", err,
-            _time_ms(lambda: trace_emit.trace_emit(*args), 5),
+            _time_ms(lambda: trace_emit.trace_emit(*args), 5, "trace_emit"),
             _time_ms(lambda: trace_emit.trace_emit_plain(*args), 2),
             _trace_bound("trace_emit", plan),
             "a per-ray Monte-Carlo trace loop is no library function")
 
-    # K1: the trace rows' in-block pack, on the uncompacted slab.
+    # K1: the in-block pack on the uncompacted slab (its kernel serves K5
+    # and K6; the trace kernel packs its own rows).
     slabs, *_ = trace_emit.trace_rows_plain(*args)
     sk_, sw_ = slabs[0][0].reshape(-1), slabs[0][1].reshape(-1)
     rb = plan.rows_block[0]
@@ -349,13 +387,52 @@ def phase_kernels(cfg, device, res: list):
         if not torch.allclose(x, y, rtol=SCAN_RTOL, atol=1e-6):
             raise AssertionError(f"fused_scan channels differ (max abs {err})")
     m = sk.numel()
+    if not _bits_equal(seg_scan.fused_scan_call(sk, sw, tbl, shift, K, True)[0][1], ca[1]):
+        raise AssertionError("fused_scan: two launches on the same rows differ")
+    # Per row: 8 bytes read, three channels and key2 written (16 bytes).
     _add(res, "fused_scan", "ice_halo_sim_tpu_torch/csrc/seg_scan.cu",
             "ice_halo_sim_tpu/core/pallas_scan.py:144", err,
-            _time_ms(lambda: seg_scan.fused_scan_call(sk, sw, tbl, shift, K, True)),
+            _time_ms(lambda: seg_scan.fused_scan_call(sk, sw, tbl, shift, K, True), 10,
+                     "fused_scan"),
             _time_ms(lambda: seg_scan.fused_scan_call_plain(sk, sw, tbl, shift, K, True)),
             _bound(8 * m + 4 * tbl.numel() + 16 * m, 8 * m),
             "a segmented scan with a basis expansion; cumsum has "
                            "no segments")
+    res[-1]["rows"] = m
+
+    # K4 in its extract form, as both spectral folds call it: the scan and
+    # the marker extraction in one launch, against the per-row scan + K5 +
+    # K3 (plain), and the same bits twice.
+    img_k = seg_scan.fused_scan_extract(sk, sw, tbl, shift, K, P)
+    img_p = seg_scan.fused_scan_extract_plain(sk, sw, tbl, shift, K, P)
+    err = _max_abs(img_k, img_p)
+    if not torch.allclose(img_k, img_p, rtol=SCAN_RTOL, atol=1e-6):
+        raise AssertionError(f"fused_scan_extract differs from its plain twin (max abs {err})")
+    if not _bits_equal(seg_scan.fused_scan_extract(sk, sw, tbl, shift, K, P), img_k):
+        raise AssertionError("fused_scan_extract: two launches on the same rows differ")
+    ks = eng.ks
+
+    def per_row_then_k5_k3():
+        chans, key2 = seg_scan.fused_scan_call(sk, sw, tbl, shift, K, True)
+        return accum._marker_extract(key2, chans, P, ks)
+
+    if not torch.allclose(per_row_then_k5_k3(), img_k, rtol=SCAN_RTOL, atol=1e-6):
+        raise AssertionError("fused_scan_extract differs from the per-row scan + K5 + K3")
+    # Bytes: the rows read once (8 each), the image written once (12 per
+    # pixel), the table; operations: the basis product and the float64 add
+    # of three channels per row.
+    _add(res, "fused_scan_extract", "ice_halo_sim_tpu_torch/csrc/seg_scan.cu",
+         "ice_halo_sim_tpu/core/pallas_scan.py:144", err,
+         _time_ms(lambda: seg_scan.fused_scan_extract(sk, sw, tbl, shift, K, P), 10,
+                  "fused_scan_extract"),
+         _time_ms(lambda: seg_scan.fused_scan_extract_plain(sk, sw, tbl, shift, K, P)),
+         _bound(8 * m + 12 * P + 4 * tbl.numel(), 6 * m),
+         "a segmented scan with a basis expansion and a write at the run ends; "
+         "cumsum has no segments")
+    res[-1].update(rows=m, pixels=P)
+    ms_old = _time_ms(per_row_then_k5_k3, 10, "per-row scan + K5 + K3")
+    print(f"  the same image by the per-row scan, then K5 + K3 (the marker extraction "
+          f"before the fused form): {ms_old:.4f} ms", flush=True)
 
     # K5 on the scan output (the marker extraction's pack).
     a = block_ops.pack_payload_blocks(k2a, ca, P, accum.BLOCK)
@@ -393,10 +470,10 @@ def phase_kernel_pool(cfg, device, res: list):
     out_k = trace_emit.trace_emit(*args)
     torch.cuda.synchronize()
     out_p = trace_emit.trace_emit_plain(*args)
-    err = _check_trace("trace_emit_pool", out_k, out_p)
+    err = _check_trace("trace_emit_pool", out_k, out_p, trace_emit.trace_emit(*args))
     _add(res, "trace_emit_pool", "ice_halo_sim_tpu_torch/csrc/trace_emit.cu",
             "ice_halo_sim_tpu/core/pallas_trace.py:382", err,
-            _time_ms(lambda: trace_emit.trace_emit(*args), 5),
+            _time_ms(lambda: trace_emit.trace_emit(*args), 5, "trace_emit_pool"),
             _time_ms(lambda: trace_emit.trace_emit_plain(*args), 1),
             _trace_bound("trace_emit_pool", plan),
             "a per-ray Monte-Carlo trace loop is no library function")
@@ -704,12 +781,12 @@ def _images_off(a, b, what) -> int:
 
 
 def phase_slice(name, cfg, device, path_kernels, steady: int = 3,
-                path: str = "cuda-trace-kernel"):
+                path: str = "cuda-trace-kernel", absent=()):
     """Render `cfg` through the CUDA kernels with the launch counters reset
     just before and read just after; compare with kernels="plain" on the
     card. Every kernel of path_kernels must have launched, and on the steady
-    (calibrated) batches too. Returns (engine, launch counts, launches per
-    steady batch)."""
+    (calibrated) batches too; no kernel of `absent` may have. Returns
+    (engine, launch counts, launches per steady batch)."""
     import numpy as np
     import torch
 
@@ -734,6 +811,9 @@ def phase_slice(name, cfg, device, path_kernels, steady: int = 3,
         if counts[k] <= 0 or per_batch[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the {name} path "
                                  f"(total {counts[k]}, per steady batch {per_batch[k]})")
+    for k in absent:
+        if counts[k]:
+            raise AssertionError(f"kernel {k} was launched on the {name} path ({counts[k]})")
     st = eng.drain_stats()
 
     ref = Engine(cfg, seed=7, batch_size=BATCH, device=device, kernels="plain")
@@ -978,10 +1058,12 @@ def phase_kernels_cascade(eng, device, res: list, batch_counter: int = 5):
 def phase_fold_auto(scenes, device, n_after: int = 3):
     """IHT_FOLD=auto on general-path scenes: what calibration decides, with
     both modeled costs, and beside them what the card takes: the device time
-    of one steady batch of the auto engine and of an IHT_FOLD=sort engine of
-    the same scene. Whatever it decides, the image agrees with the sort
-    fold's (a demotion carries the settled tiles over once). `scenes` holds
-    (name, config, sort engine after 1 + n_after batches or None)."""
+    of steady batches of the auto engine, of an IHT_FOLD=sort engine and of
+    the cascade (the auto engine if it kept it, else one pinned to it), with
+    their spread (_fold_verdict). Whatever it decides, the image agrees with
+    the sort fold's (a demotion carries the settled tiles over once).
+    `scenes` holds (name, config, sort engine after 1 + n_after batches or
+    None)."""
     from ice_halo_sim_tpu_torch.engine.simulator import Engine
 
     # With IHT_FOLD unset the card folds by sort (ROADMAP item 10).
@@ -1018,13 +1100,52 @@ def phase_fold_auto(scenes, device, n_after: int = 3):
                   f"{[[(int(cl.shape[0]), keep) for cl, keep in lv] for lv in eng._levels]}",
                   flush=True)
         _sandwich_agrees_with_sort(f"auto {what}", eng, other)
-        # One more batch on each engine, under the profiler: the whole batch's
-        # device time, trace and fold; the difference is the folds'.
-        t_auto = _time_ms(lambda: eng.run(n_batches=1), 3)
-        t_sort = _time_ms(lambda: other.run(n_batches=1), 3)
-        print(f"  auto {what}: device ms per steady batch {t_auto:.4f} as decided "
-              f"({eng.fold_kind}), {t_sort:.4f} under IHT_FOLD=sort (timed by "
-              f"{_timed_by(t_auto, t_sort)})", flush=True)
+        cascade = eng
+        if eng.fold_kind != "sandwich":
+            # Demoted: the cascade's own time, from an engine pinned to it.
+            with _knobs(IHT_FOLD="sandwich", IHT_PALLAS_TRACE="0"):
+                cascade = Engine(cfg, seed=7, batch_size=BATCH, device=device)
+            cascade.run(n_batches=1)
+            cascade.run(n_batches=n_after)
+        _fold_verdict(what, eng.fold_kind, {"auto": eng, "sort": other, "sandwich": cascade})
+
+
+def _fold_verdict(what, chosen: str, engines: dict, turns: int = FOLD_TURNS):
+    """Device ms per steady batch of each engine (trace and fold, two
+    batches under the profiler), `turns` times in turns; the times are pooled by the
+    fold each engine runs (the auto engine runs `chosen`), so that the
+    spread takes in two engines of one fold as well as the repeats. The
+    decision is right when the other fold's median is slower by more than
+    the larger spread, not separated when the medians lie within it, and
+    else within the 0.1 ms rule or a miss."""
+    import statistics
+
+    pooled = {"sort": [], "sandwich": []}
+    for _ in range(turns):
+        for name, e in engines.items():
+            if name == "auto" and e is engines[chosen]:
+                continue
+            t = _time_ms(lambda e=e: e.run(n_batches=1), 2, f"{name} {what}")
+            pooled[chosen if name == "auto" else name].append(t)
+    med = {k: statistics.median(v) for k, v in pooled.items()}
+    spreads = {k: max(v) - min(v) for k, v in pooled.items()}
+    spread = max(spreads.values())
+    rival = "sort" if chosen == "sandwich" else "sandwich"
+    margin = med[rival] - med[chosen]
+    if margin > spread:
+        verdict = "right: the other fold is slower by more than the spread"
+    elif margin >= -spread:
+        verdict = "not separated: the medians lie within the spread"
+    elif margin >= -0.1:
+        verdict = "the slower fold, within the 0.1 ms rule"
+    else:
+        verdict = "misses the 0.1 ms rule"
+    times = {k: [round(float(t), 4) for t in v] for k, v in pooled.items()}
+    print(f"  auto {what}: decided {chosen}; device ms per steady batch, median "
+          f"(spread) sandwich {med['sandwich']:.4f} ({spreads['sandwich']:.4f}), sort "
+          f"{med['sort']:.4f} ({spreads['sort']:.4f}), all "
+          f"{times}, timed by {_timed_by(*pooled['sort'], *pooled['sandwich'])}; margin "
+          f"{margin:.4f}: {verdict}", flush=True)
 
 
 def phase_probe(name, main_fn):
@@ -1145,7 +1266,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from ice_halo_sim_tpu_torch.config.loader import load_project
     from ice_halo_sim_tpu_torch.kernels import build
-    from ice_halo_sim_tpu_torch.scenes import BENCH_CFG, COLOR_CFG, MS_CFG, POOL_CFG
+    from ice_halo_sim_tpu_torch.scenes import (BENCH_CFG, COLOR_CFG, MS_CFG, POOL_CFG,
+                                               SUNDOG_CFG)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1160,7 +1282,7 @@ def main() -> int:
     build.lib()
     print(f"[2] build: {time.time() - t0:.1f} s -> {os.path.relpath(path, ROOT)}",
           flush=True)
-    for kernel in ("trace_emit_kernel", "sandwich_"):
+    for kernel in ("trace_emit_kernel", "scan_kernel", "sandwich_"):
         for line in build.ptxas_report(kernel):
             print(f"  {line}", flush=True)
     lib = build.lib()
@@ -1181,21 +1303,25 @@ def main() -> int:
         phase_kernels_sandwich(ms, device, res)
 
     print("[4] slices", flush=True)
-    common = ["pack_rows", "pack_payload_blocks", "scatter_blocks_multi", "fused_scan"]
-    prepass = ["pack_valid_blocks", "scatter_blocks", "pack_payload_blocks",
-               "scatter_blocks_multi"]
+    # The trace kernel packs its rows (no K1), and the spectral folds extract
+    # their images in the scan (no K5, no per-row scan).
+    common = ["scatter_blocks_multi", "fused_scan_extract"]
+    gone = ["pack_rows", "pack_payload_blocks", "fused_scan"]
+    prepass = ["pack_valid_blocks", "scatter_blocks"]
     engines, counts, per_batch = {}, {}, {}
     # These slices and fixtures fold by sort, as the JAX fixtures did (the
     # knob touches only the general path); the sandwich fold has slices of
     # its own below.
     with _knobs(IHT_FOLD="sort"):
-        for name, cfg, kernels, steady, path in (
-                ("bench", bench, ["trace_emit"] + common, 3, "cuda-trace-kernel"),
-                ("pool", pool, ["trace_emit_pool"] + common, 2, "cuda-trace-kernel"),
-                ("ms", ms, prepass + ["fused_scan"], 3, "general"),
-                ("color", colour, prepass, 2, "general")):
+        for name, cfg, kernels, steady, path, absent in (
+                ("bench", bench, ["trace_emit"] + common, 3, "cuda-trace-kernel", gone),
+                ("pool", pool, ["trace_emit_pool"] + common, 2, "cuda-trace-kernel", gone),
+                ("ms", ms, prepass + ["fused_scan_extract"], 3, "general",
+                 gone + ["scatter_blocks_multi"]),
+                ("color", colour, prepass + ["pack_payload_blocks", "scatter_blocks_multi"], 2,
+                 "general", ["pack_rows", "fused_scan", "fused_scan_extract"])):
             engines[name], counts[name], per_batch[name] = phase_slice(
-                name, cfg, device, kernels, steady, path)
+                name, cfg, device, kernels, steady, path, absent)
             if name == "bench":
                 phase_fixture("bench", bench, device, 0, 0)
                 phase_paths_agree(bench, device)
@@ -1214,23 +1340,21 @@ def main() -> int:
     with _layout("sublane"):
         _, counts["ms-sandwich-sublane"], _ = phase_sandwich(
             "ms-sandwich-sublane", ms, device, engines["ms"])
-    # A scene whose rows are few and concentrated, where the dispatch's model
-    # favours the cascade most: one population of horizontal plates, only the
-    # ray path 3-5 (the parhelia), on BENCH_CFG's render.
-    sundog = copy.deepcopy(BENCH_CFG)
-    sundog["crystal"] = [copy.deepcopy(MS_CFG["crystal"][0])]
-    sundog["filter"] = copy.deepcopy(MS_CFG["filter"])
-    sundog["scene"]["scattering"][0]["entries"][0]["filter"] = 1
+    # SUNDOG_CFG: rows few and concentrated, where the dispatch's model
+    # favours the cascade most (horizontal plates, only the ray path 3-5).
     phase_fold_auto([("ms", ms, engines["ms"]), ("bench (general path)", bench, None),
-                     ("sundog (plates, ray path 3-5)", load_project(sundog), None)], device)
+                     ("sundog (plates, ray path 3-5)", load_project(SUNDOG_CFG), None)],
+                    device)
     from ice_halo_sim_tpu_torch import probe_sandwich, probe_scatter
     counts["probe_sandwich"] = phase_probe("sandwich_iota", probe_sandwich.main)
     counts["probe_scatter"] = phase_probe("extract_blocks", probe_scatter.main)
     # Launches of a kernel on the main path that runs it: the pool scene for
-    # the blocked-pool trace, MS_CFG for the fold prepass, MS_CFG under the
-    # sandwich fold for K7 and K8, the probes' own runs for P1 and P2, else
-    # BENCH_CFG.
+    # the blocked-pool trace, MS_CFG for the fold prepass, COLOR_CFG for K5
+    # (the colour lanes' extraction), MS_CFG under the sandwich fold for K7
+    # and K8, the probes' own runs for P1 and P2, else BENCH_CFG (0 for K1
+    # and the per-row scan, which no path launches now).
     home = {"trace_emit_pool": "pool", "pack_valid_blocks": "ms", "scatter_blocks": "ms",
+            "pack_payload_blocks": "color",
             "sandwich_lane": "ms-sandwich", "sandwich_sublane": "ms-sandwich-sublane",
             "sandwich_iota": "probe_sandwich", "extract_blocks": "probe_scatter"}
     for k in res:
@@ -1241,6 +1365,8 @@ def main() -> int:
         rate = phase_rate(eng, 20 if name in ("bench", "pool") else 8)
         print(f"[5] {name} steady rate: {rate:.6g} rays/s (batch {BATCH}, "
               f"{eng.trace_path}, fold {eng.fold_kind}) on {smi}", flush=True)
+    print(f"timings that fell back to CUDA events: {len(FALLBACKS)} "
+          f"{json.dumps(FALLBACKS)}", flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": res}))

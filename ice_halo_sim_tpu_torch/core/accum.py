@@ -4,9 +4,11 @@
 
 Scatter-add of (pixel, wavelength-pool index, weight) rows into an
 [P, 3] XYZ image as: one unstable sort of u32 keys ``pixel * 2K | wl * 2``
-together with one marker row per pixel (low bits 2K-1), the fused basis +
-segmented scan (K4) leaving each pixel's total on its marker row, and the
-marker extraction (K5 pack + K3 scatter) that makes the dense image.
+together with one marker row per pixel (low bits 2K-1), then the fused basis
++ segmented scan (K4), which leaves each pixel's total on its marker row and
+writes it into the dense image (``seg_scan.fused_scan_extract``). Where the
+scan runs on its own (the colour lanes, ``sort_accumulate``), the marker
+rows are extracted by K5 pack + K3 scatter (``_marker_extract``).
 
 The sort is ``torch.sort`` (the JAX package's is XLA's, not a Pallas
 kernel). Key and weight ride as one int64 per row: the key XOR 0x80000000
@@ -256,7 +258,7 @@ def fold_spectral_keys(acc, key, w, k_pool: int, basis_tbl, ks, lane_specs=(),
     """Full fold: contribution rows + P markers -> one sort -> per-pixel
     totals -> marker extraction, added to acc [P, 3 + L].
 
-    Without lanes the totals come from K4. With lane_specs ((bits,
+    Without lanes K4 makes the totals and the image. With lane_specs ((bits,
     combine_all) per colour class) the mask column (int32 u32 bits) rides
     the sort, and the basis, the lanes and the totals are plain torch.
     prefix_len (a multiple of the block): scan and extract only that many
@@ -276,9 +278,7 @@ def fold_spectral_keys(acc, key, w, k_pool: int, basis_tbl, ks, lane_specs=(),
     cut = prefix_len if prefix_len is not None and prefix_len < M else M
     if L == 0:
         sk, sw = sort_keys(keys, w_all)
-        seg, key2 = ks.fused_scan_call(sk[:cut], sw[:cut], basis_tbl, shift, k_pool,
-                                       emit_key2=True)
-        return acc + _marker_extract(key2, seg, P, ks)
+        return acc + ks.fused_scan_extract(sk[:cut], sw[:cut], basis_tbl, shift, k_pool, P)
     if mask is None:
         raise ValueError("lane_specs need the mask column")
     # Sort (key, row) pairs and gather the two payload columns by row.
@@ -310,7 +310,5 @@ def fold_spectral_keys_premerged(acc, keys, w, k_pool: int, basis_tbl, ks):
     if M % BLOCK:
         raise ValueError(f"{M} rows are not a multiple of block {BLOCK}")
     sk, sw = sort_keys(keys, w)
-    seg, key2 = ks.fused_scan_call(sk, sw, basis_tbl, key_shift(k_pool), k_pool,
-                                   emit_key2=True)
-    return acc + _marker_extract(key2, seg, P, ks)
+    return acc + ks.fused_scan_extract(sk, sw, basis_tbl, key_shift(k_pool), k_pool, P)
 

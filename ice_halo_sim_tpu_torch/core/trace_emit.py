@@ -13,12 +13,13 @@ engine samples a K-shape pool per batch and hands it over as ``ptbl``
 [K, NF*5] and ``ttbl`` [K, T*13], and rays 128 s .. 128 s + 127 trace
 shape s.
 
-``trace_emit_plain`` is the plain PyTorch twin; ``trace_emit`` runs it on
-the CPU and, on a CUDA device, the CUDA kernel csrc/trace_emit.cu followed
-by the K1 pack kernel. Both return, per render, the rows of every 2048-ray
-block (slot-major; main then overlap pass; ray within that), stably
-compacted with tail (0xFFFFFFFF, 0) -- the JAX kernel's counts and order --
-plus landed weight per render, dropped weight and traced segments.
+``trace_emit_plain`` is the plain PyTorch twin (the uncompacted rows, then
+the K1 pack); ``trace_emit`` runs it on the CPU and, on a CUDA device, the
+CUDA kernel csrc/trace_emit.cu, which packs each block inside itself. Both
+return, per render, the rows of every 2048-ray block (slot-major; main then
+overlap pass; ray within that), stably compacted with tail (0xFFFFFFFF, 0)
+-- the JAX kernel's counts and order -- plus landed weight per render,
+dropped weight and traced segments.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from ice_halo_sim_tpu_torch.kernels import build
 LAYER_NONCE = 0xA5A5
 MAX_RENDERS = 4
 _THREADS = 128  # trace kernel block size (csrc/trace_emit.cu kThreads)
+_MAX_ENTRIES = 32  # (slot, render, pass) entries the kernel stages at once (kMaxEntries)
 # Blocked-pool mode: one shape per thread block, so the engine's geom_clock
 # must equal the block size.
 POOL_GEOM_CLOCK = _THREADS
@@ -521,7 +523,11 @@ class TraceParams(ctypes.Structure):
         ("rot", ctypes.c_float * (9 * MAX_RENDERS)),
     ] + [(n, ctypes.c_int32) for n in (
         "off_planes", "off_tris", "off_spd", "off_wl", "off_wlw", "off_cdf",
-        "off_flip", "n_ftab")]
+        "off_flip", "n_ftab")] + [
+        (n, ctypes.c_float * MAX_RENDERS) for n in (
+            "half_w", "half_h", "dual_r", "dual_cy", "dual_cxu", "dual_cxl")] + [
+        ("passes", ctypes.c_int32 * MAX_RENDERS), ("rp_off", ctypes.c_int32 * MAX_RENDERS),
+    ] + [(n, ctypes.c_int32) for n in ("rp", "hg", "ncta", "key_shift", "grid_blocks")]
 
 
 def make_params(plan: TracePlan, base_lo: int, base_hi: int, n_active: int):
@@ -585,6 +591,23 @@ def _plan_params(plan: TracePlan):
     p.off_wl, p.off_wlw = offs["wl"], offs["wlw"]
     p.off_cdf, p.off_flip = offs["cdf"], offs["flip"]
     p.n_ftab = int(ftab.size)
+    f32 = np.float32
+    rp = 0
+    for r, pp in enumerate(plan.renders):
+        W, H = pp.width, pp.height
+        short = min(W // 2, H)
+        p.half_w[r], p.half_h[r] = f32(W / 2.0), f32(H / 2.0)
+        p.dual_r[r], p.dual_cy[r] = f32(short / 2.0), f32(H / 2.0)
+        p.dual_cxu[r] = f32(W / 2.0 - short / 2.0)
+        p.dual_cxl[r] = f32(W / 2.0 + short / 2.0)
+        p.passes[r] = 2 if pp.max_abs_dz > 0.0 else 1
+        p.rp_off[r] = rp
+        rp += p.passes[r]
+    p.rp = rp
+    p.hg = max(1, min(plan.h, _MAX_ENTRIES // rp))
+    p.ncta = -(-plan.nr // _THREADS)
+    p.key_shift = key_shift(plan.k_pool)
+    p.grid_blocks = plan.n_blocks * p.ncta
     return p
 
 
@@ -592,7 +615,8 @@ def trace_emit(plan: TracePlan, base_lo: int, base_hi: int, n_active: int, devic
                ptbl=None, ttbl=None):
     """K2/K2b wrapper: the plain twin on the CPU; on a CUDA device the trace
     kernel (static mode, or blocked-pool mode when the plan has a pool and
-    the batch's ptbl/ttbl are given), then the K1 pack kernel per render."""
+    the batch's ptbl/ttbl are given), which packs each 2048-ray block
+    itself."""
     device = torch.device(device)
     if device.type == "cpu":
         return trace_emit_plain(plan, base_lo, base_hi, n_active, device, ptbl, ttbl)
@@ -603,33 +627,33 @@ def trace_emit(plan: TracePlan, base_lo: int, base_hi: int, n_active: int, devic
     ftab = plan.device_table(device)
     G = plan.n_blocks
     R = len(plan.renders)
-    total = G * sum(plan.rows_block)
-    keys = torch.empty(total, dtype=I32, device=device)
-    wts = torch.empty(total, dtype=F32, device=device)
-    n_tb = -(-plan.batch // _THREADS)
+    keys = torch.empty(G * sum(plan.rows_block), dtype=I32, device=device)
+    wts = torch.empty(G * sum(plan.rows_block), dtype=F32, device=device)
+    counts = torch.empty((R, G), dtype=I32, device=device)
+    n_tb = params.grid_blocks
     fpart = torch.empty(n_tb * (R + 1), dtype=F32, device=device)
     spart = torch.empty(n_tb, dtype=I32, device=device)
     if plan.pool_k:
         code = build.lib().iht_trace_emit_pool(
             ctypes.addressof(params), ftab.data_ptr(), ptbl.data_ptr(), ttbl.data_ptr(),
-            keys.data_ptr(), wts.data_ptr(), fpart.data_ptr(), spart.data_ptr(),
-            build.stream_ptr(device),
+            keys.data_ptr(), wts.data_ptr(), counts.data_ptr(), fpart.data_ptr(),
+            spart.data_ptr(), build.stream_ptr(device),
         )
         build.check(code, "trace_emit_pool")
         build.LAUNCHES["trace_emit_pool"] += 1
     else:
         code = build.lib().iht_trace_emit(
             ctypes.addressof(params), ftab.data_ptr(), keys.data_ptr(), wts.data_ptr(),
-            fpart.data_ptr(), spart.data_ptr(), build.stream_ptr(device),
+            counts.data_ptr(), fpart.data_ptr(), spart.data_ptr(), build.stream_ptr(device),
         )
         build.check(code, "trace_emit")
         build.LAUNCHES["trace_emit"] += 1
     per_render = []
     off = 0
-    for rb in plan.rows_block:
+    for r, rb in enumerate(plan.rows_block):
         n = G * rb
-        pk, pw, counts = block_ops.pack_rows(keys[off:off + n], wts[off:off + n], rb)
-        per_render.append((pk.view(G, rb), pw.view(G, rb), counts))
+        per_render.append((keys[off:off + n].view(G, rb), wts[off:off + n].view(G, rb),
+                           counts[r]))
         off += n
     fp = fpart.view(n_tb, R + 1)
     return per_render, fp[:, 1:].sum(dim=0), fp[:, 0].sum(), spart.to(I64).sum()

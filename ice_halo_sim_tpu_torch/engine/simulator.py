@@ -490,16 +490,20 @@ class Engine:
     # `python -m ice_halo_sim_tpu_torch.probe_sandwich` (3342336 rows over
     # 131072 pixels, a quarter dead) on an NVIDIA H100 80GB HBM3 at a power
     # limit of 700.00 W, device time by torch.profiler: K7 (the scatter-add
-    # into shared memory) 0.1478 ms at 256 listed chunks and 0.5492 ms at
-    # 1024, decode and routing 0.1801 ms, compact_valid 0.0946 ms, the sort
-    # fold 0.3504 ms at 835584 rows and 1.0885 ms at 3342336. They choose the
-    # level structure and between the folds; exactness never depends on them.
-    _C_PREP = 5.39e-8      # per row: decode of the packed key, routing of the misses
-    _C_BASE = 4.17e-9      # per row: K7 extrapolated to an empty list (loads, slot search)
-    _C_CHUNKROW = 1.56e-10  # per row and listed chunk: K7 reading the row once per slice
-    _C_PACK = 2.83e-8      # per input row: compact_valid (K6 + two K3')
-    _C_SORT_FIX = 0.0659   # the sort fold of keep + P rows: fixed part
-    _C_SORT_ROW = 2.94e-7  # and per row
+    # into shared memory) 0.1477 ms at 256 listed chunks and 0.5421 ms at
+    # 1024, compact_valid 0.0950 ms, the sort fold 0.2681 ms at 835584 rows
+    # and 0.8071 ms at 3342336. _C_PREP is fitted to the engine's own
+    # sandwich fold on MS_CFG, BENCH_CFG (general path) and SUNDOG_CFG
+    # (`fold_prep`: what the fold takes beyond K7, the compactions and the key
+    # pack it shares with the sort fold, per row of its levels: the decode,
+    # the routing and their torch glue). They choose the level structure and
+    # between the folds; exactness never depends on them.
+    _C_PREP = 1.44e-7      # per row: decode, routing of the misses, glue
+    _C_BASE = 4.86e-9      # per row: K7 extrapolated to an empty list (loads, slot search)
+    _C_CHUNKROW = 1.54e-10  # per row and listed chunk: K7 reading the row once per slice
+    _C_PACK = 2.84e-8      # per input row: compact_valid (K6 + two K3')
+    _C_SORT_FIX = 0.0602   # the sort fold of keep + P rows: fixed part
+    _C_SORT_ROW = 2.15e-7  # and per row
 
     def _sandwich_setup(self) -> None:
         """Decide whether the sandwich fold (core/sandwich.py) replaces the

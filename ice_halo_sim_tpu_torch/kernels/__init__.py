@@ -14,7 +14,7 @@ class KernelSet(NamedTuple):
     pack_payload_blocks: Callable
     scatter_blocks_multi: Callable
     scatter_blocks: Callable
-    fused_scan_call: Callable
+    fused_scan_extract: Callable
     sandwich_pass: Callable
 
 
@@ -27,7 +27,7 @@ def kernel_set(kind: str) -> KernelSet:
                          block_ops.pack_payload_blocks,
                          block_ops.scatter_blocks_multi,
                          block_ops.scatter_blocks,
-                         seg_scan.fused_scan_call,
+                         seg_scan.fused_scan_extract,
                          sandwich.sandwich_pass)
     if kind == "plain":
         return KernelSet("plain", trace_emit.trace_emit_plain,
@@ -35,6 +35,6 @@ def kernel_set(kind: str) -> KernelSet:
                          block_ops.pack_payload_blocks_plain,
                          block_ops.scatter_blocks_multi_plain,
                          block_ops.scatter_blocks_plain,
-                         seg_scan.fused_scan_call_plain,
+                         seg_scan.fused_scan_extract_plain,
                          sandwich.sandwich_pass_plain)
     raise ValueError(f"kernels must be 'cuda' or 'plain', got {kind!r}")

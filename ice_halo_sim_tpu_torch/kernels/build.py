@@ -48,6 +48,7 @@ LAUNCHES = {
     "scatter_blocks_multi": 0,
     "scatter_blocks": 0,
     "fused_scan": 0,
+    "fused_scan_extract": 0,
     "sandwich_lane": 0,
     "sandwich_sublane": 0,
     "sandwich_iota": 0,
@@ -148,14 +149,15 @@ _U = ctypes.c_uint32
 _LL = ctypes.c_longlong
 
 _SIGNATURES = {
-    "iht_trace_emit": [_VP, _VP, _VP, _VP, _VP, _VP, _VP],
-    "iht_trace_emit_pool": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP],
+    "iht_trace_emit": [_VP] * 8,
+    "iht_trace_emit_pool": [_VP] * 10,
     "iht_pack_blocks": [_VP, _VP, _VP, _VP, _I, _U, _I, _I,
                         _VP, _VP, _VP, _VP, _VP, _VP],
     "iht_scatter_blocks": [_VP, _VP, _VP, _I, _VP, _I, _I, _LL,
                            _VP, _VP, _VP, _I, _LL, _LL, _I, _U, _VP],
     "iht_fused_scan": [_VP, _VP, _VP, _I, _I, _LL, _VP, _VP, _VP, _VP,
                        _VP, _VP, _VP],
+    "iht_fused_scan_extract": [_VP, _VP, _VP, _I, _I, _LL, _VP, _I, _VP, _VP, _VP],
     "iht_sandwich_lane": [_VP, _VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _I, _LL, _I,
                           _VP, _VP, _VP, _VP, _VP],
     "iht_sandwich_sublane": [_VP, _VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _I, _I,

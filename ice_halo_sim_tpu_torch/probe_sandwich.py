@@ -22,10 +22,12 @@ On one CUDA device the probe measures, at the TPU probe's row count
   2. the port's sort fold (``accum.fold_spectral_keys``) on the same rows;
   3. the constants of ``Engine._sandwich_plan_levels`` and
      ``_sandwich_recalibrate``: K7 (``sandwich_pass``, layout "lane") per row
-     and per row and listed chunk from its times at NC = 256 and 1024, the
-     decode and routing of a level per row, ``compact_valid`` (K6 + two K3')
-     per input row, and the sort fold's fixed and per-row parts from two row
-     counts.
+     and per row and listed chunk from its times at NC = 256 and 1024,
+     ``compact_valid`` (K6 + two K3') per input row, and the sort fold's
+     fixed and per-row parts from two row counts; then the per-row cost of a
+     level's decode, routing and torch glue, ``_C_PREP``, fitted to the
+     engine's own sandwich fold on three scenes (``fold_prep``; the probe's
+     own decode-and-routing figure stays beside it as ``_C_PREP_probe``).
 All times are device time (torch.profiler), printed with the card's name and
 power limit; the last line is one JSON object with the constants in ms, the
 times they were computed from and how those were taken (``timed_by``).
@@ -218,6 +220,109 @@ def measure_constants(dev, pix, w, wl, tbl, n_pixels: int, k_pool: int) -> dict:
                         "sort": [s1, s2]}}
 
 
+def _calibrated_engine(doc, fold: str, dev, batch: int = 112 * 2048):
+    """A general-path engine of `doc` under IHT_FOLD=`fold`, after its
+    calibration batch and two steady ones."""
+    import os
+
+    from ice_halo_sim_tpu_torch.config.loader import load_project
+    from ice_halo_sim_tpu_torch.engine.simulator import Engine
+
+    knobs = {"IHT_FOLD": fold, "IHT_PALLAS_TRACE": "0"}
+    old = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    try:
+        eng = Engine(load_project(doc), seed=7, batch_size=batch, device=dev)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+    eng.run(n_batches=1)
+    eng.run(n_batches=2)
+    return eng
+
+
+def _steady_contribs(eng, batch_counter: int = 100):
+    base = eng.ray_base(batch_counter)
+    return eng._trace_batch_impl(base & 0xFFFFFFFF, base >> 32, batch_counter)[0]
+
+
+def fold_prep(dev, consts: dict) -> dict:
+    """_C_PREP against the engine's own sandwich fold, glue included.
+
+    On MS_CFG, BENCH_CFG (general path) and SUNDOG_CFG, one steady batch's
+    contribution rows go through the calibrated engine's sandwich fold
+    (IHT_FOLD=sandwich) and through the sort fold of an IHT_FOLD=sort engine,
+    each timed whole (device time). Both folds first pack the rows' keys;
+    that shared part (timed alone) cancels in the dispatch's comparison and
+    is taken off both. What is left of the sandwich fold, less the terms the
+    K7 and compact_valid constants model (chunk rows, compacted rows), is per
+    row of the levels the dispatch's row cost _C_PREP + _C_BASE: the fit is
+    their sums over the three scenes, and _C_PREP the rest after _C_BASE.
+    Returns the fitted constant, with each scene's times, the model's terms
+    and the costs the dispatch models with the fit beside the measured ones."""
+    from ice_halo_sim_tpu_torch import scenes
+
+    per_scene = []
+    for name, doc in (("ms", scenes.MS_CFG), ("bench (general path)", scenes.BENCH_CFG),
+                      ("sundog", scenes.SUNDOG_CFG)):
+        sw = _calibrated_engine(doc, "sandwich", dev)
+        so = _calibrated_engine(doc, "sort", dev)
+        c_sw, c_so = _steady_contribs(sw), _steady_contribs(so)
+
+        def pack_keys(eng=sw, contribs=c_sw):
+            for r, (pix, w, wl_idx, _mask) in enumerate(contribs):
+                P = eng.proj_plans[r].height * eng.proj_plans[r].width
+                _key, wz = accum.pack_spectral_keys(pix, w, wl_idx, P, eng.k_pool)
+                (wz > 0.0).sum()
+
+        t_glue = device_ms(pack_keys, 5)
+        t_sw = device_ms(lambda: sw._fold_batch_sandwich(c_sw), 5)
+        t_so = device_ms(lambda: so._fold_batch(c_so, so._compact_keep), 5)
+        rows_t = chunk_t = pack_t = sort_rows = 0.0
+        for r, levels in enumerate(sw._levels):
+            n = sw._rows_per_render[r]
+            for clist, keep in levels:
+                if keep is not None and keep < n:
+                    pack_t += n
+                    n = keep
+                rows_t += n
+                chunk_t += n * int(clist.shape[0])
+        n_renders = len(so.proj_plans)
+        for r in range(n_renders):
+            keep = so._compact_keep[r] if so._compact_keep else None
+            n = so._rows_per_render[r]
+            sort_rows += (keep if keep is not None and keep < n else n) + \
+                so.proj_plans[r].height * so.proj_plans[r].width
+        per_scene.append({
+            "scene": name, "fold_sandwich_ms": t_sw, "fold_sort_ms": t_so,
+            "shared_key_pack_ms": t_glue, "level_rows": rows_t, "chunk_rows": chunk_t,
+            "compacted_rows": pack_t, "sort_rows": sort_rows, "renders": n_renders,
+            "rows": float(sum(so._rows_per_render)),
+            "levels": [[(int(cl.shape[0]), keep) for cl, keep in lv] for lv in sw._levels]})
+        del sw, so
+        torch.cuda.empty_cache()
+    rest = sum(x["fold_sandwich_ms"] - x["shared_key_pack_ms"]
+               - consts["_C_CHUNKROW"] * x["chunk_rows"] - consts["_C_PACK"] * x["compacted_rows"]
+               for x in per_scene)
+    row_cost = max(rest / sum(x["level_rows"] for x in per_scene), consts["_C_BASE"])
+    prep = row_cost - consts["_C_BASE"]
+    for x in per_scene:
+        x["modeled_sandwich_ms"] = (row_cost * x["level_rows"] + consts["_C_CHUNKROW"]
+                                    * x["chunk_rows"] + consts["_C_PACK"] * x["compacted_rows"])
+        x["modeled_sort_ms"] = (consts["_C_PACK"] * x["rows"] + consts["_C_SORT_FIX"]
+                                * x["renders"] + consts["_C_SORT_ROW"] * x["sort_rows"])
+        x["measured_less_shared_ms"] = [x["fold_sandwich_ms"] - x["shared_key_pack_ms"],
+                                        x["fold_sort_ms"] - x["shared_key_pack_ms"]]
+        print(f"engine fold on {x['scene']}: sandwich {x['fold_sandwich_ms']:.4f} ms, sort "
+              f"{x['fold_sort_ms']:.4f} ms, their shared key pack {x['shared_key_pack_ms']:.4f} ms;"
+              f" modeled (without it) sandwich {x['modeled_sandwich_ms']:.4f}, sort "
+              f"{x['modeled_sort_ms']:.4f}; levels {x['levels']}", flush=True)
+    return {"_C_PREP": prep, "scenes": per_scene}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("probe_sandwich: no CUDA device", file=sys.stderr)
@@ -248,6 +353,10 @@ def main() -> int:
 
     timed_by()
     consts = measure_constants(dev, pix, w, wl, tbl, P, K)
+    fit = fold_prep(dev, consts)
+    consts["_C_PREP_probe"] = consts["_C_PREP"]
+    consts["_C_PREP"] = fit["_C_PREP"]
+    consts["engine_folds"] = fit["scenes"]
     print(json.dumps({"card": card, "constants_ms": consts, "timed_by": timed_by()}))
     return 0
 

@@ -10,7 +10,7 @@ sampled shape (the trace kernel's blocked-pool mode, NF = 20 face slots),
 seen through two renders: the dual fisheye of ``BENCH_CFG`` and a single
 equal-area fisheye looking at the zenith.
 
-``MS_CFG`` and ``COLOR_CFG`` take the general trace path.
+``MS_CFG``, ``COLOR_CFG`` and ``SUNDOG_CFG`` take the general trace path.
 
 ``MS_CFG``: the same light and depth through two scattering layers, the
 first continuing with probability 0.3. Each layer mixes two crystal settings:
@@ -29,6 +29,11 @@ drops would-continue exits with probability 0.3 (the rule of a last layer
 with prob > 0): a rectangular map takes every direction, and without the
 gate more than 0.6 of the contribution rows are live, where the calibration
 leaves the compaction prepass off and the mask column would never ride it.
+
+``SUNDOG_CFG``: ``BENCH_CFG``'s light and render with ``MS_CFG``'s plates
+and its ray-path filter ([3, 5], the parhelia) on the one layer: few
+contribution rows, crowded into few image chunks, the scene on which the
+fold dispatch's model favours the sandwich cascade most.
 """
 
 from __future__ import annotations
@@ -156,3 +161,8 @@ COLOR_CFG["render"] = [
         "visible": "full",
     }
 ]
+
+SUNDOG_CFG = copy.deepcopy(BENCH_CFG)
+SUNDOG_CFG["crystal"] = [copy.deepcopy(MS_CFG["crystal"][0])]
+SUNDOG_CFG["filter"] = copy.deepcopy(MS_CFG["filter"])
+SUNDOG_CFG["scene"]["scattering"][0]["entries"][0]["filter"] = 1

@@ -37,14 +37,60 @@ def _eq(a, b):
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
+def _same_bits(a, b):
+    """Two trace_emit outputs bit for bit: per render keys, weights and
+    counts, then landed, dropped and segments."""
+    return all(_eq(x, y) for ra, rb in zip(a[0], b[0]) for x, y in zip(ra, rb)) and all(
+        _eq(x.reshape(-1), y.reshape(-1)) for x, y in zip(a[1:3], b[1:3])) and int(a[3]) == int(b[3])
+
+
+def _trace_case(plan, base, dev, tables=()):
+    """Kernel against twin (rows equal, weights within 1e-6, segments
+    equal), and a second launch with the same bits. Returns the kernel's
+    output."""
+    a = trace_emit.trace_emit(plan, *base, dev, *tables)
+    b = trace_emit.trace_emit_plain(plan, *base, dev, *tables)
+    d = trace_emit.trace_output_diff(a[0], b[0])
+    assert d["rows_diff"] == 0 and d["blocks_diff"] == 0 and d["w_rel"] <= 1e-6, d
+    assert int(a[3]) == int(b[3])
+    for (ka, wa, ca), (kb, wb, cb) in zip(a[0], b[0]):
+        assert _eq(ka, kb) and _eq(ca, cb)              # the tail too
+    assert _same_bits(trace_emit.trace_emit(plan, *base, dev, *tables), a)
+    return a
+
+
 def test_trace_emit_kernel(dev):
+    """K2 with its pack against the twin: BENCH_CFG's dual fisheye with the
+    overlap pass, a 64-bit ray base, and n_active 5000 of 8192 (the last
+    two 2048-ray blocks hold no live row)."""
     eng = Engine(load_project(BENCH_CFG), seed=7, batch_size=8192, device=dev)
+    assert eng._trace_plan.renders[0].max_abs_dz > 0
     for base in ((0, 0, 8192), (0xFFFFF000, 2, 5000)):
-        a = trace_emit.trace_emit(eng._trace_plan, *base, dev)
-        b = trace_emit.trace_emit_plain(eng._trace_plan, *base, dev)
-        d = trace_emit.trace_output_diff(a[0], b[0])
-        assert d["rows_diff"] == 0 and d["w_rel"] <= 1e-6, d
-        assert int(a[3]) == int(b[3])
+        a = _trace_case(eng._trace_plan, base, dev)
+    counts = a[0][0][2]
+    assert counts[:2].min() > 0 and int(counts[3]) == 0
+    assert (a[0][0][0][3] == -1).all() and not a[0][0][1][3].any()
+
+
+@pytest.mark.parametrize("what", ["four renders", "batch 1000"])
+def test_trace_emit_kernel_pack_shapes(dev, what):
+    """The pack's other shapes: four dual renders with the overlap pass (8
+    rows per ray and slot: the kernel stages the slots in two groups), and a
+    batch of 1000 rays (one block of a cluster of 8, the last partly
+    idle)."""
+    import copy
+
+    doc = copy.deepcopy(BENCH_CFG)
+    batch = 8192
+    if what == "four renders":
+        doc["render"] = [dict(copy.deepcopy(doc["render"][0]), id=i + 1) for i in range(4)]
+    else:
+        batch = 1000
+    eng = Engine(load_project(doc), seed=7, batch_size=batch, device=dev)
+    plan = eng._trace_plan
+    p = trace_emit.make_params(plan, 0, 0, batch)
+    assert (p.rp, p.hg, p.ncta) == ((8, 4, 16) if what == "four renders" else (2, 7, 8))
+    _trace_case(plan, (0, 0, batch), dev)
 
 
 def _stochastic_prism_doc():
@@ -68,15 +114,12 @@ def test_trace_emit_pool_kernel(dev, kind):
     assert plan.pool_k == 64 and plan.nf == (20 if kind == "pyramid" else 8)
     for bc, base in ((0, (0, 0, 8192)), (9, (0xFFFFF000, 2, 5000))):
         ptbl, ttbl = eng._pool_tables(bc)
-        a = trace_emit.trace_emit(plan, *base, dev, ptbl, ttbl)
-        b = trace_emit.trace_emit_plain(plan, *base, dev, ptbl, ttbl)
-        d = trace_emit.trace_output_diff(a[0], b[0])
-        assert d["rows_diff"] == 0 and d["w_rel"] <= 1e-6, d
-        assert int(a[3]) == int(b[3])
+        _trace_case(plan, base, dev, (ptbl, ttbl))
     with pytest.raises(ValueError, match="ptbl must be"):
         trace_emit.trace_emit(plan, 0, 0, 8192, dev, ptbl.cpu(), ttbl)
 
 
+@pytest.mark.parametrize("mode", ["static", "pool"])
 @pytest.mark.parametrize("lens, view", [
     ("linear", {"azimuth": 30.0, "elevation": 20.0, "roll": 10.0}),
     ("fisheye_equal_area", {"elevation": 90.0}),
@@ -84,19 +127,20 @@ def test_trace_emit_pool_kernel(dev, kind):
     ("globe", {"azimuth": 60.0, "elevation": 35.0, "roll": 15.0}),
     ("dual_fisheye_orthographic", {"azimuth": 0.0, "elevation": 0.0, "roll": 0.0}),
 ])
-def test_trace_emit_kernel_lenses(dev, lens, view):
-    """The static kernel's other lens branches against the twin."""
+def test_trace_emit_kernel_lenses(dev, lens, view, mode):
+    """The kernel's other lens branches against the twin, in the static
+    mode (BENCH_CFG's prism) and the blocked-pool mode (POOL_CFG's
+    pyramids); BENCH_CFG's dual equal-area lens is the tests above."""
     import copy
 
-    doc = copy.deepcopy(BENCH_CFG)
+    doc = copy.deepcopy(BENCH_CFG if mode == "static" else POOL_CFG)
     doc["render"] = [{"id": 1, "lens": {"type": lens, "fov": 120.0 if lens != "globe" else 40.0},
                       "resolution": [256, 192], "view": view, "visible": "upper",
                       "lens_shift": [5, -3]}]
     eng = Engine(load_project(doc), seed=7, batch_size=8192, device=dev)
-    a = trace_emit.trace_emit(eng._trace_plan, 0, 0, 8192, dev)
-    b = trace_emit.trace_emit_plain(eng._trace_plan, 0, 0, 8192, dev)
-    d = trace_emit.trace_output_diff(a[0], b[0])
-    assert d["rows_diff"] == 0 and d["w_rel"] <= 1e-6, d
+    plan = eng._trace_plan
+    assert bool(plan.pool_k) == (mode == "pool")
+    a = _trace_case(plan, (0, 0, 8192), dev, eng._pool_tables(0) if plan.pool_k else ())
     assert int(a[0][0][2].sum()) > 0
 
 
@@ -127,6 +171,59 @@ def test_fused_scan_kernel(dev):
     assert _eq(ka, kb)
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-6)
+    again, _ = seg_scan.fused_scan_call(sk, sw, tbl, 7, 64, emit_key2=True)
+    assert all(_eq(x, y) for x, y in zip(again, a))
+
+
+def _scan_rows(case, K=64, shift=7):
+    """Sorted fold rows with one marker per pixel (the last row of its run)
+    and dead rows at the end, as the spectral fold makes them."""
+    g = np.random.default_rng(11)
+    if case == "hot pixel":
+        n, n_pixels = 1 << 21, 1000
+        pix = np.where(g.random(n) < 0.92, 377, g.integers(0, n_pixels, n))
+    elif case == "ragged":
+        n, n_pixels = 100_003 - 1000, 1000      # rows no multiple of the tile
+        pix = g.integers(0, n_pixels, n)
+    else:
+        n, n_pixels = 300_000, 40_000
+        pix = g.integers(0, n_pixels, n)
+        pix[g.random(n) < 0.3] = n_pixels       # pixels past the image: dead
+    wl = g.integers(0, K, n)
+    key = np.where(pix < n_pixels, (pix << shift) | (wl << 1), 0xFFFFFFFF)
+    markers = (np.arange(n_pixels) << shift) | (2 * K - 1)
+    key = np.sort(np.concatenate([key, markers]).astype(np.uint64)).astype(np.uint32)
+    w = (g.random(key.size) * 2).astype(np.float32)
+    w[(key & (2 * K - 1)) == 2 * K - 1] = 0.0
+    if case == "all dead":
+        key[:] = 0xFFFFFFFF
+        w[:] = 0.0
+    return key, w, n_pixels
+
+
+@pytest.mark.parametrize("case", ["spread", "hot pixel", "ragged", "all dead"])
+def test_fused_scan_extract_kernel(dev, case):
+    """The fused K4 (scan + marker extraction) against its plain twin (the
+    per-row scan, each marker's totals stored at its pixel): spread rows with dead ones; one pixel
+    with more than 90% of 2^21 rows (about 940 tiles in one run); a row
+    count that is no multiple of the 2048-row tile; every row dead. Rtol
+    1e-6 (both sum in float64), and a second launch with the same bits."""
+    key, w, n_pixels = _scan_rows(case)
+    sk = torch.as_tensor(key.view(np.int32), device=dev)
+    sw = torch.as_tensor(w, device=dev)
+    tbl = torch.rand(64, 3, device=dev)
+    got = seg_scan.fused_scan_extract(sk, sw, tbl, 7, 64, n_pixels)
+    want = seg_scan.fused_scan_extract_plain(sk, sw, tbl, 7, 64, n_pixels)
+    torch.cuda.synchronize()
+    assert got.shape == (n_pixels, 3)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert _eq(seg_scan.fused_scan_extract(sk, sw, tbl, 7, 64, n_pixels), got)
+    if case == "hot pixel":
+        assert int((key >> 7 == 377).sum()) > 0.9 * (1 << 21) and float(got[377].min()) > 0
+    if case == "all dead":
+        assert not got.any()
+    if case == "ragged":
+        assert key.size % 2048
 
 
 @pytest.mark.parametrize("spectrum", ["D65", "discrete-4", "pool"])

@@ -110,7 +110,7 @@ def test_cuda_entry_points_return_launch_error():
             parts = body.split("<<<")
             for after in parts[1:]:
                 assert "cudaGetLastError()" in after, m.group(1)
-    assert entries == 8
+    assert entries == 9
 
 
 def test_wrappers_check_every_kernel_call():
@@ -121,14 +121,14 @@ def test_wrappers_check_every_kernel_call():
             calls += 1
             assert re.search(r"build\.check\(code, ", src[m.end():m.end() + 600]), (
                 path, m.group(1))
-    assert calls == 8
+    assert calls == 9
 
 
 def test_each_launch_counter_bumped_once():
     from ice_halo_sim_tpu_torch.kernels import build
 
     srcs = "".join(open(p).read() for p in _port_files((".py",)))
-    assert len(build.LAUNCHES) == 12 and "trace_emit_pool" in build.LAUNCHES
+    assert len(build.LAUNCHES) == 13 and "trace_emit_pool" in build.LAUNCHES
     assert {"sandwich_lane", "sandwich_sublane", "sandwich_iota", "extract_blocks"} <= \
         set(build.LAUNCHES)
     assert "pack_valid_blocks" in build.LAUNCHES and "scatter_blocks" in build.LAUNCHES
