@@ -19,9 +19,11 @@ Phases (any failure raises; the exit code is then non-zero):
      BENCH_CFG's shapes (batch 229376 = 112 x 2048 rays, P = 131072
      pixels, K = 64); the blocked-pool trace kernel at POOL_CFG's (the same
      batch as 1792 sampled pyramids, NF = 20 face slots, two renders); the
-     fold prepass (pack_valid_blocks with one column, and scatter_blocks
-     after it) at the rows of MS_CFG's dual render, and pack_valid_blocks
-     with two columns at COLOR_CFG's; the sandwich kernels (K7 lane, K8
+     fold prepass compact_rows (K6 and K3' in one pass, beside masked_select)
+     and K6 alone (on no path now) at the rows of MS_CFG's dual render (one
+     column) and of COLOR_CFG's render (two columns); the block scatter K3'
+     at compact_valid's old shape and, with every column and the in-block
+     permutation, at MS_CFG's steady continuation; the sandwich kernels (K7 lane, K8
      sublane) at the one-channel count pass of the calibration batch (the
      raw rows of MS_CFG's dual render over all 1024 chunks) and, printed as
      extra lines, at the raw rows against the 256 chunks that hold most of
@@ -39,7 +41,10 @@ Phases (any failure raises; the exit code is then non-zero):
      path), each with the launch counters reset just before and read just
      after; every kernel of the path must have launched, on its steady
      batches too, and none that the path no longer runs (K1 after the trace
-     kernel, K5 and the per-row scan on the spectral folds); image, lanes
+     kernel, K5 and the per-row scan on the spectral folds, K6 after
+     compact_rows; K3' runs only in MS_CFG's continuation, one launch per
+     layer boundary), the compactions' launches per steady batch printed
+     for every slice; image, lanes
      and stats must match kernels="plain" on the
      card; each fixture configuration must match its committed JAX render
      (tests/data/torch_port_*_ref.npz) within the CPU tests' tolerances;
@@ -355,10 +360,7 @@ def phase_kernels(cfg, device, res: list):
     b = block_ops.scatter_blocks_multi_plain(*sargs, marker_tail=tail)
     if not all(_bits_equal(x, y) for x, y in zip(a, b)):
         raise AssertionError("scatter_blocks_multi (K3) differs from its plain twin")
-    a1 = block_ops.scatter_blocks(wts, start, keep, rb)
-    b1 = block_ops.scatter_blocks_plain(wts, start, keep, rb)
-    if not _bits_equal(a1, b1):
-        raise AssertionError("scatter_blocks (K3', V=1) differs from its plain twin")
+    _scatter_same_bits("the bench rows", [wts], start, keep, rb)
     # The scatter reads the live rows it places and writes every output row.
     _add(res, "scatter_blocks_multi", "ice_halo_sim_tpu_torch/csrc/block_ops.cu",
             "ice_halo_sim_tpu/core/pallas_ops.py:436", 0.0,
@@ -367,10 +369,10 @@ def phase_kernels(cfg, device, res: list):
             _bound(8 * live + 4 * start.numel() + 8 * out_total, 2 * out_total),
             "blocks overwrite each other in order; scatter_ and "
                            "index_copy_ leave overlapping writes undefined")
-    k3p = _time_ms(lambda: block_ops.scatter_blocks(wts, start, keep, rb))
-    k3p_plain = _time_ms(lambda: block_ops.scatter_blocks_plain(wts, start, keep, rb))
-    k3p_bound = _bound(4 * live + 4 * start.numel() + 4 * keep, keep)
-    print(f"  scatter_blocks (K3', V=1, the K3 kernel) at the bench rows: kernel {k3p:.4f} "
+    k3p = _time_ms(lambda: block_ops.scatter_blocks([wts], start, keep, rb))
+    k3p_plain = _time_ms(lambda: block_ops.scatter_blocks_plain([wts], start, keep, rb))
+    k3p_bound = _scatter_bound(1, _covered_rows(start, keep, rb), keep, start.numel(), False)
+    print(f"  scatter_blocks (K3', one column) at the bench rows: kernel {k3p:.4f} "
           f"ms, plain {k3p_plain:.4f} ms, bound {k3p_bound[0]:.5f} ms by {k3p_bound[1]}",
           flush=True)
 
@@ -502,18 +504,81 @@ def _fold_rows(eng, render: int, batch_counter: int):
     return key, cols
 
 
+def _covered_rows(start, out_len: int, blk: int) -> int:
+    """Output rows of a block scatter that take a value of a block (the rest
+    are zero): the rows it reads, per column."""
+    import torch
+
+    p = torch.arange(out_len, device=start.device, dtype=torch.int64)
+    st = start.long()
+    g = torch.searchsorted(st, p, right=True) - 1
+    return int(((g >= 0) & (p - st[g.clamp_min(0)] < blk)).sum())
+
+
+def _scatter_bound(ncols: int, covered: int, out_len: int, n_blocks: int, perm: bool):
+    """The block scatter's bound: every output row written once per column,
+    every covered row read once per column (and its permutation entry), the
+    starts read once."""
+    return _bound(4 * ncols * (out_len + covered) + (4 * covered if perm else 0)
+                  + 4 * n_blocks)
+
+
+def _continuation_scatter(eng, batch_counter: int) -> list:
+    """The block scatter's arguments at every layer boundary of one steady
+    batch of a general-path engine (the continuation's compact_by_key),
+    captured from the engine's own calls."""
+    calls = []
+    ks = eng.ks
+
+    def capture(vals, start, out_len, block, perm=None):
+        calls.append((vals, start, out_len, block, perm))
+        return ks.scatter_blocks(vals, start, out_len, block, perm=perm)
+
+    eng.ks = ks._replace(scatter_blocks=capture)
+    try:
+        base = eng.ray_base(batch_counter)
+        eng._trace_batch_impl(base & 0xFFFFFFFF, base >> 32, batch_counter)
+    finally:
+        eng.ks = ks
+    return calls
+
+
+def _scatter_same_bits(what, vals, start, out_len, block, perm=None):
+    """The block scatter (K3') against its plain version and against its own
+    second launch: bit-equal or the run fails."""
+    from ice_halo_sim_tpu_torch.core import block_ops
+
+    a = block_ops.scatter_blocks(vals, start, out_len, block, perm=perm)
+    b = block_ops.scatter_blocks_plain(vals, start, out_len, block, perm=perm)
+    again = block_ops.scatter_blocks(vals, start, out_len, block, perm=perm)
+    if not all(_bits_equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"scatter_blocks (K3') at {what} differs from its plain version")
+    if not all(_bits_equal(x, y) for x, y in zip(a, again)):
+        raise AssertionError(f"scatter_blocks (K3') at {what}: two launches differ")
+
+
 def phase_kernels_general(ms_cfg, color_cfg, device, res: list):
-    """K6 against pack_valid_blocks_plain at the rows of MS_CFG's dual render
-    (one column) and of COLOR_CFG's render (two columns), and K3' at
-    compact_valid's shape after it. Bit-equal or the run fails."""
+    """The general path's compactions at its shapes. compact_rows (K6 and K3'
+    in one pass) against its plain version (the plain K6 and K3' composed)
+    at the fold rows of MS_CFG's dual render (one column) and of COLOR_CFG's
+    render (two columns), beside masked_select of every column; K6 at the
+    same rows (no path runs it since compact_rows); the block scatter K3' at
+    compact_valid's old shape (K6's packed column to keep) and at every layer
+    boundary of MS_CFG's steady continuation (every column with the in-block
+    permutation, one launch). Bit-equal and the same bits twice, or the run
+    fails."""
     import torch
 
     from ice_halo_sim_tpu_torch.core import accum, block_ops
     from ice_halo_sim_tpu_torch.engine.simulator import Engine
+    from ice_halo_sim_tpu_torch.kernels import kernel_set
 
     block = accum.BLOCK
+    src = "ice_halo_sim_tpu_torch/csrc/block_ops.cu"
     no_lib_pack = ("a per-block stable partition takes a sort of flags plus a "
                    "gather, no single call")
+    no_lib_scatter = ("blocks overwrite each other in order; scatter_ and index_copy_ "
+                      "leave overlapping writes undefined")
     for name, cfg in (("ms", ms_cfg), ("color", color_cfg)):
         eng = Engine(cfg, seed=7, batch_size=BATCH, device=device)
         if eng.trace_path != "general":
@@ -523,15 +588,47 @@ def phase_kernels_general(ms_cfg, color_cfg, device, res: list):
         key, cols = _fold_rows(eng, 0, 5)
         N, G, C = key.numel(), key.numel() // block, len(cols)
         print(f"  {name}: rows per render {eng._rows_per_render} (slot cap {eng._slot_cap}, "
-              f"lanes per layer {[l.cont_cap for l in eng.layers]}), K6 input N = {N} rows "
-              f"in {G} blocks, {C} column(s), keep {eng._compact_keep}", flush=True)
+              f"lanes per layer {[l.cont_cap for l in eng.layers]}), fold rows N = {N} in "
+              f"{G} blocks, {C} column(s), keep {eng._compact_keep}", flush=True)
         if N < eng._rows_per_render[0] or N - eng._rows_per_render[0] >= block:
-            raise AssertionError(f"{name}: K6 rows {N} vs plan {eng._rows_per_render[0]}")
-        a = block_ops.pack_valid_blocks(key, cols, 0xFFFFFFFF, block)
-        b = block_ops.pack_valid_blocks_plain(key, cols, 0xFFFFFFFF, block)
-        flat_a = [a[0], *a[1], a[2]]
-        flat_b = [b[0], *b[1], b[2]]
-        if not all(_bits_equal(x, y) for x, y in zip(flat_a, flat_b)):
+            raise AssertionError(f"{name}: fold rows {N} vs plan {eng._rows_per_render[0]}")
+
+        # compact_rows, as compact_valid calls it.
+        a, na = block_ops.compact_rows(key, cols, keep, block)
+        b, nb = block_ops.compact_rows_plain(key, cols, keep, block)
+        again, _ = block_ops.compact_rows(key, cols, keep, block)
+        if int(na) != int(nb) or not all(_bits_equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"compact_rows differs from its plain version at the {name} rows")
+        if not all(_bits_equal(x, y) for x, y in zip(a, again)):
+            raise AssertionError(f"compact_rows: two launches at the {name} rows differ")
+        live = int(na)
+        if live > keep:
+            raise AssertionError(f"{name}: keep {keep} does not hold the {live} live rows")
+
+        def masked():
+            kept = key != -1
+            return [x.masked_select(kept) for x in (key, *cols)]
+
+        ms_b = _time_ms(lambda: block_ops.compact_rows(key, cols, keep, block), 10,
+                        f"compact_rows {name}")
+        ms_bp = _time_ms(lambda: block_ops.compact_rows_plain(key, cols, keep, block), 3)
+        ms_lib = _time_ms(masked)
+        bound = _bound(4 * (1 + C) * (N + keep))
+        if name == "ms":
+            _add(res, "compact_rows", src, "ice_halo_sim_tpu/core/accum.py:326", 0.0, ms_b,
+                 ms_bp, bound, library_ms=ms_lib, library="masked_select of every column")
+            res[-1].update(rows=N, keep=keep, columns=1 + C)
+        else:
+            print(f"  compact_rows at the color rows (key and two columns): bit-equal, the "
+                  f"same bits twice, kernel {ms_b:.4f} ms, plain {ms_bp:.4f} ms, bound "
+                  f"{bound[0]:.5f} ms by {bound[1]}, masked_select {ms_lib:.4f} ms", flush=True)
+        print(f"  {name}: live rows {live} of {N}", flush=True)
+
+        # K6 (its kernel and wrapper stay; no path runs them).
+        pk = block_ops.pack_valid_blocks(key, cols, 0xFFFFFFFF, block)
+        pp = block_ops.pack_valid_blocks_plain(key, cols, 0xFFFFFFFF, block)
+        if not all(_bits_equal(x, y) for x, y in zip([pk[0], *pk[1], pk[2]],
+                                                     [pp[0], *pp[1], pp[2]])):
             raise AssertionError(f"pack_valid_blocks (K6) differs from its plain version "
                                  f"at the {name} rows")
         # A general threshold besides: rows below a pixel's first key.
@@ -541,43 +638,58 @@ def phase_kernels_general(ms_cfg, color_cfg, device, res: list):
         if not all(_bits_equal(x, y) for x, y in
                    zip([a2[0], *a2[1], a2[2]], [b2[0], *b2[1], b2[2]])):
             raise AssertionError(f"pack_valid_blocks (K6) differs at threshold {thresh}")
-        live = int(a[2].sum())
         ms_k = _time_ms(lambda: block_ops.pack_valid_blocks(key, cols, 0xFFFFFFFF, block))
         ms_p = _time_ms(lambda: block_ops.pack_valid_blocks_plain(key, cols, 0xFFFFFFFF, block), 3)
         bound = _bound((1 + C) * 8 * N + 4 * G, 2 * N)
         if name == "ms":
-            _add(res, "pack_valid_blocks", "ice_halo_sim_tpu_torch/csrc/block_ops.cu",
-                 "ice_halo_sim_tpu/core/pallas_ops.py:301", 0.0, ms_k, ms_p, bound, no_lib_pack)
+            _add(res, "pack_valid_blocks", src, "ice_halo_sim_tpu/core/pallas_ops.py:301", 0.0,
+                 ms_k, ms_p, bound, no_lib_pack)
             res[-1]["rows"] = N
         else:
             print(f"  pack_valid_blocks at the color rows (two columns): bit-equal, kernel "
                   f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {bound[0]:.5f} ms by {bound[1]}",
                   flush=True)
-        print(f"  {name}: live rows {live} of {N}", flush=True)
         if name != "ms":
             continue
-        # K3' as compact_valid calls it: one column, out_len = keep.
-        if keep is None or live > keep:
-            raise AssertionError(f"ms: keep {keep} does not hold the {live} live rows")
-        start = accum._exclusive_starts(a[2])
-        col = a[1][0].view(G, block)
-        x = block_ops.scatter_blocks(col, start, keep, block)
-        y = block_ops.scatter_blocks_plain(col, start, keep, block)
-        if not _bits_equal(x, y):
-            raise AssertionError("scatter_blocks (K3') differs from its plain version")
-        _add(res, "scatter_blocks", "ice_halo_sim_tpu_torch/csrc/block_ops.cu",
-             "ice_halo_sim_tpu/core/pallas_ops.py:549", 0.0,
-             _time_ms(lambda: block_ops.scatter_blocks(col, start, keep, block)),
-             _time_ms(lambda: block_ops.scatter_blocks_plain(col, start, keep, block)),
-             _bound(4 * live + 4 * G + 4 * keep, keep),
-             "blocks overwrite each other in order; scatter_ and index_copy_ leave "
-             "overlapping writes undefined")
+
+        # K3' at compact_valid's old shape: K6's packed column, out_len = keep.
+        start = accum._exclusive_starts(pk[2])
+        col = [pk[1][0].view(G, block)]
+        _scatter_same_bits("compact_valid's old shape", col, start, keep, block)
+        cov = _covered_rows(start, keep, block)
+        k3p_bound = _scatter_bound(1, cov, keep, G, False)
+        print(f"  scatter_blocks (K3') at compact_valid's old shape (one column, {G} blocks "
+              f"to keep {keep}, {cov} rows covered): bit-equal, the same bits twice, kernel "
+              f"{_time_ms(lambda: block_ops.scatter_blocks(col, start, keep, block)):.4f} ms, "
+              f"plain {_time_ms(lambda: block_ops.scatter_blocks_plain(col, start, keep, block), 3):.4f}"
+              f" ms, bound {k3p_bound[0]:.5f} ms by {k3p_bound[1]}", flush=True)
         # compact_valid whole against its plain composition.
         cv = accum.compact_valid(key, cols, keep, eng.ks)
-        from ice_halo_sim_tpu_torch.kernels import kernel_set
         cp = accum.compact_valid(key, cols, keep, kernel_set("plain"))
         if not all(_bits_equal(p, q) for p, q in zip(cv[0], cp[0])) or int(cv[1]) != int(cp[1]):
             raise AssertionError("compact_valid differs between the kernel sets")
+
+        # K3' at the steady continuation: every column, the block order.
+        calls = _continuation_scatter(eng, 5)
+        if not calls or any(c[4] is None for c in calls):
+            raise AssertionError(f"ms: the continuation made no permuted block scatter ({calls})")
+        for li, (vals, start, out_len, blk, perm) in enumerate(calls):
+            _scatter_same_bits(f"the continuation (boundary {li})", vals, start, out_len, blk,
+                               perm)
+            cov = _covered_rows(start, out_len, blk)
+            bound = _scatter_bound(len(vals), cov, out_len, start.numel(), True)
+            ms_k = _time_ms(lambda: block_ops.scatter_blocks(vals, start, out_len, blk,
+                                                             perm=perm), 10, "scatter_blocks")
+            ms_p = _time_ms(lambda: block_ops.scatter_blocks_plain(vals, start, out_len, blk,
+                                                                   perm=perm), 3)
+            print(f"  scatter_blocks (K3') at the continuation, boundary {li}: {len(vals)} "
+                  f"columns and the permutation, {start.numel()} blocks of {blk} to {out_len} "
+                  f"rows ({cov} covered): kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound "
+                  f"{bound[0]:.5f} ms by {bound[1]}", flush=True)
+            if li == 0:
+                _add(res, "scatter_blocks", src, "ice_halo_sim_tpu/core/pallas_ops.py:549", 0.0,
+                     ms_k, ms_p, bound, no_lib_scatter)
+                res[-1].update(rows=out_len, columns=len(vals), permutation=True)
         del eng
         torch.cuda.empty_cache()
 
@@ -935,9 +1047,11 @@ def phase_sandwich(name, cfg, device, sort_eng, steady: int = 3):
     if eng.fold_kind != "sandwich":
         raise AssertionError(f"{name}: the engine left the sandwich fold")
     compacts = any(keep is not None for lv in eng._levels for _cl, keep in lv)
-    for k in [counter] + (["pack_valid_blocks", "scatter_blocks"] if compacts else []):
+    for k in [counter, "scatter_blocks"] + (["compact_rows"] if compacts else []):
         if per_batch[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the steady {name} batches")
+    if counts["pack_valid_blocks"]:
+        raise AssertionError(f"{name}: K6 was launched ({counts['pack_valid_blocks']})")
     ref.run(n_batches=1)
     ref.run(n_batches=steady)
     if levels != [[(int(cl.shape[0]), keep) for cl, keep in lv] for lv in ref._levels] or any(
@@ -962,7 +1076,7 @@ def phase_kernels_cascade(eng, device, res: list, batch_counter: int = 5):
     """K7 and K8 at the shapes the ms-sandwich path gives them: the rows of
     one steady batch go through every level of both renders' calibrated
     cascades (`eng._levels`) as `_sandwich_fold_r` routes them: compacted to
-    the level's keep (K6 + K3'), decoded, folded, the misses sent onward. At
+    the level's keep (compact_rows), decoded, folded, the misses sent onward. At
     each (rows, chunk list) pair both kernels are held against the plain
     version and timed beside it and beside one index_add_ of the same rows
     into the image. The kernels line takes a kernel's largest launch (render
@@ -1305,9 +1419,12 @@ def main() -> int:
     print("[4] slices", flush=True)
     # The trace kernel packs its rows (no K1), and the spectral folds extract
     # their images in the scan (no K5, no per-row scan).
+    # The general path compacts in one pass (compact_rows: no K6, no K3'
+    # before the fold); the continuation's block scatter is K3'.
     common = ["scatter_blocks_multi", "fused_scan_extract"]
-    gone = ["pack_rows", "pack_payload_blocks", "fused_scan"]
-    prepass = ["pack_valid_blocks", "scatter_blocks"]
+    gone = ["pack_rows", "pack_payload_blocks", "fused_scan", "pack_valid_blocks",
+            "compact_rows", "scatter_blocks"]
+    prepass = ["compact_rows"]
     engines, counts, per_batch = {}, {}, {}
     # These slices and fixtures fold by sort, as the JAX fixtures did (the
     # knob touches only the general path); the sandwich fold has slices of
@@ -1316,10 +1433,12 @@ def main() -> int:
         for name, cfg, kernels, steady, path, absent in (
                 ("bench", bench, ["trace_emit"] + common, 3, "cuda-trace-kernel", gone),
                 ("pool", pool, ["trace_emit_pool"] + common, 2, "cuda-trace-kernel", gone),
-                ("ms", ms, prepass + ["fused_scan_extract"], 3, "general",
-                 gone + ["scatter_blocks_multi"]),
+                ("ms", ms, prepass + ["scatter_blocks", "fused_scan_extract"], 3, "general",
+                 ["pack_rows", "pack_payload_blocks", "fused_scan", "pack_valid_blocks",
+                  "scatter_blocks_multi"]),
                 ("color", colour, prepass + ["pack_payload_blocks", "scatter_blocks_multi"], 2,
-                 "general", ["pack_rows", "fused_scan", "fused_scan_extract"])):
+                 "general", ["pack_rows", "fused_scan", "fused_scan_extract",
+                             "pack_valid_blocks", "scatter_blocks"])):
             engines[name], counts[name], per_batch[name] = phase_slice(
                 name, cfg, device, kernels, steady, path, absent)
             if name == "bench":
@@ -1354,12 +1473,17 @@ def main() -> int:
     # and K8, the probes' own runs for P1 and P2, else BENCH_CFG (0 for K1
     # and the per-row scan, which no path launches now).
     home = {"trace_emit_pool": "pool", "pack_valid_blocks": "ms", "scatter_blocks": "ms",
+            "compact_rows": "ms",
             "pack_payload_blocks": "color",
             "sandwich_lane": "ms-sandwich", "sandwich_sublane": "ms-sandwich-sublane",
             "sandwich_iota": "probe_sandwich", "extract_blocks": "probe_scatter"}
     for k in res:
         k["launches"] = counts[home.get(k["name"], "bench")][k["name"]]
         k["launches_per_steady_batch"] = {n: per_batch[n][k["name"]] for n in per_batch}
+    print("  launches per steady batch of the compactions (K6 pack_valid_blocks, K3' "
+          "scatter_blocks, compact_rows): " + "; ".join(
+              f"{n} {[per_batch[n][k] for k in ('pack_valid_blocks', 'scatter_blocks', 'compact_rows')]}"
+              for n in per_batch), flush=True)
 
     for name, eng in engines.items():
         rate = phase_rate(eng, 20 if name in ("bench", "pool") else 8)

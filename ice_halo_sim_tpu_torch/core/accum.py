@@ -23,11 +23,16 @@ takes the per-pixel totals in XLA. Here that part is plain PyTorch
 two-level float32 scan: same totals, rounded once), and the extraction
 still goes through K5 and K3, in groups of at most three payloads.
 
-``compact_valid`` (K6, then one K3' per column) and ``compact_by_key`` (a
-sort inside each block, then one K3' per column) shorten the rows to a
-static prefix. The TPU's block sort is unstable; here the order inside a
-block is a function of the rows (key, then row index), so the CPU and the
-card agree.
+``compact_valid`` and ``compact_by_key`` shorten the rows to a static
+prefix. The JAX package composes the first from K6 (``pallas_ops.py:301``)
+and one K3' (``:549``) per column; here it is one launch of
+``block_ops.compact_rows``, which reads the rows once and writes the kept
+rows once, in place of K6's whole slab written and read back. The second
+sorts inside each block (``torch.argsort``; the JAX package's block sort is
+XLA's, not Pallas) and hands the order to one launch of the block scatter
+for every column, in place of a gather and a K3' per column. The TPU's
+block sort is unstable; here the order inside a block is a function of the
+rows (key, then row index), so the CPU and the card agree.
 
 Kernel-backed stages take a ``ks`` KernelSet (kernels/__init__.py):
 the wrappers or the plain twins.
@@ -38,6 +43,8 @@ from __future__ import annotations
 import torch
 
 from ice_halo_sim_tpu_torch.core.bits import F32, I32, I64, MASK32, from_bits, to_bits
+from ice_halo_sim_tpu_torch.core.block_ops import exclusive_starts as _exclusive_starts
+from ice_halo_sim_tpu_torch.core.block_ops import pad_rows as _pad_cols
 
 # Row-block size of the marker extraction (pack + scatter).
 BLOCK = 4096
@@ -139,12 +146,7 @@ def sort_keys(keys, w):
     return sk, sw
 
 
-_MAX_PAYLOADS = 3  # columns per launch of the pack and scatter kernels
-
-
-def _exclusive_starts(counts):
-    c = counts.to(I64)
-    return (torch.cumsum(c, dim=0) - c).to(I32)
+_MAX_PAYLOADS = 3  # columns per launch of the pack kernel (K5)
 
 
 def _marker_extract(key2, seg_cols, P: int, ks, block: int = BLOCK):
@@ -167,16 +169,6 @@ def _marker_extract(key2, seg_cols, P: int, ks, block: int = BLOCK):
     return torch.stack(dense, dim=-1)
 
 
-def _pad_cols(key, cols, block: int):
-    """Pad rows to a block multiple with (0xFFFFFFFF, 0...)."""
-    pad = -(-key.shape[0] // block) * block - key.shape[0]
-    if pad:
-        key = torch.cat([key, torch.full((pad,), -1, dtype=I32, device=key.device)])
-        cols = [torch.cat([c, torch.zeros(pad, dtype=c.dtype, device=c.device)])
-                for c in cols]
-    return key, list(cols)
-
-
 def _sort_word(k, row):
     """One signed int64 per row that orders by (u32 key, row index): the key
     less 2^31 in the high word, the row (< 2^32) in the low word."""
@@ -185,41 +177,36 @@ def _sort_word(k, row):
 
 def compact_valid(key, cols, keep: int, ks, block: int = BLOCK):
     """Rows with key != 0xFFFFFFFF into a prefix of `keep` rows, in their
-    original order block by block (the fold's prepass; its sort follows, so
-    the order does not matter). K6 packs each block, one K3' per column
-    places block g at the exclusive cumsum of the counts.
+    original order (the fold's prepass; its sort follows, so the order does
+    not matter): ``ks.compact_rows``, one launch on the card.
 
     Returns ((key', cols'...), n_valid tensor). Exact when n_valid <= keep,
     which the caller guards. Rows past the last valid row are (0xFFFFFFFF,
     0) from the last block's tail, then (0, 0): zero-weight rows that fold
     to nothing."""
-    key, cols = _pad_cols(key, cols, block)
-    G = key.shape[0] // block
-    pk, pcols, counts = ks.pack_valid_blocks(key, cols, MASK32, block)
-    start = _exclusive_starts(counts)
-    outs = [ks.scatter_blocks(x.view(G, block), start, keep, block)
-            for x in (pk, *pcols)]
-    return tuple(outs), counts.to(I64).sum()
+    outs, n_valid = ks.compact_rows(key, list(cols), keep, block)
+    return tuple(outs), n_valid
 
 
-def compact_by_key(key, cols, keep: int, ks, block: int = BLOCK):
+def compact_by_key(key, cols, keep: int, ks, block: int = BLOCK, with_key: bool = True):
     """Rows with key != 0xFFFFFFFF into a prefix of `keep` rows, each block
-    sorted by key (ties by row: the order is a function of the rows), then
-    one K3' per column. The continuation between layers uses it: its key
-    orders a block's rows by weight bucket and a hash of the row.
+    sorted by key (ties by row: the order is a function of the rows); the
+    block order goes to one block scatter of every column as its in-block
+    permutation. The continuation between layers uses it: its key orders a
+    block's rows by weight bucket and a hash of the row.
 
-    Returns ((key', cols'...), n_valid tensor), as compact_valid does."""
+    Returns ((key', cols'...), n_valid tensor), as compact_valid does;
+    without the key column when with_key is False (the columns are the
+    same)."""
     key, cols = _pad_cols(key, cols, block)
     G = key.shape[0] // block
     kb = from_bits(key).view(G, block)
     counts = (kb != MASK32).sum(dim=1)
     start = _exclusive_starts(counts)
     row = torch.arange(block, dtype=I64, device=key.device)
-    order = torch.argsort(_sort_word(kb, row[None, :]), dim=1)
-    outs = [ks.scatter_blocks(x.view(G, block).gather(1, order).contiguous(),
-                              start, keep, block)
-            for x in (key, *cols)]
-    return tuple(outs), counts.sum()
+    order = torch.argsort(_sort_word(kb, row[None, :]), dim=1).to(I32)
+    vals = [x.view(G, block) for x in ((key, *cols) if with_key else cols)]
+    return tuple(ks.scatter_blocks(vals, start, keep, block, perm=order)), counts.sum()
 
 
 def _segmented_totals(sk, chans, shift: int, n_pixels: int):

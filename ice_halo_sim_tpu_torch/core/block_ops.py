@@ -1,10 +1,21 @@
-"""Block pack and block scatter (port of ``ice_halo_sim_tpu.core.pallas_ops``:
-K1 ``_pack_one_block``, K6 ``pack_valid_blocks``, K5 ``pack_payload_blocks``,
-K3 ``scatter_blocks_multi`` and K3' ``scatter_blocks``).
+"""Block pack, block scatter and the one-pass row compaction (port of
+``ice_halo_sim_tpu.core.pallas_ops``: K1 ``_pack_one_block``, K6
+``pack_valid_blocks`` (:301), K5 ``pack_payload_blocks``, K3
+``scatter_blocks_multi`` (:436) and K3' ``scatter_blocks`` (:549); and of
+``ice_halo_sim_tpu.core.accum.compact_valid``, K6 then one K3' per column,
+as ``compact_rows``).
 
 Each function has a plain PyTorch twin (``*_plain``, any device) beside
 its wrapper. The wrapper runs the twin for a CPU tensor and the CUDA
 kernel (csrc/block_ops.cu) for a CUDA tensor; it never falls back.
+
+All of them are bound by memory bandwidth on the card. The block scatter
+(K3, K3', and P2 in ``probe_scatter``) is one kernel that owns output tiles
+instead of searching per element: a thread block finds the source blocks
+around its tile of output rows once, and every column of the call (up to 8,
+with an optional in-block permutation) moves in one launch. ``compact_rows`` is
+K6 and K3' in one pass: the rows are read once and the kept rows written
+once, at their final place.
 
 Keys are int32 tensors holding u32 bit patterns; payload columns are any
 32-bit dtype (the kernels move them as raw bits).
@@ -18,6 +29,23 @@ from ice_halo_sim_tpu_torch.core.bits import I32, I64, MASK32, from_bits, to_bit
 from ice_halo_sim_tpu_torch.kernels import build
 
 _KEY_TAIL = -1  # 0xFFFFFFFF as an int32 bit pattern
+MAX_SCATTER_COLS = 8  # columns per launch of the block scatter
+COMPACT_BLOCK = 4096  # the row block of compact_rows's kernel
+
+
+def pad_rows(key, cols, block: int):
+    """Pad rows to a block multiple with (0xFFFFFFFF, 0...)."""
+    pad = -(-key.shape[0] // block) * block - key.shape[0]
+    if pad:
+        key = torch.cat([key, torch.full((pad,), _KEY_TAIL, dtype=I32, device=key.device)])
+        cols = [torch.cat([c, torch.zeros(pad, dtype=c.dtype, device=c.device)])
+                for c in cols]
+    return key, list(cols)
+
+
+def exclusive_starts(counts):
+    c = counts.to(I64)
+    return (torch.cumsum(c, dim=0) - c).to(I32)
 
 
 def _check_marker_tail(marker_tail, out_len: int):
@@ -150,7 +178,7 @@ def pack_rows_plain(key, w, block: int):
 
 
 # --------------------------------------------------------------------------
-# K3 / K3': block scatter
+# K3 / K3' / P2: block scatter
 # --------------------------------------------------------------------------
 
 def scatter_blocks_multi_plain(vals_list, start, out_len: int, block: int,
@@ -184,25 +212,31 @@ def scatter_blocks_multi_plain(vals_list, start, out_len: int, block: int,
 
 
 def _scatter_blocks_cuda(vals_list, start, out_len: int, block: int,
-                         marker_tail=None):
-    """Launch scatter_blocks_kernel on CUDA tensors (no launch count: K3 and
-    K3' count their own)."""
+                         marker_tail=None, perm=None):
+    """Launch scatter_tiles_kernel once for every column on CUDA tensors (no
+    launch count: K3, K3' and P2 count their own). perm: [G, blk] int32,
+    the source row inside its block of each block row, or None."""
     dev = vals_list[0].device
     has_tail, t0, tlen, shift, low_or = 0, 0, 0, 0, 0
     if marker_tail is not None:
         t0, tlen, shift, low_or = _check_marker_tail(marker_tail, out_len)
         has_tail = 1
-    if not 1 <= len(vals_list) <= 3:
-        raise ValueError("scatter takes 1 to 3 payloads")
+    if not 1 <= len(vals_list) <= MAX_SCATTER_COLS:
+        raise ValueError(f"the block scatter takes 1 to {MAX_SCATTER_COLS} columns")
     G, blk = vals_list[0].shape
+    if any(v.shape != (G, blk) for v in vals_list) or start.shape != (G,):
+        raise ValueError(f"the block scatter takes columns [G, blk] and start [G], got "
+                         f"{[tuple(v.shape) for v in vals_list]} and {tuple(start.shape)}")
+    if perm is not None:
+        if perm.shape != (G, blk) or perm.dtype != I32:
+            raise ValueError(f"perm must be int32 [{G}, {blk}]")
+        perm = perm.contiguous()
     vals = [_bits32(v.contiguous()) for v in vals_list]
     start = start.to(I32).contiguous()
     outs = [torch.empty(out_len, dtype=I32, device=dev) for _ in vals]
-    vp = [v.data_ptr() for v in vals] + [0] * (3 - len(vals))
-    op = [o.data_ptr() for o in outs] + [0] * (3 - len(outs))
     code = build.lib().iht_scatter_blocks(
-        vp[0], vp[1], vp[2], len(vals), start.data_ptr(), G, blk, out_len,
-        op[0], op[1], op[2], has_tail, t0, tlen, shift, low_or,
+        build.ptr_array(vals), len(vals), build.ptr(perm), start.data_ptr(), G, blk,
+        out_len, build.ptr_array(outs), has_tail, t0, tlen, shift, low_or,
         build.stream_ptr(dev),
     )
     build.check(code, "scatter_blocks")
@@ -211,8 +245,8 @@ def _scatter_blocks_cuda(vals_list, start, out_len: int, block: int,
 
 def scatter_blocks_multi(vals_list, start, out_len: int, block: int,
                          marker_tail=None):
-    """K3 wrapper (1 to 3 payloads sharing one start vector): plain twin on
-    the CPU, CUDA kernel on a CUDA tensor."""
+    """K3 wrapper (the payloads share one start vector): plain twin on the
+    CPU, the block scatter kernel on a CUDA tensor."""
     if vals_list[0].device.type == "cpu":
         return scatter_blocks_multi_plain(vals_list, start, out_len, block, marker_tail)
     outs = _scatter_blocks_cuda(vals_list, start, out_len, block, marker_tail)
@@ -220,16 +254,78 @@ def scatter_blocks_multi(vals_list, start, out_len: int, block: int,
     return outs
 
 
-def scatter_blocks_plain(vals, start, out_len: int, block: int):
-    """K3' plain twin: scatter_blocks_multi_plain with one payload."""
-    return scatter_blocks_multi_plain([vals], start, out_len, block)[0]
+def scatter_blocks_plain(vals_list, start, out_len: int, block: int, perm=None):
+    """K3' plain twin for a list of columns [G, blk]: each column, gathered
+    inside its blocks by perm first when given (vals[g, perm[g, j]] at
+    [g, j]), through the forward-overwrite scatter."""
+    if perm is not None:
+        vals_list = [v.gather(1, perm.to(I64)) for v in vals_list]
+    return scatter_blocks_multi_plain(list(vals_list), start, out_len, block)
 
 
-def scatter_blocks(vals, start, out_len: int, block: int):
-    """K3' wrapper: the K3 kernel with one payload (the TPU VMEM/HBM
-    variants are one kernel here), counted on its own."""
-    if vals.device.type == "cpu":
-        return scatter_blocks_plain(vals, start, out_len, block)
-    out = _scatter_blocks_cuda([vals], start, out_len, block)[0]
+def scatter_blocks(vals_list, start, out_len: int, block: int, perm=None):
+    """K3' wrapper: every column of the call, with the optional in-block
+    permutation, in one launch of the block scatter kernel on CUDA tensors
+    (its plain twin on the CPU)."""
+    if vals_list[0].device.type == "cpu":
+        return scatter_blocks_plain(vals_list, start, out_len, block, perm)
+    outs = _scatter_blocks_cuda(vals_list, start, out_len, block, perm=perm)
     build.LAUNCHES["scatter_blocks"] += 1
+    return outs
+
+
+# --------------------------------------------------------------------------
+# K6 + K3': the one-pass compaction of compact_valid
+# --------------------------------------------------------------------------
+
+def compact_rows_plain(key, cols, keep: int, block: int):
+    """compact_valid as the JAX package composes it: rows padded to the
+    block, K6 (pack_valid_blocks_plain, every key but 0xFFFFFFFF kept), then
+    the block scatter of the key and each column to the exclusive sum of the
+    counts, cut to `keep`. Returns ((key', cols'...), n_valid int64): the
+    kept rows in their original order, then up to `block` rows past the last
+    block's first kept row of (0xFFFFFFFF, 0), then (0, 0)."""
+    key, cols = pad_rows(key, cols, block)
+    G = key.shape[0] // block
+    pk, pcols, counts = pack_valid_blocks_plain(key, cols, MASK32, block)
+    outs = scatter_blocks_plain([x.view(G, block) for x in (pk, *pcols)],
+                                exclusive_starts(counts), keep, block)
+    return tuple(outs), counts.to(I64).sum()
+
+
+def _compact_rows_cuda(key, cols, keep: int, block: int):
+    if block != COMPACT_BLOCK:
+        raise ValueError(f"compact_rows runs on blocks of {COMPACT_BLOCK} rows, not {block}")
+    if not 1 <= len(cols) <= 3:
+        raise ValueError("compact_rows takes 1 to 3 payload columns")
+    n = key.shape[0]
+    if key.dim() != 1 or any(c.shape != (n,) for c in cols) or not 0 <= n < 1 << 31:
+        raise ValueError(f"compact_rows takes a key and columns of one length below 2^31, "
+                         f"got {tuple(key.shape)} and {[tuple(c.shape) for c in cols]}")
+    dev = key.device
+    key = _bits32(key.contiguous())
+    vals = [_bits32(c.contiguous()) for c in cols]
+    key_out = torch.empty(keep, dtype=I32, device=dev)
+    outs = [torch.empty(keep, dtype=I32, device=dev) for _ in vals]
+    # Zeroed: the tile counter, the last tile's word, the total, one word a tile.
+    state = torch.zeros(3 + -(-n // block), dtype=I64, device=dev)
+    vec = all(t.data_ptr() % 16 == 0 for t in (key, *vals))
+    code = build.lib().iht_compact_rows(
+        key.data_ptr(), build.ptr_array(vals), len(vals), n, keep, key_out.data_ptr(),
+        build.ptr_array(outs), state.data_ptr(), int(vec), build.stream_ptr(dev),
+    )
+    build.check(code, "compact_rows")
+    return (key_out, *[o.view(c.dtype) for o, c in zip(outs, cols)]), state[2]
+
+
+def compact_rows(key, cols, keep: int, block: int):
+    """compact_valid in one launch (K6 and K3' fused) on CUDA tensors: 1 to 3
+    payload columns of any 32-bit dtypes, rows of any count (no padding
+    copy: rows past the last are dead). The plain twin on the CPU. The
+    values equal compact_rows_plain's for any input, kept rows beyond
+    `keep` included."""
+    if key.device.type == "cpu":
+        return compact_rows_plain(key, cols, keep, block)
+    out = _compact_rows_cuda(key, cols, keep, block)
+    build.LAUNCHES["compact_rows"] += 1
     return out

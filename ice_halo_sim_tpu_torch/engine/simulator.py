@@ -14,7 +14,8 @@ A scene takes one of two trace paths, as in the JAX engine:
     probability and emit-floor gates, colour bits, the slot cap, projection
     into every render, the continuation between layers, then per render
     ``pack_spectral_keys`` and the sort fold; after calibration
-    ``accum.compact_valid`` (K6 + K3') shortens the rows to ``keep`` first.
+    ``accum.compact_valid`` (one pass of ``block_ops.compact_rows``) shortens
+    the rows to ``keep`` first.
 ``Engine.trace_path`` says which one ran, ``Engine.fold_kind`` and
 ``Engine.fold_decision`` which fold. On the general path a scene with
 packable keys, no colour class, at most 128 pool entries and at most 4096
@@ -491,17 +492,19 @@ class Engine:
     # 131072 pixels, a quarter dead) on an NVIDIA H100 80GB HBM3 at a power
     # limit of 700.00 W, device time by torch.profiler: K7 (the scatter-add
     # into shared memory) 0.1477 ms at 256 listed chunks and 0.5421 ms at
-    # 1024, compact_valid 0.0950 ms, the sort fold 0.2681 ms at 835584 rows
-    # and 0.8071 ms at 3342336. _C_PREP is fitted to the engine's own
-    # sandwich fold on MS_CFG, BENCH_CFG (general path) and SUNDOG_CFG
+    # 1024, the sort fold 0.2681 ms at 835584 rows and 0.8071 ms at 3342336;
+    # compact_valid (one launch of compact_rows) 0.0274 ms, refitted with
+    # _C_PREP on the same card and limit when compact_rows replaced K6 and
+    # two K3' (0.0947 ms in the same run). _C_PREP is fitted to the engine's
+    # own sandwich fold on MS_CFG, BENCH_CFG (general path) and SUNDOG_CFG
     # (`fold_prep`: what the fold takes beyond K7, the compactions and the key
     # pack it shares with the sort fold, per row of its levels: the decode,
     # the routing and their torch glue). They choose the level structure and
     # between the folds; exactness never depends on them.
-    _C_PREP = 1.44e-7      # per row: decode, routing of the misses, glue
+    _C_PREP = 1.62e-7      # per row: decode, routing of the misses, glue
     _C_BASE = 4.86e-9      # per row: K7 extrapolated to an empty list (loads, slot search)
     _C_CHUNKROW = 1.54e-10  # per row and listed chunk: K7 reading the row once per slice
-    _C_PACK = 2.84e-8      # per input row: compact_valid (K6 + two K3')
+    _C_PACK = 8.19e-9      # per input row: compact_valid (one compact_rows)
     _C_SORT_FIX = 0.0602   # the sort fold of keep + P rows: fixed part
     _C_SORT_ROW = 2.15e-7  # and per row
 
@@ -1165,8 +1168,8 @@ class Engine:
             MASK32))
         eff_cap = min(cap, n_rows)
         if n_live <= eff_cap:
-            outs, _ = accum_mod.compact_by_key(key, cols, eff_cap, self.ks)
-            picked = list(outs[1:])
+            outs, _ = accum_mod.compact_by_key(key, cols, eff_cap, self.ks, with_key=False)
+            picked = list(outs)
         else:
             row = torch.arange(n_rows, dtype=I64, device=dev)
             s, _ = torch.sort(accum_mod._sort_word(from_bits(key), row))
@@ -1230,9 +1233,9 @@ class Engine:
         for r, (key, wz, mcol, _) in enumerate(packed):
             kr = keep[r] if keep is not None else None
             if kr is not None and lives[r] <= kr:
-                # Compaction prepass: K6 packs the live rows of each block,
-                # K3' makes them dense; the fold's sort then runs on keep + P
-                # rows instead of every contribution row.
+                # Compaction prepass (one pass: the live rows, dense, in
+                # order); the fold's sort then runs on keep + P rows instead
+                # of every contribution row.
                 (key, wz, *rest), _ = accum_mod.compact_valid(
                     key, [wz] + ([mcol] if n_classes else []), kr, self.ks)
                 mcol = rest[0] if n_classes else None

@@ -10,10 +10,10 @@ from typing import Callable, NamedTuple
 class KernelSet(NamedTuple):
     name: str
     trace_emit: Callable
-    pack_valid_blocks: Callable
     pack_payload_blocks: Callable
     scatter_blocks_multi: Callable
     scatter_blocks: Callable
+    compact_rows: Callable
     fused_scan_extract: Callable
     sandwich_pass: Callable
 
@@ -23,18 +23,18 @@ def kernel_set(kind: str) -> KernelSet:
 
     if kind == "cuda":
         return KernelSet("cuda", trace_emit.trace_emit,
-                         block_ops.pack_valid_blocks,
                          block_ops.pack_payload_blocks,
                          block_ops.scatter_blocks_multi,
                          block_ops.scatter_blocks,
+                         block_ops.compact_rows,
                          seg_scan.fused_scan_extract,
                          sandwich.sandwich_pass)
     if kind == "plain":
         return KernelSet("plain", trace_emit.trace_emit_plain,
-                         block_ops.pack_valid_blocks_plain,
                          block_ops.pack_payload_blocks_plain,
                          block_ops.scatter_blocks_multi_plain,
                          block_ops.scatter_blocks_plain,
+                         block_ops.compact_rows_plain,
                          seg_scan.fused_scan_extract_plain,
                          sandwich.sandwich_pass_plain)
     raise ValueError(f"kernels must be 'cuda' or 'plain', got {kind!r}")

@@ -47,6 +47,7 @@ LAUNCHES = {
     "pack_payload_blocks": 0,
     "scatter_blocks_multi": 0,
     "scatter_blocks": 0,
+    "compact_rows": 0,
     "fused_scan": 0,
     "fused_scan_extract": 0,
     "sandwich_lane": 0,
@@ -153,8 +154,8 @@ _SIGNATURES = {
     "iht_trace_emit_pool": [_VP] * 10,
     "iht_pack_blocks": [_VP, _VP, _VP, _VP, _I, _U, _I, _I,
                         _VP, _VP, _VP, _VP, _VP, _VP],
-    "iht_scatter_blocks": [_VP, _VP, _VP, _I, _VP, _I, _I, _LL,
-                           _VP, _VP, _VP, _I, _LL, _LL, _I, _U, _VP],
+    "iht_scatter_blocks": [_VP, _I, _VP, _VP, _I, _I, _LL, _VP, _I, _LL, _LL, _I, _U, _VP],
+    "iht_compact_rows": [_VP, _VP, _I, _LL, _LL, _VP, _VP, _VP, _I, _VP],
     "iht_fused_scan": [_VP, _VP, _VP, _I, _I, _LL, _VP, _VP, _VP, _VP,
                        _VP, _VP, _VP],
     "iht_fused_scan_extract": [_VP, _VP, _VP, _I, _I, _LL, _VP, _I, _VP, _VP, _VP],
@@ -199,3 +200,9 @@ def stream_ptr(device) -> int:
 
 def ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
+
+
+def ptr_array(tensors):
+    """A host array of the tensors' device pointers, for an entry point that
+    takes a variable number of columns."""
+    return (_VP * len(tensors))(*[t.data_ptr() for t in tensors])

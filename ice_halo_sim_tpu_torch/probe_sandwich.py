@@ -23,8 +23,9 @@ On one CUDA device the probe measures, at the TPU probe's row count
   3. the constants of ``Engine._sandwich_plan_levels`` and
      ``_sandwich_recalibrate``: K7 (``sandwich_pass``, layout "lane") per row
      and per row and listed chunk from its times at NC = 256 and 1024,
-     ``compact_valid`` (K6 + two K3') per input row, and the sort fold's
-     fixed and per-row parts from two row counts; then the per-row cost of a
+     ``compact_valid`` (one launch of ``block_ops.compact_rows``) per input
+     row, and the sort fold's fixed and per-row parts from two row counts;
+     then the per-row cost of a
      level's decode, routing and torch glue, ``_C_PREP``, fitted to the
      engine's own sandwich fold on three scenes (``fold_prep``; the probe's
      own decode-and-routing figure stays beside it as ``_C_PREP_probe``).

@@ -1,5 +1,6 @@
 """Probe: the marker-extraction block scatter (port of
-``scripts/probe_pallas_scatter.py``, the probe form P2 of kernel K3).
+``scripts/probe_pallas_scatter.py``, the probe form P2 of kernel K3; its
+``pallas_call`` is at ``:121``).
 
     python -m ice_halo_sim_tpu_torch.probe_scatter
 
@@ -8,10 +9,15 @@ The function: ``out[start[g] : start[g] + block] = vals[g]`` for g = 0, 1,
 shifts every block into place with static lane and sublane rolls and blends
 it into an aligned window of a VMEM-resident image; none of that is carried
 over. With nondecreasing starts the block that wrote entry p last is the last
-one with ``start[g] <= p``, so the port's block scatter kernel
-(csrc/block_ops.cu ``scatter_blocks_kernel``, one payload) computes it as a
-gather, at any block length; ``extract_blocks`` is that kernel behind its own
-wrapper and launch counter. The plain version writes the blocks in order.
+one with ``start[g] <= p``, so block g owns the window [start[g], start[g +
+1]). The port's block scatter kernel (csrc/block_ops.cu
+``scatter_tiles_kernel``, one payload) gives each thread block a tile of
+output rows, finds the blocks around the tile once, gives every row of the
+tile its owner by a max-scan of the windows that start inside it, and writes
+each entry once, at any block length; it is bound by
+memory bandwidth (each entry written once, each covered value read once).
+``extract_blocks`` is that kernel behind its own wrapper and launch counter.
+The plain version writes the blocks in order.
 
 On one CUDA device the probe holds the kernel against the plain version at
 the TPU probe's shapes (G = 192 blocks of 16384, P = 131072) and prints one

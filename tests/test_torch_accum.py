@@ -115,6 +115,81 @@ def test_compact_valid_equals_jax(monkeypatch, ncols, n):
         np.testing.assert_array_equal(a.numpy().view(np.uint32), np.asarray(b).view(np.uint32))
 
 
+# (columns, rows, dead fraction, keep): no live row; every row live and more
+# of them than keep; half live and more than keep, ragged rows; keep past
+# the padded rows.
+COMPACT_CASES = {
+    "no-live": (1, 2 * 4096 + 77, 1.0, 4096),
+    "all-live-over-keep": (2, 3 * 4096, 0.0, 2 * 4096),
+    "half-live-over-keep": (1, 5 * 4096 + 3, 0.5, 2 * 4096),
+    "keep-past-rows": (2, 4096 + 10, 0.6, 4 * 4096),
+}
+
+
+def _compact_contract(key, cols, keep, block=4096):
+    """compact_valid's output written out in numpy: the live rows in order,
+    then (0xFFFFFFFF, 0) up to the last block's first live row + block, then
+    (0, 0), cut to keep."""
+    live = key != 0xFFFFFFFF
+    n = int(live.sum())
+    G = -(-key.size // block)
+    last = int(live[(G - 1) * block:].sum())
+    p = np.arange(keep)
+    out_key = np.where(p < n - last + block, 0xFFFFFFFF, 0).astype(np.uint32)
+    out_key[:min(n, keep)] = key[live][:keep]
+    outs = [out_key]
+    for c in cols:
+        o = np.zeros(keep, np.uint32)
+        o[:min(n, keep)] = c.view(np.uint32)[live][:keep]
+        outs.append(o)
+    return outs, n
+
+
+@pytest.mark.parametrize("case", list(COMPACT_CASES))
+def test_compact_rows_plain_contract(monkeypatch, case):
+    """compact_rows_plain, as compact_valid calls it through the plain kernel
+    set, against the contract written out in numpy and, where the live rows
+    fit keep (the engine's case), against the JAX compact_valid (K6 and K3'
+    in the interpreter): bit-equal, with no live row, every row live, more
+    live rows than keep, and keep past the rows."""
+    from ice_halo_sim_tpu.core import pallas_ops
+
+    monkeypatch.setattr(pallas_ops, "INTERPRET", True)
+    ncols, n, dead, keep = COMPACT_CASES[case]
+    key, w, mask = _packed_rows(33, n, dead)
+    cols = [w] + ([mask] if ncols == 2 else [])
+    got, tn = accum.compact_valid(
+        torch.as_tensor(key.view(np.int32)),
+        [torch.as_tensor(c if c.dtype == np.float32 else c.view(np.int32)) for c in cols],
+        keep, kernel_set("plain"))
+    spelled, n_live = _compact_contract(key, cols, keep)
+    assert int(tn) == n_live and (n_live > keep) == case.endswith("over-keep")
+    for a, c in zip(got, spelled):
+        assert a.shape == (keep,)
+        np.testing.assert_array_equal(a.numpy().view(np.uint32), c)
+    if n_live <= keep:
+        want, jn = jaccum.compact_valid(jnp.asarray(key), [jnp.asarray(c) for c in cols], keep)
+        assert int(jn) == n_live
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.numpy().view(np.uint32),
+                                          np.asarray(b).view(np.uint32))
+
+
+def test_compact_by_key_without_the_key_column():
+    """with_key=False leaves out the key column; every other column is what
+    the call with the key returns."""
+    key, w, mask = _packed_rows(34, 3 * 4096 + 5, 0.5)
+    tk = torch.as_tensor(key.view(np.int32))
+    cols = [torch.as_tensor(w), torch.as_tensor(mask.view(np.int32))]
+    ks = kernel_set("plain")
+    full, n_full = accum.compact_by_key(tk, cols, 2 * 4096, ks)
+    part, n_part = accum.compact_by_key(tk, cols, 2 * 4096, ks, with_key=False)
+    assert int(n_full) == int(n_part) == int((key != 0xFFFFFFFF).sum())
+    assert len(part) == 2 and len(full) == 3
+    for a, b in zip(part, full[1:]):
+        assert torch.equal(a, b)
+
+
 def test_compact_by_key_prefix_is_the_same_multiset():
     """compact_by_key against the JAX function. The JAX block sort is
     unstable, so rows with equal keys may come in either order: per block the

@@ -138,9 +138,49 @@ def test_scatter_blocks_hbm_sized_output_bit_equal(interpret):
     start = start + np.int32(2_700_000)
     out_len = 2_703_000
     want = pallas_ops.scatter_blocks(jnp.asarray(vw), jnp.asarray(start), out_len, blk)
-    got = block_ops.scatter_blocks(torch.as_tensor(vw), torch.as_tensor(start),
-                                   out_len, blk)
+    got, = block_ops.scatter_blocks([torch.as_tensor(vw)], torch.as_tensor(start),
+                                    out_len, blk)
     np.testing.assert_array_equal(_u32(got.numpy()), _u32(want))
+
+
+# K3' as compact_by_key calls it: every column in one call, each gathered
+# inside its blocks by a permutation. Starts are given outright: G = 5 and 13
+# are no multiples of the TPU kernel's 8-block step; equal starts make empty
+# blocks; a gap wider than the block leaves zeros; starts at or past out_len
+# place nothing.
+SCATTER_COLS_CASES = {
+    "one-column": (1024, [0, 1000, 1000, 1000, 2024], 2300, ["f32"]),
+    "seven-mixed": (1024, [0, 700, 700, 3000, 3000, 3100, 4000, 5000, 5000, 6000,
+                           6500, 8000, 9000], 6500,
+                    ["f32", "i32", "u32", "f32", "i32", "u32", "f32"]),
+}
+
+
+@pytest.mark.parametrize("case", list(SCATTER_COLS_CASES))
+def test_scatter_blocks_columns_with_perm_bit_equal(interpret, case):
+    """scatter_blocks_plain with several columns and an in-block permutation
+    against the JAX K3' of each column gathered by it: bit-equal."""
+    blk, start, out_len, kinds = SCATTER_COLS_CASES[case]
+    g = np.random.default_rng(10)
+    G = len(start)
+    start = np.asarray(start, np.int32)
+    perm = np.argsort(g.random((G, blk)), axis=1).astype(np.int32)
+    cols = []
+    for kind in kinds:
+        if kind == "f32":
+            cols.append(g.normal(size=(G, blk)).astype(np.float32))
+        else:
+            cols.append(g.integers(0, 1 << 32, (G, blk), dtype=np.uint64).astype(np.uint32)
+                        .view(np.int32 if kind == "i32" else np.uint32))
+    tcols = [torch.as_tensor(c.view(np.int32) if c.dtype == np.uint32 else c) for c in cols]
+    got = block_ops.scatter_blocks(tcols, torch.as_tensor(start), out_len, blk,
+                                   perm=torch.as_tensor(perm))
+    assert len(got) == len(cols)
+    for a, t, c in zip(got, tcols, cols):
+        want = pallas_ops.scatter_blocks(jnp.asarray(np.take_along_axis(c, perm, axis=1)),
+                                         jnp.asarray(start), out_len, blk)
+        assert a.shape == (out_len,) and a.dtype == t.dtype
+        np.testing.assert_array_equal(_u32(a.numpy()), _u32(want))
 
 
 # --------------------------------------------------------------------------

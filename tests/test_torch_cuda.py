@@ -160,6 +160,86 @@ def test_pack_and_scatter_kernels(dev):
         assert all(_eq(x, y) for x, y in zip(a, b))
 
 
+# (block length, starts, out_len, columns, permutation, marker tail): the
+# shapes that reach the block scatter's tile logic (tiles of 2048 rows).
+SCATTER_TILE_CASES = {
+    "below one tile": (1024, [0, 500, 900], 1500, 1, False, None),
+    "ragged last tile": (1024, [0, 1000, 2000, 2500, 3000, 3100], 5000, 2, False, None),
+    "one block over tiles": (16384, [0], 16384 + 3000, 1, False, None),
+    "million-row zero region": (1024, [0, 700, 1500], 1_000_000 + 2524, 3, False, None),
+    "2000 empty blocks": (1024, [0, 100] + [1000] * 2000 + [1500, 2500], 4000, 2, False, None),
+    "G = 1": (4096, [37], 5000, 1, False, None),
+    "marker tail over tile edges": (2048, [0, 1500, 2100, 4000, 4000, 7000], 8192, 2, False,
+                                    (1000, 5000, 7, 127)),
+    "perm, seven columns": (4096, [0, 3000, 3000, 5000, 9000, 9100, 12000], 14000, 7, True,
+                            None),
+}
+
+
+@pytest.mark.parametrize("case", list(SCATTER_TILE_CASES))
+def test_block_scatter_kernel(dev, case):
+    """The block scatter (K3' with every column and a permutation, K3 with
+    the marker tail) against its plain version: bit-equal, and a second
+    launch gives the same bits."""
+    blk, starts, out_len, ncols, with_perm, tail = SCATTER_TILE_CASES[case]
+    g = torch.Generator().manual_seed(len(starts) + ncols)
+    G = len(starts)
+    vals = [torch.rand((G, blk), generator=g) if c % 2 == 0 else
+            torch.randint(-(1 << 31), 1 << 31, (G, blk), generator=g, dtype=torch.int64)
+            .to(torch.int32) for c in range(ncols)]
+    vals = [v.to(dev) for v in vals]
+    start = torch.tensor(starts, dtype=torch.int32, device=dev)
+    perm = (torch.argsort(torch.rand((G, blk), generator=g), dim=1).to(torch.int32).to(dev)
+            if with_perm else None)
+    if tail is None:
+        a = block_ops.scatter_blocks(vals, start, out_len, blk, perm=perm)
+        b = block_ops.scatter_blocks_plain(vals, start, out_len, blk, perm=perm)
+        again = block_ops.scatter_blocks(vals, start, out_len, blk, perm=perm)
+    else:
+        a = block_ops.scatter_blocks_multi(vals, start, out_len, blk, marker_tail=tail)
+        b = block_ops.scatter_blocks_multi_plain(vals, start, out_len, blk, marker_tail=tail)
+        again = block_ops.scatter_blocks_multi(vals, start, out_len, blk, marker_tail=tail)
+    torch.cuda.synchronize()
+    assert len(a) == ncols
+    assert all(x.shape == (out_len,) and x.dtype == v.dtype for x, v in zip(a, vals))
+    assert all(_eq(x, y) for x, y in zip(a, b))
+    assert all(_eq(x, y) for x, y in zip(a, again))
+
+
+# (rows, live fraction, keep, columns)
+COMPACT_TILE_CASES = {
+    "no live row": (3 * 4096 + 77, 0.0, 4096, 1),
+    "every row live": (5 * 4096, 1.0, 5 * 4096, 2),
+    "live over keep": (9 * 4096 + 5, 0.4, 2 * 4096, 2),
+    "ragged, keep past the rows": (4096 + 10, 0.6, 40000, 3),
+    "many tiles": (600 * 4096 + 123, 0.25, 160 * 4096, 1),
+}
+
+
+@pytest.mark.parametrize("case", list(COMPACT_TILE_CASES))
+def test_compact_rows_kernel(dev, case):
+    """compact_rows (K6 and K3' in one pass) against its plain version, the
+    composition of the plain K6 and K3': every column and n_valid bit-equal,
+    and a second launch gives the same bits."""
+    n, frac, keep, ncols = COMPACT_TILE_CASES[case]
+    g = torch.Generator().manual_seed(n)
+    key = torch.randint(0, 1 << 30, (n,), generator=g, dtype=torch.int64).to(torch.int32)
+    key[torch.rand(n, generator=g) >= frac] = -1
+    cols = [torch.rand(n, generator=g), torch.randint(-9, 9, (n,), generator=g,
+                                                      dtype=torch.int32),
+            torch.rand(n, generator=g)][:ncols]
+    key, cols = key.to(dev), [c.to(dev) for c in cols]
+    a, na = block_ops.compact_rows(key, cols, keep, 4096)
+    b, nb = block_ops.compact_rows_plain(key, cols, keep, 4096)
+    again, _ = block_ops.compact_rows(key, cols, keep, 4096)
+    torch.cuda.synchronize()
+    assert int(na) == int(nb) == int((key != -1).sum())
+    assert len(a) == 1 + ncols and all(x.shape == (keep,) for x in a)
+    assert all(x.dtype == y.dtype for x, y in zip(a, b))
+    assert all(_eq(x, y) for x, y in zip(a, b))
+    assert all(_eq(x, y) for x, y in zip(a, again))
+
+
 def test_fused_scan_kernel(dev):
     g = np.random.default_rng(2)
     key = np.sort(g.integers(0, 1 << 20, 100_000, dtype=np.int64)).astype(np.int32)
@@ -252,8 +332,8 @@ def test_engine_cuda_matches_plain(dev, spectrum):
 def test_pack_valid_blocks_kernel(dev, ncols, thresh):
     """K6 against its plain version: one and two columns (float32, u32
     bits), the all-live threshold and a smaller one, with full, empty and
-    one-row blocks; bit-equal. Then compact_valid and compact_by_key through
-    both kernel sets."""
+    one-row blocks; bit-equal. Then compact_valid and compact_by_key (with
+    and without the key column) through both kernel sets."""
     from ice_halo_sim_tpu_torch.kernels import kernel_set
 
     g = torch.Generator().manual_seed(5)
@@ -283,6 +363,8 @@ def test_pack_valid_blocks_kernel(dev, ncols, thresh):
         y = fn(key, cols, 3 * block, kernel_set("plain"))
         assert int(x[1]) == int(y[1])
         assert all(_eq(p, q) for p, q in zip(x[0], y[0]))
+    x = accum.compact_by_key(key, cols, 3 * block, kernel_set("cuda"), with_key=False)
+    assert all(_eq(p, q) for p, q in zip(x[0], y[0][1:])) and len(x[0]) == ncols
 
 
 def test_general_path_engine_cuda_matches_plain(dev, monkeypatch):

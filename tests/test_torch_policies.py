@@ -110,7 +110,7 @@ def test_cuda_entry_points_return_launch_error():
             parts = body.split("<<<")
             for after in parts[1:]:
                 assert "cudaGetLastError()" in after, m.group(1)
-    assert entries == 9
+    assert entries == 10
 
 
 def test_wrappers_check_every_kernel_call():
@@ -121,17 +121,17 @@ def test_wrappers_check_every_kernel_call():
             calls += 1
             assert re.search(r"build\.check\(code, ", src[m.end():m.end() + 600]), (
                 path, m.group(1))
-    assert calls == 9
+    assert calls == 10
 
 
 def test_each_launch_counter_bumped_once():
     from ice_halo_sim_tpu_torch.kernels import build
 
     srcs = "".join(open(p).read() for p in _port_files((".py",)))
-    assert len(build.LAUNCHES) == 13 and "trace_emit_pool" in build.LAUNCHES
+    assert len(build.LAUNCHES) == 14 and "trace_emit_pool" in build.LAUNCHES
     assert {"sandwich_lane", "sandwich_sublane", "sandwich_iota", "extract_blocks"} <= \
         set(build.LAUNCHES)
-    assert "pack_valid_blocks" in build.LAUNCHES and "scatter_blocks" in build.LAUNCHES
+    assert {"pack_valid_blocks", "scatter_blocks", "compact_rows"} <= set(build.LAUNCHES)
     for name in build.LAUNCHES:
         assert srcs.count(f'build.LAUNCHES["{name}"] += 1') == 1, name
 
@@ -172,13 +172,58 @@ def test_pack_valid_blocks_never_falls_to_the_plain_version():
                                     9, 4096)
     for call in (
         lambda: block_ops.pack_valid_blocks(meta(4096, torch.int32), [meta(4096)], 9, 4096),
-        lambda: block_ops.scatter_blocks(torch.empty((1, 4096), device="meta"),
+        lambda: block_ops.scatter_blocks([torch.empty((1, 4096), device="meta")],
                                          meta(1, torch.int32), 4096, 4096),
     ):
         with pytest.raises(Exception) as exc:
             call()
         assert not isinstance(exc.value, (ValueError, AssertionError)), exc.value
     assert build.LAUNCHES == before
+
+
+def test_scatter_and_compaction_never_fall_to_the_plain_version():
+    """The block scatter (K3, K3', all columns and a permutation in one
+    launch) and compact_rows on tensors that are not on the CPU: bad
+    arguments raise ValueError before any launch, good ones reach the kernel
+    build (absent here), and no counter moves. Meta tensors stand in for
+    CUDA tensors."""
+    import pytest
+
+    from ice_halo_sim_tpu_torch.core import block_ops
+    from ice_halo_sim_tpu_torch.kernels import build, kernel_set
+
+    def meta(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    cols, start = [meta((3, 1024))] * 7, meta(3, torch.int32)
+    before = dict(build.LAUNCHES)
+    with pytest.raises(ValueError, match="1 to 8 columns"):
+        block_ops.scatter_blocks([meta((3, 1024))] * 9, start, 4096, 1024)
+    with pytest.raises(ValueError, match="perm must be"):
+        block_ops.scatter_blocks(cols, start, 4096, 1024, perm=meta((3, 1024), torch.int64))
+    with pytest.raises(ValueError, match="columns \\[G, blk\\]"):
+        block_ops.scatter_blocks(cols + [meta((2, 1024))], start, 4096, 1024)
+    with pytest.raises(ValueError, match="blocks of 4096"):
+        block_ops.compact_rows(meta(8192, torch.int32), [meta(8192)], 4096, 2048)
+    with pytest.raises(ValueError, match="1 to 3 payload"):
+        block_ops.compact_rows(meta(8192, torch.int32), [meta(8192)] * 4, 4096, 4096)
+    with pytest.raises(ValueError, match="one length"):
+        block_ops.compact_rows(meta(8192, torch.int32), [meta(8191)], 4096, 4096)
+    for call in (
+        lambda: block_ops.scatter_blocks(cols, start, 4096, 1024,
+                                         perm=meta((3, 1024), torch.int32)),
+        lambda: block_ops.scatter_blocks_multi(cols[:2], start, 4096, 1024,
+                                               marker_tail=(100, 50, 7, 127)),
+        lambda: block_ops.compact_rows(meta(8192 + 5, torch.int32), [meta(8192 + 5)] * 3,
+                                       4096, 4096),
+    ):
+        with pytest.raises(Exception) as exc:
+            call()
+        assert not isinstance(exc.value, (ValueError, AssertionError)), exc.value
+    assert build.LAUNCHES == before
+    assert kernel_set("cuda").compact_rows is block_ops.compact_rows
+    assert kernel_set("plain").compact_rows is block_ops.compact_rows_plain
+    assert kernel_set("cuda").scatter_blocks is block_ops.scatter_blocks
 
 
 def test_sandwich_wrappers_never_fall_to_the_plain_version():

@@ -221,8 +221,8 @@ def test_sandwich_iota_plain_matches_probe_kernel(monkeypatch):
 
 
 def test_extract_blocks_plain_matches_np_reference():
-    """P2: forward-overwrite block scatter; also as the gather that the CUDA
-    kernel computes (the block scatter's plain version)."""
+    """P2: forward-overwrite block scatter; also through the block scatter's
+    plain version (one column), which the CUDA kernel is held to."""
     from ice_halo_sim_tpu_torch.core import block_ops
 
     probe = _script("probe_pallas_scatter")
@@ -233,14 +233,14 @@ def test_extract_blocks_plain_matches_np_reference():
     got = probe_scatter.extract_blocks(vals, start, n_out, block)
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(
-        block_ops.scatter_blocks_plain(vals, start, n_out, block).numpy(), want)
+        block_ops.scatter_blocks_plain([vals], start, n_out, block)[0].numpy(), want)
     # A start at the end of the output, and equal starts: the later block wins.
     start2 = torch.tensor([0, 100, 100, n_out], dtype=torch.int32)
     want2 = probe.np_reference(vals[:4].numpy(), start2.numpy(), n_out, block)
     np.testing.assert_array_equal(
         probe_scatter.extract_blocks(vals[:4], start2, n_out, block).numpy(), want2)
     np.testing.assert_array_equal(
-        block_ops.scatter_blocks_plain(vals[:4], start2, n_out, block).numpy(), want2)
+        block_ops.scatter_blocks_plain([vals[:4]], start2, n_out, block)[0].numpy(), want2)
 
 
 # --------------------------------------------------------------------------
