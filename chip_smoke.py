@@ -59,7 +59,14 @@ Phases (any failure raises; the exit code is then non-zero):
      with IHT_FOLD unset: the card's default, the sort fold), and whether
      each decision is within 0.1 ms of the faster fold; and the
      two probes' own main paths (P1, P2);
-  5. steady rays/s of the five slices (informational).
+  5. steady rays/s of the five slices (informational); then per scene
+     (BENCH_CFG, POOL_CFG, MS_CFG, COLOR_CFG) the host loop: an eager and a
+     CUDA-graph engine at IHT_STEPS_PER_DISPATCH=8, one calibrating and two
+     steady dispatches each, bit for bit equal, one host read per steady
+     dispatch and none per batch, each engine's rays/s, device busy time,
+     kernels per batch and idle share, and overflow_replays;
+  6. the bench entry (python -m ice_halo_sim_tpu_torch.bench) with three
+     windows of 2 s; its JSON line.
 
 The last lines of standard output are the kernels JSON object, the card
 (nvidia-smi) and the device JSON object. Imports nothing of JAX and
@@ -106,6 +113,8 @@ BF16_MASS, BF16_L1 = 2e-3, 6e-3
 # IHT_FOLD=auto's check: each engine's steady batch is timed this many times,
 # in turns with the other engines of the scene.
 FOLD_TURNS = 5
+# Batches per dispatch of phase [5]'s eager and graph engines.
+GRAPH_K = 8
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet): device memory, float32
 # outside the tensor cores. The special-function rate follows from the SM's
@@ -321,7 +330,7 @@ def phase_kernels(cfg, device, res: list):
                    "gather, no single call")
 
     # K2 (with the block pack inside) against the plain twin.
-    args = (plan, base & 0xFFFFFFFF, base >> 32, BATCH, device)
+    args = (plan, base, BATCH, device)
     out_k = trace_emit.trace_emit(*args)
     out_p = trace_emit.trace_emit_plain(*args)
     err = _check_trace("trace_emit", out_k, out_p, trace_emit.trace_emit(*args))
@@ -468,7 +477,7 @@ def phase_kernel_pool(cfg, device, res: list):
     print(f"  pool: {plan.pool_k} shapes, present faces per shape "
           f"{float(present.sum(1).mean()):.2f}, ptbl {ptbl.numel() * 4 / 1e6:.2f} MB, "
           f"ttbl {ttbl.numel() * 4 / 1e6:.2f} MB", flush=True)
-    args = (plan, base & 0xFFFFFFFF, base >> 32, BATCH, device, ptbl, ttbl)
+    args = (plan, base, BATCH, device, ptbl, ttbl)
     out_k = trace_emit.trace_emit(*args)
     torch.cuda.synchronize()
     out_p = trace_emit.trace_emit_plain(*args)
@@ -492,8 +501,7 @@ def _fold_rows(eng, render: int, batch_counter: int):
     from ice_halo_sim_tpu_torch.core import accum
     from ice_halo_sim_tpu_torch.core.bits import to_bits
 
-    base = eng.ray_base(batch_counter)
-    contribs = eng._trace_batch_impl(base & 0xFFFFFFFF, base >> 32, batch_counter)[0]
+    contribs = eng._trace_batch_impl(batch_counter)[0]
     pix, w, wl_idx, mask = contribs[render]
     P = eng.accum[render].shape[0]
     key, wz = accum.pack_spectral_keys(pix, w, wl_idx, P, eng.k_pool)
@@ -536,8 +544,7 @@ def _continuation_scatter(eng, batch_counter: int) -> list:
 
     eng.ks = ks._replace(scatter_blocks=capture)
     try:
-        base = eng.ray_base(batch_counter)
-        eng._trace_batch_impl(base & 0xFFFFFFFF, base >> 32, batch_counter)
+        eng._trace_batch_impl(batch_counter)
     finally:
         eng.ks = ks
     return calls
@@ -1094,8 +1101,7 @@ def phase_kernels_cascade(eng, device, res: list, batch_counter: int = 5):
     kernels = (("sandwich_lane", "lane", "ice_halo_sim_tpu/core/pallas_sandwich.py:283"),
                ("sandwich_sublane", "sublane", "ice_halo_sim_tpu/core/pallas_sandwich.py:314"))
     levels_of = {name: [] for name, _l, _r in kernels}
-    base = eng.ray_base(batch_counter)
-    contribs = eng._trace_batch_impl(base & 0xFFFFFFFF, base >> 32, batch_counter)[0]
+    contribs = eng._trace_batch_impl(batch_counter)[0]
     for r, (cpix, cw_, cwl, _mask) in enumerate(contribs):
         P = eng.proj_plans[r].height * eng.proj_plans[r].width
         img = torch.zeros((P, 3), dtype=F32, device=device)
@@ -1359,6 +1365,93 @@ def phase_fixture(name, cfg, device, pixel_budget: int, segment_budget: int,
         raise AssertionError(f"{name}: dropped weight differs from the fixture")
 
 
+def _busy_and_kernels(fn):
+    """(device busy ms, device kernels) of one call of fn under the
+    profiler (kernels, copies and memsets; those a CUDA graph replays
+    included), or (None, 0) when the profiler saw no device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    us = sum(e.self_device_time_total for e in ev)
+    return (us / 1e3 if us > 0 else None), sum(e.count for e in ev)
+
+
+def phase_graphs(name, cfg, device, k: int = GRAPH_K):
+    """One scene eagerly (graphs=False) and with CUDA graphs, k batches per
+    dispatch (IHT_STEPS_PER_DISPATCH): one calibrating dispatch and two
+    steady dispatches each; the images, landed weights and stats must be
+    equal bit for bit, a steady dispatch must read the host once (an
+    overflowing batch adds its own reads, counted in overflow_replays) and
+    the graph engine must replay. Then per engine a timed steady dispatch
+    (wall clock to a synchronise: rays/s) and a profiled one (device busy
+    time and kernels per batch; idle share = 1 - busy / wall of the timed
+    one)."""
+    import torch
+
+    from ice_halo_sim_tpu_torch.engine.simulator import Engine
+
+    out = {}
+    for graphs in (False, True):
+        with _knobs(IHT_STEPS_PER_DISPATCH=str(k), IHT_FOLD="sort"):
+            eng = Engine(cfg, seed=7, batch_size=BATCH, device=device, graphs=graphs)
+        eng.run(n_batches=k)
+        syncs = eng.host_syncs
+        eng.run(n_batches=k)
+        eng.run(n_batches=k)
+        steady_syncs = eng.host_syncs - syncs
+        if not eng.overflow_replays and steady_syncs != 2:
+            raise AssertionError(f"{name}: {steady_syncs} host reads in two steady dispatches")
+        st = eng.drain_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run(n_batches=k)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / k
+        busy, kernels = _busy_and_kernels(lambda: eng.run(n_batches=k))
+        busy = None if busy is None else busy / k
+        out[graphs] = (eng, st)
+        idle = "not measured" if busy is None else f"{1.0 - busy / (wall * 1e3):.4f}"
+        print(f"[5] {name} {'graph' if graphs else 'eager'}: {eng.graph_mode}; "
+              f"{BATCH / wall:.6g} rays/s, wall {wall * 1e3:.4f} ms/batch, device busy "
+              f"{'not measured' if busy is None else f'{busy:.4f}'} ms/batch in "
+              f"{kernels / k:.0f} device kernels per batch, idle share {idle}; host reads "
+              f"{steady_syncs / 2:.1f} per steady dispatch, {steady_syncs / (2 * k):.3f} per "
+              f"steady batch; overflow_replays {eng.overflow_replays}", flush=True)
+    (e, se), (g, sg) = out[False], out[True]
+    if g.graph_mode != "cuda graph" or g._graph is None:
+        raise AssertionError(f"{name}: the graph engine did not replay ({g.graph_mode})")
+    if se != sg:
+        raise AssertionError(f"{name}: graph stats {sg} != eager {se}")
+    # The two engines ran the same batches (a timed and a profiled dispatch
+    # after the stats were drained): every accumulator bit for bit.
+    for i, (a, b) in enumerate(zip(e.accum, g.accum)):
+        if not _bits_equal(a, b):
+            raise AssertionError(f"{name}: graph accumulator {i} differs from eager")
+    print(f"[5] {name}: graph == eager bit for bit over {4 * k} batches (one calibrating, "
+          f"three steady dispatches and a profiled one of {k})", flush=True)
+
+
+def phase_bench(smi):
+    """The bench entry with a short window; prints its line."""
+    import contextlib
+    import io
+
+    from ice_halo_sim_tpu_torch import bench
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench.main(["--window", "2", "--windows", "3"])
+    line = buf.getvalue().strip().splitlines()[-1]
+    res = json.loads(line)
+    if rc != 0 or res["platform"] != "cuda" or not res["value"] > 0 or res["card"] != smi:
+        raise AssertionError(f"bench entry: rc {rc}, {line}")
+    print(f"[6] bench entry (3 windows of 2 s): {line}", flush=True)
+
+
 def phase_rate(eng, n: int = 20):
     import torch
 
@@ -1488,7 +1581,13 @@ def main() -> int:
     for name, eng in engines.items():
         rate = phase_rate(eng, 20 if name in ("bench", "pool") else 8)
         print(f"[5] {name} steady rate: {rate:.6g} rays/s (batch {BATCH}, "
-              f"{eng.trace_path}, fold {eng.fold_kind}) on {smi}", flush=True)
+              f"{eng.trace_path}, fold {eng.fold_kind}, {eng.graph_mode}) on {smi}", flush=True)
+    del engines
+    t5 = time.time()
+    for name, cfg in (("bench", bench), ("pool", pool), ("ms", ms), ("color", colour)):
+        phase_graphs(name, cfg, device)
+    phase_bench(smi)
+    print(f"[5] and [6]: {time.time() - t5:.1f} s", flush=True)
     print(f"timings that fell back to CUDA events: {len(FALLBACKS)} "
           f"{json.dumps(FALLBACKS)}", flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)

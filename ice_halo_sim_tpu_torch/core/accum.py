@@ -137,10 +137,10 @@ def accumulate(acc, pix, vals, method: str, ks):
 
 def sort_keys(keys, w):
     """Unstable sort of (u32 key bits, f32 weight) rows by key."""
-    hi = (keys ^ torch.tensor(-(1 << 31), dtype=I32, device=keys.device)).to(I64)
+    hi = (keys ^ -(1 << 31)).to(I64)
     lo = w.contiguous().view(I32).to(I64) & MASK32
     s, _ = torch.sort(hi * (1 << 32) + lo)
-    sk = ((s >> 32).to(I32)) ^ torch.tensor(-(1 << 31), dtype=I32, device=keys.device)
+    sk = ((s >> 32).to(I32)) ^ -(1 << 31)
     sw = (s & MASK32).to(I64)
     sw = torch.where(sw >= 1 << 31, sw - (1 << 32), sw).to(I32).view(F32)
     return sk, sw
@@ -209,10 +209,34 @@ def compact_by_key(key, cols, keep: int, ks, block: int = BLOCK, with_key: bool 
     return tuple(ks.scatter_blocks(vals, start, keep, block, perm=order)), counts.sum()
 
 
+_SCAN_TILE = 4096
+
+
+def _rows_cumsum(x):
+    """cumsum along the rows of a 2-D tensor, with one zero row added: a
+    cumsum that reduces to one row is a flat scan, which torch runs on a CUDA
+    tensor through CUB's decoupled look-back, whose float sums depend on
+    timing; the per-row scan adds in a fixed order."""
+    return torch.cat([x, torch.zeros_like(x[:1])]).cumsum(dim=1)[:-1]
+
+
+def cumsum_fixed_order(v):
+    """Inclusive cumsum of a 1-D float tensor, the same bits on every run:
+    running sums inside tiles of _SCAN_TILE rows, then each tile's offset,
+    the running sum of the tiles' totals before it."""
+    n = v.shape[0]
+    x = torch.cat([v, v.new_zeros(-n % _SCAN_TILE)]).view(-1, _SCAN_TILE)
+    rows = _rows_cumsum(x)
+    ends = _rows_cumsum(rows[:, -1][None, :])[0]
+    offset = torch.cat([ends.new_zeros(1), ends[:-1]])
+    return (rows + offset[:, None]).view(-1)[:n]
+
+
 def _segmented_totals(sk, chans, shift: int, n_pixels: int):
     """Per-pixel running sums over sorted rows: the last row of each run of
     equal ``key >> shift`` holds that pixel's total. chans: list of [M]
-    float32 >= 0. Summed in float64, rounded once.
+    float32 >= 0. Summed in float64 in a fixed order (cumsum_fixed_order),
+    rounded once.
 
     Each channel is one flat running sum, and a run's base (the sum before
     its first row) goes through a table indexed by the pixel: the first row
@@ -226,7 +250,7 @@ def _segmented_totals(sk, chans, shift: int, n_pixels: int):
     out = []
     for ch in chans:
         v = ch.to(torch.float64)
-        cs = torch.cumsum(v, dim=0)
+        cs = cumsum_fixed_order(v)
         base = torch.zeros(n_pixels + 2, dtype=torch.float64, device=sk.device)
         base.scatter_(0, slot, cs - v)
         out.append((cs - base[pix]).to(F32))

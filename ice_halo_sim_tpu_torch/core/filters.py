@@ -24,6 +24,7 @@ import math
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ice_halo_sim_tpu_torch.config.schema import (
@@ -38,7 +39,7 @@ from ice_halo_sim_tpu_torch.config.schema import (
     RaypathFilter,
     Symmetry,
 )
-from ice_halo_sim_tpu_torch.core.bits import I32
+from ice_halo_sim_tpu_torch.core import bits
 
 FN_PERIOD = 6  # hexagonal family
 
@@ -314,7 +315,7 @@ def check_exits_prefix_soa(plan: Optional[FilterPlan], path, live, dirs):
             return cache[k]
 
         def canon_col(s):
-            return torch.tensor(s.canonical, dtype=I32, device=dev)[:, None]
+            return bits.const(np.asarray(s.canonical, np.int32), dev)[:, None]
 
         matched = None
         for clause in plan.clauses:

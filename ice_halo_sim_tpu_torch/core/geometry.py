@@ -15,7 +15,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ice_halo_sim_tpu_torch.core.bits import F32, I32
+from ice_halo_sim_tpu_torch.core.bits import F32, I32, const
 
 SQRT3 = float(np.sqrt(3.0))
 SQRT3_4 = SQRT3 / 4.0
@@ -27,6 +27,10 @@ _PAIRS = np.array(
     [(i, j) for i in range(6) for j in range(i + 1, 6) if j != i + 3], np.int64
 )
 N_CANDIDATES = len(_PAIRS)
+# Which two of the six side lines each candidate corner lies on.
+_ON_LINE = np.zeros((N_CANDIDATES, 6), bool)
+_ON_LINE[np.arange(N_CANDIDATES), _PAIRS[:, 0]] = True
+_ON_LINE[np.arange(N_CANDIDATES), _PAIRS[:, 1]] = True
 
 PRISM_FACES = 8
 PYRAMID_FACES = 20
@@ -39,6 +43,10 @@ PYRAMID_FACE_NUMBER = np.array(
     + [23 + i for i in range(6)],
     np.int32,
 )
+# Face normals of the prism's 8 slots: basal (+z, -z), then the six sides.
+_PRISM_PLANE_N = np.concatenate(
+    [np.array([[0.0, 0.0, 1.0], [0.0, 0.0, -1.0]], np.float32),
+     np.stack([HEX_COS, HEX_SIN, np.zeros(6, np.float32)], axis=-1)])
 
 _EPS = 1e-5
 
@@ -66,10 +74,10 @@ class HexCrossSection(NamedTuple):
 def hex_cross_section(r) -> HexCrossSection:
     """Intersection of the six half-planes x.dir_i <= r_i, r: [K, 6]."""
     dev = r.device
-    cos_t = torch.as_tensor(HEX_COS, device=dev)
-    sin_t = torch.as_tensor(HEX_SIN, device=dev)
-    i_idx = torch.as_tensor(_PAIRS[:, 0], device=dev)
-    j_idx = torch.as_tensor(_PAIRS[:, 1], device=dev)
+    cos_t = const(HEX_COS, dev)
+    sin_t = const(HEX_SIN, dev)
+    i_idx = const(_PAIRS[:, 0], dev)
+    j_idx = const(_PAIRS[:, 1], dev)
     ci, si, ri = cos_t[i_idx], sin_t[i_idx], r[:, i_idx]
     cj, sj, rj = cos_t[j_idx], sin_t[j_idx], r[:, j_idx]
     det = ci * sj - si * cj
@@ -82,11 +90,7 @@ def hex_cross_section(r) -> HexCrossSection:
     proj = corners[..., 0:1] * cos_t + corners[..., 1:2] * sin_t  # [K, 12, 6]
     valid = torch.all(proj <= r[:, None, :] + tol[:, None, :], dim=-1)
 
-    on_line = torch.zeros((N_CANDIDATES, 6), dtype=torch.bool, device=dev)
-    rows = torch.arange(N_CANDIDATES, device=dev)
-    on_line[rows, i_idx] = True
-    on_line[rows, j_idx] = True
-    use = on_line[None] & valid[..., None]                        # [K, 12, 6]
+    use = const(_ON_LINE, dev)[None] & valid[..., None]           # [K, 12, 6]
     tang_u = -corners[..., 0:1] * sin_t + corners[..., 1:2] * cos_t
     big = 1e30
     u_min = torch.min(torch.where(use, tang_u, big), dim=1).values
@@ -138,11 +142,7 @@ def prism_geom_batch(h, dist) -> CrystalGeom:
     xs = hex_cross_section(r_side)
 
     h_half = 0.5 * h
-    hex_n = torch.stack(
-        [torch.as_tensor(HEX_COS), torch.as_tensor(HEX_SIN), torch.zeros(6)], dim=-1)
-    plane_n = torch.cat(
-        [torch.tensor([[0.0, 0.0, 1.0], [0.0, 0.0, -1.0]], dtype=F32), hex_n], dim=0
-    ).to(dev)[None].expand(K, -1, -1)
+    plane_n = const(_PRISM_PLANE_N, dev)[None].expand(K, -1, -1)
     plane_d = torch.cat([torch.stack([-h_half, -h_half], dim=-1), -r_side], dim=-1)
 
     degenerate = h <= _EPS
@@ -173,7 +173,7 @@ def prism_geom_batch(h, dist) -> CrystalGeom:
     return CrystalGeom(
         plane_n=plane_n,
         plane_d=plane_d,
-        face_number=torch.as_tensor(PRISM_FACE_NUMBER, device=dev)[None].expand(K, -1),
+        face_number=const(PRISM_FACE_NUMBER, dev)[None].expand(K, -1),
         face_present=face_present,
         face_vtx=face_vtx,
         face_vtx_cnt=face_vtx_cnt,

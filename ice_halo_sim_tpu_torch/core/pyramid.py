@@ -32,7 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ice_halo_sim_tpu_torch.core.bits import F32, I32, I64, divs
+from ice_halo_sim_tpu_torch.core.bits import F32, I32, I64, const, divs
 from ice_halo_sim_tpu_torch.core.geometry import (
     HEX_COS,
     HEX_SIN,
@@ -64,6 +64,9 @@ for _f in range(_NF):
     _FACE_PAIRS[_f] = np.asarray(
         [(g, h) for (g, h) in _pairs if g != _f and h != _f], np.int64)
 N_CAND = _FACE_PAIRS.shape[1]  # 171
+_EX = np.array([1.0, 0.0, 0.0], np.float32)
+_EY = np.array([0.0, 1.0, 0.0], np.float32)
+_N_BASAL = np.array([[0.0, 0.0, 1.0], [0.0, 0.0, -1.0]], np.float32)
 
 
 def _cross(a, b):
@@ -78,9 +81,9 @@ def _apex_lp(dist_scaled):
     """Max feasible inset (scaled units) over the 20 direction triples;
     dist_scaled [K, 6] -> [K]."""
     dev = dist_scaled.device
-    cs = torch.as_tensor(HEX_COS, device=dev)
-    sn = torch.as_tensor(HEX_SIN, device=dev)
-    i, j, k = (torch.as_tensor(_TRIPLES[:, c], device=dev) for c in range(3))
+    cs = const(HEX_COS, dev)
+    sn = const(HEX_SIN, dev)
+    i, j, k = (const(_TRIPLES[:, c], dev) for c in range(3))
     det = cs[i] * (sn[j] - sn[k]) - sn[i] * (cs[j] - cs[k]) + (cs[j] * sn[k] - cs[k] * sn[j])
     di, dj, dk = dist_scaled[:, i], dist_scaled[:, j], dist_scaled[:, k]
     safe_det = torch.where(torch.abs(det) > 1e-9, det, 1.0)
@@ -108,7 +111,7 @@ def _face_polygons(plane_n, plane_d, ref_scale):
     """
     dev = plane_n.device
     K = plane_n.shape[0]
-    pairs = torch.as_tensor(_FACE_PAIRS, device=dev)              # [NF, C, 2]
+    pairs = const(_FACE_PAIRS, dev)                               # [NF, C, 2]
     n_f = plane_n                                                 # [K, NF, 3]
     n_g = plane_n[:, pairs[..., 0]]                               # [K, NF, C, 3]
     d_g = plane_d[:, pairs[..., 0]]
@@ -141,8 +144,8 @@ def _face_polygons(plane_n, plane_d, ref_scale):
     feasible = ok_det & (max_slack <= tol[:, :, None])            # [K, NF, C]
 
     # Angular sort in the face plane around the feasible centroid.
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=F32, device=dev)
-    ey = torch.tensor([0.0, 1.0, 0.0], dtype=F32, device=dev)
+    ex = const(_EX, dev)
+    ey = const(_EY, dev)
     t1 = torch.where(torch.abs(n_f[..., 0:1]) < 0.9, ex, ey)
     t1 = t1 - torch.sum(t1 * n_f, dim=-1, keepdim=True) * n_f
     t1 = t1 / torch.sqrt(torch.sum(t1 * t1, dim=-1, keepdim=True))
@@ -251,8 +254,8 @@ def pyramid_geom_batch(h1, h2, h3, alpha_u_deg: float, alpha_l_deg: float,
     dist = torch.as_tensor(dist, dtype=F32, device=dev)
     K = h1.shape[0]
 
-    cs = torch.as_tensor(HEX_COS, device=dev)
-    sn = torch.as_tensor(HEX_SIN, device=dev)
+    cs = const(HEX_COS, dev)
+    sn = const(HEX_SIN, dev)
     dist_scaled = float(np.float32(_INSET_K)) * dist
     m_apex_scaled = _apex_lp(dist_scaled)
     m_apex = divs(m_apex_scaled, float(np.float32(_INSET_K)))
@@ -276,7 +279,7 @@ def pyramid_geom_batch(h1, h2, h3, alpha_u_deg: float, alpha_l_deg: float,
     # 0), d = -(sqrt3/4) dist; cones with unit normal (cs cosA, sn cosA,
     # +-sinA).
     zeros6 = torch.zeros(6, dtype=F32, device=dev)
-    n_basal = torch.tensor([[0.0, 0.0, 1.0], [0.0, 0.0, -1.0]], dtype=F32, device=dev)
+    n_basal = const(_N_BASAL, dev)
     d_basal = torch.stack([-z_top, z_bot], dim=-1)
     n_prism = torch.stack([cs, sn, zeros6], dim=-1)
     d_prism = -dist_scaled
@@ -312,7 +315,7 @@ def pyramid_geom_batch(h1, h2, h3, alpha_u_deg: float, alpha_l_deg: float,
     return CrystalGeom(
         plane_n=plane_n,
         plane_d=plane_d,
-        face_number=torch.as_tensor(PYRAMID_FACE_NUMBER, device=dev)[None].expand(K, -1),
+        face_number=const(PYRAMID_FACE_NUMBER, dev)[None].expand(K, -1),
         face_present=face_present,
         face_vtx=face_vtx,
         face_vtx_cnt=cnt,

@@ -34,7 +34,8 @@ def _t(x, like=None):
     if isinstance(x, torch.Tensor):
         return x.to(I64)
     dev = like.device if isinstance(like, torch.Tensor) else None
-    return torch.tensor(int(x) & MASK32, dtype=I64, device=dev)
+    # A fill, not a copy from host memory: capturable in a CUDA graph.
+    return torch.full((), int(x) & MASK32, dtype=I64, device=dev)
 
 
 def pcg_hash(x):

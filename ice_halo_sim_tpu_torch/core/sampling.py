@@ -14,7 +14,7 @@ import torch
 from ice_halo_sim_tpu_torch.config.schema import AxisDistribution, DistType
 from ice_halo_sim_tpu_torch.core.latlut import N_NODES
 from ice_halo_sim_tpu_torch.core import rng
-from ice_halo_sim_tpu_torch.core.bits import F32, I32, divs
+from ice_halo_sim_tpu_torch.core.bits import F32, I32, const, divs
 from ice_halo_sim_tpu_torch.core.geometry import CrystalGeom
 
 LAT_FULL_SPHERE = 0
@@ -120,7 +120,7 @@ def normalize_latitude(phi):
 def _invert_lat_lut_loop(xi, theta_nodes, cdf_nodes):
     """Inverse-CDF latitude lookup; the values of the JAX node loop (the
     masked max/min over the monotone CDF), evaluated as one [B, N] pass."""
-    cdf = torch.as_tensor(np.asarray(cdf_nodes, np.float32), device=xi.device)
+    cdf = const(np.asarray(cdf_nodes, np.float32), xi.device)
     n = cdf.shape[0]
     c_first, c_last = float(cdf_nodes[0]), float(cdf_nodes[-1])
     xi = torch.clamp(xi, c_first, c_last)
@@ -147,8 +147,7 @@ def _flip_prob_loop(theta, theta_nodes, flip_tbl):
     else:
         t = torch.zeros_like(theta)
     idx = torch.clamp((t * (N_NODES - 1)).to(I32), 0, N_NODES - 2)
-    tbl = torch.as_tensor(np.asarray(flip_tbl, np.float32)[: N_NODES - 1],
-                          device=theta.device)
+    tbl = const(np.asarray(flip_tbl, np.float32)[: N_NODES - 1], theta.device)
     return tbl[idx.long()]
 
 

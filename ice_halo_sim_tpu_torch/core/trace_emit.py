@@ -41,7 +41,7 @@ from ice_halo_sim_tpu_torch.core import (
     trace_soa,
 )
 from ice_halo_sim_tpu_torch.core.accum import key_shift
-from ice_halo_sim_tpu_torch.core.bits import F32, I32, I64, MASK32, to_bits
+from ice_halo_sim_tpu_torch.core.bits import F32, I32, I64, MASK32, from_bits, to_bits
 from ice_halo_sim_tpu_torch.kernels import build
 
 LAYER_NONCE = 0xA5A5
@@ -260,19 +260,33 @@ def _check_pool_tables(plan: TracePlan, ptbl, ttbl, device) -> None:
                 f"on {device}")
 
 
-def trace_rows_plain(plan: TracePlan, base_lo: int, base_hi: int, n_active: int,
-                     device, ptbl=None, ttbl=None):
+def base_words(base, device) -> torch.Tensor:
+    """A batch's 64-bit ray base as the trace kernel reads it: int32 [2],
+    the u32 bit patterns of its low and high words, on `device`. `base` is
+    a python int, or such a tensor already (returned as it is: the engine
+    derives it on the device from its batch counter)."""
+    if isinstance(base, torch.Tensor):
+        if base.dtype != I32 or tuple(base.shape) != (2,):
+            raise ValueError(f"a base tensor must be int32 [2], got {base.dtype} "
+                             f"{tuple(base.shape)}")
+        return base
+    b = int(base)
+    return to_bits(torch.tensor([b & MASK32, (b >> 32) & MASK32], dtype=I64)).to(device)
+
+
+def trace_rows_plain(plan: TracePlan, base, n_active: int, device, ptbl=None, ttbl=None):
     """The uncompacted slabs: per render keys/w [G, rows_block] in slab
-    order, plus (landed [R], dropped, segs). Blocked-pool plans take the
-    batch's ptbl/ttbl; ray `lane` reads row lane // 128 of both."""
+    order, plus (landed [R], dropped, segs). `base`: the 64-bit ray base
+    (``base_words``). Blocked-pool plans take the batch's ptbl/ttbl; ray
+    `lane` reads row lane // 128 of both."""
     device = torch.device(device)
     _check_pool_tables(plan, ptbl, ttbl, device)
     B, NR, H, K = plan.batch, plan.nr, plan.h, plan.k_pool
     G = B // NR
     shift = key_shift(K)
     lane = torch.arange(B, dtype=I64, device=device)
-    base_lo = int(base_lo) & MASK32
-    base_hi = int(base_hi) & MASK32
+    words = from_bits(base_words(base, device))
+    base_lo, base_hi = words[0], words[1]
     ray_idx = (lane + base_lo) & MASK32
     hi = (base_hi + (ray_idx < base_lo).to(I64)) & MASK32
     seed0 = plan.seed
@@ -470,12 +484,11 @@ def trace_rows_plain(plan: TracePlan, base_lo: int, base_hi: int, n_active: int,
     return out, torch.stack(landed), dropped, segs.to(I64).sum()
 
 
-def trace_emit_plain(plan: TracePlan, base_lo: int, base_hi: int, n_active: int,
-                     device, ptbl=None, ttbl=None):
+def trace_emit_plain(plan: TracePlan, base, n_active: int, device, ptbl=None, ttbl=None):
     """Plain twin: per_render [(keys [G, rb] int32, w [G, rb], counts [G])],
     landed [R], dropped, segs."""
-    slabs, landed, dropped, segs = trace_rows_plain(plan, base_lo, base_hi,
-                                                    n_active, device, ptbl, ttbl)
+    slabs, landed, dropped, segs = trace_rows_plain(plan, base, n_active, device, ptbl,
+                                                    ttbl)
     per_render = []
     for (keys, wts), rb in zip(slabs, plan.rows_block):
         G = keys.shape[0]
@@ -493,8 +506,7 @@ class TraceParams(ctypes.Structure):
 
     _fields_ = [
         ("slab_off", ctypes.c_longlong * MAX_RENDERS),
-        ("seed", ctypes.c_uint32), ("base_lo", ctypes.c_uint32),
-        ("base_hi", ctypes.c_uint32),
+        ("seed", ctypes.c_uint32),
     ] + [(n, ctypes.c_int32) for n in (
         "n_active", "batch", "nr", "h", "k_pool", "wl_discrete", "n_wl")] + [
         ("prob", ctypes.c_float), ("emit_cut", ctypes.c_float),
@@ -530,14 +542,14 @@ class TraceParams(ctypes.Structure):
     ] + [(n, ctypes.c_int32) for n in ("rp", "hg", "ncta", "key_shift", "grid_blocks")]
 
 
-def make_params(plan: TracePlan, base_lo: int, base_hi: int, n_active: int):
+def make_params(plan: TracePlan, n_active: int):
     """The kernel's parameter block: the plan's part is filled once and
-    kept, the batch's three words are set per call (a launch copies the
-    block, so the next call may overwrite it)."""
+    kept, the batch's active lanes are set per call (a launch copies the
+    block, so the next call may overwrite it). The ray base is not in it:
+    the kernel reads it from device memory."""
     p = plan._cache.get("params")
     if p is None:
         p = plan._cache["params"] = _plan_params(plan)
-    p.base_lo, p.base_hi = int(base_lo) & MASK32, int(base_hi) & MASK32
     p.n_active = int(n_active)
     return p
 
@@ -611,19 +623,23 @@ def _plan_params(plan: TracePlan):
     return p
 
 
-def trace_emit(plan: TracePlan, base_lo: int, base_hi: int, n_active: int, device,
-               ptbl=None, ttbl=None):
+def trace_emit(plan: TracePlan, base, n_active: int, device, ptbl=None, ttbl=None):
     """K2/K2b wrapper: the plain twin on the CPU; on a CUDA device the trace
     kernel (static mode, or blocked-pool mode when the plan has a pool and
     the batch's ptbl/ttbl are given), which packs each 2048-ray block
-    itself."""
+    itself. `base`: the 64-bit ray base, a python int or the int32 [2]
+    words on the device (``base_words``), which the kernel reads there."""
     device = torch.device(device)
     if device.type == "cpu":
-        return trace_emit_plain(plan, base_lo, base_hi, n_active, device, ptbl, ttbl)
+        return trace_emit_plain(plan, base, n_active, device, ptbl, ttbl)
     _check_pool_tables(plan, ptbl, ttbl, device)
     if plan.nf not in (geometry.PRISM_FACES, geometry.PYRAMID_FACES):
         raise ValueError(f"the trace kernel is built for 8 or 20 face slots, not {plan.nf}")
-    params = make_params(plan, base_lo, base_hi, n_active)
+    words = base_words(base, device)
+    if words.device.type != device.type or (
+            device.index is not None and words.device.index != device.index):
+        raise ValueError(f"the ray base words must lie on {device}, not {words.device}")
+    params = make_params(plan, n_active)
     ftab = plan.device_table(device)
     G = plan.n_blocks
     R = len(plan.renders)
@@ -635,7 +651,7 @@ def trace_emit(plan: TracePlan, base_lo: int, base_hi: int, n_active: int, devic
     spart = torch.empty(n_tb, dtype=I32, device=device)
     if plan.pool_k:
         code = build.lib().iht_trace_emit_pool(
-            ctypes.addressof(params), ftab.data_ptr(), ptbl.data_ptr(), ttbl.data_ptr(),
+            ctypes.addressof(params), words.data_ptr(), ftab.data_ptr(), ptbl.data_ptr(), ttbl.data_ptr(),
             keys.data_ptr(), wts.data_ptr(), counts.data_ptr(), fpart.data_ptr(),
             spart.data_ptr(), build.stream_ptr(device),
         )
@@ -643,7 +659,7 @@ def trace_emit(plan: TracePlan, base_lo: int, base_hi: int, n_active: int, devic
         build.LAUNCHES["trace_emit_pool"] += 1
     else:
         code = build.lib().iht_trace_emit(
-            ctypes.addressof(params), ftab.data_ptr(), keys.data_ptr(), wts.data_ptr(),
+            ctypes.addressof(params), words.data_ptr(), ftab.data_ptr(), keys.data_ptr(), wts.data_ptr(),
             counts.data_ptr(), fpart.data_ptr(), spart.data_ptr(), build.stream_ptr(device),
         )
         build.check(code, "trace_emit")

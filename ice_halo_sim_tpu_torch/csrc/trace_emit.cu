@@ -44,6 +44,13 @@
 // Stats (dropped weight, traced segments, landed weight per render) go to
 // per-thread-block partials that the wrapper sums.
 //
+// The batch's 64-bit ray base is read from device memory (two u32 words,
+// low then high), not passed by value: a CUDA graph copies a launch's
+// arguments when it is captured, so a base passed by value would replay the
+// same rays every batch, while the words in memory are rewritten on the
+// device before each launch (engine/simulator.py). Every thread loads the
+// same two words once, through the read-only cache.
+//
 // The kernel is a template on the face-slot count NF (8 prism, 20 with a
 // pyramid): the per-ray plane distances are NF registers.
 //
@@ -91,7 +98,7 @@ constexpr float SLAB_EPS = 1e-5f;
 // ice_halo_sim_tpu_torch/core/trace_emit.py.
 struct TraceParams {
   long long slab_off[kMaxR];  // element offset of each render's [G, rows_block]
-  uint32_t seed, base_lo, base_hi;
+  uint32_t seed;
   int32_t n_active, batch, nr, h, k_pool, wl_discrete, n_wl;
   float prob, emit_cut;
   int32_t emit_mode;  // 0 off, 1 Russian roulette, 2 drop
@@ -448,7 +455,8 @@ __device__ void flush(const TraceParams& p, const Stage& sg, PackShared& ps, int
 // kernels then run 6-7% slower.
 template <int NF>
 __global__ void __launch_bounds__(kThreads, NF == 8 ? 8 : 6)
-trace_emit_kernel(const TraceParams p, const float* __restrict__ ftab,
+trace_emit_kernel(const TraceParams p, const uint32_t* __restrict__ base,
+                  const float* __restrict__ ftab,
                   const float* __restrict__ ptbl, const float* __restrict__ ttbl,
                   uint32_t* __restrict__ keys, float* __restrict__ wts,
                   int32_t* __restrict__ counts, float* __restrict__ fpart,
@@ -490,8 +498,9 @@ trace_emit_kernel(const TraceParams p, const float* __restrict__ ftab,
   const bool active = ray < p.nr;
   const int t = g * p.nr + ray;
   const int K = p.k_pool;
-  const uint32_t ray_idx = p.base_lo + (uint32_t)t;
-  const uint32_t hi = p.base_hi + (ray_idx < p.base_lo ? 1u : 0u);
+  const uint32_t base_lo = __ldg(base), base_hi = __ldg(base + 1);
+  const uint32_t ray_idx = base_lo + (uint32_t)t;
+  const uint32_t hi = base_hi + (ray_idx < base_lo ? 1u : 0u);
   const uint32_t seed_vec = (hi == 0u) ? p.seed : (p.seed ^ pcg_hash(hi));
 
   float wl, w0;
@@ -741,9 +750,9 @@ namespace {
 // Launch for the plan's face-slot count as clusters of p.ncta blocks; the
 // caller reads the launch error.
 template <int NF>
-void launch_nf(const TraceParams& p, const void* ftab, const void* ptbl, const void* ttbl,
-               void* keys, void* wts, void* counts, void* fpart, void* spart,
-               void* stream) {
+void launch_nf(const TraceParams& p, const void* base, const void* ftab, const void* ptbl,
+               const void* ttbl, void* keys, void* wts, void* counts, void* fpart,
+               void* spart, void* stream) {
   auto kernel = trace_emit_kernel<NF>;
   const size_t smem = (size_t)(((p.n_ftab + 3) & ~3) + 2 * p.hg * p.rp * kThreads) * 4;
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -765,9 +774,9 @@ void launch_nf(const TraceParams& p, const void* ftab, const void* ptbl, const v
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaLaunchKernelEx(&cfg, kernel, p, (const float*)ftab, (const float*)ptbl,
-                     (const float*)ttbl, (uint32_t*)keys, (float*)wts, (int32_t*)counts,
-                     (float*)fpart, (int32_t*)spart);
+  cudaLaunchKernelEx(&cfg, kernel, p, (const uint32_t*)base, (const float*)ftab,
+                     (const float*)ptbl, (const float*)ttbl, (uint32_t*)keys, (float*)wts,
+                     (int32_t*)counts, (float*)fpart, (int32_t*)spart);
 }
 
 bool plan_ok(const TraceParams& p) {
@@ -776,33 +785,36 @@ bool plan_ok(const TraceParams& p) {
          p.hg * p.rp <= kMaxEntries && p.grid_blocks % p.ncta == 0;
 }
 
-void launch_trace(const TraceParams& p, const void* ftab, const void* ptbl, const void* ttbl,
-                  void* keys, void* wts, void* counts, void* fpart, void* spart,
-                  void* stream) {
-  if (p.nf == 8) launch_nf<8>(p, ftab, ptbl, ttbl, keys, wts, counts, fpart, spart, stream);
-  else launch_nf<kMaxF>(p, ftab, ptbl, ttbl, keys, wts, counts, fpart, spart, stream);
+void launch_trace(const TraceParams& p, const void* base, const void* ftab, const void* ptbl,
+                  const void* ttbl, void* keys, void* wts, void* counts, void* fpart,
+                  void* spart, void* stream) {
+  if (p.nf == 8)
+    launch_nf<8>(p, base, ftab, ptbl, ttbl, keys, wts, counts, fpart, spart, stream);
+  else
+    launch_nf<kMaxF>(p, base, ftab, ptbl, ttbl, keys, wts, counts, fpart, spart, stream);
 }
 
 }  // namespace
 
-// Static-geometry mode (K2): the face and triangle tables are in ftab.
-extern "C" int iht_trace_emit(const void* params, const void* ftab, void* keys,
-                              void* wts, void* counts, void* fpart, void* spart,
-                              void* stream) {
+// Static-geometry mode (K2): the face and triangle tables are in ftab. base:
+// the ray base's two u32 words (low, high) in device memory.
+extern "C" int iht_trace_emit(const void* params, const void* base, const void* ftab,
+                              void* keys, void* wts, void* counts, void* fpart,
+                              void* spart, void* stream) {
   const TraceParams& p = *(const TraceParams*)params;
   if (p.pool || !plan_ok(p)) return (int)cudaErrorInvalidValue;
-  launch_trace(p, ftab, nullptr, nullptr, keys, wts, counts, fpart, spart, stream);
+  launch_trace(p, base, ftab, nullptr, nullptr, keys, wts, counts, fpart, spart, stream);
   return (int)cudaGetLastError();
 }
 
 // Blocked-pool mode (K2b): block b traces the shape in row b of ptbl
 // [batch / 128, nf * 5] and ttbl [batch / 128, n_tris * 13].
-extern "C" int iht_trace_emit_pool(const void* params, const void* ftab,
-                                   const void* ptbl, const void* ttbl, void* keys,
-                                   void* wts, void* counts, void* fpart, void* spart,
-                                   void* stream) {
+extern "C" int iht_trace_emit_pool(const void* params, const void* base,
+                                   const void* ftab, const void* ptbl, const void* ttbl,
+                                   void* keys, void* wts, void* counts, void* fpart,
+                                   void* spart, void* stream) {
   const TraceParams& p = *(const TraceParams*)params;
   if (!p.pool || p.nr % kThreads || !plan_ok(p)) return (int)cudaErrorInvalidValue;
-  launch_trace(p, ftab, ptbl, ttbl, keys, wts, counts, fpart, spart, stream);
+  launch_trace(p, base, ftab, ptbl, ttbl, keys, wts, counts, fpart, spart, stream);
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,9 @@ per colour class; float64 [P, 3] when a sandwich engine saved it), then the
 [R] landed weights. A port engine on the sandwich fold takes the images into
 its settled host images, any other into its dense accumulators. It is read here with numpy
 alone; the returned port Engine continues the same random streams from the
-saved batch counter. A JAX engine that raised its geom_clock to 128 for a
+saved batch counter (the host count, from which each dispatch sets the
+device counter). The images go into the engine's accumulators in place,
+which keep their addresses (a captured CUDA graph writes there). A JAX engine that raised its geom_clock to 128 for a
 stochastic shape saved 128, so the resumed engine samples the same pool.
 The saved exit-slot cap changes which (accounted) exit rows accumulate, so
 the resumed engine takes it instead of calibrating its own.
@@ -42,7 +44,7 @@ def load_jax_checkpoint(path: str, device="cuda", kernels=None) -> Engine:
     landed = arrays[-1]
     if landed.shape != tuple(engine.accum[-1].shape):
         raise ValueError(f"checkpoint landed shape {landed.shape} mismatch")
-    landed = torch.as_tensor(landed.astype(np.float32)).to(engine.device)
+    landed = torch.as_tensor(landed.astype(np.float32))
     if engine._sandwich_on:
         # Dense images into a sandwich engine: the mass goes to the settled
         # host images (float64, as a sandwich engine saves them); the tiles
@@ -54,17 +56,15 @@ def load_jax_checkpoint(path: str, device="cuda", kernels=None) -> Engine:
             if tuple(saved.shape[:2]) != want:
                 raise ValueError(f"checkpoint accumulator shape {saved.shape} != {want}")
         engine._settled = [np.asarray(a, np.float64)[:, :3] for a in arrays[:-1]]
-        engine.accum = engine.accum[:-1] + [landed]
     else:
         if len(arrays) != len(engine.accum):
             raise ValueError("checkpoint accumulator count mismatch")
-        accum = []
-        for saved, fresh in zip(arrays[:-1], engine.accum[:-1]):
-            if saved.shape != tuple(fresh.shape):
+        for saved, acc in zip(arrays[:-1], engine.accum[:-1]):
+            if saved.shape != tuple(acc.shape):
                 raise ValueError(
-                    f"checkpoint accumulator shape {saved.shape} != {tuple(fresh.shape)}")
-            accum.append(torch.as_tensor(saved.astype(np.float32)).to(engine.device))
-        engine.accum = accum + [landed]
+                    f"checkpoint accumulator shape {saved.shape} != {tuple(acc.shape)}")
+            acc.copy_(torch.as_tensor(saved.astype(np.float32)))
+    engine.accum[-1].copy_(landed)
     engine.batch_counter = int(header["batch_counter"])
     fields = set(Stats._fields)
     engine.stats = Stats(**{k: v for k, v in header["stats"].items() if k in fields})

@@ -33,21 +33,37 @@ batch mean of the initial weights on the general path, and only the general
 path has a slot cap. With IHT_MIN_EMIT_W=0 and IHT_SLOT_CAP=off they give
 the same image.
 
-Calibration after the first batch (one host read): the exit-slot cap from
-the per-rank mass histogram, the continuation capacities from the measured
-demand, and ``keep`` per render = live rows times _KEEP_MARGIN rounded up to
-the 4096-row block. The live counts of a batch are read once per batch, and
-the continuation's live count once per layer boundary (``host_syncs``).
+The host loop is the JAX engine's: ``run`` runs IHT_STEPS_PER_DISPATCH
+batches (default 64) per dispatch, full batches first and an exact-budget
+tail batch alone. The batch counter lives on the device (``self._dev``) and
+every batch derives its ray base, the pool sampler's shape index and the
+continuation's shuffle salt from it there; the accumulators and the running
+sums (dropped weight, segments, live rows, continuation demand, slot mass)
+are updated in place. Calibration after the first dispatch (one host read):
+the exit-slot cap from the per-rank mass histogram, the continuation
+capacities from the mean demand, and ``keep`` per render = the mean live
+rows times _KEEP_MARGIN rounded up to the 4096-row block. On a CUDA device
+with the CUDA kernels a steady batch is replayed from a CUDA graph
+(engine/graph.py, ``graphs=``).
+
+The in-step overflow choice (JAX: ``lax.cond`` on live <= keep per render,
+and on the continuation's live count per layer boundary) is made without a
+host read inside the dispatch: a batch of a dispatch always takes the
+compacted branch and records on the device the first batch whose live rows
+overflowed. After the dispatch the engine reads that one index
+(``host_syncs``); if a batch overflowed it restores the accumulators and
+sums from a snapshot taken before the dispatch, runs the batches before it
+again, runs the overflowing batch eagerly with host reads (the full fold,
+the global continuation sort) and goes on after it (``overflow_replays``).
+The image equals a per-batch choice in batch order, bit for bit.
 
 Differences from the JAX engine, all deliberate:
   - no silent degrade: a failing kernel raises, the engine never moves to
     another device or path; the JAX engine's run-time escape from a failing
     sandwich kernel to the sort fold (``+degraded``) is absent;
-  - batches are a Python loop (no multi-batch dispatch), so calibration
-    reads the first batch alone, and the choice between the compacted and
-    the full fold, and between the block-sorted and the globally sorted
-    continuation, is a host branch on a count read from the device; so is
-    the overflow test of every compacted sandwich level;
+  - the overflow choice is the replay above, not a branch inside the
+    step; the sandwich fold reads its levels' live counts on the host, per
+    batch, and is never captured;
   - the sort-size snap of ``keep`` and the scatter-output row budget of the
     sandwich levels' ``keep``, both tuned to another accelerator's memory,
     are gone; the fold dispatch's cost constants are measured on the H100;
@@ -91,7 +107,8 @@ from ice_halo_sim_tpu_torch.core import (
     trace_emit,
     trace_soa,
 )
-from ice_halo_sim_tpu_torch.core.bits import F32, I32, I64, MASK32, from_bits, to_bits
+from ice_halo_sim_tpu_torch.core.bits import F32, I32, I64, MASK32, const, from_bits, to_bits
+from ice_halo_sim_tpu_torch.engine import graph as graph_mod
 from ice_halo_sim_tpu_torch.kernels import kernel_set
 
 DEFAULT_BATCH = 1 << 17
@@ -100,6 +117,11 @@ DEFAULT_GEOM_CLOCK = 32
 # producing bits (colouring degrades, the commit does not fail).
 COLOR_PREDICATE_CAP = 32
 LAYER_NONCE = 0xA5A5
+
+
+def _or(a, b):
+    """a | b for optional device bools (None: no flag)."""
+    return b if a is None else a if b is None else a | b
 
 
 def largest_remainder_partition(total: int, proportions) -> list:
@@ -176,11 +198,27 @@ def weight_bucket(w):
     return torch.clamp(((bits >> 23) & 0xFF) - 127 + 130, 2, 255)
 
 
-def shuffle_hash(n_rows: int, layer_seed: int, batch_counter: int, device):
-    """The continuation's per-row hash: fresh per layer and per batch."""
-    salt = (int(layer_seed) ^ rng.NONCE_SHUFFLE
-            ^ int(rng.pcg_hash(int(batch_counter) & MASK32))) & MASK32
+def shuffle_hash(n_rows: int, layer_seed: int, batch_counter, device):
+    """The continuation's per-row hash: fresh per layer and per batch.
+    batch_counter: a python int or an int64 tensor (the engine's, on the
+    device)."""
+    salt = rng.pcg_hash(rng._t(batch_counter) & MASK32) ^ (
+        (int(layer_seed) ^ rng.NONCE_SHUFFLE) & MASK32)
     return rng.pcg_hash(torch.arange(n_rows, dtype=I64, device=device) ^ salt)
+
+
+class DeviceState(NamedTuple):
+    """What the batches of a dispatch carry on the device (the JAX carry):
+    the batch counter, then the running sums that stats and calibration
+    read, and the first overflowing batch of the dispatch (-1: none)."""
+
+    counter: torch.Tensor     # int64 []
+    dropped: torch.Tensor     # float64 []: dropped continuation weight
+    segs: torch.Tensor        # int64 []: traced segments
+    live: torch.Tensor        # int64 [R]: live fold rows per render
+    cont: torch.Tensor        # int64 [layers - 1]: live continuation rows
+    slot_mass: torch.Tensor   # float32 [max_hits]: calibration histogram
+    first_over: torch.Tensor  # int64 []: batch counter of the first overflow
 
 
 class Engine:
@@ -194,6 +232,12 @@ class Engine:
     "plain" (the plain PyTorch versions; the only choice on the CPU).
     accum_method: "sort" (the default on every device) or "scatter"
     (index_add_, the oracle of the tests; general path only).
+    graphs: replay each steady batch from a CUDA graph (engine/graph.py).
+    None: on for a CUDA device with the CUDA kernels, off otherwise (the
+    plain twins have data-dependent shapes and do not capture). Without
+    graphs the same dispatch loop runs each batch eagerly. A scene whose
+    batches cannot be captured (the sandwich fold with its host reads, a
+    dense-value fold) runs them eagerly; ``graph_mode`` says which.
     """
 
     _KEEP_MARGIN = 1.06
@@ -202,7 +246,7 @@ class Engine:
                  batch_size: int = DEFAULT_BATCH, device="cuda",
                  kernels: Optional[str] = None,
                  geom_clock: int = DEFAULT_GEOM_CLOCK,
-                 accum_method: str = "sort"):
+                 accum_method: str = "sort", graphs: Optional[bool] = None):
         self.cfg = cfg
         self.seed = int(seed) & 0xFFFFFFFF
         self.batch_size = int(batch_size)
@@ -216,6 +260,15 @@ class Engine:
             raise ValueError(f"accum_method must be 'sort' or 'scatter', got {accum_method!r}")
         self.accum_method = accum_method
         self.ks = kernel_set(kernels)
+        if graphs is None:
+            graphs = self.ks.name == "cuda"
+        if graphs and self.ks.name != "cuda":
+            raise ValueError("graphs=True needs a CUDA device and the CUDA kernels")
+        self.graphs = bool(graphs)
+        self.steps_per_dispatch = max(1, int(env_knobs.get("IHT_STEPS_PER_DISPATCH", 64)))
+        # Batches that overflowed a compacted branch inside a dispatch and
+        # were run again eagerly (the replay of the in-step choice).
+        self.overflow_replays = 0
         self.min_emit_frac = float(env_knobs.get("IHT_MIN_EMIT_W", 1e-3))
         self.emit_floor_mode = str(env_knobs.get("IHT_EMIT_FLOOR", "rr")).lower()
         self._compact_enabled = str(env_knobs.get("IHT_COMPACT", "1")) not in (
@@ -445,8 +498,7 @@ class Engine:
             # Pool entries past the table clamp to its last wavelength, as
             # the JAX gather does.
             n = len(self.wl_values)
-            tbl = torch.as_tensor(self.wl_values).to(wl_idx.device)
-            return tbl[torch.clamp(wl_idx.long(), max=n - 1)]
+            return const(self.wl_values, wl_idx.device)[torch.clamp(wl_idx.long(), max=n - 1)]
         k = float(np.float32(400.0 / self.k_pool))
         return 380.0 + (wl_idx.to(F32) + 0.5) * k
 
@@ -830,9 +882,20 @@ class Engine:
             deterministic_crystal_count=self.det_crystal_count,
             deterministic_orientation_count=self.det_orientation_count,
         )
+        # The host's count of the batches it launched; the device counter is
+        # set from it at the start of every dispatch and never read back.
         self.batch_counter = 0
-        self._pending_dropped = []
-        self._pending_segments = []
+        self._dev = DeviceState(
+            counter=torch.zeros((), dtype=I64, device=dev),
+            dropped=torch.zeros((), dtype=torch.float64, device=dev),
+            segs=torch.zeros((), dtype=I64, device=dev),
+            live=torch.zeros(len(self.proj_plans), dtype=I64, device=dev),
+            cont=torch.zeros(max(0, len(self.layers) - 1), dtype=I64, device=dev),
+            slot_mass=torch.zeros(self.max_hits, dtype=F32, device=dev),
+            first_over=torch.full((), -1, dtype=I64, device=dev),
+        )
+        self._graph = None
+        self._snap = None
 
     # ------------------------------------------------------------------
     # Attribution
@@ -865,9 +928,10 @@ class Engine:
     # Pool sampler
     # ------------------------------------------------------------------
 
-    def _sample_layer_pool(self, batch_counter: int, device=None, li: int = 0) -> trace.GeomPool:
+    def _sample_layer_pool(self, batch_counter, device=None, li: int = 0) -> trace.GeomPool:
         """Layer li's K-shape geometry pool of one batch (plain torch on
         `device`; the JAX package samples it in XLA, outside any kernel).
+        batch_counter: a python int or the engine's int64 counter tensor.
 
         The shape index is 64 bits wide: batch_counter * k_total passes
         2^32 within a long render, and its high word is mixed into the seed
@@ -875,7 +939,7 @@ class Engine:
         plan = self.layers[li]
         device = self.device if device is None else device
         seed0 = self.seed ^ rng.NONCE_GEOM_SHAPE ^ ((li * 0x9E37) & MASK32)
-        kb = (int(batch_counter) & MASK32) * sum(plan.k_per_setting)
+        kb = (rng._t(batch_counter) & MASK32) * sum(plan.k_per_setting)
         kb_lo, kb_hi = kb & MASK32, (kb >> 32) & MASK32
         layer_nf = geometry.PYRAMID_FACES if "pyramid" in plan.shape_kinds \
             else geometry.PRISM_FACES
@@ -903,7 +967,7 @@ class Engine:
             *(torch.cat(xs, dim=0) for xs in zip(*geoms)))
         return trace.make_geom_pool(g, sampling.build_entry_tris(g))
 
-    def _pool_tables(self, batch_counter: int):
+    def _pool_tables(self, batch_counter):
         """The blocked-pool kernel inputs of one batch: ptbl [K, NF*5] rows
         of (nx, ny, nz, d, present) per face, ttbl [K, T*13] rows of
         (cross_half, v0, e1, e2, face) per entry triangle."""
@@ -932,20 +996,32 @@ class Engine:
             off += c
         return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
-    def _trace_batch_impl(self, base_lo: int, base_hi: int, batch_counter: int,
-                          n_active: Optional[int] = None):
+    def _ray_base_words(self, batch_counter):
+        """(low, high) u32 words of the batch's 64-bit ray base: python ints
+        for a python counter, int64 tensors on its device for a tensor."""
+        if isinstance(batch_counter, torch.Tensor):
+            base = batch_counter * self.ray_base(1)
+            return base & MASK32, (base >> 32) & MASK32
+        base = self.ray_base(batch_counter)
+        return base & MASK32, (base >> 32) & MASK32
+
+    def _trace_batch_impl(self, batch_counter, n_active: Optional[int] = None,
+                          host_choice: bool = False):
         """One batch through every layer: sample -> trace -> gates ->
-        project. Returns (contribs, landed_add [R], dropped_w, seg_count,
-        cont_demand, slot_mass); contribs holds per render the spectral
-        contribution rows (pix int32, w, wl_idx, mask), and cont_demand the
-        live continuation count of every layer boundary (host ints, one
-        read each). Lanes >= n_active start with zero weight (the
-        exact-budget tail batch)."""
+        project. batch_counter: a python int or the engine's counter tensor.
+        Returns (contribs, landed_add [R], dropped_w, seg_count, cont_demand,
+        slot_mass, overflow); contribs holds per render the spectral
+        contribution rows (pix int32, w, wl_idx, mask), cont_demand the live
+        continuation count of every layer boundary (device tensors), and
+        overflow a device bool (None for one layer): some boundary's live
+        rows exceeded its lanes. host_choice: read each boundary's count and
+        take the global sort where it overflows; else always the block
+        compaction (exact when overflow is False). Lanes >= n_active start
+        with zero weight (the exact-budget tail batch)."""
         dev = self.device
         B = self.batch_size
         H = self.max_hits
-        base_lo = int(base_lo) & MASK32
-        base_hi = int(base_hi) & MASK32
+        base_lo, base_hi = self._ray_base_words(batch_counter)
         seed0 = self.seed
         lane = torch.arange(B, dtype=I64, device=dev)
         ray_idx = (base_lo + lane) & MASK32
@@ -970,6 +1046,7 @@ class Engine:
         seg_count = torch.zeros((), dtype=I64, device=dev)
         slot_mass = torch.zeros(H, dtype=F32, device=dev)
         cont_demand = []
+        overflow = None
         n_layers = len(self.layers)
         slot_ids = torch.arange(H, dtype=I64, device=dev)[:, None]
         slot_len = torch.arange(1, H + 1, dtype=I64, device=dev)[:, None]
@@ -1117,8 +1194,10 @@ class Engine:
                     cols.append(to_bits(exit_mask.reshape(-1)))
                 cols += [exits.dx.reshape(-1), exits.dy.reshape(-1), exits.dz.reshape(-1)]
                 picked, n_live = self._continuation(
-                    cont_w_all, cols, cap_next, layer_seed, batch_counter)
+                    cont_w_all, cols, cap_next, layer_seed, batch_counter, host_choice)
                 cont_demand.append(n_live)
+                o = n_live > min(cap_next, cont_w_all.shape[0])
+                overflow = o if overflow is None else overflow | o
                 s_w = picked[0]
                 live = s_w > 0.0
                 cont_wv = torch.where(live, s_w, 0.0)
@@ -1140,34 +1219,40 @@ class Engine:
             contribs.append(parts[0] if len(parts) == 1 else tuple(
                 torch.cat([p[c] for p in parts]) for c in range(4)))
         return (contribs, torch.stack(landed_add), dropped_w, seg_count,
-                cont_demand, slot_mass)
+                cont_demand, slot_mass, overflow)
 
     def _continuation(self, cont_w_all, cols, cap: int, layer_seed: int,
-                      batch_counter: int):
+                      batch_counter, host_choice: bool = True):
         """Compact the continuing exits of one layer into the next layer's
         `cap` lanes. Live rows key to (inverted weight bucket) << 23 | 23
         bits of a hash of the row, dead rows to 0xFFFFFFFF: a sort by that
         key puts heavier rows first and shuffles within a bucket, which
         decorrelates the ray -> crystal pairing of the next layer.
 
-        When the live rows fit (the count is read on the host, once), each
-        4096-row block is sorted by the key and the blocks are packed
-        (``accum.compact_by_key``). When they overflow, one global sort by
-        the key keeps the heaviest rows; the lowest-weight rows are dropped
-        (the caller accounts them). Returns (columns [cap] without the key,
-        live count)."""
+        When the live rows fit, each 4096-row block is sorted by the key and
+        the blocks are packed (``accum.compact_by_key``). When they
+        overflow, one global sort by the key keeps the heaviest rows; the
+        lowest-weight rows are dropped (the caller accounts them). With
+        host_choice the live count is read on the host, once, to choose;
+        without, the block compaction runs whatever the count (it writes
+        the first `cap` packed rows and nothing past them; the caller
+        records the overflow and runs the batch again). Returns (columns
+        [cap] without the key, live count as a device tensor)."""
         n_rows = cont_w_all.shape[0]
         dev = cont_w_all.device
         cont_live = cont_w_all > 0.0
-        n_live = int(cont_live.sum())
-        self.host_syncs += 1
+        n_live = cont_live.sum()
+        eff_cap = min(cap, n_rows)
+        fits = True
+        if host_choice:
+            self.host_syncs += 1
+            fits = int(n_live) <= eff_cap
         key = to_bits(torch.where(
             cont_live,
             ((255 - weight_bucket(cont_w_all)) << 23)
             | (shuffle_hash(n_rows, layer_seed, batch_counter, dev) & 0x7FFFFF),
             MASK32))
-        eff_cap = min(cap, n_rows)
-        if n_live <= eff_cap:
+        if fits:
             outs, _ = accum_mod.compact_by_key(key, cols, eff_cap, self.ks, with_key=False)
             picked = list(outs)
         else:
@@ -1190,23 +1275,17 @@ class Engine:
                   for m in accum_mod.lane_members(mask, self.color_classes)]
         return torch.cat(chans, dim=-1)
 
-    def _step_impl(self, base_lo: int, base_hi: int, n_active: Optional[int], keep):
-        """One batch of the general path, folded into the accumulators.
-        Returns (live rows per render, continuation demand, slot mass)."""
-        contribs, landed_add, dropped_w, segs, cont_demand, slot_mass = (
-            self._trace_batch_impl(base_lo, base_hi, self.batch_counter, n_active))
-        self.accum[-1] = self.accum[-1] + landed_add
-        self._pending_dropped.append(dropped_w)
-        self._pending_segments.append(segs)
-        return self._fold_batch(contribs, keep), cont_demand, slot_mass
-
-    def _fold_batch(self, contribs, keep) -> list:
+    def _fold_batch(self, contribs, keep, host_choice: bool = False):
         """Fold one batch's contribution rows into every render's
-        accumulator; returns the live rows per render."""
+        accumulator, in place. Returns (live rows per render [R] int64 on
+        the device, overflow: a device bool, True when some render's live
+        rows exceed its keep, or None without keep). host_choice: read the
+        live counts (once for all renders) and take the full fold where they
+        overflow; else always the compacted fold."""
         n_classes = len(self.color_classes)
         lanes = tuple(self.color_classes)
         if self._sandwich_on:
-            return self._fold_batch_sandwich(contribs)
+            return self._fold_batch_sandwich(contribs), None
         method = self._resolved_accum_method()
         if method != "sort":
             # Dense value rows: the scatter oracle, or the sort fold of keys
@@ -1214,49 +1293,58 @@ class Engine:
             lives = []
             for r, (pix, w, wl_idx, mask) in enumerate(contribs):
                 lives.append((w > 0.0).sum())
-                self.accum[r] = accum_mod.accumulate(
+                self.accum[r].copy_(accum_mod.accumulate(
                     self.accum[r], pix, self._expand_vals(w, wl_idx, mask),
-                    "sort" if method == "sort-legacy" else method, self.ks)
-            return lives
+                    "sort" if method == "sort-legacy" else method, self.ks))
+            return torch.stack(lives), None
         packed = []
         for r, (pix, w, wl_idx, mask) in enumerate(contribs):
             P = self.accum[r].shape[0]
             key, wz = accum_mod.pack_spectral_keys(pix, w, wl_idx, P, self.k_pool)
             mcol = to_bits(torch.where(key != -1, mask, 0)) if n_classes else None
-            packed.append((key, wz, mcol, (wz > 0.0).sum()))
-        lives = [p[3] for p in packed]
-        if keep is not None:
-            # One read of every render's live count: the compacted fold is
-            # exact only when the live rows fit the prefix.
-            lives = [int(x) for x in torch.stack(lives).tolist()]
-            self.host_syncs += 1
-        for r, (key, wz, mcol, _) in enumerate(packed):
+            packed.append((key, wz, mcol))
+        lives = torch.stack([p[1].gt(0.0).sum() for p in packed])
+        fits = self._fits(lives, keep, host_choice)
+        over = None
+        for r, (key, wz, mcol) in enumerate(packed):
             kr = keep[r] if keep is not None else None
-            if kr is not None and lives[r] <= kr:
+            if kr is not None and fits[r]:
                 # Compaction prepass (one pass: the live rows, dense, in
                 # order); the fold's sort then runs on keep + P rows instead
                 # of every contribution row.
                 (key, wz, *rest), _ = accum_mod.compact_valid(
                     key, [wz] + ([mcol] if n_classes else []), kr, self.ks)
                 mcol = rest[0] if n_classes else None
-            self.accum[r] = accum_mod.fold_spectral_keys(
+                over = _or(over, lives[r] > kr)
+            self.accum[r].copy_(accum_mod.fold_spectral_keys(
                 self.accum[r], key, wz, self.k_pool, self.basis_tbl, self.ks,
-                lane_specs=lanes, mask=mcol)
-        return lives
+                lane_specs=lanes, mask=mcol))
+        return lives, over
 
-    def _fold_batch_sandwich(self, contribs) -> list:
+    def _fits(self, lives, keep, host_choice: bool) -> list:
+        """Per render, whether to take the compacted branch: always without
+        host_choice; with it, where the live count (one host read for every
+        render) fits keep."""
+        if keep is None or not host_choice:
+            return [True] * len(lives)
+        self.host_syncs += 1
+        return [k is None or n <= k for n, k in zip(lives.tolist(), keep)]
+
+    def _fold_batch_sandwich(self, contribs):
         """The sandwich fold of one batch: per render the cascade of
         `_sandwich_fold_r`. The live counts are read once for all renders
-        where some first level compacts."""
+        where some first level compacts. Returns the live rows per render
+        [R] (device)."""
         packed = []
         for r, (pix, w, wl_idx, _mask) in enumerate(contribs):
             P = self.proj_plans[r].height * self.proj_plans[r].width
             key, wz = accum_mod.pack_spectral_keys(pix, w, wl_idx, P, self.k_pool)
             packed.append((key, wz, (wz > 0.0).sum()))
+        lives_dev = torch.stack([p[2] for p in packed])
         lives = [p[2] for p in packed]
         if any(levels[0][1] is not None and levels[0][1] < p[0].shape[0]
                for levels, p in zip(self._levels, packed)):
-            lives = [int(x) for x in torch.stack(lives).tolist()]
+            lives = [int(x) for x in lives_dev.tolist()]
             self.host_syncs += 1
         lasts = []
         for r, (key, wz, _) in enumerate(packed):
@@ -1271,58 +1359,54 @@ class Engine:
                 self.accum[ci] = ct
             lasts.append(n_last)
         self.last_level_rows = lasts
-        return lives
+        return lives_dev
 
     # ------------------------------------------------------------------
     # Kernel trace path
     # ------------------------------------------------------------------
 
-    def _step_kernel_impl(self, base_lo: int, base_hi: int, n_active: int,
-                          keep) -> list:
-        """One batch through trace_emit and the fold; returns the live row
-        count per render (host ints when keep is set, else tensors)."""
-        tables = self._pool_tables(self.batch_counter) if self._trace_plan.pool_k else ()
+    def _step_kernel_impl(self, n_active: int, keep, host_choice: bool = False):
+        """One batch at the device counter through trace_emit and the fold,
+        into the accumulators in place. Returns (live rows per render [R],
+        overflow or None, landed_add [R], dropped, segs), as _fold_batch."""
+        counter = self._dev.counter
+        lo, hi = self._ray_base_words(counter)
+        words = to_bits(torch.stack([lo, hi]))
+        tables = self._pool_tables(counter) if self._trace_plan.pool_k else ()
         per_render, landed_add, dropped, segs = self.ks.trace_emit(
-            self._trace_plan, base_lo, base_hi, n_active, self.device, *tables
+            self._trace_plan, words, n_active, self.device, *tables
         )
-        self.accum[-1] = self.accum[-1] + landed_add
-        self._pending_dropped.append(dropped)
-        self._pending_segments.append(segs)
         k_pool = self.k_pool
         shift = accum_mod.key_shift(k_pool)
-        lives = []
+        lives = torch.stack([counts.to(I64).sum() for _k, _w, counts in per_render])
+        fits = self._fits(lives, keep, host_choice)
+        over = None
         for r, (keys, wvals, counts) in enumerate(per_render):
             _g, blk = keys.shape
-            live = counts.to(I64).sum()
             kr = keep[r] if keep is not None else None
             acc = self.accum[r]
-            if kr is None:
-                self.accum[r] = accum_mod.fold_spectral_keys(
+            if kr is None or not fits[r]:
+                acc.copy_(accum_mod.fold_spectral_keys(
                     acc, keys.reshape(-1), wvals.reshape(-1), k_pool,
                     self.basis_tbl, self.ks,
-                )
-                lives.append(live)
-                continue
-            live_host = int(live)
-            self.host_syncs += 1
-            lives.append(live_host)
-            if live_host > kr:
-                self.accum[r] = accum_mod.fold_spectral_keys(
-                    acc, keys.reshape(-1), wvals.reshape(-1), k_pool,
-                    self.basis_tbl, self.ks,
-                )
+                ))
                 continue
             P = acc.shape[0]
             block = accum_mod.BLOCK
             out_total = -(-(kr + P) // block) * block
+            # Live rows past kr land under the marker tail or past the
+            # output and are lost (the scatter writes nothing past
+            # out_total); the overflow flag sends such a batch to the full
+            # fold.
             ck, cw = self.ks.scatter_blocks_multi(
                 [keys, wvals], accum_mod._exclusive_starts(counts), out_total, blk,
                 marker_tail=(kr, P, shift, 2 * k_pool - 1),
             )
-            self.accum[r] = accum_mod.fold_spectral_keys_premerged(
+            acc.copy_(accum_mod.fold_spectral_keys_premerged(
                 acc, ck, cw, k_pool, self.basis_tbl, self.ks
-            )
-        return lives
+            ))
+            over = _or(over, lives[r] > kr)
+        return lives, over, landed_add, dropped, segs
 
     # ------------------------------------------------------------------
     # Host loop
@@ -1334,11 +1418,130 @@ class Engine:
         batch_size * (layers + 1)."""
         return int(batch_counter) * self.batch_size * max(1, len(self.layers) + 1)
 
+    def _batch(self, n_active: Optional[int] = None, host_choice: bool = False) -> None:
+        """One batch at the device counter: trace, fold into the
+        accumulators, add its counts into the running sums, advance the
+        counter, all on the device and in place (what a CUDA graph
+        captures). host_choice: the eager batch, which reads its live counts
+        and takes the full fold or the global continuation sort where they
+        overflow; else the compacted branches always, an overflow recorded
+        in first_over."""
+        d = self._dev
+        keep = self._compact_keep
+        if self._trace_plan is not None:
+            lives, over, landed, dropped, segs = self._step_kernel_impl(
+                self.batch_size if n_active is None else n_active, keep, host_choice)
+            cont, smass = (), None
+        else:
+            contribs, landed, dropped, segs, cont, smass, c_over = self._trace_batch_impl(
+                d.counter, n_active, host_choice)
+            lives, f_over = self._fold_batch(contribs, keep, host_choice)
+            over = _or(c_over, f_over)
+        self.accum[-1].add_(landed)
+        d.dropped.add_(dropped.to(torch.float64))
+        d.segs.add_(segs)
+        d.live.add_(lives)
+        if len(cont):
+            d.cont.add_(torch.stack(cont))
+        if smass is not None:
+            d.slot_mass.add_(smass)
+        if over is not None and not host_choice:
+            d.first_over.copy_(torch.where(over & (d.first_over < 0), d.counter, d.first_over))
+        d.counter.add_(1)
+
+    @property
+    def graph_mode(self) -> str:
+        """How the steady batches of a dispatch run: 'cuda graph' or
+        'eager (reason)'."""
+        if not self.graphs:
+            return "eager (graphs off)"
+        if self._sandwich_on:
+            return "eager (the sandwich fold reads its levels' counts on the host)"
+        if self._resolved_accum_method() != "sort":
+            return f"eager (the {self._resolved_accum_method()} fold does not capture)"
+        return "cuda graph"
+
+    def _graph_key(self):
+        """What a captured batch assumed: the plan it was built under and
+        the addresses it reads and writes."""
+        return (self._compact_keep, self._slot_cap, tuple(l.cont_cap for l in self.layers),
+                self.fold_kind, tuple(t.data_ptr() for t in self.accum),
+                tuple(t.data_ptr() for t in self._dev))
+
+    def _steady(self, n: int) -> None:
+        """n batches with no host read: replays of the captured batch (a new
+        capture, which runs one batch itself, when the plan or an address
+        changed), or eager batches that choose on the device."""
+        graph = self.graph_mode == "cuda graph"
+        for _ in range(n):
+            if not graph:
+                self._batch()
+            elif self._graph is None or self._graph.key != self._graph_key():
+                self._graph = None
+                self._graph = graph_mod.BatchGraph(self._batch, self._graph_key(), self.device)
+            else:
+                self._graph.replay()
+
+    def _overflow_possible(self) -> bool:
+        """Whether a batch can take a compacted branch that its rows
+        overflow: a render with keep, or a continuation between layers."""
+        keep = self._compact_keep
+        return (keep is not None and any(k is not None for k in keep)) or (
+            self._trace_plan is None and len(self.layers) > 1)
+
+    def _state(self) -> list:
+        """The tensors a dispatch updates, besides the counter."""
+        d = self._dev
+        return list(self.accum) + [d.dropped, d.segs, d.live, d.cont, d.slot_mass]
+
+    def _dispatch(self, k: int) -> None:
+        """k full batches from the host count on, as one JAX dispatch: no
+        host read inside, then one read of the first overflowing batch (when
+        a batch can overflow). If one did, the state goes back to the
+        snapshot taken before, the batches before it run again, it runs
+        eagerly with the host's choice, and the rest follows as a new
+        pass."""
+        d = self._dev
+        d.counter.fill_(self.batch_counter)
+        if not self._calibrated:
+            for t in (d.live, d.cont, d.slot_mass):
+                t.zero_()
+        while k:
+            guard = self._overflow_possible()
+            start = self.batch_counter
+            if guard:
+                state = self._state()
+                if self._snap is None or [t.shape for t in self._snap] != [
+                        t.shape for t in state]:
+                    self._snap = [torch.empty_like(t) for t in state]
+                for s, t in zip(self._snap, state):
+                    s.copy_(t)
+                d.first_over.fill_(-1)
+            self._steady(k)
+            first = -1
+            if guard:
+                self.host_syncs += 1
+                first = int(d.first_over)
+            if first < 0:
+                self.batch_counter = start + k
+                return
+            j = first - start
+            for s, t in zip(self._snap, self._state()):
+                t.copy_(s)
+            d.counter.fill_(start)
+            self._steady(j)
+            self._batch(host_choice=True)
+            self.overflow_replays += 1
+            self.batch_counter = start + j + 1
+            k -= j + 1
+
     def run(self, total_rays: Optional[int] = None,
             n_batches: Optional[int] = None) -> Stats:
         """Trace `n_batches` batches, or `total_rays` rays exactly (the last
         batch traces only the remainder lanes), default the scene's
-        ray_num."""
+        ray_num: dispatches of up to steps_per_dispatch full batches, then
+        the exact-budget tail batch alone, eagerly. Calibrates after the
+        first dispatch."""
         tail = 0
         if n_batches is None:
             total = int(total_rays if total_rays is not None else self.cfg.scene.ray_num)
@@ -1349,20 +1552,22 @@ class Engine:
             rays_requested = total
         else:
             rays_requested = n_batches * self.batch_size
-        for i in range(n_batches):
-            is_tail = bool(tail) and i == n_batches - 1
-            base = self.ray_base(self.batch_counter)
-            lo, hi = base & 0xFFFFFFFF, (base >> 32) & 0xFFFFFFFF
-            cont, smass = [], None
-            if self._trace_plan is not None:
-                lives = self._step_kernel_impl(
-                    lo, hi, tail if is_tail else self.batch_size, self._compact_keep)
+        done = 0
+        while done < n_batches:
+            k = min(self.steps_per_dispatch, n_batches - done)
+            is_tail = bool(tail) and done + k == n_batches
+            if is_tail and k > 1:
+                k -= 1          # the full batches now, the tail alone next
+                is_tail = False
+            if is_tail:
+                self._dev.counter.fill_(self.batch_counter)
+                self._batch(n_active=tail, host_choice=True)
+                self.batch_counter += 1
             else:
-                lives, cont, smass = self._step_impl(
-                    lo, hi, tail if is_tail else None, self._compact_keep)
-            self.batch_counter += 1
+                self._dispatch(k)
+            done += k
             if not self._calibrated and not is_tail:
-                self._maybe_calibrate(lives, cont, smass)
+                self._maybe_calibrate(k)
         self.stats = self.stats._replace(
             rays_traced=self.stats.rays_traced + rays_requested,
             stochastic_crystal_samples=self.stats.stochastic_crystal_samples
@@ -1376,19 +1581,25 @@ class Engine:
         )
         return self.stats
 
-    def _maybe_calibrate(self, lives, cont=(), slot_mass=None) -> None:
-        """One-shot calibration from the first batch's measured counts (one
-        host read): the exit-slot cap, the continuation capacities and
-        `keep` per render. All are functions of (scene, seed, batch size),
-        so equal runs stay comparable; a bad calibration costs speed, never
-        correctness (an overflowing batch takes the full fold)."""
+    def _maybe_calibrate(self, n_steps: int = 1) -> None:
+        """One-shot calibration from the first dispatch's counts, averaged
+        over its n_steps batches (one host read): the exit-slot cap, the
+        continuation capacities and `keep` per render. All are functions of
+        (scene, seed, batch size, first dispatch size), so equal runs stay
+        comparable; a bad calibration costs speed, never correctness (an
+        overflowing batch takes the full fold)."""
         self._calibrated = True
         self.host_syncs += 1
+        d = self._dev
+        R, nb = d.live.shape[0], d.cont.shape[0]
+        sums = torch.cat([d.live.double(), d.cont.double(), d.slot_mass.double()]).cpu().numpy()
+        live_avg = sums[:R] / max(1, n_steps)
+        cont_avg = sums[R:R + nb] / max(1, n_steps)
         H = self.max_hits
-        if self._slot_cap is None and slot_mass is not None:
+        if self._slot_cap is None:
             # The smallest cap whose dropped per-ray live-rank tail is under
             # 1e-4 of the emitted mass (and is still accounted every batch).
-            m = slot_mass.detach().cpu().numpy().astype(np.float64)
+            m = sums[R + nb:]
             total = float(m.sum())
             cap = H
             if total > 0:
@@ -1398,21 +1609,19 @@ class Engine:
                         cap = c
                         break
             self._slot_cap = cap
-        elif self._slot_cap is None:
-            self._slot_cap = H
-        if len(cont):
-            # Trim the continuation buffers to 1.25 times the measured
+        if nb:
+            # Trim the continuation buffers to 1.25 times the mean measured
             # demand (never grow).
             caps = [None]
             for li in range(1, len(self.layers)):
                 cur = self.layers[li].cont_cap
-                want = int(float(cont[li - 1]) * 1.25)
+                want = int(cont_avg[li - 1] * 1.25)
                 caps.append(want if want < 0.85 * cur else None)
             if any(c is not None for c in caps):
                 self._build_plan(cont_caps=caps)
         self._recompute_rows_per_render()
         if self._sandwich_on:
-            if not self._sandwich_recalibrate([float(x) for x in lives]):
+            if not self._sandwich_recalibrate(live_avg, n_steps):
                 return
             # Demoted to the sort fold: its prepass is calibrated from the
             # same live counts.
@@ -1420,11 +1629,11 @@ class Engine:
             return
         block = accum_mod.BLOCK
         keep = []
-        for n_rows, live in zip(self._rows_per_render, lives):
+        for n_rows, live in zip(self._rows_per_render, live_avg):
             # The compaction prepass pays when well under 60% of the
             # contribution rows are live; the margin absorbs the batch-to-
             # batch fluctuation of the live count.
-            target = int(np.ceil(int(live) * self._KEEP_MARGIN / block)) * block
+            target = int(np.ceil(live * self._KEEP_MARGIN / block)) * block
             if n_rows >= 2 * block and target <= 0.6 * n_rows:
                 keep.append(max(block, target))
             else:
@@ -1436,21 +1645,15 @@ class Engine:
     # ------------------------------------------------------------------
 
     def drain_stats(self) -> Stats:
-        """Fold pending device-side counters into stats (one sync)."""
-        if self._pending_dropped:
-            total = float(torch.stack(self._pending_dropped).to(torch.float64).sum())
-            self._pending_dropped = []
-            self.stats = self.stats._replace(
-                dropped_cont_weight=self.stats.dropped_cont_weight + total
-            )
-        if self._pending_segments:
-            segs = int(torch.stack(self._pending_segments).sum())
-            self._pending_segments = []
-            self.stats = self.stats._replace(
-                ray_segments=self.stats.ray_segments + segs
-            )
+        """Fold the device-side running sums into stats (one sync)."""
+        d = self._dev
+        dropped, segs = float(d.dropped), int(d.segs)
+        d.dropped.zero_()
+        d.segs.zero_()
         self.stats = self.stats._replace(
-            landed_weight=float(self.accum[-1].to(torch.float64).sum())
+            dropped_cont_weight=self.stats.dropped_cont_weight + dropped,
+            ray_segments=self.stats.ray_segments + segs,
+            landed_weight=float(self.accum[-1].to(torch.float64).sum()),
         )
         return self.stats
 

@@ -150,8 +150,8 @@ _U = ctypes.c_uint32
 _LL = ctypes.c_longlong
 
 _SIGNATURES = {
-    "iht_trace_emit": [_VP] * 8,
-    "iht_trace_emit_pool": [_VP] * 10,
+    "iht_trace_emit": [_VP] * 9,
+    "iht_trace_emit_pool": [_VP] * 11,
     "iht_pack_blocks": [_VP, _VP, _VP, _VP, _I, _U, _I, _I,
                         _VP, _VP, _VP, _VP, _VP, _VP],
     "iht_scatter_blocks": [_VP, _I, _VP, _VP, _I, _I, _LL, _VP, _I, _LL, _LL, _I, _U, _VP],

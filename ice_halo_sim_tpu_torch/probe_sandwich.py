@@ -246,8 +246,7 @@ def _calibrated_engine(doc, fold: str, dev, batch: int = 112 * 2048):
 
 
 def _steady_contribs(eng, batch_counter: int = 100):
-    base = eng.ray_base(batch_counter)
-    return eng._trace_batch_impl(base & 0xFFFFFFFF, base >> 32, batch_counter)[0]
+    return eng._trace_batch_impl(batch_counter)[0]
 
 
 def fold_prep(dev, consts: dict) -> dict:

@@ -4,7 +4,7 @@ sampler), MS_CFG or COLOR_CFG (the general trace path) of scenes.py, at batch
 229376, calibrated steady state, under torch.profiler.
 
     python -m ice_halo_sim_tpu_torch.profile_slice [--scene bench|pool|ms|color]
-        [--batches 10] [--out FILE]
+        [--batches 10] [--graphs on|off] [--out FILE]
 
 Prints the card (nvidia-smi name and power limit), the wall time per
 batch, the device time per kernel name (CUDA time summed over the window)
@@ -17,6 +17,12 @@ the continuation alone (on the inputs of a captured batch); the folds are
 the rest. On the general path the report names the fold (``Engine.fold_kind``
 and ``fold_decision``; the knob IHT_FOLD=sandwich|sort|auto chooses, as for
 any run of the engine) and, on the sandwich fold, its levels.
+
+The profiled window is one dispatch of --batches batches (IHT_STEPS_PER_DISPATCH
+is raised to it): with --graphs on (the engine's default on the card) its
+batches are replays of the captured CUDA graph, with off the same loop
+eagerly. The report names the mode and the host reads per batch and per
+dispatch.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ def main(argv=None) -> int:
     ap.add_argument("--scene", choices=("bench", "pool", "ms", "color"), default="bench")
     ap.add_argument("--batches", type=int, default=10)
     ap.add_argument("--batch-size", type=int, default=112 * 2048)
+    ap.add_argument("--graphs", choices=("on", "off"), default="on")
     ap.add_argument("--out", default=None, help="also write the report here")
     args = ap.parse_args(argv)
 
@@ -53,8 +60,9 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
+    os.environ["IHT_STEPS_PER_DISPATCH"] = str(args.batches)
     eng = Engine(load_project(doc), seed=7, batch_size=args.batch_size,
-                 device="cuda")
+                 device="cuda", graphs=args.graphs == "on")
     eng.run(n_batches=1)
     eng.run(n_batches=3)
     torch.cuda.synchronize()
@@ -97,8 +105,7 @@ def main(argv=None) -> int:
             eng._sample_layer_pool(1000 + i, li=li) for li in range(len(eng.layers))])))
     if eng._trace_plan is None:
         def trace(i):
-            base = eng.ray_base(2000 + i)
-            eng._trace_batch_impl(base & 0xFFFFFFFF, base >> 32, 2000 + i)
+            eng._trace_batch_impl(2000 + i)
 
         label_lines.append(line("general trace (samplers, trace, gates, projection, "
                                 "continuation)", *alone(trace)))
@@ -120,8 +127,7 @@ def main(argv=None) -> int:
                 + f"; rows into the last level {[int(n) for n in eng.last_level_rows]}")
         label_lines.append(
             f"trace path {eng.trace_path}: slot cap {eng._slot_cap}, keep {eng._compact_keep}, "
-            f"lanes per layer {[l.cont_cap for l in eng.layers]}, host syncs per batch "
-            f"{syncs / args.batches:.1f}")
+            f"lanes per layer {[l.cont_cap for l in eng.layers]}")
     lines = [
         f"card: {card}",
         f"scene {args.scene}, batch {args.batch_size}, {args.batches} batches, wall {wall * 1e3 / args.batches:.4f} "
@@ -129,6 +135,9 @@ def main(argv=None) -> int:
         f"device busy {busy_us / 1e3 / args.batches:.4f} ms/batch, idle share "
         f"{1.0 - busy_us / 1e6 / wall:.4f}",
         f"device kernels per batch: {sum(r[1] for r in rows) / args.batches:.0f}",
+        f"host loop: {eng.graph_mode}, {args.batches} batches per dispatch, host reads "
+        f"{syncs / args.batches:.3f} per batch ({syncs} in the window), overflow replays "
+        f"{eng.overflow_replays}",
     ] + label_lines + [
         "device time by kernel (ms/batch, share of busy, launches):",
     ]

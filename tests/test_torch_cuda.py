@@ -46,8 +46,10 @@ def _same_bits(a, b):
 
 def _trace_case(plan, base, dev, tables=()):
     """Kernel against twin (rows equal, weights within 1e-6, segments
-    equal), and a second launch with the same bits. Returns the kernel's
-    output."""
+    equal), and a second launch with the same bits. base: (low word, high
+    word, n_active). Returns the kernel's output."""
+    lo, hi, n_active = base
+    base = ((hi << 32) | lo, n_active)
     a = trace_emit.trace_emit(plan, *base, dev, *tables)
     b = trace_emit.trace_emit_plain(plan, *base, dev, *tables)
     d = trace_emit.trace_output_diff(a[0], b[0])
@@ -88,7 +90,7 @@ def test_trace_emit_kernel_pack_shapes(dev, what):
         batch = 1000
     eng = Engine(load_project(doc), seed=7, batch_size=batch, device=dev)
     plan = eng._trace_plan
-    p = trace_emit.make_params(plan, 0, 0, batch)
+    p = trace_emit.make_params(plan, batch)
     assert (p.rp, p.hg, p.ncta) == ((8, 4, 16) if what == "four renders" else (2, 7, 8))
     _trace_case(plan, (0, 0, batch), dev)
 
@@ -116,7 +118,7 @@ def test_trace_emit_pool_kernel(dev, kind):
         ptbl, ttbl = eng._pool_tables(bc)
         _trace_case(plan, base, dev, (ptbl, ttbl))
     with pytest.raises(ValueError, match="ptbl must be"):
-        trace_emit.trace_emit(plan, 0, 0, 8192, dev, ptbl.cpu(), ttbl)
+        trace_emit.trace_emit(plan, 0, 8192, dev, ptbl.cpu(), ttbl)
 
 
 @pytest.mark.parametrize("mode", ["static", "pool"])
@@ -617,3 +619,94 @@ def test_fold_default_on_the_card_is_sort(dev, monkeypatch):
         monkeypatch.setenv("IHT_FOLD", knob)
         e = Engine(load_project(MS_CFG), seed=3, batch_size=16384, device=dev)
         assert e.fold_kind == "sandwich" and e.fold_decision == decision
+
+
+def test_trace_emit_reads_base_from_device(dev):
+    """K2 and K2b read the ray base from device memory: the kernel with the
+    words tensor equals the twin at a base whose low word wraps inside the
+    batch (the carry into the high word), and rewriting the words in place
+    (as a replayed CUDA graph's batch does) moves the launch to the new
+    base."""
+    for doc in (BENCH_CFG, POOL_CFG):
+        eng = Engine(load_project(doc), seed=7, batch_size=8192, device=dev, graphs=False)
+        plan = eng._trace_plan
+        tables = eng._pool_tables(3) if plan.pool_k else ()
+        base = (2 << 32) | 0xFFFFF000
+        words = trace_emit.base_words(base, dev)
+        a = trace_emit.trace_emit(plan, words, 8192, dev, *tables)
+        b = trace_emit.trace_emit_plain(plan, base, 8192, dev, *tables)
+        d = trace_emit.trace_output_diff(a[0], b[0])
+        assert d["rows_diff"] == 0 and d["blocks_diff"] == 0 and d["w_rel"] <= 1e-6, d
+        words.copy_(trace_emit.base_words(5 << 12, dev))
+        again = trace_emit.trace_emit(plan, words, 8192, dev, *tables)
+        assert _same_bits(again, trace_emit.trace_emit(plan, 5 << 12, 8192, dev, *tables))
+        assert not _same_bits(again, a)
+
+
+@pytest.mark.parametrize("scene", ["bench", "ms"])
+def test_graph_replay_equals_eager(dev, monkeypatch, scene):
+    """Batches replayed from a CUDA graph give the eager batches' bits:
+    one calibrating dispatch and two steady dispatches of four, images,
+    landed weight and stats; one host read per steady dispatch."""
+    from ice_halo_sim_tpu_torch.scenes import MS_CFG
+
+    monkeypatch.setenv("IHT_STEPS_PER_DISPATCH", "4")
+    monkeypatch.setenv("IHT_FOLD", "sort")
+    doc = BENCH_CFG if scene == "bench" else MS_CFG
+    out = []
+    for graphs in (False, True):
+        eng = Engine(load_project(doc), seed=7, batch_size=16384, device=dev, graphs=graphs)
+        eng.run(n_batches=4)
+        syncs = eng.host_syncs
+        eng.run(n_batches=4)
+        eng.run(n_batches=4)
+        if not eng.overflow_replays:
+            assert eng.host_syncs - syncs == 2
+        out.append((eng, eng.drain_stats()))
+    (e, se), (g, sg) = out
+    assert g.graph_mode == "cuda graph" and g._graph is not None
+    assert se == sg and e.overflow_replays == g.overflow_replays
+    for a, b in zip(e.accum, g.accum):
+        assert _eq(a, b)
+
+
+@pytest.mark.parametrize("what", ["compact_rows", "marker tail", "compact_by_key"])
+def test_compactions_with_overflow_stay_in_bounds(dev, what):
+    """The three compacted branches with more live rows than they keep (a
+    captured batch takes them before its overflow is known): the kernel
+    equals the plain twin, and tensors allocated right after the output are
+    untouched."""
+    g = np.random.default_rng(5)
+    n = 6 * 4096
+    live = g.random(n) < 0.6
+    key_np = np.where(live, g.integers(0, 1 << 20, n), 0xFFFFFFFF).astype(np.uint32)
+    key = torch.as_tensor(key_np.view(np.int32), device=dev)
+    w = torch.as_tensor(np.where(live, g.random(n) + 0.5, 0).astype(np.float32), device=dev)
+    keep = int(live.sum()) // 3
+    ks_c, ks_p = accum_kernel_sets()
+    if what == "compact_rows":
+        run = lambda ks, k, c: accum.compact_valid(k, [c], keep, ks)[0]  # noqa: E731
+    elif what == "compact_by_key":
+        run = lambda ks, k, c: accum.compact_by_key(k, [c], keep, ks)[0]  # noqa: E731
+    else:
+        pk, pw, counts = block_ops.pack_rows_plain(key.cpu(), w.cpu(), 4096)
+        pk, pw, counts = pk.to(dev), pw.to(dev), counts.to(dev)
+        start = accum._exclusive_starts(counts)
+        out_total = -(-(keep + 3000) // 4096) * 4096
+
+        def run(ks, k, c):
+            return ks.scatter_blocks_multi([pk.view(6, 4096), pw.view(6, 4096)], start,
+                                           out_total, 4096, marker_tail=(keep, 3000, 7, 127))
+    got = run(ks_c, key, w)
+    canary = [torch.full((4096,), 7, dtype=torch.int32, device=dev) for _ in range(8)]
+    got = run(ks_c, key, w)
+    torch.cuda.synchronize()
+    want = run(ks_p, key.cpu(), w.cpu())
+    assert all(_eq(x, y.to(dev)) for x, y in zip(got, want))
+    assert all(bool((c == 7).all()) for c in canary)
+
+
+def accum_kernel_sets():
+    from ice_halo_sim_tpu_torch.kernels import kernel_set
+
+    return kernel_set("cuda"), kernel_set("plain")

@@ -66,8 +66,13 @@ def test_ray_base_stride_matches_jax(monkeypatch, n_layers):
     assert [l.cont_cap for l in t.layers] == [l.cont_cap for l in j.layers]
     stride = j.batch_size * (len(j.layers) + 1)
     seen = []
-    monkeypatch.setattr(t, "_step_impl",
-                        lambda lo, hi, n_active, keep: seen.append((lo, hi)) or ([], [], None))
+
+    def batch(n_active=None, host_choice=False):
+        # The words the engine derives on the device from its counter.
+        seen.append(tuple(int(x) for x in t._ray_base_words(t._dev.counter)))
+        t._dev.counter.add_(1)
+
+    monkeypatch.setattr(t, "_batch", batch)
     monkeypatch.setattr(t, "_maybe_calibrate", lambda *a: None)
     for c0 in (0, 5, (1 << 32) // stride - 1):
         t.batch_counter = c0
@@ -150,9 +155,11 @@ def test_first_layer_rows_and_continuation_count_exact():
     base = t.ray_base(c)
     jout = j._trace_batch_impl(jnp.uint32(base), jnp.uint32(c), None, jnp.uint32(0))
     syncs = t.host_syncs
-    tout = t._trace_batch_impl(base, 0, c, None)
-    assert t.host_syncs == syncs + 1                    # one read per layer boundary
-    assert tout[4] == [int(x) for x in np.asarray(jout[4])] and tout[4][0] > 1000
+    tout = t._trace_batch_impl(torch.tensor(c))
+    assert t.host_syncs == syncs                        # no read at a layer boundary
+    assert bool(tout[6]) is False                       # the continuation fits its lanes
+    assert [int(x) for x in tout[4]] == [int(x) for x in np.asarray(jout[4])]
+    assert int(tout[4][0]) > 1000
     w_ray = float(t._w0_tbl.max())
     assert abs(int(tout[3]) - int(jout[3])) <= TIE_RAYS * H
     for r, pp in enumerate(t.proj_plans):
@@ -190,7 +197,10 @@ def test_layers_match_jax_engine(n_layers, geom_clock):
     doc = _doc(n_layers)
     j = JEngine(jax_load_project(doc), seed=7, batch_size=B, accum_method="sort",
                 geom_clock=geom_clock)
-    t = Engine(load_project(doc), seed=7, batch_size=B, device="cpu", geom_clock=geom_clock)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("IHT_STEPS_PER_DISPATCH")     # the port at its default
+        t = Engine(load_project(doc), seed=7, batch_size=B, device="cpu",
+                   geom_clock=geom_clock)
     before = [l.cont_cap for l in t.layers]
     assert before == [l.cont_cap for l in j.layers]
     for eng in (j, t):
@@ -206,9 +216,10 @@ def test_layers_match_jax_engine(n_layers, geom_clock):
     # to another accelerator (its rows reach 2^18 - P here), which the port
     # does not carry; the zenith render's, which it cannot snap, is equal.
     assert t._compact_keep is not None and t._compact_keep[1] == j._compact_keep[1]
-    # Per batch: one read per layer boundary and, after calibration, one of
-    # the live rows; one for the calibration.
-    assert t.host_syncs == 3 * (n_layers - 1) + 1 + 2
+    # One read per dispatch (the first overflowing batch: the continuation
+    # can overflow from the first dispatch on), none per batch or layer
+    # boundary, and one for the calibration.
+    assert t.host_syncs == 2 + 1 and t.overflow_replays == 0
     js, ts = j.drain_stats(), t.drain_stats()
     w_ray = float(t._w0_tbl.max())
     assert ts.rays_traced == js.rays_traced

@@ -127,14 +127,13 @@ def test_trace_emit_matches_jax_megakernel(jax_engine, port_engine, base_lo,
     jax_out = [(k.view(np.int32), w, c) for k, w, c in jax_out]
 
     plan = port_engine._trace_plan
-    out = trace_emit.trace_emit_plain(plan, base_lo, base_hi, n_active,
-                                      torch.device("cpu"))
+    base = (base_hi << 32) | base_lo
+    out = trace_emit.trace_emit_plain(plan, base, n_active, torch.device("cpu"))
     port_out = [tuple(x.numpy() for x in pr) for pr in out[0]]
     d = trace_emit.trace_output_diff(port_out, jax_out)
     flips = []
     if d["rows_diff"]:
-        slabs, *_ = trace_emit.trace_rows_plain(plan, base_lo, base_hi, n_active,
-                                                torch.device("cpu"))
+        slabs, *_ = trace_emit.trace_rows_plain(plan, base, n_active, torch.device("cpu"))
         flips = _named_flips(plan, jax_out[0][0], slabs, base_lo, base_hi, n_active)
     assert d["rows_diff"] <= FLIP_ROWS, (d, "flipped lanes", flips)
     assert d["blocks_diff"] == 0 or d["rows_diff"], d
@@ -190,8 +189,8 @@ def test_pool_trace_emit_matches_jax_kernel_on_its_tables(pool_ref, kind):
     ptbl = torch.as_tensor(fix[f"ptbl_{kind}"].copy())
     ttbl = torch.as_tensor(fix[f"ttbl_{kind}"].copy())
     base = mod.KERNEL_COUNTER * mod.KERNEL_BATCH * 2
-    out = trace_emit.trace_emit_plain(plan, base, 0, mod.KERNEL_BATCH,
-                                      torch.device("cpu"), ptbl, ttbl)
+    out = trace_emit.trace_emit_plain(plan, base, mod.KERNEL_BATCH, torch.device("cpu"),
+                                      ptbl, ttbl)
     keys, w, counts = (x.numpy() for x in out[0][0])
     # Keys and counts exact (the same tables: no float-fed decision moved).
     np.testing.assert_array_equal(counts, fix[f"counts_{kind}"])
@@ -227,7 +226,7 @@ def test_pool_mode_dead_slots_and_table_checks(pool_ref):
     plan = eng._trace_plan
     ptbl = torch.as_tensor(fix["ptbl_prism"].copy())
     ttbl = torch.as_tensor(fix["ttbl_prism"].copy())
-    args = (0, 0, mod.KERNEL_BATCH, torch.device("cpu"))
+    args = (0, mod.KERNEL_BATCH, torch.device("cpu"))
     want = trace_emit.trace_emit_plain(plan, *args, ptbl, ttbl)
     import dataclasses
 
