@@ -66,7 +66,14 @@ Phases (any failure raises; the exit code is then non-zero):
      dispatch and none per batch, each engine's rays/s, device busy time,
      kernels per batch and idle share, and overflow_replays;
   6. the bench entry (python -m ice_halo_sim_tpu_torch.bench) with three
-     windows of 2 s; its JSON line.
+     windows of 2 s; its JSON line;
+  7. gradients: the differentiable render (engine/gradient.py, plain
+     PyTorch on autograd, no kernel of its own) on the tilted scene against
+     the committed JAX render (tests/data/torch_port_grad_ref.npz, batch
+     16384) within the CPU tests' tolerances (grad_validation.fixture_check):
+     frozen with the recorded choices, free (score term) and soft_tau; then
+     per mode at batch 65536 the ms per forward and per forward + backward,
+     rays/s, device kernels, busy time, idle share and peak memory.
 
 The last lines of standard output are the kernels JSON object, the card
 (nvidia-smi) and the device JSON object. Imports nothing of JAX and
@@ -1452,6 +1459,19 @@ def phase_bench(smi):
     print(f"[6] bench entry (3 windows of 2 s): {line}", flush=True)
 
 
+def phase_gradients():
+    """[7]: the gradient path against its JAX fixture, then its timings."""
+    from ice_halo_sim_tpu_torch import grad_validation
+
+    t0 = time.time()
+    errs = grad_validation.fixture_check("cuda")
+    print(f"[7] gradients against {grad_validation.FIXTURE} (seed 3, batch 16384), "
+          f"errors within tolerance: {json.dumps(errs)}", flush=True)
+    for row in grad_validation.time_modes(1 << 16, "cuda"):
+        print(f"[7] {json.dumps(row)}", flush=True)
+    print(f"[7]: {time.time() - t0:.1f} s", flush=True)
+
+
 def phase_rate(eng, n: int = 20):
     import torch
 
@@ -1588,6 +1608,7 @@ def main() -> int:
         phase_graphs(name, cfg, device)
     phase_bench(smi)
     print(f"[5] and [6]: {time.time() - t5:.1f} s", flush=True)
+    phase_gradients()
     print(f"timings that fell back to CUDA events: {len(FALLBACKS)} "
           f"{json.dumps(FALLBACKS)}", flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)

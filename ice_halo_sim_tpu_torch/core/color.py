@@ -1,6 +1,7 @@
 """Spectral color (port of the engine-path subset of
 ``ice_halo_sim_tpu.core.color``): the piecewise-Chebyshev CMF fit, the
-daylight-series illuminant SPD and the sRGB snapshot post-process.
+tabulated CMF lookup of the gradient path, the daylight-series illuminant
+SPD and the sRGB snapshot post-process.
 
 The CIE tables are read from the port's own copy of the JAX package's data
 file (``data/cie_data.npz``); the Chebyshev coefficients are fitted from
@@ -14,7 +15,7 @@ import os
 import numpy as np
 import torch
 
-from ice_halo_sim_tpu_torch.core.bits import F32, I32, divs, sdiv
+from ice_halo_sim_tpu_torch.core.bits import F32, I32, const, divs, sdiv
 
 _DATA = np.load(
     os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -58,6 +59,17 @@ def _build_cmf_piecewise():
 
 
 _CMF_PIECEWISE = _build_cmf_piecewise()
+
+
+def cmf_lookup(wl_nm):
+    """CMF triple [..., 3] from the tables: the wavelength rounds to the
+    nearest nm (floor(wl + 0.5)); out of the table's range gives 0."""
+    wl = torch.as_tensor(wl_nm, dtype=F32)
+    key = torch.floor(wl + 0.5).to(I32)
+    in_range = (key >= CMF_WL_MIN) & (key <= CMF_WL_MAX)
+    idx = torch.clamp(key - CMF_WL_MIN, 0, CMF_WL_MAX - CMF_WL_MIN).long()
+    tbl = const(np.stack([CMF_X, CMF_Y, CMF_Z], axis=-1), wl.device)
+    return torch.where(in_range[..., None], tbl[idx], 0.0)
 
 
 def _clenshaw_rows(coefs, t):

@@ -11,6 +11,11 @@ forms and rectangular go through arccos, tan, arctan2 and arcsin, whose last
 bit differs between XLA, torch on the CPU and CUDA, so a direction on a
 pixel edge may land one pixel over. ``unproject`` is not ported (only the
 overlay of the host side calls it).
+
+``project_continuous`` and ``splat_bilinear`` are the differentiable
+projection of the gradient path (engine/gradient.py): continuous pixel
+coordinates of the single-lens family and a bilinear 4-neighbour
+scatter-add, through which autograd reaches the ray directions.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import numpy as np
 import torch
 
 from ice_halo_sim_tpu_torch.config.schema import LensType, RenderConfig, VisibleRange
-from ice_halo_sim_tpu_torch.core.bits import I32, sdiv
+from ice_halo_sim_tpu_torch.core.bits import I32, I64, sdiv
 
 # Lenses the trace kernel takes (plain twin and CUDA): the six of the JAX
 # trace kernel. The general trace path renders all eleven.
@@ -175,19 +180,20 @@ class PixelHits(NamedTuple):
     overlap: torch.Tensor  # int32 flattened pixel or -1
 
 
+def _camera(plan: ProjPlan, wx, wy, wz):
+    """Camera frame c = R^T (-w), componentwise."""
+    r = plan.rot
+    return (
+        -(float(r[0, 0]) * wx + float(r[1, 0]) * wy + float(r[2, 0]) * wz),
+        -(float(r[0, 1]) * wx + float(r[1, 1]) * wy + float(r[2, 1]) * wz),
+        -(float(r[0, 2]) * wx + float(r[1, 2]) * wy + float(r[2, 2]) * wz),
+    )
+
+
 def project_components(plan: ProjPlan, wx, wy, wz) -> PixelHits:
     """World exit directions (components) -> pixel hits."""
     t = plan.lens_type
     W, H = plan.width, plan.height
-    r = plan.rot
-
-    def cam(wx, wy, wz):
-        """Camera frame c = R^T (-w), componentwise."""
-        return (
-            -(float(r[0, 0]) * wx + float(r[1, 0]) * wy + float(r[2, 0]) * wz),
-            -(float(r[0, 1]) * wx + float(r[1, 1]) * wy + float(r[2, 1]) * wz),
-            -(float(r[0, 2]) * wx + float(r[1, 2]) * wy + float(r[2, 2]) * wz),
-        )
 
     def in_bounds(px, py, valid):
         ok = valid & (px >= 0) & (px < W) & (py >= 0) & (py < H)
@@ -205,7 +211,7 @@ def project_components(plan: ProjPlan, wx, wy, wz) -> PixelHits:
             valid = valid & (wz <= 0.0)
         elif plan.visible == VisibleRange.LOWER:
             valid = valid & (wz >= 0.0)
-        cx, cy, cz = cam(wx, wy, wz)
+        cx, cy, cz = _camera(plan, wx, wy, wz)
         valid = valid & (cz > 0.0)
         if t == LensType.LINEAR:
             # An invalid ray divides by 1, never by a non-positive cz.
@@ -219,7 +225,7 @@ def project_components(plan: ProjPlan, wx, wy, wz) -> PixelHits:
                          overlap=torch.full_like(px, -1))
 
     if t == LensType.GLOBE:
-        cx, cy, cz = cam(wx, wy, wz)
+        cx, cy, cz = _camera(plan, wx, wy, wz)
         # Valid rays have cz in [-1, -1/D), so their denominator is > 0; an
         # invalid ray's quotient (possibly inf) is masked by in_bounds.
         valid = cz < -1.0 / GLOBE_CAMERA_D
@@ -256,3 +262,63 @@ def project_components(plan: ProjPlan, wx, wy, wz) -> PixelHits:
         band = torch.abs(sz) < plan.max_abs_dz
         overlap = in_bounds(px2, py2, band)
     return PixelHits(main=main, overlap=overlap)
+
+
+def project_continuous(plan: ProjPlan, w_dir):
+    """Continuous pixel coordinates (fx, fy, valid) of world directions
+    w_dir [..., 3], single-lens family: the differentiable projection that
+    bilinear splatting reads (integer binning blocks the gradient)."""
+    t = plan.lens_type
+    wx, wy, wz = w_dir.unbind(-1)
+    W, H = plan.width, plan.height
+    valid = torch.ones_like(wx, dtype=torch.bool)
+    if plan.visible == VisibleRange.UPPER:
+        valid = valid & (wz <= 0.0)
+    elif plan.visible == VisibleRange.LOWER:
+        valid = valid & (wz >= 0.0)
+    cx, cy, cz = _camera(plan, wx, wy, wz)
+    if t == LensType.LINEAR:
+        safe_cz = torch.where(cz > 0, cz, 1.0)
+        x, y = cx / safe_cz, cy / safe_cz
+        valid = valid & (cz > 0.0)
+    elif t in (LensType.FISHEYE_EQUAL_AREA, LensType.FISHEYE_EQUIDISTANT,
+               LensType.FISHEYE_STEREOGRAPHIC, LensType.FISHEYE_ORTHOGRAPHIC):
+        valid = valid & (cz > 0.0)
+        safe_cz = torch.where(valid, cz, 1.0)
+        x, y, v2 = _fisheye_forward(t, cx, cy, safe_cz, 1.0)
+        valid = valid & v2
+    else:
+        raise NotImplementedError(
+            "project_continuous supports the single-lens family; "
+            f"lens type {t} uses the discrete path"
+        )
+    x = -x
+    fx = x * plan.scale + W / 2.0 + 0.5 + plan.shift_x
+    fy = y * plan.scale + H / 2.0 + 0.5 + plan.shift_y
+    return fx, fy, valid
+
+
+def splat_bilinear(acc, fx, fy, valid, values, width: int, height: int):
+    """Bilinear 4-neighbour scatter-add of `values` [N, C] into a flat
+    [H*W, C] accumulator at continuous pixel coordinates; differentiable in
+    fx/fy (the weights) and the values. Out-of-image neighbours add 0 to
+    pixel 0. The sums are float additions in an unspecified order (atomics
+    on CUDA), so the image is held by tolerance, not by bits."""
+    x0 = torch.floor(fx - 0.5)
+    y0 = torch.floor(fy - 0.5)
+    tx = (fx - 0.5) - x0
+    ty = (fy - 0.5) - y0
+    x0i, y0i = x0.to(I64), y0.to(I64)
+    for dx, dy, w in (
+        (0, 0, (1 - tx) * (1 - ty)),
+        (1, 0, tx * (1 - ty)),
+        (0, 1, (1 - tx) * ty),
+        (1, 1, tx * ty),
+    ):
+        px = x0i + dx
+        py = y0i + dy
+        ok = valid & (px >= 0) & (px < width) & (py >= 0) & (py < height)
+        pix = torch.where(ok, py * width + px, 0)
+        contrib = torch.where(ok[..., None], values * w[..., None], 0.0)
+        acc = acc.index_add(0, pix, contrib)
+    return acc

@@ -1,6 +1,6 @@
 """The general trace of one scattering layer (port of
-``ice_halo_sim_tpu.core.trace_soa``, forward render mode): component-form
-rotation, the Fresnel split, ``trace_layer_soa`` and ``compact_slots``.
+``ice_halo_sim_tpu.core.trace_soa``): component-form rotation, the Fresnel
+split, ``trace_layer_soa`` with its gradient modes and ``compact_slots``.
 
 Plain PyTorch on the engine's device, as the trace is XLA (not Pallas) in the
 JAX package. Same RNG streams, the same float32 operation order and the same
@@ -16,7 +16,12 @@ TPU workarounds dropped, values kept:
   - ``compact_slots`` routes by a butterfly of rolls along the slot axis
     there; here it is one indexed write per live slot at its exclusive live
     rank.
-The gradient modes (score_grad, frozen, soft_tau, record) are not ported.
+
+The gradient modes (``score_grad``, ``frozen``, ``record``, ``soft_tau``;
+engine/gradient.py) run on torch autograd. Without them the ops are the
+render mode's: the face index carry and indexed reads. ``soft_tau`` alone
+carries the previous face as a soft [NF, B] weight and blends by one-hot
+sums, as the JAX function does in every mode: a soft weight is not an index.
 """
 
 from __future__ import annotations
@@ -26,11 +31,27 @@ from typing import NamedTuple, Optional
 import torch
 
 from ice_halo_sim_tpu_torch.core import optics, rng
-from ice_halo_sim_tpu_torch.core.bits import F32, I32, I64, sdiv
+from ice_halo_sim_tpu_torch.core.bits import F32, I32, I64, divs, sdiv
+from ice_halo_sim_tpu_torch.core.sampling import HALF_PI_F, PI_F, _rot9
 from ice_halo_sim_tpu_torch.core.trace import GeomPool
 
 SLAB_EPS = optics.SLAB_EPS
 _BIG = 1e30
+
+
+class FrozenChoices(NamedTuple):
+    """The trace's discrete decisions at one (seed, params) base point.
+
+    Re-running the trace at perturbed params with these choices reused
+    (``frozen=``) removes every discontinuous branch (entry triangle, slab
+    argmin face, TIR, emit gates) from a finite-difference comparison."""
+
+    entry_sel: torch.Tensor   # [B] int32 entry sub-triangle index
+    entry_ok: torch.Tensor    # [B] bool
+    faces: torch.Tensor       # [H-1, B] int32 slab argmin face slot
+    alive: torch.Tensor       # [H-1, B] bool lane alive after the hit
+    is_tir: torch.Tensor      # [H-1, B] bool internal TIR decision
+    emit_ok: torch.Tensor     # [H-1, B] bool refracted exit emitted
 
 
 class SoAExits(NamedTuple):
@@ -68,6 +89,15 @@ def compact_slots(live, cols, cap: int):
     return outs, keep, n_live.to(I32)
 
 
+def rot_components(lon, lat, roll):
+    """The 9 rotation components (row-major, world = R @ crystal) of the
+    orientation angles (radians)."""
+    a = lon - PI_F
+    b = lat - HALF_PI_F
+    return _rot9(torch.cos(a), torch.sin(a), torch.cos(b), torch.sin(b),
+                 torch.cos(roll), torch.sin(roll))
+
+
 def rot_apply(r, x, y, z):
     """world = R @ crystal, componentwise (r: 9 row-major entries)."""
     r00, r01, r02, r10, r11, r12, r20, r21, r22 = r
@@ -88,14 +118,18 @@ def rot_apply_inv(r, x, y, z):
     )
 
 
-def _fresnel_split_soa(dx, dy, dz, nx, ny, nz, w, n_ior):
+def _fresnel_split_soa(dx, dy, dz, nx, ny, nz, w, n_ior, tir_in=None):
     """Fresnel interaction on component arrays (HitSurface).
-    Returns (reflect d, refract d, w_r, w_t, is_tir)."""
+    Returns (reflect d, refract d, w_r, w_t, is_tir).
+
+    tir_in: a frozen TIR decision. Where it says "not TIR" at params that
+    are TIR, delta clamps to 0 and the refracted weight goes to 0
+    smoothly."""
     cos_theta = dx * nx + dy * ny + dz * nz
     rr = torch.where(cos_theta > 0, n_ior, sdiv(1.0, n_ior))
     cos_sq = cos_theta * cos_theta
     delta = (1.0 - rr * rr) / torch.clamp_min(cos_sq, 1e-20) + rr * rr
-    is_tir = delta <= 0.0
+    is_tir = (delta <= 0.0) if tir_in is None else tir_in
     delta_safe = torch.where(is_tir, 1.0, torch.clamp_min(delta, 0.0))
     r_ratio = torch.where(is_tir, 1.0, optics.reflect_ratio(delta_safe, rr))
     w_reflect = r_ratio * w
@@ -137,20 +171,34 @@ def _pick_row(tab, idx):
 
 
 def trace_layer_soa(seed, ray_idx, d_world, w0, rot, pool: GeomPool, n_ior,
-                    max_hits: int, setting_blocks: Optional[tuple] = None) -> SoAExits:
-    """One scattering layer, forward render mode.
+                    max_hits: int, setting_blocks: Optional[tuple] = None,
+                    score_grad: bool = False, frozen: Optional[FrozenChoices] = None,
+                    record: bool = False, soft_tau: Optional[float] = None):
+    """One scattering layer.
 
     seed: the layer's per-ray seed (int64-held u32, [B] or scalar); ray_idx
     [B]; d_world (dx, dy, dz) world directions; w0 [B]; rot the 9 rotation
     components; pool the layer's K shapes; setting_blocks ((k_s, count_s),
     ...) maps lanes to pool rows (K == 1 with one setting is shared by
-    every lane)."""
+    every lane).
+
+    Gradient modes (all off in rendering):
+      score_grad: the weights carry the REINFORCE score term of the entry
+        triangle's choice, w * exp(log_p - log_p.detach()) (value w);
+      frozen: reuse a recording's FrozenChoices (entry triangle, faces,
+        alive, TIR, emit gates); t is that of the frozen face;
+      record: return (exits, FrozenChoices);
+      soft_tau: the face pick becomes a softmin over exit t at temperature
+        soft_tau (crystal units): normals and t blend across a face
+        reassignment boundary, so autodiff carries the boundary flux that
+        the hard argmin drops (bias O(soft_tau)). Face numbers stay hard."""
     B = ray_idx.shape[0]
     dev = ray_idx.device
     entry_seed = rng._t(seed, ray_idx) ^ rng.NONCE_ENTRY
     K, NF = pool.plane_n.shape[0], pool.plane_n.shape[1]
     T = pool.tri_face.shape[1]
     shared = K == 1 and (setting_blocks is None or len(setting_blocks) == 1)
+    soft = soft_tau is not None and frozen is None
 
     wx, wy, wz = d_world
     dx, dy, dz = rot_apply_inv(rot, wx, wy, wz)
@@ -183,9 +231,14 @@ def trace_layer_soa(seed, ray_idx, d_world, w0, rot, pool: GeomPool, n_ior,
         run = run + wt[t]
         cdf.append(run)
     total = run
-    entry_ok = total > 0.0
-    target = rng.uniform(entry_seed, ray_idx, 10) * total
-    sel = torch.clamp((torch.stack(cdf) <= target[None, :]).sum(dim=0), 0, T - 1)
+    has_entry = total > 0.0
+    if frozen is None:
+        target = rng.uniform(entry_seed, ray_idx, 10) * total
+        sel = torch.clamp((torch.stack(cdf) <= target[None, :]).sum(dim=0), 0, T - 1)
+        entry_ok = has_entry
+    else:
+        sel = frozen.entry_sel.to(I64)
+        entry_ok = frozen.entry_ok
     u = rng.uniform(entry_seed, ray_idx, 11)
     v = rng.uniform(entry_seed, ray_idx, 12)
     over = u + v > 1.0
@@ -199,6 +252,15 @@ def trace_layer_soa(seed, ray_idx, d_world, w0, rot, pool: GeomPool, n_ior,
     f0 = pool.tri_face[prow, sel].to(I64)
 
     w = torch.where(entry_ok, w0, 0.0)
+    if score_grad:
+        # log p of the chosen triangle; the inner where keeps log's
+        # gradient finite where w_sel is 0.
+        w_sel = wt.gather(0, sel[None, :])[0]
+        safe_total = torch.where(has_entry, total, 1.0)
+        log_p = torch.where(
+            has_entry & (w_sel > 0),
+            torch.log(torch.where(w_sel > 0, w_sel, 1.0)) - torch.log(safe_total), 0.0)
+        w = w * torch.exp(log_p - log_p.detach())
     n0x, n0y, n0z = _pick_row(nx, f0), _pick_row(ny, f0), _pick_row(nz, f0)
     fn0 = _pick_row(face_num, f0)
 
@@ -213,22 +275,46 @@ def trace_layer_soa(seed, ray_idx, d_world, w0, rot, pool: GeomPool, n_ior,
     face_iota = torch.arange(NF, dtype=I64, device=dev)[:, None]
     cx, cy, cz, cw = tx, ty, tz, w_t
     prev_f = f0
+    if soft:
+        prev_oh = (face_iota == f0[None, :]).to(F32)
     ex_l, ey_l, ez_l, ew_l, fn_l = [e0x], [e0y], [e0z], [exit0_w], [fn0]
-    for _ in range(max_hits - 1):
+    rec = []
+    for k in range(max_hits - 1):
         denom = cx[None, :] * nx + cy[None, :] * ny + cz[None, :] * nz
         t_face = -dist / torch.where(torch.abs(denom) > 1e-30, denom, 1e-30)
-        candidate = (denom > SLAB_EPS) & present & (face_iota != prev_f[None, :])
-        # Ties and the no-candidate case go to the lowest face slot.
-        t_hard, fi = torch.min(torch.where(candidate, t_face, _BIG), dim=0)
-        found = (t_hard < _BIG * 0.5) & (t_hard > -SLAB_EPS)
-        alive = found & (cw > 0.0)
-        nfx, nfy, nfz = _pick_row(nx, fi), _pick_row(ny, fi), _pick_row(nz, fi)
+        if frozen is None:
+            excl = (prev_oh < 0.5) if soft else (face_iota != prev_f[None, :])
+            candidate = (denom > SLAB_EPS) & present & excl
+            # Ties and the no-candidate case go to the lowest face slot.
+            t_hard, fi = torch.min(torch.where(candidate, t_face, _BIG), dim=0)
+            found = (t_hard < _BIG * 0.5) & (t_hard > -SLAB_EPS)
+            alive = found & (cw > 0.0)
+            t = t_hard
+        else:
+            fi = frozen.faces[k].to(I64)
+            alive = frozen.alive[k]
+            t = t_face.gather(0, fi[None, :])[0]
+        if soft:
+            # Softmin over the candidates' exit t; exp is taken on
+            # candidate rows within 20 tau of the nearest only.
+            dt = torch.where(candidate, t_face, _BIG) - t_hard[None, :]
+            s_raw = torch.where(candidate & (dt < 20.0 * soft_tau),
+                                torch.exp(divs(-dt, soft_tau)), 0.0)
+            oh = s_raw / torch.clamp_min(s_raw.sum(dim=0), 1e-30)[None, :]
+            t = (oh * torch.where(candidate, t_face, 0.0)).sum(dim=0)
+            nfx, nfy, nfz = (oh * nx).sum(dim=0), (oh * ny).sum(dim=0), (oh * nz).sum(dim=0)
+        else:
+            nfx, nfy, nfz = _pick_row(nx, fi), _pick_row(ny, fi), _pick_row(nz, fi)
         fn = _pick_row(face_num, fi)
-        dist = torch.where(alive[None, :], dist + t_hard[None, :] * denom, dist)
+        dist = torch.where(alive[None, :], dist + t[None, :] * denom, dist)
         (rx, ry, rz), (tx, ty, tz), w_r, w_t, is_tir = _fresnel_split_soa(
-            cx, cy, cz, nfx, nfy, nfz, cw, n_ior)
-        cos_exit = tx * nfx + ty * nfy + tz * nfz
-        emit_ok = alive & ~is_tir & (cos_exit > 0.0)
+            cx, cy, cz, nfx, nfy, nfz, cw, n_ior,
+            tir_in=None if frozen is None else frozen.is_tir[k])
+        if frozen is None:
+            cos_exit = tx * nfx + ty * nfy + tz * nfz
+            emit_ok = alive & ~is_tir & (cos_exit > 0.0)
+        else:
+            emit_ok = frozen.emit_ok[k]
         ex, ey, ez = rot_apply(rot, tx, ty, tz)
         ex_l.append(ex)
         ey_l.append(ey)
@@ -239,7 +325,15 @@ def trace_layer_soa(seed, ray_idx, d_world, w0, rot, pool: GeomPool, n_ior,
         cy = torch.where(alive, ry, cy)
         cz = torch.where(alive, rz, cz)
         cw = torch.where(alive, w_r, 0.0)
-        prev_f = torch.where(alive, fi, prev_f)
-    return SoAExits(
+        if soft:
+            prev_oh = torch.where(alive[None, :], oh, prev_oh)
+        else:
+            prev_f = torch.where(alive, fi, prev_f)
+        if record:
+            rec.append((fi.to(I32), alive, is_tir, emit_ok))
+    exits = SoAExits(
         dx=torch.stack(ex_l), dy=torch.stack(ey_l), dz=torch.stack(ez_l),
         w=torch.stack(ew_l), path=torch.stack(fn_l).to(I32), entry_ok=entry_ok)
+    if not record:
+        return exits
+    return exits, FrozenChoices(sel.to(I32), entry_ok, *(torch.stack(c) for c in zip(*rec)))

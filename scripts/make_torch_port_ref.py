@@ -24,7 +24,15 @@ ones):
     knobs: roulette emit floor, the slot cap and keep calibrated after the
     first batch (IHT_STEPS_PER_DISPATCH=1), sort fold.
 
-    JAX_PLATFORMS=cpu python scripts/make_torch_port_ref.py [bench|pool|kernel|ms]
+  tests/data/torch_port_grad_ref.npz  the differentiable render
+    (engine/gradient.py) on scripts/grad_validation.py's tilted scene, seed
+    3, batch 16384: the base params, the hard and the soft_tau = 0.005
+    images, the gradients of that script's smooth_loss with respect to
+    the five params in each mode (frozen with the recorded choices; free,
+    with the score term; soft_tau), and the recorded FrozenChoices (face
+    and triangle indices as uint8, decisions bit-packed).
+
+    JAX_PLATFORMS=cpu python scripts/make_torch_port_ref.py [bench|pool|kernel|ms|grad]
 """
 
 from __future__ import annotations
@@ -239,6 +247,48 @@ def jax_ms_reference() -> dict:
     }
 
 
+GRAD_OUT = os.path.join(ROOT, "tests", "data", "torch_port_grad_ref.npz")
+GRAD_SEED, GRAD_BATCH, GRAD_TAU = 3, 1 << 14, 0.005
+
+
+def jax_grad_reference() -> dict:
+    """The JAX differentiable render on the tilted scene in its three
+    gradient modes (see the module docstring)."""
+    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import jax
+
+    import grad_validation as gv
+    from ice_halo_sim_tpu.engine.gradient import default_params, make_render_fn
+
+    cfg = gv.tilted_cfg()
+    params = default_params(cfg)
+    render_frozen, record = make_render_fn(cfg, batch_size=GRAD_BATCH, seed=GRAD_SEED,
+                                           frozen_mode=True)
+    img, choices = record(params)
+    fns = {
+        "frozen": lambda p: render_frozen(p, choices),
+        "free": make_render_fn(cfg, batch_size=GRAD_BATCH, seed=GRAD_SEED),
+        "soft": make_render_fn(cfg, batch_size=GRAD_BATCH, seed=GRAD_SEED,
+                               soft_tau=GRAD_TAU),
+    }
+    out = {"seed": np.int64(GRAD_SEED), "batch_size": np.int64(GRAD_BATCH),
+           "soft_tau": np.float64(GRAD_TAU), "img_hard": np.asarray(img),
+           "img_soft": np.asarray(fns["soft"](params))}
+    for name in params._fields:
+        out[f"param_{name}"] = np.asarray(getattr(params, name))
+    for mode, fn in fns.items():
+        grads = jax.grad(lambda p: gv.smooth_loss(fn(p)))(params)
+        out[f"loss_{mode}"] = np.float64(gv.smooth_loss(fn(params)))
+        for name, g in zip(params._fields, grads):
+            out[f"grad_{mode}_{name}"] = np.asarray(g)
+    sel, ok, faces, alive, tir, emit = (np.asarray(c) for c in choices)
+    out.update(entry_sel=sel.astype(np.uint8), faces=faces.astype(np.uint8),
+               entry_ok=np.packbits(ok), alive=np.packbits(alive, axis=-1),
+               is_tir=np.packbits(tir, axis=-1), emit_ok=np.packbits(emit, axis=-1))
+    return out
+
+
 def main(argv=None) -> int:
     which = (argv if argv is not None else sys.argv[1:]) or ["bench", "pool", "kernel", "ms"]
     if "kernel" in which:
@@ -270,6 +320,11 @@ def main(argv=None) -> int:
         print(f"wrote {MS_OUT}: image sums {ref['raw_xyz'].sum():.6g}, "
               f"{ref['raw_xyz_1'].sum():.6g}, segments {int(ref['ray_segments'])}, "
               f"slot cap {int(ref['slot_cap'])}")
+    if "grad" in which:
+        ref = jax_grad_reference()
+        np.savez_compressed(GRAD_OUT, **ref)
+        print(f"wrote {GRAD_OUT}: image sum {ref['img_hard'].sum():.6g}, losses "
+              f"{[float(ref[f'loss_{m}']) for m in ('frozen', 'free', 'soft')]}")
     return 0
 
 
