@@ -73,7 +73,27 @@ Phases (any failure raises; the exit code is then non-zero):
      16384) within the CPU tests' tolerances (grad_validation.fixture_check):
      frozen with the recorded choices, free (score term) and soft_tau; then
      per mode at batch 65536 the ms per forward and per forward + backward,
-     rays/s, device kernels, busy time, idle share and peak memory.
+     rays/s, device kernels, busy time, idle share and peak memory;
+  8. serving (engine/server.py, engine/checkpoint.py, gui/app.py):
+     BENCH_CFG at full width through Server(device="cuda") (its default
+     batch 229376), 64 batches from commit to wait_idle, the frame's raw
+     XYZ and landed weights bit-equal to an Engine driven by the same run
+     calls (1, then 63), the launch counters reset just before each served
+     scene and read just after (every kernel of its path launched; listed
+     as "launches_served" in the kernels line); the steady rays/s of
+     Engine.run and of one batch a call, in turns; the Server's steady rate
+     (an infinite budget) alone, with a reader at 4 Hz, and at the JAX
+     server's grain (one batch a pump); host reads per batch;
+     acquire_frame at 512x256 and at COLOR_CFG's 1024x512; an
+     appearance-only recommit (reused, generation kept); layout commits
+     while pumping, BENCH_CFG -> MS_CFG (8 batches, its frame bit-equal to
+     its Engine twin) -> MS_CFG (infinite) -> BENCH_CFG, with each commit's
+     latency and the peak memory of the sequence; COLOR_CFG and POOL_CFG
+     served for their launches; checkpoints of BENCH_CFG
+     and MS_CFG (4 batches, save, load on the card, 4 more) bit-equal to 8
+     uninterrupted; the web GUI on the card (every endpoint); and a CUDA
+     graph captured on a second thread while the main thread runs CUDA
+     work.
 
 The last lines of standard output are the kernels JSON object, the card
 (nvidia-smi) and the device JSON object. Imports nothing of JAX and
@@ -1484,6 +1504,463 @@ def phase_rate(eng, n: int = 20):
     return n * eng.batch_size / dt
 
 
+# Kernels each served scene runs (phase [8]): BENCH_CFG through the trace
+# kernel path, MS_CFG and COLOR_CFG through the general path.
+SERVED_KERNELS = {
+    "bench": ["trace_emit", "scatter_blocks_multi", "fused_scan_extract"],
+    "pool": ["trace_emit_pool", "scatter_blocks_multi", "fused_scan_extract"],
+    "ms": ["compact_rows", "scatter_blocks", "fused_scan_extract"],
+    "color": ["compact_rows", "pack_payload_blocks", "scatter_blocks_multi"],
+}
+ACQUIRE_HZ = 4.0     # the GUI's poll rate (gui/app.py GuiApp.frame)
+RATE_WINDOW_S = 2.0  # the windows of the Server's rate with and without a reader
+
+
+def _budget(doc, batches: int, batch: int):
+    """A copy of a scene document with a budget of `batches` batches (-1:
+    infinite)."""
+    doc = copy.deepcopy(doc)
+    doc["scene"]["ray_num"] = -1 if batches < 0 else batches * batch
+    return doc
+
+
+def _served_counts(name, counts):
+    """The launch counts of a served scene: every kernel of its path ran."""
+    from ice_halo_sim_tpu_torch.kernels import build
+
+    got = {k: v for k, v in build.LAUNCHES.items() if v}
+    for k in SERVED_KERNELS[name]:
+        if got.get(k, 0) <= 0:
+            raise AssertionError(f"served {name}: kernel {k} was not launched ({got})")
+    counts[name] = got
+    print(f"[8] served {name}: launches {got}", flush=True)
+
+
+def _twin_equal(what, frame, eng):
+    """A served frame against an Engine driven by the same run calls: raw
+    XYZ and landed weights bit for bit."""
+    import numpy as np
+
+    for r in range(len(eng.proj_plans)):
+        if not np.array_equal(frame.raw_xyz[r], eng.raw_xyz(r)):
+            raise AssertionError(f"{what}: render {r} differs from its Engine twin")
+    landed = tuple(float(x) for x in eng.accum[-1].cpu())
+    if frame.landed != landed:
+        raise AssertionError(f"{what}: landed {frame.landed} != twin {landed}")
+
+
+def _twin(cfg, batch, device, calls):
+    """An Engine (seed 7) driven by `calls`; (engine, seconds from its
+    build to done)."""
+    import torch
+
+    from ice_halo_sim_tpu_torch.engine.simulator import Engine
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = Engine(cfg, seed=7, batch_size=batch, device=device)
+    for n in calls:
+        eng.run(n_batches=n)
+    torch.cuda.synchronize()
+    return eng, time.perf_counter() - t0
+
+
+def _acquire_ms(srv, reps: int = 5) -> float:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        srv.acquire_frame()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[reps // 2]
+
+
+def _rate_window(srv, seconds: float) -> float:
+    """Rays/s of a pumping Server over a window (sim_ray_count, host clock)."""
+    n0, t0 = srv.sim_ray_count(), time.perf_counter()
+    time.sleep(seconds)
+    return (srv.sim_ray_count() - n0) / (time.perf_counter() - t0)
+
+
+def _wait_rays(srv, rays: int, timeout: float = 120.0) -> None:
+    deadline = time.time() + timeout
+    while srv.sim_ray_count() < rays:
+        if time.time() > deadline:
+            raise AssertionError(f"the Server traced {srv.sim_ray_count()} of {rays} rays "
+                                 f"in {timeout} s")
+        time.sleep(0.0005)
+
+
+def _one_batch_server(**kw):
+    """A Server at the JAX server's grain, one batch a pump: the grain the
+    Server does not take, measured beside the one it takes."""
+    from ice_halo_sim_tpu_torch.engine.server import Server
+
+    class OneBatchServer(Server):
+        def _grain_locked(self) -> int:
+            return 1
+
+    return OneBatchServer(**kw)
+
+
+def phase_serving_bench(srv, device, counts: dict, out: dict) -> None:
+    """BENCH_CFG at full width through the Server: 64 batches from commit
+    to idle, against an Engine built and driven by the same run calls (1,
+    then 63); the steady rates of Engine.run (64-batch calls) and of the
+    JAX server's grain (one batch a call), each twice in turns; then
+    acquire_frame, an appearance-only recommit, and the Server's steady rate
+    (an infinite budget) with and without a reader at 4 Hz."""
+    import threading
+
+    import torch
+
+    from ice_halo_sim_tpu_torch.config.loader import load_project
+    from ice_halo_sim_tpu_torch.kernels import build
+    from ice_halo_sim_tpu_torch.scenes import BENCH_CFG
+
+    n = 64
+    doc = _budget(BENCH_CFG, n, BATCH)
+    cfg = load_project(doc)
+    # Calibrated, captured engines (every first-use cost paid before a
+    # timing); then each grain timed twice, in turns.
+    e_run = _twin(cfg, BATCH, device, [1, n])[0]
+    e_one = _twin(cfg, BATCH, device, [1, 1, 1])[0]
+    steady = {"run": [], "one": []}
+    for what in ("run", "one", "one", "run"):
+        eng_, calls = (e_run, [n]) if what == "run" else (e_one, [1] * n)
+        steady[what].append(n * BATCH / _twin_run(eng_, calls)[1])
+    one_reads = e_one.host_syncs
+    del e_run, e_one
+
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if srv.commit(doc):
+        raise AssertionError("the first commit reused nothing there was")
+    _wait_rays(srv, BATCH)
+    t1 = time.perf_counter()
+    if not srv.wait_idle(timeout=120):
+        raise AssertionError("served bench: not idle within 120 s")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    _served_counts("bench", counts)
+    frame = srv.acquire_frame()
+    eng = srv._engine
+    if eng.batch_size != BATCH:
+        raise AssertionError(f"the Server's default batch is {eng.batch_size}, not {BATCH}")
+    reads = eng.host_syncs / eng.batch_counter
+    twin, twin_s = _twin(cfg, BATCH, device, [1, n - 1])
+    _twin_equal("served bench", frame, twin)
+    del twin
+    run_rate = sum(steady["run"]) / 2
+    one_rate = sum(steady["one"]) / 2
+    out.update(server_commit_to_idle=n * BATCH / (t2 - t0), twin_build_to_done=n * BATCH / twin_s,
+               server_second_pump_to_idle=(n - 1) * BATCH / (t2 - t1), run_steady=run_rate,
+               one_batch_steady=one_rate, reads_per_batch=reads)
+    print(f"[8] served bench (batch {BATCH}, {n} batches): commit to idle {t2 - t0:.4f} s, "
+          f"{n * BATCH / (t2 - t0):.6g} rays/s (the Engine twin, build to done, "
+          f"{n * BATCH / twin_s:.6g}); second pump (its capture included) to idle "
+          f"{(n - 1) * BATCH / (t2 - t1):.6g} rays/s; host reads per batch {reads:.4f} "
+          f"({eng.host_syncs} in {eng.batch_counter}); frame == Engine twin bit for bit",
+          flush=True)
+    print(f"[8] steady rays/s, in turns: Engine.run of {n} batches {steady['run']}, one batch a "
+          f"call (the JAX server's grain) {steady['one']}: {one_rate / run_rate:.4f} of run "
+          f"({one_reads} host reads in {3 + 2 * n} batches)", flush=True)
+
+    ms = _acquire_ms(srv)
+    out["acquire_ms_512x256"] = ms
+    print(f"[8] acquire_frame at 512x256: {ms:.4f} ms (median of 5)", flush=True)
+
+    gen = srv.generation()
+    app = copy.deepcopy(doc)
+    app["render"][0]["intensity_factor"] = 2.0 * doc["render"][0].get("intensity_factor", 1.0)
+    if not srv.commit(app) or srv.generation() != gen:
+        raise AssertionError("appearance-only recommit did not reuse the accumulation")
+    again = srv.acquire_frame()
+    if not all((a == b).all() for a, b in zip(frame.raw_xyz, again.raw_xyz)) or (
+            again.images[0] == frame.images[0]).all():
+        raise AssertionError("appearance-only recommit changed the accumulation or "
+                             "did not re-tone-map")
+    print(f"[8] appearance-only recommit: reused, generation {gen} kept, raw XYZ equal, "
+          f"image re-tone-mapped", flush=True)
+
+    srv.commit(_budget(BENCH_CFG, -1, BATCH))
+    _wait_rays(srv, 2 * BATCH)
+    time.sleep(0.5)
+    alone = _rate_window(srv, RATE_WINDOW_S)
+    stop = threading.Event()
+    frames = []
+
+    def reader():
+        while not stop.wait(1.0 / ACQUIRE_HZ):
+            t = time.perf_counter()
+            srv.acquire_frame()
+            frames.append((time.perf_counter() - t) * 1e3)
+
+    th = threading.Thread(target=reader, daemon=True)
+    th.start()
+    try:
+        read = _rate_window(srv, RATE_WINDOW_S)
+    finally:
+        stop.set()
+        th.join(timeout=30)
+    if th.is_alive() or not frames:
+        raise AssertionError(f"the 4 Hz reader did not run ({len(frames)} frames)")
+    # The same Server at the JAX server's grain (one batch a pump), between
+    # two windows of the grouped grain.
+    srv.stop()
+    srv.wait_idle(timeout=60)
+    one = _one_batch_server(seed=7, batch_size=BATCH, device=device)
+    try:
+        one.commit(_budget(BENCH_CFG, -1, BATCH))
+        _wait_rays(one, 2 * BATCH)
+        time.sleep(0.5)
+        one_server = _rate_window(one, RATE_WINDOW_S)
+    finally:
+        one.shutdown()
+    if not srv.commit(_budget(BENCH_CFG, -1, BATCH)):
+        raise AssertionError("recommitting the stopped scene did not reuse it")
+    time.sleep(0.5)
+    again = _rate_window(srv, RATE_WINDOW_S)
+    out.update(server_steady=[alone, again], server_steady_reader=read,
+               server_one_batch_steady=one_server)
+    print(f"[8] served bench, infinite budget (the Server's steady rate): {alone:.6g} and "
+          f"{again:.6g} rays/s alone ({(alone + again) / 2 / run_rate:.4f} of Engine.run's), "
+          f"{read:.6g} rays/s with a reader at {ACQUIRE_HZ:g} Hz ({read / alone:.4f}; "
+          f"{len(frames)} frames, acquire_frame median "
+          f"{sorted(frames)[len(frames) // 2]:.4f} ms); at one batch a pump (the JAX "
+          f"server's grain) {one_server:.6g} rays/s ({one_server / run_rate:.4f} of "
+          f"Engine.run's)", flush=True)
+
+
+def _twin_run(eng, calls):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for n in calls:
+        eng.run(n_batches=n)
+    torch.cuda.synchronize()
+    return eng, time.perf_counter() - t0
+
+
+def phase_serving_layouts(srv, device, counts: dict, out: dict) -> None:
+    """Layout commits while pumping: BENCH_CFG (infinite, pumping) -> MS_CFG
+    (8 batches; its frame against its Engine twin) -> MS_CFG (infinite) ->
+    BENCH_CFG; the commit latencies and the peak memory of the sequence;
+    then COLOR_CFG's acquire_frame at 1024 x 512, and POOL_CFG (2 batches)
+    for its launches."""
+    import torch
+
+    from ice_halo_sim_tpu_torch.config.loader import load_project
+    from ice_halo_sim_tpu_torch.kernels import build
+    from ice_halo_sim_tpu_torch.scenes import BENCH_CFG, COLOR_CFG, MS_CFG, POOL_CFG
+
+    gen = srv.generation()
+    ms_doc = _budget(MS_CFG, 8, BATCH)
+    resident = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    if srv.commit(ms_doc) or srv.generation() != gen + 1:
+        raise AssertionError("the layout commit to MS_CFG did not reset")
+    lat_bench = time.perf_counter() - t0
+    if srv.acquire_frame().generation != gen + 1:
+        raise AssertionError("the frame after a layout commit has the old generation")
+    if not srv.wait_idle(timeout=120):
+        raise AssertionError("served ms: not idle within 120 s")
+    _served_counts("ms", counts)
+    frame = srv.acquire_frame()
+    twin, _ = _twin(load_project(ms_doc), BATCH, device, [1, 7])
+    _twin_equal("served ms", frame, twin)
+    del twin
+    srv.commit(_budget(MS_CFG, -1, BATCH))
+    _wait_rays(srv, BATCH)
+    time.sleep(0.2)             # inside the first pump of a whole dispatch
+    t0 = time.perf_counter()
+    srv.commit(_budget(BENCH_CFG, 4, BATCH))
+    lat_ms = time.perf_counter() - t0
+    if not srv.wait_idle(timeout=120):
+        raise AssertionError("served bench after ms: not idle within 120 s")
+    peak = torch.cuda.max_memory_allocated(device)
+    out.update(commit_latency_bench=lat_bench, commit_latency_ms=lat_ms, peak_bytes=peak)
+    print(f"[8] layout commits while pumping: BENCH_CFG -> MS_CFG (8 batches) "
+          f"{lat_bench:.4f} s, generation {gen} -> {gen + 1}, the MS_CFG frame == Engine twin "
+          f"bit for bit; MS_CFG (infinite, {srv._engine.steps_per_dispatch} batches a pump) -> "
+          f"BENCH_CFG {lat_ms:.4f} s; peak memory across BENCH_CFG -> MS_CFG -> BENCH_CFG "
+          f"{peak} bytes (max_memory_allocated; {resident} allocated before, with the pumping "
+          f"BENCH_CFG engine; reserved {torch.cuda.memory_reserved(device)})", flush=True)
+
+    build.reset_launch_counts()
+    srv.commit(_budget(COLOR_CFG, 2, BATCH))
+    if not srv.wait_idle(timeout=120):
+        raise AssertionError("served color: not idle within 120 s")
+    _served_counts("color", counts)
+    ms = _acquire_ms(srv)
+    out["acquire_ms_1024x512"] = ms
+    print(f"[8] acquire_frame at COLOR_CFG's 1024x512 (three colour classes, composite): "
+          f"{ms:.4f} ms (median of 5)", flush=True)
+    build.reset_launch_counts()
+    srv.commit(_budget(POOL_CFG, 2, BATCH))
+    if not srv.wait_idle(timeout=120):
+        raise AssertionError("served pool: not idle within 120 s")
+    _served_counts("pool", counts)
+
+
+def phase_serving_checkpoint(device) -> None:
+    """BENCH_CFG and MS_CFG: 4 batches, save_checkpoint, load_checkpoint on
+    the card, 4 more; accumulators and stats bit-equal to 8 batches
+    uninterrupted (the same 4 + 4 run calls)."""
+    import tempfile
+
+    import torch
+
+    from ice_halo_sim_tpu_torch.config.loader import load_project
+    from ice_halo_sim_tpu_torch.engine.checkpoint import load_checkpoint, save_checkpoint
+    from ice_halo_sim_tpu_torch.engine.simulator import Engine
+    from ice_halo_sim_tpu_torch.scenes import BENCH_CFG, MS_CFG
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, doc in (("bench", BENCH_CFG), ("ms", MS_CFG)):
+            path = os.path.join(tmp, f"{name}.npz")
+            a = Engine(load_project(doc), seed=7, batch_size=BATCH, device=device)
+            a.run(n_batches=4)
+            save_checkpoint(path, a)
+            a.run(n_batches=4)
+            b = load_checkpoint(path, device=device)
+            b.run(n_batches=4)
+            same = [bool(torch.equal(x, y)) for x, y in zip(a.accum, b.accum)]
+            sa, sb = a.drain_stats(), b.drain_stats()
+            print(f"[8] checkpoint {name}: 4 + save + load + 4 against 8 uninterrupted: "
+                  f"accumulators equal {same}, stats equal {sa == sb}, keep {a._compact_keep}"
+                  f" / {b._compact_keep}, file {os.path.getsize(path)} bytes", flush=True)
+            if not all(same) or sa != sb:
+                raise AssertionError(f"checkpoint {name}: the resumed run differs")
+
+
+def phase_serving_gui(device) -> None:
+    """gui.app.serve on the card with a small budget; every endpoint."""
+    import urllib.request
+
+    from ice_halo_sim_tpu_torch.gui.app import serve
+    from ice_halo_sim_tpu_torch.scenes import BENCH_CFG
+
+    httpd, gui = serve(json.dumps(_budget(BENCH_CFG, 2, BATCH)), port=0, seed=7,
+                       batch_size=BATCH, block=False, device=device)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        if not gui.server.wait_idle(timeout=120):
+            raise AssertionError("gui: not idle within 120 s")
+        got = {}
+        for path in ("/status", "/frame/0.png", "/frame/0.png?ev=2", "/project",
+                     "/crystal/1.json"):
+            with urllib.request.urlopen(base + path, timeout=60) as resp:
+                got[path] = (resp.status, resp.read())
+        status = json.loads(got["/status"][1])
+        ok = (all(code == 200 for code, _ in got.values())
+              and got["/frame/0.png"][1][:8] == b"\x89PNG\r\n\x1a\n"
+              and got["/frame/0.png"][1] != got["/frame/0.png?ev=2"][1]
+              and status["ray_count"] == 2 * BATCH and status["is_idle"]
+              and len(json.loads(got["/crystal/1.json"][1])["triangles"]) == 20
+              and "scene" in json.loads(got["/project"][1]))
+        print(f"[8] gui on {device}: {json.dumps(status)}; bytes "
+              f"{ {p: len(b) for p, (_, b) in got.items()} }", flush=True)
+        if not ok:
+            raise AssertionError("gui: an endpoint failed")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        gui.server.shutdown()
+
+
+def phase_capture_thread(device) -> None:
+    """A CUDA graph captured on one thread (a server's pump) while the main
+    thread uses the card: both succeed (capture_error_mode="thread_local"),
+    and the graph replays the batch as the eager engine runs it."""
+    import threading
+
+    import torch
+
+    from ice_halo_sim_tpu_torch.config.loader import load_project
+    from ice_halo_sim_tpu_torch.engine import graph as graph_mod
+    from ice_halo_sim_tpu_torch.engine.simulator import Engine
+    from ice_halo_sim_tpu_torch.scenes import BENCH_CFG
+
+    cfg = load_project(BENCH_CFG)
+    eng = Engine(cfg, seed=7, batch_size=BATCH, device=device)
+    ref = Engine(cfg, seed=7, batch_size=BATCH, device=device, graphs=False)
+    for e in (eng, ref):
+        e.run(n_batches=1)
+    inside, release = threading.Event(), threading.Event()
+    calls, box = [0], {}
+
+    def step():
+        calls[0] += 1
+        if calls[0] == 2:        # the capture (the first call is the warm-up)
+            inside.set()
+            release.wait(60)
+        eng._batch()
+
+    def capture():
+        try:
+            eng._dev.counter.fill_(eng.batch_counter)
+            box["graph"] = graph_mod.BatchGraph(step, eng._graph_key(), device)
+        except Exception as e:  # reported below
+            box["error"] = e
+
+    th = threading.Thread(target=capture)
+    th.start()
+    main_ops = 0
+    try:
+        if not inside.wait(120):
+            raise AssertionError("the capture thread did not reach its capture")
+        x = torch.arange(1 << 20, dtype=torch.float32, device=device)
+        for _ in range(20):
+            y = float((x * 2.0).sum().item())
+            main_ops += 1
+    finally:
+        release.set()
+        th.join(timeout=120)
+    if th.is_alive() or "error" in box:
+        raise AssertionError(f"capture on a second thread failed: {box.get('error')}")
+    box["graph"].replay()
+    ref._dev.counter.fill_(ref.batch_counter)
+    ref._batch()
+    ref._batch()     # the warm-up batch and the replayed one
+    torch.cuda.synchronize()
+    same = all(_bits_equal(a, b) for a, b in zip(eng.accum, ref.accum))
+    print(f"[8] capture on a second thread while the main thread ran {main_ops} CUDA ops "
+          f"(sum {y:.6g}): captured, replayed, accumulators == eager bit for bit: {same}",
+          flush=True)
+    if not same:
+        raise AssertionError("the graph captured on a second thread differs from eager")
+
+
+def phase_serving(smi, res: list) -> None:
+    """[8]: the serving path on the card."""
+    import torch
+
+    from ice_halo_sim_tpu_torch.engine.server import Server
+
+    device = torch.device("cuda", 0)
+    t0 = time.time()
+    counts, out = {}, {}
+    srv = Server(seed=7, device="cuda")
+    try:
+        phase_serving_bench(srv, device, counts, out)
+        phase_serving_layouts(srv, device, counts, out)
+    finally:
+        srv.shutdown()
+    if srv._thread.is_alive():
+        raise AssertionError("the server's pump did not stop")
+    for k in res:
+        k["launches_served"] = {n: c.get(k["name"], 0) for n, c in counts.items()}
+    phase_serving_checkpoint(device)
+    phase_serving_gui(device)
+    phase_capture_thread(device)
+    print(f"[8] serving: {json.dumps(out)} on {smi}", flush=True)
+    print(f"[8]: {time.time() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1609,6 +2086,7 @@ def main() -> int:
     phase_bench(smi)
     print(f"[5] and [6]: {time.time() - t5:.1f} s", flush=True)
     phase_gradients()
+    phase_serving(smi, res)
     print(f"timings that fell back to CUDA events: {len(FALLBACKS)} "
           f"{json.dumps(FALLBACKS)}", flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)

@@ -17,6 +17,7 @@ __version__ = "0.1.0"
 
 from ice_halo_sim_tpu_torch.config.builder import SceneBuilder  # noqa: F401
 from ice_halo_sim_tpu_torch.config.loader import load_project, load_project_file  # noqa: F401
+from ice_halo_sim_tpu_torch.config.serialize import project_to_dict, project_to_json  # noqa: F401
 
 
 def __getattr__(name):
@@ -25,8 +26,12 @@ def __getattr__(name):
         from ice_halo_sim_tpu_torch.engine.simulator import Engine
 
         return Engine
-    if name == "load_jax_checkpoint":
-        from ice_halo_sim_tpu_torch.engine.checkpoint import load_jax_checkpoint
+    if name == "Server":
+        from ice_halo_sim_tpu_torch.engine.server import Server
 
-        return load_jax_checkpoint
+        return Server
+    if name in ("save_checkpoint", "load_checkpoint", "load_jax_checkpoint"):
+        from ice_halo_sim_tpu_torch.engine import checkpoint
+
+        return getattr(checkpoint, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

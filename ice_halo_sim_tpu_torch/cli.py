@@ -7,12 +7,15 @@ Any scene the engine renders: the trace kernel path where it takes the scene,
 the general trace path otherwise (several layers or settings, filters, colour
 classes, every lens). ``--scene`` picks one of the built-in full-width scenes
 of scenes.py instead of a file. A scene with colour classes also writes the
-class composite.
+class composite. ``--draw-overlays`` rasterises the render's grid lines and
+celestial outline onto the PNGs; ``--benchmark`` prints one [BENCHMARK] JSON
+line with the steady rays/s instead of writing images.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -37,6 +40,11 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
     parser.add_argument("--kernels", default=None, choices=("cuda", "plain"),
                         help="kernel set (default: cuda on a CUDA device, else plain)")
+    parser.add_argument("--benchmark", action="store_true",
+                        help="measure steady-state rays/s and print [BENCHMARK] JSON")
+    parser.add_argument("--draw-overlays", action="store_true",
+                        help="rasterize grid lines / celestial outline onto outputs "
+                             "(display-time overlays)")
     args = parser.parse_args(argv)
 
     import torch
@@ -56,7 +64,9 @@ def main(argv=None) -> int:
     else:
         cfg = load_project_file(args.config)
     total = args.ray_num if args.ray_num is not None else cfg.scene.ray_num
-    if total is None or total <= 0:
+    if total < 0 and args.benchmark:
+        total = None                # an infinite scene: whole dispatches
+    elif total <= 0:
         print("a positive ray_num (or --ray-num) is required", file=sys.stderr)
         return 2
     device = torch.device(args.device)
@@ -66,11 +76,14 @@ def main(argv=None) -> int:
     batch = args.batch_size or env_knobs.get("IHT_BATCH_SIZE") or (
         112 * 2048 if device.type == "cuda" else 1 << 14
     )
-    batch = min(batch, max(2048, -(-total // 2048) * 2048))
+    if total is not None:
+        batch = min(batch, max(2048, -(-total // 2048) * 2048))
 
     t0 = time.time()
     engine = Engine(cfg, seed=seed, batch_size=batch, device=device,
                     kernels=args.kernels, geom_clock=geom_clock)
+    if args.benchmark:
+        return _benchmark(engine, total, t0)
     engine.run(total_rays=total)
     stats = engine.drain_stats()
     print(f"simulated {stats.rays_traced} rays in {time.time() - t0:.1f}s "
@@ -80,6 +93,11 @@ def main(argv=None) -> int:
     os.makedirs(args.output, exist_ok=True)
     stem = args.scene or os.path.splitext(os.path.basename(args.config))[0]
     for r, (img, rcfg) in enumerate(zip(engine.snapshot(), cfg.renders)):
+        if args.draw_overlays:
+            from ice_halo_sim_tpu_torch.engine.overlay import draw_overlays_u8
+
+            img = draw_overlays_u8(img, rcfg, engine.proj_plans[r],
+                                   cfg.light.sun.azimuth, cfg.light.sun.altitude)
         out_path = os.path.join(args.output, f"{stem}_render{rcfg.id}.png")
         write_png(out_path, img)
         print("wrote", out_path)
@@ -89,6 +107,56 @@ def main(argv=None) -> int:
             srgb = linear_to_srgb(torch.as_tensor(comp, dtype=torch.float32))
             write_png(out_path, (srgb * 255.0).to(torch.uint8).numpy())
             print("wrote", out_path)
+    return 0
+
+
+def _benchmark(engine, total, t0: float) -> int:
+    """The JAX CLI's [BENCHMARK] line: setup (build, calibration, one
+    dispatch) excluded from the rate; a finite budget times ceil(total /
+    batch) batches, an infinite one ten whole dispatches."""
+    import torch
+
+    device = engine.device
+
+    def hard_sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    batch, spd = engine.batch_size, engine.steps_per_dispatch
+    engine.run(n_batches=1)
+    engine.run(n_batches=spd)
+    hard_sync()
+    setup_sec = time.time() - t0
+    t1 = time.time()
+    if total is None:
+        n_windows = 10
+        for _ in range(n_windows):
+            engine.run(n_batches=spd)
+            hard_sync()
+        active_sec = time.time() - t1
+        rays = n_windows * spd * batch
+        rate_basis = "drain_aligned"
+    else:
+        n_timed = max(1, -(-total // batch))
+        engine.run(n_batches=n_timed)
+        hard_sync()
+        active_sec = time.time() - t1
+        rays = n_timed * batch
+        rate_basis = "steady" if active_sec >= 1.0 else "active_short"
+    wall_sec = time.time() - t0
+    print("[BENCHMARK] " + json.dumps({
+        "mode": "multi",
+        "workers": 1,
+        "cores": os.cpu_count(),
+        "rays": rays,
+        "wall_sec": round(wall_sec, 3),
+        "setup_sec": round(setup_sec, 3),
+        "active_sec": round(active_sec, 3),
+        "rays_per_sec": round(rays / active_sec, 1),
+        "rate_basis": rate_basis,
+        "batch_size": batch,
+        "platform": device.type,
+    }))
     return 0
 
 

@@ -9,8 +9,9 @@ fisheye equal-area and orthographic, their dual forms, globe) are the ones
 the trace kernel takes; fisheye equidistant and stereographic, their dual
 forms and rectangular go through arccos, tan, arctan2 and arcsin, whose last
 bit differs between XLA, torch on the CPU and CUDA, so a direction on a
-pixel edge may land one pixel over. ``unproject`` is not ported (only the
-overlay of the host side calls it).
+pixel edge may land one pixel over. ``unproject`` maps pixel centres back
+to world directions for every lens (the display-time overlays of
+engine/overlay.py).
 
 ``project_continuous`` and ``splat_bilinear`` are the differentiable
 projection of the gradient path (engine/gradient.py): continuous pixel
@@ -322,3 +323,105 @@ def splat_bilinear(acc, fx, fy, valid, values, width: int, height: int):
         contrib = torch.where(ok[..., None], values * w[..., None], 0.0)
         acc = acc.index_add(0, pix, contrib)
     return acc
+
+
+# --------------------------------------------------------------------------
+# Inverse projection (pixel -> world exit direction)
+# --------------------------------------------------------------------------
+
+def _fisheye_inverse(lens_type: int, x, y, r_scale: float):
+    """Normalized image plane (x, y) -> unit camera/sky direction (dx, dy,
+    dz) and validity: the inverse of _fisheye_forward."""
+    x = x / r_scale
+    y = y / r_scale
+    r2 = x * x + y * y
+    r = torch.sqrt(r2)
+    safe_r = torch.clamp_min(r, 1e-10)
+    if lens_type in (LensType.FISHEYE_EQUAL_AREA, LensType.DUAL_FISHEYE_EQUAL_AREA):
+        dz = 1.0 - r2
+        s = torch.sqrt(torch.clamp_min(1.0 + dz, 0.0))
+        return x * s, y * s, dz, r2 <= 2.0
+    if lens_type in (LensType.FISHEYE_EQUIDISTANT, LensType.DUAL_FISHEYE_EQUIDISTANT):
+        theta = r * HALF_PI_F
+        sin_t = torch.sin(torch.clamp_max(theta, PI_F))
+        return (x / safe_r) * sin_t, (y / safe_r) * sin_t, torch.cos(theta), theta <= PI_F
+    if lens_type in (LensType.FISHEYE_STEREOGRAPHIC, LensType.DUAL_FISHEYE_STEREOGRAPHIC):
+        theta = 2.0 * torch.arctan(r)
+        sin_t = torch.sin(theta)
+        return ((x / safe_r) * sin_t, (y / safe_r) * sin_t, torch.cos(theta),
+                torch.ones_like(r, dtype=torch.bool))
+    if lens_type in (LensType.FISHEYE_ORTHOGRAPHIC, LensType.DUAL_FISHEYE_ORTHOGRAPHIC):
+        dz = torch.sqrt(torch.clamp_min(1.0 - r2, 0.0))
+        return x, y, dz, r2 <= 1.0
+    raise ValueError(f"not a fisheye lens: {lens_type}")
+
+
+def _to_world(plan: ProjPlan, c):
+    """World propagation direction w = -(R c) of camera directions c [..., 3]."""
+    rot = torch.as_tensor(plan.rot, dtype=torch.float32, device=c.device)
+    return -torch.einsum("ij,...j->...i", rot, c)
+
+
+def _unit(s):
+    return s / torch.clamp_min(torch.linalg.vector_norm(s, dim=-1, keepdim=True), 1e-10)
+
+
+def unproject(plan: ProjPlan, px, py):
+    """Pixel centres -> world exit directions, the inverse of
+    ``project_components``: (w_dir [..., 3], valid), float32 on the device
+    of px (numpy input: the CPU). Wherever valid, the forward projection of
+    w_dir recovers the pixel py * W + px."""
+    t = plan.lens_type
+    W, H = plan.width, plan.height
+    px = torch.as_tensor(px, dtype=torch.float32)
+    py = torch.as_tensor(py, dtype=torch.float32, device=px.device)
+
+    if t in (LensType.LINEAR, LensType.FISHEYE_EQUAL_AREA, LensType.FISHEYE_EQUIDISTANT,
+             LensType.FISHEYE_STEREOGRAPHIC, LensType.FISHEYE_ORTHOGRAPHIC):
+        x = (px - W / 2.0 - plan.shift_x) / plan.scale
+        y = (py - H / 2.0 - plan.shift_y) / plan.scale
+        x = -x  # undo the screen handedness
+        if t == LensType.LINEAR:
+            dz = 1.0 / torch.sqrt(1.0 + x * x + y * y)
+            c = torch.stack([x * dz, y * dz, dz], dim=-1)
+            valid = torch.ones_like(x, dtype=torch.bool)
+        else:
+            cx, cy, cz, valid = _fisheye_inverse(t, x, y, 1.0)
+            c = torch.stack([cx, cy, cz], dim=-1)
+            valid = valid & (cz > 0.0)
+        return _to_world(plan, c), valid
+
+    if t == LensType.RECTANGULAR:
+        lon = (px - W / 2.0) / plan.scale + plan.az0
+        lat = (H / 2.0 - py) / plan.scale
+        valid = torch.abs(lat) <= HALF_PI_F
+        s = torch.stack([torch.cos(lat) * torch.cos(lon), torch.cos(lat) * torch.sin(lon),
+                         torch.sin(lat)], dim=-1)
+        return -s, valid
+
+    if t in (LensType.DUAL_FISHEYE_EQUAL_AREA, LensType.DUAL_FISHEYE_EQUIDISTANT,
+             LensType.DUAL_FISHEYE_STEREOGRAPHIC, LensType.DUAL_FISHEYE_ORTHOGRAPHIC):
+        r0 = min(W // 2, H) / 2.0
+        cx_u = W / 2.0 - r0
+        cx_l = W / 2.0 + r0
+        is_upper = px < W / 2.0
+        x_norm = (py - H / 2.0) / r0
+        y_norm = torch.where(is_upper, (cx_u - px) / r0, (px - cx_l) / r0)
+        sx, sy, z_hemi, valid = _fisheye_inverse(t, x_norm, y_norm, plan.r_scale)
+        sz = torch.where(is_upper, z_hemi, -z_hemi)
+        # The horizontal part renormalised to the hemisphere's height.
+        return -_unit(torch.stack([sx, sy, sz], dim=-1)), valid & (z_hemi >= 0.0)
+
+    if t == LensType.GLOBE:
+        u = -(px - W / 2.0 - plan.shift_x) / plan.scale
+        v = (py - H / 2.0 - plan.shift_y) / plan.scale
+        q = u * u + v * v
+        D = GLOBE_CAMERA_D
+        disc = 1.0 + q * (1.0 - D * D)
+        root = torch.sqrt(torch.clamp_min(disc, 0.0))
+        cz = (-q * D - root) / (q + 1.0)  # the camera-near surface point
+        denom = D + cz
+        c = _unit(torch.stack([u * denom, v * denom, cz], dim=-1))
+        return _to_world(plan, c), (disc >= 0.0) & (cz < -1.0 / D)
+
+    raise ValueError(f"unknown lens type {t}")

@@ -1,19 +1,23 @@
-"""Resume a JAX-package checkpoint in the port.
+"""Checkpoint and resume of the render accumulation, in the JAX package's
+format 1 (``ice_halo_sim_tpu.engine.checkpoint``), so that each package
+resumes the other's file.
 
-The JAX package's checkpoint (``ice_halo_sim_tpu.engine.checkpoint``) is an
-.npz with a JSON ``header`` (format_version, project, seed, batch_size,
-geom_clock, batch_counter, stats, n_accum, slot_cap) and
-``accum_0..accum_{n-1}``: one [P, 3 + L] image per render (XYZ and one Y lane
-per colour class; float64 [P, 3] when a sandwich engine saved it), then the
-[R] landed weights. A port engine on the sandwich fold takes the images into
-its settled host images, any other into its dense accumulators. It is read here with numpy
-alone; the returned port Engine continues the same random streams from the
-saved batch counter (the host count, from which each dispatch sets the
-device counter). The images go into the engine's accumulators in place,
-which keep their addresses (a captured CUDA graph writes there). A JAX engine that raised its geom_clock to 128 for a
-stochastic shape saved 128, so the resumed engine samples the same pool.
-The saved exit-slot cap changes which (accounted) exit rows accumulate, so
-the resumed engine takes it instead of calibrating its own.
+The file is an .npz with a JSON ``header`` (format_version, project, seed,
+batch_size, geom_clock, batch_counter, stats, n_accum, slot_cap) and
+``accum_0..accum_{n-1}``: one [P, 3 + L] image per render (XYZ and one Y
+lane per colour class; float64 [P, 3] when a sandwich engine saved it, its
+dense form, portable across folds), then the [R] landed weights. It is
+written and read with numpy alone.
+
+A loaded engine continues the same random streams from the saved batch
+counter (the host count, from which each dispatch sets the device counter).
+The images go into the engine's accumulators in place, which keep their
+addresses (a captured CUDA graph writes there); a port engine on the
+sandwich fold takes them into its settled host images instead. A JAX engine
+that raised its geom_clock to 128 for a stochastic shape saved 128, so the
+resumed engine samples the same pool. The saved exit-slot cap changes which
+(accounted) exit rows accumulate, so the resumed engine takes it instead of
+calibrating its own.
 """
 
 from __future__ import annotations
@@ -24,12 +28,39 @@ import numpy as np
 import torch
 
 from ice_halo_sim_tpu_torch.config.loader import load_project
+from ice_halo_sim_tpu_torch.config.serialize import project_to_dict
 from ice_halo_sim_tpu_torch.engine.simulator import DEFAULT_GEOM_CLOCK, Engine, Stats
 
 FORMAT_VERSION = 1
 
 
-def load_jax_checkpoint(path: str, device="cuda", kernels=None) -> Engine:
+def save_checkpoint(path: str, engine: Engine) -> None:
+    """Write the engine's resumable state to ``path`` (.npz)."""
+    stats = engine.drain_stats()
+    R = len(engine.proj_plans)
+    if engine._sandwich_on:
+        images = [engine._sandwich_dense64(r) for r in range(R)]
+    else:
+        images = [a.cpu().numpy() for a in engine.accum[:-1]]
+    arrays = {f"accum_{i}": a for i, a in enumerate(images)}
+    arrays[f"accum_{R}"] = engine.accum[-1].cpu().numpy()
+    header = {
+        "format_version": FORMAT_VERSION,
+        "project": project_to_dict(engine.cfg),
+        "seed": engine.seed,
+        "batch_size": engine.batch_size,
+        "geom_clock": engine.geom_clock,
+        "batch_counter": engine.batch_counter,
+        "stats": stats._asdict(),
+        "n_accum": R + 1,
+        "slot_cap": engine._slot_cap,
+    }
+    np.savez_compressed(path, header=json.dumps(header), **arrays)
+
+
+def load_checkpoint(path: str, device="cuda", kernels=None) -> Engine:
+    """Build an Engine on `device` from a checkpoint of either package; it
+    resumes where the file was saved."""
     with np.load(path, allow_pickle=False) as data:
         header = json.loads(str(data["header"]))
         if header["format_version"] != FORMAT_VERSION:
@@ -73,3 +104,6 @@ def load_jax_checkpoint(path: str, device="cuda", kernels=None) -> Engine:
         engine._recompute_rows_per_render()
     return engine
 
+
+# The reader of the JAX package's files is the same function.
+load_jax_checkpoint = load_checkpoint

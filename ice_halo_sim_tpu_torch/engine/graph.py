@@ -48,7 +48,10 @@ class BatchGraph:
             step()
         torch.cuda.current_stream(device).wait_stream(side)
         before = dict(build.LAUNCHES)
-        with torch.cuda.graph(self.graph):
+        # thread_local: the capture may run on a server's pump thread while
+        # another thread uses the card (in the default "global" mode a CUDA
+        # call from any thread during the capture would abort it).
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             step()
         self.launches = {k: v - before[k] for k, v in build.LAUNCHES.items() if v != before[k]}
         for k, v in self.launches.items():

@@ -38,11 +38,18 @@ def _port_files(exts):
 def test_port_imports_no_jax():
     mods = [m.name for m in pkgutil.walk_packages([PKG], "ice_halo_sim_tpu_torch.")]
     assert "ice_halo_sim_tpu_torch.engine.simulator" in mods
+    # The serving path's modules are among those walked.
+    assert {"ice_halo_sim_tpu_torch.engine.server", "ice_halo_sim_tpu_torch.engine.ev_auto",
+            "ice_halo_sim_tpu_torch.engine.overlay", "ice_halo_sim_tpu_torch.engine.checkpoint",
+            "ice_halo_sim_tpu_torch.core.mesh", "ice_halo_sim_tpu_torch.gui",
+            "ice_halo_sim_tpu_torch.gui.app"} <= set(mods)
     code = (
         "import sys, importlib\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "import ice_halo_sim_tpu_torch\n"
         "ice_halo_sim_tpu_torch.Engine, ice_halo_sim_tpu_torch.load_jax_checkpoint\n"
+        "ice_halo_sim_tpu_torch.Server, ice_halo_sim_tpu_torch.save_checkpoint\n"
+        "ice_halo_sim_tpu_torch.load_checkpoint, ice_halo_sim_tpu_torch.project_to_json\n"
         "ice_halo_sim_tpu_torch.load_project, ice_halo_sim_tpu_torch.SceneBuilder\n"
         "import chip_smoke\n"
         "roots = ('jax', 'jaxlib', 'ice_halo_sim_tpu', 'bench')\n"
@@ -61,6 +68,7 @@ COPIED_MODULES = [
     "config/__init__.py", "config/schema.py", "config/loader.py", "config/builder.py",
     "config/serialize.py", "config/validation.py", "core/latlut.py",
     "utils/__init__.py", "utils/env_knobs.py", "utils/log.py", "utils/png.py",
+    "engine/ev_auto.py",
 ]
 
 
@@ -81,6 +89,16 @@ def test_copied_modules_equal_their_sources():
         assert a.read() == b.read()
     assert ice_halo_sim_tpu_torch.load_project.__module__ == \
         "ice_halo_sim_tpu_torch.config.loader"
+
+
+def test_gui_page_is_the_jax_page():
+    """The port's viewer page is the JAX package's, the package name
+    rewritten."""
+    from ice_halo_sim_tpu.gui import app as jax_app
+
+    from ice_halo_sim_tpu_torch.gui import app
+
+    assert app._PAGE == jax_app._PAGE.replace("ice_halo_sim_tpu", "ice_halo_sim_tpu_torch")
 
 
 def test_no_reference_checkout_paths():
