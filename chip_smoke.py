@@ -77,23 +77,44 @@ Phases (any failure raises; the exit code is then non-zero):
   8. serving (engine/server.py, engine/checkpoint.py, gui/app.py):
      BENCH_CFG at full width through Server(device="cuda") (its default
      batch 229376), 64 batches from commit to wait_idle, the frame's raw
-     XYZ and landed weights bit-equal to an Engine driven by the same run
-     calls (1, then 63), the launch counters reset just before each served
-     scene and read just after (every kernel of its path launched; listed
-     as "launches_served" in the kernels line); the steady rays/s of
-     Engine.run and of one batch a call, in turns; the Server's steady rate
-     (an infinite budget) alone, with a reader at 4 Hz, and at the JAX
-     server's grain (one batch a pump); host reads per batch;
-     acquire_frame at 512x256 and at COLOR_CFG's 1024x512; an
+     XYZ and landed weights bit-equal to an Engine driven by the pump's own
+     run calls (Server.grains(): one calibrating batch, then calls of
+     PUMP_SECONDS over the last call's wall a batch; every CUDA graph
+     captured in the pump's first two calls, none when the grain changes
+     after them), the launch counters
+     reset just before each served scene and read just after (every kernel
+     of its path launched; listed as "launches_served" in the kernels
+     line); the steady rays/s of Engine.run and of one batch a call, in
+     turns; the Server's steady rate (an infinite budget) alone, with a
+     reader at 4 Hz, and at the JAX server's grain (one batch a pump), and
+     its share of Engine.run's (at least SERVER_SHARE_MIN); host reads per
+     batch; acquire_frame at 512x256 and at COLOR_CFG's 1024x512; an
      appearance-only recommit (reused, generation kept); layout commits
      while pumping, BENCH_CFG -> MS_CFG (8 batches, its frame bit-equal to
-     its Engine twin) -> MS_CFG (infinite) -> BENCH_CFG, with each commit's
-     latency and the peak memory of the sequence; COLOR_CFG and POOL_CFG
-     served for their launches; checkpoints of BENCH_CFG
-     and MS_CFG (4 batches, save, load on the card, 4 more) bit-equal to 8
-     uninterrupted; the web GUI on the card (every endpoint); and a CUDA
-     graph captured on a second thread while the main thread runs CUDA
-     work.
+     its Engine twin, which then times Engine.run on MS_CFG) -> MS_CFG
+     (infinite: the Server's share of Engine.run's, at least
+     SERVER_SHARE_MIN, and its grains) -> BENCH_CFG, whose latency may
+     exceed the same commit on an idle server (the engine build) by at most
+     PUMP_SECONDS and one MS_CFG batch, and the peak memory of the sequence;
+     COLOR_CFG and POOL_CFG served for their launches; checkpoints of
+     BENCH_CFG and MS_CFG (4 batches, save, load on the card, 4 more)
+     bit-equal to 8 uninterrupted; the web GUI on the card (every
+     endpoint); and a CUDA graph captured on a second thread while the main
+     thread runs CUDA work;
+  9. debug and C API: dump_rays (engine/debug.py) at full width on
+     BENCH_CFG and POOL_CFG (every ray of the batch; its ms and records),
+     the AoS trace under it against the SoA trace of the general path on
+     the same inputs (entry_ok and paths exact, weights and live
+     directions at rtol/atol 2e-5), and BENCH_CFG's first 4096 rays'
+     records against the same dump on the CPU (rays, slots, paths and
+     wavelengths exact); then the C API (kernels/capi.py builds libiht.so
+     and iht_smoke from ice_halo_sim_tpu_torch/native/ with the host
+     compiler): in this process through ctypes, IHT_CreateServer (cuda)
+     commits BENCH_CFG for 64 batches, its sRGB bytes equal a
+     Server(device="cuda")'s with the same seed and budget, the launch
+     counters around its commit show K2, K3 and K4 ("launches_capi" in the
+     kernels line), the steady rays/s of both; and iht_smoke in its own
+     process on the card (exit 0, "iht_smoke OK").
 
 The last lines of standard output are the kernels JSON object, the card
 (nvidia-smi) and the device JSON object. Imports nothing of JAX and
@@ -1513,6 +1534,7 @@ SERVED_KERNELS = {
     "color": ["compact_rows", "pack_payload_blocks", "scatter_blocks_multi"],
 }
 ACQUIRE_HZ = 4.0     # the GUI's poll rate (gui/app.py GuiApp.frame)
+SERVER_SHARE_MIN = 0.8  # the Server's steady rays/s over Engine.run's, BENCH_CFG and MS_CFG
 RATE_WINDOW_S = 2.0  # the windows of the Server's rate with and without a reader
 
 
@@ -1575,10 +1597,22 @@ def _acquire_ms(srv, reps: int = 5) -> float:
 
 
 def _rate_window(srv, seconds: float) -> float:
-    """Rays/s of a pumping Server over a window (sim_ray_count, host clock)."""
-    n0, t0 = srv.sim_ray_count(), time.perf_counter()
+    """Rays/s of a pumping Server over about `seconds` (host clock), from
+    the end of one pump call to the end of another: sim_ray_count moves
+    once a call, by the call's batches."""
+    def call_end():
+        n = srv.sim_ray_count()
+        deadline = time.time() + 60
+        while (m := srv.sim_ray_count()) == n:
+            if time.time() > deadline:
+                raise AssertionError("the Server's pump made no call in 60 s")
+            time.sleep(0.0002)
+        return m, time.perf_counter()
+
+    n0, t0 = call_end()
     time.sleep(seconds)
-    return (srv.sim_ray_count() - n0) / (time.perf_counter() - t0)
+    n1, t1 = call_end()
+    return (n1 - n0) / (t1 - t0)
 
 
 def _wait_rays(srv, rays: int, timeout: float = 120.0) -> None:
@@ -1588,6 +1622,38 @@ def _wait_rays(srv, rays: int, timeout: float = 120.0) -> None:
             raise AssertionError(f"the Server traced {srv.sim_ray_count()} of {rays} rays "
                                  f"in {timeout} s")
         time.sleep(0.0005)
+
+
+class _Captures:
+    """Records, for every CUDA graph captured while it is entered, how many
+    run calls the Server's pump had finished (the grain of the call it falls
+    in is the next one): a change of grain must capture nothing again, so
+    every capture falls in an engine's first two calls (the uncalibrated
+    batch, and the first batch under the calibrated plan)."""
+
+    def __init__(self, srv, what):
+        self.srv, self.what, self.calls = srv, what, []
+
+    def __enter__(self):
+        from ice_halo_sim_tpu_torch.engine import graph as graph_mod
+
+        self.cls = graph_mod.BatchGraph
+        self.orig = orig = self.cls.__init__
+        calls = self.calls
+
+        def init(graph, *a, **kw):
+            calls.append(len(self.srv.grains()))
+            orig(graph, *a, **kw)
+
+        self.cls.__init__ = init
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__init__ = self.orig
+        if exc[0] is None and any(c > 1 for c in self.calls):
+            raise AssertionError(f"{self.what}: a graph was captured again after the "
+                                 f"pump's second call (calls {self.calls}, grains "
+                                 f"{self.srv.grains()})")
 
 
 def _one_batch_server(**kw):
@@ -1633,22 +1699,26 @@ def phase_serving_bench(srv, device, counts: dict, out: dict) -> None:
 
     build.reset_launch_counts()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    if srv.commit(doc):
-        raise AssertionError("the first commit reused nothing there was")
-    _wait_rays(srv, BATCH)
-    t1 = time.perf_counter()
-    if not srv.wait_idle(timeout=120):
-        raise AssertionError("served bench: not idle within 120 s")
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    with _Captures(srv, "served bench") as captures:
+        t0 = time.perf_counter()
+        if srv.commit(doc):
+            raise AssertionError("the first commit reused nothing there was")
+        _wait_rays(srv, BATCH)
+        t1 = time.perf_counter()
+        if not srv.wait_idle(timeout=120):
+            raise AssertionError("served bench: not idle within 120 s")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
     _served_counts("bench", counts)
     frame = srv.acquire_frame()
     eng = srv._engine
     if eng.batch_size != BATCH:
         raise AssertionError(f"the Server's default batch is {eng.batch_size}, not {BATCH}")
     reads = eng.host_syncs / eng.batch_counter
-    twin, twin_s = _twin(cfg, BATCH, device, [1, n - 1])
+    grains = srv.grains()
+    if grains[0] != 1 or sum(grains) != n:
+        raise AssertionError(f"served bench: the pump's calls {grains} are not 1 then {n - 1}")
+    twin, twin_s = _twin(cfg, BATCH, device, grains)
     _twin_equal("served bench", frame, twin)
     del twin
     run_rate = sum(steady["run"]) / 2
@@ -1660,8 +1730,9 @@ def phase_serving_bench(srv, device, counts: dict, out: dict) -> None:
           f"{n * BATCH / (t2 - t0):.6g} rays/s (the Engine twin, build to done, "
           f"{n * BATCH / twin_s:.6g}); second pump (its capture included) to idle "
           f"{(n - 1) * BATCH / (t2 - t1):.6g} rays/s; host reads per batch {reads:.4f} "
-          f"({eng.host_syncs} in {eng.batch_counter}); frame == Engine twin bit for bit",
-          flush=True)
+          f"({eng.host_syncs} in {eng.batch_counter}); the pump's grains {grains}, graphs "
+          f"captured in its calls {captures.calls}; frame == Engine twin (the same run calls) "
+          f"bit for bit", flush=True)
     print(f"[8] steady rays/s, in turns: Engine.run of {n} batches {steady['run']}, one batch a "
           f"call (the JAX server's grain) {steady['one']}: {one_rate / run_rate:.4f} of run "
           f"({one_reads} host reads in {3 + 2 * n} batches)", flush=True)
@@ -1721,15 +1792,20 @@ def phase_serving_bench(srv, device, counts: dict, out: dict) -> None:
         raise AssertionError("recommitting the stopped scene did not reuse it")
     time.sleep(0.5)
     again = _rate_window(srv, RATE_WINDOW_S)
+    share = (alone + again) / 2 / run_rate
     out.update(server_steady=[alone, again], server_steady_reader=read,
-               server_one_batch_steady=one_server)
+               server_one_batch_steady=one_server, server_share_bench=share,
+               grains_bench_infinite=srv.grains()[-4:])
     print(f"[8] served bench, infinite budget (the Server's steady rate): {alone:.6g} and "
           f"{again:.6g} rays/s alone ({(alone + again) / 2 / run_rate:.4f} of Engine.run's), "
           f"{read:.6g} rays/s with a reader at {ACQUIRE_HZ:g} Hz ({read / alone:.4f}; "
           f"{len(frames)} frames, acquire_frame median "
           f"{sorted(frames)[len(frames) // 2]:.4f} ms); at one batch a pump (the JAX "
           f"server's grain) {one_server:.6g} rays/s ({one_server / run_rate:.4f} of "
-          f"Engine.run's)", flush=True)
+          f"Engine.run's); the pump's last grains {srv.grains()[-4:]}", flush=True)
+    if share < SERVER_SHARE_MIN:
+        raise AssertionError(f"served bench: the Server's steady rate is {share:.4f} of "
+                             f"Engine.run's (< {SERVER_SHARE_MIN})")
 
 
 def _twin_run(eng, calls):
@@ -1745,13 +1821,19 @@ def _twin_run(eng, calls):
 
 def phase_serving_layouts(srv, device, counts: dict, out: dict) -> None:
     """Layout commits while pumping: BENCH_CFG (infinite, pumping) -> MS_CFG
-    (8 batches; its frame against its Engine twin) -> MS_CFG (infinite) ->
-    BENCH_CFG; the commit latencies and the peak memory of the sequence;
-    then COLOR_CFG's acquire_frame at 1024 x 512, and POOL_CFG (2 batches)
-    for its launches."""
+    (8 batches; its frame against an Engine given the pump's run calls,
+    which then times Engine.run on MS_CFG) -> MS_CFG (infinite: the
+    Server's steady rate and its grains) -> BENCH_CFG (4 batches); the
+    latency of each commit, and of the same BENCH_CFG commit on an idle
+    server (the engine build alone, no pump to wait for): a commit while
+    MS_CFG pumps may wait at most PUMP_SECONDS and one MS_CFG batch (the
+    grain's rounding) more than that; the peak memory of the sequence; then
+    COLOR_CFG's acquire_frame at 1024 x 512, and POOL_CFG (2 batches) for its
+    launches."""
     import torch
 
     from ice_halo_sim_tpu_torch.config.loader import load_project
+    from ice_halo_sim_tpu_torch.engine.server import PUMP_SECONDS
     from ice_halo_sim_tpu_torch.kernels import build
     from ice_halo_sim_tpu_torch.scenes import BENCH_CFG, COLOR_CFG, MS_CFG, POOL_CFG
 
@@ -1769,26 +1851,63 @@ def phase_serving_layouts(srv, device, counts: dict, out: dict) -> None:
     if not srv.wait_idle(timeout=120):
         raise AssertionError("served ms: not idle within 120 s")
     _served_counts("ms", counts)
-    frame = srv.acquire_frame()
-    twin, _ = _twin(load_project(ms_doc), BATCH, device, [1, 7])
+    frame, ms_grains = srv.acquire_frame(), srv.grains()
+    twin, _ = _twin(load_project(ms_doc), BATCH, device, ms_grains)
     _twin_equal("served ms", frame, twin)
+    ms_run = 24 * BATCH / _twin_run(twin, [24])[1]
     del twin
-    srv.commit(_budget(MS_CFG, -1, BATCH))
-    _wait_rays(srv, BATCH)
-    time.sleep(0.2)             # inside the first pump of a whole dispatch
+    with _Captures(srv, "served ms, infinite budget") as captures:
+        srv.commit(_budget(MS_CFG, -1, BATCH))
+        _wait_rays(srv, 2 * BATCH)
+        time.sleep(1.0)
+        ms_server = _rate_window(srv, RATE_WINDOW_S)
+        ms_infinite = srv.grains()
+    time.sleep(0.1)
+    bench4 = _budget(BENCH_CFG, 4, BATCH)
     t0 = time.perf_counter()
-    srv.commit(_budget(BENCH_CFG, 4, BATCH))
+    srv.commit(bench4)
     lat_ms = time.perf_counter() - t0
     if not srv.wait_idle(timeout=120):
         raise AssertionError("served bench after ms: not idle within 120 s")
     peak = torch.cuda.max_memory_allocated(device)
-    out.update(commit_latency_bench=lat_bench, commit_latency_ms=lat_ms, peak_bytes=peak)
+    # The same BENCH_CFG commit with nothing pumping: MS_CFG for one batch
+    # (run to idle) in between, so that the commit builds a new engine.
+    srv.commit(_budget(MS_CFG, 1, BATCH))
+    if not srv.wait_idle(timeout=120):
+        raise AssertionError("served ms (1 batch): not idle within 120 s")
+    t0 = time.perf_counter()
+    srv.commit(bench4)
+    lat_idle = time.perf_counter() - t0
+    if not srv.wait_idle(timeout=120):
+        raise AssertionError("served bench after an idle commit: not idle within 120 s")
+    ms_wall = BATCH / ms_run
+    share = ms_server / ms_run
+    out.update(commit_latency_bench=lat_bench, commit_latency_ms=lat_ms,
+               commit_latency_idle=lat_idle, peak_bytes=peak, ms_run_steady=ms_run,
+               ms_server_steady=ms_server, server_share_ms=share, grains_ms=ms_grains,
+               grains_ms_infinite=ms_infinite[-6:])
     print(f"[8] layout commits while pumping: BENCH_CFG -> MS_CFG (8 batches) "
-          f"{lat_bench:.4f} s, generation {gen} -> {gen + 1}, the MS_CFG frame == Engine twin "
-          f"bit for bit; MS_CFG (infinite, {srv._engine.steps_per_dispatch} batches a pump) -> "
-          f"BENCH_CFG {lat_ms:.4f} s; peak memory across BENCH_CFG -> MS_CFG -> BENCH_CFG "
-          f"{peak} bytes (max_memory_allocated; {resident} allocated before, with the pumping "
-          f"BENCH_CFG engine; reserved {torch.cuda.memory_reserved(device)})", flush=True)
+          f"{lat_bench:.4f} s, generation {gen} -> {gen + 1}, the pump's grains {ms_grains}, "
+          f"the MS_CFG frame == Engine twin bit for bit; peak memory across BENCH_CFG -> "
+          f"MS_CFG -> BENCH_CFG {peak} bytes (max_memory_allocated; {resident} allocated "
+          f"before, with the pumping BENCH_CFG engine; reserved "
+          f"{torch.cuda.memory_reserved(device)})", flush=True)
+    print(f"[8] MS_CFG: Engine.run of 24 batches {ms_run:.6g} rays/s ({ms_wall * 1e3:.4f} ms a "
+          f"batch); the Server, infinite budget, {ms_server:.6g} rays/s ({share:.4f} of "
+          f"Engine.run's), grains {ms_infinite[:3]} ... {ms_infinite[-6:]} "
+          f"({len(ms_infinite)} calls), graphs captured in its calls {captures.calls}",
+          flush=True)
+    print(f"[8] commit MS_CFG (infinite, pumping) -> BENCH_CFG: {lat_ms:.4f} s; the same "
+          f"commit on an idle server (the engine build) {lat_idle:.4f} s; waited for the pump "
+          f"{lat_ms - lat_idle:.4f} s (PUMP_SECONDS {PUMP_SECONDS}, one MS_CFG batch "
+          f"{ms_wall:.4f} s)", flush=True)
+    if share < SERVER_SHARE_MIN:
+        raise AssertionError(f"served ms: the Server's steady rate is {share:.4f} of "
+                             f"Engine.run's (< {SERVER_SHARE_MIN})")
+    if lat_ms > PUMP_SECONDS + ms_wall + lat_idle:
+        raise AssertionError(f"commit MS_CFG -> BENCH_CFG took {lat_ms:.4f} s, more than "
+                             f"PUMP_SECONDS + one batch + the engine build "
+                             f"({PUMP_SECONDS + ms_wall + lat_idle:.4f} s)")
 
     build.reset_launch_counts()
     srv.commit(_budget(COLOR_CFG, 2, BATCH))
@@ -1961,6 +2080,266 @@ def phase_serving(smi, res: list) -> None:
     print(f"[8]: {time.time() - t0:.1f} s", flush=True)
 
 
+# [9]: the kernels the C API's served BENCH_CFG must launch (K2, K3, K4).
+CAPI_KERNELS = ["trace_emit", "scatter_blocks_multi", "fused_scan_extract"]
+# Dump records, the card against the CPU: the first rays of the batch.
+DUMP_SLICE = 4096
+# Weights (of the largest initial weight) and directions, AoS against SoA:
+# tests/test_trace_soa.py's contract.
+AOS_TOL = 2e-5
+# Card against CPU: rtol and atol DUMP_TOL but for DUMP_EDGE_FRAC of the
+# records, within DUMP_EDGE_ATOL (tests/test_torch_debug.py's rule: the
+# orientations' cos, sin and arcsin differ by an ulp between the devices,
+# which the square root near the TIR limit turns into up to 3e-4).
+DUMP_TOL, DUMP_EDGE_FRAC, DUMP_EDGE_ATOL = 1e-5, 2e-3, 1e-3
+
+
+def _dump_close(what, got, want, scale):
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    off = (np.abs(got - want) > DUMP_TOL * (scale + np.abs(want)))
+    off = off.reshape(len(off), -1).any(axis=1)
+    worst = float(np.abs(got - want).max()) if got.size else 0.0
+    if off.sum() > DUMP_EDGE_FRAC * len(off) or worst > DUMP_EDGE_ATOL * scale + DUMP_TOL * float(
+            np.abs(want).max()):
+        raise AssertionError(f"{what}: {int(off.sum())} of {len(off)} records off, worst "
+                             f"{worst:.3g}")
+    return int(off.sum()), worst
+
+
+def _aos_against_soa(name, eng):
+    """The dump's inputs through the AoS trace and through the SoA trace of
+    the general path, on the card: entry_ok and paths exact, weights and the
+    directions of live exits at rtol and atol AOS_TOL."""
+    import torch
+
+    from ice_halo_sim_tpu_torch.core import sampling, trace, trace_soa
+    from ice_halo_sim_tpu_torch.engine import debug
+
+    inp = debug.dump_inputs(eng)
+    plan = eng.layers[0]
+    aos = trace.trace_layer(inp.layer_seed, inp.ray_idx, inp.d_world, inp.w0,
+                            sampling.build_rotation(inp.lon, inp.lat, inp.roll), None,
+                            inp.pool, inp.n_ior, eng.max_hits)
+    soa = trace_soa.trace_layer_soa(
+        inp.layer_seed, inp.ray_idx, tuple(inp.d_world.unbind(-1)), inp.w0,
+        trace_soa.rot_components(inp.lon, inp.lat, inp.roll), inp.pool, inp.n_ior,
+        eng.max_hits, setting_blocks=tuple(zip(plan.k_per_setting, plan.setting_counts)))
+    scale = float(inp.w0.abs().max())
+    live = aos.w > 0
+    checks = {
+        "entry_ok": torch.equal(aos.entry_ok, soa.entry_ok),
+        "path": torch.equal(aos.path, soa.path.T),
+        "w": bool(torch.allclose(soa.w.T, aos.w, rtol=AOS_TOL, atol=AOS_TOL * scale)),
+    }
+    for c, comp in enumerate((soa.dx, soa.dy, soa.dz)):
+        checks["d" + "xyz"[c]] = bool(torch.allclose(
+            comp.T[live], aos.d_world[..., c][live], rtol=AOS_TOL, atol=AOS_TOL))
+    bits = all(torch.equal(a, b) for a, b in (
+        (aos.w, soa.w.T), (aos.d_world[..., 0], soa.dx.T)))
+    print(f"[9] {name}: AoS trace_layer vs SoA trace_layer_soa on the dump's "
+          f"{inp.ray_idx.shape[0]} rays x {eng.max_hits} slots, {int(live.sum())} live exits, "
+          f"pool K = {inp.pool.plane_n.shape[0]}: {checks}; weights and x bit-equal {bits}",
+          flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"{name}: the AoS trace differs from the SoA trace: {checks}")
+
+
+def phase_debug(device, out: dict) -> None:
+    """The debug ray dump at full width on BENCH_CFG (one shared prism) and
+    POOL_CFG (the blocked pool of 1792 pyramids): its time and records, the
+    AoS trace under it against the SoA trace, and (BENCH_CFG) the first
+    DUMP_SLICE rays' records against the same dump on the CPU."""
+    import numpy as np
+    import torch
+
+    from ice_halo_sim_tpu_torch.config.loader import load_project
+    from ice_halo_sim_tpu_torch.engine.debug import dump_rays, format_rays
+    from ice_halo_sim_tpu_torch.engine.simulator import Engine
+    from ice_halo_sim_tpu_torch.scenes import BENCH_CFG, POOL_CFG
+
+    for name, doc in (("bench", BENCH_CFG), ("pool", POOL_CFG)):
+        cfg = load_project(doc)
+        eng = Engine(cfg, seed=7, batch_size=BATCH, device=device)
+        dump_rays(eng, n_rays=BATCH)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec = dump_rays(eng, n_rays=BATCH)
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = sorted(times)[1]
+        out[f"dump_ms_{name}"] = ms
+        out[f"dump_records_{name}"] = len(rec.ray_idx)
+        print(f"[9] dump_rays {name} (batch {BATCH}, every ray): {ms:.4f} ms (median of 3, "
+              f"records to the host included), {len(rec.ray_idx)} records\n"
+              + format_rays(rec, 4), flush=True)
+        if not (len(rec.ray_idx) > BATCH and (rec.path_len == rec.exit_slot + 1).all()
+                and np.isfinite(rec.direction).all()):
+            raise AssertionError(f"dump {name}: records malformed")
+        _aos_against_soa(name, eng)
+        if name != "bench":
+            continue
+        cpu = dump_rays(Engine(cfg, seed=7, batch_size=BATCH, device="cpu"), n_rays=DUMP_SLICE)
+        card = dump_rays(eng, n_rays=DUMP_SLICE)
+        for f in ("ray_idx", "exit_slot", "path", "path_len", "wavelength"):
+            if not np.array_equal(getattr(card, f), getattr(cpu, f)):
+                raise AssertionError(f"dump {name}: {f} of the card's first {DUMP_SLICE} rays "
+                                     f"differs from the CPU's")
+        w_off = _dump_close("dump weights, card vs CPU", card.weight, cpu.weight,
+                            float(eng._w0_tbl.max()))
+        d_off = _dump_close("dump directions, card vs CPU", card.direction, cpu.direction, 1.0)
+        print(f"[9] dump {name}, first {DUMP_SLICE} rays: {len(card.ray_idx)} records, rays, "
+              f"slots, paths and wavelengths == the CPU's; weights and directions off rtol/atol "
+              f"{DUMP_TOL} on (records, worst) {w_off} / {d_off}", flush=True)
+
+
+def _capi(lib_path):
+    import ctypes
+
+    lib = ctypes.CDLL(lib_path)
+    lib.IHT_LastError.restype = ctypes.c_char_p
+    lib.IHT_CreateServer.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_uint,
+                                     ctypes.c_int]
+    lib.IHT_CommitSceneJson.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                        ctypes.POINTER(ctypes.c_int)]
+    lib.IHT_WaitIdle.argtypes = [ctypes.c_void_p, ctypes.c_double]
+    lib.IHT_GetSimRayCount.argtypes = [ctypes.c_void_p]
+    lib.IHT_GetSimRayCount.restype = ctypes.c_longlong
+    lib.IHT_AcquireResultFrame.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)]
+    lib.IHT_FrameGetRenderSize.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                           ctypes.POINTER(ctypes.c_int),
+                                           ctypes.POINTER(ctypes.c_int)]
+    lib.IHT_FrameGetRender.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_char_p,
+                                       ctypes.c_size_t]
+    lib.IHT_ReleaseResultFrame.argtypes = [ctypes.c_void_p]
+    lib.IHT_DestroyServer.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def _served_rate(ray_count, wait_idle, n: int) -> tuple:
+    """(rays/s from the end of the first batch to idle, seconds from the
+    commit's return to idle) of a committed budget of n batches."""
+    import torch
+
+    t0 = time.perf_counter()
+    deadline = time.time() + 120
+    while ray_count() < BATCH:
+        if time.time() > deadline:
+            raise AssertionError("the first batch did not end within 120 s")
+        time.sleep(0.0005)
+    t1 = time.perf_counter()
+    if not wait_idle():
+        raise AssertionError("not idle within 300 s")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return (n - 1) * BATCH / (t2 - t1), t2 - t0
+
+
+def phase_capi(smi, res: list, out: dict) -> None:
+    """The C API on the card: libiht.so and iht_smoke built from the
+    sources; in this process through ctypes, IHT_CreateServer (IHT_PLATFORM
+    unset: cuda) commits BENCH_CFG for 64 batches and its frame's sRGB bytes
+    equal those of a Server(device="cuda") with the same seed and budget;
+    the launch counters around the C API's commit (K2, K3, K4 launched);
+    the steady rays/s of both; then iht_smoke in its own process."""
+    import ctypes
+    import tempfile
+
+    import torch
+
+    from ice_halo_sim_tpu_torch.engine.server import Server
+    from ice_halo_sim_tpu_torch.kernels import build, capi
+    from ice_halo_sim_tpu_torch.scenes import BENCH_CFG
+
+    t0 = time.time()
+    paths = capi.build()
+    print(f"[9] C API build: {time.time() - t0:.1f} s -> "
+          f"{[os.path.relpath(p, ROOT) for p in paths.values()]}", flush=True)
+    os.environ.pop("IHT_PLATFORM", None)
+    lib = _capi(paths["lib"])
+    n = 64
+    doc = json.dumps(_budget(BENCH_CFG, n, BATCH)).encode()
+    server = ctypes.c_void_p()
+    if lib.IHT_CreateServer(ctypes.byref(server), 7, BATCH) != 0:
+        raise AssertionError(f"IHT_CreateServer: {lib.IHT_LastError()}")
+    try:
+        build.reset_launch_counts()
+        if lib.IHT_CommitSceneJson(server, doc, None) != 0:
+            raise AssertionError(f"IHT_CommitSceneJson: {lib.IHT_LastError()}")
+        capi_rate, capi_s = _served_rate(lambda: lib.IHT_GetSimRayCount(server),
+                                         lambda: lib.IHT_WaitIdle(server, 300.0) == 0, n)
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        frame = ctypes.c_void_p()
+        if lib.IHT_AcquireResultFrame(server, ctypes.byref(frame)) != 0:
+            raise AssertionError(f"IHT_AcquireResultFrame: {lib.IHT_LastError()}")
+        w, h = ctypes.c_int(), ctypes.c_int()
+        lib.IHT_FrameGetRenderSize(frame, 0, ctypes.byref(w), ctypes.byref(h))
+        buf = ctypes.create_string_buffer(w.value * h.value * 3)
+        if lib.IHT_FrameGetRender(frame, 0, buf, len(buf)) != 0:
+            raise AssertionError(f"IHT_FrameGetRender: {lib.IHT_LastError()}")
+        lib.IHT_ReleaseResultFrame(frame)
+    finally:
+        if lib.IHT_DestroyServer(server) != 0:
+            raise AssertionError(f"IHT_DestroyServer: {lib.IHT_LastError()}")
+    for k in CAPI_KERNELS:
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"C API: kernel {k} was not launched ({launches})")
+    for k in res:
+        k["launches_capi"] = launches.get(k["name"], 0)
+
+    srv = Server(seed=7, batch_size=BATCH, device="cuda")
+    try:
+        srv.commit(doc.decode())
+        direct_rate, direct_s = _served_rate(srv.sim_ray_count,
+                                             lambda: srv.wait_idle(timeout=300), n)
+        direct = srv.acquire_frame().images[0]
+        grains = srv.grains()
+    finally:
+        srv.shutdown()
+    same = (w.value, h.value) == (direct.shape[1], direct.shape[0]) and \
+        buf.raw == direct.tobytes()
+    out.update(capi_steady=capi_rate, direct_steady=direct_rate, launches_capi=launches)
+    print(f"[9] C API (ctypes, in process) BENCH_CFG {n} batches of {BATCH}: launches "
+          f"{launches}; steady rays/s (first batch's end to idle) {capi_rate:.6g} against the "
+          f"direct Server's {direct_rate:.6g} ({capi_rate / direct_rate:.4f}); commit's return "
+          f"to idle {capi_s:.4f} s / {direct_s:.4f} s; the direct Server's grains {grains}; "
+          f"sRGB {w.value}x{h.value} bytes == the direct Server's: {same}", flush=True)
+    if not same:
+        raise AssertionError("the C API's frame differs from the direct Server's")
+
+    # iht_smoke embeds its own interpreter: it is given this one's import
+    # path, and runs on the card (IHT_PLATFORM unset) at its batch of 16384.
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = os.path.join(tmp, "scene.json")
+        with open(scene, "w") as f:
+            json.dump(_budget(BENCH_CFG, 2, 16384), f)
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join([ROOT] + [p for p in sys.path if p]))
+        env.pop("IHT_PLATFORM", None)
+        t0 = time.time()
+        smoke = subprocess.run([paths["smoke"], scene], env=env, capture_output=True, text=True,
+                               timeout=300)
+    lines = smoke.stdout.strip().splitlines()
+    print(f"[9] iht_smoke (its own process, on the card): exit {smoke.returncode} in "
+          f"{time.time() - t0:.1f} s: {lines}", flush=True)
+    if smoke.returncode != 0 or not any(line.startswith("iht_smoke OK") for line in lines):
+        raise AssertionError(f"iht_smoke failed: {smoke.stderr[-2000:]}")
+    torch.cuda.synchronize()
+
+
+def phase_debug_capi(smi, res: list) -> None:
+    """[9]: the debug ray dump and the C API on the card."""
+    import torch
+
+    t0 = time.time()
+    out = {}
+    phase_debug(torch.device("cuda", 0), out)
+    phase_capi(smi, res, out)
+    print(f"[9] debug and C API: {json.dumps(out)} on {smi}", flush=True)
+    print(f"[9]: {time.time() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2087,6 +2466,7 @@ def main() -> int:
     print(f"[5] and [6]: {time.time() - t5:.1f} s", flush=True)
     phase_gradients()
     phase_serving(smi, res)
+    phase_debug_capi(smi, res)
     print(f"timings that fell back to CUDA events: {len(FALLBACKS)} "
           f"{json.dumps(FALLBACKS)}", flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)

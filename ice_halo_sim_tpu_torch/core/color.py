@@ -1,7 +1,7 @@
-"""Spectral color (port of the engine-path subset of
-``ice_halo_sim_tpu.core.color``): the piecewise-Chebyshev CMF fit, the
-tabulated CMF lookup of the gradient path, the daylight-series illuminant
-SPD and the sRGB snapshot post-process.
+"""Spectral color (port of ``ice_halo_sim_tpu.core.color``): the
+piecewise-Chebyshev CMF fit, the tabulated CMF lookup of the gradient path, the illuminant SPDs (the
+daylight series from the tables and in the engine's form), the Chebyshev
+helpers and the table lerp, and the sRGB snapshot post-process.
 
 The CIE tables are read from the port's own copy of the JAX package's data
 file (``data/cie_data.npz``); the Chebyshev coefficients are fitted from
@@ -111,9 +111,52 @@ def daylight_components(wl_nm):
     return torch.movedim(out, -1, 0)
 
 
+def daylight_cct_spd(cct: float, wl_nm):
+    """Daylight-series SPD at correlated colour temperature `cct` for
+    wavelengths [B] (CIE method: S0 + m1 S1 + m2 S2, linearly interpolated
+    in the tables)."""
+    t = cct
+    if t <= 7000:
+        xd = -4.607e9 / t**3 + 2.9678e6 / t**2 + 0.09911e3 / t + 0.244063
+    else:
+        xd = -2.0064e9 / t**3 + 1.9018e6 / t**2 + 0.24748e3 / t + 0.23704
+    yd = -3.0 * xd * xd + 2.87 * xd - 0.275
+    m = 0.0241 + 0.2562 * xd - 0.7341 * yd
+    m1 = (-1.3515 - 1.7703 * xd + 5.9114 * yd) / m
+    m2 = (0.03 - 31.4424 * xd + 30.0717 * yd) / m
+    wl = torch.as_tensor(wl_nm, dtype=F32)
+    s = const(np.asarray(_DAYLIGHT_S, np.float32), wl.device)
+    pos = divs(wl - _DAYLIGHT_WL_MIN, _DAYLIGHT_WL_STEP)
+    i0 = torch.clamp(torch.floor(pos).to(I32), 0, s.shape[1] - 2)
+    f = torch.clamp(pos - i0, 0.0, 1.0)
+    i0 = i0.long()
+    interp = s[:, i0] * (1 - f) + s[:, i0 + 1] * f
+    return interp[0] + float(np.float32(m1)) * interp[1] + float(np.float32(m2)) * interp[2]
+
+
+def illuminant_spd(name: str, wl_nm):
+    """SPD weight of a standard illuminant at wavelengths [B]: the daylight
+    series D50-D75 from the tables, E flat, A the 2856 K blackbody (100 at
+    560 nm)."""
+    name = name.upper()
+    wl = torch.as_tensor(wl_nm, dtype=F32)
+    if name in ILLUMINANT_CCT:
+        return daylight_cct_spd(ILLUMINANT_CCT[name], wl)
+    if name == "E":
+        return torch.ones(wl.shape, dtype=F32, device=wl.device)
+    if name == "A":
+        c2 = 1.435e7
+        temp = 2856.0
+        ratio = sdiv(560.0, wl)
+        num = np.exp(c2 / (temp * 560.0)) - 1.0
+        den = torch.exp(sdiv(c2, temp * wl)) - 1.0
+        return 100.0 * ratio**5 * num / den
+    raise ValueError(f"unknown illuminant {name!r}")
+
+
 def illuminant_spd_fast(name: str, wl_nm):
-    """Illuminant SPD at wavelengths [B]: the daylight series (D50-D75),
-    E and A."""
+    """Illuminant SPD at wavelengths [B] on the engine's path: the daylight
+    series through ``daylight_components``, E and A as ``illuminant_spd``."""
     name = name.upper()
     wl = torch.as_tensor(wl_nm, dtype=F32)
     if name in ILLUMINANT_CCT:
@@ -128,16 +171,36 @@ def illuminant_spd_fast(name: str, wl_nm):
         m2 = (0.03 - 31.4424 * xd + 30.0717 * yd) / m
         s = daylight_components(wl)
         return s[0] + float(np.float32(m1)) * s[1] + float(np.float32(m2)) * s[2]
-    if name == "E":
-        return torch.ones(wl.shape, dtype=F32, device=wl.device)
-    if name == "A":
-        c2 = 1.435e7
-        temp = 2856.0
-        ratio = sdiv(560.0, wl)
-        num = np.exp(c2 / (temp * 560.0)) - 1.0
-        den = torch.exp(sdiv(c2, temp * wl)) - 1.0
-        return 100.0 * ratio**5 * num / den
-    raise ValueError(f"unknown illuminant {name!r}")
+    return illuminant_spd(name, wl)
+
+
+def _chebfit_domain(xs, ys, deg, lo, hi):
+    """Chebyshev fit (float64 numpy) of ys over xs mapped from [lo, hi] to
+    [-1, 1]."""
+    t = (2.0 * np.asarray(xs, np.float64) - (lo + hi)) / (hi - lo)
+    return np.polynomial.chebyshev.chebfit(t, np.asarray(ys, np.float64), deg)
+
+
+def _clenshaw(coeffs, t):
+    """A Chebyshev series with host coefficients at t in [-1, 1]."""
+    b1 = torch.zeros_like(t)
+    b2 = torch.zeros_like(t)
+    for ck in coeffs[:0:-1]:
+        b1, b2 = float(np.float32(ck)) + 2.0 * t * b1 - b2, b1
+    return float(np.float32(coeffs[0])) + t * b1 - b2
+
+
+def dense_lerp(x, lo, step, table):
+    """Linear interpolation in the table [N] (host array) at x [B]:
+    table[i0] * (1 - f) + table[i0 + 1] * f, i0 clamped to [0, N - 2]."""
+    x = torch.as_tensor(x, dtype=F32)
+    tbl = const(np.asarray(table, np.float32), x.device)
+    n = tbl.shape[0]
+    pos = divs(x - lo, step)
+    i0 = torch.clamp(torch.floor(pos).to(I32), 0, n - 2)
+    f = torch.clamp(pos - i0, 0.0, 1.0)
+    i0 = i0.long()
+    return tbl[i0] * (1.0 - f) + tbl[i0 + 1] * f
 
 
 def exposure_scale(intensity_factor: float, total_pix: int,

@@ -13,9 +13,12 @@ Device side: ``reduce_paths_t`` and ``check_exits_prefix_soa`` on slot-major
 [H, B] int32 face-number paths, plain PyTorch. Every stage is integer (or a
 float compare of the direction filter) and gives the JAX functions' values.
 The TPU's one-hot masked sum over the path axis (``_col_at``: no per-row
-gathers there) is an indexed read here. The [N, L] forms (``check_exits``,
-``check_exits_slots``, ``reduce_paths``) have no caller in the engine and
-are not ported.
+gathers there) is an indexed read here.
+
+The [N, L] forms of the JAX package's reference formulation
+(``reduce_paths``, ``check_exits``, ``check_exits_slots``; N paths padded to
+L faces with their lengths) run the slot-major stages on the transposed
+paths: a path's canonical form does not depend on the layout.
 """
 
 from __future__ import annotations
@@ -370,3 +373,120 @@ def check_exits_prefix_soa(plan: Optional[FilterPlan], path, live, dirs):
             matched = ~matched
         rows.append(matched)
     return torch.stack(rows, dim=0)
+
+
+# --------------------------------------------------------------------------
+# [N, L] forms: padded paths with their lengths
+# --------------------------------------------------------------------------
+
+def _row_at(arr, idx):
+    """arr[n, idx[n]] over [N, L]."""
+    return arr.gather(-1, idx[..., None].long())[..., 0]
+
+
+def _p_shift(paths, valid):
+    return _p_shift_t(paths.T, valid.T).T
+
+
+def _d_mirror(paths, valid, sigma_a):
+    return _d_mirror_t(paths.T, valid.T, sigma_a).T
+
+
+def _b_mirror(paths, valid):
+    out, changed = _b_mirror_t(paths.T, valid.T)
+    return out.T, changed
+
+
+def _lex_less(a, b, valid):
+    """a < b lexicographically over the valid prefix, [N] bool."""
+    return _lex_less_t(a.T, b.T, valid.T)
+
+
+def reduce_paths(paths, lens, symmetry: Symmetry, sigma_a: int, d_applicable: bool):
+    """Canonical forms of [N, L] int32 face-number paths of lengths [N]
+    (``reduce_raypath`` per row; 0 past each length)."""
+    L = paths.shape[-1]
+    valid = torch.arange(L, device=paths.device)[None, :] < lens[..., None]
+    return reduce_paths_t(paths.T, valid.T, symmetry, sigma_a, d_applicable).T
+
+
+def _match_simple(plan: SimplePlan, paths, lens, dirs, reduced=None):
+    n = paths.shape[0]
+    dev = paths.device
+    if plan.kind == "none":
+        return torch.ones(n, dtype=torch.bool, device=dev)
+    if plan.kind == "crystal":
+        return torch.full((n,), plan.crystal_match, dtype=torch.bool, device=dev)
+    if plan.kind == "direction":
+        d = plan.dir_vec
+        return dirs[:, 0] * d[0] + dirs[:, 1] * d[1] + dirs[:, 2] * d[2] > plan.radii_c
+    if plan.kind == "raypath":
+        clen = len(plan.canonical)
+        L = paths.shape[-1]
+        if clen > L:
+            return torch.zeros(n, dtype=torch.bool, device=dev)
+        if reduced is None:
+            reduced = reduce_paths(paths, lens, plan.symmetry, plan.sigma_a, plan.d_applicable)
+        canon = torch.zeros(L, dtype=reduced.dtype, device=dev)
+        canon[:clen] = bits.const(np.asarray(plan.canonical, np.int32), dev).to(reduced.dtype)
+        head = torch.arange(L, device=dev)[None, :] < clen
+        return (lens == clen) & torch.where(head, reduced == canon[None, :], True).all(dim=-1)
+    if plan.kind == "entry_exit":
+        ok = (lens > 0) & (lens >= plan.min_len)
+        if plan.max_len is not None:
+            ok &= lens <= plan.max_len
+        if not (plan.has_entry or plan.has_exit):
+            return ok
+        ends = []
+        if plan.has_entry:
+            ends.append(paths[:, 0])
+        if plan.has_exit:
+            ends.append(_row_at(paths, torch.clamp_min(lens - 1, 0)))
+        ee = torch.stack(ends, dim=-1)
+        if len(plan.canonical) != ee.shape[-1]:
+            return torch.zeros(n, dtype=torch.bool, device=dev)
+        ee_len = torch.full((n,), ee.shape[-1], dtype=lens.dtype, device=dev)
+        red = reduce_paths(ee, ee_len, plan.symmetry, plan.sigma_a, plan.d_applicable)
+        canon = bits.const(np.asarray(plan.canonical, np.int32), dev).to(red.dtype)
+        return ok & (red == canon[None, :]).all(dim=-1)
+    raise ValueError(plan.kind)
+
+
+def check_exits(plan: Optional[FilterPlan], paths, lens, dirs):
+    """Filter verdict per exit (match XOR filter_out): paths [N, L] int32,
+    lens [N], dirs [N, 3] world exit directions. No plan: all pass; an
+    empty complex filter matches nothing. One canonical form per symmetry
+    triple serves every raypath predicate."""
+    n = paths.shape[0]
+    dev = paths.device
+    if plan is None:
+        return torch.ones(n, dtype=torch.bool, device=dev)
+    matched = torch.zeros(n, dtype=torch.bool, device=dev)
+    cache = {}
+    for clause in plan.clauses:
+        and_ok = torch.ones(n, dtype=torch.bool, device=dev)
+        for simple in clause:
+            r = None
+            if simple.kind == "raypath":
+                k = (simple.symmetry, simple.sigma_a, simple.d_applicable)
+                if k not in cache:
+                    cache[k] = reduce_paths(paths, lens, *k)
+                r = cache[k]
+            and_ok &= _match_simple(simple, paths, lens, dirs, reduced=r)
+        matched |= and_ok
+    if plan.action == FilterAction.FILTER_OUT:
+        return ~matched
+    return matched
+
+
+def check_exits_slots(plan: Optional[FilterPlan], paths, path_lens, dirs):
+    """Verdicts [c, H] of H exit slots sharing one path buffer: paths [c,
+    L], path_lens [c, H] per-slot prefix lengths, dirs [c, H, 3]; the slot
+    axis folds into the rows, so each canonical form runs once."""
+    c, L = paths.shape
+    H = path_lens.shape[-1]
+    if plan is None:
+        return torch.ones((c, H), dtype=torch.bool, device=paths.device)
+    pb = paths[:, None, :].expand(c, H, L).reshape(c * H, L)
+    out = check_exits(plan, pb, path_lens.reshape(-1), dirs.reshape(-1, 3))
+    return out.reshape(c, H)

@@ -213,3 +213,20 @@ def pad_geom_faces(geom: CrystalGeom, nf: int) -> CrystalGeom:
         face_vtx=pad_axis(geom.face_vtx, -3),
         face_vtx_cnt=pad_axis(geom.face_vtx_cnt, -1),
     )
+
+
+def polygon_areas(geom: CrystalGeom) -> torch.Tensor:
+    """Area of every face polygon [..., NF], summed over its fan triangles
+    (v0, v[k], v[k+1]). The inner where keeps sqrt's gradient finite on
+    the zero-area padding triangles."""
+    v0 = geom.face_vtx[..., 0:1, :]
+    a = geom.face_vtx[..., 1:-1, :] - v0
+    b = geom.face_vtx[..., 2:, :] - v0
+    cross = torch.linalg.cross(a, b, dim=-1)
+    cross_sq = (cross * cross).sum(dim=-1)
+    nonzero = cross_sq > 0
+    tri_area = torch.where(
+        nonzero, 0.5 * torch.sqrt(torch.where(nonzero, cross_sq, 1.0)), 0.0)
+    k = torch.arange(1, geom.face_vtx.shape[-2] - 1, device=geom.face_vtx.device)
+    mask = k + 1 < geom.face_vtx_cnt[..., None]
+    return torch.where(mask, tri_area, 0.0).sum(dim=-1)

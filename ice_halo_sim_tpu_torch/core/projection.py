@@ -3,7 +3,8 @@
 
 ``make_proj_plan`` resolves a render's parameters on the host exactly as
 the JAX package does. ``project_components`` maps exit directions to pixels
-in the same float32 operation order as the JAX function. The six lenses
+in the same float32 operation order as the JAX function (``project`` on
+[B, 3] directions). The six lenses
 without inverse trig in their forward math (``SUPPORTED_LENSES``: linear,
 fisheye equal-area and orthographic, their dual forms, globe) are the ones
 the trace kernel takes; fisheye equidistant and stereographic, their dual
@@ -189,6 +190,12 @@ def _camera(plan: ProjPlan, wx, wy, wz):
         -(float(r[0, 1]) * wx + float(r[1, 1]) * wy + float(r[2, 1]) * wz),
         -(float(r[0, 2]) * wx + float(r[1, 2]) * wy + float(r[2, 2]) * wz),
     )
+
+
+def project(plan: ProjPlan, w_dir) -> PixelHits:
+    """World exit directions [B, 3] -> pixel hits (the AoS form of
+    ``project_components``)."""
+    return project_components(plan, w_dir[..., 0], w_dir[..., 1], w_dir[..., 2])
 
 
 def project_components(plan: ProjPlan, wx, wy, wz) -> PixelHits:

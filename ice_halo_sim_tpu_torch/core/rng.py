@@ -129,3 +129,43 @@ def sample_dist(seed, idx, slot, dtype: int, center, spread):
         arg = torch.clamp_min(1.0 - 2.0 * torch.abs(u - 0.5), 1e-30)
         return center - spread * sgn * torch.log(arg)
     raise ValueError(f"unknown DistType {dtype}")
+
+
+def feistel_bijection(i, n: int, seed):
+    """Seeded bijection on [0, n): a 4-round balanced Feistel network with
+    cycle-walking (pcg_shared.h:550-605). i: int64-held u32 tensor; n a
+    static python int. The JAX function walks in a while_loop; here the
+    walk is a host loop that ends when every element is in range (at most
+    64 passes, as there)."""
+    n = int(n)
+    i = _t(i)
+    if n <= 1:
+        return i
+    if n == 2:
+        return i ^ 1
+    bits = 0
+    while bits < 30 and (1 << bits) < n:
+        bits += 1
+    if bits & 1:
+        bits += 1
+    half = bits >> 1
+    hm = (1 << half) - 1
+    seed = _t(seed, i) & MASK32
+
+    def one_pass(cur):
+        left = (cur >> half) & hm
+        right = cur & hm
+        for rc in (0x9E3779B9, 0x85EBCA6B, 0xC2B2AE35, 0x27D4EB2F):
+            f = pcg_hash(seed ^ right ^ rc) & hm
+            left, right = right, left ^ f
+        return (left << half) | right
+
+    cur = one_pass(i & MASK32)
+    if (1 << bits) == n:
+        return cur
+    for _ in range(64):
+        out = cur >= n
+        if not bool(out.any()):
+            break
+        cur = torch.where(out, one_pass(cur), cur)
+    return torch.where(cur < n, cur, cur % n)

@@ -1,8 +1,15 @@
-"""Ray and orientation sampling (port of the trace-kernel subset of
-``ice_halo_sim_tpu.core.sampling``): sun-cap directions, the orientation
-sampler in its ``lut_loop`` form, axis parameters and entry fan triangles.
+"""Ray and orientation sampling (port of ``ice_halo_sim_tpu.core.sampling``):
+sun-cap directions, axis parameters, the orientation sampler (the rotation
+components of ``sample_rot_row`` in its ``lut_loop`` form, and the angles of
+``sample_lat_lon_roll_row`` with the [B, N] latitude lookup), rotation
+matrices and entry fan triangles with the entry sampler.
 
-Same RNG slots, same float32 operation order as the JAX functions."""
+Same RNG slots, same float32 operation order as the JAX functions. The [B,
+3] forms (``sample_sun_dirs``, ``build_rotation``, ``rotate``,
+``sample_entry``) are the AoS layer of core/trace.py; their dot products and
+running sums are written out in the order of the component forms, so both
+give the same bits. The TPU's row reads by one-hot sums (``hw.take_rows``)
+are gathers here."""
 
 from __future__ import annotations
 
@@ -13,7 +20,7 @@ import torch
 
 from ice_halo_sim_tpu_torch.config.schema import AxisDistribution, DistType
 from ice_halo_sim_tpu_torch.core.latlut import N_NODES
-from ice_halo_sim_tpu_torch.core import rng
+from ice_halo_sim_tpu_torch.core import optics, rng
 from ice_halo_sim_tpu_torch.core.bits import F32, I32, const, divs
 from ice_halo_sim_tpu_torch.core.geometry import CrystalGeom
 
@@ -236,3 +243,151 @@ def build_entry_tris(geom: CrystalGeom) -> EntryTris:
         cross_half=cross_half.reshape(lead + (t, 3)),
         face_idx=face_idx.reshape(lead + (t,)),
     )
+
+
+# --------------------------------------------------------------------------
+# The AoS forms ([B, 3] directions, [B, 3, 3] rotations)
+# --------------------------------------------------------------------------
+
+def sample_sun_dirs(seed, idx, sun_azimuth_deg: float, sun_altitude_deg: float,
+                    sun_diameter_deg: float) -> torch.Tensor:
+    """Propagation directions within the sun cone [B, 3]; slots 0-1."""
+    return torch.stack(sample_sun_dirs_soa(
+        seed, idx, sun_azimuth_deg, sun_altitude_deg, sun_diameter_deg), dim=-1)
+
+
+def invert_lat_lut(xi, theta_nodes, cdf_nodes):
+    """Inverse-CDF latitude lookup of xi [B] in one [B, N] pass over the
+    (strictly monotone) CDF nodes: cdf[lo] is the greatest node <= xi but
+    the last, cdf[lo + 1] the least node above it; the theta nodes are
+    uniformly spaced."""
+    theta = torch.as_tensor(theta_nodes, dtype=F32, device=xi.device)
+    cdf = torch.as_tensor(cdf_nodes, dtype=F32, device=xi.device)
+    xi = torch.minimum(torch.maximum(xi, cdf[0]), cdf[-1])
+    n = cdf.shape[0]
+    node_i = torch.arange(n, device=xi.device)
+    cmp = cdf <= xi[..., None]
+    lo = torch.clamp(cmp.to(I32).sum(dim=-1) - 1, 0, n - 2)
+    c0 = torch.where(cmp & (node_i < n - 1), cdf, -3.0e38).max(dim=-1).values
+    c1 = torch.where(~cmp, cdf, 3.0e38).min(dim=-1).values
+    c1 = torch.minimum(c1, cdf[-1])
+    dt = divs(theta[-1] - theta[0], float(n - 1))
+    denom = c1 - c0
+    w = torch.where(denom > 0, (xi - c0) / torch.where(denom > 0, denom, 1.0), 0.0)
+    return theta[0] + (lo.to(F32) + w) * dt
+
+
+def lat_lut_bin(theta, theta_nodes):
+    """The uniform-theta LUT bin of theta, clamped to [0, N_NODES - 2]."""
+    nodes = torch.as_tensor(theta_nodes, dtype=F32, device=theta.device)
+    span = nodes[-1] - nodes[0]
+    t = torch.where(span > 0, (theta - nodes[0]) / torch.where(span > 0, span, 1.0), 0.0)
+    return torch.clamp((t * (N_NODES - 1)).to(I32), 0, N_NODES - 2)
+
+
+def sample_lat_lon_roll_row(seed, idx, params: AxisParams, s: int):
+    """Orientation (lon, lat, roll) in radians for rays of setting `s`
+    (slots 0-9). A pole flip adds pi to lon and roll."""
+    lat_path = int(params.lat_path[s])
+    flip = torch.zeros(idx.shape, dtype=torch.bool, device=idx.device)
+    if lat_path == LAT_FULL_SPHERE:
+        u_fs = rng.uniform(seed, idx, 0) * 2.0 - 1.0
+        phi = torch.arcsin(torch.clamp(u_fs, -1.0, 1.0))
+    elif lat_path == LAT_NO_RANDOM:
+        phi = torch.full(idx.shape, float(params.lat_mean[s]), dtype=F32, device=idx.device)
+    elif lat_path == LAT_GAUSS_LEGACY:
+        raw = rng.sample_dist(seed, idx, 2, int(DistType.GAUSS_LEGACY),
+                              params.lat_mean[s], params.lat_std[s])
+        phi, flip = normalize_latitude(raw)
+    else:
+        xi = rng.uniform(seed, idx, 4)
+        colat = invert_lat_lut(xi, params.lut_theta[s], params.lut_cdf[s])
+        phi = HALF_PI_F - colat
+        fbin = lat_lut_bin(colat, params.lut_theta[s])
+        flip_p = const(np.asarray(params.lut_flip[s], np.float32), idx.device)[fbin.long()]
+        flip = rng.uniform(seed, idx, 5) < flip_p
+    if lat_path == LAT_FULL_SPHERE:
+        lon = rng.uniform(seed, idx, 1) * TWO_PI_F
+    else:
+        lon = rng.sample_dist(seed, idx, 6, int(params.az_type[s]),
+                              params.az_mean[s], params.az_std[s])
+    roll = rng.sample_dist(seed, idx, 8, int(params.roll_type[s]),
+                           params.roll_mean[s], params.roll_std[s])
+    lon = torch.where(flip, lon + PI_F, lon)
+    roll = torch.where(flip, roll + PI_F, roll)
+    return lon, phi, roll
+
+
+def sample_lat_lon_roll(seed, idx, params: AxisParams, setting_idx=None):
+    """Single-setting parameters only (the engine samples per contiguous
+    setting segment with the row form); setting_idx is not read."""
+    return sample_lat_lon_roll_row(seed, idx, params, 0)
+
+
+def build_rotation(lon, lat, roll):
+    """Row-major R = Rz(lon - pi) Ry(lat - pi/2) Rz(roll) [..., 3, 3];
+    world = R @ crystal."""
+    a = lon - PI_F
+    b = lat - HALF_PI_F
+    r = _rot9(torch.cos(a), torch.sin(a), torch.cos(b), torch.sin(b),
+              torch.cos(roll), torch.sin(roll))
+    return torch.stack([torch.stack(r[3 * i:3 * i + 3], dim=-1) for i in range(3)], dim=-2)
+
+
+def rotate(rot, v):
+    """world = R @ crystal; rot [..., 3, 3], v [..., 3]."""
+    return (rot[..., 0] * v[..., 0:1] + rot[..., 1] * v[..., 1:2]
+            + rot[..., 2] * v[..., 2:3])
+
+
+def rotate_inv(rot, v):
+    """crystal = R^T @ world."""
+    return (rot[..., 0, :] * v[..., 0:1] + rot[..., 1, :] * v[..., 1:2]
+            + rot[..., 2, :] * v[..., 2:3])
+
+
+def _pick_entry(seed, idx, wt, v0, e1, e2, face_idx):
+    """The entry sampler's choice (slots 10-12) from the projected-area
+    weights wt [..., T] and the per-ray triangle tables [..., T, 3] (face
+    [..., T]), or shared [T, 3] / [T] tables. The CDF is a float32 running
+    sum in triangle order. Returns (p, face, has_entry, log_p)."""
+    T = wt.shape[-1]
+    run = torch.zeros(wt.shape[:-1], dtype=F32, device=wt.device)
+    cdf = []
+    for t in range(T):
+        run = run + wt[..., t]
+        cdf.append(run)
+    total = run
+    has_entry = total > 0.0
+    target = rng.uniform(seed, idx, 10) * total
+    sel = torch.clamp((torch.stack(cdf, dim=-1) <= target[..., None]).sum(dim=-1), 0, T - 1)
+
+    def rows(tab):
+        if tab.dim() == 2:
+            return tab[sel]
+        return tab.gather(-2, sel[..., None, None].expand(sel.shape + (1, 3)))[..., 0, :]
+
+    u = rng.uniform(seed, idx, 11)
+    v = rng.uniform(seed, idx, 12)
+    over = u + v > 1.0
+    u = torch.where(over, 1.0 - u, u)[..., None]
+    v = torch.where(over, 1.0 - v, v)[..., None]
+    p = rows(v0) + u * rows(e1) + v * rows(e2)
+    face = face_idx[sel] if face_idx.dim() == 1 else face_idx.gather(-1, sel[..., None])[..., 0]
+    w_sel = wt.gather(-1, sel[..., None])[..., 0]
+    safe_total = torch.where(has_entry, total, 1.0)
+    log_p = torch.where(
+        has_entry & (w_sel > 0),
+        torch.log(torch.where(w_sel > 0, w_sel, 1.0)) - torch.log(safe_total), 0.0)
+    return p, face, has_entry, log_p
+
+
+def sample_entry(seed, idx, d_local, tris: EntryTris):
+    """Entry point and face of rays with crystal-frame direction d_local
+    [B, 3] over per-ray triangle tables [B, T, ...]: a triangle by its
+    projected area max(-d . cross_half, 0), a point by the folded (u, v)
+    draw (slots 10-12). Returns (p [B, 3], face [B] int32, has_entry [B],
+    log p of the chosen triangle [B])."""
+    wt = torch.clamp_min(-optics.dot3(d_local[..., None, :], tris.cross_half), 0.0)
+    return _pick_entry(seed, idx, wt, tris.v0, tris.e1, tris.e2, tris.face_idx)
+

@@ -18,11 +18,16 @@ What the port does differently:
 
   - The pump's grain. The first pump after a commit runs one batch, so the
     engine calibrates from one batch as the JAX server's does; every later
-    pump runs ``min(steps_per_dispatch, batches left in the budget)``
-    batches in one ``Engine.run`` (all of steps_per_dispatch for an infinite
-    budget). A dispatch of the port reads the host once at its end (the
-    first overflowing batch), so one batch per pump would read the host
-    every batch; grouping batches into dispatches changes no bit.
+    pump runs about PUMP_SECONDS of batches in one ``Engine.run``:
+    clamp(round(PUMP_SECONDS / batch wall), 1, steps_per_dispatch)
+    batches, no more than the budget has left, where the batch wall is the
+    wall time of the engine's last run call (its host read included) over
+    its batches. A commit waits for the pump's current call, so it waits
+    about PUMP_SECONDS at most, whatever a batch costs; a fast scene still
+    groups a dispatch's worth of batches in one call (a dispatch of the
+    port reads the host once at its end, so one batch per pump would read
+    it every batch). Grouping batches into calls changes no bit; the
+    grains of the current engine's calls are in ``grains()``.
   - The pump runs the engine outside the server's lock, and a caller that
     needs the engine (commit, acquire_frame, the colour controls) gets it
     before the pump's next call: a lock that the pump released and took
@@ -33,8 +38,10 @@ What the port does differently:
   - A pump that raises keeps its exception: ``wait_idle``, ``acquire_frame``
     and ``commit`` raise it again (as the cause of a RuntimeError), and
     ``state()`` is STOPPED. Nothing falls back to another kernel set.
-  - ``device`` (default "cuda") and ``kernels`` are passed to every Engine
-    the server builds; without a card a CUDA server raises.
+  - ``device`` and ``kernels`` are passed to every Engine the server
+    builds. ``device=None`` (the default, and what the C API passes) takes
+    IHT_PLATFORM when it is set ("cpu" or "cuda"), else "cuda"; without a
+    card a CUDA server raises.
 """
 
 from __future__ import annotations
@@ -53,6 +60,10 @@ import torch
 from ice_halo_sim_tpu_torch.config.loader import load_project, load_project_file
 from ice_halo_sim_tpu_torch.config.schema import ProjectConfig
 from ice_halo_sim_tpu_torch.engine.simulator import DEFAULT_GEOM_CLOCK, Engine, Stats
+
+# Seconds of batches in one pump after calibration: one poll of the GUI
+# (gui/app.py), and about the longest a commit waits for the pump.
+PUMP_SECONDS = 0.25
 
 
 class SimState(enum.Enum):
@@ -122,10 +133,14 @@ class Server:
     """
 
     def __init__(self, seed: Optional[int] = None, batch_size: Optional[int] = None,
-                 geom_clock: Optional[int] = None, device="cuda",
+                 geom_clock: Optional[int] = None, device=None,
                  kernels: Optional[str] = None):
         from ice_halo_sim_tpu_torch.utils import env_knobs
 
+        if device is None:
+            device = env_knobs.get("IHT_PLATFORM") or "cuda"
+            if device not in ("cpu", "cuda"):
+                raise ValueError(f"IHT_PLATFORM must be 'cpu' or 'cuda', not {device!r}")
         self._device = torch.device(device)
         if self._device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Server(device='cuda') needs a CUDA device; "
@@ -149,6 +164,8 @@ class Server:
         self._arrived = 0       # callers that asked for the engine
         self._served = 0        # callers that are done with it
         self._engine: Optional[Engine] = None
+        self._batch_wall: Optional[float] = None  # seconds a batch, last run call
+        self._grains: list = []                   # batches of each run call
         self._cfg: Optional[ProjectConfig] = None
         self._generation = 0
         self._target_rays: Optional[int] = 0   # None = infinite
@@ -220,6 +237,8 @@ class Server:
                 self._engine = Engine(cfg, seed=self._seed, batch_size=bs,
                                       device=self._device, kernels=self._kernels,
                                       geom_clock=self._geom_clock)
+                self._batch_wall = None
+                self._grains = []
                 self._generation += 1
             self._cfg = cfg
             rn = cfg.scene.ray_num
@@ -237,14 +256,16 @@ class Server:
 
     def _grain_locked(self) -> int:
         """Batches of the next pump: one while the engine calibrates, then
-        a dispatch's worth, no more than the budget has left."""
+        PUMP_SECONDS over the last call's batch wall (1 to
+        steps_per_dispatch), no more than the budget has left."""
         eng = self._engine
-        if not eng._calibrated:
+        if not eng._calibrated or self._batch_wall is None:
             return 1
+        n = max(1, min(eng.steps_per_dispatch, round(PUMP_SECONDS / self._batch_wall)))
         if self._target_rays is None:
-            return eng.steps_per_dispatch
+            return n
         left = -(-(self._target_rays - eng.stats.rays_traced) // eng.batch_size)
-        return max(1, min(eng.steps_per_dispatch, left))
+        return max(1, min(n, left))
 
     def _pump(self) -> None:
         while True:
@@ -259,8 +280,11 @@ class Server:
                 n = self._grain_locked()
                 self._busy = True
             error = None
+            wall = None
             try:
+                t0 = time.perf_counter()
                 engine.run(n_batches=n)
+                wall = (time.perf_counter() - t0) / n
                 self._since_drain += n
                 if self._since_drain >= self._snapshot_every:
                     engine.drain_stats()
@@ -271,6 +295,9 @@ class Server:
                 with self._cv:
                     self._busy = False
                     self._error = error
+                    if wall is not None:
+                        self._batch_wall = wall
+                        self._grains.append(n)
                     self._cv.notify_all()
             if error is not None:
                 if not isinstance(error, Exception):
@@ -467,6 +494,13 @@ class Server:
         """Explicit lifecycle and epoch; state() is a projection of this."""
         with self._cv:
             return {"state": self.state().value, "epoch": self._generation}
+
+    def grains(self) -> list:
+        """The batches of each run call the pump made on the current
+        engine, in order: an Engine given the same calls gives the same
+        frame."""
+        with self._cv:
+            return list(self._grains)
 
     def stop(self) -> None:
         """Stop pumping (keeps state; a new commit restarts): halt work,

@@ -253,12 +253,20 @@ class _Handler(BaseHTTPRequestHandler):
             self._send(400, json.dumps({"error": str(e)}).encode(),
                        "application/json")
             return
+        gui.drop_frame()
         self._send(200, json.dumps({"reused": bool(reused)}).encode(),
                    "application/json")
 
 
 class GuiApp:
-    """Owns the Server and caches frames for the HTTP handlers."""
+    """Owns the Server and caches frames for the HTTP handlers.
+
+    The cache stops refreshing once its frame is final (the budget is
+    drained), and every successful commit through ``/commit`` drops it, so
+    the next poll shows the committed scene, a layout change and an
+    appearance-only recommit alike. This repairs a fault that the JAX
+    package's gui/app.py still has: it keeps serving the finished scene's
+    frame after a commit."""
 
     def __init__(self, server):
         self.server = server
@@ -276,6 +284,11 @@ class GuiApp:
                 self._frame = self.server.acquire_frame()
                 self._frame_t = time.time()
             return self._frame
+
+    def drop_frame(self) -> None:
+        """Forget the cached frame; the next poll acquires a new one."""
+        with self._lock:
+            self._frame = None
 
     def _frame_is_final(self) -> bool:
         return bool(self._frame is not None and self._frame.is_idle)

@@ -74,6 +74,40 @@ def test_gui_serves_frames_and_commits():
         gui.server.shutdown()
 
 
+def test_gui_shows_the_committed_scene_after_idle():
+    """A scene runs to idle (its frame is final and cached), then /commit
+    takes a different scene and then an appearance-only change of it: each
+    time /frame/0.png shows the committed scene, not the cached frame (the
+    JAX package's viewer keeps the finished frame)."""
+    from ice_halo_sim_tpu_torch.utils.png import encode_png
+
+    cfg, httpd, gui, base = _serve()
+    try:
+        assert gui.server.wait_idle(timeout=WAIT)
+        first = _get(base + "/frame/0.png")
+        assert gui.frame().is_idle and _get(base + "/frame/0.png") == first
+
+        cfg2 = json.loads(json.dumps(cfg))
+        cfg2["scene"]["light_source"]["altitude"] = 5.0
+        gen = gui.server.generation()
+        assert json.loads(_post(base + "/commit", json.dumps(cfg2).encode()))["reused"] is False
+        assert gui.server.wait_idle(timeout=WAIT) and gui.server.generation() == gen + 1
+        second = _get(base + "/frame/0.png")
+        assert second != first
+        assert second == encode_png(gui.server.acquire_frame().images[0])
+
+        cfg3 = json.loads(json.dumps(cfg2))
+        cfg3["render"][0]["intensity_factor"] = 3.0
+        assert json.loads(_post(base + "/commit", json.dumps(cfg3).encode()))["reused"] is True
+        third = _get(base + "/frame/0.png")
+        assert third != second and gui.server.generation() == gen + 1
+        assert third == encode_png(gui.server.acquire_frame().images[0])
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        gui.server.shutdown()
+
+
 def test_gui_project_roundtrip_and_crystal_mesh():
     _, httpd, gui, base = _serve()
     try:

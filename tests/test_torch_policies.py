@@ -42,7 +42,8 @@ def test_port_imports_no_jax():
     assert {"ice_halo_sim_tpu_torch.engine.server", "ice_halo_sim_tpu_torch.engine.ev_auto",
             "ice_halo_sim_tpu_torch.engine.overlay", "ice_halo_sim_tpu_torch.engine.checkpoint",
             "ice_halo_sim_tpu_torch.core.mesh", "ice_halo_sim_tpu_torch.gui",
-            "ice_halo_sim_tpu_torch.gui.app"} <= set(mods)
+            "ice_halo_sim_tpu_torch.gui.app", "ice_halo_sim_tpu_torch.engine.debug",
+            "ice_halo_sim_tpu_torch.kernels.capi", "ice_halo_sim_tpu_torch.core.trace"} <= set(mods)
     code = (
         "import sys, importlib\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -91,6 +92,41 @@ def test_copied_modules_equal_their_sources():
         "ice_halo_sim_tpu_torch.config.loader"
 
 
+NATIVE_COPIES = ["src/scene_builder.cpp", "include/iht.h", "examples/smoke.c"]
+
+
+def _native_source(rel):
+    """A file of the JAX package's native/ with the reference checkout's
+    path made relative, as in every copy of the port."""
+    with open(os.path.join(ROOT, "native", rel)) as f:
+        return f.read().replace(os.sep + os.path.join("root", "reference"), "reference")
+
+
+def test_native_sources_are_copies():
+    """The port's C API is the JAX package's: iht.h, scene_builder.cpp and
+    smoke.c are copies; c_api.cpp differs only in the modules it imports
+    (the port's server, log and mesh) and in the three comments that name
+    the engine; no C source names a module of the JAX package."""
+    pkg_native = os.path.join(PKG, "native")
+    for rel in NATIVE_COPIES:
+        with open(os.path.join(pkg_native, rel)) as f:
+            assert f.read() == _native_source(rel), rel
+    with open(os.path.join(pkg_native, "src", "c_api.cpp")) as f:
+        got = f.read().splitlines()
+    want = _native_source("src/c_api.cpp").splitlines()
+    assert len(got) == len(want)
+    diff = [(i + 1, a, b) for i, (a, b) in enumerate(zip(want, got)) if a != b]
+    assert [d[0] for d in diff] == [5, 7, 98, 135, 137, 731, 752, 786], diff
+    for _, a, b in diff:
+        assert "ice_halo_sim_tpu_torch" in b or "the port's engine" in b, b
+        if "ice_halo_sim_tpu." in a:
+            assert b == a.replace("ice_halo_sim_tpu.", "ice_halo_sim_tpu_torch."), b
+    for path in _port_files((".cpp", ".c", ".h")):
+        with open(path) as f:
+            src = f.read()
+        assert not re.search(r"ice_halo_sim_tpu(?!_torch)\b", src), path
+
+
 def test_gui_page_is_the_jax_page():
     """The port's viewer page is the JAX package's, the package name
     rewritten."""
@@ -102,7 +138,8 @@ def test_gui_page_is_the_jax_page():
 
 
 def test_no_reference_checkout_paths():
-    files = _port_files((".py", ".cu", ".cuh")) + [os.path.join(ROOT, "chip_smoke.py")]
+    files = _port_files((".py", ".cu", ".cuh", ".cpp", ".c", ".h"))
+    files += [os.path.join(ROOT, "chip_smoke.py")]
     files += [os.path.join(ROOT, "tests", f) for f in os.listdir(os.path.join(ROOT, "tests"))
               if f.startswith("test_torch_")]
     needle = os.sep + os.path.join("root", "reference")

@@ -131,3 +131,14 @@ def test_sample_dist_at_pool_shape_indices(dtype):
         np.testing.assert_array_equal(got, want)
     else:
         np.testing.assert_allclose(got, want, rtol=2e-6, atol=4e-7)
+
+
+@pytest.mark.parametrize("n", [2, 3, 5, 7, 16, 100, 1000, 4097])
+def test_feistel_is_bijection(n):
+    """Twin of test_rng.py's: a permutation of [0, n), another for another
+    seed (n = 2 is seed-independent)."""
+    i = torch.arange(n, dtype=torch.int64)
+    out = trng.feistel_bijection(i, n, 42).numpy()
+    assert sorted(out.tolist()) == list(range(n))
+    if n > 4:
+        assert not np.array_equal(out, trng.feistel_bijection(i, n, 43).numpy())

@@ -275,9 +275,9 @@ def test_frames_match_jax_server(monkeypatch):
 
 @pytest.mark.parametrize("spd", [1, 2, 64])
 def test_frames_bit_equal_whatever_the_grain(monkeypatch, spd):
-    """Four batches of budget: pumps of 1, 1, 1, 1 (spd 1), 1, 2, 1 (spd
-    2) or 1, 3 (spd 64) batches; each frame equals an Engine that ran one
-    batch at a time, bit for bit."""
+    """Four batches of budget: one calibrating batch, then pumps of at most
+    spd batches each (their count set by the pump's clock); each frame
+    equals an Engine that ran one batch at a time, bit for bit."""
     monkeypatch.setenv("IHT_STEPS_PER_DISPATCH", str(spd))
     frame = _frame_of(Server, device="cpu")[0]
     monkeypatch.setenv("IHT_STEPS_PER_DISPATCH", "1")
@@ -361,3 +361,64 @@ def test_callers_are_not_starved_by_the_pump():
     finally:
         sys.setswitchinterval(old)
         s.shutdown()
+
+
+def _grain(calibrated, wall, spd=4, batch=100, traced=0, target=None):
+    """Server._grain_locked on a stand-in engine."""
+    import types
+
+    s = Server.__new__(Server)
+    s._engine = types.SimpleNamespace(
+        _calibrated=calibrated, steps_per_dispatch=spd, batch_size=batch,
+        stats=types.SimpleNamespace(rays_traced=traced))
+    s._batch_wall = wall
+    s._target_rays = target
+    return s._grain_locked()
+
+
+def test_grain_is_one_while_calibrating():
+    assert _grain(False, None) == 1
+    assert _grain(False, 1e-4) == 1
+    assert _grain(True, None) == 1      # no call timed yet on this engine
+
+
+@pytest.mark.parametrize("wall, spd, want", [
+    (server_mod.PUMP_SECONDS / 2.4, 64, 2), (server_mod.PUMP_SECONDS / 2.6, 64, 3),
+    (server_mod.PUMP_SECONDS / 12.0, 64, 12), (1e-6, 64, 64), (1e-6, 4, 4),
+    (10.0, 64, 1), (server_mod.PUMP_SECONDS, 64, 1)])
+def test_grain_follows_the_time_rule(wall, spd, want):
+    """clamp(round(PUMP_SECONDS / wall), 1, steps_per_dispatch), and no more
+    than the budget has left."""
+    assert _grain(True, wall, spd) == want
+    assert _grain(True, wall, spd, batch=100, traced=500, target=500 + 2 * 100 - 1) == \
+        min(want, 2)
+    assert _grain(True, wall, spd, batch=100, traced=900, target=1000) == 1
+
+
+def test_frames_equal_an_engine_replaying_the_grains(monkeypatch):
+    """The pump records each run call; an Engine given the same calls gives
+    the served frame bit for bit. The first call is the calibrating batch;
+    every call stays within steps_per_dispatch and the budget."""
+    monkeypatch.setenv("IHT_STEPS_PER_DISPATCH", "3")
+    cfg = {**CFG, "scene": {**CFG["scene"], "ray_num": 7 * (1 << 12)}}
+    with Server(seed=9, batch_size=1 << 12, device="cpu") as s:
+        s.commit(cfg)
+        assert s.wait_idle(timeout=WAIT)
+        frame, grains = s.acquire_frame(), s.grains()
+    assert grains[0] == 1 and sum(grains) == 7 and max(grains) <= 3
+    twin = Engine(load_project(cfg), seed=9, batch_size=1 << 12, device="cpu")
+    for n in grains:
+        twin.run(n_batches=n)
+    np.testing.assert_array_equal(frame.raw_xyz[0], twin.raw_xyz(0))
+    assert frame.landed == tuple(float(x) for x in twin.accum[-1])
+    assert frame.stats == twin.drain_stats()
+
+
+def test_device_from_iht_platform(monkeypatch):
+    """Server() takes IHT_PLATFORM ("cpu" or "cuda"), else "cuda"."""
+    monkeypatch.setenv("IHT_PLATFORM", "cpu")
+    with Server(seed=9, batch_size=1 << 12) as s:
+        assert s._device == torch.device("cpu")
+    monkeypatch.setenv("IHT_PLATFORM", "tpu")
+    with pytest.raises(ValueError, match="IHT_PLATFORM"):
+        Server()
