@@ -114,7 +114,30 @@ Phases (any failure raises; the exit code is then non-zero):
      Server(device="cuda")'s with the same seed and budget, the launch
      counters around its commit show K2, K3 and K4 ("launches_capi" in the
      kernels line), the steady rays/s of both; and iht_smoke in its own
-     process on the card (exit 0, "iht_smoke OK").
+     process on the card (exit 0, "iht_smoke OK");
+ 10. data parallel (parallel/sharding.py, parallel/distributed.py): a
+     ShardedEngine over the mesh [cuda:0, cuda:0] (two shards on the one
+     card) at full width renders BENCH_CFG (16 batches a shard: K2, K3, K4,
+     graphs), POOL_CFG (2: K2b), MS_CFG (4: compact_rows, K3', K4, the
+     continuation) and MS_CFG under IHT_FOLD=sandwich (2: K7), each in two
+     calls with the launch counters reset just before and read just after
+     (every kernel of the path launched; "launches_sharded" in the kernels
+     line); every render and the landed weights bit-equal to two Engines at
+     shards (0, 2) and (1, 2) given the same calls, summed in shard order
+     (the sandwich fold to the tile tolerance should K7 not be
+     deterministic); the graph mode, host reads per dispatch, the sharded
+     rays/s against one Engine.run of as many batches in turns, and the
+     drain's ms. Then two ranks on the one card: this script as two worker
+     processes (--rank-worker), each a MultiHostEngine of one shard on
+     cuda:0 through gloo, BENCH_CFG for 8 batches and MS_CFG for 2; their
+     images bit-equal to each other and to the single-process run's after
+     as many batches, and their combined rays/s. A rank that fails or
+     outlives RANK_TIMEOUT fails the phase. With more than one card
+     (phase_cards), the mesh of all cards runs the first three scenes the
+     same way (one Engine per card as the twins), and one NCCL rank per
+     card runs the two rank scenes (bit-equal between the ranks, within
+     rtol 1e-6 of the single-process run); with one card it prints that
+     this part did not run.
 
 The last lines of standard output are the kernels JSON object, the card
 (nvidia-smi) and the device JSON object. Imports nothing of JAX and
@@ -2340,6 +2363,344 @@ def phase_debug_capi(smi, res: list) -> None:
     print(f"[9]: {time.time() - t0:.1f} s", flush=True)
 
 
+# [10]: data parallel (parallel/sharding.py, parallel/distributed.py).
+# Per sharded scene: its batches per shard (run as two calls), the batches
+# of its timed turns, the fold it pins and the kernels its sharded run must
+# launch.
+SHARDED = (
+    ("bench", "BENCH_CFG", 16, 64, "sort",
+     ["trace_emit", "scatter_blocks_multi", "fused_scan_extract"]),
+    ("pool", "POOL_CFG", 2, 4, "sort",
+     ["trace_emit_pool", "scatter_blocks_multi", "fused_scan_extract"]),
+    ("ms", "MS_CFG", 4, 4, "sort", ["compact_rows", "scatter_blocks", "fused_scan_extract"]),
+    ("ms-sandwich", "MS_CFG", 2, 2, "sandwich", ["sandwich_lane", "scatter_blocks"]),
+)
+# The two-rank run on one card: the scenes and batches each rank runs (the
+# first call of the single-process run gives the image they must equal),
+# the batches of its timed run, and each worker's time limit.
+RANK_SCENES = (("bench", "BENCH_CFG", 8, 64), ("ms", "MS_CFG", 2, 4))
+RANK_TIMEOUT = 300
+SEED_SHARDED = 7
+
+
+def _sync_all():
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _shard_sum(engines, r: int):
+    """Render r of engines (one per shard) summed in shard order, as a
+    ShardedEngine drains it: the accumulators on the first shard's device,
+    or on the sandwich fold the dense float64 images."""
+    import numpy as np
+
+    e0 = engines[0]
+    p = e0.proj_plans[r]
+    if e0._sandwich_on:
+        img = e0._sandwich_dense64(r)
+        for e in engines[1:]:
+            img = img + e._sandwich_dense64(r)
+        return img.astype(np.float32).reshape(p.height, p.width, 3)
+    acc = e0.accum[r].clone()
+    for e in engines[1:]:
+        acc.add_(e.accum[r].to(acc.device))
+    return acc[:, :3].cpu().numpy().reshape(p.height, p.width, 3)
+
+
+def _turns(fns, reps: int = 2):
+    """Wall seconds of each fn, in turns a, b, b, a (reps times)."""
+    out = [[] for _ in fns]
+    order = list(range(len(fns)))
+    for _ in range(reps):
+        for i in order + order[::-1]:
+            _sync_all()
+            t0 = time.perf_counter()
+            fns[i]()
+            _sync_all()
+            out[i].append(time.perf_counter() - t0)
+    return out
+
+
+def phase_sharded(name, cfg, mesh, batches: int, timed: int, fold: str, kernels, smi,
+                  keep_first: bool = False):
+    """One scene through ShardedEngine over `mesh` at full width, in two
+    calls, with the launch counters reset just before and read just after;
+    every render, the landed weights, rays and segments against one Engine
+    per shard at shard (d, n) given the same calls, summed in shard order
+    (bit for bit; the sandwich fold, should K7 not be deterministic, to the
+    tile tolerance); then the sharded rate against one Engine.run of as many
+    batches in turns, the host reads per dispatch and the drain's ms.
+    Returns (launch counts, the first call's images when keep_first)."""
+    import numpy as np
+    import torch
+
+    from ice_halo_sim_tpu_torch.engine.simulator import Engine
+    from ice_halo_sim_tpu_torch.kernels import build
+    from ice_halo_sim_tpu_torch.parallel import ShardedEngine
+
+    n = len(mesh)
+    calls = (batches // 2, batches - batches // 2)
+    with _knobs(IHT_FOLD=fold):
+        se = ShardedEngine(cfg, mesh, seed=SEED_SHARDED, per_device_batch=BATCH)
+        twins = [Engine(cfg, seed=SEED_SHARDED, batch_size=BATCH, device=d) for d in mesh]
+    if fold == "sandwich" and se.engine.fold_kind != "sandwich":
+        raise AssertionError(f"sharded {name}: fold {se.engine.fold_kind}")
+    for d, t in enumerate(twins):
+        t.run(n_batches=1)
+        t.reset()
+        t.shard = (d, n)
+    build.reset_launch_counts()
+    se.run(n_batches=calls[0])
+    _sync_all()
+    first = [se.raw_xyz(r) for r in range(len(se.engine.proj_plans))] if keep_first else None
+    se.run(n_batches=calls[1])
+    _sync_all()
+    counts = dict(build.LAUNCHES)
+    for k in kernels:
+        if counts[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the sharded {name} run")
+    segs = dropped = 0
+    for t in twins:
+        for c in calls:
+            t.run(n_batches=c)
+        st = t.drain_stats()
+        segs += st.ray_segments
+        dropped += st.dropped_cont_weight
+    if se.rays_traced != batches * n * BATCH or se.ray_segments != segs:
+        raise AssertionError(f"sharded {name}: rays {se.rays_traced}, segments "
+                             f"{se.ray_segments} against the shard engines' {segs}")
+    landed = twins[0].accum[-1].clone()
+    for t in twins[1:]:
+        landed.add_(t.accum[-1].to(landed.device))
+    bits = _bits_equal(se.drained_accum()[-1], landed)
+    for r in range(len(se.engine.proj_plans)):
+        a, b = se.raw_xyz(r), _shard_sum(twins, r)
+        same = bool(np.array_equal(a.view(np.int32), b.view(np.int32)))
+        bits = bits and same
+        if not same:
+            err = float(np.abs(a - b).max())
+            print(f"  sharded {name} render {r}: not bit-equal to its shard engines, max abs "
+                  f"{err:.3g} of {float(b.max()):.3g}", flush=True)
+            if fold != "sandwich" or not np.allclose(
+                    a, b, rtol=TILE_RTOL, atol=TILE_ATOL_FRAC * float(b.max())):
+                raise AssertionError(f"sharded {name}: render {r} differs from its shard "
+                                     "engines")
+    if fold != "sandwich" and not bits:
+        raise AssertionError(f"sharded {name}: landed weights differ from the shard engines")
+    for img in se.snapshot():
+        if img.max() == 0:
+            raise AssertionError(f"sharded {name}: a snapshot is black")
+    ref = twins[0]
+    syncs = sum(e.host_syncs for e in se.engines)
+    (t_one, t_sh) = _turns([lambda: ref.run(n_batches=n * timed),
+                            lambda: se.run(n_batches=timed)])
+    dispatches = 2 * 2 * n * -(-timed // se.engine.steps_per_dispatch)
+    reads = (sum(e.host_syncs for e in se.engines) - syncs) / dispatches
+    drain = []
+    for _ in range(5):
+        _sync_all()
+        t0 = time.perf_counter()
+        se.drained_accum()
+        _sync_all()
+        drain.append(time.perf_counter() - t0)
+    rate_one = n * timed * BATCH / float(np.median(t_one))
+    rate_sh = n * timed * BATCH / float(np.median(t_sh))
+    print(f"[10] sharded {name} on {[str(d) for d in mesh]}: {batches} batches a shard "
+          f"({calls[0]} + {calls[1]}), {'bit-equal' if bits else 'within the tile tolerance'} "
+          f"to {n} shard engines summed in shard order (every render and the landed "
+          f"weights; rays {se.rays_traced}, segments {se.ray_segments}); launches "
+          f"{ {k: v for k, v in counts.items() if v} }; {se.engine.graph_mode}; host reads "
+          f"{reads:.2f} per dispatch and shard; sharded {rate_sh:.6g} rays/s against one "
+          f"Engine.run of {n * timed} batches {rate_one:.6g} rays/s: "
+          f"{rate_sh / rate_one:.4f} (walls {[round(x, 5) for x in t_sh]} / "
+          f"{[round(x, 5) for x in t_one]} s); drain {float(np.median(drain)) * 1e3:.4f} ms "
+          f"(median of 5) on {smi}", flush=True)
+    del se, twins, ref
+    torch.cuda.empty_cache()
+    return counts, first
+
+
+def rank_worker(argv) -> int:
+    """One rank of a run of several processes (started by phase_ranks):
+    a MultiHostEngine of one shard on cuda:<device> through `backend`;
+    each scene's images to <out>/rank<r>_<scene>.npz, then a timed run
+    between two barriers. argv: rank, world, port, out, backend, device."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    rank, world, port, out, backend, dev = (int(argv[0]), int(argv[1]), argv[2], argv[3],
+                                            argv[4], int(argv[5]))
+    sys.path.insert(0, ROOT)
+    from ice_halo_sim_tpu_torch import scenes
+    from ice_halo_sim_tpu_torch.config.loader import load_project
+    from ice_halo_sim_tpu_torch.parallel.distributed import MultiHostEngine, init_multi_host
+
+    torch.cuda.set_device(dev)
+    init_multi_host(f"localhost:{port}", world, rank, local_device_ids=[dev], backend=backend)
+    result = {}
+    try:
+        for name, attr, batches, timed in RANK_SCENES:
+            with _knobs(IHT_FOLD="sort"):
+                eng = MultiHostEngine(load_project(getattr(scenes, attr)), seed=SEED_SHARDED,
+                                      per_device_batch=BATCH)
+            if (eng.n_dev, [e.shard for e in eng.engines]) != (world, [(rank, world)]):
+                raise AssertionError(f"rank {rank}: shards {[e.shard for e in eng.engines]}")
+            eng.run(n_batches=batches)
+            np.savez(os.path.join(out, f"rank{rank}_{name}.npz"),
+                     *[eng.raw_xyz(r) for r in range(len(eng.engine.proj_plans))],
+                     landed=eng.drained_accum()[-1].cpu().numpy(),
+                     rays=eng.rays_traced, segs=eng.ray_segments)
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.run(n_batches=timed)
+            torch.cuda.synchronize()
+            dist.barrier()
+            result[name] = {"wall": time.perf_counter() - t0, "timed": timed,
+                            "graph_mode": eng.engine.graph_mode}
+            del eng
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    print("RANK " + json.dumps(result), flush=True)
+    return 0
+
+
+def phase_ranks(single: dict, smi, world: int = 2, backend: str = "gloo",
+                cards: bool = False) -> None:
+    """`world` ranks: worker processes of this script, each a
+    MultiHostEngine of one shard, all on cuda:0 through gloo (NCCL refuses
+    two ranks on one device), or with `cards` one card each. The ranks'
+    images must be bit-equal to each other, and to the single-process run's
+    after as many batches (`single`): bit for bit for two ranks (with two
+    terms the sum is the same in either order), else to rtol 1e-6 (the
+    all-reduce adds in another order). A rank that fails or outlives
+    RANK_TIMEOUT fails the phase; every rank is stopped."""
+    import socket
+    import tempfile
+
+    import numpy as np
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = str(s.getsockname()[1])
+    s.close()
+    where = f"{world} cards ({backend})" if cards else f"one card ({backend})"
+    env = dict(os.environ)
+    if backend == "nccl":
+        env.setdefault("NCCL_SOCKET_IFNAME", "lo")   # one host: bootstrap on the loopback
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as out:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank-worker", str(rank), str(world),
+             port, out, backend, str(rank if cards else 0)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT, env=env)
+            for rank in range(world)]
+        results = []
+        try:
+            for rank, p in enumerate(procs):
+                so, se = p.communicate(timeout=max(1.0, RANK_TIMEOUT - (time.time() - t0)))
+                if p.returncode != 0:
+                    raise AssertionError(f"rank {rank} exited {p.returncode}:\n{se[-4000:]}")
+                results.append(json.loads([ln for ln in so.splitlines()
+                                           if ln.startswith("RANK ")][-1][5:]))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for name, _attr, batches, _timed in RANK_SCENES:
+            ranks = [np.load(os.path.join(out, f"rank{r}_{name}.npz")) for r in range(world)]
+            a = ranks[0]
+            imgs = sorted((k for k in a.files if k.startswith("arr_")), key=lambda x: int(x[4:]))
+            for b in ranks[1:]:
+                for k in imgs + ["landed"]:
+                    if not np.array_equal(a[k].view(np.int32), b[k].view(np.int32)):
+                        raise AssertionError(f"ranks {name}: {k} differs between the ranks")
+            worst = 0.0
+            for r, k in enumerate(imgs):
+                want = single[name][r]
+                if world == 2 and not np.array_equal(a[k].view(np.int32), want.view(np.int32)):
+                    raise AssertionError(f"ranks {name}: render {r} differs from the "
+                                         "single-process run")
+                if not np.allclose(a[k], want, rtol=1e-6, atol=0.0):
+                    raise AssertionError(f"ranks {name}: render {r} differs from the "
+                                         "single-process run beyond rtol 1e-6")
+                worst = max(worst, float((np.abs(a[k] - want) / np.maximum(
+                    np.abs(want), 1e-30)).max()))
+            if int(a["rays"]) != world * batches * BATCH:
+                raise AssertionError(f"ranks {name}: rays {int(a['rays'])}")
+            wall = max(res[name]["wall"] for res in results)
+            timed = results[0][name]["timed"]
+            print(f"[10] {world} ranks on {where}, {name}: {batches} batches a rank, images "
+                  f"bit-equal between the ranks and "
+                  f"{'bit-equal' if worst == 0.0 else f'to rel {worst:.3g}'} to the "
+                  f"single-process {world}-shard run; {results[0][name]['graph_mode']}; "
+                  f"combined {world * timed * BATCH / wall:.6g} rays/s ({timed} batches a "
+                  f"rank, walls {[round(res[name]['wall'], 5) for res in results]} s) on {smi}",
+                  flush=True)
+    print(f"[10] ranks on {where}: {time.time() - t0:.1f} s", flush=True)
+
+
+def phase_cards(smi) -> None:
+    """Every card of the host (more than one): ShardedEngine over the mesh
+    of all cards on BENCH_CFG, POOL_CFG and MS_CFG, each bit-equal to one
+    Engine per card at its shard and timed against one Engine.run of as
+    many batches; then one NCCL rank per card."""
+    import torch
+
+    from ice_halo_sim_tpu_torch import scenes
+    from ice_halo_sim_tpu_torch.config.loader import load_project
+    from ice_halo_sim_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh()
+    rank_batches = {n: b for n, _attr, b, _timed in RANK_SCENES}
+    single = {}
+    for name, attr, batches, timed, fold, kernels in SHARDED[:3]:
+        _counts, first = phase_sharded(
+            name, load_project(getattr(scenes, attr)), mesh, batches, timed, fold, kernels,
+            smi, keep_first=name in rank_batches)
+        if first is not None:
+            single[name] = first
+    phase_ranks(single, smi, world=torch.cuda.device_count(), backend="nccl", cards=True)
+
+
+def phase_parallel(smi, res: list) -> None:
+    """[10]: two shards on one card, each scene bit-equal to its shard
+    engines; two ranks on one card through gloo; where the host has more
+    than one card, the mesh of all cards and one NCCL rank per card."""
+    import torch
+
+    from ice_halo_sim_tpu_torch import scenes
+    from ice_halo_sim_tpu_torch.config.loader import load_project
+
+    t0 = time.time()
+    mesh = [torch.device("cuda", 0)] * 2
+    counts, single = {}, {}
+    rank_batches = {n: b for n, _attr, b, _timed in RANK_SCENES}
+    for name, attr, batches, timed, fold, kernels in SHARDED:
+        keep = name in rank_batches
+        if keep and batches // 2 != rank_batches[name]:
+            raise AssertionError(f"{name}: the ranks' batches are not the first call's")
+        counts[name], first = phase_sharded(
+            name, load_project(getattr(scenes, attr)), mesh, batches, timed, fold, kernels,
+            smi, keep_first=keep)
+        if keep:
+            single[name] = first
+    for k in res:
+        k["launches_sharded"] = {n: c[k["name"]] for n, c in counts.items()}
+    phase_ranks(single, smi)
+    if torch.cuda.device_count() > 1:
+        phase_cards(smi)
+    else:
+        print("[10] the mesh over several cards (and NCCL) did not run: this host has one "
+              "CUDA device", flush=True)
+    print(f"[10]: {time.time() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2467,6 +2828,7 @@ def main() -> int:
     phase_gradients()
     phase_serving(smi, res)
     phase_debug_capi(smi, res)
+    phase_parallel(smi, res)
     print(f"timings that fell back to CUDA events: {len(FALLBACKS)} "
           f"{json.dumps(FALLBACKS)}", flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
@@ -2480,4 +2842,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-worker"]:
+        sys.exit(rank_worker(sys.argv[2:]))
     sys.exit(main())

@@ -108,11 +108,13 @@ def _pack_blocks_cuda(key, cols, thresh: int, block: int, carry_key: bool):
     counts = torch.empty(G, dtype=I32, device=key.device)
     p = [build.ptr(c) for c in cols] + [0] * (3 - len(cols))
     o = [build.ptr(c) for c in outs] + [0] * (3 - len(outs))
-    code = build.lib().iht_pack_blocks(
-        key.data_ptr(), p[0], p[1], p[2], len(cols), int(thresh) & MASK32, G,
-        block, build.ptr(pk), o[0], o[1], o[2], counts.data_ptr(),
-        build.stream_ptr(key.device),
-    )
+    lib = build.lib()
+    with torch.cuda.device(key.device):
+        code = lib.iht_pack_blocks(
+            key.data_ptr(), p[0], p[1], p[2], len(cols), int(thresh) & MASK32, G,
+            block, build.ptr(pk), o[0], o[1], o[2], counts.data_ptr(),
+            build.stream_ptr(key.device),
+        )
     build.check(code, "pack_blocks")
     return pk, outs, counts
 
@@ -234,11 +236,13 @@ def _scatter_blocks_cuda(vals_list, start, out_len: int, block: int,
     vals = [_bits32(v.contiguous()) for v in vals_list]
     start = start.to(I32).contiguous()
     outs = [torch.empty(out_len, dtype=I32, device=dev) for _ in vals]
-    code = build.lib().iht_scatter_blocks(
-        build.ptr_array(vals), len(vals), build.ptr(perm), start.data_ptr(), G, blk,
-        out_len, build.ptr_array(outs), has_tail, t0, tlen, shift, low_or,
-        build.stream_ptr(dev),
-    )
+    lib = build.lib()
+    with torch.cuda.device(dev):
+        code = lib.iht_scatter_blocks(
+            build.ptr_array(vals), len(vals), build.ptr(perm), start.data_ptr(), G, blk,
+            out_len, build.ptr_array(outs), has_tail, t0, tlen, shift, low_or,
+            build.stream_ptr(dev),
+        )
     build.check(code, "scatter_blocks")
     return [o.view(v.dtype) for o, v in zip(outs, vals_list)]
 
@@ -310,10 +314,12 @@ def _compact_rows_cuda(key, cols, keep: int, block: int):
     # Zeroed: the tile counter, the last tile's word, the total, one word a tile.
     state = torch.zeros(3 + -(-n // block), dtype=I64, device=dev)
     vec = all(t.data_ptr() % 16 == 0 for t in (key, *vals))
-    code = build.lib().iht_compact_rows(
-        key.data_ptr(), build.ptr_array(vals), len(vals), n, keep, key_out.data_ptr(),
-        build.ptr_array(outs), state.data_ptr(), int(vec), build.stream_ptr(dev),
-    )
+    lib = build.lib()
+    with torch.cuda.device(dev):
+        code = lib.iht_compact_rows(
+            key.data_ptr(), build.ptr_array(vals), len(vals), n, keep, key_out.data_ptr(),
+            build.ptr_array(outs), state.data_ptr(), int(vec), build.stream_ptr(dev),
+        )
     build.check(code, "compact_rows")
     return (key_out, *[o.view(c.dtype) for o, c in zip(outs, cols)]), state[2]
 

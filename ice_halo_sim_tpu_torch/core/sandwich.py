@@ -248,17 +248,19 @@ def sandwich_pass(tile, chunk_list, pix, w, wl_idx, tbl, *, k_pool: int,
     rows = (pix.data_ptr(), w.data_ptr(), wl_idx.data_ptr(), tbl.data_ptr(), cl.data_ptr(),
             n, nc, c_out, k_pool, int(bool(precise)), n_split)
     if layout == "lane":
-        code = lib.iht_sandwich_lane(
-            *rows, rows_per_split, nc_pad, tile.data_ptr(), partial.data_ptr(),
-            matched.data_ptr(), out.data_ptr(), build.stream_ptr(dev))
+        with torch.cuda.device(dev):
+            code = lib.iht_sandwich_lane(
+                *rows, rows_per_split, nc_pad, tile.data_ptr(), partial.data_ptr(),
+                matched.data_ptr(), out.data_ptr(), build.stream_ptr(dev))
         build.check(code, "sandwich_lane")
         build.LAUNCHES["sandwich_lane"] += 1
     else:
         n_ints = _sublane_scratch_ints(n, nc, nc_pad, c_out)
         scratch = torch.empty(n_ints, dtype=I32, device=dev)
-        code = lib.iht_sandwich_sublane(
-            *rows, nc_pad, tile.data_ptr(), partial.data_ptr(), matched.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), n_ints, build.stream_ptr(dev))
+        with torch.cuda.device(dev):
+            code = lib.iht_sandwich_sublane(
+                *rows, nc_pad, tile.data_ptr(), partial.data_ptr(), matched.data_ptr(),
+                out.data_ptr(), scratch.data_ptr(), n_ints, build.stream_ptr(dev))
         build.check(code, "sandwich_sublane")
         build.LAUNCHES["sandwich_sublane"] += 1
     return out, matched

@@ -96,11 +96,13 @@ def fused_scan_call(sk, sw, basis_tbl, shift: int, k_pool: int,
     dev = sk.device
     chans = [torch.empty(M, dtype=F32, device=dev) for _ in range(3)]
     key2 = torch.empty(M, dtype=I32, device=dev) if emit_key2 else None
-    code = build.lib().iht_fused_scan(
-        sk.data_ptr(), sw.data_ptr(), tbl.data_ptr(), k_pool, shift, M,
-        chans[0].data_ptr(), chans[1].data_ptr(), chans[2].data_ptr(),
-        build.ptr(key2), state.data_ptr(), agg.data_ptr(), build.stream_ptr(dev),
-    )
+    lib = build.lib()
+    with torch.cuda.device(dev):
+        code = lib.iht_fused_scan(
+            sk.data_ptr(), sw.data_ptr(), tbl.data_ptr(), k_pool, shift, M,
+            chans[0].data_ptr(), chans[1].data_ptr(), chans[2].data_ptr(),
+            build.ptr(key2), state.data_ptr(), agg.data_ptr(), build.stream_ptr(dev),
+        )
     build.check(code, "fused_scan")
     build.LAUNCHES["fused_scan"] += 1
     return (chans, key2) if emit_key2 else chans
@@ -116,10 +118,12 @@ def fused_scan_extract(sk, sw, basis_tbl, shift: int, k_pool: int, n_pixels: int
         raise ValueError(f"n_pixels {n_pixels} out of range")
     sk, sw, tbl, M, state, agg = _checked(sk, sw, basis_tbl, k_pool)
     img = torch.zeros((n_pixels, 3), dtype=F32, device=sk.device)
-    code = build.lib().iht_fused_scan_extract(
-        sk.data_ptr(), sw.data_ptr(), tbl.data_ptr(), k_pool, shift, M, img.data_ptr(),
-        n_pixels, state.data_ptr(), agg.data_ptr(), build.stream_ptr(sk.device),
-    )
+    lib = build.lib()
+    with torch.cuda.device(sk.device):
+        code = lib.iht_fused_scan_extract(
+            sk.data_ptr(), sw.data_ptr(), tbl.data_ptr(), k_pool, shift, M, img.data_ptr(),
+            n_pixels, state.data_ptr(), agg.data_ptr(), build.stream_ptr(sk.device),
+        )
     build.check(code, "fused_scan_extract")
     build.LAUNCHES["fused_scan_extract"] += 1
     return img

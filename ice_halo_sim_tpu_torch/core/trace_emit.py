@@ -649,19 +649,23 @@ def trace_emit(plan: TracePlan, base, n_active: int, device, ptbl=None, ttbl=Non
     n_tb = params.grid_blocks
     fpart = torch.empty(n_tb * (R + 1), dtype=F32, device=device)
     spart = torch.empty(n_tb, dtype=I32, device=device)
+    lib = build.lib()
     if plan.pool_k:
-        code = build.lib().iht_trace_emit_pool(
-            ctypes.addressof(params), words.data_ptr(), ftab.data_ptr(), ptbl.data_ptr(), ttbl.data_ptr(),
-            keys.data_ptr(), wts.data_ptr(), counts.data_ptr(), fpart.data_ptr(),
-            spart.data_ptr(), build.stream_ptr(device),
-        )
+        with torch.cuda.device(device):
+            code = lib.iht_trace_emit_pool(
+                ctypes.addressof(params), words.data_ptr(), ftab.data_ptr(), ptbl.data_ptr(),
+                ttbl.data_ptr(), keys.data_ptr(), wts.data_ptr(), counts.data_ptr(),
+                fpart.data_ptr(), spart.data_ptr(), build.stream_ptr(device),
+            )
         build.check(code, "trace_emit_pool")
         build.LAUNCHES["trace_emit_pool"] += 1
     else:
-        code = build.lib().iht_trace_emit(
-            ctypes.addressof(params), words.data_ptr(), ftab.data_ptr(), keys.data_ptr(), wts.data_ptr(),
-            counts.data_ptr(), fpart.data_ptr(), spart.data_ptr(), build.stream_ptr(device),
-        )
+        with torch.cuda.device(device):
+            code = lib.iht_trace_emit(
+                ctypes.addressof(params), words.data_ptr(), ftab.data_ptr(), keys.data_ptr(),
+                wts.data_ptr(), counts.data_ptr(), fpart.data_ptr(), spart.data_ptr(),
+                build.stream_ptr(device),
+            )
         build.check(code, "trace_emit")
         build.LAUNCHES["trace_emit"] += 1
     per_render = []

@@ -491,12 +491,11 @@ extern "C" int iht_scatter_blocks(void* const* vals, int nvals, const void* perm
   a.t0 = t0;
   a.tlen = tlen;
   a.low_or = low_or;
-  static int n_sm = 0;
-  if (n_sm == 0) {
-    int device = 0;
-    cudaGetDevice(&device);
-    cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
-  }
+  // The grid is sized by the multiprocessors of the current device (the
+  // caller makes the tensors' device current), looked up on every call.
+  int device = 0, n_sm = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
   if (out_len > 0) {
     const cudaStream_t s = (cudaStream_t)stream;
     switch (nvals) {

@@ -41,23 +41,31 @@ class BatchGraph:
 
     def __init__(self, step, key, device):
         self.key = key
+        self.device = device
         self.graph = torch.cuda.CUDAGraph()
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            step()
-        torch.cuda.current_stream(device).wait_stream(side)
-        before = dict(build.LAUNCHES)
-        # thread_local: the capture may run on a server's pump thread while
-        # another thread uses the card (in the default "global" mode a CUDA
-        # call from any thread during the capture would abort it).
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            step()
+        # Everything under `device`: its side stream, its capture stream (not
+        # torch's default capture stream, made once on whichever device was
+        # current first) and the current device the kernels launch on.
+        with torch.cuda.device(device):
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                step()
+            torch.cuda.current_stream(device).wait_stream(side)
+            before = dict(build.LAUNCHES)
+            # thread_local: the capture may run on a server's pump thread
+            # while another thread uses the card (in the default "global"
+            # mode a CUDA call from any thread during the capture would
+            # abort it).
+            with torch.cuda.graph(self.graph, stream=torch.cuda.Stream(device),
+                                  capture_error_mode="thread_local"):
+                step()
         self.launches = {k: v - before[k] for k, v in build.LAUNCHES.items() if v != before[k]}
         for k, v in self.launches.items():
             build.LAUNCHES[k] -= v
 
     def replay(self) -> None:
-        self.graph.replay()
+        with torch.cuda.device(self.device):
+            self.graph.replay()
         for k, v in self.launches.items():
             build.LAUNCHES[k] += v

@@ -55,7 +55,13 @@ overflowed. After the dispatch the engine reads that one index
 sums from a snapshot taken before the dispatch, runs the batches before it
 again, runs the overflowing batch eagerly with host reads (the full fold,
 the global continuation sort) and goes on after it (``overflow_replays``).
-The image equals a per-batch choice in batch order, bit for bit.
+The image equals a per-batch choice in batch order, bit for bit. A
+dispatch is a launch part (``_launch``: the snapshot and the batches) and a
+read part (``_read``: that one read and the replay), so a data-parallel run
+(parallel/sharding.py) queues every shard's batches before its first read.
+An engine is one shard ``(index, count)`` of such a run (default (0, 1)):
+its batch c traces the rays from (c * count + index) * span on, and samples
+the crystal shapes and the continuation salt of the plain counter c.
 
 Differences from the JAX engine, all deliberate:
   - no silent degrade: a failing kernel raises, the engine never moves to
@@ -75,6 +81,7 @@ Differences from the JAX engine, all deliberate:
 
 from __future__ import annotations
 
+import zlib
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -117,6 +124,7 @@ DEFAULT_GEOM_CLOCK = 32
 # producing bits (colouring degrades, the commit does not fail).
 COLOR_PREDICATE_CAP = 32
 LAYER_NONCE = 0xA5A5
+DIGEST_LEN = 64          # entries of Engine._calibration_digest
 
 
 def _or(a, b):
@@ -238,6 +246,10 @@ class Engine:
     graphs the same dispatch loop runs each batch eagerly. A scene whose
     batches cannot be captured (the sandwich fold with its host reads, a
     dense-value fold) runs them eagerly; ``graph_mode`` says which.
+    shard: (index, count) of a data-parallel run (parallel/sharding.py):
+    the shard traces its own rays of every batch (``ray_base``) and the
+    same crystal shapes and continuation salt as every other shard; (0, 1)
+    is the whole stream.
     """
 
     _KEEP_MARGIN = 1.06
@@ -246,8 +258,10 @@ class Engine:
                  batch_size: int = DEFAULT_BATCH, device="cuda",
                  kernels: Optional[str] = None,
                  geom_clock: int = DEFAULT_GEOM_CLOCK,
-                 accum_method: str = "sort", graphs: Optional[bool] = None):
+                 accum_method: str = "sort", graphs: Optional[bool] = None,
+                 shard: tuple = (0, 1)):
         self.cfg = cfg
+        self.shard = shard
         self.seed = int(seed) & 0xFFFFFFFF
         self.batch_size = int(batch_size)
         self.geom_clock = int(geom_clock)
@@ -896,6 +910,7 @@ class Engine:
         )
         self._graph = None
         self._snap = None
+        self._pending = None
 
     # ------------------------------------------------------------------
     # Attribution
@@ -999,10 +1014,8 @@ class Engine:
     def _ray_base_words(self, batch_counter):
         """(low, high) u32 words of the batch's 64-bit ray base: python ints
         for a python counter, int64 tensors on its device for a tensor."""
-        if isinstance(batch_counter, torch.Tensor):
-            base = batch_counter * self.ray_base(1)
-            return base & MASK32, (base >> 32) & MASK32
-        base = self.ray_base(batch_counter)
+        index, count = self.shard
+        base = (batch_counter * count + index) * self.span
         return base & MASK32, (base >> 32) & MASK32
 
     def _trace_batch_impl(self, batch_counter, n_active: Optional[int] = None,
@@ -1412,11 +1425,31 @@ class Engine:
     # Host loop
     # ------------------------------------------------------------------
 
+    @property
+    def shard(self) -> tuple:
+        """(index, count): this engine's shard of a data-parallel run."""
+        return self._shard
+
+    @shard.setter
+    def shard(self, value) -> None:
+        index, count = (int(v) for v in value)
+        if not 0 <= index < count:
+            raise ValueError(f"shard index {index} out of range for {count} shards")
+        self._shard = (index, count)
+
+    @property
+    def span(self) -> int:
+        """Ray indices one shard's batch owns: batch_size * (layers + 1)
+        (layer li of the batch takes those from li * batch_size on)."""
+        return self.batch_size * max(1, len(self.layers) + 1)
+
     def ray_base(self, batch_counter: int) -> int:
-        """64-bit ray base of a batch: layer li of batch c owns the ray
-        indices c * stride + li * batch_size + lane, so the stride is
-        batch_size * (layers + 1)."""
-        return int(batch_counter) * self.batch_size * max(1, len(self.layers) + 1)
+        """64-bit ray base of this shard's batch c: (c * count + index) *
+        span, so layer li owns the ray indices base + li * batch_size + lane.
+        For shard (d, n) that is the JAX sharded step's c * n * span + d *
+        span with its carry into the high word; for (0, 1), c * span."""
+        index, count = self.shard
+        return (int(batch_counter) * count + index) * self.span
 
     def _batch(self, n_active: Optional[int] = None, host_choice: bool = False) -> None:
         """One batch at the device counter: trace, fold into the
@@ -1462,10 +1495,11 @@ class Engine:
         return "cuda graph"
 
     def _graph_key(self):
-        """What a captured batch assumed: the plan it was built under and
-        the addresses it reads and writes."""
+        """What a captured batch assumed: the plan it was built under, the
+        shard (its ray base is a constant of the graph) and the addresses it
+        reads and writes."""
         return (self._compact_keep, self._slot_cap, tuple(l.cont_cap for l in self.layers),
-                self.fold_kind, tuple(t.data_ptr() for t in self.accum),
+                self.fold_kind, self.shard, tuple(t.data_ptr() for t in self.accum),
                 tuple(t.data_ptr() for t in self._dev))
 
     def _steady(self, n: int) -> None:
@@ -1495,45 +1529,61 @@ class Engine:
         return list(self.accum) + [d.dropped, d.segs, d.live, d.cont, d.slot_mass]
 
     def _dispatch(self, k: int) -> None:
-        """k full batches from the host count on, as one JAX dispatch: no
-        host read inside, then one read of the first overflowing batch (when
-        a batch can overflow). If one did, the state goes back to the
-        snapshot taken before, the batches before it run again, it runs
-        eagerly with the host's choice, and the rest follows as a new
-        pass."""
-        d = self._dev
-        d.counter.fill_(self.batch_counter)
+        """k full batches from the host count on, as one JAX dispatch: the
+        launch part, then the read part."""
         if not self._calibrated:
+            d = self._dev
             for t in (d.live, d.cont, d.slot_mass):
                 t.zero_()
-        while k:
-            guard = self._overflow_possible()
-            start = self.batch_counter
-            if guard:
-                state = self._state()
-                if self._snap is None or [t.shape for t in self._snap] != [
-                        t.shape for t in state]:
-                    self._snap = [torch.empty_like(t) for t in state]
-                for s, t in zip(self._snap, state):
-                    s.copy_(t)
-                d.first_over.fill_(-1)
-            self._steady(k)
-            first = -1
-            if guard:
-                self.host_syncs += 1
-                first = int(d.first_over)
-            if first < 0:
-                self.batch_counter = start + k
-                return
-            j = first - start
-            for s, t in zip(self._snap, self._state()):
-                t.copy_(s)
-            d.counter.fill_(start)
-            self._steady(j)
-            self._batch(host_choice=True)
-            self.overflow_replays += 1
-            self.batch_counter = start + j + 1
-            k -= j + 1
+        self._launch(k)
+        self._read()
+
+    def _launch(self, k: int) -> None:
+        """The launch part of a dispatch of k full batches from the host
+        count on: a snapshot of the state (when a batch can overflow), then
+        the k batches, with no host read. A data-parallel run launches every
+        shard's batches before the first read (``_read``)."""
+        d = self._dev
+        d.counter.fill_(self.batch_counter)
+        guard = self._overflow_possible()
+        if guard:
+            state = self._state()
+            if self._snap is None or [t.shape for t in self._snap] != [
+                    t.shape for t in state]:
+                self._snap = [torch.empty_like(t) for t in state]
+            for s, t in zip(self._snap, state):
+                s.copy_(t)
+            d.first_over.fill_(-1)
+        self._steady(k)
+        self._pending = (self.batch_counter, k, guard)
+
+    def _read(self) -> None:
+        """The read part of the dispatch ``_launch`` started: one read of
+        the first overflowing batch (when a batch can overflow). If one did,
+        the state goes back to the snapshot, the batches before it run
+        again, it runs eagerly with the host's choice, and the rest follows
+        as a new dispatch."""
+        start, k, guard = self._pending
+        self._pending = None
+        d = self._dev
+        first = -1
+        if guard:
+            self.host_syncs += 1
+            first = int(d.first_over)
+        if first < 0:
+            self.batch_counter = start + k
+            return
+        j = first - start
+        for s, t in zip(self._snap, self._state()):
+            t.copy_(s)
+        d.counter.fill_(start)
+        self._steady(j)
+        self._batch(host_choice=True)
+        self.overflow_replays += 1
+        self.batch_counter = start + j + 1
+        if k > j + 1:
+            self._launch(k - j - 1)
+            self._read()
 
     def run(self, total_rays: Optional[int] = None,
             n_batches: Optional[int] = None) -> Stats:
@@ -1639,6 +1689,31 @@ class Engine:
             else:
                 keep.append(None)
         self._compact_keep = tuple(keep) if any(k is not None for k in keep) else None
+
+    def _calibration_digest(self) -> np.ndarray:
+        """int64 [DIGEST_LEN] digest of the calibrated plan, which every
+        shard of a data-parallel run must share (JAX
+        ``ShardedEngine._calibration_digest``): the slot cap, keep per
+        render, the continuation lanes per layer, the sandwich levels' chunk
+        counts and keeps, the fold and the trace path (CRC-32 of their
+        names). Fixed length, so that an all-gather of digests cannot
+        mismatch in shape where the plans diverged; the last entry counts
+        the fields."""
+        parts = [-1 if self._slot_cap is None else self._slot_cap,
+                 zlib.crc32(self.fold_kind.encode()), zlib.crc32(self.trace_path.encode())]
+        keep = self._compact_keep or (None,) * len(self.proj_plans)
+        parts += [len(keep)] + [-1 if k is None else k for k in keep]
+        parts += [len(self.layers)] + [plan.cont_cap for plan in self.layers]
+        if self._sandwich_on:
+            for levels in self._levels:
+                parts.append(len(levels))
+                for clist, kb in levels:
+                    parts += [int(clist.shape[0]), -1 if kb is None else kb]
+        out = np.zeros(DIGEST_LEN, np.int64)
+        n = min(DIGEST_LEN - 1, len(parts))
+        out[:n] = parts[:n]
+        out[-1] = len(parts)
+        return out
 
     # ------------------------------------------------------------------
     # Host readout

@@ -15,7 +15,10 @@ add as the plain PyTorch twins do, so integer decisions fed by floats
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` raises on a non-zero code. Nothing here falls back to the plain
-versions.
+versions. An entry point launches on the CUDA runtime's current device
+with the stream it is given, so every wrapper makes its tensors' device
+current around the call (``torch.cuda.device``): a tensor on another card
+would otherwise be read and written from the wrong device.
 """
 
 from __future__ import annotations

@@ -83,11 +83,12 @@ def sandwich_iota(pix, w, wl_idx, tbl, *, nhi: int, k_pool: int):
     out = torch.empty((nhi, cw), dtype=F32, device=dev)
     n_ints = sandwich._sublane_scratch_ints(n, nhi, nc_pad, c_out)
     scratch = torch.empty(n_ints, dtype=I32, device=dev)
-    code = lib.iht_sandwich_iota(
-        pix.data_ptr(), w.data_ptr(), wl_idx.data_ptr(), tbl.data_ptr(), n, nhi, c_out,
-        k_pool, n_split, nc_pad, partial.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        n_ints, build.stream_ptr(dev),
-    )
+    with torch.cuda.device(dev):
+        code = lib.iht_sandwich_iota(
+            pix.data_ptr(), w.data_ptr(), wl_idx.data_ptr(), tbl.data_ptr(), n, nhi, c_out,
+            k_pool, n_split, nc_pad, partial.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            n_ints, build.stream_ptr(dev),
+        )
     build.check(code, "sandwich_iota")
     build.LAUNCHES["sandwich_iota"] += 1
     return out

@@ -43,7 +43,9 @@ def test_port_imports_no_jax():
             "ice_halo_sim_tpu_torch.engine.overlay", "ice_halo_sim_tpu_torch.engine.checkpoint",
             "ice_halo_sim_tpu_torch.core.mesh", "ice_halo_sim_tpu_torch.gui",
             "ice_halo_sim_tpu_torch.gui.app", "ice_halo_sim_tpu_torch.engine.debug",
-            "ice_halo_sim_tpu_torch.kernels.capi", "ice_halo_sim_tpu_torch.core.trace"} <= set(mods)
+            "ice_halo_sim_tpu_torch.kernels.capi", "ice_halo_sim_tpu_torch.core.trace",
+            "ice_halo_sim_tpu_torch.parallel.sharding",
+            "ice_halo_sim_tpu_torch.parallel.distributed"} <= set(mods)
     code = (
         "import sys, importlib\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -52,6 +54,8 @@ def test_port_imports_no_jax():
         "ice_halo_sim_tpu_torch.Server, ice_halo_sim_tpu_torch.save_checkpoint\n"
         "ice_halo_sim_tpu_torch.load_checkpoint, ice_halo_sim_tpu_torch.project_to_json\n"
         "ice_halo_sim_tpu_torch.load_project, ice_halo_sim_tpu_torch.SceneBuilder\n"
+        "from ice_halo_sim_tpu_torch.parallel import ShardedEngine, make_mesh\n"
+        "from ice_halo_sim_tpu_torch.parallel.distributed import MultiHostEngine\n"
         "import chip_smoke\n"
         "roots = ('jax', 'jaxlib', 'ice_halo_sim_tpu', 'bench')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in roots)\n"
@@ -177,6 +181,28 @@ def test_wrappers_check_every_kernel_call():
             assert re.search(r"build\.check\(code, ", src[m.end():m.end() + 600]), (
                 path, m.group(1))
     assert calls == 10
+
+
+def test_every_kernel_call_runs_on_its_tensors_device():
+    """An entry point launches on the CUDA runtime's current device, so each
+    C call sits inside ``torch.cuda.device`` of its tensors' device (the
+    block just above the call), and a graph is captured and replayed under
+    its engine's device. The block scatter sizes its grid by the current
+    device's multiprocessors, looked up on every call (no first device
+    cached in a static)."""
+    calls = 0
+    for path in _port_files((".py",)):
+        lines = open(path).read().splitlines()
+        for i, line in enumerate(lines):
+            if re.search(r"code = (?:build\.lib\(\)|lib)\.iht_\w+\(", line):
+                calls += 1
+                assert re.search(r"with torch\.cuda\.device\(\w+(\.device)?\):$",
+                                 lines[i - 1].strip()), (path, i + 1)
+    assert calls == 10
+    graph = open(os.path.join(PKG, "engine", "graph.py")).read()
+    assert graph.count("with torch.cuda.device(") == 2
+    cu = open(os.path.join(PKG, "csrc", "block_ops.cu")).read()
+    assert "static int n_sm" not in cu and "cudaGetDevice(&device)" in cu
 
 
 def test_each_launch_counter_bumped_once():
