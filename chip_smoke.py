@@ -137,7 +137,28 @@ Phases (any failure raises; the exit code is then non-zero):
      same way (one Engine per card as the twins), and one NCCL rank per
      card runs the two rank scenes (bit-equal between the ranks, within
      rtol 1e-6 of the single-process run); with one card it prints that
-     this part did not run.
+     this part did not run;
+ 11. the reference bench scenes (scenes.py's stand-ins): MULTI_CFG,
+     COMPLEX_CFG and BD_CFG at full width (229376 rays a batch) and
+     PYRAMID3_CFG (32768: its fan-out makes a root ray about 100 times the
+     work) through the sort fold, one calibrating and two steady batches
+     each, the launch counters reset just before and read just after (K3'
+     at every layer boundary, compact_rows and K4 on the steady batches
+     too; "launches_scenes" in the kernels line); each kernel they launch
+     against its plain twin at their own shapes (compact_rows and K3'
+     bit-equal and the same bits twice, the fold through K4 within
+     SCAN_RTOL); the three two-layer ones also against kernels="plain"
+     engines on the card, the pyramid so at 2048 rays a batch; the
+     pyramid's peak memory. BENCH_CFG at 2048 x 1024 (P = 2^21) through K2,
+     K3 and K4 against the plain path, and K3 with the marker tail and K4
+     at those shapes ("at_2048x1024"). IHT_FOLD=auto on every stand-in:
+     decision, modeled costs, K7 launches per steady batch and the measured
+     verdict (the pyramid at 16384 rays a batch, three engines at once).
+     The sandwich fold in a CUDA graph on MS_CFG and BD_CFG: an eager and a
+     graph engine at IHT_STEPS_PER_DISPATCH=4, bit for bit equal (tiles and
+     dense images), one host read per steady dispatch, rates, busy and idle
+     share as in [5]; and K7 and K8 at every launch of a steady BD_CFG
+     cascade against the plain version ("at_filtered_bd").
 
 The last lines of standard output are the kernels JSON object, the card
 (nvidia-smi) and the device JSON object. Imports nothing of JAX and
@@ -147,6 +168,7 @@ nothing of the JAX package.
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import os
 import subprocess
@@ -971,7 +993,7 @@ def _images_off(a, b, what) -> int:
 
 
 def phase_slice(name, cfg, device, path_kernels, steady: int = 3,
-                path: str = "cuda-trace-kernel", absent=()):
+                path: str = "cuda-trace-kernel", absent=(), batch: int = BATCH):
     """Render `cfg` through the CUDA kernels with the launch counters reset
     just before and read just after; compare with kernels="plain" on the
     card. Every kernel of path_kernels must have launched, and on the steady
@@ -983,7 +1005,7 @@ def phase_slice(name, cfg, device, path_kernels, steady: int = 3,
     from ice_halo_sim_tpu_torch.engine.simulator import Engine
     from ice_halo_sim_tpu_torch.kernels import build
 
-    eng = Engine(cfg, seed=7, batch_size=BATCH, device=device)
+    eng = Engine(cfg, seed=7, batch_size=batch, device=device)
     if eng.trace_path != path:
         raise AssertionError(f"{name}: trace path {eng.trace_path}, not {path}")
     build.reset_launch_counts()
@@ -1006,7 +1028,7 @@ def phase_slice(name, cfg, device, path_kernels, steady: int = 3,
             raise AssertionError(f"kernel {k} was launched on the {name} path ({counts[k]})")
     st = eng.drain_stats()
 
-    ref = Engine(cfg, seed=7, batch_size=BATCH, device=device, kernels="plain")
+    ref = Engine(cfg, seed=7, batch_size=batch, device=device, kernels="plain")
     ref.run(n_batches=1)
     ref.run(n_batches=steady)
     rst = ref.drain_stats()
@@ -1246,7 +1268,7 @@ def phase_kernels_cascade(eng, device, res: list, batch_counter: int = 5):
               f"{json.dumps(res[-1]['batch'])}", flush=True)
 
 
-def phase_fold_auto(scenes, device, n_after: int = 3):
+def phase_fold_auto(scenes, device, n_after: int = 3, turns: int = FOLD_TURNS):
     """IHT_FOLD=auto on general-path scenes: what calibration decides, with
     both modeled costs, and beside them what the card takes: the device time
     of steady batches of the auto engine, of an IHT_FOLD=sort engine and of
@@ -1254,8 +1276,13 @@ def phase_fold_auto(scenes, device, n_after: int = 3):
     their spread (_fold_verdict). Whatever it decides, the image agrees with
     the sort fold's (a demotion carries the settled tiles over once).
     `scenes` holds (name, config, sort engine after 1 + n_after batches or
-    None)."""
+    None[, batch]) (the batch BATCH where it is not given). Returns per
+    scene the fold, its decision and modeled costs, the cascade's K7
+    launches per steady batch and the verdict."""
+    import torch
+
     from ice_halo_sim_tpu_torch.engine.simulator import Engine
+    from ice_halo_sim_tpu_torch.kernels import build
 
     # With IHT_FOLD unset the card folds by sort (ROADMAP item 10).
     unset = os.environ.pop("IHT_FOLD", None)
@@ -1269,16 +1296,18 @@ def phase_fold_auto(scenes, device, n_after: int = 3):
     if eng.fold_kind != "sort" or "default on a CUDA device" not in eng.fold_decision:
         raise AssertionError(f"the card's default fold is {eng.fold_kind} ({eng.fold_decision})")
     del eng
-    for what, cfg, other in scenes:
+    decided = {}
+    for what, cfg, other, *rest in scenes:
+        batch = rest[0] if rest else BATCH
         with _knobs(IHT_FOLD="auto", IHT_PALLAS_TRACE="0"):
-            eng = Engine(cfg, seed=7, batch_size=BATCH, device=device)
+            eng = Engine(cfg, seed=7, batch_size=batch, device=device)
         if eng.fold_kind != "sandwich" or eng.fold_decision != "startup":
             raise AssertionError(f"auto {what}: starts on {eng.fold_kind} ({eng.fold_decision})")
         eng.run(n_batches=1)
         eng.run(n_batches=n_after)
         if other is None:
             with _knobs(IHT_FOLD="sort", IHT_PALLAS_TRACE="0"):
-                other = Engine(cfg, seed=7, batch_size=BATCH, device=device)
+                other = Engine(cfg, seed=7, batch_size=batch, device=device)
             other.run(n_batches=1)
             other.run(n_batches=n_after)
         print(f"  IHT_FOLD=auto on {what}: fold {eng.fold_kind}; {eng.fold_decision}; modeled "
@@ -1295,10 +1324,23 @@ def phase_fold_auto(scenes, device, n_after: int = 3):
         if eng.fold_kind != "sandwich":
             # Demoted: the cascade's own time, from an engine pinned to it.
             with _knobs(IHT_FOLD="sandwich", IHT_PALLAS_TRACE="0"):
-                cascade = Engine(cfg, seed=7, batch_size=BATCH, device=device)
+                cascade = Engine(cfg, seed=7, batch_size=batch, device=device)
             cascade.run(n_batches=1)
             cascade.run(n_batches=n_after)
-        _fold_verdict(what, eng.fold_kind, {"auto": eng, "sort": other, "sandwich": cascade})
+        before = build.LAUNCHES["sandwich_lane"]
+        cascade.run(n_batches=1)
+        k7 = build.LAUNCHES["sandwich_lane"] - before
+        print(f"  auto {what}: the cascade ({cascade.graph_mode}) launched K7 {k7} times on a "
+              f"steady batch", flush=True)
+        decided[what] = {"fold": eng.fold_kind, "fold_decision": eng.fold_decision,
+                         "fold_costs": eng.fold_costs, "k7_per_steady_batch": k7,
+                         "verdict": _fold_verdict(
+                             what, eng.fold_kind,
+                             {"auto": eng, "sort": other, "sandwich": cascade}, turns)}
+        del eng, other, cascade
+        gc.collect()
+        torch.cuda.empty_cache()
+    return decided
 
 
 def _fold_verdict(what, chosen: str, engines: dict, turns: int = FOLD_TURNS):
@@ -1337,6 +1379,8 @@ def _fold_verdict(what, chosen: str, engines: dict, turns: int = FOLD_TURNS):
           f"{med['sort']:.4f} ({spreads['sort']:.4f}), all "
           f"{times}, timed by {_timed_by(*pooled['sort'], *pooled['sandwich'])}; margin "
           f"{margin:.4f}: {verdict}", flush=True)
+    return {"sandwich_ms": med["sandwich"], "sort_ms": med["sort"], "margin_ms": margin,
+            "spread_ms": spread, "verdict": verdict}
 
 
 def phase_probe(name, main_fn):
@@ -1451,7 +1495,7 @@ def _busy_and_kernels(fn):
     return (us / 1e3 if us > 0 else None), sum(e.count for e in ev)
 
 
-def phase_graphs(name, cfg, device, k: int = GRAPH_K):
+def phase_graphs(name, cfg, device, k: int = GRAPH_K, fold: str = "sort", tag: str = "[5]"):
     """One scene eagerly (graphs=False) and with CUDA graphs, k batches per
     dispatch (IHT_STEPS_PER_DISPATCH): one calibrating dispatch and two
     steady dispatches each; the images, landed weights and stats must be
@@ -1460,15 +1504,21 @@ def phase_graphs(name, cfg, device, k: int = GRAPH_K):
     the graph engine must replay. Then per engine a timed steady dispatch
     (wall clock to a synchronise: rays/s) and a profiled one (device busy
     time and kernels per batch; idle share = 1 - busy / wall of the timed
-    one)."""
+    one). `fold` is the IHT_FOLD both engines are built under; on the
+    sandwich fold the calibrating dispatch runs eagerly in both and the dense
+    images (settled mass and tiles) are compared too. Returns both engines'
+    numbers ({"eager": ..., "graph": ...})."""
     import torch
 
     from ice_halo_sim_tpu_torch.engine.simulator import Engine
 
     out = {}
+    numbers = {}
     for graphs in (False, True):
-        with _knobs(IHT_STEPS_PER_DISPATCH=str(k), IHT_FOLD="sort"):
+        with _knobs(IHT_STEPS_PER_DISPATCH=str(k), IHT_FOLD=fold):
             eng = Engine(cfg, seed=7, batch_size=BATCH, device=device, graphs=graphs)
+        if eng.fold_kind != fold:
+            raise AssertionError(f"{name}: fold {eng.fold_kind} ({eng.fold_decision})")
         eng.run(n_batches=k)
         syncs = eng.host_syncs
         eng.run(n_batches=k)
@@ -1486,7 +1536,12 @@ def phase_graphs(name, cfg, device, k: int = GRAPH_K):
         busy = None if busy is None else busy / k
         out[graphs] = (eng, st)
         idle = "not measured" if busy is None else f"{1.0 - busy / (wall * 1e3):.4f}"
-        print(f"[5] {name} {'graph' if graphs else 'eager'}: {eng.graph_mode}; "
+        numbers[graphs] = {"rays_per_s": BATCH / wall, "wall_ms": wall * 1e3, "busy_ms": busy,
+                           "kernels_per_batch": kernels / k,
+                           "reads_per_steady_dispatch": steady_syncs / 2,
+                           "overflow_replays": eng.overflow_replays,
+                           "graph_mode": eng.graph_mode}
+        print(f"{tag} {name} {'graph' if graphs else 'eager'}: {eng.graph_mode}; "
               f"{BATCH / wall:.6g} rays/s, wall {wall * 1e3:.4f} ms/batch, device busy "
               f"{'not measured' if busy is None else f'{busy:.4f}'} ms/batch in "
               f"{kernels / k:.0f} device kernels per batch, idle share {idle}; host reads "
@@ -1502,8 +1557,15 @@ def phase_graphs(name, cfg, device, k: int = GRAPH_K):
     for i, (a, b) in enumerate(zip(e.accum, g.accum)):
         if not _bits_equal(a, b):
             raise AssertionError(f"{name}: graph accumulator {i} differs from eager")
-    print(f"[5] {name}: graph == eager bit for bit over {4 * k} batches (one calibrating, "
+    if fold == "sandwich":
+        import numpy as np
+
+        for r in range(len(e.proj_plans)):
+            if not np.array_equal(e._sandwich_dense64(r), g._sandwich_dense64(r)):
+                raise AssertionError(f"{name}: graph image {r} differs from eager")
+    print(f"{tag} {name}: graph == eager bit for bit over {4 * k} batches (one calibrating, "
           f"three steady dispatches and a profiled one of {k})", flush=True)
+    return {"eager": numbers[False], "graph": numbers[True]}
 
 
 def phase_bench(smi):
@@ -2701,6 +2763,304 @@ def phase_parallel(smi, res: list) -> None:
     print(f"[10]: {time.time() - t0:.1f} s", flush=True)
 
 
+# [11]: the reference bench scenes. Each stand-in of scenes.py at full width:
+# (name, constant, batch, steady batches); PYRAMID3_CFG's fan-out makes a root
+# ray about 100 times the work, so it takes 32768 rays a batch.
+STAND_INS = (("ms_multi", "MULTI_CFG", BATCH, 2), ("complex_sop", "COMPLEX_CFG", BATCH, 2),
+             ("filtered_bd", "BD_CFG", BATCH, 2), ("pyramid", "PYRAMID3_CFG", 32768, 2))
+# The pyramid's cuda-against-plain engine pair runs at this batch: the plain
+# scan over its first, uncompacted batch at full width (about 9.4e7 rows)
+# would take most of a minute.
+PYRAMID_SMALL_BATCH = 2048
+# IHT_FOLD=auto's check holds three engines of a scene at once (auto, sort,
+# cascade), each with its captured batch; three pyramid engines at 32768 rays
+# a batch do not fit in 80 GB, so that check runs the pyramid at half of it.
+PYRAMID_AUTO_BATCH = 16384
+# Batches per dispatch of [11]'s eager and graph sandwich engines.
+SANDWICH_GRAPH_K = 4
+BIG_RES = (2048, 1024)
+GENERAL_ABSENT = ["pack_rows", "pack_payload_blocks", "fused_scan", "pack_valid_blocks",
+                  "scatter_blocks_multi"]
+
+
+def _with_res(doc: dict, res) -> dict:
+    out = copy.deepcopy(doc)
+    for r in out["render"]:
+        r["resolution"] = list(res)
+    return out
+
+
+def _stand_in_kernels(name, eng) -> dict:
+    """Every kernel a calibrated general-path engine launches on the sort
+    fold, at its own shapes (one steady batch), against its plain twin:
+    compact_rows inside compact_valid at each render's fold rows
+    (bit-equal, and the same bits twice), the fold of the compacted rows
+    through K4's extract form (within SCAN_RTOL; the sort between is
+    torch's), and K3' at every layer boundary of the continuation (bit-equal,
+    the same bits twice). Returns {kernel: max_abs_err} and prints the
+    kernels' times at these shapes."""
+    import torch
+
+    from ice_halo_sim_tpu_torch.core import accum
+    from ice_halo_sim_tpu_torch.kernels import kernel_set
+
+    plain = kernel_set("plain")
+    errs = {"fused_scan_extract": 0.0}
+    for r in range(len(eng.proj_plans)):
+        key, cols = _fold_rows(eng, r, 5)
+        keep = eng._compact_keep[r] if eng._compact_keep else None
+        ck, cw = key, cols[0]
+        if keep is not None:
+            a, b = (accum.compact_valid(key, cols, keep, ks) for ks in (eng.ks, plain))
+            again = accum.compact_valid(key, cols, keep, eng.ks)
+            if int(a[1]) != int(b[1]) or not all(_bits_equal(x, y) for x, y in zip(a[0], b[0])):
+                raise AssertionError(f"{name} render {r}: compact_rows differs from its plain "
+                                     "version")
+            if not all(_bits_equal(x, y) for x, y in zip(a[0], again[0])):
+                raise AssertionError(f"{name} render {r}: compact_rows, two launches differ")
+            if int(a[1]) > keep:
+                raise AssertionError(f"{name} render {r}: {int(a[1])} live rows overflow keep "
+                                     f"{keep} on the checked batch")
+            ck, cw = a[0]
+            errs["compact_rows"] = 0.0
+            ms_c = _time_ms(lambda: accum.compact_valid(key, cols, keep, eng.ks), 5,
+                            f"compact_rows {name}")
+        acc0 = torch.zeros_like(eng.accum[r])
+        got, want = (accum.fold_spectral_keys(acc0, ck, cw, eng.k_pool, eng.basis_tbl, ks)
+                     for ks in (eng.ks, plain))
+        err = _max_abs(got, want)
+        if not torch.allclose(got, want, rtol=SCAN_RTOL, atol=1e-6):
+            raise AssertionError(f"{name} render {r}: the fold through K4 differs from its plain "
+                                 f"version (max abs {err})")
+        errs["fused_scan_extract"] = max(errs["fused_scan_extract"], err)
+        ms_f = _time_ms(lambda: accum.fold_spectral_keys(acc0, ck, cw, eng.k_pool,
+                                                         eng.basis_tbl, eng.ks), 5,
+                        f"fold {name}")
+        print(f"  {name} render {r}: fold rows {key.numel()}, keep {keep}, compact_rows "
+              f"{'bit-equal, ' + format(ms_c, '.4f') + ' ms' if keep is not None else 'not run'}"
+              f"; the fold (sort + K4) of {ck.numel()} rows within {err:.3g} of plain, "
+              f"{ms_f:.4f} ms", flush=True)
+    calls = _continuation_scatter(eng, 5)
+    if len(calls) != len(eng.layers) - 1 or any(c[4] is None for c in calls):
+        raise AssertionError(f"{name}: {len(calls)} permuted block scatters at "
+                             f"{len(eng.layers) - 1} layer boundaries")
+    for li, (vals, start, out_len, blk, perm) in enumerate(calls):
+        _scatter_same_bits(f"{name}'s continuation (boundary {li})", vals, start, out_len, blk,
+                           perm)
+        print(f"  {name} continuation boundary {li}: K3' bit-equal over {len(vals)} columns, "
+              f"{start.numel()} blocks to {out_len} lanes", flush=True)
+    errs["scatter_blocks"] = 0.0
+    return errs
+
+
+def _render_full_width(name, cfg, device, batch: int, steady: int, kernels):
+    """`cfg` through the CUDA kernels at full width, the launch counters
+    reset just before and read just after; every kernel of `kernels` must
+    have launched on the steady batches too, none of the general path's
+    absent ones; the image finite and not black. Returns (engine, counts,
+    per steady batch)."""
+    import numpy as np
+    import torch
+
+    from ice_halo_sim_tpu_torch.engine.simulator import Engine
+    from ice_halo_sim_tpu_torch.kernels import build
+
+    eng = Engine(cfg, seed=7, batch_size=batch, device=device)
+    if eng.trace_path != "general":
+        raise AssertionError(f"{name}: trace path {eng.trace_path}")
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    build.reset_launch_counts()
+    eng.run(n_batches=1)
+    first = dict(build.LAUNCHES)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    eng.run(n_batches=steady)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = dict(build.LAUNCHES)
+    per_batch = {k: (counts[k] - first[k]) / steady for k in counts}
+    for k in kernels:
+        if counts[k] <= 0 or per_batch[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the {name} path")
+    for k in GENERAL_ABSENT:
+        if counts[k]:
+            raise AssertionError(f"kernel {k} was launched on the {name} path ({counts[k]})")
+    st = eng.drain_stats()
+    img = eng.raw_xyz(0)
+    if not np.isfinite(img).all() or img.max() <= 0 or eng.snapshot()[0].max() == 0:
+        raise AssertionError(f"{name}: the image is not finite or is black")
+    print(f"  {name}: batch {eng.batch_size}, {len(eng.layers)} layers, lanes per layer "
+          f"{[l.cont_cap for l in eng.layers]}, slot cap {eng._slot_cap}, keep "
+          f"{eng._compact_keep}; calibrating batch {t1 - t0:.3f} s, {steady} steady "
+          f"{t2 - t1:.3f} s; peak memory {torch.cuda.max_memory_allocated(device)} B; segments "
+          f"{st.ray_segments} ({st.ray_segments / (batch * (1 + steady)):.1f}"
+          f" a root ray), landed {st.landed_weight}, dropped {st.dropped_cont_weight}; "
+          f"launches per steady batch { {k: v for k, v in per_batch.items() if v} }", flush=True)
+    return eng, counts, per_batch
+
+
+def _bench_kernels_at(cfg, device) -> dict:
+    """K3 with the marker tail and K4's extract form at BENCH_CFG's shapes at
+    2048 x 1024 (P = 2^21): bit-equal and within SCAN_RTOL of their plain
+    versions, the same bits twice, and their times."""
+    import torch
+
+    from ice_halo_sim_tpu_torch.core import accum, block_ops, seg_scan, trace_emit
+    from ice_halo_sim_tpu_torch.engine.simulator import Engine
+
+    eng = Engine(cfg, seed=7, batch_size=BATCH, device=device)
+    plan = eng._trace_plan
+    P = eng.proj_plans[0].height * eng.proj_plans[0].width
+    K = eng.k_pool
+    shift = accum.key_shift(K)
+    (keys, wts, counts), *_ = trace_emit.trace_emit(plan, 5 * eng.span, BATCH, device)[0]
+    live = int(counts.sum())
+    keep = -(-int(live * 1.06) // accum.BLOCK) * accum.BLOCK
+    out_total = -(-(keep + P) // accum.BLOCK) * accum.BLOCK
+    start = (torch.cumsum(counts.long(), 0) - counts.long()).int()
+    tail = (keep, P, shift, 2 * K - 1)
+    sargs = ([keys, wts], start, out_total, plan.rows_block[0])
+    a = block_ops.scatter_blocks_multi(*sargs, marker_tail=tail)
+    b = block_ops.scatter_blocks_multi_plain(*sargs, marker_tail=tail)
+    if not all(_bits_equal(x, y) for x, y in zip(a, b)) or not all(
+            _bits_equal(x, y) for x, y in
+            zip(a, block_ops.scatter_blocks_multi(*sargs, marker_tail=tail))):
+        raise AssertionError("K3 with the marker tail at 2048 x 1024 differs from its plain "
+                             "version or from itself")
+    sk, sw = accum.sort_keys(*a)
+    tbl = eng.basis_tbl
+    img_k = seg_scan.fused_scan_extract(sk, sw, tbl, shift, K, P)
+    img_p = seg_scan.fused_scan_extract_plain(sk, sw, tbl, shift, K, P)
+    err = _max_abs(img_k, img_p)
+    if not torch.allclose(img_k, img_p, rtol=SCAN_RTOL, atol=1e-6) or not _bits_equal(
+            seg_scan.fused_scan_extract(sk, sw, tbl, shift, K, P), img_k):
+        raise AssertionError(f"K4 at 2048 x 1024 differs from its plain version (max abs "
+                             f"{err}) or from itself")
+    m = sk.numel()
+    out = {
+        "scatter_blocks_multi": {
+            "rows": out_total, "pixels": P, "max_abs_err": 0.0,
+            "ms": _time_ms(lambda: block_ops.scatter_blocks_multi(*sargs, marker_tail=tail),
+                           10, "K3 2048x1024"),
+            "bound": _bound(8 * live + 4 * start.numel() + 8 * out_total, 2 * out_total)},
+        "fused_scan_extract": {
+            "rows": m, "pixels": P, "max_abs_err": err,
+            "ms": _time_ms(lambda: seg_scan.fused_scan_extract(sk, sw, tbl, shift, K, P), 10,
+                           "K4 2048x1024"),
+            "bound": _bound(8 * m + 12 * P + 4 * tbl.numel(), 6 * m)},
+        "trace_emit": {
+            "max_abs_err": None,
+            "ms": _time_ms(lambda: trace_emit.trace_emit(plan, 5 * eng.span, BATCH, device), 5,
+                           "K2 2048x1024"),
+            "bound": _trace_bound("trace_emit 2048x1024", plan)},
+    }
+    for k, v in out.items():
+        v["bound_ms"], v["bound_by"] = v.pop("bound")
+        print(f"  {k} at 2048 x 1024: kernel {v['ms']:.4f} ms, bound {v['bound_ms']:.5f} ms by "
+              f"{v['bound_by']}, max_abs_err {v['max_abs_err']}", flush=True)
+    return out
+
+
+def phase_scenes(smi, res: list, device=None) -> None:
+    """[11] The reference bench scenes on the card: each stand-in of
+    scenes.py at full width through the sort fold (the card's default) with
+    the launch counters reset just before and read just after, each kernel
+    it launched against its plain twin at its shapes; MULTI_CFG, COMPLEX_CFG
+    and BD_CFG also against kernels="plain" engines on the card, PYRAMID3_CFG
+    so at a small batch; BENCH_CFG at 2048 x 1024 through K2, K3 and K4
+    against the plain path and its kernels at those shapes; IHT_FOLD=auto's
+    decision, modeled costs and measured verdict on every stand-in; the
+    sandwich fold in a CUDA graph on MS_CFG and BD_CFG (graph images bit-equal
+    to eager, one host read per steady dispatch), and K7 and K8 at every
+    launch of a steady BD_CFG cascade against the plain version."""
+    import torch
+
+    from ice_halo_sim_tpu_torch import scenes
+    from ice_halo_sim_tpu_torch.config.loader import load_project
+    from ice_halo_sim_tpu_torch.engine.simulator import Engine
+    from ice_halo_sim_tpu_torch.kernels import build
+
+    device = torch.device("cuda", 0) if device is None else device
+    t_phase = time.time()
+    print(f"[11] the reference bench scenes (stand-ins) on {smi}", flush=True)
+    launches, per_steady, errs = {}, {}, {}
+    cfgs = {}
+    with _knobs(IHT_FOLD="sort"):
+        for name, const, batch, steady in STAND_INS:
+            cfg = cfgs[name] = load_project(getattr(scenes, const))
+            if name == "pyramid":
+                eng, counts, per_batch = _render_full_width(
+                    name, cfg, device, batch, steady, ["scatter_blocks", "fused_scan_extract"])
+                phase_slice("pyramid (small batch)", cfg, device,
+                            ["scatter_blocks", "fused_scan_extract"], steady, "general",
+                            GENERAL_ABSENT, batch=PYRAMID_SMALL_BATCH)
+            else:
+                eng, counts, per_batch = phase_slice(
+                    name, cfg, device, ["scatter_blocks", "fused_scan_extract"], steady,
+                    "general", GENERAL_ABSENT, batch=batch)
+            if eng._compact_keep is not None and per_batch["compact_rows"] <= 0:
+                raise AssertionError(f"{name}: compact_rows was not launched on a steady batch")
+            launches[name], per_steady[name] = counts, per_batch
+            for k, e in _stand_in_kernels(name, eng).items():
+                errs[k] = max(errs.get(k, 0.0), e)
+            print(f"[11] {name}: {time.time() - t_phase:.1f} s into [11]", flush=True)
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        big = load_project(_with_res(scenes.BENCH_CFG, BIG_RES))
+        _eng, launches["bench 2048x1024"], per_steady["bench 2048x1024"] = phase_slice(
+            "bench 2048x1024", big, device,
+            ["trace_emit", "scatter_blocks_multi", "fused_scan_extract"], 2,
+            absent=["pack_rows", "pack_payload_blocks", "fused_scan", "pack_valid_blocks",
+                    "compact_rows", "scatter_blocks"])
+        del _eng
+        big_kernels = _bench_kernels_at(big, device)
+    print(f"[11] stand-ins' kernels against their plain twins at their shapes: max_abs_err "
+          f"{errs}; {time.time() - t_phase:.1f} s into [11]", flush=True)
+    decided = phase_fold_auto(
+        [(name, cfgs[name], None, PYRAMID_AUTO_BATCH if name == "pyramid" else batch)
+         for name, _c, batch, _s in STAND_INS], device, n_after=2, turns=3)
+    print(f"[11] IHT_FOLD=auto: {time.time() - t_phase:.1f} s into [11]", flush=True)
+    bd = cfgs["filtered_bd"]
+    graphs = {}
+    for name, cfg in (("ms-sandwich", load_project(scenes.MS_CFG)), ("filtered_bd-sandwich", bd)):
+        build.reset_launch_counts()
+        graphs[name] = phase_graphs(name, cfg, device, k=SANDWICH_GRAPH_K, fold="sandwich",
+                                    tag="[11]")
+        launches[name] = dict(build.LAUNCHES)
+        if launches[name]["sandwich_lane"] <= 0:
+            raise AssertionError(f"{name}: K7 was not launched")
+        if graphs[name]["graph"]["reads_per_steady_dispatch"] != 1.0:
+            raise AssertionError(f"{name}: {graphs[name]['graph']['reads_per_steady_dispatch']} "
+                                 "host reads per steady dispatch in the graph")
+    print(f"[11] the sandwich fold in a graph: {time.time() - t_phase:.1f} s into [11]",
+          flush=True)
+    with _knobs(IHT_FOLD="sandwich"):
+        eng = Engine(bd, seed=7, batch_size=BATCH, device=device)
+    eng.run(n_batches=1)
+    cascade = []
+    phase_kernels_cascade(eng, device, cascade)
+    del eng
+    torch.cuda.empty_cache()
+    for k in res:
+        k["launches_scenes"] = {n: c[k["name"]] for n, c in launches.items() if c[k["name"]]}
+        k["launches_per_steady_batch_scenes"] = {
+            n: c[k["name"]] for n, c in per_steady.items() if c[k["name"]]}
+        if k["name"] in errs:
+            k["max_abs_err_scenes"] = errs[k["name"]]
+        if k["name"] in big_kernels:
+            k["at_2048x1024"] = big_kernels[k["name"]]
+        for c in cascade:
+            if c["name"] == k["name"]:
+                k["at_filtered_bd"] = {x: c[x] for x in ("max_abs_err", "ms", "plain_ms",
+                                                         "bound_ms", "library_ms", "batch",
+                                                         "rows", "listed_chunks")}
+    print(f"[11] fold decisions: {json.dumps(decided)}", flush=True)
+    print(f"[11] the sandwich fold in a graph: {json.dumps(graphs)}", flush=True)
+    print(f"[11]: {time.time() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2829,6 +3189,7 @@ def main() -> int:
     phase_serving(smi, res)
     phase_debug_capi(smi, res)
     phase_parallel(smi, res)
+    phase_scenes(smi, res)
     print(f"timings that fell back to CUDA events: {len(FALLBACKS)} "
           f"{json.dumps(FALLBACKS)}", flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)

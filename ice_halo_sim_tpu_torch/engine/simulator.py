@@ -68,8 +68,10 @@ Differences from the JAX engine, all deliberate:
     another device or path; the JAX engine's run-time escape from a failing
     sandwich kernel to the sort fold (``+degraded``) is absent;
   - the overflow choice is the replay above, not a branch inside the
-    step; the sandwich fold reads its levels' live counts on the host, per
-    batch, and is never captured;
+    step, on the sandwich fold's levels as on the sort fold's prepass and
+    the continuation (JAX: ``lax.cond`` per level): a level whose entrants
+    overflow its keep sends the batch to the replay, which diverts them to
+    the full-coverage tile;
   - the sort-size snap of ``keep`` and the scatter-output row budget of the
     sandwich levels' ``keep``, both tuned to another accelerator's memory,
     are gone; the fold dispatch's cost constants are measured on the H100;
@@ -243,9 +245,9 @@ class Engine:
     graphs: replay each steady batch from a CUDA graph (engine/graph.py).
     None: on for a CUDA device with the CUDA kernels, off otherwise (the
     plain twins have data-dependent shapes and do not capture). Without
-    graphs the same dispatch loop runs each batch eagerly. A scene whose
-    batches cannot be captured (the sandwich fold with its host reads, a
-    dense-value fold) runs them eagerly; ``graph_mode`` says which.
+    graphs the same dispatch loop runs each batch eagerly. The calibrating
+    dispatch, and batches that cannot be captured (a dense-value fold), run
+    eagerly; ``graph_mode`` says which.
     shard: (index, count) of a data-parallel run (parallel/sharding.py):
     the shard traces its own rays of every batch (``ray_base``) and the
     same crystal shapes and continuation salt as every other shard; (0, 1)
@@ -583,7 +585,8 @@ class Engine:
         level folds the rows whose chunk it lists and routes the misses,
         compacted to the next level's ``keep`` rows, onward. Exactness never
         depends on the lists or budgets: a row matches exactly one list, and
-        a level whose entrants overflow its ``keep`` folds them all into the
+        a batch in which a level's entrants overflow its ``keep`` is run
+        again with the host's choice, which folds them all into the
         full-coverage tile instead (slower, never wrong).
 
         The conditions are the JAX engine's, in its order; the first that
@@ -601,7 +604,7 @@ class Engine:
         self._fold_choice = str(knob if knob is not None else default).lower()
         self.fold_decision = "startup"
         self.fold_costs = None     # the dispatch's modeled ms per batch, once calibrated
-        self.last_level_rows = []  # per render, the last batch's rows into the last level
+        self.last_level_rows = []  # on the cascade: [R] int64 on the device, see below
         method = self._resolved_accum_method()
         reason = None
         if self._trace_plan is not None:
@@ -649,6 +652,10 @@ class Engine:
         self._settled = [np.zeros((p.height * p.width, 3), np.float64)
                          for p in self.proj_plans]
         self._ones_tbl = torch.ones((self.k_pool, 1), dtype=F32, device=dev)
+        # Per render, the rows that entered the last level in the last batch,
+        # written in place on the device (read by whoever reads them, never
+        # by the engine).
+        self.last_level_rows = torch.zeros(len(self.proj_plans), dtype=I64, device=dev)
 
     def _set_tile_slices(self) -> None:
         """Where each render's level tiles lie in self.accum."""
@@ -673,17 +680,25 @@ class Engine:
             return int(x)
         return x
 
-    def _sandwich_fold_r(self, r: int, tiles, key, wz, n_live, count_rows=None):
+    def _sandwich_fold_r(self, r: int, tiles, key, wz, n_live, count_rows=None,
+                         host_choice: bool = False):
         """One render's cascade over the packed rows (key, wz) of a batch.
 
-        tiles: one [NC_l, 3*128] tile per level. n_live: the live rows, a
-        host int where the first level compacts. count_rows (the calibration
-        batch only): (count tile, pix, wl_idx); the tile [chunks, 128] takes
-        a one-channel pass of the live flags over every chunk, the histogram
-        calibration plans from. Returns (tiles', count tile', rows that
-        entered the last level). Exact for any lists and budgets: where a
-        level's entrants overflow its keep (a host read of their count) they
-        all go, uncompacted, into the full-coverage last tile."""
+        tiles: one [NC_l, 3*128] tile per level. n_live: the live rows (a
+        device scalar, or a host int where the host read it). count_rows
+        (the calibration batches only): (count tile, pix, wl_idx); the tile
+        [chunks, 128] takes a one-channel pass of the live flags over every
+        chunk, the histogram calibration plans from. Returns (tiles', count
+        tile', rows that entered the last level, over).
+
+        Without host_choice every level whose keep is below its rows takes
+        its compacted branch, with no host read, and ``over`` (a device
+        bool, or None where no level compacts) says whether some level's
+        entrants overflowed its keep: the caller records it and the batch is
+        run again with host_choice. With it (JAX's ``lax.cond``, read on the
+        host) a compacted level reads its entrants' count, and where they
+        overflow its keep they all go, uncompacted, into the full-coverage
+        last tile. Either way exact for any lists and budgets."""
         K = self.k_pool
         shift = accum_mod.key_shift(K)
         levels = self._levels[r]
@@ -709,17 +724,21 @@ class Engine:
         carry_key, carry_w = key, wz
         n_in = n_live
         n_last = n_live
+        over = None
         for li, (clist, keep) in enumerate(levels):
             is_last = li == len(levels) - 1
             if is_last:
                 n_last = n_in
             ck, cw = carry_key, carry_w
             if keep is not None and keep < carry_key.shape[0]:
-                n_in = self._host_count(n_in)
-                if n_in > keep:
-                    tiles[-1], _ = level_pass(tiles[-1], full_list, carry_key, carry_w)
-                    n_last = n_in
-                    break
+                if host_choice:
+                    n_in = self._host_count(n_in)
+                    if n_in > keep:
+                        tiles[-1], _ = level_pass(tiles[-1], full_list, carry_key, carry_w)
+                        n_last = n_in
+                        break
+                else:
+                    over = _or(over, n_in > keep)
                 (ck, cw), _ = accum_mod.compact_valid(carry_key, [carry_w], keep, self.ks)
             tiles[li], m = level_pass(tiles[li], clist, ck, cw)
             if is_last:
@@ -728,7 +747,7 @@ class Engine:
             carry_key = torch.where(miss & (cw > 0.0), ck, -1)
             carry_w = torch.where(miss, cw, 0.0)
             n_in = (carry_w > 0.0).sum()
-        return tiles, count_tile, n_last
+        return tiles, count_tile, n_last, over
 
     def _sandwich_dense64(self, r: int) -> np.ndarray:
         """Host side: render r's dense [P, 3] float64 image, the settled mass
@@ -1298,7 +1317,7 @@ class Engine:
         n_classes = len(self.color_classes)
         lanes = tuple(self.color_classes)
         if self._sandwich_on:
-            return self._fold_batch_sandwich(contribs), None
+            return self._fold_batch_sandwich(contribs, host_choice)
         method = self._resolved_accum_method()
         if method != "sort":
             # Dense value rows: the scatter oracle, or the sort fold of keys
@@ -1343,36 +1362,44 @@ class Engine:
         self.host_syncs += 1
         return [k is None or n <= k for n, k in zip(lives.tolist(), keep)]
 
-    def _fold_batch_sandwich(self, contribs):
+    def _fold_batch_sandwich(self, contribs, host_choice: bool = False):
         """The sandwich fold of one batch: per render the cascade of
-        `_sandwich_fold_r`. The live counts are read once for all renders
-        where some first level compacts. Returns the live rows per render
-        [R] (device)."""
+        `_sandwich_fold_r`, its level tiles, count tile and
+        ``last_level_rows`` updated in place. Without host_choice no host
+        read (what a CUDA graph captures); with it the live counts are read
+        once for all renders where some first level compacts, and each
+        compacted level's entrants once. Returns (live rows per render [R]
+        on the device, over: a device bool or None, as _fold_batch)."""
+        dev = self.device
         packed = []
         for r, (pix, w, wl_idx, _mask) in enumerate(contribs):
             P = self.proj_plans[r].height * self.proj_plans[r].width
-            key, wz = accum_mod.pack_spectral_keys(pix, w, wl_idx, P, self.k_pool)
-            packed.append((key, wz, (wz > 0.0).sum()))
-        lives_dev = torch.stack([p[2] for p in packed])
-        lives = [p[2] for p in packed]
-        if any(levels[0][1] is not None and levels[0][1] < p[0].shape[0]
-               for levels, p in zip(self._levels, packed)):
-            lives = [int(x) for x in lives_dev.tolist()]
+            packed.append(accum_mod.pack_spectral_keys(pix, w, wl_idx, P, self.k_pool))
+        lives = torch.stack([wz.gt(0.0).sum() for _key, wz in packed])
+        n_live = list(lives)
+        if host_choice and any(levels[0][1] is not None and levels[0][1] < key.shape[0]
+                               for levels, (key, _wz) in zip(self._levels, packed)):
+            n_live = lives.tolist()
             self.host_syncs += 1
+        over = None
         lasts = []
-        for r, (key, wz, _) in enumerate(packed):
+        for r, (key, wz) in enumerate(packed):
             s0, s1 = self._tile_slices[r]
             ci = self._count_tile_index(r)
             pix, _w, wl_idx, _mask = contribs[r]
-            tiles, ct, n_last = self._sandwich_fold_r(
-                r, self.accum[s0:s1], key, wz, lives[r],
-                None if ci is None else (self.accum[ci], pix, wl_idx))
-            self.accum[s0:s1] = tiles
+            tiles, ct, n_last, o = self._sandwich_fold_r(
+                r, self.accum[s0:s1], key, wz, n_live[r],
+                None if ci is None else (self.accum[ci], pix, wl_idx), host_choice)
+            for acc, tile in zip(self.accum[s0:s1], tiles):
+                if tile is not acc:
+                    acc.copy_(tile)
             if ci is not None:
-                self.accum[ci] = ct
-            lasts.append(n_last)
-        self.last_level_rows = lasts
-        return lives_dev
+                self.accum[ci].copy_(ct)
+            over = _or(over, o)
+            lasts.append(n_last if isinstance(n_last, torch.Tensor)
+                         else torch.full((), n_last, dtype=I64, device=dev))
+        self.last_level_rows.copy_(torch.stack(lasts))
+        return lives, over
 
     # ------------------------------------------------------------------
     # Kernel trace path
@@ -1488,18 +1515,25 @@ class Engine:
         'eager (reason)'."""
         if not self.graphs:
             return "eager (graphs off)"
-        if self._sandwich_on:
-            return "eager (the sandwich fold reads its levels' counts on the host)"
+        if not self._calibrated:
+            # Its plan, and on the sandwich fold its count tile, go at
+            # calibration: a capture would be used by this dispatch alone and
+            # would hold a second copy of the batch's memory beside the
+            # warm-up's.
+            return "eager (the calibrating dispatch; captured once calibrated)"
         if self._resolved_accum_method() != "sort":
             return f"eager (the {self._resolved_accum_method()} fold does not capture)"
         return "cuda graph"
 
     def _graph_key(self):
-        """What a captured batch assumed: the plan it was built under, the
+        """What a captured batch assumed: the plan it was built under (on the
+        sandwich fold each level's chunk list, by address, and keep), the
         shard (its ray base is a constant of the graph) and the addresses it
         reads and writes."""
+        levels = (tuple((clist.data_ptr(), keep) for lv in self._levels for clist, keep in lv)
+                  if self._sandwich_on else None)
         return (self._compact_keep, self._slot_cap, tuple(l.cont_cap for l in self.layers),
-                self.fold_kind, self.shard, tuple(t.data_ptr() for t in self.accum),
+                self.fold_kind, levels, self.shard, tuple(t.data_ptr() for t in self.accum),
                 tuple(t.data_ptr() for t in self._dev))
 
     def _steady(self, n: int) -> None:
@@ -1518,10 +1552,12 @@ class Engine:
 
     def _overflow_possible(self) -> bool:
         """Whether a batch can take a compacted branch that its rows
-        overflow: a render with keep, or a continuation between layers."""
+        overflow: a render with keep, a sandwich level with keep, or a
+        continuation between layers."""
         keep = self._compact_keep
         return (keep is not None and any(k is not None for k in keep)) or (
-            self._trace_plan is None and len(self.layers) > 1)
+            self._trace_plan is None and len(self.layers) > 1) or (
+            self._sandwich_on and any(k is not None for lv in self._levels for _cl, k in lv))
 
     def _state(self) -> list:
         """The tensors a dispatch updates, besides the counter."""

@@ -34,6 +34,38 @@ leaves the compaction prepass off and the mask column would never ride it.
 and its ray-path filter ([3, 5], the parhelia) on the one layer: few
 contribution rows, crowded into few image chunks, the scene on which the
 fold dispatch's model favours the sandwich cascade most.
+
+The reference bench scenes: ``MULTI_CFG``, ``COMPLEX_CFG``, ``BD_CFG`` and
+``PYRAMID3_CFG`` are stand-ins built from the repo's description of the
+reference's bench set (``scripts/bench_matrix.py:10-16``,
+``doc/perf-notes.md:136-139,254-262``), not copies of the reference's files,
+which the repository does not hold. Each has ``BENCH_CFG``'s light (D65 sun
+at 20 degrees) and its one dual fisheye render at 512 x 256.
+
+``MULTI_CFG`` stands in for ``ms_multi`` ("3 crystals, 2 MS layers, prob
+0.5"): ``MS_CFG``'s plate (id 1), ``MS_CFG``'s Gaussian column (id 2) and
+``BENCH_CFG``'s randomly oriented h = 1.2 prism (id 3); two layers, each
+with the three crystals at 40/30/30, the first continuing with probability
+0.5; max_hits 7; no filter.
+
+``COMPLEX_CFG`` stands in for ``complex_sop`` (a complex sum-of-products
+filter): ``MULTI_CFG`` with one complex filter (filter_in) on every entry of
+both layers, (raypath [3, 5] under P AND crystal 1) OR (entry 1, exit 3
+under P). The schema has no ray-path filter restricted to a crystal, so the
+first clause is the AND of two simple filters, a raypath and a crystal
+filter, as the schema composes them (a complex filter's composition is an
+OR of AND-clauses of simple filter ids); the entry-exit filter is the
+schema's ``entry_exit``.
+
+``BD_CFG`` stands in for ``filtered_bd`` (a raypath filter under B/D
+symmetry): ``MULTI_CFG`` with one raypath filter [3, 5] under the symmetry
+"BD" (filter_in) on every entry of both layers.
+
+``PYRAMID3_CFG`` stands in for ``ms3_mixed_pyramid_heavy`` (three layers
+with probabilities 0.8 and 0.75, max_hits 14, NF = 20): three layers with
+probabilities 0.8, 0.75 and 0, each mixing ``POOL_CFG``'s stochastic
+pyramid (id 1) with ``MS_CFG``'s column (id 2) at 70/30; max_hits 14. Its
+fan-out makes one root ray some 100 times the work of a ``BENCH_CFG`` ray.
 """
 
 from __future__ import annotations
@@ -166,3 +198,46 @@ SUNDOG_CFG = copy.deepcopy(BENCH_CFG)
 SUNDOG_CFG["crystal"] = [copy.deepcopy(MS_CFG["crystal"][0])]
 SUNDOG_CFG["filter"] = copy.deepcopy(MS_CFG["filter"])
 SUNDOG_CFG["scene"]["scattering"][0]["entries"][0]["filter"] = 1
+
+MULTI_CFG = copy.deepcopy(BENCH_CFG)
+MULTI_CFG["crystal"] = [copy.deepcopy(MS_CFG["crystal"][0]),
+                        copy.deepcopy(MS_CFG["crystal"][1]),
+                        dict(copy.deepcopy(BENCH_CFG["crystal"][0]), id=3)]
+MULTI_CFG["scene"]["scattering"] = [
+    {"prob": prob, "entries": [{"crystal": 1, "proportion": 40},
+                               {"crystal": 2, "proportion": 30},
+                               {"crystal": 3, "proportion": 30}]}
+    for prob in (0.5, 0.0)
+]
+
+
+def _filtered(doc: dict, filters: list, fid: int) -> dict:
+    """`doc` with `filters` and filter `fid` on every entry of every layer."""
+    out = copy.deepcopy(doc)
+    out["filter"] = filters
+    for layer in out["scene"]["scattering"]:
+        for entry in layer["entries"]:
+            entry["filter"] = fid
+    return out
+
+
+COMPLEX_CFG = _filtered(MULTI_CFG, [
+    {"id": 1, "type": "raypath", "raypath": [3, 5], "symmetry": "P"},
+    {"id": 2, "type": "crystal", "crystal_id": 1},
+    {"id": 3, "type": "entry_exit", "entry": 1, "exit": 3, "symmetry": "P"},
+    {"id": 4, "type": "complex", "composition": [[1, 2], 3], "action": "filter_in"},
+], 4)
+
+BD_CFG = _filtered(MULTI_CFG, [
+    {"id": 1, "type": "raypath", "raypath": [3, 5], "symmetry": "BD", "action": "filter_in"},
+], 1)
+
+PYRAMID3_CFG = copy.deepcopy(BENCH_CFG)
+PYRAMID3_CFG["crystal"] = [copy.deepcopy(POOL_CFG["crystal"][0]),
+                           copy.deepcopy(MS_CFG["crystal"][1])]
+PYRAMID3_CFG["scene"]["max_hits"] = 14
+PYRAMID3_CFG["scene"]["scattering"] = [
+    {"prob": prob, "entries": [{"crystal": 1, "proportion": 70},
+                               {"crystal": 2, "proportion": 30}]}
+    for prob in (0.8, 0.75, 0.0)
+]

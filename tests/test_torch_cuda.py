@@ -643,16 +643,19 @@ def test_trace_emit_reads_base_from_device(dev):
         assert not _same_bits(again, a)
 
 
-@pytest.mark.parametrize("scene", ["bench", "ms"])
+@pytest.mark.parametrize("scene", ["bench", "ms", "ms-sandwich", "filtered_bd-sandwich"])
 def test_graph_replay_equals_eager(dev, monkeypatch, scene):
     """Batches replayed from a CUDA graph give the eager batches' bits:
     one calibrating dispatch and two steady dispatches of four, images,
-    landed weight and stats; one host read per steady dispatch."""
-    from ice_halo_sim_tpu_torch.scenes import MS_CFG
+    landed weight and stats; one host read per steady dispatch. On the
+    sandwich fold the calibrating dispatch runs eagerly in both engines and
+    the steady ones are captured."""
+    from ice_halo_sim_tpu_torch.scenes import BD_CFG, MS_CFG
 
     monkeypatch.setenv("IHT_STEPS_PER_DISPATCH", "4")
-    monkeypatch.setenv("IHT_FOLD", "sort")
-    doc = BENCH_CFG if scene == "bench" else MS_CFG
+    monkeypatch.setenv("IHT_FOLD", "sandwich" if scene.endswith("-sandwich") else "sort")
+    doc = {"bench": BENCH_CFG, "ms": MS_CFG, "ms-sandwich": MS_CFG,
+           "filtered_bd-sandwich": BD_CFG}[scene]
     out = []
     for graphs in (False, True):
         eng = Engine(load_project(doc), seed=7, batch_size=16384, device=dev, graphs=graphs)
@@ -668,6 +671,10 @@ def test_graph_replay_equals_eager(dev, monkeypatch, scene):
     assert se == sg and e.overflow_replays == g.overflow_replays
     for a, b in zip(e.accum, g.accum):
         assert _eq(a, b)
+    if scene.endswith("-sandwich"):
+        assert g.fold_kind == "sandwich"
+        for r in range(len(g.proj_plans)):
+            assert np.array_equal(e._sandwich_dense64(r), g._sandwich_dense64(r))
 
 
 @pytest.mark.parametrize("what", ["compact_rows", "marker tail", "compact_by_key"])

@@ -45,7 +45,8 @@ def test_port_imports_no_jax():
             "ice_halo_sim_tpu_torch.gui.app", "ice_halo_sim_tpu_torch.engine.debug",
             "ice_halo_sim_tpu_torch.kernels.capi", "ice_halo_sim_tpu_torch.core.trace",
             "ice_halo_sim_tpu_torch.parallel.sharding",
-            "ice_halo_sim_tpu_torch.parallel.distributed"} <= set(mods)
+            "ice_halo_sim_tpu_torch.parallel.distributed",
+            "ice_halo_sim_tpu_torch.bench_matrix"} <= set(mods)
     code = (
         "import sys, importlib\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

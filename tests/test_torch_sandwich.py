@@ -511,6 +511,57 @@ def test_level_overflow_is_exact(interpret):
         np.testing.assert_array_equal(a.accum[-1].numpy(), ref.accum[-1].numpy())
 
 
+@pytest.mark.parametrize("level", ["first", "last"])
+def test_level_overflow_in_dispatches_equals_host_choice_and_jax(interpret, monkeypatch, level):
+    """A keep forced below the first or the last level's entrants on every
+    batch. The port folds
+    a dispatch of four batches without the host's choice: every level takes
+    its compacted branch, the overflow is recorded on the device, and each
+    batch is run again with the host's choice, which diverts the entrants to
+    the full-coverage tile. Tiles, landed weights and rows into the last
+    level equal four batches with the host's choice bit for bit, and the
+    image equals the JAX engine's cascade, whose lax.cond diverts inside its
+    step, at the bf16 tolerance of test_engine_matches_jax_engine."""
+    res = (256, 256)
+    j = JEngine(jax_load_project(_mini_cfg(res)), seed=3, batch_size=1 << 12,
+                accum_method="sort")
+    monkeypatch.setenv("IHT_STEPS_PER_DISPATCH", "4")
+    a, b = _port(res), _port(res)
+    for eng in (a, b):
+        for name in COST_NAMES:
+            setattr(eng, name, getattr(j, name))
+    for eng in (j, a, b):
+        eng.run(n_batches=1)
+    _assert_levels_equal(a, j)
+    li = 0 if level == "first" else len(a._levels[0]) - 1
+    assert len(a._levels[0]) >= 2 and a._levels[0][li][1] is not None
+    small = 4096 if level == "first" else 2048
+    for eng in (j, a, b):
+        levels = list(eng._levels[0])
+        levels[li] = (levels[li][0], small)
+        eng._levels[0] = levels
+    j._plan_version += 1                       # the JAX step retraces with the new plan
+    syncs = a.host_syncs
+    a.run(n_batches=4)
+    assert a.overflow_replays == 4 and a.batch_counter == 5
+    assert a.host_syncs > syncs + 4
+    for _ in range(4):
+        b._dev.counter.fill_(b.batch_counter)
+        b._batch(host_choice=True)
+        b.batch_counter += 1
+    assert b.overflow_replays == 0
+    assert all(int(n) > small for n in a.last_level_rows)          # diverted whole
+    assert torch.equal(a.last_level_rows, b.last_level_rows)
+    for x, y in zip(a.accum, b.accum):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+    j.run(n_batches=4)
+    ia, ib = a.raw_xyz(0), np.asarray(j.raw_xyz(0))
+    _assert_images_close(ia, ib)
+    assert np.abs(ia - ib).sum() / np.abs(ib).sum() < 1e-3
+    np.testing.assert_allclose(a.accum[-1].numpy(), np.asarray(j.accum[-1]), rtol=1e-6)
+    assert a.drain_stats().ray_segments == j.drain_stats().ray_segments
+
+
 def _colour_doc():
     doc = _mini_cfg((96, 96))
     doc["raypath_color"] = {"mode": "dominant", "classes": [
