@@ -68,12 +68,19 @@ Phases (any failure raises; the exit code is then non-zero):
   6. the bench entry (python -m ice_halo_sim_tpu_torch.bench) with three
      windows of 2 s; its JSON line;
   7. gradients: the differentiable render (engine/gradient.py, plain
-     PyTorch on autograd, no kernel of its own) on the tilted scene against
-     the committed JAX render (tests/data/torch_port_grad_ref.npz, batch
-     16384) within the CPU tests' tolerances (grad_validation.fixture_check):
-     frozen with the recorded choices, free (score term) and soft_tau; then
-     per mode at batch 65536 the ms per forward and per forward + backward,
-     rays/s, device kernels, busy time, idle share and peak memory;
+     PyTorch on autograd, no kernel of its own), compiled as JAX compiles
+     it (each form a captured forward and backward, engine/graph.py), on
+     the tilted scene against the committed JAX render
+     (tests/data/torch_port_grad_ref.npz, batch 16384) within the CPU tests'
+     tolerances (grad_validation.fixture_check): frozen with the recorded
+     choices, free (score term) and soft_tau; each compiled form against
+     its eager body at batch 65536 (grad_validation.graph_check: images
+     within the splat's tolerance, recorded choices bit for bit, seed_as_arg
+     at two seeds); one replay of each table program (per parameter one
+     captured gradient step and one captured loss) against the eager step;
+     then per mode at batch 65536 and per form (eager, graph, whole step)
+     the ms per forward and per forward + backward, rays/s, device kernels,
+     busy time, idle share, peak memory and the capture's ms;
   8. serving (engine/server.py, engine/checkpoint.py, gui/app.py):
      BENCH_CFG at full width through Server(device="cuda") (its default
      batch 229376), 64 batches from commit to wait_idle, the frame's raw
@@ -88,7 +95,10 @@ Phases (any failure raises; the exit code is then non-zero):
      turns; the Server's steady rate (an infinite budget) alone, with a
      reader at 4 Hz, and at the JAX server's grain (one batch a pump), and
      its share of Engine.run's (at least SERVER_SHARE_MIN); host reads per
-     batch; acquire_frame at 512x256 and at COLOR_CFG's 1024x512; an
+     batch; acquire_frame at 512x256 and at COLOR_CFG's 1024x512, with the
+     snapshot's post-process on the card and, in turns, on the host as
+     before, and the uint8 images of the two within 1 level on at most
+     POST_LEVEL_FRAC of the values; an
      appearance-only recommit (reused, generation kept); layout commits
      while pumping, BENCH_CFG -> MS_CFG (8 batches, its frame bit-equal to
      its Engine twin, which then times Engine.run on MS_CFG) -> MS_CFG
@@ -117,7 +127,8 @@ Phases (any failure raises; the exit code is then non-zero):
      process on the card (exit 0, "iht_smoke OK");
  10. data parallel (parallel/sharding.py, parallel/distributed.py): a
      ShardedEngine over the mesh [cuda:0, cuda:0] (two shards on the one
-     card) at full width renders BENCH_CFG (16 batches a shard: K2, K3, K4,
+     card; batch i launched on every shard before batch i + 1, checked on
+     the first call) at full width renders BENCH_CFG (16 batches a shard: K2, K3, K4,
      graphs), POOL_CFG (2: K2b), MS_CFG (4: compact_rows, K3', K4, the
      continuation) and MS_CFG under IHT_FOLD=sandwich (2: K7), each in two
      calls with the launch counters reset just before and read just after
@@ -168,12 +179,16 @@ nothing of the JAX package.
 from __future__ import annotations
 
 import copy
+import faulthandler
 import gc
 import json
 import os
 import subprocess
 import sys
 import time
+
+# A fault in native code prints every thread's Python stack to stderr.
+faulthandler.enable()
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 112 * 2048
@@ -1343,14 +1358,39 @@ def phase_fold_auto(scenes, device, n_after: int = 3, turns: int = FOLD_TURNS):
     return decided
 
 
+def _event_ms(fn, reps: int) -> float:
+    """Milliseconds per call of fn between two CUDA events on the current
+    stream around each call (one call first, untimed), the median of reps:
+    the device's time for the call and the gaps the host leaves inside it."""
+    import statistics
+
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def _fold_verdict(what, chosen: str, engines: dict, turns: int = FOLD_TURNS):
-    """Device ms per steady batch of each engine (trace and fold, two
-    batches under the profiler), `turns` times in turns; the times are pooled by the
-    fold each engine runs (the auto engine runs `chosen`), so that the
-    spread takes in two engines of one fold as well as the repeats. The
-    decision is right when the other fold's median is slower by more than
-    the larger spread, not separated when the medians lie within it, and
-    else within the 0.1 ms rule or a miss."""
+    """Device ms per steady batch of each engine (trace and fold; CUDA
+    events around each of two batches, _event_ms), `turns` times in turns;
+    the times are pooled by the fold each engine runs (the auto engine runs
+    `chosen`), so that the spread takes in two engines of one fold as well
+    as the repeats. The decision is right when the other fold's median is
+    slower by more than the larger spread, not separated when the medians
+    lie within it, and else within the 0.1 ms rule or a miss.
+
+    Not under torch.profiler: the replay of these engines' captured batches
+    inside a profiler window crashed the process (a segmentation fault in
+    cudaGraphLaunch) in 16 of 38 runs on an H100, each time just after the
+    same replay had run outside the window without fault."""
     import statistics
 
     pooled = {"sort": [], "sandwich": []}
@@ -1358,7 +1398,7 @@ def _fold_verdict(what, chosen: str, engines: dict, turns: int = FOLD_TURNS):
         for name, e in engines.items():
             if name == "auto" and e is engines[chosen]:
                 continue
-            t = _time_ms(lambda e=e: e.run(n_batches=1), 2, f"{name} {what}")
+            t = _event_ms(lambda e=e: e.run(n_batches=1), 2)
             pooled[chosen if name == "auto" else name].append(t)
     med = {k: statistics.median(v) for k, v in pooled.items()}
     spreads = {k: max(v) - min(v) for k, v in pooled.items()}
@@ -1377,7 +1417,7 @@ def _fold_verdict(what, chosen: str, engines: dict, turns: int = FOLD_TURNS):
     print(f"  auto {what}: decided {chosen}; device ms per steady batch, median "
           f"(spread) sandwich {med['sandwich']:.4f} ({spreads['sandwich']:.4f}), sort "
           f"{med['sort']:.4f} ({spreads['sort']:.4f}), all "
-          f"{times}, timed by {_timed_by(*pooled['sort'], *pooled['sandwich'])}; margin "
+          f"{times}, timed by cuda events; margin "
           f"{margin:.4f}: {verdict}", flush=True)
     return {"sandwich_ms": med["sandwich"], "sort_ms": med["sort"], "margin_ms": margin,
             "spread_ms": spread, "verdict": verdict}
@@ -1586,14 +1626,53 @@ def phase_bench(smi):
 
 
 def phase_gradients():
-    """[7]: the gradient path against its JAX fixture, then its timings."""
-    from ice_halo_sim_tpu_torch import grad_validation
+    """[7]: the gradient path, compiled (captured programs), against its
+    JAX fixture; each compiled form against its eager body; one replay of
+    each table program against the eager step; then the timings, eager,
+    graph and whole step, per mode."""
+    import torch
+
+    from ice_halo_sim_tpu_torch import grad_validation as gv
+    from ice_halo_sim_tpu_torch.engine.gradient import default_params, make_render_fn
 
     t0 = time.time()
-    errs = grad_validation.fixture_check("cuda")
-    print(f"[7] gradients against {grad_validation.FIXTURE} (seed 3, batch 16384), "
+    errs = gv.fixture_check("cuda")
+    print(f"[7] gradients (compiled forms) against {gv.FIXTURE} (seed 3, batch 16384), "
           f"errors within tolerance: {json.dumps(errs)}", flush=True)
-    for row in grad_validation.time_modes(1 << 16, "cuda"):
+    errs = gv.graph_check("cuda", batch=1 << 16)
+    if set(errs["graph_mode"].values()) != {"cuda graph"}:
+        raise AssertionError(f"[7] a form did not run as a CUDA graph: {errs['graph_mode']}")
+    print(f"[7] compiled forms against eager (batch 65536; images by the splat's tolerance, "
+          f"choices bit for bit): {json.dumps(errs)}", flush=True)
+    dev = torch.device("cuda", 0)
+    cfg = gv.tilted_cfg()
+    params = default_params(cfg, dev)
+    batch = 1 << 16
+    for name, rep, eps, tau in gv.PARAMS:
+        v0 = float(params.face_distance[0] if name == "face_d0" else getattr(params, name))
+        grad_fn, loss_fn = gv.table_programs(cfg, params, rep, tau, batch, dev, v0)
+        (g,) = grad_fn(v0, 1000)
+        loss = loss_fn(v0 + eps, 1000)
+        hard = make_render_fn(cfg, batch_size=batch, seed_as_arg=True, device=dev)
+        soft = make_render_fn(cfg, batch_size=batch, soft_tau=tau, seed_as_arg=True,
+                              device=dev) if tau else hard
+        v = torch.tensor(v0, device=dev, requires_grad=True)
+        (want,) = torch.autograd.grad(gv.smooth_loss(soft.body(rep(params, v), 1000)), v)
+        with torch.no_grad():
+            want_l = gv.smooth_loss(hard.body(rep(params, torch.tensor(v0 + eps, device=dev)),
+                                              1000))
+        g_err = gv.grad_err(g.cpu().numpy(), want.cpu().numpy())
+        l_err = abs(float(loss) - float(want_l)) / abs(float(want_l))
+        if g_err > gv.GRAD_RTOL["soft" if tau else "free"] or l_err > 2 * gv.IMG_RTOL:
+            raise AssertionError(f"[7] table program {name}: gradient off by {g_err:.3g}, "
+                                 f"loss by {l_err:.3g}")
+        print(f"[7] table programs of {name} ({grad_fn.graph_mode}; captures "
+              f"{grad_fn.capture_ms:.1f} + {loss_fn.capture_ms:.1f} ms, holding "
+              f"{grad_fn.held_bytes + loss_fn.held_bytes} B): one replay each against the "
+              f"eager step, gradient {float(g):.6g} (error {g_err:.3g}), loss "
+              f"{float(loss):.6g} (error {l_err:.3g})", flush=True)
+        del grad_fn, loss_fn
+    for row in gv.time_modes(batch, "cuda"):
         print(f"[7] {json.dumps(row)}", flush=True)
     print(f"[7]: {time.time() - t0:.1f} s", flush=True)
 
@@ -1679,6 +1758,55 @@ def _acquire_ms(srv, reps: int = 5) -> float:
         srv.acquire_frame()
         times.append((time.perf_counter() - t0) * 1e3)
     return sorted(times)[reps // 2]
+
+
+# uint8 values that may differ by one level between the post-process on the
+# card and on the host (powf and the 3 x 3 products differ in their last
+# bits), as a fraction of the values.
+POST_LEVEL_FRAC = 1e-3
+
+
+def _acquire_before_after(srv, res: str, out: dict, what: str = "") -> None:
+    """acquire_frame with the snapshot's post-process on the accumulator's
+    device and, in turns (device, host, host, device; median of 5 each),
+    with it on the host as before (the XYZ image copied to the host and
+    post-processed there); then each render's uint8 image, device against
+    host, within 1 level on at most POST_LEVEL_FRAC of the values."""
+    import numpy as np
+    import torch
+
+    from ice_halo_sim_tpu_torch.core import color
+    from ice_halo_sim_tpu_torch.engine.simulator import Engine
+
+    on_device = Engine._xyz
+    times = {"device": [], "host": []}
+    for form in ("device", "host", "host", "device"):
+        if form == "host":
+            Engine._xyz = lambda self, r=0: torch.as_tensor(on_device(self, r)).cpu()
+        try:
+            times[form].append(_acquire_ms(srv))
+        finally:
+            Engine._xyz = on_device
+    with srv._engine_held():
+        eng = srv._engine
+        landed = eng.accum[-1].cpu().numpy()
+        levels = []
+        for r, rc in enumerate(eng.cfg.renders):
+            args = (rc.intensity_factor, float(landed[r]), rc.background, rc.ray_color)
+            a = color.post_process(eng._xyz(r), *args, use_real_color=rc.ray_color[0] < 0)
+            b = color.post_process(eng.raw_xyz(r), *args, use_real_color=rc.ray_color[0] < 0)
+            d = np.abs(a.astype(int) - b.astype(int))
+            levels.append((int(d.max()), int((d > 0).sum()), d.size))
+            if d.max() > 1 or (d > 0).sum() > POST_LEVEL_FRAC * d.size:
+                raise AssertionError(f"[8] post-process at {res}, render {r}: device against "
+                                     f"host {levels[-1]} (max level, values off, values)")
+    dev_ms, host_ms = float(np.median(times["device"])), float(np.median(times["host"]))
+    out[f"acquire_ms_{res}"] = dev_ms
+    out[f"acquire_ms_{res}_host_post_process"] = host_ms
+    print(f"[8] acquire_frame at {res}{f' ({what})' if what else ''}: post-process on the "
+          f"card {dev_ms:.4f} ms, on the host (as before) {host_ms:.4f} ms (medians of two "
+          f"medians of 5, in turns: {times}); uint8 device against host per render (max "
+          f"level, values off, values): {levels}", flush=True)
 
 
 def _rate_window(srv, seconds: float) -> float:
@@ -1822,9 +1950,7 @@ def phase_serving_bench(srv, device, counts: dict, out: dict) -> None:
           f"call (the JAX server's grain) {steady['one']}: {one_rate / run_rate:.4f} of run "
           f"({one_reads} host reads in {3 + 2 * n} batches)", flush=True)
 
-    ms = _acquire_ms(srv)
-    out["acquire_ms_512x256"] = ms
-    print(f"[8] acquire_frame at 512x256: {ms:.4f} ms (median of 5)", flush=True)
+    _acquire_before_after(srv, "512x256", out)
 
     gen = srv.generation()
     app = copy.deepcopy(doc)
@@ -1999,10 +2125,7 @@ def phase_serving_layouts(srv, device, counts: dict, out: dict) -> None:
     if not srv.wait_idle(timeout=120):
         raise AssertionError("served color: not idle within 120 s")
     _served_counts("color", counts)
-    ms = _acquire_ms(srv)
-    out["acquire_ms_1024x512"] = ms
-    print(f"[8] acquire_frame at COLOR_CFG's 1024x512 (three colour classes, composite): "
-          f"{ms:.4f} ms (median of 5)", flush=True)
+    _acquire_before_after(srv, "1024x512", out, "COLOR_CFG's, three colour classes, composite")
     build.reset_launch_counts()
     srv.commit(_budget(POOL_CFG, 2, BATCH))
     if not srv.wait_idle(timeout=120):
@@ -2485,6 +2608,28 @@ def _turns(fns, reps: int = 2):
     return out
 
 
+def _launch_order(se, n: int) -> str:
+    """se.run(n_batches=n) with Engine._step and Engine._read instrumented:
+    before the first read, batch i must launch on every shard before batch
+    i + 1. Returns the order seen, for the log."""
+    from ice_halo_sim_tpu_torch.engine.simulator import Engine
+
+    step, read = Engine._step, Engine._read
+    events = []
+    Engine._step = lambda self, graph: (events.append(self.shard[0]), step(self, graph))[1]
+    Engine._read = lambda self: (events.append("read"), read(self))[1]
+    try:
+        se.run(n_batches=n)
+    finally:
+        Engine._step, Engine._read = step, read
+    launched = events[:events.index("read")]
+    k = min(n, se.engine.steps_per_dispatch)
+    want = [e.shard[0] for e in se.engines] * k
+    if launched != want:
+        raise AssertionError(f"sharded launch order {launched}, not batch by batch {want}")
+    return f"{len(se.engines)} shards x {k} batches launched batch by batch before a read"
+
+
 def phase_sharded(name, cfg, mesh, batches: int, timed: int, fold: str, kernels, smi,
                   keep_first: bool = False):
     """One scene through ShardedEngine over `mesh` at full width, in two
@@ -2514,7 +2659,7 @@ def phase_sharded(name, cfg, mesh, batches: int, timed: int, fold: str, kernels,
         t.reset()
         t.shard = (d, n)
     build.reset_launch_counts()
-    se.run(n_batches=calls[0])
+    order = _launch_order(se, calls[0])
     _sync_all()
     first = [se.raw_xyz(r) for r in range(len(se.engine.proj_plans))] if keep_first else None
     se.run(n_batches=calls[1])
@@ -2572,7 +2717,7 @@ def phase_sharded(name, cfg, mesh, batches: int, timed: int, fold: str, kernels,
     print(f"[10] sharded {name} on {[str(d) for d in mesh]}: {batches} batches a shard "
           f"({calls[0]} + {calls[1]}), {'bit-equal' if bits else 'within the tile tolerance'} "
           f"to {n} shard engines summed in shard order (every render and the landed "
-          f"weights; rays {se.rays_traced}, segments {se.ray_segments}); launches "
+          f"weights; rays {se.rays_traced}, segments {se.ray_segments}); {order}; launches "
           f"{ {k: v for k, v in counts.items() if v} }; {se.engine.graph_mode}; host reads "
           f"{reads:.2f} per dispatch and shard; sharded {rate_sh:.6g} rays/s against one "
           f"Engine.run of {n * timed} batches {rate_one:.6g} rays/s: "

@@ -211,8 +211,8 @@ def exposure_scale(intensity_factor: float, total_pix: int,
 
 
 def gamut_clip_xyz(xyz):
-    white = torch.as_tensor(WHITE_D65)
-    m = torch.as_tensor(XYZ_TO_RGB)
+    white = const(WHITE_D65, xyz.device)
+    m = const(XYZ_TO_RGB, xyz.device)
     gray = white * xyz[..., 1:2]
     diff = xyz - gray
     a = -(gray @ m.T)
@@ -225,7 +225,7 @@ def gamut_clip_xyz(xyz):
 
 
 def xyz_to_linear_rgb(xyz):
-    return torch.clamp(xyz @ torch.as_tensor(XYZ_TO_RGB).T, 0.0, 1.0)
+    return torch.clamp(xyz @ const(XYZ_TO_RGB, xyz.device).T, 0.0, 1.0)
 
 
 def linear_to_srgb(x):
@@ -238,15 +238,18 @@ def linear_to_srgb(x):
 def post_process(xyz_image, intensity_factor: float, snapshot_intensity: float,
                  background, ray_color, use_real_color: bool = True):
     """Snapshot post-processing: XYZ [H, W, 3] -> uint8 sRGB [H, W, 3]
-    (host-side, float32)."""
-    xyz_image = torch.as_tensor(xyz_image, dtype=F32).cpu()
+    numpy, computed in float32 on the device of `xyz_image` (a tensor; an
+    array is taken on the CPU), as JAX computes it on its device; only the
+    uint8 image is copied to the host."""
+    xyz_image = torch.as_tensor(xyz_image, dtype=F32)
+    dev = xyz_image.device
     h, w, _ = xyz_image.shape
     xyz = xyz_image * exposure_scale(intensity_factor, h * w, snapshot_intensity)
     if use_real_color:
         rgb = xyz_to_linear_rgb(gamut_clip_xyz(xyz))
     else:
-        gray = torch.as_tensor(WHITE_D65) * xyz[..., 1:2]
-        rgb = gray @ torch.as_tensor(XYZ_TO_RGB).T
-        rgb = rgb * torch.as_tensor(ray_color, dtype=F32)
-    rgb = torch.clamp(rgb + torch.as_tensor(background, dtype=F32), 0.0, 1.0)
-    return (linear_to_srgb(rgb) * 255.0).to(torch.uint8).numpy()
+        gray = const(WHITE_D65, dev) * xyz[..., 1:2]
+        rgb = gray @ const(XYZ_TO_RGB, dev).T
+        rgb = rgb * torch.as_tensor(ray_color, dtype=F32, device=dev)
+    rgb = torch.clamp(rgb + torch.as_tensor(background, dtype=F32, device=dev), 0.0, 1.0)
+    return (linear_to_srgb(rgb) * 255.0).to(torch.uint8).cpu().numpy()

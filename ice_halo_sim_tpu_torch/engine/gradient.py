@@ -24,6 +24,16 @@ Differentiable parameters (RenderParams):
 with them reused (frozen-selection finite differences): the score term is
 off and the boundary terms are excluded by construction.
 
+Compiled as JAX compiles it: ``make_render_fn`` returns, for each of JAX's
+``jax.jit`` forms (the plain render, ``seed_as_arg``, and ``frozen_mode``'s
+``render_frozen`` and ``record``), a ``RenderProgram``. On a CUDA device its
+forward and its backward are each a CUDA graph (engine/graph.py
+``GradGraph``), captured at the first call and replayed at every later one,
+so the render is one launch for the host instead of some 3000; on the CPU
+the same body runs eagerly (``graph_mode``). ``RenderProgram.body`` is that
+body, for composing a larger program, such as the whole gradient step of
+grad_validation's table, which graph.StepGraph captures in one graph.
+
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a CUDA device they raise.
 """
@@ -46,8 +56,9 @@ from ice_halo_sim_tpu_torch.core import (
     trace,
     trace_soa,
 )
-from ice_halo_sim_tpu_torch.core.bits import F32, I64
+from ice_halo_sim_tpu_torch.core.bits import F32, I64, MASK32
 from ice_halo_sim_tpu_torch.core.sampling import PI_F, TWO_PI_F
+from ice_halo_sim_tpu_torch.engine import graph as graph_mod
 
 
 class RenderParams(NamedTuple):
@@ -121,6 +132,8 @@ def make_render_fn(cfg: ProjectConfig, render_idx: int = 0, batch_size: int = 1 
     an int64 tensor, read as u32); with frozen_mode the pair
     (render_frozen, record): record(params) -> (img, FrozenChoices) and
     render_frozen(params, choices) re-renders with those choices reused.
+    Each is a ``RenderProgram``: differentiable in params; on a CUDA device
+    a captured forward and backward, replayed per call.
     """
     dev = resolve_device(device)
     pplan = projection.make_proj_plan(cfg.renders[render_idx])
@@ -143,7 +156,7 @@ def make_render_fn(cfg: ProjectConfig, render_idx: int = 0, batch_size: int = 1 
 
     def render_impl(params: RenderParams, frozen=None, record=False, seed_v=None):
         p = RenderParams(*(_f32(x, dev) for x in params))
-        seed_u = rng._t(seed if seed_v is None else seed_v, idx)
+        seed_u = rng._t(seed if seed_v is None else seed_v, idx) & MASK32
 
         # Sun direction with a differentiable altitude: the cap rotation
         # re-derived from the parameter (sampling.sample_sun_dirs_soa's math).
@@ -193,8 +206,63 @@ def make_render_fn(cfg: ProjectConfig, render_idx: int = 0, batch_size: int = 1 
         return (img, choices) if record else img
 
     if frozen_mode:
-        return (lambda params, choices: render_impl(params, frozen=choices),
-                lambda params: render_impl(params, record=True))
+        return (RenderProgram(lambda params, choices: render_impl(params, frozen=choices), dev,
+                              "choices"),
+                RenderProgram(lambda params: render_impl(params, record=True), dev))
     if seed_as_arg:
-        return lambda params, seed_v: render_impl(params, seed_v=seed_v)
-    return lambda params: render_impl(params)
+        return RenderProgram(lambda params, seed_v: render_impl(params, seed_v=seed_v), dev,
+                             "seed")
+    return RenderProgram(render_impl, dev)
+
+
+class RenderProgram:
+    """One compiled form of the differentiable render (JAX: a ``jax.jit``
+    of ``render_impl``): ``prog(params)``, ``prog(params, seed)`` (`extra`
+    "seed") or ``prog(params, choices)`` (`extra` "choices"), returning the
+    image, or for ``record`` (image, FrozenChoices).
+
+    On a CUDA device the first call captures the body's forward and backward
+    (graph.GradGraph) with the params, the seed and the choices as static
+    inputs: a seed given as a number is written into its int64 input by
+    ``fill_``, never baked into the graph, and the choices are copied into
+    theirs. Every later call replays; the result is differentiable in the
+    params (a backward replays the backward graph, and must run before the
+    next call of the same program). On the CPU the body runs eagerly.
+    ``body`` is the eager body itself."""
+
+    def __init__(self, body, device: torch.device, extra: str = None):
+        self.body = body
+        self.device = device
+        self.extra = extra
+        self.graph = None
+
+    @property
+    def graph_mode(self) -> str:
+        """'cuda graph' on a CUDA device, 'eager' on the CPU."""
+        return "cuda graph" if self.device.type == "cuda" else "eager"
+
+    def _flat_body(self, *args):
+        """The body over flat tensors (5 params, then the seed or the six
+        choice fields), returning the image and any recorded choices flat."""
+        p = RenderParams(*args[:5])
+        x = args[5:]
+        out = self.body(p, trace_soa.FrozenChoices(*x)) if self.extra == "choices" else \
+            self.body(p, *x)
+        return out if isinstance(out, torch.Tensor) else (out[0], *out[1])
+
+    def __call__(self, params, *extra):
+        if self.device.type != "cuda":
+            return self.body(params, *extra)
+        dev = self.device
+        args = [_f32(x, dev) for x in params]
+        if self.extra == "choices":
+            args += list(extra[0])
+        elif self.extra == "seed":
+            seed = extra[0]
+            args.append(seed if isinstance(seed, torch.Tensor) else int(seed) & MASK32)
+        if self.graph is None:
+            examples = [a if isinstance(a, torch.Tensor)
+                        else torch.full((), a, dtype=I64, device=dev) for a in args]
+            self.graph = graph_mod.GradGraph(self._flat_body, examples, dev, diff=range(5))
+        outs = graph_mod.GradGraph.apply(self.graph, *args)
+        return outs[0] if len(outs) == 1 else (outs[0], trace_soa.FrozenChoices(*outs[1:]))

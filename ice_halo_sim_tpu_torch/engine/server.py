@@ -344,6 +344,10 @@ class Server:
                 ev_auto=evs,
             )
 
+    def device(self) -> torch.device:
+        """The device the server's engines run on."""
+        return self._device
+
     def config(self):
         """The committed ProjectConfig (None before the first commit)."""
         with self._cv:

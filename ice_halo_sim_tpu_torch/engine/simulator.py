@@ -56,9 +56,10 @@ sums from a snapshot taken before the dispatch, runs the batches before it
 again, runs the overflowing batch eagerly with host reads (the full fold,
 the global continuation sort) and goes on after it (``overflow_replays``).
 The image equals a per-batch choice in batch order, bit for bit. A
-dispatch is a launch part (``_launch``: the snapshot and the batches) and a
-read part (``_read``: that one read and the replay), so a data-parallel run
-(parallel/sharding.py) queues every shard's batches before its first read.
+dispatch is a launch part (``_launch``: a prologue with the snapshot, the
+batches one ``_step`` each, an epilogue) and a read part (``_read``: that
+one read and the replay), so a data-parallel run (parallel/sharding.py)
+queues batch i of every shard before batch i + 1 and reads after them all.
 An engine is one shard ``(index, count)`` of such a run (default (0, 1)):
 its batch c traces the rays from (c * count + index) * span on, and samples
 the crystal shapes and the continuation salt of the plain counter c.
@@ -1536,19 +1537,24 @@ class Engine:
                 self.fold_kind, levels, self.shard, tuple(t.data_ptr() for t in self.accum),
                 tuple(t.data_ptr() for t in self._dev))
 
-    def _steady(self, n: int) -> None:
-        """n batches with no host read: replays of the captured batch (a new
+    def _step(self, graph: bool) -> None:
+        """One batch with no host read: a replay of the captured batch (a new
         capture, which runs one batch itself, when the plan or an address
-        changed), or eager batches that choose on the device."""
+        changed) when `graph`, else an eager batch that chooses on the
+        device."""
+        if not graph:
+            self._batch()
+        elif self._graph is None or self._graph.key != self._graph_key():
+            self._graph = None
+            self._graph = graph_mod.BatchGraph(self._batch, self._graph_key(), self.device)
+        else:
+            self._graph.replay()
+
+    def _steady(self, n: int) -> None:
+        """n batches with no host read (``_step``)."""
         graph = self.graph_mode == "cuda graph"
         for _ in range(n):
-            if not graph:
-                self._batch()
-            elif self._graph is None or self._graph.key != self._graph_key():
-                self._graph = None
-                self._graph = graph_mod.BatchGraph(self._batch, self._graph_key(), self.device)
-            else:
-                self._graph.replay()
+            self._step(graph)
 
     def _overflow_possible(self) -> bool:
         """Whether a batch can take a compacted branch that its rows
@@ -1576,9 +1582,17 @@ class Engine:
 
     def _launch(self, k: int) -> None:
         """The launch part of a dispatch of k full batches from the host
-        count on: a snapshot of the state (when a batch can overflow), then
-        the k batches, with no host read. A data-parallel run launches every
-        shard's batches before the first read (``_read``)."""
+        count on, with no host read: the prologue, the k batches
+        (``_step``), the epilogue. A data-parallel run does the three parts
+        itself, so as to launch batch i on every shard before batch i + 1,
+        and reads every shard after (``_read``)."""
+        guard = self._launch_prologue()
+        self._steady(k)
+        self._launch_epilogue(k, guard)
+
+    def _launch_prologue(self) -> bool:
+        """The device counter from the host count, and a snapshot of the
+        state when a batch can overflow; returns whether it took one."""
         d = self._dev
         d.counter.fill_(self.batch_counter)
         guard = self._overflow_possible()
@@ -1590,7 +1604,10 @@ class Engine:
             for s, t in zip(self._snap, state):
                 s.copy_(t)
             d.first_over.fill_(-1)
-        self._steady(k)
+        return guard
+
+    def _launch_epilogue(self, k: int, guard: bool) -> None:
+        """What ``_read`` needs of the k batches just launched."""
         self._pending = (self.batch_counter, k, guard)
 
     def _read(self) -> None:
@@ -1769,10 +1786,17 @@ class Engine:
         return self.stats
 
     def raw_xyz(self, render_idx: int = 0) -> np.ndarray:
+        xyz = self._xyz(render_idx)
+        return xyz if isinstance(xyz, np.ndarray) else xyz.cpu().numpy()
+
+    def _xyz(self, render_idx: int = 0):
+        """``raw_xyz`` where the image lies: a float32 [H, W, 3] view of the
+        accumulator on the engine's device, or on the sandwich fold the
+        numpy image assembled on the host."""
         p = self.proj_plans[render_idx]
         if self._sandwich_on:
             return self._sandwich_dense(render_idx).reshape(p.height, p.width, 3)
-        return self.accum[render_idx][:, :3].cpu().numpy().reshape(p.height, p.width, 3)
+        return self.accum[render_idx][:, :3].reshape(p.height, p.width, 3)
 
     def lane_y(self, render_idx: int = 0) -> Optional[np.ndarray]:
         """Raw per-colour-class Y lanes [C, H, W] of one render."""
@@ -1798,12 +1822,15 @@ class Engine:
         )
 
     def snapshot(self):
-        """uint8 sRGB image per render."""
+        """uint8 sRGB image per render, post-processed on the engine's
+        device (the sandwich fold's host image uploaded, as JAX's snapshot
+        does); only the uint8 image comes to the host."""
         landed = self.accum[-1].cpu().numpy()
         images = []
-        for r, (pplan, rcfg) in enumerate(zip(self.proj_plans, self.cfg.renders)):
+        for r, rcfg in enumerate(self.cfg.renders):
             images.append(color.post_process(
-                self.raw_xyz(r), rcfg.intensity_factor, float(landed[r]),
+                torch.as_tensor(self._xyz(r)).to(self.device), rcfg.intensity_factor,
+                float(landed[r]),
                 rcfg.background, rcfg.ray_color,
                 use_real_color=rcfg.ray_color[0] < 0,
             ))

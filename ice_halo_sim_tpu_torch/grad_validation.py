@@ -17,6 +17,13 @@
 One JSON line per result, each naming the device (and on a CUDA device the
 card's name and power limit); exit 0 iff every acceptance bound holds. The
 device is CUDA unless ``--device cpu`` is given.
+
+Compiled as the JAX script compiles it: per (param, path) the table builds
+ONE gradient program (``jax.jit(jax.grad(...))``: forward, loss and
+backward captured as one CUDA graph, engine/graph.py ``StepGraph``) and ONE
+loss program (the forward alone), with the parameter value and the seed as
+static inputs, and replays them for every seed; the demo's step is one such
+gradient program. On the CPU the same programs run eagerly.
 """
 
 from __future__ import annotations
@@ -106,9 +113,30 @@ def card(dev: torch.device) -> dict:
     return out
 
 
+def table_programs(cfg, params, rep, tau, batch: int, device, v0: float = 0.0):
+    """The table's two programs for one (param, path), as JAX's table
+    builds them: grad_fn(v, seed) = d/dv smooth_loss(soft(rep(params, v),
+    seed)) (soft: the soft_tau render when tau is set, else the hard one)
+    and loss_fn(v, seed) = smooth_loss(hard(rep(params, v), seed)); v a
+    float32 scalar, seed an int64 scalar read as u32 (numbers or tensors).
+    Each a graph.StepGraph: captured on a CUDA device (warmed up at v0),
+    eager on the CPU."""
+    from ice_halo_sim_tpu_torch.engine.gradient import make_render_fn
+    from ice_halo_sim_tpu_torch.engine.graph import StepGraph
+
+    hard = make_render_fn(cfg, batch_size=batch, seed_as_arg=True, device=device)
+    soft = (make_render_fn(cfg, batch_size=batch, soft_tau=tau, seed_as_arg=True,
+                           device=device) if tau else hard)
+    example = (torch.tensor(v0, dtype=torch.float32), torch.tensor(1000, dtype=torch.int64))
+    grad_fn = StepGraph(lambda v, sd: smooth_loss(soft.body(rep(params, v), sd)), example,
+                        device, grad_wrt=(0,))
+    loss_fn = StepGraph(lambda v, sd: smooth_loss(hard.body(rep(params, v), sd)), example,
+                        device)
+    return grad_fn, loss_fn
+
+
 def run_table(rays: int, batch: int, device="cuda") -> int:
-    from ice_halo_sim_tpu_torch.engine.gradient import (default_params, make_render_fn,
-                                                        resolve_device)
+    from ice_halo_sim_tpu_torch.engine.gradient import default_params, resolve_device
 
     dev = resolve_device(device)
     cfg = tilted_cfg()
@@ -122,19 +150,16 @@ def run_table(rays: int, batch: int, device="cuda") -> int:
     for name, rep, eps, tau in PARAMS:
         v0 = float(params.face_distance[0] if name == "face_d0" else getattr(params, name))
         t0 = time.time()
-        hard = make_render_fn(cfg, batch_size=batch, seed_as_arg=True, device=dev)
-        soft = (make_render_fn(cfg, batch_size=batch, soft_tau=tau, seed_as_arg=True,
-                               device=dev) if tau else hard)
-        f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
+        # ONE compiled program per (param, path): the value and the seed are
+        # static inputs, so seed averaging replays and never captures again.
+        grad_fn, loss_fn = table_programs(cfg, params, rep, tau, batch, dev, v0)
+        t_capture = time.time() - t0
         gs, lps, lms = [], [], []
         for s in range(n_seeds):
             sd = 1000 + s
-            v = f32(v0).requires_grad_(True)
-            (g,) = torch.autograd.grad(smooth_loss(soft(rep(params, v), sd)), v)
-            gs.append(g)
-            with torch.no_grad():
-                lps.append(smooth_loss(hard(rep(params, f32(v0 + eps)), sd)))
-                lms.append(smooth_loss(hard(rep(params, f32(v0 - eps)), sd)))
+            gs.append(grad_fn(v0, sd)[0])
+            lps.append(loss_fn(v0 + eps, sd))
+            lms.append(loss_fn(v0 - eps, sd))
         grads = torch.stack(gs).double().cpu().numpy()
         fds = ((torch.stack(lps).double() - torch.stack(lms).double()) / (2 * eps)).cpu().numpy()
         g, fd = float(np.mean(grads)), float(np.mean(fds))
@@ -151,8 +176,11 @@ def run_table(rays: int, batch: int, device="cuda") -> int:
             "rel_err": round(rel, 4), "se_grad": se_g, "se_fd": se_fd,
             "soft_tau": tau, "fd_eps": eps,
             "rays": n_seeds * batch, "pass": bool(passed),
-            "wall_s": round(time.time() - t0, 1), **where,
+            "wall_s": round(time.time() - t0, 1), "capture_s": round(t_capture, 2),
+            "graph_mode": grad_fn.graph_mode,
+            "held_bytes": grad_fn.held_bytes + loss_fn.held_bytes, **where,
         }), flush=True)
+        del grad_fn, loss_fn
     print(json.dumps({"table_wall_s": round(time.time() - t_all, 1), "pass": bool(ok),
                       **where}), flush=True)
     return 0 if ok else 1
@@ -161,9 +189,12 @@ def run_table(rays: int, batch: int, device="cuda") -> int:
 def run_demo(iters: int, batch: int, device="cuda") -> int:
     """Recover a perturbed prism height by gradient descent (Adam on the
     soft_tau estimator's gradient, a fresh seed per step) on a target
-    rendered with the same estimator at the true height."""
+    rendered with the same estimator at the true height. The step is one
+    captured gradient program (graph.StepGraph), the target's renders
+    replays of the compiled seed_as_arg render."""
     from ice_halo_sim_tpu_torch.engine.gradient import (default_params, make_render_fn,
                                                         resolve_device)
+    from ice_halo_sim_tpu_torch.engine.graph import StepGraph
 
     dev = resolve_device(device)
     cfg = tilted_cfg()
@@ -189,11 +220,13 @@ def run_demo(iters: int, batch: int, device="cuda") -> int:
     lr0, b1, b2 = 0.02, 0.8, 0.95
     tail = []
     t0 = time.time()
+    grad_fn = StepGraph(
+        lambda hv, sd: torch.sum((blur(fn.body(params._replace(height=hv), sd)) - target)
+                                 ** 2) * 1e-3,
+        (torch.tensor(h, dtype=torch.float32), torch.tensor(9000, dtype=torch.int64)), dev,
+        grad_wrt=(0,))
     for it in range(iters):
-        hv = torch.tensor(h, dtype=torch.float32, device=dev, requires_grad=True)
-        loss = torch.sum((blur(fn(params._replace(height=hv), 9000 + it)) - target) ** 2) * 1e-3
-        (g,) = torch.autograd.grad(loss, hv)
-        g = float(g)
+        g = float(grad_fn(h, 9000 + it)[0])
         m = b1 * m + (1 - b1) * g
         v = b2 * v + (1 - b2) * g * g
         mh = m / (1 - b1 ** (it + 1))
@@ -211,7 +244,7 @@ def run_demo(iters: int, batch: int, device="cuda") -> int:
         "demo": "height_recovery", "h_true": h_true, "h_start": h_true - 0.12,
         "h_final": round(h, 5), "abs_err": round(err, 5),
         "iters": iters, "rays_per_iter": batch,
-        "wall_s": round(time.time() - t0, 1),
+        "wall_s": round(time.time() - t0, 1), "graph_mode": grad_fn.graph_mode,
         "pass": bool(err < 0.02), **where,
     }), flush=True)
     return 0 if err < 0.02 else 1
@@ -336,17 +369,81 @@ def fixture_check(device) -> dict:
     return errs
 
 
+def graph_check(device="cuda", batch: int = 1 << 14) -> dict:
+    """Each compiled form of make_render_fn (on a CUDA device: captured
+    programs) against its eager body on the same device: the plain render
+    (free, and soft_tau) at seed 3, seed_as_arg at seeds 11 and 12 (a
+    seed baked into a graph would give one image for both), record's
+    choices bit for bit and its image, and render_frozen fed those choices.
+    Images by
+    ``image_errors`` (the splat adds with float atomics on CUDA: a
+    tolerance, not bits), gradients of smooth_loss to every param within
+    GRAD_RTOL of the mode. Raises AssertionError on a failure; returns the
+    measured errors and each program's graph_mode."""
+    from ice_halo_sim_tpu_torch.engine.gradient import (RenderParams, default_params,
+                                                        make_render_fn, resolve_device)
+
+    dev = resolve_device(device)
+    cfg = tilted_cfg()
+    params = default_params(cfg, dev)
+    tau, seed, seeds = 0.005, 3, (11, 12)
+    render_frozen, record = make_render_fn(cfg, batch_size=batch, seed=seed,
+                                           frozen_mode=True, device=dev)
+    with torch.no_grad():
+        img_r, ch_r = record(params)
+        img_e, ch_e = record.body(params)
+    errs = {"record_flipped_rays": flipped_rays([c.cpu().numpy() for c in ch_r],
+                                                [c.cpu().numpy() for c in ch_e])}
+    bad = [] if errs["record_flipped_rays"] == 0 else ["record's choices differ"]
+    e = errs["record_img"] = image_errors("free", img_r.cpu().numpy(), img_e.cpu().numpy())
+    bad += [] if e["ok"] else [f"record image {e}"]
+    by_seed = make_render_fn(cfg, batch_size=batch, seed_as_arg=True, device=dev)
+    cases = [("free", make_render_fn(cfg, batch_size=batch, seed=seed, device=dev), ()),
+             ("soft", make_render_fn(cfg, batch_size=batch, seed=seed, soft_tau=tau,
+                                     device=dev), ()),
+             ("frozen", render_frozen, (ch_e,))]
+    cases += [(f"free seed {sd}", by_seed, (sd,)) for sd in seeds]
+    errs["graph_mode"] = {"record": record.graph_mode}
+    for what, prog, extra in cases:
+        mode = what.split()[0]
+        out = {}
+        for form, fn in (("graph", prog), ("eager", prog.body)):
+            p = RenderParams(*(x.detach().clone().requires_grad_(True) for x in params))
+            img = fn(p, *extra)
+            grads = torch.autograd.grad(smooth_loss(img), list(p), allow_unused=True,
+                                        materialize_grads=True)
+            out[form] = (img.detach().cpu().numpy(), [g.cpu().numpy() for g in grads])
+        errs["graph_mode"][what] = prog.graph_mode
+        e = errs[f"{what}_img"] = image_errors(mode, out["graph"][0], out["eager"][0])
+        bad += [] if e["ok"] else [f"{what} image {e}"]
+        for name, g, w in zip(RenderParams._fields, out["graph"][1], out["eager"][1]):
+            e = errs[f"{what}_grad_{name}"] = grad_err(g, w)
+            bad += [] if e <= GRAD_RTOL[mode] else [f"{what} d/d{name} off by {e:.3g}"]
+    if bad:
+        raise AssertionError("compiled render against eager: " + "; ".join(bad))
+    return errs
+
+
 def time_modes(batch: int = 1 << 16, device="cuda", reps: int = 10) -> list:
     """Per mode (hard with the score term, soft_tau 0.005, frozen with the
-    base point's recorded choices) on the tilted scene: ms per forward (no
-    graph, as the finite differences call it) and per forward + backward of
-    smooth_loss to all five params (host clock to a synchronise, the median
-    of reps calls), device busy time, device kernels and idle share of one
-    forward + backward (torch.profiler), and the peak memory allocated."""
+    base point's recorded choices) on the tilted scene, one row per form:
+    "eager" (the render's body, as PyTorch runs it op by op), and on a CUDA
+    device "graph" (make_render_fn's compiled program: a captured forward,
+    and for the backward a captured backward, smooth_loss between them
+    eager) and "step" (the whole step as grad_validation's table runs it:
+    forward, loss and backward to all five params in one captured graph,
+    and the forward and loss in another). Each row: ms per forward (no
+    gradient, as the finite differences call it) and per forward + backward
+    of smooth_loss to all five params (host clock to a synchronise, the
+    median of reps calls), rays/s; on a CUDA device the device busy time,
+    device kernels and idle share of one forward + backward
+    (torch.profiler), the peak memory allocated during one, and for the
+    compiled forms the capture's ms and the memory the programs hold."""
     from torch.profiler import ProfilerActivity, profile
 
     from ice_halo_sim_tpu_torch.engine.gradient import (RenderParams, default_params,
                                                         make_render_fn, resolve_device)
+    from ice_halo_sim_tpu_torch.engine.graph import StepGraph
 
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
@@ -355,18 +452,19 @@ def time_modes(batch: int = 1 << 16, device="cuda", reps: int = 10) -> list:
     params = default_params(cfg, dev)
     render_frozen, record = make_render_fn(cfg, batch_size=batch, frozen_mode=True, device=dev)
     with torch.no_grad():
-        _, choices = record(params)
-    fns = {"hard": make_render_fn(cfg, batch_size=batch, device=dev),
-           "soft_tau=0.005": make_render_fn(cfg, batch_size=batch, soft_tau=0.005, device=dev),
-           "frozen": lambda p: render_frozen(p, choices)}
+        _, choices = record.body(params)
+    progs = {"hard": (make_render_fn(cfg, batch_size=batch, device=dev), ()),
+             "soft_tau=0.005": (make_render_fn(cfg, batch_size=batch, soft_tau=0.005,
+                                               device=dev), ()),
+             "frozen": (render_frozen, (choices,))}
 
-    def fwd(fn):
+    def fwd(render):
         with torch.no_grad():
-            return smooth_loss(fn(params))
+            return smooth_loss(render(params))
 
-    def fwd_bwd(fn):
+    def fwd_bwd(render):
         p = RenderParams(*(x.detach().clone().requires_grad_(True) for x in params))
-        return torch.autograd.grad(smooth_loss(fn(p)), list(p), allow_unused=True)
+        return torch.autograd.grad(smooth_loss(render(p)), list(p), allow_unused=True)
 
     def wall_ms(call):
         """Median over reps of one call to a synchronise (host-bound calls
@@ -382,23 +480,45 @@ def time_modes(batch: int = 1 << 16, device="cuda", reps: int = 10) -> list:
         return float(np.median(times))
 
     rows = []
-    for mode, fn in fns.items():
-        f_ms = wall_ms(lambda: fwd(fn))
-        fb_ms = wall_ms(lambda: fwd_bwd(fn))
-        row = {"mode": mode, "batch": batch, "fwd_ms": f_ms, "fwd_bwd_ms": fb_ms,
-               "rays_per_s": batch / (fb_ms * 1e-3), **card(dev)}
+    for mode, (prog, extra) in progs.items():
+        forms = {"eager": (lambda b=prog.body, x=extra: fwd(lambda p: b(p, *x)),
+                           lambda b=prog.body, x=extra: fwd_bwd(lambda p: b(p, *x)), None)}
         if cuda:
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                fwd_bwd(fn)
+            fwd_bwd(lambda p: prog(p, *extra))      # the capture
+            forms["graph"] = (lambda: fwd(lambda p: prog(p, *extra)),
+                              lambda: fwd_bwd(lambda p: prog(p, *extra)),
+                              (prog.graph.capture_ms, prog.graph.held_bytes))
+
+            def loss(*p, body=prog.body, x=extra):
+                return smooth_loss(body(RenderParams(*p), *x))
+
+            f_step = StepGraph(loss, list(params), dev)
+            fb_step = StepGraph(loss, list(params), dev, grad_wrt=range(5))
+            forms["step"] = (lambda f=f_step: f(*params), lambda f=fb_step: f(*params),
+                             (f_step.capture_ms + fb_step.capture_ms,
+                              f_step.held_bytes + fb_step.held_bytes))
+        for form, (f_call, fb_call, compiled) in forms.items():
+            f_ms = wall_ms(f_call)
+            fb_ms = wall_ms(fb_call)
+            row = {"mode": mode, "form": form, "batch": batch, "fwd_ms": f_ms,
+                   "fwd_bwd_ms": fb_ms, "rays_per_s": batch / (fb_ms * 1e-3), **card(dev)}
+            if cuda:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    fb_call()
+                    sync()
+                ev = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+                busy = sum(e.self_device_time_total for e in ev) / 1e3
+                torch.cuda.reset_peak_memory_stats(dev)
+                fb_call()
                 sync()
-            ev = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-            busy = sum(e.self_device_time_total for e in ev) / 1e3
-            torch.cuda.reset_peak_memory_stats(dev)
-            fwd_bwd(fn)
-            sync()
-            row.update(kernels=sum(e.count for e in ev),
-                       busy_ms=busy if busy > 0 else None,
-                       idle_share=1.0 - busy / fb_ms if busy > 0 else None,
-                       peak_mem_bytes=torch.cuda.max_memory_allocated(dev))
-        rows.append(row)
+                row.update(kernels=sum(e.count for e in ev),
+                           busy_ms=busy if busy > 0 else None,
+                           idle_share=1.0 - busy / fb_ms if busy > 0 else None,
+                           peak_mem_bytes=torch.cuda.max_memory_allocated(dev))
+                if compiled is not None:
+                    row.update(capture_ms=compiled[0], held_bytes=compiled[1])
+            rows.append(row)
+        del forms
+        if cuda:
+            torch.cuda.empty_cache()
     return rows

@@ -294,6 +294,8 @@ class GuiApp:
         return bool(self._frame is not None and self._frame.is_idle)
 
     def render_png(self, r: int, ev: float) -> Optional[bytes]:
+        import torch
+
         from ice_halo_sim_tpu_torch.core import color
         from ice_halo_sim_tpu_torch.utils.png import encode_png
 
@@ -303,8 +305,9 @@ class GuiApp:
         if abs(ev) < 1e-6:
             return encode_png(np.asarray(frame.images[r]))
         rcfg = self.server.config().renders[r]
+        # On the server's device, as JAX re-tone-maps on its device.
         img = color.post_process(
-            frame.raw_xyz[r],
+            torch.as_tensor(frame.raw_xyz[r]).to(self.server.device()),
             rcfg.intensity_factor * float(2.0 ** ev),
             float(frame.landed[r]),
             rcfg.background, rcfg.ray_color,

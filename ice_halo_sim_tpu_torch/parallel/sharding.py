@@ -13,10 +13,12 @@ from the base (c * n + d) * span on, span = batch_size * (layers + 1): JAX's
 samples the same crystal shapes and the same continuation salt and differs
 only in its rays, as in JAX.
 
-``run`` launches every shard's dispatch before it reads any (the Engine's
-launch and read parts), so on several cards the shards' batches overlap as
-in JAX's one ``shard_map`` program; a device listed twice (two shards on one
-card) queues both shards on that card's stream, one after the other.
+``run`` launches batch i on every shard before batch i + 1, and reads the
+shards only after the dispatch's last batch (the Engine's launch prologue,
+one ``_step`` a batch, its epilogue, then ``_read``), so on several cards
+every card starts at once, as in JAX's one ``shard_map`` program; a device
+listed twice (two shards on one card) queues both shards' batches on that
+card's stream in turn.
 
 Differences from the JAX module, all deliberate:
   - the trace kernel path runs sharded (JAX's ``shard_map`` body never ran
@@ -138,14 +140,21 @@ class ShardedEngine:
 
     def run(self, n_batches: int = 1):
         """n_batches batches on every shard from the shared counter: per
-        dispatch every shard's launch part, then every shard's read part.
-        The dropped weight and the segments are summed over shards once."""
+        dispatch every shard's launch prologue, then batch i on every shard
+        in turn for each i, then every shard's epilogue and read part (its
+        overflow replay, if any, its own). The dropped weight and the
+        segments are summed over shards once."""
         spd = self.engine.steps_per_dispatch
         done = 0
         while done < n_batches:
             k = min(spd, n_batches - done)
-            for eng in self.engines:
-                eng._launch(k)
+            guards = [eng._launch_prologue() for eng in self.engines]
+            graphs = [eng.graph_mode == "cuda graph" for eng in self.engines]
+            for _ in range(k):
+                for eng, graph in zip(self.engines, graphs):
+                    eng._step(graph)
+            for eng, guard in zip(self.engines, guards):
+                eng._launch_epilogue(k, guard)
             for eng in self.engines:
                 eng._read()
             done += k
@@ -176,7 +185,10 @@ class ShardedEngine:
                 o.add_(a.to(dev0))
         return [self._reduce(o) for o in out]
 
-    def _xyz(self, r: int, drained=None) -> np.ndarray:
+    def _xyz(self, r: int, drained=None):
+        """Render r's summed XYZ image [H, W, 3] float32 where it lies: on
+        the first shard's device, or on the sandwich fold the numpy image
+        summed on the host in float64."""
         p = self.engine.proj_plans[r]
         if self.engine._sandwich_on:
             img = self.engines[0]._sandwich_dense64(r)
@@ -186,19 +198,22 @@ class ShardedEngine:
             return img.reshape(p.height, p.width, 3)
         if drained is None:
             drained = self.drained_accum()
-        return drained[r][:, :3].cpu().numpy().reshape(p.height, p.width, 3)
+        return drained[r][:, :3].reshape(p.height, p.width, 3)
 
     def raw_xyz(self, render_idx: int = 0) -> np.ndarray:
-        return self._xyz(render_idx)
+        xyz = self._xyz(render_idx)
+        return xyz if isinstance(xyz, np.ndarray) else xyz.cpu().numpy()
 
     def snapshot(self):
-        """uint8 sRGB image per render, from the drained accumulators."""
+        """uint8 sRGB image per render, from the drained accumulators,
+        post-processed on the first shard's device (as Engine.snapshot)."""
         drained = self.drained_accum()
         landed = drained[-1].cpu().numpy()
         images = []
         for r, rcfg in enumerate(self.cfg.renders):
             images.append(color.post_process(
-                self._xyz(r, drained), rcfg.intensity_factor, float(landed[r]),
+                torch.as_tensor(self._xyz(r, drained)).to(self.engine.device),
+                rcfg.intensity_factor, float(landed[r]),
                 rcfg.background, rcfg.ray_color, use_real_color=rcfg.ray_color[0] < 0,
             ))
         return images

@@ -717,3 +717,151 @@ def accum_kernel_sets():
     from ice_halo_sim_tpu_torch.kernels import kernel_set
 
     return kernel_set("cuda"), kernel_set("plain")
+
+
+# --- The compiled gradient render (engine/gradient.py over engine/graph.py) --
+# Graph against eager on the card: images by grad_validation.image_errors
+# (the splat adds with float atomics: a tolerance, never bits), gradients
+# within GRAD_RTOL of the mode, recorded choices bit for bit.
+
+def test_gradient_forms_graph_against_eager(dev):
+    """Each of make_render_fn's four forms (plain, free and soft_tau;
+    seed_as_arg at two seeds; record; render_frozen) as captured programs
+    against its eager body (grad_validation.graph_check), and the graph
+    mode of each is a CUDA graph."""
+    from ice_halo_sim_tpu_torch import grad_validation
+
+    errs = grad_validation.graph_check(dev, batch=1 << 14)
+    assert errs["record_flipped_rays"] == 0
+    assert set(errs["graph_mode"].values()) == {"cuda graph"}
+
+
+def test_gradient_graph_takes_each_seed(dev):
+    """The seed_as_arg program replayed at two seeds, numbers and an int64
+    tensor in turn: each image equals eager at its own seed (a seed baked
+    into the capture would repeat the first image), and the two differ."""
+    from ice_halo_sim_tpu_torch import grad_validation as gv
+    from ice_halo_sim_tpu_torch.engine.gradient import default_params, make_render_fn
+
+    cfg = gv.tilted_cfg()
+    params = default_params(cfg, dev)
+    fn = make_render_fn(cfg, batch_size=1 << 14, seed_as_arg=True, device=dev)
+    with torch.no_grad():
+        imgs = [fn(params, 11), fn(params, torch.tensor(12, device=dev)), fn(params, 11)]
+        for img, sd in zip(imgs, (11, 12, 11)):
+            e = gv.image_errors("free", img.cpu().numpy(), fn.body(params, sd).cpu().numpy())
+            assert e["ok"], (sd, e)
+    assert fn.graph_mode == "cuda graph" and fn.graph is not None
+    assert not torch.equal(imgs[0], imgs[1])
+    assert gv.image_errors("free", imgs[2].cpu().numpy(), imgs[0].cpu().numpy())["ok"]
+
+
+def test_table_programs_replay_against_eager(dev):
+    """Per parameter, the table's gradient and loss programs (one capture
+    each) replayed at two seeds against the eager step at the same (v,
+    seed): gradients within GRAD_RTOL, the loss within 2 * IMG_RTOL."""
+    from ice_halo_sim_tpu_torch import grad_validation as gv
+    from ice_halo_sim_tpu_torch.engine.gradient import default_params, make_render_fn
+
+    cfg = gv.tilted_cfg()
+    params = default_params(cfg, dev)
+    B = 1 << 14
+    for name, rep, eps, tau in gv.PARAMS:
+        v0 = float(params.face_distance[0] if name == "face_d0" else getattr(params, name))
+        grad_fn, loss_fn = gv.table_programs(cfg, params, rep, tau, B, dev, v0)
+        assert grad_fn.graph_mode == loss_fn.graph_mode == "cuda graph"
+        hard = make_render_fn(cfg, batch_size=B, seed_as_arg=True, device=dev)
+        soft = make_render_fn(cfg, batch_size=B, soft_tau=tau, seed_as_arg=True,
+                              device=dev) if tau else hard
+        for sd in (1000, 1001):
+            (g,) = grad_fn(v0, sd)
+            loss = loss_fn(v0 + eps, sd)
+            v = torch.tensor(v0, device=dev, requires_grad=True)
+            (want,) = torch.autograd.grad(gv.smooth_loss(soft.body(rep(params, v), sd)), v)
+            with torch.no_grad():
+                want_l = gv.smooth_loss(hard.body(rep(params, torch.tensor(
+                    v0 + eps, device=dev)), sd))
+            err = gv.grad_err(g.cpu().numpy(), want.cpu().numpy())
+            assert err <= gv.GRAD_RTOL["soft" if tau else "free"], (name, sd, err)
+            assert abs(float(loss) - float(want_l)) <= 2 * gv.IMG_RTOL * abs(float(want_l))
+
+
+def test_grad_graph_backward_after_a_later_forward_raises(dev):
+    """A backward needs the tensors its forward saved in the graph's pool:
+    after a later call of the same program has replayed over them, it
+    raises instead of returning the later call's gradient."""
+    from ice_halo_sim_tpu_torch.engine.graph import GradGraph
+
+    g = GradGraph(lambda x: (x * x).sum(), (torch.ones(4, device=dev),), dev, diff=(0,))
+    a = torch.full((4,), 2.0, device=dev, requires_grad=True)
+    b = torch.full((4,), 3.0, device=dev, requires_grad=True)
+    (ya,) = GradGraph.apply(g, a)
+    (yb,) = GradGraph.apply(g, b)
+    assert float(ya.detach()) == 16.0 and float(yb.detach()) == 36.0
+    (gb,) = torch.autograd.grad(yb, b)
+    assert torch.equal(gb, torch.full((4,), 6.0, device=dev))
+    with pytest.raises(RuntimeError, match="later forward"):
+        torch.autograd.grad(ya, a)
+
+
+def test_post_process_on_the_card_against_the_host(dev):
+    """post_process of a card tensor (the device form) against the same
+    image on the host: uint8 within 1 level, on at most POST_LEVEL_FRAC of
+    the values (powf and the 3 x 3 products differ in their last bits)."""
+    from ice_halo_sim_tpu_torch.core import color
+
+    g = np.random.default_rng(21)
+    xyz = (g.uniform(0.0, 50.0, (256, 512, 3)) * g.uniform(size=(256, 512, 1)) ** 3).astype(
+        np.float32)
+    for real in (True, False):
+        args = (1.0, 2.0e4, (0.0, 0.0, 0.1), (1.0, 0.8, 0.6))
+        a = color.post_process(torch.as_tensor(xyz, device=dev), *args, use_real_color=real)
+        b = color.post_process(xyz, *args, use_real_color=real)
+        d = np.abs(a.astype(int) - b.astype(int))
+        assert d.max() <= 1 and (d > 0).sum() <= POST_LEVEL_FRAC * d.size, (real, (d > 0).sum())
+
+
+# uint8 values that may differ by one level between the card's post_process
+# and the host's, as a fraction of the values.
+POST_LEVEL_FRAC = 1e-3
+
+
+def test_viewer_exposure_post_processes_on_the_card(dev, monkeypatch):
+    """The viewer's PNG at a nonzero EV re-tone-maps the frame's XYZ on the
+    server's device, as JAX's viewer does on its device; its uint8 image
+    within 1 level of the host's post-process."""
+    from ice_halo_sim_tpu_torch.core import color
+    from ice_halo_sim_tpu_torch.engine.server import Server
+    from ice_halo_sim_tpu_torch.gui.app import GuiApp
+
+    real, handed = color.post_process, []
+
+    def spy(xyz, *args, **kw):
+        out = real(xyz, *args, **kw)
+        handed.append((xyz, args, kw, out))
+        return out
+
+    cfg = dict(BENCH_CFG, scene=dict(BENCH_CFG["scene"], ray_num=1 << 16))
+    with Server(seed=3, batch_size=1 << 14, device=dev) as srv:
+        srv.commit(cfg)
+        assert srv.wait_idle(timeout=300)
+        gui = GuiApp(srv)
+        gui.frame()
+        monkeypatch.setattr(color, "post_process", spy)
+        png = gui.render_png(0, 1.5)
+    assert png[:8] == b"\x89PNG\r\n\x1a\n"
+    ((xyz, args, kw, out),) = handed
+    assert isinstance(xyz, torch.Tensor) and xyz.device.type == "cuda"
+    d = np.abs(out.astype(int) - real(xyz.cpu().numpy(), *args, **kw).astype(int))
+    assert d.max() <= 1 and (d > 0).sum() <= POST_LEVEL_FRAC * d.size
+
+
+def test_capture_failure_raises(dev):
+    """A step that reads a value back to the host cannot be captured: the
+    capture raises (no fallback to eager), and the card still works."""
+    from ice_halo_sim_tpu_torch.engine.graph import StepGraph
+
+    with pytest.raises(RuntimeError):
+        StepGraph(lambda x: x * float(x.sum()), (torch.ones(3, device=dev),), dev)
+    torch.cuda.synchronize(dev)
+    assert float((torch.ones(3, device=dev) * 2).sum()) == 6.0

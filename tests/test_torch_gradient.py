@@ -372,3 +372,118 @@ def test_time_modes_measures_every_mode():
     for r in rows:
         assert r["device"] == "cpu" and "kernels" not in r and "card" not in r
         assert r["fwd_ms"] > 0 and r["fwd_bwd_ms"] > 0
+
+
+# --- The compiled forms (engine/graph.py; on the CPU their bodies, eagerly) -
+
+def test_compiled_forms_run_eagerly_on_the_cpu():
+    """Every form make_render_fn returns, and the table's step programs,
+    say graph_mode "eager" on the CPU and give what their bodies give."""
+    cfg = grad_validation.tilted_cfg()
+    params = default_params(cfg, device="cpu")
+    render_frozen, record = make_render_fn(cfg, batch_size=1024, seed=3, frozen_mode=True,
+                                           device="cpu")
+    forms = [make_render_fn(cfg, batch_size=1024, seed=3, device="cpu"),
+             make_render_fn(cfg, batch_size=1024, seed_as_arg=True, device="cpu"),
+             render_frozen, record]
+    name, rep, _eps, tau = grad_validation.PARAMS[3]
+    forms += list(grad_validation.table_programs(cfg, params, rep, tau, 1024, "cpu", 0.9))
+    assert [f.graph_mode for f in forms] == ["eager"] * 6
+    img, choices = record(params)
+    assert torch.equal(img, record.body(params)[0])
+    assert torch.equal(render_frozen(params, choices), render_frozen.body(params, choices))
+    assert torch.equal(forms[1](params, 7), forms[1].body(params, 7))
+
+
+def test_static_inputs_rewritten_per_call_equal_fresh_eager_calls():
+    """The table's gradient and loss programs and the seed_as_arg render,
+    called several times with the value and the seed rewritten into their
+    static inputs (numbers by fill_, tensors by copy_): each result equals a
+    fresh eager call at those values bit for bit, and a later call leaves
+    an earlier result as it was."""
+    cfg = grad_validation.tilted_cfg()
+    params = default_params(cfg, device="cpu")
+    name, rep, _eps, tau = grad_validation.PARAMS[4]          # face_d0, soft_tau
+    v0 = float(params.face_distance[0])
+    grad_fn, loss_fn = grad_validation.table_programs(cfg, params, rep, tau, 1024, "cpu", v0)
+    soft = make_render_fn(cfg, batch_size=1024, soft_tau=tau, seed_as_arg=True, device="cpu")
+    hard = make_render_fn(cfg, batch_size=1024, seed_as_arg=True, device="cpu")
+    kept = []
+    for v, sd in ((v0, 1000), (v0 + 0.05, torch.tensor(1001)),
+                  (torch.tensor(v0 - 0.05), 1002), (v0, torch.tensor(1000))):
+        (g,) = grad_fn(v, sd)
+        loss = loss_fn(v, sd)
+        vt = torch.tensor(float(v), requires_grad=True)
+        (want_g,) = torch.autograd.grad(grad_validation.smooth_loss(
+            soft.body(rep(params, vt), int(sd))), vt)
+        with torch.no_grad():
+            want_l = grad_validation.smooth_loss(hard.body(rep(params, vt), int(sd)))
+        assert torch.equal(g, want_g) and torch.equal(loss, want_l)
+        img = hard(params, sd)
+        assert torch.equal(img, hard.body(params, int(sd)))
+        kept.append([(x, x.clone()) for x in (g, loss, img)])
+    assert torch.equal(kept[0][0][1], kept[3][0][1])        # the same (v, seed) twice
+    assert not torch.equal(kept[0][2][1], kept[1][2][1])    # another seed, another image
+    for row in kept:
+        for x, copy in row:
+            assert torch.equal(x, copy)
+
+
+def test_step_graph_checks_its_inputs():
+    """A value of another shape is refused (copy_ would broadcast it
+    silently); a GradGraph needs a CUDA device; the whole step returns zeros
+    for an input the output does not depend on, as a captured step must."""
+    from ice_halo_sim_tpu_torch.engine.graph import GradGraph, StepGraph
+
+    step = StepGraph(lambda x, y: (x * x).sum(), (torch.ones(3), torch.ones(2)), "cpu",
+                     grad_wrt=(0, 1))
+    gx, gy = step(torch.tensor([1.0, 2.0, 3.0]), 5.0)
+    assert torch.equal(gx, torch.tensor([2.0, 4.0, 6.0])) and torch.equal(gy, torch.zeros(2))
+    with pytest.raises(ValueError, match="shape"):
+        step(torch.ones(4), torch.ones(2))
+    with pytest.raises(TypeError, match="static inputs"):
+        step(torch.ones(3))
+    with pytest.raises(ValueError, match="CUDA"):
+        GradGraph(lambda x: x * 2, (torch.ones(3),), "cpu", diff=(0,))
+
+
+def test_render_bodies_read_nothing_back_from_the_device():
+    """What a CUDA graph cannot capture, caught on the CPU: no form's
+    forward or backward reads a tensor's value into Python (item, bool,
+    float, int: aten._local_scalar_dense) or makes a shape that depends on
+    the data (nonzero, masked_select, unique, boolean-mask indexing). So
+    rng.feistel_bijection's loop, which reads, is not on the path."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    reads = []
+
+    class Reads(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func._overloadpacket.__name__
+            if name in ("_local_scalar_dense", "nonzero", "masked_select", "_unique2",
+                        "unique_consecutive", "unique_dim"):
+                reads.append(name)
+            if name in ("index", "index_put", "index_put_") and any(
+                    isinstance(i, torch.Tensor) and i.dtype == torch.bool
+                    for i in (args[1] if len(args) > 1 else ())):
+                reads.append(f"{name} by a mask")
+            return func(*args, **(kwargs or {}))
+
+    cfg = grad_validation.tilted_cfg()
+    params = default_params(cfg, device="cpu")
+    render_frozen, record = make_render_fn(cfg, batch_size=512, seed=3, frozen_mode=True,
+                                           device="cpu")
+    _, choices = record(params)
+    forms = {"free": (make_render_fn(cfg, batch_size=512, seed=3, device="cpu"), ()),
+             "soft": (make_render_fn(cfg, batch_size=512, seed=3, soft_tau=0.005,
+                                     device="cpu"), ()),
+             "seed": (make_render_fn(cfg, batch_size=512, seed_as_arg=True, device="cpu"),
+                      (torch.tensor(5),)),
+             "frozen": (render_frozen, (choices,)),
+             "record": (lambda p: record(p)[0], ())}
+    for what, (fn, extra) in forms.items():
+        p = RenderParams(*(x.clone().requires_grad_(True) for x in params))
+        with Reads():
+            img = fn(p, *extra)
+            torch.autograd.grad(grad_validation.smooth_loss(img), list(p), allow_unused=True)
+        assert reads == [], (what, reads)

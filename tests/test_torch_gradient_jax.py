@@ -11,6 +11,9 @@ held per pixel to the engine's tolerance, the soft image by IMG_L1;
 gradients to GRAD_RTOL of the field's largest |JAX gradient|.
 """
 
+import importlib.util
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -102,3 +105,55 @@ def test_gradient_matches_jax(both, mode, field):
     assert got.shape == want.shape and np.isfinite(got).all()
     err = gv.grad_err(got, want)
     assert err <= gv.GRAD_RTOL[mode], (mode, field, err, got, want)
+
+
+# --- The table's compiled programs against JAX's jit(grad) -----------------
+# grad_validation.table_programs (the port's table: one gradient program and
+# one loss program per parameter, the value and the seed static inputs) at
+# batch TABLE_B, the seed passed as a tensor, against the JAX script's own
+# composition, jax.jit(jax.grad(lambda v, sd: smooth_loss(soft(rep(params,
+# v), sd)))) and jax.jit(lambda v, sd: smooth_loss(hard(rep(params, v), sd))),
+# built here from the JAX package's make_render_fn and scripts/
+# grad_validation.py's PARAMS and smooth_loss. Gradients within GRAD_RTOL
+# (soft_tau: "soft"); the loss within 2 * IMG_RTOL (the hard image's per-pixel
+# tolerance, doubled by the square; measured 1.1e-5 at most).
+
+TABLE_B, TABLE_SEEDS = 2048, (1000, 1001)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def jax_script():
+    spec = importlib.util.spec_from_file_location(
+        "jax_grad_validation", os.path.join(ROOT, "scripts", "grad_validation.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("i", range(len(gv.PARAMS)), ids=[p[0] for p in gv.PARAMS])
+def test_table_programs_match_jax_jit_grad(jax_script, i):
+    jname, jrep, eps, tau = jax_script.PARAMS[i]
+    name, rep, eps_port, tau_port = gv.PARAMS[i]
+    assert (jname, eps, tau) == (name, eps_port, tau_port)
+    jcfg = jax_script.tilted_cfg()
+    jparams = jgradient.default_params(jcfg)
+    hard = jgradient.make_render_fn(jcfg, batch_size=TABLE_B, seed_as_arg=True)
+    soft = (jgradient.make_render_fn(jcfg, batch_size=TABLE_B, soft_tau=tau, seed_as_arg=True)
+            if tau else hard)
+    jgrad = jax.jit(jax.grad(lambda v, sd: jax_script.smooth_loss(soft(jrep(jparams, v), sd))))
+    jloss = jax.jit(lambda v, sd: jax_script.smooth_loss(hard(jrep(jparams, v), sd)))
+
+    params = gradient.params_from_jax([np.asarray(x) for x in jparams], device="cpu")
+    v0 = float(params.face_distance[0] if name == "face_d0" else getattr(params, name))
+    grad_fn, loss_fn = gv.table_programs(gv.tilted_cfg(), params, rep, tau, TABLE_B, "cpu", v0)
+    for sd in TABLE_SEEDS:
+        seed = torch.tensor(sd, dtype=torch.int64)
+        (g,) = grad_fn(torch.tensor(v0), seed)
+        want = float(jgrad(jnp.float32(v0), jnp.uint32(sd)))
+        err = gv.grad_err(g.numpy(), want)
+        assert want != 0 and err <= gv.GRAD_RTOL["soft" if tau else "free"], (sd, float(g), want)
+        for v in (v0 + eps, v0 - eps):
+            got = float(loss_fn(torch.tensor(v, dtype=torch.float32), seed))
+            want = float(jloss(jnp.float32(v), jnp.uint32(sd)))
+            assert abs(got - want) <= 2 * gv.IMG_RTOL * abs(want), (sd, v, got, want)

@@ -200,8 +200,11 @@ def test_every_kernel_call_runs_on_its_tensors_device():
                 assert re.search(r"with torch\.cuda\.device\(\w+(\.device)?\):$",
                                  lines[i - 1].strip()), (path, i + 1)
     assert calls == 10
+    # engine/graph.py: each of its three captures (BatchGraph, StepGraph,
+    # GradGraph) and its one replay helper under the graph's device.
     graph = open(os.path.join(PKG, "engine", "graph.py")).read()
-    assert graph.count("with torch.cuda.device(") == 2
+    assert graph.count("with torch.cuda.device(") == 4
+    assert graph.count(".replay()") == 1 and graph.count("torch.cuda.graph(") == 1
     cu = open(os.path.join(PKG, "csrc", "block_ops.cu")).read()
     assert "static int n_sm" not in cu and "cudaGetDevice(&device)" in cu
 

@@ -422,3 +422,124 @@ def test_device_from_iht_platform(monkeypatch):
     monkeypatch.setenv("IHT_PLATFORM", "tpu")
     with pytest.raises(ValueError, match="IHT_PLATFORM"):
         Server()
+
+
+# --- The snapshot's post-process on the accumulator's device ---------------
+
+def _post_process_on_the_host(xyz_image, intensity_factor, snapshot_intensity, background,
+                              ray_color, use_real_color=True):
+    """core/color.py's post_process as it was when it ran on the host (a
+    copy of that code, the reference of the device form)."""
+    from ice_halo_sim_tpu_torch.core import color
+
+    F32 = torch.float32
+    xyz_image = torch.as_tensor(xyz_image, dtype=F32).cpu()
+    h, w, _ = xyz_image.shape
+    xyz = xyz_image * color.exposure_scale(intensity_factor, h * w, snapshot_intensity)
+    if use_real_color:
+        white = torch.as_tensor(color.WHITE_D65)
+        m = torch.as_tensor(color.XYZ_TO_RGB)
+        gray = white * xyz[..., 1:2]
+        diff = xyz - gray
+        a, b = -(gray @ m.T), diff @ m.T
+        big = torch.abs(b) > 1e-30
+        ratio = torch.where(big, a / torch.where(big, b, 1.0), torch.inf)
+        s = torch.clamp_max(torch.min(torch.where(a * b > 0, ratio, torch.inf), dim=-1).values,
+                            1.0)
+        rgb = torch.clamp((diff * s[..., None] + gray) @ m.T, 0.0, 1.0)
+    else:
+        gray = torch.as_tensor(color.WHITE_D65) * xyz[..., 1:2]
+        rgb = gray @ torch.as_tensor(color.XYZ_TO_RGB).T
+        rgb = rgb * torch.as_tensor(ray_color, dtype=F32)
+    rgb = torch.clamp(rgb + torch.as_tensor(background, dtype=F32), 0.0, 1.0)
+    return (color.linear_to_srgb(rgb) * 255.0).to(torch.uint8).numpy()
+
+
+@pytest.mark.parametrize("real", [True, False], ids=["real-color", "ray-color"])
+def test_post_process_on_the_cpu_is_bit_equal_to_the_host_form_and_jax(real):
+    """post_process on a CPU tensor (the device form's placement) and on a
+    numpy array: bit-equal to the host form it replaced and to the JAX
+    package's post_process, over images whose pixels span dark to clipped,
+    with and without gamut clipping."""
+    import jax.numpy as jnp
+
+    from ice_halo_sim_tpu.core import color as jcolor
+    from ice_halo_sim_tpu_torch.core import color
+
+    g = np.random.default_rng(21)
+    for trial in range(3):
+        xyz = (g.uniform(0.0, 50.0, (48, 96, 3))
+               * g.uniform(size=(48, 96, 1)) ** 3).astype(np.float32)
+        args = (1.0 + trial, 2.0e4, (0.0, 0.02 * trial, 0.1), (1.0, 0.8, 0.6))
+        want = _post_process_on_the_host(xyz, *args, use_real_color=real)
+        jax_img = np.asarray(jcolor.post_process(jnp.asarray(xyz), *args,
+                                                 use_real_color=real))
+        assert 0 < want.mean() < 255 and np.array_equal(want, jax_img)
+        for x in (torch.as_tensor(xyz), xyz):
+            got = color.post_process(x, *args, use_real_color=real)
+            assert isinstance(got, np.ndarray) and got.dtype == np.uint8
+            assert np.array_equal(got, want)
+
+
+def test_snapshot_post_processes_the_accumulator():
+    """Engine.snapshot and ShardedEngine.snapshot hand post_process the
+    accumulator's own tensor (no host copy of the XYZ image) and equal
+    post_process of raw_xyz, which stays numpy."""
+    from ice_halo_sim_tpu_torch.core import color
+    from ice_halo_sim_tpu_torch.parallel import ShardedEngine
+
+    cfg = load_project(CFG)
+    eng = Engine(cfg, seed=9, batch_size=1 << 12, device="cpu")
+    eng.run(n_batches=2)
+    se = ShardedEngine(cfg, ["cpu"] * 2, seed=9, per_device_batch=1 << 12)
+    se.run(n_batches=1)
+    for e, drained in ((eng, eng.accum), (se, se.drained_accum())):
+        raw = e.raw_xyz(0)
+        assert isinstance(raw, np.ndarray) and raw.dtype == np.float32
+        rc = cfg.renders[0]
+        want = color.post_process(raw, rc.intensity_factor, float(drained[-1][0]),
+                                  rc.background, rc.ray_color,
+                                  use_real_color=rc.ray_color[0] < 0)
+        (img,) = e.snapshot()
+        assert img.max() > 0 and np.array_equal(img, want)
+    assert eng._xyz(0).data_ptr() == eng.accum[0].data_ptr()
+
+
+def test_sandwich_snapshot_post_processes_the_host_image(monkeypatch):
+    """On the sandwich fold the XYZ image is assembled on the host: raw_xyz
+    returns that numpy image as it is (no trip through the device), and
+    Engine.snapshot and ShardedEngine.snapshot hand post_process its values
+    as a tensor on the engine's device, as JAX's snapshot does."""
+    from ice_halo_sim_tpu_torch.core import color, sandwich
+    from ice_halo_sim_tpu_torch.parallel import ShardedEngine
+
+    monkeypatch.setattr(sandwich, "CPU_TEST_HOOK", True)
+    monkeypatch.setenv("IHT_FOLD", "sandwich")
+    monkeypatch.setenv("IHT_PALLAS_TRACE", "0")
+    cfg = load_project(CFG)
+    eng = Engine(cfg, seed=9, batch_size=1 << 12, device="cpu")
+    se = ShardedEngine(cfg, ["cpu"] * 2, seed=9, per_device_batch=1 << 12, calibrate=False)
+    eng.run(n_batches=2)
+    se.run(n_batches=1)
+    real, handed = color.post_process, []
+
+    def spy(xyz, *args, **kw):
+        handed.append(xyz)
+        return real(xyz, *args, **kw)
+
+    monkeypatch.setattr(color, "post_process", spy)
+    for e in (eng, se):
+        assert e._sandwich_on if e is eng else e.engine._sandwich_on
+        handed.clear()
+        (img,) = e.snapshot()
+        (xyz,) = handed
+        assert isinstance(xyz, torch.Tensor) and xyz.device == torch.device("cpu")
+        host = e._xyz(0)
+        assert isinstance(host, np.ndarray) and host.dtype == np.float32
+        assert np.array_equal(e.raw_xyz(0), host) and host.sum() > 0
+        assert np.array_equal(xyz.numpy(), host)
+        rc = cfg.renders[0]
+        want = real(e.raw_xyz(0), rc.intensity_factor,
+                    float((e.accum if e is eng else e.drained_accum())[-1][0]),
+                    rc.background, rc.ray_color, use_real_color=rc.ray_color[0] < 0)
+        assert img.max() > 0 and np.array_equal(img, want)

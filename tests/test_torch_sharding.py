@@ -426,3 +426,95 @@ def test_make_mesh_takes_devices_listed_twice():
                        calibrate=False)
     assert se.n_dev == 2 and se.span == 2 * B and se.engine is se.engines[0]
     assert se.engine._calibrated and se.engine._compact_keep is None
+
+
+# --------------------------------------------------------------------------
+# The launch order: batch i on every shard before batch i + 1
+# --------------------------------------------------------------------------
+
+K_DISPATCH = 4
+SEED_ORDER = 4          # shard 0's batch 1 holds the most live rows (asserted)
+
+
+def _lives_of_next(eng, n):
+    """Live fold rows of render 0 in the next n batches, run eagerly with
+    the host's choice."""
+    lives = []
+    for _ in range(n):
+        before = eng._dev.live.clone()
+        eng._dev.counter.fill_(eng.batch_counter)
+        eng._batch(host_choice=True)
+        eng.batch_counter += 1
+        lives.append(int((eng._dev.live - before)[0]))
+    return lives
+
+
+def test_interleaved_launch_with_an_overflow_mid_dispatch(monkeypatch):
+    """Two CPU shards, one dispatch of K_DISPATCH batches, keep forced
+    below the live rows of exactly one batch, batch 1 of shard 0 (in the
+    middle of the dispatch): before the first read the batches launch in
+    the order (shard 0, batch 0), (shard 1, batch 0), (shard 0, batch 1),
+    ... (``Engine._step`` instrumented); only shard 0 replays its overflow,
+    inside its own read; every render, the landed weights, rays, segments
+    and dropped weight equal two shard Engines given the same keep and run
+    one at a time, bit for bit."""
+    monkeypatch.setenv("IHT_STEPS_PER_DISPATCH", str(K_DISPATCH))
+    cfg = load_project(scenes.BENCH_CFG)
+    lives = []
+    for d in range(2):
+        probe = Engine(cfg, seed=SEED_ORDER, batch_size=B, device="cpu")
+        probe.run(n_batches=1)
+        probe.reset()
+        probe.shard = (d, 2)
+        lives.append(_lives_of_next(probe, K_DISPATCH))
+    lives = np.array(lives)
+    assert np.unravel_index(lives.argmax(), lives.shape) == (0, 1)
+    assert (lives == lives.max()).sum() == 1
+    keep = (int(np.sort(lives.ravel())[-2]),)
+
+    se = ShardedEngine(cfg, ["cpu"] * 2, seed=SEED_ORDER, per_device_batch=B)
+    for e in se.engines:
+        e._compact_keep = keep
+    events = []
+    step, read = Engine._step, Engine._read
+
+    def logged_step(self, graph):
+        events.append(("step", self.shard[0], int(self._dev.counter)))
+        step(self, graph)
+
+    def logged_read(self):
+        events.append(("read", self.shard[0]))
+        read(self)
+
+    monkeypatch.setattr(Engine, "_step", logged_step)
+    monkeypatch.setattr(Engine, "_read", logged_read)
+    se.run(n_batches=K_DISPATCH)
+    monkeypatch.setattr(Engine, "_step", step)
+    monkeypatch.setattr(Engine, "_read", read)
+    first_read = events.index(("read", 0))
+    assert events[:first_read] == [("step", d, i) for i in range(K_DISPATCH) for d in range(2)]
+    assert [e for e in events[first_read:] if e[0] == "read"] == [("read", 0), ("read", 0),
+                                                                  ("read", 1)]
+    assert [e.overflow_replays for e in se.engines] == [1, 0]
+
+    acc, segs, dropped = None, 0, 0.0
+    for d in range(2):
+        e = Engine(cfg, seed=SEED_ORDER, batch_size=B, device="cpu")
+        e.run(n_batches=1)
+        e.reset()
+        e.shard = (d, 2)
+        e._compact_keep = keep
+        e.run(n_batches=K_DISPATCH)
+        assert e.overflow_replays == (1 if d == 0 else 0)
+        acc = [a.clone() for a in e.accum] if acc is None else [x.add_(a) for x, a in
+                                                                 zip(acc, e.accum)]
+        st = e.drain_stats()
+        segs += st.ray_segments
+        dropped += st.dropped_cont_weight
+    assert se.rays_traced == 2 * K_DISPATCH * B
+    assert se.ray_segments == segs and se.dropped_weight == pytest.approx(dropped, rel=1e-12)
+    for x, y in zip(se.drained_accum(), acc):
+        assert torch.equal(x, y)
+    p = se.engine.proj_plans[0]
+    assert np.array_equal(_bits(se.raw_xyz(0)),
+                          _bits(acc[0][:, :3].numpy().reshape(p.height, p.width, 3)))
