@@ -28,8 +28,12 @@ Phases (any failure raises; the exit code is then non-zero):
      raw rows of MS_CFG's dual render over all 1024 chunks) and, printed as
      extra lines, at the raw rows against the 256 chunks that hold most of
      them, plain and two-term; a stress launch of both on hot pixels (2^21
-     rows, 90% on three pixels: the plain version and the same bits twice);
-     the probe forms P1 and P2 at their probes' shapes. The entries of K7 and K8 in the kernels line are taken after
+     rows, 90% on three pixels: the plain version and the same bits twice),
+     timed beside the same count of rows spread over the image, with the
+     bound ("stress" in their entries of the kernels line); the fused scan
+     on 2^21 rows crowded on one pixel and spread, each timed with its
+     bound ("crowded" in its entry); the probe forms P1 and P2 at their
+     probes' shapes. The entries of K7 and K8 in the kernels line are taken after
      the ms-sandwich slice of [4] has calibrated: one steady batch's rows go
      through every level of both renders' cascades as the engine routes
      them (compacted to the level's keep, decoded, misses onward), and at
@@ -76,11 +80,12 @@ Phases (any failure raises; the exit code is then non-zero):
      choices, free (score term) and soft_tau; each compiled form against
      its eager body at batch 65536 (grad_validation.graph_check: images
      within the splat's tolerance, recorded choices bit for bit, seed_as_arg
-     at two seeds); one replay of each table program (per parameter one
-     captured gradient step and one captured loss) against the eager step;
-     then per mode at batch 65536 and per form (eager, graph, whole step)
-     the ms per forward and per forward + backward, rays/s, device kernels,
-     busy time, idle share, peak memory and the capture's ms;
+     at two seeds); one call of each table function (per parameter the
+     gradient and the loss through the captured seed_as_arg programs)
+     against the eager step; then per mode at batch 65536 and per form
+     (eager, graph) the ms per forward and per forward + backward, rays/s,
+     device kernels, busy time, idle share, peak memory and the capture's
+     ms;
   8. serving (engine/server.py, engine/checkpoint.py, gui/app.py):
      BENCH_CFG at full width through Server(device="cuda") (its default
      batch 229376), 64 batches from commit to wait_idle, the frame's raw
@@ -549,6 +554,7 @@ def phase_kernels(cfg, device, res: list):
          "a segmented scan with a basis expansion and a write at the run ends; "
          "cumsum has no segments")
     res[-1].update(rows=m, pixels=P)
+    res[-1]["crowded"] = _scan_crowded(device, tbl, shift, K, P)
     ms_old = _time_ms(per_row_then_k5_k3, 10, "per-row scan + K5 + K3")
     print(f"  the same image by the per-row scan, then K5 + K3 (the marker extraction "
           f"before the fused form): {ms_old:.4f} ms", flush=True)
@@ -812,6 +818,53 @@ def phase_kernels_general(ms_cfg, color_cfg, device, res: list):
 SANDWICH_SRC = "ice_halo_sim_tpu_torch/csrc/sandwich.cu"
 
 
+def _scan_rows(device, P: int, K: int, shift: int, n: int, hot: float):
+    """Sorted fold rows as the spectral fold makes them: n rows, a share
+    `hot` of them on pixel 377 and the rest spread over P pixels, each with
+    a wavelength of K, and one zero-weight marker row per pixel (the last
+    row of its run)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(13)
+    pix = torch.randint(0, P, (n,), generator=g, device=device, dtype=torch.int64)
+    pix = torch.where(torch.rand(n, generator=g, device=device) < hot, 377, pix)
+    wl = torch.randint(0, K, (n,), generator=g, device=device, dtype=torch.int64)
+    markers = (torch.arange(P, device=device, dtype=torch.int64) << shift) | (2 * K - 1)
+    key = torch.sort(torch.cat([(pix << shift) | (wl << 1), markers]))[0]
+    w = torch.rand(key.numel(), generator=g, device=device) * 2
+    w = torch.where((key & (2 * K - 1)) == 2 * K - 1, 0.0, w)
+    return key.to(torch.int32), w
+
+
+def _scan_crowded(device, tbl, shift: int, K: int, P: int, n: int = 1 << 21) -> dict:
+    """K4's extract form on n rows crowded on one pixel (92% of them: one
+    run of some 940 tiles) and on n rows spread over the image, each
+    against its plain twin (SCAN_RTOL) and timed, with its bound."""
+    import torch
+
+    from ice_halo_sim_tpu_torch.core import seg_scan
+
+    out = {}
+    for what, hot in (("crowded", 0.92), ("spread", 0.0)):
+        sk, sw = _scan_rows(device, P, K, shift, n, hot)
+        got = seg_scan.fused_scan_extract(sk, sw, tbl, shift, K, P)
+        want = seg_scan.fused_scan_extract_plain(sk, sw, tbl, shift, K, P)
+        if not torch.allclose(got, want, rtol=SCAN_RTOL, atol=1e-6):
+            raise AssertionError(f"fused_scan_extract on {what} rows differs from its plain "
+                                 f"twin (max abs {_max_abs(got, want)})")
+        m = sk.numel()
+        ms = _time_ms(lambda: seg_scan.fused_scan_extract(sk, sw, tbl, shift, K, P), 10,
+                      f"fused_scan_extract {what}")
+        bound = _bound(8 * m + 12 * P + 4 * tbl.numel(), 6 * m)
+        out[what] = {"rows": m, "on_one_pixel": int(((sk.long() >> shift) == 377).sum()),
+                     "ms": ms, "bound_ms": bound[0], "bound_by": bound[1],
+                     "max_abs_err": _max_abs(got, want), "timed_by": _timed_by(ms)}
+        print(f"  fused_scan_extract (K4) on {m} rows {what} ({out[what]['on_one_pixel']} on "
+              f"pixel 377): max_abs_err {out[what]['max_abs_err']:.3g}, kernel {ms:.4f} ms, "
+              f"bound {bound[0]:.5f} ms by {bound[1]}", flush=True)
+    return out
+
+
 def _tile_err(what, got, want, gm=None, wm=None) -> float:
     """Hold a sandwich tile (and `matched`) against the plain version's;
     returns the largest absolute difference."""
@@ -836,12 +889,15 @@ def _sandwich_bound(n, n_matched, nc, c_out, k_pool, terms=1, matched_out=True):
     return _bound(nbytes, ops=2.0 * n_matched * c_out * terms)
 
 
-def phase_sandwich_stress(device, K, tbl, n_chunks, n: int = 1 << 21):
+def phase_sandwich_stress(device, K, tbl, n_chunks, n: int = 1 << 21) -> dict:
     """Hot pixels: n rows, 90% of them on three pixels (at least 2^20 on
     them), the rest spread over the image, against every chunk of the
     image. K7 and K8 against the plain version, `matched` bit-equal, and a
     second run with the same bits; printed with their times beside
-    index_add_ on the same rows."""
+    index_add_ on the same rows, and beside their times on n rows spread
+    over the whole image (held to the plain version too), with the bound
+    of either (the same: the bound counts rows, not where they land).
+    Returns per kernel {"stress_ms", "spread_ms", "bound_ms", "bound_by"}."""
     import torch
 
     from ice_halo_sim_tpu_torch.core import sandwich
@@ -857,6 +913,7 @@ def phase_sandwich_stress(device, K, tbl, n_chunks, n: int = 1 << 21):
     w = torch.rand(n, generator=g, device=device) + 0.5
     wl = torch.randint(0, K, (n,), generator=g, device=device, dtype=torch.int32)
     on_hot = int((~spread).sum())
+    out = {}
     if on_hot < (1 << 20):
         raise AssertionError(f"stress: {on_hot} rows on the hot pixels")
     full = torch.arange(n_chunks, dtype=torch.int32, device=device)
@@ -874,16 +931,38 @@ def phase_sandwich_stress(device, K, tbl, n_chunks, n: int = 1 << 21):
         err = _tile_err(f"{name} stress", got, want, gm, wm)
         if not _bits_equal(run()[0], got):
             raise AssertionError(f"{name} stress: two runs on the same rows differ")
+        ms_hot = _time_ms(run, 5, f"{name} stress")
         print(f"  {name} stress ({n} rows, {on_hot} on three pixels, NC {n_chunks}): "
               f"max_abs_err {err:.3g} of {float(want.abs().max()):.4g}, same bits twice, "
-              f"kernel {_time_ms(run, 5):.4f} ms, index_add_ {ms_l:.4f} ms", flush=True)
+              f"kernel {ms_hot:.4f} ms, index_add_ {ms_l:.4f} ms", flush=True)
+        out[name] = {"rows": n, "on_three_pixels": on_hot, "stress_ms": ms_hot,
+                     "index_add_ms": ms_l}
+    # The same count of rows spread over the image.
+    pix_s = torch.randint(0, n_chunks * NLO, (n,), generator=g, device=device,
+                          dtype=torch.int32)
+    want_s, wm_s = sandwich.sandwich_pass_plain(tile, full, pix_s, w, wl, tbl, k_pool=K)
+    bound = _sandwich_bound(n, n, n_chunks, 3, K)
+    ms_ls = _time_ms(lambda: img.index_add_(0, pix_s.long(), vals), 5)
+    for name, layout in (("sandwich_lane", "lane"), ("sandwich_sublane", "sublane")):
+        def run_s(lay=layout):
+            return sandwich.sandwich_pass(tile, full, pix_s, w, wl, tbl, k_pool=K, layout=lay)
+
+        got, gm = run_s()
+        err = _tile_err(f"{name} spread", got, want_s, gm, wm_s)
+        ms_s = _time_ms(run_s, 5, f"{name} spread")
+        out[name].update(spread_ms=ms_s, spread_index_add_ms=ms_ls, bound_ms=bound[0],
+                         bound_by=bound[1], timed_by=_timed_by(out[name]["stress_ms"], ms_s))
+        print(f"  {name} on {n} rows spread over NC {n_chunks}: max_abs_err {err:.3g}, "
+              f"kernel {ms_s:.4f} ms (stress {out[name]['stress_ms']:.4f}), index_add_ "
+              f"{ms_ls:.4f} ms, bound {bound[0]:.5f} ms by {bound[1]}", flush=True)
+    return out
 
 
 def phase_kernels_sandwich(ms_cfg, device, res: list):
     """K7 and K8 against sandwich_pass_plain at the calibration batch's count
     pass and, as extra lines, at the raw rows of MS_CFG's dual render (no
     steady launch has that shape: see phase_kernels_cascade for those); P1
-    and P2 at their probes' shapes."""
+    and P2 at their probes' shapes. Returns phase_sandwich_stress's times."""
     import torch
 
     from ice_halo_sim_tpu_torch import probe_sandwich, probe_scatter
@@ -952,7 +1031,7 @@ def phase_kernels_sandwich(ms_cfg, device, res: list):
               f"{b4[0]:.5f} ms by {b4[1]}", flush=True)
     del eng
     torch.cuda.empty_cache()
-    phase_sandwich_stress(device, K, tbl, n_chunks)
+    stress = phase_sandwich_stress(device, K, tbl, n_chunks)
 
     # P1 at the probe's shape: N = 3342336 rows over 131072 pixels, K = 64.
     PP, PK, PN = 512 * 256, 64, 3_342_336
@@ -995,6 +1074,7 @@ def phase_kernels_sandwich(ms_cfg, device, res: list):
          _bound(4 * n_out + 4 * start.numel() + 4 * n_out, n_out),
          "blocks overwrite each other in order; scatter_ and index_copy_ leave overlapping "
          "writes undefined")
+    return stress
 
 
 def _images_off(a, b, what) -> int:
@@ -1358,39 +1438,16 @@ def phase_fold_auto(scenes, device, n_after: int = 3, turns: int = FOLD_TURNS):
     return decided
 
 
-def _event_ms(fn, reps: int) -> float:
-    """Milliseconds per call of fn between two CUDA events on the current
-    stream around each call (one call first, untimed), the median of reps:
-    the device's time for the call and the gaps the host leaves inside it."""
-    import statistics
-
-    import torch
-
-    fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def _fold_verdict(what, chosen: str, engines: dict, turns: int = FOLD_TURNS):
-    """Device ms per steady batch of each engine (trace and fold; CUDA
-    events around each of two batches, _event_ms), `turns` times in turns;
+    """Device ms per steady batch of each engine (trace and fold; two
+    batches under the profiler, _time_ms), `turns` times in turns;
     the times are pooled by the fold each engine runs (the auto engine runs
     `chosen`), so that the spread takes in two engines of one fold as well
     as the repeats. The decision is right when the other fold's median is
     slower by more than the larger spread, not separated when the medians
-    lie within it, and else within the 0.1 ms rule or a miss.
-
-    Not under torch.profiler: the replay of these engines' captured batches
-    inside a profiler window crashed the process (a segmentation fault in
-    cudaGraphLaunch) in 16 of 38 runs on an H100, each time just after the
-    same replay had run outside the window without fault."""
+    lie within it, and else within the 0.1 ms rule or a miss. Each steady
+    batch is a CUDA graph replay, so these windows are replays under the
+    profiler (utils/profiling.py says what keeps them from crashing)."""
     import statistics
 
     pooled = {"sort": [], "sandwich": []}
@@ -1398,7 +1455,7 @@ def _fold_verdict(what, chosen: str, engines: dict, turns: int = FOLD_TURNS):
         for name, e in engines.items():
             if name == "auto" and e is engines[chosen]:
                 continue
-            t = _event_ms(lambda e=e: e.run(n_batches=1), 2)
+            t = _time_ms(lambda e=e: e.run(n_batches=1), 2, f"{name} {what}")
             pooled[chosen if name == "auto" else name].append(t)
     med = {k: statistics.median(v) for k, v in pooled.items()}
     spreads = {k: max(v) - min(v) for k, v in pooled.items()}
@@ -1417,7 +1474,7 @@ def _fold_verdict(what, chosen: str, engines: dict, turns: int = FOLD_TURNS):
     print(f"  auto {what}: decided {chosen}; device ms per steady batch, median "
           f"(spread) sandwich {med['sandwich']:.4f} ({spreads['sandwich']:.4f}), sort "
           f"{med['sort']:.4f} ({spreads['sort']:.4f}), all "
-          f"{times}, timed by cuda events; margin "
+          f"{times}, timed by {_timed_by(*pooled['sort'], *pooled['sandwich'])}; margin "
           f"{margin:.4f}: {verdict}", flush=True)
     return {"sandwich_ms": med["sandwich"], "sort_ms": med["sort"], "margin_ms": margin,
             "spread_ms": spread, "verdict": verdict}
@@ -1520,19 +1577,23 @@ def phase_fixture(name, cfg, device, pixel_budget: int, segment_budget: int,
         raise AssertionError(f"{name}: dropped weight differs from the fixture")
 
 
-def _busy_and_kernels(fn):
+def _busy_and_kernels(fn, what: str = ""):
     """(device busy ms, device kernels) of one call of fn under the
     profiler (kernels, copies and memsets; those a CUDA graph replays
-    included), or (None, 0) when the profiler saw no device event."""
+    included), after one call outside the window (utils/profiling.py:
+    `warm`), or (None, 0) when the profiler saw no device event (the window
+    is then counted in FALLBACKS)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    from ice_halo_sim_tpu_torch.utils.profiling import device_profile
+
+    with device_profile(warm=fn) as win:
         fn()
         torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-    us = sum(e.self_device_time_total for e in ev)
-    return (us / 1e3 if us > 0 else None), sum(e.count for e in ev)
+    if win.empty:
+        FALLBACKS.append({"what": what, "reps": 1, "tries": ["no device event"]})
+        return None, 0
+    return win.device_us / 1e3, win.kernels
 
 
 def phase_graphs(name, cfg, device, k: int = GRAPH_K, fold: str = "sort", tag: str = "[5]"):
@@ -1572,7 +1633,8 @@ def phase_graphs(name, cfg, device, k: int = GRAPH_K, fold: str = "sort", tag: s
         eng.run(n_batches=k)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / k
-        busy, kernels = _busy_and_kernels(lambda: eng.run(n_batches=k))
+        busy, kernels = _busy_and_kernels(lambda: eng.run(n_batches=k),
+                                          f"{tag} {name} {'graph' if graphs else 'eager'}")
         busy = None if busy is None else busy / k
         out[graphs] = (eng, st)
         idle = "not measured" if busy is None else f"{1.0 - busy / (wall * 1e3):.4f}"
@@ -1592,8 +1654,9 @@ def phase_graphs(name, cfg, device, k: int = GRAPH_K, fold: str = "sort", tag: s
         raise AssertionError(f"{name}: the graph engine did not replay ({g.graph_mode})")
     if se != sg:
         raise AssertionError(f"{name}: graph stats {sg} != eager {se}")
-    # The two engines ran the same batches (a timed and a profiled dispatch
-    # after the stats were drained): every accumulator bit for bit.
+    # The two engines ran the same batches (a timed dispatch, and the
+    # profiled one with the call before it, after the stats were drained):
+    # every accumulator bit for bit.
     for i, (a, b) in enumerate(zip(e.accum, g.accum)):
         if not _bits_equal(a, b):
             raise AssertionError(f"{name}: graph accumulator {i} differs from eager")
@@ -1603,8 +1666,9 @@ def phase_graphs(name, cfg, device, k: int = GRAPH_K, fold: str = "sort", tag: s
         for r in range(len(e.proj_plans)):
             if not np.array_equal(e._sandwich_dense64(r), g._sandwich_dense64(r)):
                 raise AssertionError(f"{name}: graph image {r} differs from eager")
-    print(f"{tag} {name}: graph == eager bit for bit over {4 * k} batches (one calibrating, "
-          f"three steady dispatches and a profiled one of {k})", flush=True)
+    print(f"{tag} {name}: graph == eager bit for bit over {5 * k} batches (one calibrating, "
+          f"three steady dispatches, the profiled one and the call before it, of {k})",
+          flush=True)
     return {"eager": numbers[False], "graph": numbers[True]}
 
 
@@ -1627,9 +1691,9 @@ def phase_bench(smi):
 
 def phase_gradients():
     """[7]: the gradient path, compiled (captured programs), against its
-    JAX fixture; each compiled form against its eager body; one replay of
-    each table program against the eager step; then the timings, eager,
-    graph and whole step, per mode."""
+    JAX fixture; each compiled form against its eager body; one call of
+    each table function against the eager step; then the timings, eager
+    and graph, per mode."""
     import torch
 
     from ice_halo_sim_tpu_torch import grad_validation as gv
@@ -1650,7 +1714,7 @@ def phase_gradients():
     batch = 1 << 16
     for name, rep, eps, tau in gv.PARAMS:
         v0 = float(params.face_distance[0] if name == "face_d0" else getattr(params, name))
-        grad_fn, loss_fn = gv.table_programs(cfg, params, rep, tau, batch, dev, v0)
+        grad_fn, loss_fn, programs = gv.table_programs(cfg, params, rep, tau, batch, dev)
         (g,) = grad_fn(v0, 1000)
         loss = loss_fn(v0 + eps, 1000)
         hard = make_render_fn(cfg, batch_size=batch, seed_as_arg=True, device=dev)
@@ -1664,14 +1728,12 @@ def phase_gradients():
         g_err = gv.grad_err(g.cpu().numpy(), want.cpu().numpy())
         l_err = abs(float(loss) - float(want_l)) / abs(float(want_l))
         if g_err > gv.GRAD_RTOL["soft" if tau else "free"] or l_err > 2 * gv.IMG_RTOL:
-            raise AssertionError(f"[7] table program {name}: gradient off by {g_err:.3g}, "
+            raise AssertionError(f"[7] table functions of {name}: gradient off by {g_err:.3g}, "
                                  f"loss by {l_err:.3g}")
-        print(f"[7] table programs of {name} ({grad_fn.graph_mode}; captures "
-              f"{grad_fn.capture_ms:.1f} + {loss_fn.capture_ms:.1f} ms, holding "
-              f"{grad_fn.held_bytes + loss_fn.held_bytes} B): one replay each against the "
-              f"eager step, gradient {float(g):.6g} (error {g_err:.3g}), loss "
-              f"{float(loss):.6g} (error {l_err:.3g})", flush=True)
-        del grad_fn, loss_fn
+        print(f"[7] table functions of {name} ({json.dumps(gv._captured(programs))}): one "
+              f"call each against the eager step, gradient {float(g):.6g} (error "
+              f"{g_err:.3g}), loss {float(loss):.6g} (error {l_err:.3g})", flush=True)
+        del grad_fn, loss_fn, programs
     for row in gv.time_modes(batch, "cuda"):
         print(f"[7] {json.dumps(row)}", flush=True)
     print(f"[7]: {time.time() - t0:.1f} s", flush=True)
@@ -3249,7 +3311,7 @@ def main() -> int:
     phase_kernel_pool(pool, device, res)
     with _knobs(IHT_FOLD="sort"):
         phase_kernels_general(ms, colour, device, res)
-        phase_kernels_sandwich(ms, device, res)
+        stress = phase_kernels_sandwich(ms, device, res)
 
     print("[4] slices", flush=True)
     # The trace kernel packs its rows (no K1), and the spectral folds extract
@@ -3291,6 +3353,9 @@ def main() -> int:
     print("[3, after calibration] K7 and K8 vs plain at every launch of a steady ms-sandwich "
           "batch", flush=True)
     phase_kernels_cascade(engines["ms-sandwich"], device, res)
+    for k in res:
+        if k["name"] in stress:
+            k["stress"] = stress[k["name"]]
     with _layout("sublane"):
         _, counts["ms-sandwich-sublane"], _ = phase_sandwich(
             "ms-sandwich-sublane", ms, device, engines["ms"])

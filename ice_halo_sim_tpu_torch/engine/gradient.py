@@ -31,8 +31,8 @@ forward and its backward are each a CUDA graph (engine/graph.py
 ``GradGraph``), captured at the first call and replayed at every later one,
 so the render is one launch for the host instead of some 3000; on the CPU
 the same body runs eagerly (``graph_mode``). ``RenderProgram.body`` is that
-body, for composing a larger program, such as the whole gradient step of
-grad_validation's table, which graph.StepGraph captures in one graph.
+body. grad_validation's table and demo run the programs, with the loss and
+``torch.autograd.grad`` eager between them.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a CUDA device they raise.
@@ -225,9 +225,11 @@ class RenderProgram:
     (graph.GradGraph) with the params, the seed and the choices as static
     inputs: a seed given as a number is written into its int64 input by
     ``fill_``, never baked into the graph, and the choices are copied into
-    theirs. Every later call replays; the result is differentiable in the
-    params (a backward replays the backward graph, and must run before the
-    next call of the same program). On the CPU the body runs eagerly.
+    theirs. Every later call replays (one after ``graph.invalidate``
+    captures again); the result is
+    differentiable in the params (a backward replays the backward graph,
+    and must run before the next call of the same program). On the CPU the
+    body runs eagerly.
     ``body`` is the eager body itself."""
 
     def __init__(self, body, device: torch.device, extra: str = None):
@@ -260,9 +262,10 @@ class RenderProgram:
         elif self.extra == "seed":
             seed = extra[0]
             args.append(seed if isinstance(seed, torch.Tensor) else int(seed) & MASK32)
-        if self.graph is None:
+        if self.graph is None or self.graph.stale:
             examples = [a if isinstance(a, torch.Tensor)
                         else torch.full((), a, dtype=I64, device=dev) for a in args]
+            self.graph = None
             self.graph = graph_mod.GradGraph(self._flat_body, examples, dev, diff=range(5))
         outs = graph_mod.GradGraph.apply(self.graph, *args)
         return outs[0] if len(outs) == 1 else (outs[0], trace_soa.FrozenChoices(*outs[1:]))

@@ -17,16 +17,21 @@ engine reads that once per dispatch and replays the dispatch up to the
 overflowing batch, which it then runs eagerly).
 
 The gradient path (engine/gradient.py, grad_validation.py) is compiled the
-same way: ``StepGraph`` captures a function of static input tensors, either
-its forward alone or forward, loss and ``torch.autograd.grad`` in one graph
-(``jax.jit(jax.grad(f))``), and ``GradGraph`` captures a forward and its
-backward as two graphs replayed inside a ``torch.autograd.Function``, so
-that the compiled render stays differentiable as a jitted JAX function is
-under ``jax.grad``. Their calls copy new values into the static inputs and
-return clones of the static outputs: a later call never overwrites what an
-earlier one returned.
+same way: ``GradGraph`` captures a forward and its backward as two graphs
+replayed inside a ``torch.autograd.Function``, so that the compiled render
+stays differentiable as a jitted JAX function is under ``jax.grad``. Its
+calls copy new values into the static inputs and return clones of the
+static outputs: a later call never overwrites what an earlier one
+returned.
 
 No fallback: a capture or a replay that fails raises.
+
+Stale captures: ``invalidate()`` marks every graph captured so far stale,
+and its owner (``Engine``, ``RenderProgram``) captures again before its
+next replay. utils/profiling.py calls it as a profiler window opens: a
+window over replays of graphs captured earlier in the process crashed
+inside ``cudaGraphLaunch`` now and then, and never over graphs captured
+just before it.
 
 Launch counts (``kernels.build.LAUNCHES``): a capture records launches, it
 does not run them, so the counts its wrappers added are taken back and
@@ -44,6 +49,28 @@ from ice_halo_sim_tpu_torch.kernels import build
 # Eager runs of a step before its capture (first-use allocations, module
 # loads and lazy initialisation happen there, not in the graph).
 WARMUP = 2
+
+# The generation of captures: ``invalidate()`` starts a new one.
+_generation = 0
+
+
+def invalidate() -> None:
+    """Mark every graph captured so far stale (see the module docstring)."""
+    global _generation
+    _generation += 1
+
+
+class _Capture:
+    """The generation a graph was captured in."""
+
+    def __init__(self):
+        self._captured_in = _generation
+
+    @property
+    def stale(self) -> bool:
+        """Whether ``invalidate()`` was called since the capture: the owner
+        captures again instead of replaying."""
+        return self._captured_in != _generation
 
 
 def _warm_up(fn, device, n: int) -> None:
@@ -79,7 +106,7 @@ def _replay(graph, device, launches) -> None:
         build.LAUNCHES[k] += v
 
 
-class BatchGraph:
+class BatchGraph(_Capture):
     """`step` (one batch, all its effects on tensors that outlive it)
     captured on `device`. Construction runs one real batch first, eagerly on
     a side stream (the warm-up that PyTorch asks of a capture: first-use
@@ -89,6 +116,7 @@ class BatchGraph:
     when to capture again."""
 
     def __init__(self, step, key, device):
+        super().__init__()
         self.key = key
         self.device = device
         self.graph = torch.cuda.CUDAGraph()
@@ -143,76 +171,7 @@ def _zeros_for_unused(grads, wrt) -> list:
     return [torch.zeros_like(w) if g is None else g for g, w in zip(grads, wrt)]
 
 
-class StepGraph:
-    """`fn(*inputs)` over static input tensors: captured on a CUDA device
-    as one CUDA graph, run eagerly on the CPU (the same body, the same
-    static inputs).
-
-    grad_wrt None: the forward alone, under ``no_grad``; a call returns fn's
-    outputs. grad_wrt a tuple of input indices: the whole step, fn's scalar
-    output differentiated to those inputs by ``torch.autograd.grad`` in the
-    same capture (``jax.jit(jax.grad(fn, argnums))``); a call returns one
-    gradient per index, zeros for an input the output does not depend on.
-
-    A call writes its values into the static inputs (a number by ``fill_``,
-    so that it is never a constant of the graph; a tensor by ``copy_``),
-    replays, and returns clones of the static outputs. ``capture_ms`` is
-    the warm-up and the capture's wall time, ``held_bytes`` the device
-    memory the capture reserved (the graph's private pool), which it keeps
-    between calls."""
-
-    def __init__(self, fn, args, device, grad_wrt=None):
-        self.fn = fn
-        self.device = torch.device(device)
-        self.grad_wrt = None if grad_wrt is None else tuple(grad_wrt)
-        self.inputs = [_static(a, self.device) for a in args]
-        for i in self.grad_wrt or ():
-            self.inputs[i].requires_grad_(True)
-        self.graph = None
-        self.capture_ms = 0.0
-        self.held_bytes = 0
-        if self.device.type != "cuda":
-            return
-        t0 = time.perf_counter()
-        with torch.cuda.device(self.device):
-            _warm_up(self._body, self.device, WARMUP)
-            held = _reserved_after_empty_cache(self.device)
-            self.graph = torch.cuda.CUDAGraph()
-            self.outputs, self.launches = _capture(self.graph, self._body,
-                                                   torch.cuda.Stream(self.device))
-            torch.cuda.synchronize(self.device)
-            self.held_bytes = torch.cuda.memory_reserved(self.device) - held
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
-
-    @property
-    def graph_mode(self) -> str:
-        """'cuda graph' on a CUDA device, 'eager' on the CPU."""
-        return "cuda graph" if self.graph is not None else "eager"
-
-    def _body(self) -> list:
-        if self.grad_wrt is None:
-            with torch.no_grad():
-                return _flat(self.fn(*self.inputs))
-        wrt = [self.inputs[i] for i in self.grad_wrt]
-        with torch.enable_grad():
-            grads = torch.autograd.grad(self.fn(*self.inputs), wrt, allow_unused=True)
-        return _zeros_for_unused(grads, wrt)
-
-    def __call__(self, *values):
-        if len(values) != len(self.inputs):
-            raise TypeError(f"{len(values)} values for {len(self.inputs)} static inputs")
-        with torch.no_grad():
-            for s, v in zip(self.inputs, values):
-                _write(s, v)
-        if self.graph is None:
-            out = self._body()
-        else:
-            _replay(self.graph, self.device, self.launches)
-            out = [o.clone() for o in self.outputs]
-        return tuple(out) if self.grad_wrt is not None or len(out) > 1 else out[0]
-
-
-class GradGraph:
+class GradGraph(_Capture):
     """`fn(*inputs) -> tensor or tuple of tensors`, its forward and its
     backward each captured on a CUDA device as a CUDA graph (one memory
     pool), differentiable in the inputs at `diff`. ``apply(graph, *args)``
@@ -227,9 +186,12 @@ class GradGraph:
 
     The saved tensors of a call live in the graph's pool, so a backward must
     run before the next forward of the same graph; one that comes after it
-    raises. ``capture_ms`` and ``held_bytes`` as StepGraph's."""
+    raises. ``capture_ms`` is the warm-up and the capture's wall time,
+    ``held_bytes`` the device memory the capture reserved (the graphs'
+    private pool), which it keeps between calls."""
 
     def __init__(self, fn, args, device, diff):
+        super().__init__()
         self.device = torch.device(device)
         if self.device.type != "cuda":
             raise ValueError("GradGraph captures on a CUDA device")

@@ -1540,11 +1540,12 @@ class Engine:
     def _step(self, graph: bool) -> None:
         """One batch with no host read: a replay of the captured batch (a new
         capture, which runs one batch itself, when the plan or an address
-        changed) when `graph`, else an eager batch that chooses on the
+        changed or the capture is stale: graph.invalidate) when `graph`, else an eager batch that chooses on the
         device."""
         if not graph:
             self._batch()
-        elif self._graph is None or self._graph.key != self._graph_key():
+        elif (self._graph is None or self._graph.stale
+              or self._graph.key != self._graph_key()):
             self._graph = None
             self._graph = graph_mod.BatchGraph(self._batch, self._graph_key(), self.device)
         else:

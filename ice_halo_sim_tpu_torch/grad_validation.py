@@ -19,11 +19,12 @@ card's name and power limit); exit 0 iff every acceptance bound holds. The
 device is CUDA unless ``--device cpu`` is given.
 
 Compiled as the JAX script compiles it: per (param, path) the table builds
-ONE gradient program (``jax.jit(jax.grad(...))``: forward, loss and
-backward captured as one CUDA graph, engine/graph.py ``StepGraph``) and ONE
-loss program (the forward alone), with the parameter value and the seed as
-static inputs, and replays them for every seed; the demo's step is one such
-gradient program. On the CPU the same programs run eagerly.
+ONE hard and (with soft_tau) ONE soft program of make_render_fn (each a
+``RenderProgram``: forward and backward captured as CUDA graphs, the
+parameter's params and the seed as static inputs) and replays them for
+every seed, smooth_loss and torch.autograd.grad eager between them; the
+demo's step runs one such program. On the CPU the same programs run
+eagerly.
 """
 
 from __future__ import annotations
@@ -37,6 +38,8 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ice_halo_sim_tpu_torch.utils.profiling import device_profile
 
 # The tilted-plate scene of the JAX package's gradient tests: the slab
 # face reassignment boundary carries most of the prism height gradient
@@ -113,26 +116,44 @@ def card(dev: torch.device) -> dict:
     return out
 
 
-def table_programs(cfg, params, rep, tau, batch: int, device, v0: float = 0.0):
-    """The table's two programs for one (param, path), as JAX's table
-    builds them: grad_fn(v, seed) = d/dv smooth_loss(soft(rep(params, v),
-    seed)) (soft: the soft_tau render when tau is set, else the hard one)
+def table_programs(cfg, params, rep, tau, batch: int, device):
+    """The table's two functions for one (param, path), as JAX's table
+    builds them: grad_fn(v, seed) = (d/dv smooth_loss(soft(rep(params, v),
+    seed)),) (soft: the soft_tau render when tau is set, else the hard one)
     and loss_fn(v, seed) = smooth_loss(hard(rep(params, v), seed)); v a
     float32 scalar, seed an int64 scalar read as u32 (numbers or tensors).
-    Each a graph.StepGraph: captured on a CUDA device (warmed up at v0),
-    eager on the CPU."""
+    Both run make_render_fn's seed_as_arg programs (captured at their first
+    call on a CUDA device, eager on the CPU), returned third as a tuple."""
     from ice_halo_sim_tpu_torch.engine.gradient import make_render_fn
-    from ice_halo_sim_tpu_torch.engine.graph import StepGraph
 
     hard = make_render_fn(cfg, batch_size=batch, seed_as_arg=True, device=device)
     soft = (make_render_fn(cfg, batch_size=batch, soft_tau=tau, seed_as_arg=True,
                            device=device) if tau else hard)
-    example = (torch.tensor(v0, dtype=torch.float32), torch.tensor(1000, dtype=torch.int64))
-    grad_fn = StepGraph(lambda v, sd: smooth_loss(soft.body(rep(params, v), sd)), example,
-                        device, grad_wrt=(0,))
-    loss_fn = StepGraph(lambda v, sd: smooth_loss(hard.body(rep(params, v), sd)), example,
-                        device)
-    return grad_fn, loss_fn
+    dev = hard.device
+
+    def value(v):
+        return torch.as_tensor(v, dtype=torch.float32).to(dev)
+
+    def grad_fn(v, seed):
+        v = value(v).detach().requires_grad_(True)
+        return torch.autograd.grad(smooth_loss(soft(rep(params, v), seed)), v)
+
+    def loss_fn(v, seed):
+        with torch.no_grad():
+            return smooth_loss(hard(rep(params, value(v)), seed))
+
+    return grad_fn, loss_fn, (hard, soft) if tau else (hard,)
+
+
+def _captured(programs) -> dict:
+    """The programs' graph mode, and on a CUDA device their captures' ms
+    and the device memory they hold."""
+    out = {"graph_mode": programs[0].graph_mode}
+    graphs = [p.graph for p in programs if p.graph is not None]
+    if graphs:
+        out.update(capture_s=round(sum(g.capture_ms for g in graphs) / 1e3, 2),
+                   held_bytes=sum(g.held_bytes for g in graphs))
+    return out
 
 
 def run_table(rays: int, batch: int, device="cuda") -> int:
@@ -150,10 +171,9 @@ def run_table(rays: int, batch: int, device="cuda") -> int:
     for name, rep, eps, tau in PARAMS:
         v0 = float(params.face_distance[0] if name == "face_d0" else getattr(params, name))
         t0 = time.time()
-        # ONE compiled program per (param, path): the value and the seed are
+        # ONE compiled program per (param, path): the params and the seed are
         # static inputs, so seed averaging replays and never captures again.
-        grad_fn, loss_fn = table_programs(cfg, params, rep, tau, batch, dev, v0)
-        t_capture = time.time() - t0
+        grad_fn, loss_fn, programs = table_programs(cfg, params, rep, tau, batch, dev)
         gs, lps, lms = [], [], []
         for s in range(n_seeds):
             sd = 1000 + s
@@ -176,11 +196,9 @@ def run_table(rays: int, batch: int, device="cuda") -> int:
             "rel_err": round(rel, 4), "se_grad": se_g, "se_fd": se_fd,
             "soft_tau": tau, "fd_eps": eps,
             "rays": n_seeds * batch, "pass": bool(passed),
-            "wall_s": round(time.time() - t0, 1), "capture_s": round(t_capture, 2),
-            "graph_mode": grad_fn.graph_mode,
-            "held_bytes": grad_fn.held_bytes + loss_fn.held_bytes, **where,
+            "wall_s": round(time.time() - t0, 1), **_captured(programs), **where,
         }), flush=True)
-        del grad_fn, loss_fn
+        del grad_fn, loss_fn, programs
     print(json.dumps({"table_wall_s": round(time.time() - t_all, 1), "pass": bool(ok),
                       **where}), flush=True)
     return 0 if ok else 1
@@ -189,12 +207,12 @@ def run_table(rays: int, batch: int, device="cuda") -> int:
 def run_demo(iters: int, batch: int, device="cuda") -> int:
     """Recover a perturbed prism height by gradient descent (Adam on the
     soft_tau estimator's gradient, a fresh seed per step) on a target
-    rendered with the same estimator at the true height. The step is one
-    captured gradient program (graph.StepGraph), the target's renders
-    replays of the compiled seed_as_arg render."""
+    rendered with the same estimator at the true height. The target's
+    renders and each step's forward and backward are replays of the
+    compiled seed_as_arg render (a RenderProgram), the loss and
+    torch.autograd.grad eager between them."""
     from ice_halo_sim_tpu_torch.engine.gradient import (default_params, make_render_fn,
                                                         resolve_device)
-    from ice_halo_sim_tpu_torch.engine.graph import StepGraph
 
     dev = resolve_device(device)
     cfg = tilted_cfg()
@@ -220,11 +238,11 @@ def run_demo(iters: int, batch: int, device="cuda") -> int:
     lr0, b1, b2 = 0.02, 0.8, 0.95
     tail = []
     t0 = time.time()
-    grad_fn = StepGraph(
-        lambda hv, sd: torch.sum((blur(fn.body(params._replace(height=hv), sd)) - target)
-                                 ** 2) * 1e-3,
-        (torch.tensor(h, dtype=torch.float32), torch.tensor(9000, dtype=torch.int64)), dev,
-        grad_wrt=(0,))
+    def grad_fn(hv, sd):
+        hv = torch.tensor(hv, dtype=torch.float32, device=dev, requires_grad=True)
+        loss = torch.sum((blur(fn(params._replace(height=hv), sd)) - target) ** 2) * 1e-3
+        return torch.autograd.grad(loss, hv)
+
     for it in range(iters):
         g = float(grad_fn(h, 9000 + it)[0])
         m = b1 * m + (1 - b1) * g
@@ -244,7 +262,7 @@ def run_demo(iters: int, batch: int, device="cuda") -> int:
         "demo": "height_recovery", "h_true": h_true, "h_start": h_true - 0.12,
         "h_final": round(h, 5), "abs_err": round(err, 5),
         "iters": iters, "rays_per_iter": batch,
-        "wall_s": round(time.time() - t0, 1), "graph_mode": grad_fn.graph_mode,
+        "wall_s": round(time.time() - t0, 1), "graph_mode": fn.graph_mode,
         "pass": bool(err < 0.02), **where,
     }), flush=True)
     return 0 if err < 0.02 else 1
@@ -428,22 +446,17 @@ def time_modes(batch: int = 1 << 16, device="cuda", reps: int = 10) -> list:
     """Per mode (hard with the score term, soft_tau 0.005, frozen with the
     base point's recorded choices) on the tilted scene, one row per form:
     "eager" (the render's body, as PyTorch runs it op by op), and on a CUDA
-    device "graph" (make_render_fn's compiled program: a captured forward,
-    and for the backward a captured backward, smooth_loss between them
-    eager) and "step" (the whole step as grad_validation's table runs it:
-    forward, loss and backward to all five params in one captured graph,
-    and the forward and loss in another). Each row: ms per forward (no
+    device "graph" (make_render_fn's compiled program, as the table and the
+    demo run it: a captured forward, and for the backward a captured
+    backward, smooth_loss between them eager). Each row: ms per forward (no
     gradient, as the finite differences call it) and per forward + backward
     of smooth_loss to all five params (host clock to a synchronise, the
     median of reps calls), rays/s; on a CUDA device the device busy time,
     device kernels and idle share of one forward + backward
     (torch.profiler), the peak memory allocated during one, and for the
     compiled forms the capture's ms and the memory the programs hold."""
-    from torch.profiler import ProfilerActivity, profile
-
     from ice_halo_sim_tpu_torch.engine.gradient import (RenderParams, default_params,
                                                         make_render_fn, resolve_device)
-    from ice_halo_sim_tpu_torch.engine.graph import StepGraph
 
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
@@ -486,37 +499,27 @@ def time_modes(batch: int = 1 << 16, device="cuda", reps: int = 10) -> list:
         if cuda:
             fwd_bwd(lambda p: prog(p, *extra))      # the capture
             forms["graph"] = (lambda: fwd(lambda p: prog(p, *extra)),
-                              lambda: fwd_bwd(lambda p: prog(p, *extra)),
-                              (prog.graph.capture_ms, prog.graph.held_bytes))
-
-            def loss(*p, body=prog.body, x=extra):
-                return smooth_loss(body(RenderParams(*p), *x))
-
-            f_step = StepGraph(loss, list(params), dev)
-            fb_step = StepGraph(loss, list(params), dev, grad_wrt=range(5))
-            forms["step"] = (lambda f=f_step: f(*params), lambda f=fb_step: f(*params),
-                             (f_step.capture_ms + fb_step.capture_ms,
-                              f_step.held_bytes + fb_step.held_bytes))
+                              lambda: fwd_bwd(lambda p: prog(p, *extra)), prog)
         for form, (f_call, fb_call, compiled) in forms.items():
             f_ms = wall_ms(f_call)
             fb_ms = wall_ms(fb_call)
             row = {"mode": mode, "form": form, "batch": batch, "fwd_ms": f_ms,
                    "fwd_bwd_ms": fb_ms, "rays_per_s": batch / (fb_ms * 1e-3), **card(dev)}
             if cuda:
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                with device_profile(warm=fb_call) as win:
                     fb_call()
                     sync()
-                ev = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-                busy = sum(e.self_device_time_total for e in ev) / 1e3
+                busy = win.device_us / 1e3
                 torch.cuda.reset_peak_memory_stats(dev)
                 fb_call()
                 sync()
-                row.update(kernels=sum(e.count for e in ev),
+                row.update(kernels=win.kernels,
                            busy_ms=busy if busy > 0 else None,
                            idle_share=1.0 - busy / fb_ms if busy > 0 else None,
                            peak_mem_bytes=torch.cuda.max_memory_allocated(dev))
                 if compiled is not None:
-                    row.update(capture_ms=compiled[0], held_bytes=compiled[1])
+                    row.update(capture_ms=compiled.graph.capture_ms,
+                               held_bytes=compiled.graph.held_bytes)
             rows.append(row)
         del forms
         if cuda:

@@ -46,6 +46,7 @@ import torch
 from ice_halo_sim_tpu_torch.core import accum, sandwich
 from ice_halo_sim_tpu_torch.core.bits import F32, I32, from_bits
 from ice_halo_sim_tpu_torch.kernels import build, kernel_set
+from ice_halo_sim_tpu_torch.utils.profiling import device_profile
 
 NLO = sandwich.NLO
 
@@ -110,25 +111,20 @@ def timed_by() -> str:
 
 def device_ms(fn, reps: int = 10) -> float:
     """Device milliseconds per call of fn: the CUDA time of every kernel, copy
-    and memset that `reps` calls put on the card (torch.profiler), over reps.
+    and memset that `reps` calls put on the card (torch.profiler), over reps,
+    after one call outside the window (utils/profiling.py: `warm`).
     Now and then the profiler returns no device event at all; the window is
     then profiled twice more, and after that timed with CUDA events around
     the calls (which also count the gaps the host leaves between short
     kernels). `timed_by` says which of the two it was."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
     for _attempt in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with device_profile(warm=fn) as win:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if str(e.device_type).endswith("CUDA"))
-        if us > 0:
+        if not win.empty:
             _METHODS.append("profiler")
-            return us / 1e3 / reps
+            return win.device_us / 1e3 / reps
     print("device_ms: the profiler recorded no device time; timing with CUDA events",
           flush=True)
     _METHODS.append("cuda events")

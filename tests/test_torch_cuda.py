@@ -757,9 +757,10 @@ def test_gradient_graph_takes_each_seed(dev):
 
 
 def test_table_programs_replay_against_eager(dev):
-    """Per parameter, the table's gradient and loss programs (one capture
-    each) replayed at two seeds against the eager step at the same (v,
-    seed): gradients within GRAD_RTOL, the loss within 2 * IMG_RTOL."""
+    """Per parameter, the table's gradient and loss functions (over one
+    capture of each seed_as_arg program) called at two seeds against the
+    eager step at the same (v, seed): gradients within GRAD_RTOL, the loss
+    within 2 * IMG_RTOL."""
     from ice_halo_sim_tpu_torch import grad_validation as gv
     from ice_halo_sim_tpu_torch.engine.gradient import default_params, make_render_fn
 
@@ -768,8 +769,8 @@ def test_table_programs_replay_against_eager(dev):
     B = 1 << 14
     for name, rep, eps, tau in gv.PARAMS:
         v0 = float(params.face_distance[0] if name == "face_d0" else getattr(params, name))
-        grad_fn, loss_fn = gv.table_programs(cfg, params, rep, tau, B, dev, v0)
-        assert grad_fn.graph_mode == loss_fn.graph_mode == "cuda graph"
+        grad_fn, loss_fn, programs = gv.table_programs(cfg, params, rep, tau, B, dev)
+        assert {p.graph_mode for p in programs} == {"cuda graph"}
         hard = make_render_fn(cfg, batch_size=B, seed_as_arg=True, device=dev)
         soft = make_render_fn(cfg, batch_size=B, soft_tau=tau, seed_as_arg=True,
                               device=dev) if tau else hard
@@ -859,9 +860,77 @@ def test_viewer_exposure_post_processes_on_the_card(dev, monkeypatch):
 def test_capture_failure_raises(dev):
     """A step that reads a value back to the host cannot be captured: the
     capture raises (no fallback to eager), and the card still works."""
-    from ice_halo_sim_tpu_torch.engine.graph import StepGraph
+    from ice_halo_sim_tpu_torch.engine.graph import GradGraph
 
     with pytest.raises(RuntimeError):
-        StepGraph(lambda x: x * float(x.sum()), (torch.ones(3, device=dev),), dev)
+        GradGraph(lambda x: x * float(x.sum()), (torch.ones(3, device=dev),), dev, diff=(0,))
     torch.cuda.synchronize(dev)
     assert float((torch.ones(3, device=dev) * 2).sum()) == 6.0
+
+
+def test_graph_replays_inside_profiler_windows(dev, monkeypatch):
+    """An Engine's steady batch (MS_CFG, the general path, some 5000
+    kernels) replayed inside profiler windows, 20 times in one process:
+    each window's warm call captures the batch anew just before it (a
+    window makes every earlier capture stale: utils/profiling.py), the
+    window replays that graph and captures nothing, and records the
+    replays' device work and the launches they counted."""
+    from ice_halo_sim_tpu_torch.kernels import build
+    from ice_halo_sim_tpu_torch.scenes import MS_CFG
+    from ice_halo_sim_tpu_torch.utils.profiling import device_profile
+
+    monkeypatch.setenv("IHT_STEPS_PER_DISPATCH", "2")
+    monkeypatch.setenv("IHT_FOLD", "sort")
+    eng = Engine(load_project(MS_CFG), seed=7, batch_size=16384, device=dev)
+    eng.run(n_batches=2)
+    eng.run(n_batches=2)
+    assert eng.graph_mode == "cuda graph" and eng._graph is not None
+    graphs = []
+    for i in range(20):
+        with device_profile(warm=lambda: eng.run(n_batches=2)) as first:
+            eng.run(n_batches=2)
+            torch.cuda.synchronize(dev)
+        with device_profile(warm=lambda: eng.run(n_batches=1)) as win:
+            graph = eng._graph
+            before = dict(build.LAUNCHES)
+            eng.run(n_batches=2)
+            torch.cuda.synchronize(dev)
+        assert eng._graph is graph and graph not in graphs
+        graphs.append(graph)
+        assert graph.launches.get("fused_scan_extract", 0) > 0
+        assert {k: v - before[k] for k, v in build.LAUNCHES.items() if v != before[k]} == {
+            k: 2 * v for k, v in graph.launches.items()}
+        assert not first.empty and not win.empty and win.kernels > 1000, (i, win.kernels)
+
+
+def test_render_program_captures_again_for_a_window(dev):
+    """A RenderProgram's graph goes stale when a profiler window opens: the
+    window's warm call captures the program anew (outside the profiler),
+    the window replays that capture, and the replayed forward and backward
+    equal the eager body's at the same seed."""
+    from ice_halo_sim_tpu_torch import grad_validation as gv
+    from ice_halo_sim_tpu_torch.engine.gradient import default_params, make_render_fn
+    from ice_halo_sim_tpu_torch.utils.profiling import device_profile
+
+    cfg = gv.tilted_cfg()
+    params = default_params(cfg, dev)
+    fn = make_render_fn(cfg, batch_size=1 << 14, seed_as_arg=True, device=dev)
+
+    def step(body=None):
+        v = params.zenith_std_deg.detach().clone().requires_grad_(True)
+        p = params._replace(zenith_std_deg=v)
+        img = (fn if body is None else body)(p, 21)
+        (g,) = torch.autograd.grad(gv.smooth_loss(img), v)
+        return img.detach(), g
+
+    step()
+    first = fn.graph
+    with device_profile(warm=step) as win:
+        captured = fn.graph
+        img, g = step()
+        torch.cuda.synchronize(dev)
+    assert first.stale and captured is not first and not captured.stale
+    assert fn.graph is captured and not win.empty
+    want_img, want_g = step(fn.body)
+    assert gv.image_errors("free", img.cpu().numpy(), want_img.cpu().numpy())["ok"]
+    assert gv.grad_err(g.cpu().numpy(), want_g.cpu().numpy()) <= gv.GRAD_RTOL["free"]

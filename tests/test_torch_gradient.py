@@ -387,7 +387,7 @@ def test_compiled_forms_run_eagerly_on_the_cpu():
              make_render_fn(cfg, batch_size=1024, seed_as_arg=True, device="cpu"),
              render_frozen, record]
     name, rep, _eps, tau = grad_validation.PARAMS[3]
-    forms += list(grad_validation.table_programs(cfg, params, rep, tau, 1024, "cpu", 0.9))
+    forms += list(grad_validation.table_programs(cfg, params, rep, tau, 1024, "cpu")[2])
     assert [f.graph_mode for f in forms] == ["eager"] * 6
     img, choices = record(params)
     assert torch.equal(img, record.body(params)[0])
@@ -395,19 +395,24 @@ def test_compiled_forms_run_eagerly_on_the_cpu():
     assert torch.equal(forms[1](params, 7), forms[1].body(params, 7))
 
 
-def test_static_inputs_rewritten_per_call_equal_fresh_eager_calls():
-    """The table's gradient and loss programs and the seed_as_arg render,
-    called several times with the value and the seed rewritten into their
-    static inputs (numbers by fill_, tensors by copy_): each result equals a
-    fresh eager call at those values bit for bit, and a later call leaves
-    an earlier result as it was."""
+@pytest.mark.parametrize("i", [4, 2], ids=["face_d0 soft_tau", "zenith_std_deg hard"])
+def test_static_inputs_rewritten_per_call_equal_fresh_eager_calls(i):
+    """The table's gradient and loss functions and the seed_as_arg render,
+    called several times with the value and the seed given as numbers and
+    as tensors (on a CUDA device written into the programs' static inputs):
+    each result equals a fresh eager call at those values bit for bit, and
+    a later call leaves an earlier result as it was. On the hard path one
+    program serves the gradient and the loss."""
     cfg = grad_validation.tilted_cfg()
     params = default_params(cfg, device="cpu")
-    name, rep, _eps, tau = grad_validation.PARAMS[4]          # face_d0, soft_tau
-    v0 = float(params.face_distance[0])
-    grad_fn, loss_fn = grad_validation.table_programs(cfg, params, rep, tau, 1024, "cpu", v0)
-    soft = make_render_fn(cfg, batch_size=1024, soft_tau=tau, seed_as_arg=True, device="cpu")
+    name, rep, _eps, tau = grad_validation.PARAMS[i]
+    v0 = float(params.face_distance[0] if name == "face_d0" else getattr(params, name))
+    grad_fn, loss_fn, programs = grad_validation.table_programs(cfg, params, rep, tau, 1024,
+                                                                "cpu")
+    assert len(programs) == (2 if tau else 1)
     hard = make_render_fn(cfg, batch_size=1024, seed_as_arg=True, device="cpu")
+    soft = make_render_fn(cfg, batch_size=1024, soft_tau=tau, seed_as_arg=True,
+                          device="cpu") if tau else hard
     kept = []
     for v, sd in ((v0, 1000), (v0 + 0.05, torch.tensor(1001)),
                   (torch.tensor(v0 - 0.05), 1002), (v0, torch.tensor(1000))):
@@ -429,22 +434,27 @@ def test_static_inputs_rewritten_per_call_equal_fresh_eager_calls():
             assert torch.equal(x, copy)
 
 
-def test_step_graph_checks_its_inputs():
-    """A value of another shape is refused (copy_ would broadcast it
-    silently); a GradGraph needs a CUDA device; the whole step returns zeros
-    for an input the output does not depend on, as a captured step must."""
-    from ice_halo_sim_tpu_torch.engine.graph import GradGraph, StepGraph
+def test_grad_graph_static_inputs_check_their_values():
+    """What a GradGraph call writes into its static inputs: a number by
+    fill_, a tensor by copy_, and a tensor of another shape is refused
+    (copy_ would broadcast it silently); a backward gives zeros for an
+    input the outputs do not depend on, as a captured backward must; a
+    GradGraph needs a CUDA device."""
+    from ice_halo_sim_tpu_torch.engine import graph
 
-    step = StepGraph(lambda x, y: (x * x).sum(), (torch.ones(3), torch.ones(2)), "cpu",
-                     grad_wrt=(0, 1))
-    gx, gy = step(torch.tensor([1.0, 2.0, 3.0]), 5.0)
-    assert torch.equal(gx, torch.tensor([2.0, 4.0, 6.0])) and torch.equal(gy, torch.zeros(2))
+    static = torch.zeros(3)
+    graph._write(static, 2.5)
+    assert torch.equal(static, torch.full((3,), 2.5))
+    graph._write(static, torch.tensor([1.0, 2.0, 3.0]))
+    assert torch.equal(static, torch.tensor([1.0, 2.0, 3.0]))
     with pytest.raises(ValueError, match="shape"):
-        step(torch.ones(4), torch.ones(2))
-    with pytest.raises(TypeError, match="static inputs"):
-        step(torch.ones(3))
+        graph._write(static, torch.ones(4))
+    x, y = torch.ones(3, requires_grad=True), torch.ones(2, requires_grad=True)
+    grads = torch.autograd.grad((x * x).sum(), [x, y], allow_unused=True)
+    gx, gy = graph._zeros_for_unused(grads, [x, y])
+    assert torch.equal(gx, torch.full((3,), 2.0)) and torch.equal(gy, torch.zeros(2))
     with pytest.raises(ValueError, match="CUDA"):
-        GradGraph(lambda x: x * 2, (torch.ones(3),), "cpu", diff=(0,))
+        graph.GradGraph(lambda x: x * 2, (torch.ones(3),), "cpu", diff=(0,))
 
 
 def test_render_bodies_read_nothing_back_from_the_device():

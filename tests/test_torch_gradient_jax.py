@@ -108,8 +108,8 @@ def test_gradient_matches_jax(both, mode, field):
 
 
 # --- The table's compiled programs against JAX's jit(grad) -----------------
-# grad_validation.table_programs (the port's table: one gradient program and
-# one loss program per parameter, the value and the seed static inputs) at
+# grad_validation.table_programs (the port's table: its gradient and loss
+# functions per parameter over the captured seed_as_arg programs) at
 # batch TABLE_B, the seed passed as a tensor, against the JAX script's own
 # composition, jax.jit(jax.grad(lambda v, sd: smooth_loss(soft(rep(params,
 # v), sd)))) and jax.jit(lambda v, sd: smooth_loss(hard(rep(params, v), sd))),
@@ -146,7 +146,7 @@ def test_table_programs_match_jax_jit_grad(jax_script, i):
 
     params = gradient.params_from_jax([np.asarray(x) for x in jparams], device="cpu")
     v0 = float(params.face_distance[0] if name == "face_d0" else getattr(params, name))
-    grad_fn, loss_fn = gv.table_programs(gv.tilted_cfg(), params, rep, tau, TABLE_B, "cpu", v0)
+    grad_fn, loss_fn, _ = gv.table_programs(gv.tilted_cfg(), params, rep, tau, TABLE_B, "cpu")
     for sd in TABLE_SEEDS:
         seed = torch.tensor(sd, dtype=torch.int64)
         (g,) = grad_fn(torch.tensor(v0), seed)

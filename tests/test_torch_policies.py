@@ -15,6 +15,7 @@ import re
 import subprocess
 import sys
 
+import pytest
 import torch
 
 import ice_halo_sim_tpu_torch
@@ -200,10 +201,10 @@ def test_every_kernel_call_runs_on_its_tensors_device():
                 assert re.search(r"with torch\.cuda\.device\(\w+(\.device)?\):$",
                                  lines[i - 1].strip()), (path, i + 1)
     assert calls == 10
-    # engine/graph.py: each of its three captures (BatchGraph, StepGraph,
-    # GradGraph) and its one replay helper under the graph's device.
+    # engine/graph.py: each of its two captures (BatchGraph, GradGraph) and
+    # its one replay helper under the graph's device.
     graph = open(os.path.join(PKG, "engine", "graph.py")).read()
-    assert graph.count("with torch.cuda.device(") == 4
+    assert graph.count("with torch.cuda.device(") == 3
     assert graph.count(".replay()") == 1 and graph.count("torch.cuda.graph(") == 1
     cu = open(os.path.join(PKG, "csrc", "block_ops.cu")).read()
     assert "static int n_sm" not in cu and "cudaGetDevice(&device)" in cu
@@ -379,3 +380,69 @@ def test_sandwich_source_holds_no_library_product():
         assert word not in wrapper, word
     sim = open(os.path.join(PKG, "engine", "simulator.py")).read()
     assert "degraded" not in sim.replace("``+degraded``", "")
+
+
+_PROFILER_MODULES = ("torch.profiler", "torch.autograd.profiler", "torch._C._profiler",
+                     "torch._C._autograd")
+
+
+def _profiler_uses(path: str) -> list:
+    """The places in a Python file that import or reach torch's profiler:
+    import statements of it, and attribute chains such as
+    torch.profiler.profile or torch.autograd.profiler.record_function."""
+    import ast
+
+    tree = ast.parse(open(path).read(), path)
+    uses = []
+
+    def dotted(node):
+        parts = []
+        while isinstance(node, ast.Attribute):
+            parts.append(node.attr)
+            node = node.value
+        if isinstance(node, ast.Name):
+            parts.append(node.id)
+        return ".".join(reversed(parts))
+
+    def hits(name):
+        return any(name == m or name.startswith(m + ".") for m in _PROFILER_MODULES)
+
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            uses += [(node.lineno, a.name) for a in node.names if hits(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [f"{node.module}.{a.name}" for a in node.names]
+            uses += [(node.lineno, n) for n in names if hits(node.module) or hits(n)]
+        elif isinstance(node, ast.Attribute) and hits(dotted(node)):
+            uses.append((node.lineno, dotted(node)))
+    return uses
+
+
+HELPER = os.path.join(PKG, "utils", "profiling.py")
+
+
+@pytest.mark.parametrize("where", ["the port", "chip_smoke.py"])
+def test_only_the_helper_reaches_torch_profiler(where):
+    """Every torch.profiler window of the port and of chip_smoke.py opens in
+    utils/profiling.py (device_profile): no other file imports or reaches
+    the profiler."""
+    files = ([f for f in _port_files((".py",)) if f != HELPER] if where == "the port"
+             else [os.path.join(ROOT, "chip_smoke.py")])
+    assert len(files) > (40 if where == "the port" else 0)
+    bad = {os.path.relpath(f, ROOT): u for f in files if (u := _profiler_uses(f))}
+    assert not bad, bad
+
+
+def test_the_helper_is_where_the_profiler_is_reached():
+    """The check above is not vacuous: it finds the helper's own import, and
+    an attribute chain in a sample."""
+    assert any(name.startswith("torch.profiler") for _, name in _profiler_uses(HELPER))
+    import tempfile
+
+    with tempfile.NamedTemporaryFile("w", suffix=".py", delete=False) as f:
+        f.write("import torch\nwith torch.autograd.profiler.profile():\n    pass\n")
+    try:
+        assert [n for _, n in _profiler_uses(f.name)] == ["torch.autograd.profiler.profile",
+                                                          "torch.autograd.profiler"]
+    finally:
+        os.unlink(f.name)
