@@ -86,7 +86,7 @@ def test_trace_layer_soa_matches_jax(monkeypatch, case):
 
     d, angles, w0, n_ior = _rays(17)
     rot_j = jsoa.rot_components(*[jnp.asarray(a) for a in angles])
-    rot = tuple(np.asarray(r) for r in rot_j)
+    rot = tuple(np.array(r) for r in rot_j)
     seed = 0x1234ABCD
     idx = (np.arange(B, dtype=np.int64) + 4_294_960_000) & 0xFFFFFFFF   # wraps past 2^32
     want = jsoa.trace_layer_soa(
