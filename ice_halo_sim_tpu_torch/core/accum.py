@@ -45,6 +45,7 @@ import torch
 from ice_halo_sim_tpu_torch.core.bits import F32, I32, I64, MASK32, from_bits, to_bits
 from ice_halo_sim_tpu_torch.core.block_ops import exclusive_starts as _exclusive_starts
 from ice_halo_sim_tpu_torch.core.block_ops import pad_rows as _pad_cols
+from ice_halo_sim_tpu_torch.utils import profiling
 
 # Row-block size of the marker extraction (pack + scatter).
 BLOCK = 4096
@@ -136,7 +137,9 @@ def accumulate(acc, pix, vals, method: str, ks):
 
 
 def sort_keys(keys, w):
-    """Unstable sort of (u32 key bits, f32 weight) rows by key."""
+    """Unstable sort of (u32 key bits, f32 weight) rows by key (the stage
+    ``sort`` of a timed batch: utils/profiling.py)."""
+    profiling.stage("sort")
     hi = (keys ^ -(1 << 31)).to(I64)
     lo = w.contiguous().view(I32).to(I64) & MASK32
     s, _ = torch.sort(hi * (1 << 32) + lo)
@@ -280,6 +283,7 @@ def fold_spectral_keys(acc, key, w, k_pool: int, basis_tbl, ks, lane_specs=(),
     if acc.shape[1] != 3 + L:
         raise ValueError(f"accumulator has {acc.shape[1]} channels, not {3 + L}")
     shift = key_shift(k_pool)
+    profiling.stage("sort")
     keys = torch.cat([key, marker_keys(P, k_pool, key.device)])
     w_all = torch.cat([w, torch.zeros(P, dtype=w.dtype, device=w.device)])
     keys, (w_all,) = _pad_cols(keys, [w_all], BLOCK)
@@ -289,7 +293,10 @@ def fold_spectral_keys(acc, key, w, k_pool: int, basis_tbl, ks, lane_specs=(),
     cut = prefix_len if prefix_len is not None and prefix_len < M else M
     if L == 0:
         sk, sw = sort_keys(keys, w_all)
-        return acc + ks.fused_scan_extract(sk[:cut], sw[:cut], basis_tbl, shift, k_pool, P)
+        profiling.stage("scan")
+        dense = ks.fused_scan_extract(sk[:cut], sw[:cut], basis_tbl, shift, k_pool, P)
+        profiling.stage("rest")
+        return acc + dense
     if mask is None:
         raise ValueError("lane_specs need the mask column")
     # Sort (key, row) pairs and gather the two payload columns by row.
@@ -302,6 +309,7 @@ def fold_spectral_keys(acc, key, w, k_pool: int, basis_tbl, ks, lane_specs=(),
     sw = w_all[order]
     n = mask.shape[0]
     smask = torch.where(order < n, from_bits(mask)[torch.clamp_max(order, n - 1)], 0)
+    profiling.stage("scan")
     basis = basis_tbl.to(device=keys.device, dtype=F32)[(k_sorted >> 1) & (k_pool - 1)]
     chans = [basis[:, c] * sw for c in range(3)]
     y = chans[1]
@@ -309,7 +317,9 @@ def fold_spectral_keys(acc, key, w, k_pool: int, basis_tbl, ks, lane_specs=(),
     seg = _segmented_totals(sk, chans, shift, P)
     mmask = 2 * k_pool - 1
     key2 = to_bits(torch.where((k_sorted & mmask) == mmask, k_sorted >> shift, MASK32))
-    return acc + _marker_extract(key2, seg, P, ks)
+    dense = _marker_extract(key2, seg, P, ks)
+    profiling.stage("rest")
+    return acc + dense
 
 
 def fold_spectral_keys_premerged(acc, keys, w, k_pool: int, basis_tbl, ks):
@@ -321,5 +331,8 @@ def fold_spectral_keys_premerged(acc, keys, w, k_pool: int, basis_tbl, ks):
     if M % BLOCK:
         raise ValueError(f"{M} rows are not a multiple of block {BLOCK}")
     sk, sw = sort_keys(keys, w)
-    return acc + ks.fused_scan_extract(sk, sw, basis_tbl, key_shift(k_pool), k_pool, P)
+    profiling.stage("scan")
+    dense = ks.fused_scan_extract(sk, sw, basis_tbl, key_shift(k_pool), k_pool, P)
+    profiling.stage("rest")
+    return acc + dense
 

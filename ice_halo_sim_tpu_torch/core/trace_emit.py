@@ -43,6 +43,7 @@ from ice_halo_sim_tpu_torch.core import (
 from ice_halo_sim_tpu_torch.core.accum import key_shift
 from ice_halo_sim_tpu_torch.core.bits import F32, I32, I64, MASK32, from_bits, to_bits
 from ice_halo_sim_tpu_torch.kernels import build
+from ice_halo_sim_tpu_torch.utils import profiling
 
 LAYER_NONCE = 0xA5A5
 MAX_RENDERS = 4
@@ -668,6 +669,7 @@ def trace_emit(plan: TracePlan, base, n_active: int, device, ptbl=None, ttbl=Non
             )
         build.check(code, "trace_emit")
         build.LAUNCHES["trace_emit"] += 1
+    profiling.stage("rest")   # the trace stage ends with the kernel (utils/profiling.py)
     per_render = []
     off = 0
     for r, rb in enumerate(plan.rows_block):

@@ -33,6 +33,9 @@ window over replays of graphs captured earlier in the process crashed
 inside ``cudaGraphLaunch`` now and then, and never over graphs captured
 just before it.
 
+Spans (utils/profiling.py): ``iht.capture`` around a BatchGraph's warm-up
+and capture, always; ``iht.launch`` around a traced replay's launch.
+
 Launch counts (``kernels.build.LAUNCHES``): a capture records launches, it
 does not run them, so the counts its wrappers added are taken back and
 added again on every replay, which launches each recorded kernel once.
@@ -45,6 +48,7 @@ import time
 import torch
 
 from ice_halo_sim_tpu_torch.kernels import build
+from ice_halo_sim_tpu_torch.utils import profiling
 
 # Eager runs of a step before its capture (first-use allocations, module
 # loads and lazy initialisation happen there, not in the graph).
@@ -99,8 +103,9 @@ def _capture(graph, fn, stream, pool=None):
     return out, launches
 
 
-def _replay(graph, device, launches) -> None:
-    with torch.cuda.device(device):
+def _replay(graph, device, launches, traced: bool = False) -> None:
+    """One replay; `traced`: its launch in an ``iht.launch`` span."""
+    with torch.cuda.device(device), profiling.span_if(traced, "iht.launch"):
         graph.replay()
     for k, v in launches.items():
         build.LAUNCHES[k] += v
@@ -115,6 +120,7 @@ class BatchGraph(_Capture):
     the capture assumed (plan, addresses); the owner compares it to decide
     when to capture again."""
 
+    @profiling.setup_span("iht.capture")
     def __init__(self, step, key, device):
         super().__init__()
         self.key = key
@@ -127,8 +133,8 @@ class BatchGraph(_Capture):
             _warm_up(step, device, 1)
             _, self.launches = _capture(self.graph, step, torch.cuda.Stream(device))
 
-    def replay(self) -> None:
-        _replay(self.graph, self.device, self.launches)
+    def replay(self, traced: bool = False) -> None:
+        _replay(self.graph, self.device, self.launches, traced)
 
 
 def _reserved_after_empty_cache(device) -> int:

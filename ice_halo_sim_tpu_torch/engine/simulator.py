@@ -120,6 +120,7 @@ from ice_halo_sim_tpu_torch.core import (
 from ice_halo_sim_tpu_torch.core.bits import F32, I32, I64, MASK32, const, from_bits, to_bits
 from ice_halo_sim_tpu_torch.engine import graph as graph_mod
 from ice_halo_sim_tpu_torch.kernels import kernel_set
+from ice_halo_sim_tpu_torch.utils import profiling
 
 DEFAULT_BATCH = 1 << 17
 DEFAULT_GEOM_CLOCK = 32
@@ -257,6 +258,7 @@ class Engine:
 
     _KEEP_MARGIN = 1.06
 
+    @profiling.setup_span("iht.setup.engine")
     def __init__(self, cfg: ProjectConfig, seed: int = 1,
                  batch_size: int = DEFAULT_BATCH, device="cuda",
                  kernels: Optional[str] = None,
@@ -310,6 +312,9 @@ class Engine:
         self._compact_keep = None
         self._calibrated = False
         self.host_syncs = 0
+        # Stage marks (utils/profiling.py, the tracer on): of the last batch
+        # run, and of the batch the current graph replays.
+        self._marks = self._graph_marks = None
         self._sandwich_setup()
         self.reset()
 
@@ -1413,6 +1418,7 @@ class Engine:
         counter = self._dev.counter
         lo, hi = self._ray_base_words(counter)
         words = to_bits(torch.stack([lo, hi]))
+        profiling.stage("trace")
         tables = self._pool_tables(counter) if self._trace_plan.pool_k else ()
         per_render, landed_add, dropped, segs = self.ks.trace_emit(
             self._trace_plan, words, n_active, self.device, *tables
@@ -1432,6 +1438,7 @@ class Engine:
                     self.basis_tbl, self.ks,
                 ))
                 continue
+            profiling.stage("scatter")
             P = acc.shape[0]
             block = accum_mod.BLOCK
             out_total = -(-(kr + P) // block) * block
@@ -1486,7 +1493,19 @@ class Engine:
         captures). host_choice: the eager batch, which reads its live counts
         and takes the full fold or the global continuation sort where they
         overflow; else the compacted branches always, an overflow recorded
-        in first_over."""
+        in first_over. On the kernel path with the tracer on, its stages
+        are timed (utils/profiling.py)."""
+        if self._trace_plan is None:
+            self._batch_body(n_active, host_choice)
+            return
+        with profiling.batch_stages(self.device) as marks:
+            self._batch_body(n_active, host_choice)
+        if marks is not None and torch.cuda.is_current_stream_capturing():
+            self._graph_marks = marks
+        else:
+            self._marks = marks
+
+    def _batch_body(self, n_active: Optional[int], host_choice: bool) -> None:
         d = self._dev
         keep = self._compact_keep
         if self._trace_plan is not None:
@@ -1529,33 +1548,43 @@ class Engine:
     def _graph_key(self):
         """What a captured batch assumed: the plan it was built under (on the
         sandwich fold each level's chunk list, by address, and keep), the
-        shard (its ray base is a constant of the graph) and the addresses it
-        reads and writes."""
+        shard (its ray base is a constant of the graph), the addresses it
+        reads and writes, and whether the tracer was on (its stage timers
+        are nodes of the graph)."""
         levels = (tuple((clist.data_ptr(), keep) for lv in self._levels for clist, keep in lv)
                   if self._sandwich_on else None)
         return (self._compact_keep, self._slot_cap, tuple(l.cont_cap for l in self.layers),
                 self.fold_kind, levels, self.shard, tuple(t.data_ptr() for t in self.accum),
-                tuple(t.data_ptr() for t in self._dev))
+                tuple(t.data_ptr() for t in self._dev), profiling.is_tracing())
 
-    def _step(self, graph: bool) -> None:
+    def _step(self, graph: bool, traced: bool = False) -> None:
         """One batch with no host read: a replay of the captured batch (a new
         capture, which runs one batch itself, when the plan or an address
-        changed or the capture is stale: graph.invalidate) when `graph`, else an eager batch that chooses on the
-        device."""
+        changed or the capture is stale: graph.invalidate) when `graph`, else
+        an eager batch that chooses on the device. `traced`: in a span,
+        ``iht.launch`` (the replay's launch) or ``iht.step``."""
         if not graph:
-            self._batch()
+            with profiling.span_if(traced, "iht.step"):
+                self._batch()
         elif (self._graph is None or self._graph.stale
               or self._graph.key != self._graph_key()):
             self._graph = None
             self._graph = graph_mod.BatchGraph(self._batch, self._graph_key(), self.device)
+        elif traced:
+            self._graph.replay(traced=True)
+            self._marks = self._graph_marks
         else:
             self._graph.replay()
 
-    def _steady(self, n: int) -> None:
-        """n batches with no host read (``_step``)."""
+    def _steady(self, n: int, traced: bool = False) -> None:
+        """n batches with no host read (``_step``), traced or not."""
         graph = self.graph_mode == "cuda graph"
-        for _ in range(n):
-            self._step(graph)
+        if traced:
+            for _ in range(n):
+                self._step(graph, True)
+        else:
+            for _ in range(n):
+                self._step(graph)
 
     def _overflow_possible(self) -> bool:
         """Whether a batch can take a compacted branch that its rows
@@ -1573,71 +1602,89 @@ class Engine:
 
     def _dispatch(self, k: int) -> None:
         """k full batches from the host count on, as one JAX dispatch: the
-        launch part, then the read part."""
+        launch part, then the read part; in an ``iht.dispatch`` span, and
+        its parts in theirs, while spans are live (utils/profiling.py)."""
         if not self._calibrated:
             d = self._dev
             for t in (d.live, d.cont, d.slot_mass):
                 t.zero_()
-        self._launch(k)
-        self._read()
+        if not profiling.live():
+            self._launch(k)
+            self._read()
+            return
+        with profiling.span("iht.dispatch", dispatch=self.batch_counter):
+            self._launch(k, traced=True)
+            self._read(traced=True)
 
-    def _launch(self, k: int) -> None:
+    def _launch(self, k: int, traced: bool = False) -> None:
         """The launch part of a dispatch of k full batches from the host
         count on, with no host read: the prologue, the k batches
         (``_step``), the epilogue. A data-parallel run does the three parts
         itself, so as to launch batch i on every shard before batch i + 1,
         and reads every shard after (``_read``)."""
-        guard = self._launch_prologue()
-        self._steady(k)
+        guard = self._launch_prologue(traced)
+        self._steady(k, traced)
         self._launch_epilogue(k, guard)
 
-    def _launch_prologue(self) -> bool:
+    def _launch_prologue(self, traced: bool = False) -> bool:
         """The device counter from the host count, and a snapshot of the
         state when a batch can overflow; returns whether it took one."""
-        d = self._dev
-        d.counter.fill_(self.batch_counter)
-        guard = self._overflow_possible()
-        if guard:
-            state = self._state()
-            if self._snap is None or [t.shape for t in self._snap] != [
-                    t.shape for t in state]:
-                self._snap = [torch.empty_like(t) for t in state]
-            for s, t in zip(self._snap, state):
-                s.copy_(t)
-            d.first_over.fill_(-1)
+        with profiling.span_if(traced, "iht.prologue"):
+            d = self._dev
+            d.counter.fill_(self.batch_counter)
+            guard = self._overflow_possible()
+            if guard:
+                state = self._state()
+                if self._snap is None or [t.shape for t in self._snap] != [
+                        t.shape for t in state]:
+                    self._snap = [torch.empty_like(t) for t in state]
+                for s, t in zip(self._snap, state):
+                    s.copy_(t)
+                d.first_over.fill_(-1)
         return guard
 
     def _launch_epilogue(self, k: int, guard: bool) -> None:
         """What ``_read`` needs of the k batches just launched."""
         self._pending = (self.batch_counter, k, guard)
 
-    def _read(self) -> None:
+    def _read(self, traced: bool = False) -> None:
         """The read part of the dispatch ``_launch`` started: one read of
         the first overflowing batch (when a batch can overflow). If one did,
         the state goes back to the snapshot, the batches before it run
         again, it runs eagerly with the host's choice, and the rest follows
-        as a new dispatch."""
+        as a new dispatch. `traced`: the read in an ``iht.read`` span, the
+        replay in ``iht.overflow``, and the last batch's stage times
+        recorded."""
         start, k, guard = self._pending
         self._pending = None
         d = self._dev
         first = -1
         if guard:
             self.host_syncs += 1
-            first = int(d.first_over)
+            with profiling.span_if(traced, "iht.read"):
+                first = int(d.first_over)
         if first < 0:
             self.batch_counter = start + k
+            if traced:
+                profiling.record_stages(self._marks, synced=guard)
             return
-        j = first - start
-        for s, t in zip(self._snap, self._state()):
-            t.copy_(s)
-        d.counter.fill_(start)
-        self._steady(j)
-        self._batch(host_choice=True)
-        self.overflow_replays += 1
-        self.batch_counter = start + j + 1
+        with profiling.span_if(traced, "iht.overflow"):
+            j = first - start
+            for s, t in zip(self._snap, self._state()):
+                t.copy_(s)
+            d.counter.fill_(start)
+            self._steady(j)
+            self._batch(host_choice=True)
+            self.overflow_replays += 1
+            self.batch_counter = start + j + 1
         if k > j + 1:
-            self._launch(k - j - 1)
-            self._read()
+            self._launch(k - j - 1, traced)
+            if traced:
+                self._read(True)
+            else:
+                self._read()
+        elif traced:
+            profiling.record_stages(self._marks, synced=False)
 
     def run(self, total_rays: Optional[int] = None,
             n_batches: Optional[int] = None) -> Stats:
@@ -1685,6 +1732,7 @@ class Engine:
         )
         return self.stats
 
+    @profiling.setup_span("iht.calibrate")
     def _maybe_calibrate(self, n_steps: int = 1) -> None:
         """One-shot calibration from the first dispatch's counts, averaged
         over its n_steps batches (one host read): the exit-slot cap, the

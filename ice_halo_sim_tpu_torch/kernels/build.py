@@ -171,21 +171,29 @@ _SIGNATURES = {
 
 
 def lib():
-    """The loaded kernel library (built at first use)."""
+    """The loaded kernel library (built at first use, in the set-up span
+    ``iht.setup.library``: utils/profiling.py)."""
     global _lib
     if _lib is None:
-        path = build()
-        handle = ctypes.CDLL(path)
-        for name, args in _SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        handle.iht_sandwich_smem.argtypes = [_I, _I]
-        handle.iht_sandwich_smem.restype = ctypes.c_longlong
-        handle.iht_error_string.argtypes = [_I]
-        handle.iht_error_string.restype = ctypes.c_char_p
-        _lib = handle
+        from ice_halo_sim_tpu_torch.utils import profiling
+
+        with profiling.setup_span("iht.setup.library"):
+            _lib = _load()
     return _lib
+
+
+def _load():
+    """Build the library if needed and load it, its signatures declared."""
+    handle = ctypes.CDLL(build())
+    for name, args in _SIGNATURES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    handle.iht_sandwich_smem.argtypes = [_I, _I]
+    handle.iht_sandwich_smem.restype = ctypes.c_longlong
+    handle.iht_error_string.argtypes = [_I]
+    handle.iht_error_string.restype = ctypes.c_char_p
+    return handle
 
 
 def check(code: int, what: str) -> None:

@@ -40,6 +40,7 @@ import torch
 from ice_halo_sim_tpu_torch.config.schema import ProjectConfig
 from ice_halo_sim_tpu_torch.core import color
 from ice_halo_sim_tpu_torch.engine.simulator import DEFAULT_GEOM_CLOCK, Engine
+from ice_halo_sim_tpu_torch.utils import profiling
 
 
 def make_mesh(devices=None) -> list:
@@ -148,15 +149,11 @@ class ShardedEngine:
         done = 0
         while done < n_batches:
             k = min(spd, n_batches - done)
-            guards = [eng._launch_prologue() for eng in self.engines]
-            graphs = [eng.graph_mode == "cuda graph" for eng in self.engines]
-            for _ in range(k):
-                for eng, graph in zip(self.engines, graphs):
-                    eng._step(graph)
-            for eng, guard in zip(self.engines, guards):
-                eng._launch_epilogue(k, guard)
-            for eng in self.engines:
-                eng._read()
+            if profiling.live():
+                with profiling.span("iht.dispatch", dispatch=self.batch_counter):
+                    self._dispatch(k, traced=True)
+            else:
+                self._dispatch(k)
             done += k
         dev0 = self.engine.device
         tot = torch.zeros(2, dtype=torch.float64, device=dev0)
@@ -169,6 +166,20 @@ class ShardedEngine:
         self.dropped_weight += dropped
         self.ray_segments += int(segs)
         return self
+
+    def _dispatch(self, k: int, traced: bool = False) -> None:
+        """One dispatch of k batches on every shard (``run``); `traced`:
+        each shard's parts in their spans (utils/profiling.py)."""
+        more = (True,) if traced else ()   # untraced: the engine's plain calls
+        guards = [eng._launch_prologue(*more) for eng in self.engines]
+        graphs = [eng.graph_mode == "cuda graph" for eng in self.engines]
+        for _ in range(k):
+            for eng, graph in zip(self.engines, graphs):
+                eng._step(graph, *more)
+        for eng, guard in zip(self.engines, guards):
+            eng._launch_epilogue(k, guard)
+        for eng in self.engines:
+            eng._read(*more)
 
     @property
     def rays_traced(self) -> int:

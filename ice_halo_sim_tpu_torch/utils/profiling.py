@@ -27,16 +27,53 @@ A window that recorded no device event says so: its ``device_us`` is 0 and
 ``empty`` is true, and the caller counts it. On the CPU (no CUDA activity
 to trace) a window traces the CPU and records no device time, as it
 should.
+
+**The tracer** (off by default): spans on the host and stage timers on the
+device, kept in memory, read by ``snapshot()``.
+
+    profiling.tracing(True)          # or: with profiling.tracing(): ...
+    engine.run(n_batches=64 * 32)
+    snap = profiling.snapshot(engine)
+    profiling.tracing(False)
+
+A span (``Span``) is a name, a start and an end on ``time.perf_counter_ns``,
+the span it ran inside and the dispatch it belongs to (the batch counter at
+the dispatch's start). The engine's spans: ``iht.dispatch`` (a dispatch),
+``iht.prologue`` (the counter fill and the state snapshot), ``iht.launch``
+(the host inside one ``cudaGraphLaunch``) or ``iht.step`` (an eager batch),
+``iht.read`` (the dispatch's host read), ``iht.overflow`` (an overflow's
+restore and eager re-run). These are recorded while the tracer is on, in a
+bounded ring; with it off a dispatch pays one flag check. The set-up spans
+``iht.setup.engine`` (``Engine.__init__``), ``iht.setup.library`` (the first
+load of the kernel library, its build included), ``iht.calibrate`` and
+``iht.capture`` (a batch's warm-up and capture) are recorded always, in a
+ring of their own. While a torch profiler runs, every span also opens a
+``record_function`` range of its name, on or off, so the profiler's timeline
+names the program's spans.
+
+Stage timers: with the tracer on, a kernel-path batch on a CUDA device
+records timing events at its stage boundaries (``stage``): ``trace`` (the
+trace kernel and its pool tables), ``scatter`` (the block scatter with the
+marker tail), ``sort`` (the sort with its pack and unpack), ``scan`` (the
+fused scan and extraction) and ``rest`` (everything between: the ray base,
+the trace's sums, the accumulator update, the running sums). Captured, they
+are nodes of the batch's graph (so the engine captures again when the tracer
+is switched: ``Engine._graph_key``); with the tracer off the graph has none.
+A dispatch records its last batch's stage seconds after its own host read.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
+import threading
+import time
+from typing import NamedTuple
 
 import torch
-from torch.profiler import ProfilerActivity, profile, supported_activities
-
-from ice_halo_sim_tpu_torch.engine import graph as graph_mod
+import torch.autograd.profiler as _autograd_profiler
+from torch.profiler import ProfilerActivity, profile, record_function, supported_activities
 
 
 class Window:
@@ -84,6 +121,8 @@ def device_profile(warm=None):
     first; then `warm` is called (and the card synchronised) outside the
     window, capturing anew every graph the block will replay: give it the
     block's own call wherever the block replays a captured graph."""
+    from ice_halo_sim_tpu_torch.engine import graph as graph_mod
+
     graph_mod.invalidate()
     if warm is not None:
         warm()
@@ -96,3 +135,195 @@ def device_profile(warm=None):
     with profile(activities=activities) as prof:
         yield win
     win.rows = _device_rows(prof.key_averages())
+
+
+# ---------------------------------------------------------------------------
+# The tracer
+# ---------------------------------------------------------------------------
+
+SPANS = 1 << 16          # spans the ring keeps by default (the newest)
+SETUP_SPANS = 1 << 10    # set-up spans kept
+STAGE_RECORDS = 1 << 14  # dispatches' stage times kept
+END = "end"              # the last mark of a batch, which starts no stage
+
+
+class Span(NamedTuple):
+    """One span. start and end: time.perf_counter_ns; parent: the id of the
+    span it ran inside (-1: none recorded); dispatch: the batch counter at
+    the start of the dispatch it belongs to (-1: none)."""
+
+    name: str
+    start: int
+    end: int
+    parent: int
+    dispatch: int
+    id: int
+
+
+class _Tracer:
+    """The process's tracer (one, as ``kernels.build.LAUNCHES`` is one)."""
+
+    def __init__(self):
+        self.on = False
+        self.spans = collections.deque(maxlen=SPANS)
+        self.setup = collections.deque(maxlen=SETUP_SPANS)
+        self.stages = collections.deque(maxlen=STAGE_RECORDS)
+        self.ids = itertools.count()
+        self.local = threading.local()
+
+    def open(self) -> list:
+        """This thread's open spans: (id, dispatch), the innermost last."""
+        st = getattr(self.local, "open", None)
+        if st is None:
+            st = self.local.open = []
+        return st
+
+
+_T = _Tracer()
+
+
+class tracing:
+    """Turn the tracer on or off (``tracing(True)``); as a context manager
+    (``with tracing(): ...``) it puts the previous state back at the end.
+    `capacity`: the spans the ring keeps from now on (the newest)."""
+
+    def __init__(self, on: bool = True, capacity: int | None = None):
+        self.previous = _T.on
+        if capacity is not None and capacity != _T.spans.maxlen:
+            _T.spans = collections.deque(_T.spans, maxlen=int(capacity))
+        _T.on = bool(on)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        _T.on = self.previous
+        return False
+
+
+def is_tracing() -> bool:
+    """Whether the tracer is on (what the stage timers follow)."""
+    return _T.on
+
+
+def live() -> bool:
+    """Whether a dispatch's spans are live: the tracer on, or a torch
+    profiler running (torch's module flag)."""
+    return _T.on or _autograd_profiler._is_profiler_enabled
+
+
+class span(contextlib.ContextDecorator):
+    """A span named `name` around a block (or, as a decorator, a call):
+    recorded while the tracer is on, always when `setup`; a
+    ``record_function`` range while a torch profiler runs. `dispatch`: the
+    dispatch it opens (else its parent's)."""
+
+    def __init__(self, name: str, dispatch: int | None = None, setup: bool = False):
+        self.name = name
+        self.dispatch = dispatch
+        self.setup = setup
+
+    def _recreate_cm(self):
+        return span(self.name, self.dispatch, self.setup)
+
+    def __enter__(self):
+        self._range = None
+        if _autograd_profiler._is_profiler_enabled:
+            self._range = record_function(self.name)
+            self._range.__enter__()
+        self._frame = None
+        if _T.on or self.setup:
+            stack = _T.open()
+            parent, dispatch = stack[-1] if stack else (-1, -1)
+            if self.dispatch is not None:
+                dispatch = int(self.dispatch)
+            self._frame = (next(_T.ids), parent, dispatch)
+            stack.append(self._frame[::2])
+            self._start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        if self._frame is not None:
+            end = time.perf_counter_ns()
+            sid, parent, dispatch = self._frame
+            _T.open().pop()
+            (_T.setup if self.setup else _T.spans).append(
+                Span(self.name, self._start, end, parent, dispatch, sid))
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        return False
+
+
+_UNTRACED = contextlib.nullcontext()   # shared: it holds no state
+
+
+def span_if(traced: bool, name: str):
+    """``span(name)`` when `traced`, else a context that does nothing."""
+    return span(name) if traced else _UNTRACED
+
+
+def setup_span(name: str) -> span:
+    """A set-up span: recorded whether the tracer is on or off."""
+    return span(name, setup=True)
+
+
+def stage(name: str) -> None:
+    """Start stage `name` of the batch being timed on this thread (nothing
+    when none is: the tracer off, the CPU, or not the kernel path)."""
+    armed = getattr(_T.local, "armed", None)
+    if armed is not None:
+        device, marks = armed
+        ev = torch.cuda.Event(enable_timing=True, external=True)
+        ev.record(torch.cuda.current_stream(device))
+        marks.append((name, ev))
+
+
+@contextlib.contextmanager
+def batch_stages(device):
+    """Time the stages of the batch run in the block, which starts in stage
+    ``rest``: yields its marks [(stage, event)], or None when the tracer is
+    off or `device` is no CUDA device."""
+    if not _T.on or device.type != "cuda":
+        yield None
+        return
+    marks = []
+    _T.local.armed = (device, marks)
+    try:
+        stage("rest")
+        yield marks
+        stage(END)
+    finally:
+        _T.local.armed = None
+
+
+def record_stages(marks, synced: bool) -> None:
+    """Record a batch's stage seconds for the dispatch open on this thread,
+    once its marks have run: `synced` when the host has read since they were
+    launched, else this waits on the last one. Nothing while the tracer is
+    off."""
+    if not _T.on or not marks or marks[-1][0] != END:
+        return
+    if not synced:
+        marks[-1][1].synchronize()
+    seconds = {}
+    for (name, a), (_, b) in zip(marks, marks[1:]):
+        seconds[name] = seconds.get(name, 0.0) + a.elapsed_time(b) * 1e-3
+    stack = _T.open()
+    _T.stages.append((stack[-1][1] if stack else -1, seconds))
+
+
+def snapshot(*engines) -> dict:
+    """What the tracer holds, and the port's counters as they stand:
+    ``spans`` (every Span kept, set-up spans included, by start),
+    ``stages`` [(dispatch, {stage: seconds})], ``capacity`` (of the ring:
+    a ring this full has let older spans go), ``launches``
+    (``kernels.build.LAUNCHES``), ``build_seconds``, and per engine given
+    its ``host_syncs``, ``overflow_replays`` and ``batch_counter``."""
+    from ice_halo_sim_tpu_torch.kernels import build
+
+    spans = sorted(list(_T.spans) + list(_T.setup), key=lambda s: s.start)
+    return {"spans": spans, "stages": list(_T.stages), "capacity": _T.spans.maxlen,
+            "launches": dict(build.LAUNCHES),
+            "build_seconds": build.build_seconds,
+            "engines": [{"host_syncs": e.host_syncs, "overflow_replays": e.overflow_replays,
+                         "batch_counter": e.batch_counter} for e in engines]}
