@@ -23,7 +23,9 @@ Phases (any failure raises; the exit code is then non-zero):
      and K6 alone (on no path now) at the rows of MS_CFG's dual render (one
      column) and of COLOR_CFG's render (two columns); the block scatter K3'
      at compact_valid's old shape and, with every column and the in-block
-     permutation, at MS_CFG's steady continuation; the sandwich kernels (K7 lane, K8
+     permutation, at MS_CFG's steady continuation; the fold's radix sort at
+     BENCH_CFG's premerged rows at 512 x 256 and 2048 x 1024, beside
+     torch.sort of the packed int64 word it replaced; the sandwich kernels (K7 lane, K8
      sublane) at the one-channel count pass of the calibration batch (the
      raw rows of MS_CFG's dual render over all 1024 chunks) and, printed as
      extra lines, at the raw rows against the 256 chunks that hold most of
@@ -427,6 +429,51 @@ def _check_trace(name, out_k, out_p, again):
     return max(_max_abs(a[1], b[1]) for a, b in zip(out_k[0], out_p[0]))
 
 
+def _packed_word_sort(keys, w):
+    """The fold's sort before the radix sort, as its yardstick (used nowhere
+    in the port): torch.sort of one int64 per row (the key XOR 2^31 in the
+    high word, the weight's bits in the low word), with its pack and unpack."""
+    import torch
+
+    hi = (keys ^ -(1 << 31)).to(torch.int64)
+    lo = w.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    s, _ = torch.sort(hi * (1 << 32) + lo)
+    sw = s & 0xFFFFFFFF
+    sw = torch.where(sw >= 1 << 31, sw - (1 << 32), sw).to(torch.int32).view(torch.float32)
+    return (s >> 32).to(torch.int32) ^ -(1 << 31), sw
+
+
+def _radix_sort_check(keys, w, end_bit: int, what: str) -> dict:
+    """The radix sort on the premerged fold's rows against its plain twin
+    (bit for bit), twice the same bits, the same key order as the packed
+    word's sort; its time, the twin's and the packed word sort's; bounds:
+    one read and one write of key and weight (16 B a row), and its passes'
+    traffic (16 B a row a pass and the histogram's 4 B)."""
+    from ice_halo_sim_tpu_torch.core import radix_sort
+
+    got = radix_sort.sort_pairs(keys, w, end_bit)
+    want = radix_sort.sort_pairs_plain(keys, w, end_bit)
+    again = radix_sort.sort_pairs(keys, w, end_bit)
+    if not (_bits_equal(got[0], want[0]) and _bits_equal(got[1], want[1])
+            and _bits_equal(again[0], got[0]) and _bits_equal(again[1], got[1])):
+        raise AssertionError(f"radix_sort at {what} differs from its plain twin or itself")
+    if not _bits_equal(got[0], _packed_word_sort(keys, w)[0]):
+        raise AssertionError(f"radix_sort at {what} orders the keys unlike the packed sort")
+    m, n = keys.numel(), radix_sort.passes(end_bit)
+    out = {"rows": m, "end_bit": end_bit, "passes": n, "max_abs_err": 0.0,
+           "ms": _time_ms(lambda: radix_sort.sort_pairs(keys, w, end_bit), 10,
+                          f"radix_sort {what}"),
+           "plain_ms": _time_ms(lambda: radix_sort.sort_pairs_plain(keys, w, end_bit), 5),
+           "library_ms": _time_ms(lambda: _packed_word_sort(keys, w), 10,
+                                  f"packed word sort {what}"),
+           "bound": _bound(16 * m), "bound_passes": _bound((16 * n + 4) * m)}
+    print(f"  radix_sort at {what}: {m} rows, end_bit {end_bit}, {n} passes, kernel "
+          f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, packed word sort "
+          f"{out['library_ms']:.4f} ms, bound {out['bound'][0]:.5f} ms (one pass), "
+          f"{out['bound_passes'][0]:.5f} ms ({n} passes)", flush=True)
+    return out
+
+
 def phase_kernels(cfg, device, res: list):
     import torch
 
@@ -498,9 +545,16 @@ def phase_kernels(cfg, device, res: list):
           f"ms, plain {k3p_plain:.4f} ms, bound {k3p_bound[0]:.5f} ms by {k3p_bound[1]}",
           flush=True)
 
-    # K4 with key2, on the sorted premerged rows.
+    # The radix sort of the premerged rows; K4 with key2 on its output.
     ck, cw = a
-    sk, sw = accum.sort_keys(ck, cw)
+    rs = _radix_sort_check(ck, cw, accum.sort_end_bit(P, K), "512 x 256")
+    _add(res, "radix_sort", "ice_halo_sim_tpu_torch/csrc/radix_sort.cu",
+         "none: XLA's lax.sort in ice_halo_sim_tpu/core/accum.py", 0.0, rs["ms"],
+         rs["plain_ms"], rs["bound"], library_ms=rs["library_ms"],
+         library="torch.sort of the packed int64 word, with its pack and unpack")
+    res[-1].update(rows=rs["rows"], end_bit=rs["end_bit"], passes=rs["passes"],
+                   bound_passes_ms=rs["bound_passes"][0])
+    sk, sw = accum.sort_keys(ck, cw, eng.ks, accum.sort_end_bit(P, K))
     tbl = eng.basis_tbl
     (ca, k2a) = seg_scan.fused_scan_call(sk, sw, tbl, shift, K, emit_key2=True)
     (cb, k2b) = seg_scan.fused_scan_call_plain(sk, sw, tbl, shift, K, emit_key2=True)
@@ -3108,9 +3162,9 @@ def _render_full_width(name, cfg, device, batch: int, steady: int, kernels):
 
 
 def _bench_kernels_at(cfg, device) -> dict:
-    """K3 with the marker tail and K4's extract form at BENCH_CFG's shapes at
-    2048 x 1024 (P = 2^21): bit-equal and within SCAN_RTOL of their plain
-    versions, the same bits twice, and their times."""
+    """K3 with the marker tail, the radix sort and K4's extract form at
+    BENCH_CFG's shapes at 2048 x 1024 (P = 2^21): bit-equal and within
+    SCAN_RTOL of their plain versions, the same bits twice, and their times."""
     import torch
 
     from ice_halo_sim_tpu_torch.core import accum, block_ops, seg_scan, trace_emit
@@ -3135,7 +3189,8 @@ def _bench_kernels_at(cfg, device) -> dict:
             zip(a, block_ops.scatter_blocks_multi(*sargs, marker_tail=tail))):
         raise AssertionError("K3 with the marker tail at 2048 x 1024 differs from its plain "
                              "version or from itself")
-    sk, sw = accum.sort_keys(*a)
+    rs = _radix_sort_check(*a, accum.sort_end_bit(P, K), "2048 x 1024")
+    sk, sw = accum.sort_keys(*a, eng.ks, accum.sort_end_bit(P, K))
     tbl = eng.basis_tbl
     img_k = seg_scan.fused_scan_extract(sk, sw, tbl, shift, K, P)
     img_p = seg_scan.fused_scan_extract_plain(sk, sw, tbl, shift, K, P)
@@ -3161,7 +3216,9 @@ def _bench_kernels_at(cfg, device) -> dict:
             "ms": _time_ms(lambda: trace_emit.trace_emit(plan, 5 * eng.span, BATCH, device), 5,
                            "K2 2048x1024"),
             "bound": _trace_bound("trace_emit 2048x1024", plan)},
+        "radix_sort": rs,
     }
+    rs["bound_passes_ms"] = rs.pop("bound_passes")[0]
     for k, v in out.items():
         v["bound_ms"], v["bound_by"] = v.pop("bound")
         print(f"  {k} at 2048 x 1024: kernel {v['ms']:.4f} ms, bound {v['bound_ms']:.5f} ms by "
@@ -3218,7 +3275,7 @@ def phase_scenes(smi, res: list, device=None) -> None:
         big = load_project(_with_res(scenes.BENCH_CFG, BIG_RES))
         _eng, launches["bench 2048x1024"], per_steady["bench 2048x1024"] = phase_slice(
             "bench 2048x1024", big, device,
-            ["trace_emit", "scatter_blocks_multi", "fused_scan_extract"], 2,
+            ["trace_emit", "scatter_blocks_multi", "radix_sort", "fused_scan_extract"], 2,
             absent=["pack_rows", "pack_payload_blocks", "fused_scan", "pack_valid_blocks",
                     "compact_rows", "scatter_blocks"])
         del _eng
@@ -3318,7 +3375,7 @@ def main() -> int:
     # their images in the scan (no K5, no per-row scan).
     # The general path compacts in one pass (compact_rows: no K6, no K3'
     # before the fold); the continuation's block scatter is K3'.
-    common = ["scatter_blocks_multi", "fused_scan_extract"]
+    common = ["scatter_blocks_multi", "radix_sort", "fused_scan_extract"]
     gone = ["pack_rows", "pack_payload_blocks", "fused_scan", "pack_valid_blocks",
             "compact_rows", "scatter_blocks"]
     prepass = ["compact_rows"]
@@ -3330,7 +3387,8 @@ def main() -> int:
         for name, cfg, kernels, steady, path, absent in (
                 ("bench", bench, ["trace_emit"] + common, 3, "cuda-trace-kernel", gone),
                 ("pool", pool, ["trace_emit_pool"] + common, 2, "cuda-trace-kernel", gone),
-                ("ms", ms, prepass + ["scatter_blocks", "fused_scan_extract"], 3, "general",
+                ("ms", ms, prepass + ["scatter_blocks", "radix_sort", "fused_scan_extract"], 3,
+                 "general",
                  ["pack_rows", "pack_payload_blocks", "fused_scan", "pack_valid_blocks",
                   "scatter_blocks_multi"]),
                 ("color", colour, prepass + ["pack_payload_blocks", "scatter_blocks_multi"], 2,

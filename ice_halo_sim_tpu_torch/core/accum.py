@@ -3,18 +3,18 @@
 ``sort_accumulate`` for scenes whose keys do not pack.
 
 Scatter-add of (pixel, wavelength-pool index, weight) rows into an
-[P, 3] XYZ image as: one unstable sort of u32 keys ``pixel * 2K | wl * 2``
+[P, 3] XYZ image as: one stable sort of u32 keys ``pixel * 2K | wl * 2``
 together with one marker row per pixel (low bits 2K-1), then the fused basis
 + segmented scan (K4), which leaves each pixel's total on its marker row and
 writes it into the dense image (``seg_scan.fused_scan_extract``). Where the
 scan runs on its own (the colour lanes, ``sort_accumulate``), the marker
 rows are extracted by K5 pack + K3 scatter (``_marker_extract``).
 
-The sort is ``torch.sort`` (the JAX package's is XLA's, not a Pallas
-kernel). Key and weight ride as one int64 per row: the key XOR 0x80000000
-(so signed order is u32 order) in the high word and the weight's bits in
-the low word; ties between equal keys land in any order, which every
-consumer ignores.
+The sort is ``ks.sort_pairs`` (core/radix_sort.py: a radix sort of (key,
+weight) pairs on the card; the JAX package's is XLA's, not a Pallas kernel)
+over the key's low ``sort_end_bit(P, K)`` bits, which order every pixel's
+rows and put the dead key behind every marker. Equal keys keep their input
+order.
 
 With colour-class lanes (L > 0) the JAX package leaves its fused scan
 kernel: it expands the basis, builds the lanes from the mask column and
@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import torch
 
+from ice_halo_sim_tpu_torch.core import radix_sort
 from ice_halo_sim_tpu_torch.core.bits import F32, I32, I64, MASK32, from_bits, to_bits
 from ice_halo_sim_tpu_torch.core.block_ops import exclusive_starts as _exclusive_starts
 from ice_halo_sim_tpu_torch.core.block_ops import pad_rows as _pad_cols
@@ -59,6 +60,14 @@ def spectral_key_bits(n_pixels: int, k_pool: int) -> bool:
 
 def key_shift(k_pool: int) -> int:
     return (2 * k_pool).bit_length() - 1
+
+
+def sort_end_bit(n_pixels: int, k_pool: int) -> int:
+    """The fewest low key bits that order the fold's rows: every key and
+    marker lies below (P + 1) * 2K - 1, and the dead key 0xFFFFFFFF masked
+    to these bits does not, so it decodes to a pixel >= P and sorts behind
+    every marker. At most 32 where spectral_key_bits holds."""
+    return ((n_pixels + 1) * 2 * k_pool - 1).bit_length()
 
 
 def pack_spectral_keys(pix, w, wl_idx, n_pixels: int, k_pool: int):
@@ -136,17 +145,14 @@ def accumulate(acc, pix, vals, method: str, ks):
     raise ValueError(f"method must be 'scatter', 'sort' or 'auto', got {method!r}")
 
 
-def sort_keys(keys, w):
-    """Unstable sort of (u32 key bits, f32 weight) rows by key (the stage
-    ``sort`` of a timed batch: utils/profiling.py)."""
+def sort_keys(keys, w, ks=None, end_bit: int = 32):
+    """Stable sort of (u32 key bits, f32 weight) rows by the key's bits [0,
+    end_bit) (the stage ``sort`` of a timed batch: utils/profiling.py), by
+    ``ks.sort_pairs``; without ks by ``radix_sort.sort_pairs``, which takes
+    the plain twin for a CPU tensor. The folds pass sort_end_bit(P, K): their
+    keys are a pixel's or 0xFFFFFFFF."""
     profiling.stage("sort")
-    hi = (keys ^ -(1 << 31)).to(I64)
-    lo = w.contiguous().view(I32).to(I64) & MASK32
-    s, _ = torch.sort(hi * (1 << 32) + lo)
-    sk = ((s >> 32).to(I32)) ^ -(1 << 31)
-    sw = (s & MASK32).to(I64)
-    sw = torch.where(sw >= 1 << 31, sw - (1 << 32), sw).to(I32).view(F32)
-    return sk, sw
+    return (radix_sort.sort_pairs if ks is None else ks.sort_pairs)(keys, w, end_bit)
 
 
 _MAX_PAYLOADS = 3  # columns per launch of the pack kernel (K5)
@@ -292,7 +298,7 @@ def fold_spectral_keys(acc, key, w, k_pool: int, basis_tbl, ks, lane_specs=(),
         raise ValueError(f"prefix_len {prefix_len} is not a multiple of {BLOCK}")
     cut = prefix_len if prefix_len is not None and prefix_len < M else M
     if L == 0:
-        sk, sw = sort_keys(keys, w_all)
+        sk, sw = sort_keys(keys, w_all, ks, sort_end_bit(P, k_pool))
         profiling.stage("scan")
         dense = ks.fused_scan_extract(sk[:cut], sw[:cut], basis_tbl, shift, k_pool, P)
         profiling.stage("rest")
@@ -330,7 +336,7 @@ def fold_spectral_keys_premerged(acc, keys, w, k_pool: int, basis_tbl, ks):
     M = keys.shape[0]
     if M % BLOCK:
         raise ValueError(f"{M} rows are not a multiple of block {BLOCK}")
-    sk, sw = sort_keys(keys, w)
+    sk, sw = sort_keys(keys, w, ks, sort_end_bit(P, k_pool))
     profiling.stage("scan")
     dense = ks.fused_scan_extract(sk, sw, basis_tbl, key_shift(k_pool), k_pool, P)
     profiling.stage("rest")

@@ -16,10 +16,11 @@ class KernelSet(NamedTuple):
     compact_rows: Callable
     fused_scan_extract: Callable
     sandwich_pass: Callable
+    sort_pairs: Callable
 
 
 def kernel_set(kind: str) -> KernelSet:
-    from ice_halo_sim_tpu_torch.core import block_ops, sandwich, seg_scan, trace_emit
+    from ice_halo_sim_tpu_torch.core import block_ops, radix_sort, sandwich, seg_scan, trace_emit
 
     if kind == "cuda":
         return KernelSet("cuda", trace_emit.trace_emit,
@@ -28,7 +29,8 @@ def kernel_set(kind: str) -> KernelSet:
                          block_ops.scatter_blocks,
                          block_ops.compact_rows,
                          seg_scan.fused_scan_extract,
-                         sandwich.sandwich_pass)
+                         sandwich.sandwich_pass,
+                         radix_sort.sort_pairs)
     if kind == "plain":
         return KernelSet("plain", trace_emit.trace_emit_plain,
                          block_ops.pack_payload_blocks_plain,
@@ -36,5 +38,6 @@ def kernel_set(kind: str) -> KernelSet:
                          block_ops.scatter_blocks_plain,
                          block_ops.compact_rows_plain,
                          seg_scan.fused_scan_extract_plain,
-                         sandwich.sandwich_pass_plain)
+                         sandwich.sandwich_pass_plain,
+                         radix_sort.sort_pairs_plain)
     raise ValueError(f"kernels must be 'cuda' or 'plain', got {kind!r}")

@@ -57,6 +57,8 @@ LAUNCHES = {
     "sandwich_sublane": 0,
     "sandwich_iota": 0,
     "extract_blocks": 0,
+    "radix_sort": 0,
+    "radix_sort_pass": 0,  # the digit passes of those launches
 }
 
 _lib = None
@@ -167,6 +169,7 @@ _SIGNATURES = {
     "iht_sandwich_sublane": [_VP, _VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _I, _I,
                              _VP, _VP, _VP, _VP, _VP, _LL, _VP],
     "iht_sandwich_iota": [_VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _I, _VP, _VP, _VP, _LL, _VP],
+    "iht_radix_sort_pairs": [_VP, _VP, _LL, _I, _I, _VP, _VP, _VP, _VP, _VP, _LL, _VP],
 }
 
 

@@ -49,6 +49,117 @@ def test_sort_keys_orders_u32_and_keeps_pairs():
         zip(sk.numpy().view(np.uint32).tolist(), sw.numpy().tolist()))
 
 
+# (rows, end_bit, keys): random u32 keys at every pass count; the fold's
+# rows (markers, (0, 0) rows, dead keys) at both bench resolutions' end_bit;
+# all keys equal; keys that differ only above end_bit; one row; none.
+TWIN_CASES = {
+    "random 32": (5000, 32, "random"), "random 25": (5000, 25, "random"),
+    "random 16": (4097, 16, "random"), "random 9": (300, 9, "random"),
+    "random 1": (3000, 1, "random"), "fold 25": (9000, 25, "fold"),
+    "fold 29": (9000, 29, "fold"), "all equal": (4096, 25, "equal"),
+    "above end_bit": (5000, 20, "above"), "top bit only": (5000, 29, "top"),
+    "one row": (1, 25, "random"), "no rows": (0, 32, "random"),
+}
+
+
+def _twin_keys(n, end_bit, kind, g):
+    if kind == "random":
+        return g.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    if kind == "equal":
+        return np.full(n, 0x12345, np.uint32)
+    if kind == "above":
+        return (g.integers(0, 4, n, dtype=np.uint64) << 30 | g.integers(0, 8, n, dtype=np.uint64)
+                ).astype(np.uint32)
+    if kind == "top":
+        return (g.integers(0, 2, n, dtype=np.uint64) << (end_bit - 1)).astype(np.uint32)
+    p = 200
+    key = np.where(g.random(n) < 0.8, g.integers(0, p * 2 * K, n, dtype=np.uint64) & ~np.uint64(1),
+                   0xFFFFFFFF).astype(np.uint32)
+    key[n - p - 500:n - p] = 0                                   # (0, 0) filler
+    key[n - p:] = np.arange(p, dtype=np.uint32) * 2 * K + 2 * K - 1   # the marker tail
+    return key
+
+
+@pytest.mark.parametrize("case", list(TWIN_CASES))
+def test_radix_sort_twin_is_numpys_stable_argsort(case):
+    """The radix sort's plain twin (what the kernel is held to bit for bit on
+    the card) orders the rows as numpy's stable argsort of the key masked to
+    end_bit, and carries each row's payload."""
+    from ice_halo_sim_tpu_torch.core import radix_sort
+
+    n, end_bit, kind = TWIN_CASES[case]
+    g = np.random.default_rng(17)
+    k = _twin_keys(n, end_bit, kind, g)
+    w = g.random(n).astype(np.float32)
+    sk, sw = radix_sort.sort_pairs_plain(torch.as_tensor(k.view(np.int32)), torch.as_tensor(w),
+                                         end_bit)
+    order = np.argsort(k & np.uint32((1 << end_bit) - 1), kind="stable")
+    np.testing.assert_array_equal(sk.numpy().view(np.uint32), k[order])
+    np.testing.assert_array_equal(sw.numpy(), w[order])
+    assert radix_sort.passes(end_bit) == -(-end_bit // 8)
+    got = radix_sort.sort_pairs(torch.as_tensor(k.view(np.int32)), torch.as_tensor(w), end_bit)
+    assert torch.equal(got[0], sk) and torch.equal(got[1], sw)
+
+
+@pytest.mark.parametrize("k_pool", [1, 2, 4, 16, 64, 256, 4096, 1 << 16])
+def test_sort_end_bit_puts_the_dead_key_behind_every_marker(k_pool):
+    """For pixel counts up to the largest that spectral_key_bits admits, the
+    dead key masked to sort_end_bit decodes to a pixel >= P and sorts behind
+    the last pixel's marker, within 32 bits; and the bench cells' 25 and 29
+    bits (D65's pool of 64)."""
+    shift = accum.key_shift(k_pool)
+    p_max = (1 << 32) // (2 * k_pool) - 1
+    assert accum.spectral_key_bits(p_max, k_pool) and not accum.spectral_key_bits(p_max + 1,
+                                                                                   k_pool)
+    for P in sorted({1, 2, 3, 1000, 131072, 1 << 21, p_max // 2, p_max - 1, p_max} - {0}):
+        if P > p_max:
+            continue
+        eb = accum.sort_end_bit(P, k_pool)
+        assert 1 <= eb <= 32
+        dead = 0xFFFFFFFF & ((1 << eb) - 1)
+        last_marker = ((P - 1) << shift) | (2 * k_pool - 1)
+        assert dead >> shift >= P and dead > last_marker
+        assert eb == 1 or ((P + 1) * 2 * k_pool - 1) >> (eb - 1) == 1   # the fewest bits
+    assert (accum.sort_end_bit(512 * 256, 64), accum.sort_end_bit(2048 * 1024, 64)) == (25, 29)
+
+
+@pytest.mark.parametrize("premerged", [False, True])
+def test_fold_by_the_masked_sort_matches_index_add_oracle(premerged):
+    """The plain-KernelSet fold through sort_keys at a tiny image (P = 5,
+    K = 4: a sort over 6 key bits, so the dead key is masked to 63) equals
+    the index_add_ oracle, with the same rows' sort by sort_pairs twice."""
+    p_, k_ = 5, 4
+    g = np.random.default_rng(23)
+    n = 6000
+    pix = g.integers(-2, p_ + 2, n).astype(np.int32)
+    w = np.where(g.random(n) < 0.8, g.uniform(0.0, 3.0, n), 0.0).astype(np.float32)
+    wl = g.integers(0, k_, n).astype(np.int64)
+    tbl = torch.as_tensor(g.uniform(0.0, 2.0, (k_, 3)).astype(np.float32))
+    ks = kernel_set("plain")
+    assert accum.sort_end_bit(p_, k_) == 6
+    key, wz = accum.pack_spectral_keys(torch.as_tensor(pix), torch.as_tensor(w),
+                                       torch.as_tensor(wl), p_, k_)
+    acc0 = torch.zeros((p_, 3))
+    if premerged:
+        live = key != -1
+        m = int(live.sum())
+        keep = -(-m // 4096) * 4096
+        M = -(-(keep + p_) // 4096) * 4096
+        keys = torch.full((M,), -1, dtype=torch.int32)
+        ws = torch.zeros(M)
+        keys[:m], ws[:m] = key[live], wz[live]
+        keys[m:keep] = 0
+        keys[keep:keep + p_] = accum.marker_keys(p_, k_, "cpu")
+        out = accum.fold_spectral_keys_premerged(acc0, keys, ws, k_, tbl, ks)
+    else:
+        out = accum.fold_spectral_keys(acc0, key, wz, k_, tbl, ks)
+    vals = tbl[torch.as_tensor(wl)] * torch.as_tensor(w)[:, None]
+    ok = (torch.as_tensor(w) > 0) & (torch.as_tensor(pix) >= 0)
+    want = accum.scatter_accumulate(acc0, torch.as_tensor(pix)[ok].long(), vals[ok])
+    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-6 * float(want.max()))
+
+
 @pytest.mark.parametrize("premerged", [False, True])
 def test_fold_matches_index_add_oracle(premerged):
     pix, w, wl, tbl = _rows(3)

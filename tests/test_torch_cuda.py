@@ -308,6 +308,90 @@ def test_fused_scan_extract_kernel(dev, case):
         assert key.size % 2048
 
 
+# (rows, pixels P or None, end_bit, keys): the premerged fold's rows at both
+# bench cells (live keys of K = 64 with dead ones among them, (0, 0) filler,
+# the P marker tail, dead padding); rows none, one, below a tile, no
+# multiple of a tile; all keys equal; one and 32 sorted bits; keys on the
+# top sorted bit only.
+RADIX_CASES = {
+    "r512": (1_081_344, 1 << 17, 25, "fold"), "r2048": (3_043_328, 1 << 21, 29, "fold"),
+    "no rows": (0, None, 32, "random"), "one row": (1, None, 25, "random"),
+    "below a tile": (1000, None, 25, "random"), "ragged": (3 * 4096 + 1234, None, 29, "fold"),
+    "all equal": (50_000, None, 25, "equal"), "end_bit 1": (70_001, None, 1, "random"),
+    "end_bit 32": (200_000, None, 32, "random"), "top bit only": (200_000, None, 29, "top"),
+}
+
+
+def _radix_rows(case, g):
+    n, P, end_bit, kind = RADIX_CASES[case]
+    if kind == "random":
+        k = g.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    elif kind == "equal":
+        k = np.full(n, 0x1234567, np.uint32)
+    elif kind == "top":
+        k = (g.integers(0, 2, n, dtype=np.uint64) << (end_bit - 1)).astype(np.uint32)
+    else:
+        P = P or 2000
+        assert accum.sort_end_bit(P, 64) == end_bit or case == "ragged"
+        tail = -(-P // 4096) * 4096 + 4096
+        live = (n - tail) * 9 // 10
+        keep = n - tail
+        k = np.full(n, 0xFFFFFFFF, np.uint32)
+        pix = g.integers(0, P, live, dtype=np.uint64)
+        k[:live] = (pix << 7 | g.integers(0, 64, live, dtype=np.uint64) << 1).astype(np.uint32)
+        k[:live][g.random(live) < 0.02] = 0xFFFFFFFF
+        k[live:keep] = 0
+        k[keep:keep + P] = (np.arange(P, dtype=np.uint64) << 7 | 127).astype(np.uint32)
+    w = np.where(k == 0xFFFFFFFF, 0.0, g.random(n) + 0.5).astype(np.float32)
+    return k, w, end_bit
+
+
+@pytest.mark.parametrize("case", list(RADIX_CASES) + ["graph"])
+def test_radix_sort_kernel(dev, case, monkeypatch):
+    """The radix sort (csrc/radix_sort.cu) against its plain twin, bit for
+    bit, at both bench cells' shapes and at the edges; a second call on the
+    same input gives the same bits and the input is not written; the
+    launch counters add one sort and its passes. "graph": BENCH_CFG's
+    batches replayed from a CUDA graph give the eager run's image bit for
+    bit, one sort a batch."""
+    from ice_halo_sim_tpu_torch.core import radix_sort
+    from ice_halo_sim_tpu_torch.kernels import build
+
+    if case == "graph":
+        monkeypatch.setenv("IHT_STEPS_PER_DISPATCH", "4")
+        monkeypatch.setenv("IHT_FOLD", "sort")
+        imgs = []
+        for graphs in (False, True):
+            eng = Engine(load_project(BENCH_CFG), seed=7, batch_size=65536, device=dev,
+                         graphs=graphs)
+            eng.run(n_batches=4)
+            before, replays = build.LAUNCHES["radix_sort"], eng.overflow_replays
+            eng.run(n_batches=8)
+            # An overflowing batch is folded again, eagerly, by the full fold.
+            assert build.LAUNCHES["radix_sort"] - before == (
+                8 + eng.overflow_replays - replays) * len(eng.proj_plans)
+            imgs.append([a.clone() for a in eng.accum])
+        assert eng.graph_mode == "cuda graph"
+        assert all(_eq(a, b) for a, b in zip(*imgs))
+        return
+    k, w, end_bit = _radix_rows(case, np.random.default_rng(29))
+    keys = torch.as_tensor(k.view(np.int32), device=dev)
+    vals = torch.as_tensor(w, device=dev)
+    k0, v0 = keys.clone(), vals.clone()
+    n0 = dict(build.LAUNCHES)
+    got = radix_sort.sort_pairs(keys, vals, end_bit)
+    torch.cuda.synchronize()
+    want = radix_sort.sort_pairs_plain(keys, vals, end_bit)
+    assert _eq(got[0], want[0]) and _eq(got[1], want[1])
+    again = radix_sort.sort_pairs(keys, vals, end_bit)
+    assert _eq(again[0], got[0]) and _eq(again[1], got[1])
+    assert _eq(keys, k0) and _eq(vals, v0)
+    runs = 2 if k.size else 0
+    assert build.LAUNCHES["radix_sort"] - n0["radix_sort"] == runs
+    assert build.LAUNCHES["radix_sort_pass"] - n0["radix_sort_pass"] == runs * radix_sort.passes(
+        end_bit)
+
+
 @pytest.mark.parametrize("spectrum", ["D65", "discrete-4", "pool"])
 def test_engine_cuda_matches_plain(dev, spectrum):
     import copy

@@ -257,3 +257,29 @@ def test_stage_timers_of_a_captured_batch(card, monkeypatch):
             times.append(a.elapsed_time(b) * 1e-3)
     batch = sorted(times)[2]
     assert abs(sum(stages.values()) - batch) <= 0.1 * batch, (stages, times)
+
+
+@pytest.mark.cuda
+def test_a_traced_captured_batch_sorts_once_a_render(card, monkeypatch):
+    """BENCH_CFG captured with the tracer on: the captured batch's launches
+    hold one radix sort a render with the passes that sort_end_bit implies,
+    and the tracer's snapshot counts them once a replayed batch."""
+    from ice_halo_sim_tpu_torch.core import accum, radix_sort
+
+    monkeypatch.setenv("IHT_STEPS_PER_DISPATCH", "8")
+    eng = _engine("cuda", 65536)
+    eng.run(n_batches=8)
+    R = len(eng.proj_plans)
+    P = eng.proj_plans[0].height * eng.proj_plans[0].width
+    n_pass = radix_sort.passes(accum.sort_end_bit(P, eng.k_pool))
+    with profiling.tracing():
+        eng.run(n_batches=8)                 # captures anew, with the timers
+        assert eng.graph_mode == "cuda graph" and eng._graph_marks is not None
+        assert eng._graph.launches["radix_sort"] == R
+        assert eng._graph.launches["radix_sort_pass"] == R * n_pass == R * 4
+        before, replays = profiling.snapshot()["launches"], eng.overflow_replays
+        eng.run(n_batches=8)
+        after = profiling.snapshot()["launches"]
+    batches = 8 + eng.overflow_replays - replays
+    assert after["radix_sort"] - before["radix_sort"] == batches * R
+    assert after["radix_sort_pass"] - before["radix_sort_pass"] == batches * R * n_pass
