@@ -2,8 +2,9 @@
 
     python3 -m portbench.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-``run.py`` drives one cell once; ``workloads/``, ``configs/`` and
-``metrics/`` hold one file per cell, configuration and per-layer metric,
-found by name; ``reference/`` is the plain reference that decides
-``correct``. Nothing here imports jax, the JAX package or ``benchmarks/``.
+``run.py`` runs one cell once through its driver; ``workloads/``,
+``configs/``, ``drivers/`` and ``metrics/`` hold one file per cell,
+configuration, entry point of the port and metric, found by name;
+``reference/`` is the plain reference that decides ``correct``. Nothing
+here imports jax, the JAX package or ``benchmarks/``.
 """

@@ -25,6 +25,8 @@ total.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 F32, F64, I64, BF16 = torch.float32, torch.float64, torch.int64, torch.bfloat16
@@ -112,3 +114,51 @@ def stats_gap(port_landed: float, port_dropped: float, ref: dict, landed0: float
         return {"landed": float("inf"), "dropped": float("inf")}
     return {"landed": abs(port_landed - ref["landed"]) / added,
             "dropped": abs(port_dropped - ref["dropped"]) / added}
+
+
+NUMBERS = ("image_gap_l1", "image_gap_ulp", "landed_gap", "dropped_gap", "segments_off")
+
+
+def compare(spans, limits: dict, control: str = "") -> tuple:
+    """Hold the program's record at the end of each span against the
+    reference's replay of the span: (checks {name: (value, limit)}, [the
+    span broke a limit], reference record {batches, live_rows}, every
+    number worked out {name: value}).
+
+    `spans`: [(scene, batches, base, port)], where base and port are
+    records {images (float32 [P, 3] per render), segments, landed,
+    dropped}: the program's before the span's batches (zero images and
+    totals for a span from the start) and after them. The numbers compared
+    are those that `limits` names, and the traced segments, exactly; each
+    is the worst over the spans but ``image_gap_l1``, the L1 of the gaps
+    over the L1 of what the reference added, both summed over the spans.
+    `control`: "" (the program's records), "reference_bf16" (the reference
+    one precision lower in the program's place), "program" (the program
+    under the control's knobs: its own records)."""
+    worst = {k: 0.0 for k in NUMBERS}
+    worst["segments_off"] = 0
+    limits = dict(limits, segments_off=0)
+    bad, gap_l1, added_l1 = [], 0.0, 0.0
+    ref = {"batches": 0, "live_rows": None}
+    for scene, batches, base, port in spans:
+        l0, d0 = base["landed"], base["dropped"]
+        rep = replay(scene, base["images"], batches, landed0=l0, dropped0=d0)
+        if control == "reference_bf16":
+            low = replay(scene, base["images"], batches, bf16=True, landed0=l0, dropped0=d0)
+            port = dict(port, images=low["images"], landed=low["landed"],
+                        dropped=low["dropped"], segments=base["segments"] + low["segs"])
+        g = image_gap(port["images"], rep["images"], base["images"])
+        st = stats_gap(port["landed"], port["dropped"], rep, l0, d0)
+        span = {"image_gap_l1": g["gap_l1"] / g["added_l1"] if g["added_l1"] > 0 else math.inf,
+                "image_gap_ulp": g["ulp_max"], "landed_gap": st["landed"],
+                "dropped_gap": st["dropped"],
+                "segments_off": abs(port["segments"] - base["segments"] - rep["segs"])}
+        bad.append(any(span[k] > limits[k] for k in limits))
+        worst = {k: max(worst[k], span[k]) for k in worst}
+        gap_l1 += g["gap_l1"]
+        added_l1 += g["added_l1"]
+        ref["batches"] += rep["batches"]
+        ref["live_rows"] = (rep["live_rows"] if ref["live_rows"] is None else
+                            [a + b for a, b in zip(ref["live_rows"], rep["live_rows"])])
+    worst["image_gap_l1"] = gap_l1 / added_l1 if added_l1 > 0 else math.inf
+    return {k: (worst[k], limits[k]) for k in limits}, bad, ref, worst

@@ -1,7 +1,8 @@
 """The benchmark's harness, on the CPU: the files it finds by name, the
 contract of ``BENCHMARK.json``, the result line, the refusal without a
 card, the modules a run loads, planted faults that ``correct`` must catch,
-and the copy of ``chip_smoke.py``'s work count.
+and the copy of ``chip_smoke.py``'s work count. The server driver's own
+tests are in ``test_portbench_server.py``.
 
     python -m pytest portbench/tests -q -p no:cacheprovider
 
@@ -28,6 +29,8 @@ PB = os.path.dirname(HERE)
 ROOT = os.path.dirname(PB)
 BENCH = run.spec()
 CELLS = [w["name"] for w in BENCH["workloads"]]
+DRIVER = {c: run.workload(c).get("driver", "engine") for c in CELLS}
+ENGINE_CELLS = [c for c in CELLS if DRIVER[c] == "engine"]
 SEED = 4000000007
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -49,7 +52,9 @@ def test_every_cell_resolves(cell):
     assert doc["name"] == cfg["name"] and doc["source"] == cfg["source"]
     assert doc["reduced"] == cfg["reduced"]
     run.scene_document(wl, doc)
-    assert wl["batch"] > 0 and wl["profile_batches"] > 0 and wl["check_span"] > 0
+    assert os.path.isfile(os.path.join(PB, "drivers", f"{DRIVER[cell]}.py"))
+    if DRIVER[cell] == "engine":
+        assert wl["batch"] > 0 and wl["profile_batches"] > 0 and wl["check_span"] > 0
     assert set(wl["limits"]) == {"image_gap_l1", "image_gap_ulp", "landed_gap", "dropped_gap"}
     assert os.path.isfile(os.path.join(PB, "reference", f"{wl['reference']}.py"))
     for trace in (False, True):
@@ -131,13 +136,18 @@ def _recorded_ctx(trace):
                 profiler.Span("cudaGraphLaunch", 380.0, 415.0)]
         prof = profiler.Window(dev, host, 0.0017, 0.0, 1700.0)
     ref = {"batches": 3, "live_rows": [3 * 700000]}
-    return run.Ctx(window=window, setup_s=11.5, profile=prof, profile_batches=4, scene=scene,
-                   reference=ref, stash={})
+    return run.Ctx(attempted=16384, window=window, setup_s=11.5, profile=prof,
+                   profile_batches=4, scene=scene, reference=ref, stash={})
 
 
 @pytest.mark.parametrize("trace", [False, True])
 def test_result_line_holds_the_contracts_keys(trace):
+    from portbench.metrics import _program
+    from portbench.tests.test_portbench_program import _card_record
+
     ctx = _recorded_ctx(trace)
+    if trace:
+        ctx.stash[_program.KEY] = _card_record()
     names = run.cell_metrics(BENCH, "light_single.r512", trace)
     readers = {n: importlib.import_module(f"portbench.metrics.{n}") for n, _ in names}
     checks = {"image_gap_l1": (0.0, 1e-6), "image_gap_ulp": (0.0, 64.0),
@@ -168,6 +178,10 @@ def test_result_line_holds_the_contracts_keys(trace):
         assert out["metrics"]["rays_per_s"]["value"] == pytest.approx(16384 * 229376 / 15.0123)
     checks["segments_off"] = (1, 0)
     assert run.result(ctx, names, readers, checks, 64, dev)["correct"] is False
+    checks["segments_off"] = (0, 0)
+    # A failed unit makes the run not correct, with every number in its limit.
+    failed = run.result(ctx, names, readers, checks, 3, dev)
+    assert failed["correct"] is False and failed["failed"] == 3
 
 
 def test_main_refuses_without_a_card(capsys, monkeypatch):
@@ -201,11 +215,32 @@ def _cpu_run(monkeypatch, cell, hook=None, control=False):
     return run.run_cell(cell, SEED, 0.2, False, control=control, engine_hook=hook, **CPU)
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", ENGINE_CELLS)
 def test_a_sound_cpu_run_is_correct(cell, monkeypatch):
     out = _cpu_run(monkeypatch, cell)
     assert out["correct"] is True, out["checks"]
     assert out["checks"]["segments_off"]["value"] == 0
+
+
+# The result line of each light cell's CPU run (``_cpu_run``, seed SEED)
+# as the harness gave it before its set-up, window and check moved into
+# ``drivers/engine.py``. attempted, rays_per_s and setup_s follow the
+# CPU's clock; every other key and value is the same.
+BEFORE = os.path.join(HERE, "light_cpu_lines.json")
+
+
+@pytest.mark.parametrize("cell", ENGINE_CELLS)
+def test_the_light_line_is_as_before_the_split(cell, monkeypatch):
+    with open(BEFORE) as f:
+        before = json.load(f)[cell]
+    out = json.loads(json.dumps(_cpu_run(monkeypatch, cell)))
+    assert list(out) == list(before)
+    assert out["correct"] is before["correct"] and out["failed"] == before["failed"]
+    assert out["checks"] == before["checks"] and out["device"] == before["device"]
+    assert list(out["metrics"]) == list(before["metrics"])
+    for name, m in out["metrics"].items():
+        assert m["unit"] == before["metrics"][name]["unit"] and m["value"] > 0
+    assert out["attempted"] > 0 and out["attempted"] % 3 == 0
 
 
 def _rows_of(eng, fault):
@@ -249,14 +284,14 @@ FAULTS = {"state_unchanged": _unchanged,
 
 
 @pytest.mark.parametrize("fault", list(FAULTS))
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", ENGINE_CELLS)
 def test_a_planted_fault_is_not_correct(cell, fault, monkeypatch):
     out = _cpu_run(monkeypatch, cell, hook=FAULTS[fault])
     assert out["correct"] is False, out["checks"]
     assert out["failed"] > 0
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", ENGINE_CELLS)
 def test_the_bfloat16_control_is_not_correct(cell, monkeypatch):
     """The reference one precision lower in the program's place: bfloat16
     rows and landed weight."""
