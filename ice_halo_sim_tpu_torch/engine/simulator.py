@@ -231,6 +231,7 @@ class DeviceState(NamedTuple):
     cont: torch.Tensor        # int64 [layers - 1]: live continuation rows
     slot_mass: torch.Tensor   # float32 [max_hits]: calibration histogram
     first_over: torch.Tensor  # int64 []: batch counter of the first overflow
+    lanes: torch.Tensor       # int64 [layers - 1]: continuation lanes, added while traced
 
 
 class Engine:
@@ -932,6 +933,7 @@ class Engine:
             cont=torch.zeros(max(0, len(self.layers) - 1), dtype=I64, device=dev),
             slot_mass=torch.zeros(self.max_hits, dtype=F32, device=dev),
             first_over=torch.full((), -1, dtype=I64, device=dev),
+            lanes=torch.zeros(max(0, len(self.layers) - 1), dtype=I64, device=dev),
         )
         self._graph = None
         self._snap = None
@@ -1055,10 +1057,14 @@ class Engine:
         rows exceeded its lanes. host_choice: read each boundary's count and
         take the global sort where it overflows; else always the block
         compaction (exact when overflow is False). Lanes >= n_active start
-        with zero weight (the exact-budget tail batch)."""
+        with zero weight (the exact-budget tail batch). With the tracer on
+        (utils/profiling.py) layer li is the stage ``layer_trace.<li>`` (its
+        ray draws, pool sampler, trace, gates and projection) and an
+        ``iht.layer`` span, the continuation into it ``continuation.<li>``."""
         dev = self.device
         B = self.batch_size
         H = self.max_hits
+        profiling.stage("layer_trace.0")
         base_lo, base_hi = self._ray_base_words(batch_counter)
         seed0 = self.seed
         lane = torch.arange(B, dtype=I64, device=dev)
@@ -1089,136 +1095,138 @@ class Engine:
         slot_ids = torch.arange(H, dtype=I64, device=dev)[:, None]
         slot_len = torch.arange(1, H + 1, dtype=I64, device=dev)[:, None]
         for li, plan in enumerate(self.layers):
-            layer_nonce = (LAYER_NONCE * (li + 1)) & MASK32
-            layer_seed = seed0 ^ layer_nonce          # scalar: the shuffle hash
-            pool = self._sample_layer_pool(batch_counter, li=li)
-            layer_seed_vec = seed_vec ^ layer_nonce
+            with profiling.span("iht.layer"):
+                layer_nonce = (LAYER_NONCE * (li + 1)) & MASK32
+                layer_seed = seed0 ^ layer_nonce          # scalar: the shuffle hash
+                pool = self._sample_layer_pool(batch_counter, li=li)
+                layer_seed_vec = seed_vec ^ layer_nonce
 
-            # Orientation: one contiguous segment of lanes per setting.
-            rot_parts = []
-            off = 0
-            for s, c in enumerate(plan.setting_counts):
-                if c == 0:
-                    continue
-                rot_parts.append(sampling.sample_rot_row(
-                    layer_seed_vec[off:off + c] ^ rng.NONCE_ORIENT,
-                    ray_idx[off:off + c], plan.axis_params, s, lut_loop=True))
-                off += c
-            rot = tuple(rot_parts[0][i] if len(rot_parts) == 1
-                        else torch.cat([p[i] for p in rot_parts]) for i in range(9))
+                # Orientation: one contiguous segment of lanes per setting.
+                rot_parts = []
+                off = 0
+                for s, c in enumerate(plan.setting_counts):
+                    if c == 0:
+                        continue
+                    rot_parts.append(sampling.sample_rot_row(
+                        layer_seed_vec[off:off + c] ^ rng.NONCE_ORIENT,
+                        ray_idx[off:off + c], plan.axis_params, s, lut_loop=True))
+                    off += c
+                rot = tuple(rot_parts[0][i] if len(rot_parts) == 1
+                            else torch.cat([p[i] for p in rot_parts]) for i in range(9))
 
-            exits = trace_soa.trace_layer_soa(
-                layer_seed_vec, ray_idx, d_world, w0, rot, pool, n_ior, H,
-                setting_blocks=tuple(zip(plan.k_per_setting, plan.setting_counts)))
-            exit_w = exits.w                                   # [H, B_l]
-            b_l = exit_w.shape[1]
-            # Traced segments = the deepest live exit slot of each ray.
-            seg_count = seg_count + torch.where(exit_w > 0.0, slot_len, 0).amax(dim=0).sum()
+                exits = trace_soa.trace_layer_soa(
+                    layer_seed_vec, ray_idx, d_world, w0, rot, pool, n_ior, H,
+                    setting_blocks=tuple(zip(plan.k_per_setting, plan.setting_counts)))
+                exit_w = exits.w                                   # [H, B_l]
+                b_l = exit_w.shape[1]
+                # Traced segments = the deepest live exit slot of each ray.
+                seg_count = seg_count + torch.where(exit_w > 0.0, slot_len, 0).amax(dim=0).sum()
 
-            def check(fplan, sl, live_slots):
-                return filters.check_exits_prefix_soa(
-                    fplan, exits.path[:, sl], live_slots[:, sl],
-                    (exits.dx[:, sl], exits.dy[:, sl], exits.dz[:, sl]))
+                def check(fplan, sl, live_slots):
+                    return filters.check_exits_prefix_soa(
+                        fplan, exits.path[:, sl], live_slots[:, sl],
+                        (exits.dx[:, sl], exits.dy[:, sl], exits.dz[:, sl]))
 
-            # Filter gate: a failing exit neither accumulates nor continues.
-            if any(fp is not None for fp in plan.filter_plans):
-                live_slots = exit_w > 0.0
+                # Filter gate: a failing exit neither accumulates nor continues.
+                if any(fp is not None for fp in plan.filter_plans):
+                    live_slots = exit_w > 0.0
 
-                def verdict(s, sl, c, live_slots=live_slots):
-                    fp = plan.filter_plans[s]
-                    if fp is None:
-                        return torch.ones((H, c), dtype=torch.bool, device=dev)
-                    return check(fp, sl, live_slots)
+                    def verdict(s, sl, c, live_slots=live_slots):
+                        fp = plan.filter_plans[s]
+                        if fp is None:
+                            return torch.ones((H, c), dtype=torch.bool, device=dev)
+                        return check(fp, sl, live_slots)
 
-                exit_w = torch.where(self._segment_masks(plan, verdict, H), exit_w, 0.0)
+                    exit_w = torch.where(self._segment_masks(plan, verdict, H), exit_w, 0.0)
 
-            # Probability gate per exit slot (stream: ray index, slot 100 + h).
-            is_last = li == n_layers - 1
-            to_continue = None
-            acc_mask = None
-            if plan.prob > 0.0:
-                u = _uniform_slots(layer_seed_vec ^ rng.NONCE_GATE, ray_idx, 100 + slot_ids)
-                if is_last:
-                    acc_mask = u >= plan.prob      # would-continue rays are dropped
+                # Probability gate per exit slot (stream: ray index, slot 100 + h).
+                is_last = li == n_layers - 1
+                to_continue = None
+                acc_mask = None
+                if plan.prob > 0.0:
+                    u = _uniform_slots(layer_seed_vec ^ rng.NONCE_GATE, ray_idx, 100 + slot_ids)
+                    if is_last:
+                        acc_mask = u >= plan.prob      # would-continue rays are dropped
+                    else:
+                        to_continue = (u < plan.prob) & (exit_w > 0.0)
+                        acc_mask = ~to_continue
+
+                # Component mask per exit: the carried bits OR the bits of this
+                # layer's colour predicates, matched per setting on the exit's path.
+                exit_mask = carried_mask[None, :].expand(H, b_l)
+                if n_classes and any(plan.color_plans):
+                    live_slots = exit_w > 0.0
+
+                    def bits_of(s, sl, c, live_slots=live_slots):
+                        bits = torch.zeros((H, c), dtype=I64, device=dev)
+                        for bit_idx, cplan in plan.color_plans[s]:
+                            bits = bits | torch.where(check(cplan, sl, live_slots),
+                                                      1 << bit_idx, 0)
+                        return bits
+
+                    exit_mask = exit_mask | self._segment_masks(plan, bits_of, H)
+
+                acc_w = exit_w if acc_mask is None else torch.where(acc_mask, exit_w, 0.0)
+                if self.min_emit_frac > 0.0:
+                    # Emit-time weight floor: sub-threshold exits are thinned from
+                    # accumulation only, never from continuation; the net mass
+                    # change goes into the dropped weight.
+                    w_cut = w_scale * float(np.float32(self.min_emit_frac))
+                    tiny = (acc_w > 0.0) & (acc_w < w_cut)
+                    if self.emit_floor_mode == "rr":
+                        u_rr = _uniform_slots(layer_seed_vec ^ rng.NONCE_EMIT, ray_idx, slot_ids)
+                        new_w = torch.where(
+                            tiny, torch.where(u_rr * w_cut < acc_w, w_cut, 0.0), acc_w)
+                    else:
+                        new_w = torch.where(tiny, 0.0, acc_w)
+                    dropped_w = dropped_w + torch.sum(acc_w) - torch.sum(new_w)
+                    acc_w = new_w
+                cap = self._slot_cap if self._slot_cap is not None else H
+                if self._slot_cap is None:
+                    # Calibrating: mass per live rank; rank c's mass is what a cap
+                    # of c would drop from that slot downward.
+                    lv = acc_w > 0.0
+                    rank = torch.cumsum(lv.to(I64), dim=0) - lv.to(I64)
+                    slot_mass = slot_mass + torch.stack([
+                        torch.sum(torch.where(lv & (rank == c), acc_w, 0.0)) for c in range(H)])
+                wl_rows = wl_idx[None, :]
+                if cap < H:
+                    # Per-ray live-first slot compaction; rays with more than
+                    # `cap` live exits lose their deepest ones, accounted below.
+                    comp, keep_m, _ = trace_soa.compact_slots(
+                        acc_w > 0.0,
+                        [acc_w, exits.dx, exits.dy, exits.dz] + ([exit_mask] if n_classes else []),
+                        cap)
+                    cw = torch.where(keep_m, comp[0], 0.0)
+                    dropped_w = dropped_w + torch.sum(acc_w) - torch.sum(cw)
+                    flat_w = cw.reshape(-1)
+                    flat_dx, flat_dy, flat_dz = (comp[i].reshape(-1) for i in (1, 2, 3))
+                    flat_mask = (torch.where(keep_m, comp[4], 0).reshape(-1) if n_classes
+                                 else torch.zeros_like(flat_w, dtype=I64))
+                    flat_idx = wl_rows.expand(cap, b_l).reshape(-1)
                 else:
-                    to_continue = (u < plan.prob) & (exit_w > 0.0)
-                    acc_mask = ~to_continue
+                    flat_w = acc_w.reshape(-1)
+                    flat_dx, flat_dy, flat_dz = (x.reshape(-1) for x in
+                                                 (exits.dx, exits.dy, exits.dz))
+                    flat_mask = exit_mask.reshape(-1)
+                    flat_idx = wl_rows.expand(H, b_l).reshape(-1)
 
-            # Component mask per exit: the carried bits OR the bits of this
-            # layer's colour predicates, matched per setting on the exit's path.
-            exit_mask = carried_mask[None, :].expand(H, b_l)
-            if n_classes and any(plan.color_plans):
-                live_slots = exit_w > 0.0
-
-                def bits_of(s, sl, c, live_slots=live_slots):
-                    bits = torch.zeros((H, c), dtype=I64, device=dev)
-                    for bit_idx, cplan in plan.color_plans[s]:
-                        bits = bits | torch.where(check(cplan, sl, live_slots),
-                                                  1 << bit_idx, 0)
-                    return bits
-
-                exit_mask = exit_mask | self._segment_masks(plan, bits_of, H)
-
-            acc_w = exit_w if acc_mask is None else torch.where(acc_mask, exit_w, 0.0)
-            if self.min_emit_frac > 0.0:
-                # Emit-time weight floor: sub-threshold exits are thinned from
-                # accumulation only, never from continuation; the net mass
-                # change goes into the dropped weight.
-                w_cut = w_scale * float(np.float32(self.min_emit_frac))
-                tiny = (acc_w > 0.0) & (acc_w < w_cut)
-                if self.emit_floor_mode == "rr":
-                    u_rr = _uniform_slots(layer_seed_vec ^ rng.NONCE_EMIT, ray_idx, slot_ids)
-                    new_w = torch.where(
-                        tiny, torch.where(u_rr * w_cut < acc_w, w_cut, 0.0), acc_w)
-                else:
-                    new_w = torch.where(tiny, 0.0, acc_w)
-                dropped_w = dropped_w + torch.sum(acc_w) - torch.sum(new_w)
-                acc_w = new_w
-            cap = self._slot_cap if self._slot_cap is not None else H
-            if self._slot_cap is None:
-                # Calibrating: mass per live rank; rank c's mass is what a cap
-                # of c would drop from that slot downward.
-                lv = acc_w > 0.0
-                rank = torch.cumsum(lv.to(I64), dim=0) - lv.to(I64)
-                slot_mass = slot_mass + torch.stack([
-                    torch.sum(torch.where(lv & (rank == c), acc_w, 0.0)) for c in range(H)])
-            wl_rows = wl_idx[None, :]
-            if cap < H:
-                # Per-ray live-first slot compaction; rays with more than
-                # `cap` live exits lose their deepest ones, accounted below.
-                comp, keep_m, _ = trace_soa.compact_slots(
-                    acc_w > 0.0,
-                    [acc_w, exits.dx, exits.dy, exits.dz] + ([exit_mask] if n_classes else []),
-                    cap)
-                cw = torch.where(keep_m, comp[0], 0.0)
-                dropped_w = dropped_w + torch.sum(acc_w) - torch.sum(cw)
-                flat_w = cw.reshape(-1)
-                flat_dx, flat_dy, flat_dz = (comp[i].reshape(-1) for i in (1, 2, 3))
-                flat_mask = (torch.where(keep_m, comp[4], 0).reshape(-1) if n_classes
-                             else torch.zeros_like(flat_w, dtype=I64))
-                flat_idx = wl_rows.expand(cap, b_l).reshape(-1)
-            else:
-                flat_w = acc_w.reshape(-1)
-                flat_dx, flat_dy, flat_dz = (x.reshape(-1) for x in
-                                             (exits.dx, exits.dy, exits.dz))
-                flat_mask = exit_mask.reshape(-1)
-                flat_idx = wl_rows.expand(H, b_l).reshape(-1)
-
-            for r, pplan in enumerate(self.proj_plans):
-                hits = projection.project_components(pplan, flat_dx, flat_dy, flat_dz)
-                main_ok = (hits.main >= 0) & (flat_w > 0.0)
-                w_row = torch.where(main_ok, flat_w, 0.0)
-                contrib_rows[r].append(
-                    (torch.where(main_ok, hits.main, -1), w_row, flat_idx, flat_mask))
-                landed_add[r] = landed_add[r] + torch.sum(w_row)
-                # Overlap writes do not enter the landed weight.
-                if pplan.max_abs_dz > 0.0:
-                    ov_ok = (hits.overlap >= 0) & (flat_w > 0.0)
+                for r, pplan in enumerate(self.proj_plans):
+                    hits = projection.project_components(pplan, flat_dx, flat_dy, flat_dz)
+                    main_ok = (hits.main >= 0) & (flat_w > 0.0)
+                    w_row = torch.where(main_ok, flat_w, 0.0)
                     contrib_rows[r].append(
-                        (torch.where(ov_ok, hits.overlap, -1),
-                         torch.where(ov_ok, flat_w, 0.0), flat_idx, flat_mask))
+                        (torch.where(main_ok, hits.main, -1), w_row, flat_idx, flat_mask))
+                    landed_add[r] = landed_add[r] + torch.sum(w_row)
+                    # Overlap writes do not enter the landed weight.
+                    if pplan.max_abs_dz > 0.0:
+                        ov_ok = (hits.overlap >= 0) & (flat_w > 0.0)
+                        contrib_rows[r].append(
+                            (torch.where(ov_ok, hits.overlap, -1),
+                             torch.where(ov_ok, flat_w, 0.0), flat_idx, flat_mask))
 
             if not is_last:
+                profiling.stage(f"continuation.{li + 1}")
                 cap_next = self.layers[li + 1].cont_cap
                 if to_continue is None:
                     cont_w_all = torch.zeros(H * b_l, dtype=F32, device=dev)
@@ -1246,12 +1254,14 @@ class Engine:
                                 else torch.zeros_like(wl_idx))
                 d_world = tuple(torch.where(live, x, 0.0) for x in picked[-3:])
                 dropped_w = dropped_w + torch.sum(cont_w_all) - torch.sum(cont_wv)
+                profiling.stage(f"layer_trace.{li + 1}")
                 w0 = cont_wv
                 ray_idx = (base_lo + B * (li + 1)
                            + torch.arange(cap_next, dtype=I64, device=dev)) & MASK32
                 seed_vec = rng.epoch_seed(seed0, base_lo, base_hi, ray_idx)
                 n_ior = optics.ice_refractive_index(self._wl_from_idx(wl_idx))
 
+        profiling.stage("rest")
         contribs = []
         for parts in contrib_rows:
             contribs.append(parts[0] if len(parts) == 1 else tuple(
@@ -1493,11 +1503,8 @@ class Engine:
         captures). host_choice: the eager batch, which reads its live counts
         and takes the full fold or the global continuation sort where they
         overflow; else the compacted branches always, an overflow recorded
-        in first_over. On the kernel path with the tracer on, its stages
-        are timed (utils/profiling.py)."""
-        if self._trace_plan is None:
-            self._batch_body(n_active, host_choice)
-            return
+        in first_over. With the tracer on, its stages are timed
+        (utils/profiling.py)."""
         with profiling.batch_stages(self.device) as marks:
             self._batch_body(n_active, host_choice)
         if marks is not None and torch.cuda.is_current_stream_capturing():
@@ -1523,6 +1530,8 @@ class Engine:
         d.live.add_(lives)
         if len(cont):
             d.cont.add_(torch.stack(cont))
+            if profiling.is_tracing():
+                d.lanes.add_(const(np.array([l.cont_cap for l in self.layers[1:]]), self.device))
         if smass is not None:
             d.slot_mass.add_(smass)
         if over is not None and not host_choice:
@@ -1598,7 +1607,7 @@ class Engine:
     def _state(self) -> list:
         """The tensors a dispatch updates, besides the counter."""
         d = self._dev
-        return list(self.accum) + [d.dropped, d.segs, d.live, d.cont, d.slot_mass]
+        return list(self.accum) + [d.dropped, d.segs, d.live, d.cont, d.slot_mass, d.lanes]
 
     def _dispatch(self, k: int) -> None:
         """k full batches from the host count on, as one JAX dispatch: the

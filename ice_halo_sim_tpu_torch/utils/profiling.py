@@ -42,8 +42,10 @@ the dispatch's start). The engine's spans: ``iht.dispatch`` (a dispatch),
 ``iht.prologue`` (the counter fill and the state snapshot), ``iht.launch``
 (the host inside one ``cudaGraphLaunch``) or ``iht.step`` (an eager batch),
 ``iht.read`` (the dispatch's host read), ``iht.overflow`` (an overflow's
-restore and eager re-run). These are recorded while the tracer is on, in a
-bounded ring; with it off a dispatch pays one flag check. The set-up spans
+restore and eager re-run), and inside an eager batch of the general path
+``iht.layer`` (one scattering layer, its continuation left out). These are
+recorded while the tracer is on, in a bounded ring; with it off a dispatch
+pays one flag check. The set-up spans
 ``iht.setup.engine`` (``Engine.__init__``), ``iht.setup.library`` (the first
 load of the kernel library, its build included), ``iht.calibrate`` and
 ``iht.capture`` (a batch's warm-up and capture) are recorded always, in a
@@ -51,15 +53,22 @@ ring of their own. While a torch profiler runs, every span also opens a
 ``record_function`` range of its name, on or off, so the profiler's timeline
 names the program's spans.
 
-Stage timers: with the tracer on, a kernel-path batch on a CUDA device
-records timing events at its stage boundaries (``stage``): ``trace`` (the
-trace kernel and its pool tables), ``scatter`` (the block scatter with the
-marker tail), ``sort`` (the sort with its pack and unpack), ``scan`` (the
-fused scan and extraction) and ``rest`` (everything between: the ray base,
-the trace's sums, the accumulator update, the running sums). Captured, they
-are nodes of the batch's graph (so the engine captures again when the tracer
-is switched: ``Engine._graph_key``); with the tracer off the graph has none.
-A dispatch records its last batch's stage seconds after its own host read.
+Stage timers: with the tracer on, a batch on a CUDA device records timing
+events at its stage boundaries (``stage``). On the kernel path: ``trace``
+(the trace kernel and its pool tables), ``scatter`` (the block scatter with
+the marker tail), ``sort`` (the sort with its pack and unpack), ``scan``
+(the fused scan and extraction) and ``rest`` (everything between: the ray
+base, the trace's sums, the accumulator update, the running sums). On the
+general path: ``layer_trace.<li>`` (layer li's ray draws, pool sampler,
+trace, gates and projection), ``continuation.<li>`` (the continuation into
+layer li, its own sort included), then the fold's ``sort``, ``scan`` and
+``rest``. A stage named ``family.<n>`` counts under ``family`` too. Captured,
+they are nodes of the batch's graph (so the engine captures again when the
+tracer is switched: ``Engine._graph_key``); with the tracer off the graph
+has none. A dispatch records its last batch's stage seconds after its own
+host read. While the tracer is on, a general-path batch also adds each
+continuation's lanes into the engine's device counter beside its live rows
+(``snapshot``: ``cont_live``, ``cont_lanes``), with no host read.
 """
 
 from __future__ import annotations
@@ -307,7 +316,11 @@ def record_stages(marks, synced: bool) -> None:
         marks[-1][1].synchronize()
     seconds = {}
     for (name, a), (_, b) in zip(marks, marks[1:]):
-        seconds[name] = seconds.get(name, 0.0) + a.elapsed_time(b) * 1e-3
+        dt = a.elapsed_time(b) * 1e-3
+        family = name.split(".")[0]
+        seconds[family] = seconds.get(family, 0.0) + dt
+        if family != name:
+            seconds[name] = seconds.get(name, 0.0) + dt
     stack = _T.open()
     _T.stages.append((stack[-1][1] if stack else -1, seconds))
 
@@ -318,7 +331,10 @@ def snapshot(*engines) -> dict:
     ``stages`` [(dispatch, {stage: seconds})], ``capacity`` (of the ring:
     a ring this full has let older spans go), ``launches``
     (``kernels.build.LAUNCHES``), ``build_seconds``, and per engine given
-    its ``host_syncs``, ``overflow_replays`` and ``batch_counter``."""
+    its ``host_syncs``, ``overflow_replays``, ``batch_counter`` and, per
+    layer boundary, ``cont_live`` (live continuation rows, summed over every
+    batch) and ``cont_lanes`` (the lanes offered, summed over the batches
+    run while traced): a host read of each engine's counters."""
     from ice_halo_sim_tpu_torch.kernels import build
 
     spans = sorted(list(_T.spans) + list(_T.setup), key=lambda s: s.start)
@@ -326,4 +342,5 @@ def snapshot(*engines) -> dict:
             "launches": dict(build.LAUNCHES),
             "build_seconds": build.build_seconds,
             "engines": [{"host_syncs": e.host_syncs, "overflow_replays": e.overflow_replays,
-                         "batch_counter": e.batch_counter} for e in engines]}
+                         "batch_counter": e.batch_counter, "cont_live": e._dev.cont.tolist(),
+                         "cont_lanes": e._dev.lanes.tolist()} for e in engines]}

@@ -45,6 +45,15 @@ def _engine(device="cpu", batch=B):
                   device=device)
 
 
+def _two_layers(device="cpu", batch=B):
+    """BENCH_CFG's prism in two layers, the first continuing every exit: the
+    general path."""
+    doc = copy.deepcopy(scenes.BENCH_CFG)
+    layer = doc["scene"]["scattering"][0]
+    doc["scene"]["scattering"] = [dict(layer, prob=1.0), dict(layer)]
+    return Engine(load_project(doc), seed=7, batch_size=batch, device=device)
+
+
 def _since(t0, names=None):
     return [s for s in profiling.snapshot()["spans"]
             if s.start >= t0 and (names is None or s.name in names)]
@@ -220,8 +229,35 @@ def test_snapshot_reads_the_counters_in_place():
     snap = profiling.snapshot(eng)
     assert snap["engines"] == [{"host_syncs": eng.host_syncs,
                                 "overflow_replays": eng.overflow_replays,
-                                "batch_counter": 2 * K}]
+                                "batch_counter": 2 * K, "cont_live": [], "cont_lanes": []}]
     assert set(snap["launches"]) >= {"trace_emit", "fused_scan_extract"}
+
+
+def test_a_traced_general_batch_records_its_layers_and_lanes():
+    """On the general path with the tracer on, every eager batch holds one
+    ``iht.layer`` span a layer, and the device counter of continuation lanes
+    grows by the next layer's lanes a batch beside the live rows; with the
+    tracer off it stays at zero."""
+    eng = _two_layers()
+    eng.run(n_batches=K)
+    eng.run(n_batches=K)
+    assert eng.trace_path == "plain-torch (general)"
+    assert eng._dev.lanes.tolist() == [0]
+    live0 = eng._dev.cont.tolist()[0]
+    t0 = time.perf_counter_ns()
+    with profiling.tracing():
+        eng.run(n_batches=K)
+        snap = profiling.snapshot(eng)
+    spans = [s for s in snap["spans"] if s.start >= t0]
+    steps = {s.id for s in spans if s.name == "iht.step"}
+    layers = [s for s in spans if s.name == "iht.layer"]
+    assert len(steps) == K and len(layers) == 2 * K
+    assert all(s.parent in steps for s in layers)
+    e = snap["engines"][0]
+    assert e["cont_lanes"] == [K * eng.layers[1].cont_cap]
+    assert 0.5 < (e["cont_live"][0] - live0) / e["cont_lanes"][0] <= 1.0
+    eng.run(n_batches=K)
+    assert profiling.snapshot(eng)["engines"][0]["cont_lanes"] == e["cont_lanes"]
 
 
 @pytest.fixture
@@ -283,3 +319,44 @@ def test_a_traced_captured_batch_sorts_once_a_render(card, monkeypatch):
     batches = 8 + eng.overflow_replays - replays
     assert after["radix_sort"] - before["radix_sort"] == batches * R
     assert after["radix_sort_pass"] - before["radix_sort_pass"] == batches * R * n_pass
+
+
+@pytest.mark.cuda
+def test_stage_timers_of_a_captured_general_batch(card, monkeypatch):
+    """The two-layer scene at batch 65536, captured with the tracer on: each
+    layer's and the continuation's stage and the fold's are positive, each
+    counted under its family too, and the families' sum is within 10% of a
+    replay's device time; the lanes counter counts every replayed batch."""
+    monkeypatch.setenv("IHT_STEPS_PER_DISPATCH", "8")
+    eng = _two_layers("cuda", 65536)
+    eng.run(n_batches=8)
+    with profiling.tracing():
+        eng.run(n_batches=8)                 # captures anew, with the timers
+        assert eng.graph_mode == "cuda graph" and eng._graph_marks is not None
+        snap = profiling.snapshot(eng)
+        n, lanes0 = len(snap["stages"]), snap["engines"][0]["cont_lanes"][0]
+        replays = eng.overflow_replays
+        eng.run(n_batches=8)
+        snap = profiling.snapshot(eng)
+        _dispatch, stages = snap["stages"][n]
+        families = ("layer_trace", "continuation", "sort", "scan", "rest")
+        assert set(stages) == set(families) | {"layer_trace.0", "layer_trace.1",
+                                               "continuation.1"}
+        assert all(stages[f] > 0 for f in families), stages
+        assert stages["layer_trace"] == pytest.approx(stages["layer_trace.0"]
+                                                      + stages["layer_trace.1"])
+        assert stages["continuation"] == stages["continuation.1"]
+        batches = 8 + eng.overflow_replays - replays
+        assert (snap["engines"][0]["cont_lanes"][0] - lanes0
+                == batches * eng.layers[1].cont_cap)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        times = []
+        for _ in range(5):
+            a.record()
+            eng._graph.replay()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) * 1e-3)
+    batch = sorted(times)[2]
+    total = sum(stages[f] for f in families)
+    assert abs(total - batch) <= 0.1 * batch, (stages, times)
