@@ -23,7 +23,10 @@ Phases (any failure raises; the exit code is then non-zero):
      and K6 alone (on no path now) at the rows of MS_CFG's dual render (one
      column) and of COLOR_CFG's render (two columns); the block scatter K3'
      at compact_valid's old shape and, with every column and the in-block
-     permutation, at MS_CFG's steady continuation; the fold's radix sort at
+     permutation, at MS_CFG's steady continuation; the layer trace KL at
+     the two calls of a steady batch of light_two_layer.r512's configuration
+     (229376 and some 1.4 M lanes), its six outputs bit-equal to
+     trace_layer_soa's, the entry summing both layers; the fold's radix sort at
      BENCH_CFG's premerged rows at 512 x 256 and 2048 x 1024, beside
      torch.sort of the packed int64 word it replaced; the sandwich kernels (K7 lane, K8
      sublane) at the one-channel count pass of the calibration batch (the
@@ -50,8 +53,8 @@ Phases (any failure raises; the exit code is then non-zero):
      kernel, K5 and the per-row scan on the spectral folds, K6 after
      compact_rows; K3' runs only in MS_CFG's continuation, one launch per
      layer boundary), the compactions' launches per steady batch printed
-     for every slice; image, lanes
-     and stats must match kernels="plain" on the
+     for every slice, and KL's (one a layer on the general path, none on
+     the trace kernel's); image, lanes and stats must match kernels="plain" on the
      card; each fixture configuration must match its committed JAX render
      (tests/data/torch_port_*_ref.npz) within the CPU tests' tolerances;
      and BENCH_CFG through the general path must match the kernel path
@@ -659,6 +662,96 @@ def phase_kernel_pool(cfg, device, res: list):
     sampler_ms = _time_ms(lambda: eng._pool_tables(bc), 3)
     print(f"  pool sampler (plain torch, {plan.pool_k} pyramids): {sampler_ms:.4f} ms "
           "device time per batch", flush=True)
+
+
+def layer_work(B: int, H: int, nf: int, T: int):
+    """(bytes, arithmetic operations, special-function operations) of one
+    KL call over B lanes, in trace_work's units (U, DS and the per-face and
+    Fresnel counts are the trace kernel's; nothing depends on the data).
+    Bytes: each input read once (72 per lane: seed and ray index as int64,
+    direction, weight, refractive index and 9 rotation components), each
+    output written once (20 per exit slot and the entry flag), the shape's
+    tables once. Operations per lane: inverse rotation 15; entry 16 per
+    triangle row, 3 U, point 12; the entry Fresnel split and slot 0's
+    rotation; plane distances 7 per face slot; per bounce per face slot
+    15 + 1 division and 2 for the distance update, a Fresnel split, exit
+    cosine 5, rotation 15, state selects 8."""
+    U, DS = 24, 8
+    fres_ops, fres_sfu = 42 + 7 * DS, 7
+    ops = 15 + 16 * T + 3 * U + 12 + fres_ops + 15 + 7 * nf
+    ops += (H - 1) * (nf * (15 + DS + 2) + fres_ops + 5 + 15 + 8)
+    sfu = fres_sfu + (H - 1) * (nf + fres_sfu)
+    nbytes = B * (72 + 20 * H + 1) + 4 * (5 * nf + 13 * T)
+    return nbytes, ops * B, sfu * B
+
+
+def phase_kernel_layer(device, res: list):
+    """KL (csrc/trace_layer.cu) at light_two_layer.r512's shapes: the two
+    layer-trace calls of a steady batch of the cell's configuration
+    (portbench/configs/light_two_layer_ms.json, batch 229376), recorded from
+    an engine on the plain kernel set. Each call's six outputs bit-equal to
+    trace_layer_soa's and the same bits twice; the kernel, its bound and the
+    plain function timed per layer; the entry sums both layers."""
+    import torch
+
+    from ice_halo_sim_tpu_torch.config.loader import load_project
+    from ice_halo_sim_tpu_torch.core import trace_soa
+    from ice_halo_sim_tpu_torch.engine.simulator import Engine
+
+    with open(os.path.join(ROOT, "portbench", "configs", "light_two_layer_ms.json")) as f:
+        doc = json.load(f)["document"]
+    eng = Engine(load_project(doc), seed=7, batch_size=BATCH, device=device, kernels="plain")
+    calls = []
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return trace_soa.trace_layer_soa(*args, **kw)
+
+    eng.ks = eng.ks._replace(trace_layer=record)
+    eng.run(n_batches=1)                         # calibrates cap and lanes
+    calls.clear()
+    eng.run(n_batches=1)
+    if len(calls) != 2:
+        raise AssertionError(f"two_layer: {len(calls)} layer-trace calls in a steady batch")
+    layers, tot = [], {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0, "sfu": 0}
+    by = []
+    for li, (args, kw) in enumerate(calls):
+        got = trace_soa.trace_layer_cuda(*args, **kw)
+        again = trace_soa.trace_layer_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        want = trace_soa.trace_layer_soa(*args, **kw)
+        for field, a, b, c in zip(want._fields, got, want, again):
+            raw = [x.view(torch.int32) if x.dtype == torch.float32 else x for x in (a, b, c)]
+            if not (torch.equal(raw[0], raw[1]) and torch.equal(raw[0], raw[2])):
+                raise AssertionError(f"trace_layer layer {li + 1}: {field} differs from "
+                                     f"trace_layer_soa or between two launches")
+        B, H = args[1].shape[0], args[7]
+        nf, T = args[5].plane_n.shape[1], args[5].tri_face.shape[1]
+        nbytes, ops, sfu = layer_work(B, H, nf, T)
+        ms = _time_ms(lambda: trace_soa.trace_layer_cuda(*args, **kw), 10,
+                      f"trace_layer layer {li + 1}")
+        plain_ms = _time_ms(lambda: trace_soa.trace_layer_soa(*args, **kw), 3)
+        bound = _bound(nbytes, ops, sfu)
+        live = int((args[3] > 0).sum())
+        print(f"  trace_layer (KL) layer {li + 1}: {B} lanes ({live} of weight > 0), "
+              f"max_hits {H}, NF {nf}, T {T}: bit-equal, the same bits twice; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.5f} ms by {bound[1]} "
+              f"({nbytes} bytes, {ops // B} operations and {sfu // B} special-function "
+              f"operations a lane)", flush=True)
+        layers.append({"lanes": B, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0]})
+        by.append(ms)
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bytes", nbytes), ("ops", ops),
+                     ("sfu", sfu)):
+            tot[k] += v
+    ms = _Ms(tot["ms"])
+    ms.by = _timed_by(*by)
+    _add(res, "trace_layer", "ice_halo_sim_tpu_torch/csrc/trace_layer.cu",
+         "none (the JAX general trace is XLA: ice_halo_sim_tpu/core/trace_soa.py)", 0.0, ms,
+         tot["plain_ms"], _bound(tot["bytes"], tot["ops"], tot["sfu"]),
+         "a per-lane Monte-Carlo trace loop is no library function")
+    res[-1]["layers"] = layers
+    del eng, calls
+    torch.cuda.empty_cache()
 
 
 def _fold_rows(eng, render: int, batch_counter: int):
@@ -3368,6 +3461,7 @@ def main() -> int:
     phase_kernel_pool(pool, device, res)
     with _knobs(IHT_FOLD="sort"):
         phase_kernels_general(ms, colour, device, res)
+        phase_kernel_layer(device, res)
         stress = phase_kernels_sandwich(ms, device, res)
 
     print("[4] slices", flush=True)
@@ -3434,7 +3528,17 @@ def main() -> int:
             "compact_rows": "ms",
             "pack_payload_blocks": "color",
             "sandwich_lane": "ms-sandwich", "sandwich_sublane": "ms-sandwich-sublane",
-            "sandwich_iota": "probe_sandwich", "extract_blocks": "probe_scatter"}
+            "sandwich_iota": "probe_sandwich", "extract_blocks": "probe_scatter",
+            "trace_layer": "ms"}
+    # KL: one launch a layer on the general path's steady batches, none on
+    # the trace kernel's.
+    kl = {n: per_batch[n]["trace_layer"] for n in per_batch}
+    kl_want = {n: float(len(engines[n].layers)) if engines[n].trace_path == "general" else 0.0
+               for n in per_batch}
+    print(f"  trace_layer (KL) launches per steady batch: {kl} (one a layer on the general "
+          f"path: {kl_want})", flush=True)
+    if kl != kl_want:
+        raise AssertionError(f"trace_layer launches per steady batch {kl}, not {kl_want}")
     for k in res:
         k["launches"] = counts[home.get(k["name"], "bench")][k["name"]]
         k["launches_per_steady_batch"] = {n: per_batch[n][k["name"]] for n in per_batch}

@@ -17,6 +17,11 @@ TPU workarounds dropped, values kept:
     there; here it is one indexed write per live slot at its exclusive live
     rank.
 
+``trace_layer_cuda`` is the render mode's CUDA kernel KL
+(csrc/trace_layer.cu): one launch a layer, bit-equal to ``trace_layer_soa``
+on the card. The engine's "cuda" kernel set takes it; the "plain" set and
+the gradient path take ``trace_layer_soa``.
+
 The gradient modes (``score_grad``, ``frozen``, ``record``, ``soft_tau``;
 engine/gradient.py) run on torch autograd. Without them the ops are the
 render mode's: the face index carry and indexed reads. ``soft_tau`` alone
@@ -26,6 +31,7 @@ sums, as the JAX function does in every mode: a soft weight is not an index.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import torch
@@ -34,6 +40,7 @@ from ice_halo_sim_tpu_torch.core import optics, rng
 from ice_halo_sim_tpu_torch.core.bits import F32, I32, I64, divs, sdiv
 from ice_halo_sim_tpu_torch.core.sampling import HALF_PI_F, PI_F, _rot9
 from ice_halo_sim_tpu_torch.core.trace import GeomPool
+from ice_halo_sim_tpu_torch.kernels import build
 
 SLAB_EPS = optics.SLAB_EPS
 _BIG = 1e30
@@ -337,3 +344,113 @@ def trace_layer_soa(seed, ray_idx, d_world, w0, rot, pool: GeomPool, n_ior,
     if not record:
         return exits
     return exits, FrozenChoices(sel.to(I32), entry_ok, *(torch.stack(c) for c in zip(*rec)))
+
+
+_VP = ctypes.c_void_p
+
+
+class _LayerArgs(ctypes.Structure):
+    """KL's argument block (csrc/trace_layer.cu LayerArgs)."""
+
+    _fields_ = [
+        ("seed", _VP), ("ray_idx", _VP), ("d", _VP * 3), ("w0", _VP), ("n_ior", _VP),
+        ("rot", _VP * 9), ("rows", _VP),
+        ("plane_n", _VP), ("plane_d", _VP), ("present", _VP), ("face_num", _VP),
+        ("tri_ch", _VP), ("tri_v0", _VP), ("tri_e1", _VP), ("tri_e2", _VP), ("tri_face", _VP),
+        ("out_d", _VP * 3), ("out_w", _VP), ("out_path", _VP), ("entry_ok", _VP),
+        ("b", ctypes.c_longlong), ("h", ctypes.c_int32), ("nf", ctypes.c_int32),
+        ("t", ctypes.c_int32),
+    ]
+
+
+# The pool's tables as KL reads them: (field, dtype, trailing shape after
+# [K, NF] or [K, T]).
+_POOL_TABLES = (
+    ("plane_n", F32, (3,)), ("plane_d", F32, ()), ("face_present", torch.bool, ()),
+    ("face_number", I32, ()), ("tri_cross_half", F32, (3,)), ("tri_v0", F32, (3,)),
+    ("tri_e1", F32, (3,)), ("tri_e2", F32, (3,)), ("tri_face", I32, ()),
+)
+
+
+def check_layer_inputs(seed, ray_idx, d_world, w0, rot, pool: GeomPool, n_ior,
+                       max_hits: int) -> int:
+    """Raise ValueError where KL cannot take a call of trace_layer_soa's
+    render mode; return its lane count B. Every lane column is a contiguous
+    [B] tensor on one device (seed and ray index int64, the rest float32);
+    the pool's tables have trace.GeomPool's dtypes, 8 or 20 face slots."""
+    if not isinstance(ray_idx, torch.Tensor) or ray_idx.dim() != 1:
+        raise ValueError("KL takes the ray index as a [B] tensor")
+    if len(d_world) != 3 or len(rot) != 9:
+        raise ValueError("KL takes 3 direction and 9 rotation components")
+    B = ray_idx.shape[0]
+    cols = [("seed", seed, I64), ("ray_idx", ray_idx, I64), ("w0", w0, F32),
+            ("n_ior", n_ior, F32)]
+    cols += [(f"d_world[{c}]", x, F32) for c, x in enumerate(d_world)]
+    cols += [(f"rot[{c}]", x, F32) for c, x in enumerate(rot)]
+    for name, x, dtype in cols:
+        if not isinstance(x, torch.Tensor) or x.shape != (B,) or x.dtype != dtype:
+            got = (tuple(x.shape), x.dtype) if isinstance(x, torch.Tensor) else type(x)
+            raise ValueError(f"KL takes {name} as a [{B}] {dtype} tensor, not {got}")
+        if not x.is_contiguous():
+            raise ValueError(f"KL takes contiguous lane columns; {name} is strided "
+                             f"{tuple(x.stride())}")
+        if x.device != ray_idx.device:
+            raise ValueError(f"KL takes every column on one device: {name} is on "
+                             f"{x.device}, the ray index on {ray_idx.device}")
+    K, NF = pool.plane_n.shape[0], pool.plane_n.shape[1]
+    T = pool.tri_face.shape[1]
+    if NF not in (8, 20):
+        raise ValueError(f"KL is built for 8 or 20 face slots, not {NF}")
+    for field, dtype, tail in _POOL_TABLES:
+        x = getattr(pool, field)
+        lead = (K, T) if field.startswith("tri_") else (K, NF)
+        if x.dtype != dtype or tuple(x.shape) != lead + tail or x.device != ray_idx.device:
+            raise ValueError(f"KL takes pool.{field} as a {list(lead + tail)} {dtype} "
+                             f"tensor on {ray_idx.device}, not {list(x.shape)} {x.dtype} "
+                             f"on {x.device}")
+    if int(max_hits) < 1:
+        raise ValueError(f"max_hits must be at least 1, got {max_hits}")
+    return B
+
+
+def trace_layer_cuda(seed, ray_idx, d_world, w0, rot, pool: GeomPool, n_ior,
+                     max_hits: int, setting_blocks: Optional[tuple] = None) -> SoAExits:
+    """KL (csrc/trace_layer.cu): the render mode of ``trace_layer_soa`` in
+    one launch on CUDA tensors, every output bit-equal to it. Same
+    arguments; raises ValueError where ``check_layer_inputs`` does or the
+    tensors lie on the CPU (the plain function is the CPU's). The outputs
+    are allocated here and the launch goes on the current stream without a
+    sync, so a CUDA graph captures it."""
+    B = check_layer_inputs(seed, ray_idx, d_world, w0, rot, pool, n_ior, max_hits)
+    dev = ray_idx.device
+    if dev.type == "cpu":
+        raise ValueError("KL runs on CUDA tensors; trace_layer_soa is the CPU's trace")
+    K, NF = pool.plane_n.shape[0], pool.plane_n.shape[1]
+    shared = K == 1 and (setting_blocks is None or len(setting_blocks) == 1)
+    if not shared and setting_blocks is None:
+        raise ValueError("a pool of several shapes needs setting_blocks")
+    H = int(max_hits)
+    lib = build.lib()
+    rows = None if shared else lane_pool_rows(setting_blocks, B, dev)
+    tabs = [getattr(pool, f).contiguous() for f, _, _ in _POOL_TABLES]
+    out = torch.empty((4, H, B), dtype=F32, device=dev)
+    path = torch.empty((H, B), dtype=I32, device=dev)
+    entry_ok = torch.empty(B, dtype=torch.bool, device=dev)
+    ptr = build.ptr
+    a = _LayerArgs()
+    a.seed, a.ray_idx, a.w0, a.n_ior = ptr(seed), ptr(ray_idx), ptr(w0), ptr(n_ior)
+    for c in range(3):
+        a.d[c] = ptr(d_world[c])
+        a.out_d[c] = ptr(out[c])
+    for c in range(9):
+        a.rot[c] = ptr(rot[c])
+    a.rows = ptr(rows)
+    (a.plane_n, a.plane_d, a.present, a.face_num, a.tri_ch, a.tri_v0, a.tri_e1, a.tri_e2,
+     a.tri_face) = (ptr(t) for t in tabs)
+    a.out_w, a.out_path, a.entry_ok = ptr(out[3]), ptr(path), ptr(entry_ok)
+    a.b, a.h, a.nf, a.t = B, H, NF, pool.tri_face.shape[1]
+    with torch.cuda.device(dev):
+        code = lib.iht_trace_layer(ctypes.addressof(a), build.stream_ptr(dev))
+    build.check(code, "trace_layer")
+    build.LAUNCHES["trace_layer"] += 1
+    return SoAExits(dx=out[0], dy=out[1], dz=out[2], w=out[3], path=path, entry_ok=entry_ok)

@@ -67,6 +67,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "trace_common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -137,20 +139,6 @@ struct TraceParams {
 
 namespace {
 
-__device__ __forceinline__ uint32_t pcg_hash(uint32_t x) {
-  x = x * 747796405u + 2891336453u;
-  x = ((x >> ((x >> 28u) + 4u)) ^ x) * 277803737u;
-  return (x >> 22u) ^ x;
-}
-
-__device__ __forceinline__ float u01(uint32_t h) {
-  return (float)(h >> 8u) * (1.0f / 16777216.0f);
-}
-
-__device__ __forceinline__ float uniform(uint32_t seed, uint32_t idx, uint32_t slot) {
-  return u01(pcg_hash(seed ^ pcg_hash(idx * 1000003u + slot)));
-}
-
 __device__ __forceinline__ float gaussian(uint32_t seed, uint32_t idx, uint32_t slot) {
   const float u1 = fmaxf(uniform(seed, idx, slot), 1e-7f);
   const float u2 = uniform(seed, idx, slot + 1u);
@@ -187,40 +175,6 @@ __device__ __forceinline__ float ice_n(float wl) {
   const float n_sq = 1.0f + b1 / (1.0f - c1 / um2) + b2 / (1.0f - c2 / um2);
   const float n = sqrtf(fmaxf(n_sq, 1.0f));
   return (wl < 350.0f || wl > 900.0f) ? 1.0f : n;
-}
-
-struct Split {
-  float rx, ry, rz, tx, ty, tz, wr, wt;
-  bool tir;
-};
-
-__device__ __forceinline__ Split fresnel(float dx, float dy, float dz, float nx,
-                                         float ny, float nz, float w, float n_ior) {
-  Split s;
-  const float cos_t = dx * nx + dy * ny + dz * nz;
-  const float rr = (cos_t > 0.0f) ? n_ior : 1.0f / n_ior;
-  const float cos_sq = cos_t * cos_t;
-  const float delta = (1.0f - rr * rr) / fmaxf(cos_sq, 1e-20f) + rr * rr;
-  s.tir = delta <= 0.0f;
-  const float ds = s.tir ? 1.0f : fmaxf(delta, 0.0f);
-  float ratio = 1.0f;
-  if (!s.tir) {
-    const float d_sqrt = sqrtf(ds);
-    const float rs = (rr - d_sqrt) / (rr + d_sqrt);
-    const float rp = (1.0f - rr * d_sqrt) / (1.0f + rr * d_sqrt);
-    ratio = 0.5f * (rs * rs + rp * rp);
-  }
-  s.wr = ratio * w;
-  s.wt = s.tir ? 0.0f : w - s.wr;
-  const float two_ct = 2.0f * cos_t;
-  s.rx = dx - two_ct * nx;
-  s.ry = dy - two_ct * ny;
-  s.rz = dz - two_ct * nz;
-  const float k = (rr - sqrtf(ds)) * cos_t;
-  s.tx = s.tir ? s.rx : rr * dx - k * nx;
-  s.ty = s.tir ? s.ry : rr * dy - k * ny;
-  s.tz = s.tir ? s.rz : rr * dz - k * nz;
-  return s;
 }
 
 __device__ __forceinline__ int in_bounds(int px, int py, bool valid, int W, int H) {

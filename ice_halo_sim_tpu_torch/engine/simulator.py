@@ -9,8 +9,10 @@ A scene takes one of two trace paths, as in the JAX engine:
     calibration the block scatter (K3) with the marker tail feeds the
     premerged fold;
   - the general path otherwise, or when IHT_PALLAS_TRACE is 0/off: every
-    layer's pool sampler and ``trace_soa.trace_layer_soa`` in plain torch on
-    the device (they are XLA, not Pallas, in the JAX package), the filter,
+    layer's pool sampler in plain torch on the device and its trace
+    ``ks.trace_layer`` (KL, one launch a layer, on the CUDA kernel set;
+    ``trace_soa.trace_layer_soa`` on the plain one: both are XLA, not
+    Pallas, in the JAX package), the filter,
     probability and emit-floor gates, colour bits, the slot cap, projection
     into every render, the continuation between layers, then per render
     ``pack_spectral_keys`` and the sort fold; after calibration
@@ -1114,7 +1116,7 @@ class Engine:
                 rot = tuple(rot_parts[0][i] if len(rot_parts) == 1
                             else torch.cat([p[i] for p in rot_parts]) for i in range(9))
 
-                exits = trace_soa.trace_layer_soa(
+                exits = self.ks.trace_layer(
                     layer_seed_vec, ray_idx, d_world, w0, rot, pool, n_ior, H,
                     setting_blocks=tuple(zip(plan.k_per_setting, plan.setting_counts)))
                 exit_w = exits.w                                   # [H, B_l]

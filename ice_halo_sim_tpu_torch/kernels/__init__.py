@@ -17,10 +17,12 @@ class KernelSet(NamedTuple):
     fused_scan_extract: Callable
     sandwich_pass: Callable
     sort_pairs: Callable
+    trace_layer: Callable
 
 
 def kernel_set(kind: str) -> KernelSet:
-    from ice_halo_sim_tpu_torch.core import block_ops, radix_sort, sandwich, seg_scan, trace_emit
+    from ice_halo_sim_tpu_torch.core import (block_ops, radix_sort, sandwich, seg_scan, trace_emit,
+                                            trace_soa)
 
     if kind == "cuda":
         return KernelSet("cuda", trace_emit.trace_emit,
@@ -30,7 +32,8 @@ def kernel_set(kind: str) -> KernelSet:
                          block_ops.compact_rows,
                          seg_scan.fused_scan_extract,
                          sandwich.sandwich_pass,
-                         radix_sort.sort_pairs)
+                         radix_sort.sort_pairs,
+                         trace_soa.trace_layer_cuda)
     if kind == "plain":
         return KernelSet("plain", trace_emit.trace_emit_plain,
                          block_ops.pack_payload_blocks_plain,
@@ -39,5 +42,6 @@ def kernel_set(kind: str) -> KernelSet:
                          block_ops.compact_rows_plain,
                          seg_scan.fused_scan_extract_plain,
                          sandwich.sandwich_pass_plain,
-                         radix_sort.sort_pairs_plain)
+                         radix_sort.sort_pairs_plain,
+                         trace_soa.trace_layer_soa)
     raise ValueError(f"kernels must be 'cuda' or 'plain', got {kind!r}")

@@ -59,6 +59,7 @@ LAUNCHES = {
     "extract_blocks": 0,
     "radix_sort": 0,
     "radix_sort_pass": 0,  # the digit passes of those launches
+    "trace_layer": 0,
 }
 
 _lib = None
@@ -170,6 +171,7 @@ _SIGNATURES = {
                              _VP, _VP, _VP, _VP, _VP, _LL, _VP],
     "iht_sandwich_iota": [_VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _I, _VP, _VP, _VP, _LL, _VP],
     "iht_radix_sort_pairs": [_VP, _VP, _LL, _I, _I, _VP, _VP, _VP, _VP, _VP, _LL, _VP],
+    "iht_trace_layer": [_VP, _VP],
 }
 
 
