@@ -29,22 +29,15 @@ Phases (any failure raises; the exit code is then non-zero):
      trace_layer_soa's, the entry summing both layers; the fold's radix sort at
      BENCH_CFG's premerged rows at 512 x 256 and 2048 x 1024, beside
      torch.sort of the packed int64 word it replaced; the sandwich kernels (K7 lane, K8
-     sublane) at the one-channel count pass of the calibration batch (the
-     raw rows of MS_CFG's dual render over all 1024 chunks) and, printed as
-     extra lines, at the raw rows against the 256 chunks that hold most of
-     them, plain and two-term; a stress launch of both on hot pixels (2^21
-     rows, 90% on three pixels: the plain version and the same bits twice),
-     timed beside the same count of rows spread over the image, with the
-     bound ("stress" in their entries of the kernels line); the fused scan
-     on 2^21 rows crowded on one pixel and spread, each timed with its
-     bound ("crowded" in its entry); the probe forms P1 and P2 at their
-     probes' shapes. The entries of K7 and K8 in the kernels line are taken after
-     the ms-sandwich slice of [4] has calibrated: one steady batch's rows go
-     through every level of both renders' cascades as the engine routes
-     them (compacted to the level's keep, decoded, misses onward), and at
-     each (rows, chunk list) pair the kernel is held against its plain
-     version and timed beside it and beside index_add_ on the same rows,
-     K7, K8 and index_add_ printed side by side per launch;
+     sublane), on no path of the engine, at 1388544 generated rows over a
+     512 x 256 image against the 256 chunks that hold most of them, beside
+     index_add_ on the same rows, plain and (extra lines) two-term; a
+     stress launch of both on hot pixels (2^21 rows, 90% on three pixels:
+     the plain version and the same bits twice), timed beside the same count
+     of rows spread over the image, with the bound ("stress" in their
+     entries of the kernels line); the fused scan on 2^21 rows crowded on
+     one pixel and spread, each timed with its bound ("crowded" in its
+     entry); the probe forms P1 and P2 at their probes' shapes;
   4. slices: Engine(cfg, device="cuda") renders BENCH_CFG and POOL_CFG (the
      trace kernel path), then MS_CFG and COLOR_CFG (the general trace
      path), each with the launch counters reset just before and read just
@@ -58,17 +51,9 @@ Phases (any failure raises; the exit code is then non-zero):
      card; each fixture configuration must match its committed JAX render
      (tests/data/torch_port_*_ref.npz) within the CPU tests' tolerances;
      and BENCH_CFG through the general path must match the kernel path
-     (emit floor and slot cap off). These engines fold by sort
-     (IHT_FOLD=sort), as the JAX fixtures were. Then MS_CFG under
-     IHT_FOLD=sandwich (slice ms-sandwich): one calibration batch and
-     three steady ones, K7 launched on every steady batch, held against
-     kernels="plain" on the card and against the sort fold of the ms slice;
-     the same through K8; MS_CFG, BENCH_CFG (general path) and SUNDOG_CFG
-     under IHT_FOLD=auto with the dispatch's decision and modeled costs (and
-     with IHT_FOLD unset: the card's default, the sort fold), and whether
-     each decision is within 0.1 ms of the faster fold; and the
-     two probes' own main paths (P1, P2);
-  5. steady rays/s of the five slices (informational); then per scene
+     (emit floor and slot cap off). Then the two probes' own main paths
+     (P1, P2);
+  5. steady rays/s of the four slices (informational); then per scene
      (BENCH_CFG, POOL_CFG, MS_CFG, COLOR_CFG) the host loop: an eager and a
      CUDA-graph engine at IHT_STEPS_PER_DISPATCH=8, one calibrating and two
      steady dispatches each, bit for bit equal, one host read per steady
@@ -138,23 +123,21 @@ Phases (any failure raises; the exit code is then non-zero):
  10. data parallel (parallel/sharding.py, parallel/distributed.py): a
      ShardedEngine over the mesh [cuda:0, cuda:0] (two shards on the one
      card; batch i launched on every shard before batch i + 1, checked on
-     the first call) at full width renders BENCH_CFG (16 batches a shard: K2, K3, K4,
-     graphs), POOL_CFG (2: K2b), MS_CFG (4: compact_rows, K3', K4, the
-     continuation) and MS_CFG under IHT_FOLD=sandwich (2: K7), each in two
-     calls with the launch counters reset just before and read just after
-     (every kernel of the path launched; "launches_sharded" in the kernels
-     line); every render and the landed weights bit-equal to two Engines at
-     shards (0, 2) and (1, 2) given the same calls, summed in shard order
-     (the sandwich fold to the tile tolerance should K7 not be
-     deterministic); the graph mode, host reads per dispatch, the sharded
-     rays/s against one Engine.run of as many batches in turns, and the
+     the first call) at full width renders BENCH_CFG (16 batches a shard:
+     K2, K3, K4, graphs), POOL_CFG (2: K2b) and MS_CFG (4: compact_rows,
+     K3', K4, the continuation), each in two calls with the launch counters
+     reset just before and read just after (every kernel of the path
+     launched; "launches_sharded" in the kernels line); every render and the
+     landed weights bit-equal to two Engines at shards (0, 2) and (1, 2)
+     given the same calls, summed in shard order; the graph mode, host reads
+     per dispatch, the sharded rays/s against one Engine.run of as many batches in turns, and the
      drain's ms. Then two ranks on the one card: this script as two worker
      processes (--rank-worker), each a MultiHostEngine of one shard on
      cuda:0 through gloo, BENCH_CFG for 8 batches and MS_CFG for 2; their
      images bit-equal to each other and to the single-process run's after
      as many batches, and their combined rays/s. A rank that fails or
      outlives RANK_TIMEOUT fails the phase. With more than one card
-     (phase_cards), the mesh of all cards runs the first three scenes the
+     (phase_cards), the mesh of all cards runs the three scenes the
      same way (one Engine per card as the twins), and one NCCL rank per
      card runs the two rank scenes (bit-equal between the ranks, within
      rtol 1e-6 of the single-process run); with one card it prints that
@@ -172,14 +155,7 @@ Phases (any failure raises; the exit code is then non-zero):
      engines on the card, the pyramid so at 2048 rays a batch; the
      pyramid's peak memory. BENCH_CFG at 2048 x 1024 (P = 2^21) through K2,
      K3 and K4 against the plain path, and K3 with the marker tail and K4
-     at those shapes ("at_2048x1024"). IHT_FOLD=auto on every stand-in:
-     decision, modeled costs, K7 launches per steady batch and the measured
-     verdict (the pyramid at 16384 rays a batch, three engines at once).
-     The sandwich fold in a CUDA graph on MS_CFG and BD_CFG: an eager and a
-     graph engine at IHT_STEPS_PER_DISPATCH=4, bit for bit equal (tiles and
-     dense images), one host read per steady dispatch, rates, busy and idle
-     share as in [5]; and K7 and K8 at every launch of a steady BD_CFG
-     cascade against the plain version ("at_filtered_bd").
+     at those shapes ("at_2048x1024").
 
 The last lines of standard output are the kernels JSON object, the card
 (nvidia-smi) and the device JSON object. Imports nothing of JAX and
@@ -196,6 +172,9 @@ import os
 import subprocess
 import sys
 import time
+
+from portbench.metrics._peaks import FP32_OPS_S, HBM_BYTES_S, SFU_OPS_S, least_seconds
+from portbench.metrics.trace_roofline import trace_work
 
 # A fault in native code prints every thread's Python stack to stderr.
 faulthandler.enable()
@@ -225,22 +204,8 @@ DROPPED_ATOL_FRAC = 1e-6               # of the landed weight
 # added in float32; the plain version sums in float64 and rounds once.
 # atol is a fraction of the largest entry. `matched` is bit-equal.
 TILE_RTOL, TILE_ATOL_FRAC = 1e-4, 1e-5
-# The sandwich fold against the sort fold: each row's values are rounded to
-# bf16 (about 0.4% per row, unbiased, averaging down per pixel).
-BF16_MASS, BF16_L1 = 2e-3, 6e-3
-# IHT_FOLD=auto's check: each engine's steady batch is timed this many times,
-# in turns with the other engines of the scene.
-FOLD_TURNS = 5
 # Batches per dispatch of phase [5]'s eager and graph engines.
 GRAPH_K = 8
-
-# Peak rates of one H100 SXM (NVIDIA's data sheet): device memory, float32
-# outside the tensor cores. The special-function rate follows from the SM's
-# layout: 16 special-function lanes beside 128 float32 lanes that count two
-# operations (multiply-add) each, so 1/16 of the float32 rate.
-HBM_BYTES_S = 3.35e12
-FP32_OPS_S = 67e12
-SFU_OPS_S = FP32_OPS_S / 16
 
 
 class _Ms(float):
@@ -292,82 +257,6 @@ def _max_abs(x, y) -> float:
     return float((x.double() - y.double()).abs().max()) if x.numel() else 0.0
 
 
-def _bound(nbytes: float, ops: float = 0.0, sfu: float = 0.0):
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over their peak rates (float32, special functions)."""
-    t_bytes = nbytes / HBM_BYTES_S
-    t_ops = max(ops / FP32_OPS_S, sfu / SFU_OPS_S)
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def trace_work(plan):
-    """(bytes, arithmetic operations, special-function operations) of one
-    trace_emit call, counted from the plan's loops (every ray runs every
-    loop to its end: nothing here depends on the data).
-
-    Units per ray. U = 24: one uniform draw (two PCG hashes of 9 integer
-    operations, the index mix, the convert and scale). A float division or
-    square root counts 1 special-function operation (rcp/rsqrt) plus 8
-    arithmetic ones (its Newton steps); a lone sin, cos or log counts 20
-    arithmetic ones (range reduction and polynomial), a sine and cosine of
-    one angle (sincosf) 30. With multiply-add contraction off, every
-    multiply and add is one operation.
-      set-up: epoch seed 12, wavelength U + 6, refractive index 12 + 5
-        div/sqrt, sun cap 2 U + 20 + 1 sqrt + 1 sincos;
-      orientation: 5 U, the latitude path (inverse-CDF table: 5 per node
-        + 12 + 2 div and 3 sincos; uniform: about 30 + 1 sqrt and 2
-        sincos), rotation 22, its inverse apply 15;
-      entry: 16 per triangle row (two passes of a dot, max, add and the
-        CDF compare), 3 U, point 12, plane distances 7 per face slot;
-      Fresnel split (entry and every bounce): 42 + 7 div/sqrt;
-      bounce (max_hits - 1): per face slot 15 + 1 div and 2 for the
-        distance update (the function's need, with the denominators held;
-        the kernel recomputes them, which is its own cost); exit cosine 5,
-        rotation 15, state selects 8;
-      emit slot (max_hits): segment 2, roulette U + 4 when the floor is
-        on, gate U + 2 when prob > 0; per render: a dual fisheye pass 16 +
-        2 div/sqrt (two passes with the overlap band), a single lens or
-        globe 20 + 18 camera rotation + 2 div/sqrt.
-    The pack in the kernel is counted by its bytes only: a stable compaction
-    needs no arithmetic beyond moving each row once.
-    Bytes: each render's packed rows written once (8 per row of rows_block,
-    the tail included) and its counts, the tables read once."""
-    from ice_halo_sim_tpu_torch.core import sampling
-    from ice_halo_sim_tpu_torch.core.latlut import N_NODES
-
-    U, DS, SINCOS = 24, 8, 30
-    n_tris = plan.n_tris if plan.pool_k else len(plan.tris)
-    ops = 12 + (U + 6) + 12 + 5 * DS + 2 * U + 20 + DS + SINCOS
-    sfu = 5 + 1
-    lut = int(plan.axis_params.lat_path[0]) == sampling.LAT_LUT_INVERSE_CDF
-    ops += 5 * U + (5 * N_NODES + 12 + 2 * DS + 3 * SINCOS if lut else 30 + DS + 2 * SINCOS)
-    ops += 22 + 15
-    sfu += 2 if lut else 1
-    ops += 16 * n_tris + 3 * U + 12 + 7 * plan.nf
-    fres_ops, fres_sfu = 42 + 7 * DS, 7
-    bounce_ops = plan.nf * (15 + DS + 2) + fres_ops + 5 + 15 + 8
-    bounce_sfu = plan.nf + fres_sfu
-    ops += fres_ops + (plan.h - 1) * bounce_ops
-    sfu += fres_sfu + (plan.h - 1) * bounce_sfu
-    slot_ops = 2 + (U + 4 if plan.emit_frac > 0 else 0) + (U + 2 if plan.prob > 0 else 0)
-    slot_sfu = 0
-    for pp in plan.renders:
-        if pp.lens_type in (4, 9):
-            passes = 2 if pp.max_abs_dz > 0 else 1
-            slot_ops += passes * (16 + 2 * DS)
-            slot_sfu += passes * 2
-        else:
-            slot_ops += 20 + 18 + 2 * DS
-            slot_sfu += 2
-    ops += plan.h * slot_ops
-    sfu += plan.h * slot_sfu
-    rows = plan.n_blocks * sum(plan.rows_block)
-    nbytes = 8 * rows + 4 * plan.n_blocks * len(plan.renders) + 4 * plan.ftab()[0].size
-    if plan.pool_k:
-        nbytes += 4 * plan.pool_k * (plan.nf * 5 + plan.n_tris * 13)
-    return nbytes, ops * plan.batch, sfu * plan.batch
-
-
 def _trace_bound(name, plan):
     """The bound of one trace_emit call, with its counts written out."""
     nbytes, ops, sfu = trace_work(plan)
@@ -375,7 +264,7 @@ def _trace_bound(name, plan):
           f"{sfu // plan.batch} special-function operations "
           f"({1e3 * nbytes / HBM_BYTES_S:.5f} ms of bytes, {1e3 * ops / FP32_OPS_S:.5f} ms "
           f"of arithmetic, {1e3 * sfu / SFU_OPS_S:.5f} ms of special functions)", flush=True)
-    return _bound(nbytes, ops, sfu)
+    return least_seconds(nbytes, ops, sfu)
 
 
 def _add(res: list, name, source, replaces, err, ms, plain_ms, bound, why_no_library=None,
@@ -384,7 +273,7 @@ def _add(res: list, name, source, replaces, err, ms, plain_ms, bound, why_no_lib
     the same function, its time on the same inputs and its name (it is
     timed here and used nowhere in the port); else the entry says why there
     is none."""
-    bound_ms, bound_by = bound
+    bound_ms, bound_by = 1e3 * bound[0], bound[1]
     res.append({
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -469,11 +358,11 @@ def _radix_sort_check(keys, w, end_bit: int, what: str) -> dict:
            "plain_ms": _time_ms(lambda: radix_sort.sort_pairs_plain(keys, w, end_bit), 5),
            "library_ms": _time_ms(lambda: _packed_word_sort(keys, w), 10,
                                   f"packed word sort {what}"),
-           "bound": _bound(16 * m), "bound_passes": _bound((16 * n + 4) * m)}
+           "bound": least_seconds(16 * m), "bound_passes": least_seconds((16 * n + 4) * m)}
     print(f"  radix_sort at {what}: {m} rows, end_bit {end_bit}, {n} passes, kernel "
           f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, packed word sort "
-          f"{out['library_ms']:.4f} ms, bound {out['bound'][0]:.5f} ms (one pass), "
-          f"{out['bound_passes'][0]:.5f} ms ({n} passes)", flush=True)
+          f"{out['library_ms']:.4f} ms, bound {1e3 * out['bound'][0]:.5f} ms (one pass), "
+          f"{1e3 * out['bound_passes'][0]:.5f} ms ({n} passes)", flush=True)
     return out
 
 
@@ -519,7 +408,7 @@ def phase_kernels(cfg, device, res: list):
             "ice_halo_sim_tpu/core/pallas_ops.py:245", 0.0,
             _time_ms(lambda: block_ops.pack_rows(sk_, sw_, rb)),
             _time_ms(lambda: block_ops.pack_rows_plain(sk_, sw_, rb)),
-            _bound(16 * n + 4 * (n // rb), 2 * n), no_lib_pack)
+            least_seconds(16 * n + 4 * (n // rb), 2 * n), no_lib_pack)
 
     # K3 with V=2 and the marker tail (the premerged fold's input), V=1.
     live = int(counts.sum())
@@ -538,14 +427,14 @@ def phase_kernels(cfg, device, res: list):
             "ice_halo_sim_tpu/core/pallas_ops.py:436", 0.0,
             _time_ms(lambda: block_ops.scatter_blocks_multi(*sargs, marker_tail=tail)),
             _time_ms(lambda: block_ops.scatter_blocks_multi_plain(*sargs, marker_tail=tail)),
-            _bound(8 * live + 4 * start.numel() + 8 * out_total, 2 * out_total),
+            least_seconds(8 * live + 4 * start.numel() + 8 * out_total, 2 * out_total),
             "blocks overwrite each other in order; scatter_ and "
                            "index_copy_ leave overlapping writes undefined")
     k3p = _time_ms(lambda: block_ops.scatter_blocks([wts], start, keep, rb))
     k3p_plain = _time_ms(lambda: block_ops.scatter_blocks_plain([wts], start, keep, rb))
     k3p_bound = _scatter_bound(1, _covered_rows(start, keep, rb), keep, start.numel(), False)
     print(f"  scatter_blocks (K3', one column) at the bench rows: kernel {k3p:.4f} "
-          f"ms, plain {k3p_plain:.4f} ms, bound {k3p_bound[0]:.5f} ms by {k3p_bound[1]}",
+          f"ms, plain {k3p_plain:.4f} ms, bound {1e3 * k3p_bound[0]:.5f} ms by {k3p_bound[1]}",
           flush=True)
 
     # The radix sort of the premerged rows; K4 with key2 on its output.
@@ -556,7 +445,7 @@ def phase_kernels(cfg, device, res: list):
          rs["plain_ms"], rs["bound"], library_ms=rs["library_ms"],
          library="torch.sort of the packed int64 word, with its pack and unpack")
     res[-1].update(rows=rs["rows"], end_bit=rs["end_bit"], passes=rs["passes"],
-                   bound_passes_ms=rs["bound_passes"][0])
+                   bound_passes_ms=1e3 * rs["bound_passes"][0])
     sk, sw = accum.sort_keys(ck, cw, eng.ks, accum.sort_end_bit(P, K))
     tbl = eng.basis_tbl
     (ca, k2a) = seg_scan.fused_scan_call(sk, sw, tbl, shift, K, emit_key2=True)
@@ -576,7 +465,7 @@ def phase_kernels(cfg, device, res: list):
             _time_ms(lambda: seg_scan.fused_scan_call(sk, sw, tbl, shift, K, True), 10,
                      "fused_scan"),
             _time_ms(lambda: seg_scan.fused_scan_call_plain(sk, sw, tbl, shift, K, True)),
-            _bound(8 * m + 4 * tbl.numel() + 16 * m, 8 * m),
+            least_seconds(8 * m + 4 * tbl.numel() + 16 * m, 8 * m),
             "a segmented scan with a basis expansion; cumsum has "
                            "no segments")
     res[-1]["rows"] = m
@@ -607,7 +496,7 @@ def phase_kernels(cfg, device, res: list):
          _time_ms(lambda: seg_scan.fused_scan_extract(sk, sw, tbl, shift, K, P), 10,
                   "fused_scan_extract"),
          _time_ms(lambda: seg_scan.fused_scan_extract_plain(sk, sw, tbl, shift, K, P)),
-         _bound(8 * m + 12 * P + 4 * tbl.numel(), 6 * m),
+         least_seconds(8 * m + 12 * P + 4 * tbl.numel(), 6 * m),
          "a segmented scan with a basis expansion and a write at the run ends; "
          "cumsum has no segments")
     res[-1].update(rows=m, pixels=P)
@@ -625,7 +514,7 @@ def phase_kernels(cfg, device, res: list):
             "ice_halo_sim_tpu/core/pallas_ops.py:365", 0.0,
             _time_ms(lambda: block_ops.pack_payload_blocks(k2a, ca, P, accum.BLOCK)),
             _time_ms(lambda: block_ops.pack_payload_blocks_plain(k2a, ca, P, accum.BLOCK)),
-            _bound(16 * m + 12 * m + 4 * (m // accum.BLOCK), 2 * m),
+            least_seconds(16 * m + 12 * m + 4 * (m // accum.BLOCK), 2 * m),
             no_lib_pack)
 
 
@@ -666,8 +555,9 @@ def phase_kernel_pool(cfg, device, res: list):
 
 def layer_work(B: int, H: int, nf: int, T: int):
     """(bytes, arithmetic operations, special-function operations) of one
-    KL call over B lanes, in trace_work's units (U, DS and the per-face and
-    Fresnel counts are the trace kernel's; nothing depends on the data).
+    KL call over B lanes, in the units of trace_work (portbench's count of
+    the trace kernel: U, DS and the per-face and Fresnel counts are the
+    trace kernel's; nothing depends on the data).
     Bytes: each input read once (72 per lane: seed and ray index as int64,
     direction, weight, refractive index and 9 rotation components), each
     output written once (20 per exit slot and the entry flag), the shape's
@@ -731,14 +621,14 @@ def phase_kernel_layer(device, res: list):
         ms = _time_ms(lambda: trace_soa.trace_layer_cuda(*args, **kw), 10,
                       f"trace_layer layer {li + 1}")
         plain_ms = _time_ms(lambda: trace_soa.trace_layer_soa(*args, **kw), 3)
-        bound = _bound(nbytes, ops, sfu)
+        bound = least_seconds(nbytes, ops, sfu)
         live = int((args[3] > 0).sum())
         print(f"  trace_layer (KL) layer {li + 1}: {B} lanes ({live} of weight > 0), "
               f"max_hits {H}, NF {nf}, T {T}: bit-equal, the same bits twice; kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.5f} ms by {bound[1]} "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {1e3 * bound[0]:.5f} ms by {bound[1]} "
               f"({nbytes} bytes, {ops // B} operations and {sfu // B} special-function "
               f"operations a lane)", flush=True)
-        layers.append({"lanes": B, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0]})
+        layers.append({"lanes": B, "ms": ms, "plain_ms": plain_ms, "bound_ms": 1e3 * bound[0]})
         by.append(ms)
         for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bytes", nbytes), ("ops", ops),
                      ("sfu", sfu)):
@@ -747,7 +637,7 @@ def phase_kernel_layer(device, res: list):
     ms.by = _timed_by(*by)
     _add(res, "trace_layer", "ice_halo_sim_tpu_torch/csrc/trace_layer.cu",
          "none (the JAX general trace is XLA: ice_halo_sim_tpu/core/trace_soa.py)", 0.0, ms,
-         tot["plain_ms"], _bound(tot["bytes"], tot["ops"], tot["sfu"]),
+         tot["plain_ms"], least_seconds(tot["bytes"], tot["ops"], tot["sfu"]),
          "a per-lane Monte-Carlo trace loop is no library function")
     res[-1]["layers"] = layers
     del eng, calls
@@ -788,8 +678,8 @@ def _scatter_bound(ncols: int, covered: int, out_len: int, n_blocks: int, perm: 
     """The block scatter's bound: every output row written once per column,
     every covered row read once per column (and its permutation entry), the
     starts read once."""
-    return _bound(4 * ncols * (out_len + covered) + (4 * covered if perm else 0)
-                  + 4 * n_blocks)
+    return least_seconds(4 * ncols * (out_len + covered) + (4 * covered if perm else 0)
+                         + 4 * n_blocks)
 
 
 def _continuation_scatter(eng, batch_counter: int) -> list:
@@ -881,7 +771,7 @@ def phase_kernels_general(ms_cfg, color_cfg, device, res: list):
                         f"compact_rows {name}")
         ms_bp = _time_ms(lambda: block_ops.compact_rows_plain(key, cols, keep, block), 3)
         ms_lib = _time_ms(masked)
-        bound = _bound(4 * (1 + C) * (N + keep))
+        bound = least_seconds(4 * (1 + C) * (N + keep))
         if name == "ms":
             _add(res, "compact_rows", src, "ice_halo_sim_tpu/core/accum.py:326", 0.0, ms_b,
                  ms_bp, bound, library_ms=ms_lib, library="masked_select of every column")
@@ -889,7 +779,8 @@ def phase_kernels_general(ms_cfg, color_cfg, device, res: list):
         else:
             print(f"  compact_rows at the color rows (key and two columns): bit-equal, the "
                   f"same bits twice, kernel {ms_b:.4f} ms, plain {ms_bp:.4f} ms, bound "
-                  f"{bound[0]:.5f} ms by {bound[1]}, masked_select {ms_lib:.4f} ms", flush=True)
+                  f"{1e3 * bound[0]:.5f} ms by {bound[1]}, masked_select {ms_lib:.4f} ms",
+                  flush=True)
         print(f"  {name}: live rows {live} of {N}", flush=True)
 
         # K6 (its kernel and wrapper stay; no path runs them).
@@ -908,15 +799,15 @@ def phase_kernels_general(ms_cfg, color_cfg, device, res: list):
             raise AssertionError(f"pack_valid_blocks (K6) differs at threshold {thresh}")
         ms_k = _time_ms(lambda: block_ops.pack_valid_blocks(key, cols, 0xFFFFFFFF, block))
         ms_p = _time_ms(lambda: block_ops.pack_valid_blocks_plain(key, cols, 0xFFFFFFFF, block), 3)
-        bound = _bound((1 + C) * 8 * N + 4 * G, 2 * N)
+        bound = least_seconds((1 + C) * 8 * N + 4 * G, 2 * N)
         if name == "ms":
             _add(res, "pack_valid_blocks", src, "ice_halo_sim_tpu/core/pallas_ops.py:301", 0.0,
                  ms_k, ms_p, bound, no_lib_pack)
             res[-1]["rows"] = N
         else:
             print(f"  pack_valid_blocks at the color rows (two columns): bit-equal, kernel "
-                  f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {bound[0]:.5f} ms by {bound[1]}",
-                  flush=True)
+                  f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {1e3 * bound[0]:.5f} ms by "
+                  f"{bound[1]}", flush=True)
         if name != "ms":
             continue
 
@@ -930,7 +821,7 @@ def phase_kernels_general(ms_cfg, color_cfg, device, res: list):
               f"to keep {keep}, {cov} rows covered): bit-equal, the same bits twice, kernel "
               f"{_time_ms(lambda: block_ops.scatter_blocks(col, start, keep, block)):.4f} ms, "
               f"plain {_time_ms(lambda: block_ops.scatter_blocks_plain(col, start, keep, block), 3):.4f}"
-              f" ms, bound {k3p_bound[0]:.5f} ms by {k3p_bound[1]}", flush=True)
+              f" ms, bound {1e3 * k3p_bound[0]:.5f} ms by {k3p_bound[1]}", flush=True)
         # compact_valid whole against its plain composition.
         cv = accum.compact_valid(key, cols, keep, eng.ks)
         cp = accum.compact_valid(key, cols, keep, kernel_set("plain"))
@@ -953,7 +844,7 @@ def phase_kernels_general(ms_cfg, color_cfg, device, res: list):
             print(f"  scatter_blocks (K3') at the continuation, boundary {li}: {len(vals)} "
                   f"columns and the permutation, {start.numel()} blocks of {blk} to {out_len} "
                   f"rows ({cov} covered): kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound "
-                  f"{bound[0]:.5f} ms by {bound[1]}", flush=True)
+                  f"{1e3 * bound[0]:.5f} ms by {bound[1]}", flush=True)
             if li == 0:
                 _add(res, "scatter_blocks", src, "ice_halo_sim_tpu/core/pallas_ops.py:549", 0.0,
                      ms_k, ms_p, bound, no_lib_scatter)
@@ -963,6 +854,9 @@ def phase_kernels_general(ms_cfg, color_cfg, device, res: list):
 
 
 SANDWICH_SRC = "ice_halo_sim_tpu_torch/csrc/sandwich.cu"
+# Rows of K7's and K8's entries: the first cascade level of MS_CFG's dual
+# render at batch 229376.
+SANDWICH_ROWS = 1388544
 
 
 def _scan_rows(device, P: int, K: int, shift: int, n: int, hot: float):
@@ -1002,13 +896,13 @@ def _scan_crowded(device, tbl, shift: int, K: int, P: int, n: int = 1 << 21) -> 
         m = sk.numel()
         ms = _time_ms(lambda: seg_scan.fused_scan_extract(sk, sw, tbl, shift, K, P), 10,
                       f"fused_scan_extract {what}")
-        bound = _bound(8 * m + 12 * P + 4 * tbl.numel(), 6 * m)
+        bound = least_seconds(8 * m + 12 * P + 4 * tbl.numel(), 6 * m)
         out[what] = {"rows": m, "on_one_pixel": int(((sk.long() >> shift) == 377).sum()),
-                     "ms": ms, "bound_ms": bound[0], "bound_by": bound[1],
+                     "ms": ms, "bound_ms": 1e3 * bound[0], "bound_by": bound[1],
                      "max_abs_err": _max_abs(got, want), "timed_by": _timed_by(ms)}
         print(f"  fused_scan_extract (K4) on {m} rows {what} ({out[what]['on_one_pixel']} on "
               f"pixel 377): max_abs_err {out[what]['max_abs_err']:.3g}, kernel {ms:.4f} ms, "
-              f"bound {bound[0]:.5f} ms by {bound[1]}", flush=True)
+              f"bound {1e3 * bound[0]:.5f} ms by {bound[1]}", flush=True)
     return out
 
 
@@ -1027,13 +921,13 @@ def _tile_err(what, got, want, gm=None, wm=None) -> float:
 
 
 def _sandwich_bound(n, n_matched, nc, c_out, k_pool, terms=1, matched_out=True):
-    """(bound_ms, bound_by) of one pass: a scatter-add. Bytes: the three row
+    """least_seconds of one pass: a scatter-add. Bytes: the three row
     operands read and `matched` written once, the list, the table, the tile
     read and written. Operations: one multiply and one add per channel and
     term of each row in the list (float32)."""
     nbytes = 12 * n + (4 * n if matched_out else 0) + 4 * nc + 4 * k_pool * c_out \
         + 2 * 4 * nc * c_out * 128
-    return _bound(nbytes, ops=2.0 * n_matched * c_out * terms)
+    return least_seconds(nbytes, ops=2.0 * n_matched * c_out * terms)
 
 
 def phase_sandwich_stress(device, K, tbl, n_chunks, n: int = 1 << 21) -> dict:
@@ -1097,88 +991,81 @@ def phase_sandwich_stress(device, K, tbl, n_chunks, n: int = 1 << 21) -> dict:
         got, gm = run_s()
         err = _tile_err(f"{name} spread", got, want_s, gm, wm_s)
         ms_s = _time_ms(run_s, 5, f"{name} spread")
-        out[name].update(spread_ms=ms_s, spread_index_add_ms=ms_ls, bound_ms=bound[0],
+        out[name].update(spread_ms=ms_s, spread_index_add_ms=ms_ls, bound_ms=1e3 * bound[0],
                          bound_by=bound[1], timed_by=_timed_by(out[name]["stress_ms"], ms_s))
         print(f"  {name} on {n} rows spread over NC {n_chunks}: max_abs_err {err:.3g}, "
               f"kernel {ms_s:.4f} ms (stress {out[name]['stress_ms']:.4f}), index_add_ "
-              f"{ms_ls:.4f} ms, bound {bound[0]:.5f} ms by {bound[1]}", flush=True)
+              f"{ms_ls:.4f} ms, bound {1e3 * bound[0]:.5f} ms by {bound[1]}", flush=True)
     return out
 
 
-def phase_kernels_sandwich(ms_cfg, device, res: list):
-    """K7 and K8 against sandwich_pass_plain at the calibration batch's count
-    pass and, as extra lines, at the raw rows of MS_CFG's dual render (no
-    steady launch has that shape: see phase_kernels_cascade for those); P1
-    and P2 at their probes' shapes. Returns phase_sandwich_stress's times."""
+def phase_kernels_sandwich(device, res: list):
+    """K7 and K8 against sandwich_pass_plain, no engine path launching them:
+    SANDWICH_ROWS rows over a 512 x 256 image (the probe's ring of rows, a
+    quarter dead, K = 64) against the 256 of its 1024 chunks that hold most
+    rows, with one bf16 term (the kernels line's entries, beside index_add_
+    of the same rows) and with two (extra lines); then the hot-pixel stress
+    (phase_sandwich_stress, under "stress" in their entries) and P1 and P2
+    at their probes' shapes."""
     import torch
 
     from ice_halo_sim_tpu_torch import probe_sandwich, probe_scatter
-    from ice_halo_sim_tpu_torch.core import accum, sandwich
-    from ice_halo_sim_tpu_torch.core.bits import from_bits
-    from ice_halo_sim_tpu_torch.engine.simulator import Engine
+    from ice_halo_sim_tpu_torch.core import sandwich
 
     F32, I32 = torch.float32, torch.int32
     NLO = sandwich.NLO
-    eng = Engine(ms_cfg, seed=7, batch_size=BATCH, device=device)
-    eng.run(n_batches=1)                             # calibrates the slot cap and lanes
-    K, tbl = eng.k_pool, eng.basis_tbl
-    P = eng.proj_plans[0].height * eng.proj_plans[0].width
+    K, N, P = 64, SANDWICH_ROWS, 512 * 256
     n_chunks = P // NLO
-    key, cols = _fold_rows(eng, 0, 5)
-    wz = cols[0]
-    shift = accum.key_shift(K)
-    kk = from_bits(key)
-    pix, wl = (kk >> shift).to(I32), ((kk >> 1) & (K - 1)).to(I32)
-    N = key.numel()
-    live = wz > 0.0
-    n_live = int(live.sum())
-    chunk = torch.div(pix[live], NLO, rounding_mode="floor").long()
-    rows_per_chunk = torch.bincount(chunk, minlength=n_chunks)
+    pix, wz, wl, tbl = (torch.as_tensor(x).to(device)
+                        for x in probe_sandwich.probe_rows(N, P, K))
+    chunk = torch.div(pix, NLO, rounding_mode="floor")
+    rows_per_chunk = torch.bincount(chunk[pix >= 0].long(), minlength=n_chunks)
     hot = torch.sort(torch.argsort(rows_per_chunk, descending=True)[:256])[0].to(I32)
-    full = torch.arange(n_chunks, dtype=I32, device=device)
-    n_hot = int(rows_per_chunk[hot.long()].sum())
-    print(f"  ms dual render: {N} decoded rows, {n_live} live, {n_hot} of them in the 256 "
+    listed = torch.isin(chunk, hot)
+    n_hot = int(listed.sum())
+    print(f"  sandwich rows: {N}, {int((pix >= 0).sum())} live, {n_hot} of them in the 256 "
           f"chunks that hold most rows (of {n_chunks})", flush=True)
-
-    tile256 = torch.zeros((256, 3 * NLO), dtype=F32, device=device)
-    for name, layout in (("sandwich_lane", "lane"), ("sandwich_sublane", "sublane")):
-        def run(t=tile256, cl=hot, p=pix, w=wz, l=wl, tb=tbl, precise=False, lay=layout):
-            return sandwich.sandwich_pass(t, cl, p, w, l, tb, k_pool=K, precise=precise,
-                                          layout=lay)
-
-        # Extra lines, not a shape of the path: every raw row against the 256
-        # hottest chunks, with one bf16 term and with two.
+    tile = torch.zeros((256, 3 * NLO), dtype=F32, device=device)
+    # The library call on the same rows: a row outside the list adds zeros to
+    # a pixel of its own, not to one dump row on which its atomic adds queue.
+    vals = torch.where(listed[:, None], tbl[wl.long()] * wz[:, None], 0.0)
+    idx = torch.where(listed, pix.long(), torch.arange(N, device=device) % P)
+    img = torch.zeros((P, 3), dtype=F32, device=device)
+    ms_l = _time_ms(lambda: img.index_add_(0, idx, vals), 5)
+    for name, layout, replaces in (
+            ("sandwich_lane", "lane", "ice_halo_sim_tpu/core/pallas_sandwich.py:283"),
+            ("sandwich_sublane", "sublane", "ice_halo_sim_tpu/core/pallas_sandwich.py:314")):
         for precise in (False, True):
-            got, gm = run(precise=precise)
-            want, wm = sandwich.sandwich_pass_plain(tile256, hot, pix, wz, wl, tbl, k_pool=K,
-                                                    precise=precise)
-            torch.cuda.synchronize()
-            err = _tile_err(f"{name} raw rows, NC 256, precise {precise}", got, want, gm, wm)
-            if int(gm.sum()) != n_hot:
-                raise AssertionError(f"{name}: {int(gm.sum())} rows matched, {n_hot} expected")
-            bound = _sandwich_bound(N, n_hot, 256, 3, K, terms=2 if precise else 1)
-            print(f"  {name} at the {N} raw rows, NC 256, {'two bf16 terms' if precise else 'one term'}"
-                  f" (extra: no launch of the path has this shape): max_abs_err {err:.3g}, "
-                  f"kernel {_time_ms(lambda: run(precise=precise), 3):.4f} ms, bound "
-                  f"{bound[0]:.5f} ms by {bound[1]}",
-                  flush=True)
+            def run(precise=precise, lay=layout):
+                return sandwich.sandwich_pass(tile, hot, pix, wz, wl, tbl, k_pool=K,
+                                              precise=precise, layout=lay)
 
-        # The calibration batch's count pass, at its shape on the path: one
-        # channel, an all-ones table, the raw rows over every chunk. Exact.
-        ones = torch.ones((K, 1), dtype=F32, device=device)
-        tile_cnt = torch.zeros((n_chunks, NLO), dtype=F32, device=device)
-        flags = live.to(F32)
-        got, gm = run(tile_cnt, full, pix, flags, wl, ones)
-        want, wm = sandwich.sandwich_pass_plain(tile_cnt, full, pix, flags, wl, ones, k_pool=K)
-        if not _bits_equal(got, want) or not _bits_equal(gm, wm) or int(got.sum()) != n_live:
-            raise AssertionError(f"{name}: the count pass is not exact")
-        b4 = _sandwich_bound(N, n_live, n_chunks, 1, K)
-        print(f"  {name} count pass (C = 1, {N} rows, NC {n_chunks}): exact, kernel "
-              f"{_time_ms(lambda: run(tile_cnt, full, pix, flags, wl, ones), 5):.4f} ms, bound "
-              f"{b4[0]:.5f} ms by {b4[1]}", flush=True)
-    del eng
-    torch.cuda.empty_cache()
+            def plain(precise=precise):
+                return sandwich.sandwich_pass_plain(tile, hot, pix, wz, wl, tbl, k_pool=K,
+                                                    precise=precise)
+
+            got, gm = run()
+            want, wm = plain()
+            torch.cuda.synchronize()
+            what = f"{name} at {N} rows, NC 256, {'two bf16 terms' if precise else 'one term'}"
+            err = _tile_err(what, got, want, gm, wm)
+            if int(gm.sum()) != n_hot:
+                raise AssertionError(f"{what}: {int(gm.sum())} rows matched, {n_hot} expected")
+            if not _bits_equal(run()[0], got):
+                raise AssertionError(f"{what}: two runs on the same rows differ")
+            ms = _time_ms(run, 5, what)
+            bound = _sandwich_bound(N, n_hot, 256, 3, K, terms=2 if precise else 1)
+            if precise:
+                print(f"  {what} (extra): max_abs_err {err:.3g}, kernel {ms:.4f} ms, bound "
+                      f"{1e3 * bound[0]:.5f} ms by {bound[1]}", flush=True)
+                continue
+            _add(res, name, SANDWICH_SRC, replaces, err, ms, _time_ms(plain, 2), bound,
+                 library_ms=ms_l, library="index_add_")
+            res[-1].update(rows=N, listed_chunks=256, rows_in_list=n_hot)
     stress = phase_sandwich_stress(device, K, tbl, n_chunks)
+    for k in res:
+        if k["name"] in stress:
+            k["stress"] = stress[k["name"]]
 
     # P1 at the probe's shape: N = 3342336 rows over 131072 pixels, K = 64.
     PP, PK, PN = 512 * 256, 64, 3_342_336
@@ -1204,7 +1091,7 @@ def phase_kernels_sandwich(ms_cfg, device, res: list):
             res[-1].update(rows=PN, listed_chunks=nhi)
         else:
             print(f"  sandwich_iota NHI {nhi}: max_abs_err {err:.3g}, kernel {ms_k:.4f} ms, "
-                  f"plain {ms_p:.4f} ms, bound {bound[0]:.5f} ms by {bound[1]}, "
+                  f"plain {ms_p:.4f} ms, bound {1e3 * bound[0]:.5f} ms by {bound[1]}, "
                   f"index_add_ {ms_l:.4f} ms", flush=True)
 
     # P2 at the probe's shape: G = 192 blocks of 16384 into P = 131072.
@@ -1218,10 +1105,9 @@ def phase_kernels_sandwich(ms_cfg, device, res: list):
          _time_ms(lambda: probe_scatter.extract_blocks(vals, start, n_out, block)),
          _time_ms(lambda: probe_scatter.extract_blocks_plain(vals, start, n_out, block), 3),
          # Each output entry takes one value of the block that wrote it last.
-         _bound(4 * n_out + 4 * start.numel() + 4 * n_out, n_out),
+         least_seconds(4 * n_out + 4 * start.numel() + 4 * n_out, n_out),
          "blocks overwrite each other in order; scatter_ and index_copy_ leave overlapping "
          "writes undefined")
-    return stress
 
 
 def _images_off(a, b, what) -> int:
@@ -1309,324 +1195,6 @@ def phase_slice(name, cfg, device, path_kernels, steady: int = 3,
     return eng, counts, per_batch
 
 
-def _sandwich_agrees_with_sort(what, eng, sort_eng):
-    """An engine that folded (some batches) by sandwich against the sort fold
-    of the same batches: segments and landed weight equal, image mass and L1
-    within the bf16 tolerance."""
-    import numpy as np
-
-    st, rst = eng.drain_stats(), sort_eng.drain_stats()
-    if st.ray_segments != rst.ray_segments or not np.isclose(
-            st.landed_weight, rst.landed_weight, rtol=1e-6):
-        raise AssertionError(f"{what}: segments {st.ray_segments} / {rst.ray_segments}, landed "
-                             f"{st.landed_weight} / {rst.landed_weight} against the sort fold")
-    for r in range(len(eng.proj_plans)):
-        a, b = eng.raw_xyz(r).astype(np.float64), sort_eng.raw_xyz(r).astype(np.float64)
-        mass = abs(a.sum() - b.sum()) / b.sum()
-        l1 = np.abs(a - b).sum() / np.abs(b).sum()
-        print(f"  {what} render {r} against the sort fold: mass off {mass:.3g}, L1 {l1:.3g}",
-              flush=True)
-        if mass > BF16_MASS or l1 > BF16_L1:
-            raise AssertionError(f"{what}: render {r} differs from the sort fold")
-
-
-class _layout:
-    """Set core/sandwich.LAYOUT, the kernel a pass launches when its caller
-    names no layout (the engine names none), and restore it."""
-
-    def __init__(self, layout: str):
-        self.layout = layout
-
-    def __enter__(self):
-        from ice_halo_sim_tpu_torch.core import sandwich
-
-        self.old, sandwich.LAYOUT = sandwich.LAYOUT, self.layout
-
-    def __exit__(self, *exc):
-        from ice_halo_sim_tpu_torch.core import sandwich
-
-        sandwich.LAYOUT = self.old
-
-
-def phase_sandwich(name, cfg, device, sort_eng, steady: int = 3):
-    """MS_CFG under IHT_FOLD=sandwich through the kernel that
-    core/sandwich.LAYOUT names (K7 for "lane", the default; K8 for
-    "sublane"): one calibration batch, `steady` batches with the kernel
-    launched on each, the launch counters reset just before and read just
-    after; against kernels="plain" on the card and against `sort_eng` (the
-    ms slice after as many batches). Returns (engine, counts, per batch)."""
-    import numpy as np
-    import torch
-
-    from ice_halo_sim_tpu_torch.core import sandwich
-    from ice_halo_sim_tpu_torch.engine.simulator import Engine
-    from ice_halo_sim_tpu_torch.kernels import build
-
-    counter = "sandwich_lane" if sandwich.LAYOUT == "lane" else "sandwich_sublane"
-    with _knobs(IHT_FOLD="sandwich"):
-        eng = Engine(cfg, seed=7, batch_size=BATCH, device=device)
-        ref = Engine(cfg, seed=7, batch_size=BATCH, device=device, kernels="plain")
-    if eng.fold_kind != "sandwich" or eng._trace_plan is not None:
-        raise AssertionError(f"{name}: fold {eng.fold_kind} ({eng.fold_decision})")
-    build.reset_launch_counts()
-    eng.run(n_batches=1)
-    first = dict(build.LAUNCHES)
-    syncs = eng.host_syncs
-    for _ in range(steady):
-        before = build.LAUNCHES[counter]
-        eng.run(n_batches=1)
-        if build.LAUNCHES[counter] <= before:
-            raise AssertionError(f"{name}: {counter} was not launched on a steady batch")
-    torch.cuda.synchronize()
-    counts = dict(build.LAUNCHES)
-    per_batch = {k: (counts[k] - first[k]) / steady for k in counts}
-    levels = [[(int(cl.shape[0]), keep) for cl, keep in lv] for lv in eng._levels]
-    print(f"  {name}: fold {eng.fold_kind} ({eng.fold_decision}), levels (listed chunks, "
-          f"keep) {levels}, rows into the last level {[int(n) for n in eng.last_level_rows]}, "
-          f"host syncs per steady batch {(eng.host_syncs - syncs) / steady:.1f}", flush=True)
-    print(f"  {name}: launches {counts}", flush=True)
-    print(f"  {name}: launches per steady batch {per_batch}", flush=True)
-    if eng.fold_kind != "sandwich":
-        raise AssertionError(f"{name}: the engine left the sandwich fold")
-    compacts = any(keep is not None for lv in eng._levels for _cl, keep in lv)
-    for k in [counter, "scatter_blocks"] + (["compact_rows"] if compacts else []):
-        if per_batch[k] <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the steady {name} batches")
-    if counts["pack_valid_blocks"]:
-        raise AssertionError(f"{name}: K6 was launched ({counts['pack_valid_blocks']})")
-    ref.run(n_batches=1)
-    ref.run(n_batches=steady)
-    if levels != [[(int(cl.shape[0]), keep) for cl, keep in lv] for lv in ref._levels] or any(
-            not torch.equal(a[0], b[0]) for la, lb in zip(eng._levels, ref._levels)
-            for a, b in zip(la, lb)):
-        raise AssertionError(f"{name}: the planned levels differ between the kernel sets")
-    for r in range(len(eng.proj_plans)):
-        a, b = eng.raw_xyz(r), ref.raw_xyz(r)
-        err = float(np.abs(a - b).max())
-        print(f"  {name} render {r} cuda vs plain: max abs {err:.3g} of {float(b.max()):.3g}",
-              flush=True)
-        if not np.allclose(a, b, rtol=TILE_RTOL, atol=TILE_ATOL_FRAC * float(b.max())):
-            raise AssertionError(f"{name}: render {r} differs from the plain kernel set")
-    _sandwich_agrees_with_sort(name, eng, sort_eng)
-    for r, img in enumerate(eng.snapshot()):
-        if img.max() == 0:
-            raise AssertionError(f"{name}: snapshot {r} is black")
-    return eng, counts, per_batch
-
-
-def phase_kernels_cascade(eng, device, res: list, batch_counter: int = 5):
-    """K7 and K8 at the shapes the ms-sandwich path gives them: the rows of
-    one steady batch go through every level of both renders' calibrated
-    cascades (`eng._levels`) as `_sandwich_fold_r` routes them: compacted to
-    the level's keep (compact_rows), decoded, folded, the misses sent onward. At
-    each (rows, chunk list) pair both kernels are held against the plain
-    version and timed beside it and beside one index_add_ of the same rows
-    into the image. The kernels line takes a kernel's largest launch (render
-    0, level 0) as its entry, every launch under "levels", and the sums over
-    the batch's launches under "batch"."""
-    import torch
-
-    from ice_halo_sim_tpu_torch.core import accum, sandwich
-    from ice_halo_sim_tpu_torch.core.bits import from_bits
-
-    F32, I32 = torch.float32, torch.int32
-    NLO = sandwich.NLO
-    K, tbl = eng.k_pool, eng.basis_tbl
-    shift = accum.key_shift(K)
-    kernels = (("sandwich_lane", "lane", "ice_halo_sim_tpu/core/pallas_sandwich.py:283"),
-               ("sandwich_sublane", "sublane", "ice_halo_sim_tpu/core/pallas_sandwich.py:314"))
-    levels_of = {name: [] for name, _l, _r in kernels}
-    contribs = eng._trace_batch_impl(batch_counter)[0]
-    for r, (cpix, cw_, cwl, _mask) in enumerate(contribs):
-        P = eng.proj_plans[r].height * eng.proj_plans[r].width
-        img = torch.zeros((P, 3), dtype=F32, device=device)
-        carry_key, carry_w = accum.pack_spectral_keys(cpix, cw_, cwl, P, K)
-        for li, (clist, keep) in enumerate(eng._levels[r]):
-            ck, cw = carry_key, carry_w
-            n_in = int((carry_w > 0.0).sum())
-            if keep is not None and keep < carry_key.shape[0]:
-                if n_in > keep:
-                    raise AssertionError(f"render {r} level {li}: {n_in} entrants overflow "
-                                         f"keep {keep} on the captured batch")
-                (ck, cw), _ = accum.compact_valid(carry_key, [carry_w], keep, eng.ks)
-            kk = from_bits(ck)
-            pix, wl = (kk >> shift).to(I32), ((kk >> 1) & (K - 1)).to(I32)
-            n, nc = ck.shape[0], int(clist.shape[0])
-            tile = torch.zeros((nc, 3 * NLO), dtype=F32, device=device)
-            want, wm = sandwich.sandwich_pass_plain(tile, clist, pix, cw, wl, tbl, k_pool=K)
-            hit = (wm == 1) & (cw > 0.0)
-            n_hit = int(hit.sum())
-            ms_p = _time_ms(lambda: sandwich.sandwich_pass_plain(tile, clist, pix, cw, wl, tbl,
-                                                                 k_pool=K), 2)
-            # The library call on the same rows: a row outside the list adds
-            # zeros to a pixel of its own, not to one dump row on which
-            # millions of atomic adds would queue.
-            vals = torch.where(hit[:, None], tbl[wl.long()] * cw[:, None], 0.0)
-            idx = torch.where(hit, pix.long(), torch.arange(n, device=device) % P)
-            ms_l = _time_ms(lambda: img.index_add_(0, idx, vals), 5)
-            bound = _sandwich_bound(n, n_hit, nc, 3, K)
-            for name, layout, _replaces in kernels:
-                def run(lay=layout):
-                    return sandwich.sandwich_pass(tile, clist, pix, cw, wl, tbl, k_pool=K,
-                                                  layout=lay)
-
-                got, gm = run()
-                torch.cuda.synchronize()
-                err = _tile_err(f"{name} render {r} level {li}", got, want, gm, wm)
-                if not _bits_equal(run()[0], got):
-                    raise AssertionError(f"{name}: two runs on the same rows differ")
-                ms_k = _time_ms(run, 5)
-                levels_of[name].append({
-                    "render": r, "level": li, "rows": n, "entrants": n_in,
-                    "listed_chunks": nc, "rows_in_list": n_hit, "max_abs_err": err,
-                    "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound[0], "bound_by": bound[1],
-                    "library_ms": ms_l,
-                    "timed_by": _timed_by(ms_k, ms_p, ms_l)})
-                print(f"  {name} render {r} level {li}: {n} rows ({n_in} entrants, {n_hit} in "
-                      f"the list of {nc}), max_abs_err {err:.3g}, kernel {ms_k:.4f} ms, plain "
-                      f"{ms_p:.4f} ms, bound {bound[0]:.5f} ms by {bound[1]}, index_add_ "
-                      f"{ms_l:.4f} ms", flush=True)
-            k7, k8 = levels_of["sandwich_lane"][-1], levels_of["sandwich_sublane"][-1]
-            print(f"  render {r} level {li} side by side ({n} rows, {n_hit} in the list of "
-                  f"{nc}): K7 {k7['ms']:.4f} ms, K8 {k8['ms']:.4f} ms, index_add_ {ms_l:.4f} "
-                  f"ms, bound {bound[0]:.5f} ms", flush=True)
-            miss = wm == 0
-            carry_key = torch.where(miss & (cw > 0.0), ck, -1)
-            carry_w = torch.where(miss, cw, 0.0)
-        if int((carry_w > 0.0).sum()) != 0:
-            raise AssertionError(f"render {r}: live rows left after the full-coverage level")
-    for name, _layout_name, replaces in kernels:
-        lv = levels_of[name]
-        top = lv[0]
-        _add(res, name, SANDWICH_SRC, replaces, max(x["max_abs_err"] for x in lv),
-             top["ms"], top["plain_ms"], (top["bound_ms"], top["bound_by"]),
-             library_ms=top["library_ms"], library="index_add_")
-        res[-1].update(
-            rows=top["rows"], listed_chunks=top["listed_chunks"],
-            timed_by=top["timed_by"], levels=lv,
-            batch={k: sum(x[k] for x in lv) for k in
-                   ("ms", "plain_ms", "bound_ms", "library_ms")})
-        print(f"  {name}: the {len(lv)} launches of one steady batch: "
-              f"{json.dumps(res[-1]['batch'])}", flush=True)
-
-
-def phase_fold_auto(scenes, device, n_after: int = 3, turns: int = FOLD_TURNS):
-    """IHT_FOLD=auto on general-path scenes: what calibration decides, with
-    both modeled costs, and beside them what the card takes: the device time
-    of steady batches of the auto engine, of an IHT_FOLD=sort engine and of
-    the cascade (the auto engine if it kept it, else one pinned to it), with
-    their spread (_fold_verdict). Whatever it decides, the image agrees with
-    the sort fold's (a demotion carries the settled tiles over once).
-    `scenes` holds (name, config, sort engine after 1 + n_after batches or
-    None[, batch]) (the batch BATCH where it is not given). Returns per
-    scene the fold, its decision and modeled costs, the cascade's K7
-    launches per steady batch and the verdict."""
-    import torch
-
-    from ice_halo_sim_tpu_torch.engine.simulator import Engine
-    from ice_halo_sim_tpu_torch.kernels import build
-
-    # With IHT_FOLD unset the card folds by sort (ROADMAP item 10).
-    unset = os.environ.pop("IHT_FOLD", None)
-    try:
-        with _knobs(IHT_PALLAS_TRACE="0"):
-            eng = Engine(scenes[0][1], seed=7, batch_size=BATCH, device=device)
-    finally:
-        if unset is not None:
-            os.environ["IHT_FOLD"] = unset
-    print(f"  IHT_FOLD unset: fold {eng.fold_kind} ({eng.fold_decision})", flush=True)
-    if eng.fold_kind != "sort" or "default on a CUDA device" not in eng.fold_decision:
-        raise AssertionError(f"the card's default fold is {eng.fold_kind} ({eng.fold_decision})")
-    del eng
-    decided = {}
-    for what, cfg, other, *rest in scenes:
-        batch = rest[0] if rest else BATCH
-        with _knobs(IHT_FOLD="auto", IHT_PALLAS_TRACE="0"):
-            eng = Engine(cfg, seed=7, batch_size=batch, device=device)
-        if eng.fold_kind != "sandwich" or eng.fold_decision != "startup":
-            raise AssertionError(f"auto {what}: starts on {eng.fold_kind} ({eng.fold_decision})")
-        eng.run(n_batches=1)
-        eng.run(n_batches=n_after)
-        if other is None:
-            with _knobs(IHT_FOLD="sort", IHT_PALLAS_TRACE="0"):
-                other = Engine(cfg, seed=7, batch_size=batch, device=device)
-            other.run(n_batches=1)
-            other.run(n_batches=n_after)
-        print(f"  IHT_FOLD=auto on {what}: fold {eng.fold_kind}; {eng.fold_decision}; modeled "
-              f"ms per batch {eng.fold_costs}; rows per render {eng._rows_per_render}, sort "
-              f"fold's keep {other._compact_keep}", flush=True)
-        if not eng.fold_decision.startswith("calibrated: ") or eng.fold_costs is None:
-            raise AssertionError(f"auto {what}: no calibrated decision")
-        if eng.fold_kind == "sandwich":
-            print(f"  auto {what} keeps the cascade: levels (listed chunks, keep) "
-                  f"{[[(int(cl.shape[0]), keep) for cl, keep in lv] for lv in eng._levels]}",
-                  flush=True)
-        _sandwich_agrees_with_sort(f"auto {what}", eng, other)
-        cascade = eng
-        if eng.fold_kind != "sandwich":
-            # Demoted: the cascade's own time, from an engine pinned to it.
-            with _knobs(IHT_FOLD="sandwich", IHT_PALLAS_TRACE="0"):
-                cascade = Engine(cfg, seed=7, batch_size=batch, device=device)
-            cascade.run(n_batches=1)
-            cascade.run(n_batches=n_after)
-        before = build.LAUNCHES["sandwich_lane"]
-        cascade.run(n_batches=1)
-        k7 = build.LAUNCHES["sandwich_lane"] - before
-        print(f"  auto {what}: the cascade ({cascade.graph_mode}) launched K7 {k7} times on a "
-              f"steady batch", flush=True)
-        decided[what] = {"fold": eng.fold_kind, "fold_decision": eng.fold_decision,
-                         "fold_costs": eng.fold_costs, "k7_per_steady_batch": k7,
-                         "verdict": _fold_verdict(
-                             what, eng.fold_kind,
-                             {"auto": eng, "sort": other, "sandwich": cascade}, turns)}
-        del eng, other, cascade
-        gc.collect()
-        torch.cuda.empty_cache()
-    return decided
-
-
-def _fold_verdict(what, chosen: str, engines: dict, turns: int = FOLD_TURNS):
-    """Device ms per steady batch of each engine (trace and fold; two
-    batches under the profiler, _time_ms), `turns` times in turns;
-    the times are pooled by the fold each engine runs (the auto engine runs
-    `chosen`), so that the spread takes in two engines of one fold as well
-    as the repeats. The decision is right when the other fold's median is
-    slower by more than the larger spread, not separated when the medians
-    lie within it, and else within the 0.1 ms rule or a miss. Each steady
-    batch is a CUDA graph replay, so these windows are replays under the
-    profiler (utils/profiling.py says what keeps them from crashing)."""
-    import statistics
-
-    pooled = {"sort": [], "sandwich": []}
-    for _ in range(turns):
-        for name, e in engines.items():
-            if name == "auto" and e is engines[chosen]:
-                continue
-            t = _time_ms(lambda e=e: e.run(n_batches=1), 2, f"{name} {what}")
-            pooled[chosen if name == "auto" else name].append(t)
-    med = {k: statistics.median(v) for k, v in pooled.items()}
-    spreads = {k: max(v) - min(v) for k, v in pooled.items()}
-    spread = max(spreads.values())
-    rival = "sort" if chosen == "sandwich" else "sandwich"
-    margin = med[rival] - med[chosen]
-    if margin > spread:
-        verdict = "right: the other fold is slower by more than the spread"
-    elif margin >= -spread:
-        verdict = "not separated: the medians lie within the spread"
-    elif margin >= -0.1:
-        verdict = "the slower fold, within the 0.1 ms rule"
-    else:
-        verdict = "misses the 0.1 ms rule"
-    times = {k: [round(float(t), 4) for t in v] for k, v in pooled.items()}
-    print(f"  auto {what}: decided {chosen}; device ms per steady batch, median "
-          f"(spread) sandwich {med['sandwich']:.4f} ({spreads['sandwich']:.4f}), sort "
-          f"{med['sort']:.4f} ({spreads['sort']:.4f}), all "
-          f"{times}, timed by {_timed_by(*pooled['sort'], *pooled['sandwich'])}; margin "
-          f"{margin:.4f}: {verdict}", flush=True)
-    return {"sandwich_ms": med["sandwich"], "sort_ms": med["sort"], "margin_ms": margin,
-            "spread_ms": spread, "verdict": verdict}
-
-
 def phase_probe(name, main_fn):
     """A probe's own main path, the launch counters reset just before and
     read just after."""
@@ -1671,7 +1239,7 @@ def phase_paths_agree(cfg, device, n_after: int = 2):
 
     with _knobs(IHT_MIN_EMIT_W="0", IHT_SLOT_CAP="off"):
         k = Engine(cfg, seed=7, batch_size=BATCH, device=device)
-        with _knobs(IHT_PALLAS_TRACE="0", IHT_FOLD="sort"):
+        with _knobs(IHT_PALLAS_TRACE="0"):
             g = Engine(cfg, seed=7, batch_size=BATCH, device=device)
     if (k.trace_path, g.trace_path) != ("cuda-trace-kernel", "general"):
         raise AssertionError(f"paths {k.trace_path}, {g.trace_path}")
@@ -1743,7 +1311,7 @@ def _busy_and_kernels(fn, what: str = ""):
     return win.device_us / 1e3, win.kernels
 
 
-def phase_graphs(name, cfg, device, k: int = GRAPH_K, fold: str = "sort", tag: str = "[5]"):
+def phase_graphs(name, cfg, device, k: int = GRAPH_K, tag: str = "[5]"):
     """One scene eagerly (graphs=False) and with CUDA graphs, k batches per
     dispatch (IHT_STEPS_PER_DISPATCH): one calibrating dispatch and two
     steady dispatches each; the images, landed weights and stats must be
@@ -1752,10 +1320,7 @@ def phase_graphs(name, cfg, device, k: int = GRAPH_K, fold: str = "sort", tag: s
     the graph engine must replay. Then per engine a timed steady dispatch
     (wall clock to a synchronise: rays/s) and a profiled one (device busy
     time and kernels per batch; idle share = 1 - busy / wall of the timed
-    one). `fold` is the IHT_FOLD both engines are built under; on the
-    sandwich fold the calibrating dispatch runs eagerly in both and the dense
-    images (settled mass and tiles) are compared too. Returns both engines'
-    numbers ({"eager": ..., "graph": ...})."""
+    one). Returns both engines' numbers ({"eager": ..., "graph": ...})."""
     import torch
 
     from ice_halo_sim_tpu_torch.engine.simulator import Engine
@@ -1763,10 +1328,8 @@ def phase_graphs(name, cfg, device, k: int = GRAPH_K, fold: str = "sort", tag: s
     out = {}
     numbers = {}
     for graphs in (False, True):
-        with _knobs(IHT_STEPS_PER_DISPATCH=str(k), IHT_FOLD=fold):
+        with _knobs(IHT_STEPS_PER_DISPATCH=str(k)):
             eng = Engine(cfg, seed=7, batch_size=BATCH, device=device, graphs=graphs)
-        if eng.fold_kind != fold:
-            raise AssertionError(f"{name}: fold {eng.fold_kind} ({eng.fold_decision})")
         eng.run(n_batches=k)
         syncs = eng.host_syncs
         eng.run(n_batches=k)
@@ -1807,12 +1370,6 @@ def phase_graphs(name, cfg, device, k: int = GRAPH_K, fold: str = "sort", tag: s
     for i, (a, b) in enumerate(zip(e.accum, g.accum)):
         if not _bits_equal(a, b):
             raise AssertionError(f"{name}: graph accumulator {i} differs from eager")
-    if fold == "sandwich":
-        import numpy as np
-
-        for r in range(len(e.proj_plans)):
-            if not np.array_equal(e._sandwich_dense64(r), g._sandwich_dense64(r)):
-                raise AssertionError(f"{name}: graph image {r} differs from eager")
     print(f"{tag} {name}: graph == eager bit for bit over {5 * k} batches (one calibrating, "
           f"three steady dispatches, the profiled one and the call before it, of {k})",
           flush=True)
@@ -2759,15 +2316,11 @@ def phase_debug_capi(smi, res: list) -> None:
 
 # [10]: data parallel (parallel/sharding.py, parallel/distributed.py).
 # Per sharded scene: its batches per shard (run as two calls), the batches
-# of its timed turns, the fold it pins and the kernels its sharded run must
-# launch.
+# of its timed turns and the kernels its sharded run must launch.
 SHARDED = (
-    ("bench", "BENCH_CFG", 16, 64, "sort",
-     ["trace_emit", "scatter_blocks_multi", "fused_scan_extract"]),
-    ("pool", "POOL_CFG", 2, 4, "sort",
-     ["trace_emit_pool", "scatter_blocks_multi", "fused_scan_extract"]),
-    ("ms", "MS_CFG", 4, 4, "sort", ["compact_rows", "scatter_blocks", "fused_scan_extract"]),
-    ("ms-sandwich", "MS_CFG", 2, 2, "sandwich", ["sandwich_lane", "scatter_blocks"]),
+    ("bench", "BENCH_CFG", 16, 64, ["trace_emit", "scatter_blocks_multi", "fused_scan_extract"]),
+    ("pool", "POOL_CFG", 2, 4, ["trace_emit_pool", "scatter_blocks_multi", "fused_scan_extract"]),
+    ("ms", "MS_CFG", 4, 4, ["compact_rows", "scatter_blocks", "fused_scan_extract"]),
 )
 # The two-rank run on one card: the scenes and batches each rank runs (the
 # first call of the single-process run gives the image they must equal),
@@ -2786,17 +2339,9 @@ def _sync_all():
 
 def _shard_sum(engines, r: int):
     """Render r of engines (one per shard) summed in shard order, as a
-    ShardedEngine drains it: the accumulators on the first shard's device,
-    or on the sandwich fold the dense float64 images."""
-    import numpy as np
-
+    ShardedEngine drains it: the accumulators on the first shard's device."""
     e0 = engines[0]
     p = e0.proj_plans[r]
-    if e0._sandwich_on:
-        img = e0._sandwich_dense64(r)
-        for e in engines[1:]:
-            img = img + e._sandwich_dense64(r)
-        return img.astype(np.float32).reshape(p.height, p.width, 3)
     acc = e0.accum[r].clone()
     for e in engines[1:]:
         acc.add_(e.accum[r].to(acc.device))
@@ -2839,14 +2384,13 @@ def _launch_order(se, n: int) -> str:
     return f"{len(se.engines)} shards x {k} batches launched batch by batch before a read"
 
 
-def phase_sharded(name, cfg, mesh, batches: int, timed: int, fold: str, kernels, smi,
+def phase_sharded(name, cfg, mesh, batches: int, timed: int, kernels, smi,
                   keep_first: bool = False):
     """One scene through ShardedEngine over `mesh` at full width, in two
     calls, with the launch counters reset just before and read just after;
     every render, the landed weights, rays and segments against one Engine
     per shard at shard (d, n) given the same calls, summed in shard order
-    (bit for bit; the sandwich fold, should K7 not be deterministic, to the
-    tile tolerance); then the sharded rate against one Engine.run of as many
+    (bit for bit); then the sharded rate against one Engine.run of as many
     batches in turns, the host reads per dispatch and the drain's ms.
     Returns (launch counts, the first call's images when keep_first)."""
     import numpy as np
@@ -2858,11 +2402,8 @@ def phase_sharded(name, cfg, mesh, batches: int, timed: int, fold: str, kernels,
 
     n = len(mesh)
     calls = (batches // 2, batches - batches // 2)
-    with _knobs(IHT_FOLD=fold):
-        se = ShardedEngine(cfg, mesh, seed=SEED_SHARDED, per_device_batch=BATCH)
-        twins = [Engine(cfg, seed=SEED_SHARDED, batch_size=BATCH, device=d) for d in mesh]
-    if fold == "sandwich" and se.engine.fold_kind != "sandwich":
-        raise AssertionError(f"sharded {name}: fold {se.engine.fold_kind}")
+    se = ShardedEngine(cfg, mesh, seed=SEED_SHARDED, per_device_batch=BATCH)
+    twins = [Engine(cfg, seed=SEED_SHARDED, batch_size=BATCH, device=d) for d in mesh]
     for d, t in enumerate(twins):
         t.run(n_batches=1)
         t.reset()
@@ -2891,20 +2432,14 @@ def phase_sharded(name, cfg, mesh, batches: int, timed: int, fold: str, kernels,
     for t in twins[1:]:
         landed.add_(t.accum[-1].to(landed.device))
     bits = _bits_equal(se.drained_accum()[-1], landed)
+    if not bits:
+        raise AssertionError(f"sharded {name}: landed weights differ from the shard engines")
     for r in range(len(se.engine.proj_plans)):
         a, b = se.raw_xyz(r), _shard_sum(twins, r)
-        same = bool(np.array_equal(a.view(np.int32), b.view(np.int32)))
-        bits = bits and same
-        if not same:
-            err = float(np.abs(a - b).max())
-            print(f"  sharded {name} render {r}: not bit-equal to its shard engines, max abs "
-                  f"{err:.3g} of {float(b.max()):.3g}", flush=True)
-            if fold != "sandwich" or not np.allclose(
-                    a, b, rtol=TILE_RTOL, atol=TILE_ATOL_FRAC * float(b.max())):
-                raise AssertionError(f"sharded {name}: render {r} differs from its shard "
-                                     "engines")
-    if fold != "sandwich" and not bits:
-        raise AssertionError(f"sharded {name}: landed weights differ from the shard engines")
+        if not np.array_equal(a.view(np.int32), b.view(np.int32)):
+            raise AssertionError(f"sharded {name} render {r}: not bit-equal to its shard "
+                                 f"engines, max abs {float(np.abs(a - b).max()):.3g} of "
+                                 f"{float(b.max()):.3g}")
     for img in se.snapshot():
         if img.max() == 0:
             raise AssertionError(f"sharded {name}: a snapshot is black")
@@ -2924,7 +2459,7 @@ def phase_sharded(name, cfg, mesh, batches: int, timed: int, fold: str, kernels,
     rate_one = n * timed * BATCH / float(np.median(t_one))
     rate_sh = n * timed * BATCH / float(np.median(t_sh))
     print(f"[10] sharded {name} on {[str(d) for d in mesh]}: {batches} batches a shard "
-          f"({calls[0]} + {calls[1]}), {'bit-equal' if bits else 'within the tile tolerance'} "
+          f"({calls[0]} + {calls[1]}), bit-equal "
           f"to {n} shard engines summed in shard order (every render and the landed "
           f"weights; rays {se.rays_traced}, segments {se.ray_segments}); {order}; launches "
           f"{ {k: v for k, v in counts.items() if v} }; {se.engine.graph_mode}; host reads "
@@ -2959,9 +2494,8 @@ def rank_worker(argv) -> int:
     result = {}
     try:
         for name, attr, batches, timed in RANK_SCENES:
-            with _knobs(IHT_FOLD="sort"):
-                eng = MultiHostEngine(load_project(getattr(scenes, attr)), seed=SEED_SHARDED,
-                                      per_device_batch=BATCH)
+            eng = MultiHostEngine(load_project(getattr(scenes, attr)), seed=SEED_SHARDED,
+                                  per_device_batch=BATCH)
             if (eng.n_dev, [e.shard for e in eng.engines]) != (world, [(rank, world)]):
                 raise AssertionError(f"rank {rank}: shards {[e.shard for e in eng.engines]}")
             eng.run(n_batches=batches)
@@ -3075,9 +2609,9 @@ def phase_cards(smi) -> None:
     mesh = make_mesh()
     rank_batches = {n: b for n, _attr, b, _timed in RANK_SCENES}
     single = {}
-    for name, attr, batches, timed, fold, kernels in SHARDED[:3]:
+    for name, attr, batches, timed, kernels in SHARDED:
         _counts, first = phase_sharded(
-            name, load_project(getattr(scenes, attr)), mesh, batches, timed, fold, kernels,
+            name, load_project(getattr(scenes, attr)), mesh, batches, timed, kernels,
             smi, keep_first=name in rank_batches)
         if first is not None:
             single[name] = first
@@ -3097,12 +2631,12 @@ def phase_parallel(smi, res: list) -> None:
     mesh = [torch.device("cuda", 0)] * 2
     counts, single = {}, {}
     rank_batches = {n: b for n, _attr, b, _timed in RANK_SCENES}
-    for name, attr, batches, timed, fold, kernels in SHARDED:
+    for name, attr, batches, timed, kernels in SHARDED:
         keep = name in rank_batches
         if keep and batches // 2 != rank_batches[name]:
             raise AssertionError(f"{name}: the ranks' batches are not the first call's")
         counts[name], first = phase_sharded(
-            name, load_project(getattr(scenes, attr)), mesh, batches, timed, fold, kernels,
+            name, load_project(getattr(scenes, attr)), mesh, batches, timed, kernels,
             smi, keep_first=keep)
         if keep:
             single[name] = first
@@ -3126,12 +2660,6 @@ STAND_INS = (("ms_multi", "MULTI_CFG", BATCH, 2), ("complex_sop", "COMPLEX_CFG",
 # scan over its first, uncompacted batch at full width (about 9.4e7 rows)
 # would take most of a minute.
 PYRAMID_SMALL_BATCH = 2048
-# IHT_FOLD=auto's check holds three engines of a scene at once (auto, sort,
-# cascade), each with its captured batch; three pyramid engines at 32768 rays
-# a batch do not fit in 80 GB, so that check runs the pyramid at half of it.
-PYRAMID_AUTO_BATCH = 16384
-# Batches per dispatch of [11]'s eager and graph sandwich engines.
-SANDWICH_GRAPH_K = 4
 BIG_RES = (2048, 1024)
 GENERAL_ABSENT = ["pack_rows", "pack_payload_blocks", "fused_scan", "pack_valid_blocks",
                   "scatter_blocks_multi"]
@@ -3298,12 +2826,13 @@ def _bench_kernels_at(cfg, device) -> dict:
             "rows": out_total, "pixels": P, "max_abs_err": 0.0,
             "ms": _time_ms(lambda: block_ops.scatter_blocks_multi(*sargs, marker_tail=tail),
                            10, "K3 2048x1024"),
-            "bound": _bound(8 * live + 4 * start.numel() + 8 * out_total, 2 * out_total)},
+            "bound": least_seconds(8 * live + 4 * start.numel() + 8 * out_total,
+                                   2 * out_total)},
         "fused_scan_extract": {
             "rows": m, "pixels": P, "max_abs_err": err,
             "ms": _time_ms(lambda: seg_scan.fused_scan_extract(sk, sw, tbl, shift, K, P), 10,
                            "K4 2048x1024"),
-            "bound": _bound(8 * m + 12 * P + 4 * tbl.numel(), 6 * m)},
+            "bound": least_seconds(8 * m + 12 * P + 4 * tbl.numel(), 6 * m)},
         "trace_emit": {
             "max_abs_err": None,
             "ms": _time_ms(lambda: trace_emit.trace_emit(plan, 5 * eng.span, BATCH, device), 5,
@@ -3311,9 +2840,10 @@ def _bench_kernels_at(cfg, device) -> dict:
             "bound": _trace_bound("trace_emit 2048x1024", plan)},
         "radix_sort": rs,
     }
-    rs["bound_passes_ms"] = rs.pop("bound_passes")[0]
+    rs["bound_passes_ms"] = 1e3 * rs.pop("bound_passes")[0]
     for k, v in out.items():
-        v["bound_ms"], v["bound_by"] = v.pop("bound")
+        bound_s, v["bound_by"] = v.pop("bound")
+        v["bound_ms"] = 1e3 * bound_s
         print(f"  {k} at 2048 x 1024: kernel {v['ms']:.4f} ms, bound {v['bound_ms']:.5f} ms by "
               f"{v['bound_by']}, max_abs_err {v['max_abs_err']}", flush=True)
     return out
@@ -3321,85 +2851,52 @@ def _bench_kernels_at(cfg, device) -> dict:
 
 def phase_scenes(smi, res: list, device=None) -> None:
     """[11] The reference bench scenes on the card: each stand-in of
-    scenes.py at full width through the sort fold (the card's default) with
+    scenes.py at full width through the sort fold with
     the launch counters reset just before and read just after, each kernel
     it launched against its plain twin at its shapes; MULTI_CFG, COMPLEX_CFG
     and BD_CFG also against kernels="plain" engines on the card, PYRAMID3_CFG
     so at a small batch; BENCH_CFG at 2048 x 1024 through K2, K3 and K4
-    against the plain path and its kernels at those shapes; IHT_FOLD=auto's
-    decision, modeled costs and measured verdict on every stand-in; the
-    sandwich fold in a CUDA graph on MS_CFG and BD_CFG (graph images bit-equal
-    to eager, one host read per steady dispatch), and K7 and K8 at every
-    launch of a steady BD_CFG cascade against the plain version."""
+    against the plain path and its kernels at those shapes."""
     import torch
 
     from ice_halo_sim_tpu_torch import scenes
     from ice_halo_sim_tpu_torch.config.loader import load_project
-    from ice_halo_sim_tpu_torch.engine.simulator import Engine
-    from ice_halo_sim_tpu_torch.kernels import build
 
     device = torch.device("cuda", 0) if device is None else device
     t_phase = time.time()
     print(f"[11] the reference bench scenes (stand-ins) on {smi}", flush=True)
     launches, per_steady, errs = {}, {}, {}
-    cfgs = {}
-    with _knobs(IHT_FOLD="sort"):
-        for name, const, batch, steady in STAND_INS:
-            cfg = cfgs[name] = load_project(getattr(scenes, const))
-            if name == "pyramid":
-                eng, counts, per_batch = _render_full_width(
-                    name, cfg, device, batch, steady, ["scatter_blocks", "fused_scan_extract"])
-                phase_slice("pyramid (small batch)", cfg, device,
-                            ["scatter_blocks", "fused_scan_extract"], steady, "general",
-                            GENERAL_ABSENT, batch=PYRAMID_SMALL_BATCH)
-            else:
-                eng, counts, per_batch = phase_slice(
-                    name, cfg, device, ["scatter_blocks", "fused_scan_extract"], steady,
-                    "general", GENERAL_ABSENT, batch=batch)
-            if eng._compact_keep is not None and per_batch["compact_rows"] <= 0:
-                raise AssertionError(f"{name}: compact_rows was not launched on a steady batch")
-            launches[name], per_steady[name] = counts, per_batch
-            for k, e in _stand_in_kernels(name, eng).items():
-                errs[k] = max(errs.get(k, 0.0), e)
-            print(f"[11] {name}: {time.time() - t_phase:.1f} s into [11]", flush=True)
-            del eng
-            gc.collect()
-            torch.cuda.empty_cache()
-        big = load_project(_with_res(scenes.BENCH_CFG, BIG_RES))
-        _eng, launches["bench 2048x1024"], per_steady["bench 2048x1024"] = phase_slice(
-            "bench 2048x1024", big, device,
-            ["trace_emit", "scatter_blocks_multi", "radix_sort", "fused_scan_extract"], 2,
-            absent=["pack_rows", "pack_payload_blocks", "fused_scan", "pack_valid_blocks",
-                    "compact_rows", "scatter_blocks"])
-        del _eng
-        big_kernels = _bench_kernels_at(big, device)
+    for name, const, batch, steady in STAND_INS:
+        cfg = load_project(getattr(scenes, const))
+        if name == "pyramid":
+            eng, counts, per_batch = _render_full_width(
+                name, cfg, device, batch, steady, ["scatter_blocks", "fused_scan_extract"])
+            phase_slice("pyramid (small batch)", cfg, device,
+                        ["scatter_blocks", "fused_scan_extract"], steady, "general",
+                        GENERAL_ABSENT, batch=PYRAMID_SMALL_BATCH)
+        else:
+            eng, counts, per_batch = phase_slice(
+                name, cfg, device, ["scatter_blocks", "fused_scan_extract"], steady,
+                "general", GENERAL_ABSENT, batch=batch)
+        if eng._compact_keep is not None and per_batch["compact_rows"] <= 0:
+            raise AssertionError(f"{name}: compact_rows was not launched on a steady batch")
+        launches[name], per_steady[name] = counts, per_batch
+        for k, e in _stand_in_kernels(name, eng).items():
+            errs[k] = max(errs.get(k, 0.0), e)
+        print(f"[11] {name}: {time.time() - t_phase:.1f} s into [11]", flush=True)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    big = load_project(_with_res(scenes.BENCH_CFG, BIG_RES))
+    _eng, launches["bench 2048x1024"], per_steady["bench 2048x1024"] = phase_slice(
+        "bench 2048x1024", big, device,
+        ["trace_emit", "scatter_blocks_multi", "radix_sort", "fused_scan_extract"], 2,
+        absent=["pack_rows", "pack_payload_blocks", "fused_scan", "pack_valid_blocks",
+                "compact_rows", "scatter_blocks"])
+    del _eng
+    big_kernels = _bench_kernels_at(big, device)
     print(f"[11] stand-ins' kernels against their plain twins at their shapes: max_abs_err "
           f"{errs}; {time.time() - t_phase:.1f} s into [11]", flush=True)
-    decided = phase_fold_auto(
-        [(name, cfgs[name], None, PYRAMID_AUTO_BATCH if name == "pyramid" else batch)
-         for name, _c, batch, _s in STAND_INS], device, n_after=2, turns=3)
-    print(f"[11] IHT_FOLD=auto: {time.time() - t_phase:.1f} s into [11]", flush=True)
-    bd = cfgs["filtered_bd"]
-    graphs = {}
-    for name, cfg in (("ms-sandwich", load_project(scenes.MS_CFG)), ("filtered_bd-sandwich", bd)):
-        build.reset_launch_counts()
-        graphs[name] = phase_graphs(name, cfg, device, k=SANDWICH_GRAPH_K, fold="sandwich",
-                                    tag="[11]")
-        launches[name] = dict(build.LAUNCHES)
-        if launches[name]["sandwich_lane"] <= 0:
-            raise AssertionError(f"{name}: K7 was not launched")
-        if graphs[name]["graph"]["reads_per_steady_dispatch"] != 1.0:
-            raise AssertionError(f"{name}: {graphs[name]['graph']['reads_per_steady_dispatch']} "
-                                 "host reads per steady dispatch in the graph")
-    print(f"[11] the sandwich fold in a graph: {time.time() - t_phase:.1f} s into [11]",
-          flush=True)
-    with _knobs(IHT_FOLD="sandwich"):
-        eng = Engine(bd, seed=7, batch_size=BATCH, device=device)
-    eng.run(n_batches=1)
-    cascade = []
-    phase_kernels_cascade(eng, device, cascade)
-    del eng
-    torch.cuda.empty_cache()
     for k in res:
         k["launches_scenes"] = {n: c[k["name"]] for n, c in launches.items() if c[k["name"]]}
         k["launches_per_steady_batch_scenes"] = {
@@ -3408,13 +2905,6 @@ def phase_scenes(smi, res: list, device=None) -> None:
             k["max_abs_err_scenes"] = errs[k["name"]]
         if k["name"] in big_kernels:
             k["at_2048x1024"] = big_kernels[k["name"]]
-        for c in cascade:
-            if c["name"] == k["name"]:
-                k["at_filtered_bd"] = {x: c[x] for x in ("max_abs_err", "ms", "plain_ms",
-                                                         "bound_ms", "library_ms", "batch",
-                                                         "rows", "listed_chunks")}
-    print(f"[11] fold decisions: {json.dumps(decided)}", flush=True)
-    print(f"[11] the sandwich fold in a graph: {json.dumps(graphs)}", flush=True)
     print(f"[11]: {time.time() - t_phase:.1f} s", flush=True)
 
 
@@ -3427,8 +2917,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from ice_halo_sim_tpu_torch.config.loader import load_project
     from ice_halo_sim_tpu_torch.kernels import build
-    from ice_halo_sim_tpu_torch.scenes import (BENCH_CFG, COLOR_CFG, MS_CFG, POOL_CFG,
-                                               SUNDOG_CFG)
+    from ice_halo_sim_tpu_torch.scenes import BENCH_CFG, COLOR_CFG, MS_CFG, POOL_CFG
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3459,10 +2948,9 @@ def main() -> int:
     res = []
     phase_kernels(bench, device, res)
     phase_kernel_pool(pool, device, res)
-    with _knobs(IHT_FOLD="sort"):
-        phase_kernels_general(ms, colour, device, res)
-        phase_kernel_layer(device, res)
-        stress = phase_kernels_sandwich(ms, device, res)
+    phase_kernels_general(ms, colour, device, res)
+    phase_kernel_layer(device, res)
+    phase_kernels_sandwich(device, res)
 
     print("[4] slices", flush=True)
     # The trace kernel packs its rows (no K1), and the spectral folds extract
@@ -3474,60 +2962,37 @@ def main() -> int:
             "compact_rows", "scatter_blocks"]
     prepass = ["compact_rows"]
     engines, counts, per_batch = {}, {}, {}
-    # These slices and fixtures fold by sort, as the JAX fixtures did (the
-    # knob touches only the general path); the sandwich fold has slices of
-    # its own below.
-    with _knobs(IHT_FOLD="sort"):
-        for name, cfg, kernels, steady, path, absent in (
-                ("bench", bench, ["trace_emit"] + common, 3, "cuda-trace-kernel", gone),
-                ("pool", pool, ["trace_emit_pool"] + common, 2, "cuda-trace-kernel", gone),
-                ("ms", ms, prepass + ["scatter_blocks", "radix_sort", "fused_scan_extract"], 3,
-                 "general",
-                 ["pack_rows", "pack_payload_blocks", "fused_scan", "pack_valid_blocks",
-                  "scatter_blocks_multi"]),
-                ("color", colour, prepass + ["pack_payload_blocks", "scatter_blocks_multi"], 2,
-                 "general", ["pack_rows", "fused_scan", "fused_scan_extract",
-                             "pack_valid_blocks", "scatter_blocks"])):
-            engines[name], counts[name], per_batch[name] = phase_slice(
-                name, cfg, device, kernels, steady, path, absent)
-            if name == "bench":
-                phase_fixture("bench", bench, device, 0, 0)
-                phase_paths_agree(bench, device)
-            elif name == "pool":
-                phase_fixture("pool", pool, device, POOL_FIX_PIXELS, POOL_FIX_SEGMENTS)
-            elif name == "ms":
-                phase_fixture("ms", load_project(ms_first), device, EDGE_PIXELS, EDGE_SEGMENTS,
-                              emit_floor_off=False)
-    # MS_CFG through the sandwich cascade: K7, then the A/B form K8, each
-    # against the plain kernel set and the ms slice's sort fold (1 + 3 batches).
-    engines["ms-sandwich"], counts["ms-sandwich"], per_batch["ms-sandwich"] = phase_sandwich(
-        "ms-sandwich", ms, device, engines["ms"])
-    print("[3, after calibration] K7 and K8 vs plain at every launch of a steady ms-sandwich "
-          "batch", flush=True)
-    phase_kernels_cascade(engines["ms-sandwich"], device, res)
-    for k in res:
-        if k["name"] in stress:
-            k["stress"] = stress[k["name"]]
-    with _layout("sublane"):
-        _, counts["ms-sandwich-sublane"], _ = phase_sandwich(
-            "ms-sandwich-sublane", ms, device, engines["ms"])
-    # SUNDOG_CFG: rows few and concentrated, where the dispatch's model
-    # favours the cascade most (horizontal plates, only the ray path 3-5).
-    phase_fold_auto([("ms", ms, engines["ms"]), ("bench (general path)", bench, None),
-                     ("sundog (plates, ray path 3-5)", load_project(SUNDOG_CFG), None)],
-                    device)
+    for name, cfg, kernels, steady, path, absent in (
+            ("bench", bench, ["trace_emit"] + common, 3, "cuda-trace-kernel", gone),
+            ("pool", pool, ["trace_emit_pool"] + common, 2, "cuda-trace-kernel", gone),
+            ("ms", ms, prepass + ["scatter_blocks", "radix_sort", "fused_scan_extract"], 3,
+             "general",
+             ["pack_rows", "pack_payload_blocks", "fused_scan", "pack_valid_blocks",
+              "scatter_blocks_multi"]),
+            ("color", colour, prepass + ["pack_payload_blocks", "scatter_blocks_multi"], 2,
+             "general", ["pack_rows", "fused_scan", "fused_scan_extract",
+                         "pack_valid_blocks", "scatter_blocks"])):
+        engines[name], counts[name], per_batch[name] = phase_slice(
+            name, cfg, device, kernels, steady, path, absent)
+        if name == "bench":
+            phase_fixture("bench", bench, device, 0, 0)
+            phase_paths_agree(bench, device)
+        elif name == "pool":
+            phase_fixture("pool", pool, device, POOL_FIX_PIXELS, POOL_FIX_SEGMENTS)
+        elif name == "ms":
+            phase_fixture("ms", load_project(ms_first), device, EDGE_PIXELS, EDGE_SEGMENTS,
+                          emit_floor_off=False)
     from ice_halo_sim_tpu_torch import probe_sandwich, probe_scatter
     counts["probe_sandwich"] = phase_probe("sandwich_iota", probe_sandwich.main)
     counts["probe_scatter"] = phase_probe("extract_blocks", probe_scatter.main)
     # Launches of a kernel on the main path that runs it: the pool scene for
     # the blocked-pool trace, MS_CFG for the fold prepass, COLOR_CFG for K5
-    # (the colour lanes' extraction), MS_CFG under the sandwich fold for K7
-    # and K8, the probes' own runs for P1 and P2, else BENCH_CFG (0 for K1
-    # and the per-row scan, which no path launches now).
+    # (the colour lanes' extraction), the probes' own runs for P1 and P2, else
+    # BENCH_CFG (0 for K1, the per-row scan, K7 and K8, which no path
+    # launches now).
     home = {"trace_emit_pool": "pool", "pack_valid_blocks": "ms", "scatter_blocks": "ms",
             "compact_rows": "ms",
             "pack_payload_blocks": "color",
-            "sandwich_lane": "ms-sandwich", "sandwich_sublane": "ms-sandwich-sublane",
             "sandwich_iota": "probe_sandwich", "extract_blocks": "probe_scatter",
             "trace_layer": "ms"}
     # KL: one launch a layer on the general path's steady batches, none on

@@ -1,9 +1,9 @@
 """The port's benchmark matrix: steady rays/s of the reference bench scenes,
-scene x resolution (x fold), on one CUDA device.
+scene x resolution, on one CUDA device.
 
     python -m ice_halo_sim_tpu_torch.bench_matrix [--scenes light,ms_multi,...]
         [--res 512x256,2048x1024] [--reps 5] [--batch 229376]
-        [--fold sort,auto,sandwich] [--rep-seconds 2] [--device cuda|cpu] [--quick]
+        [--rep-seconds 2] [--device cuda|cpu] [--quick]
 
 A twin of the JAX package's ``scripts/bench_matrix.py`` with its
 discipline: a steady rate that leaves out the build, the calibration and
@@ -32,12 +32,7 @@ IHT_STEPS_PER_DISPATCH batches, the second timed; then ``--reps``
 repetitions of the whole number of dispatches closest to ``--rep-seconds``
 (at least one: the rep length is rounded to the dispatch grain), each ended
 by a host copy of the landed weights; the card's SM clock, power draw and
-temperature after them (``card_after_reps``). ``--fold`` runs each cell under each
-IHT_FOLD value named (the engine reads the knob when it is built); without
-it the knob is left as it is (unset: the sort fold on a CUDA device). A cell
-under "auto" or "sandwich" whose scene the cascade does not take
-(``fold_decision`` "sort fold (sandwich ineligible: ...)") prints its line
-with ``skipped`` and no rates: it would time the sort fold again.
+temperature after them (``card_after_reps``).
 
 ``--quick``: light only, at 512x256, one repetition (what a CPU test runs
 at a small batch). The matrix runs on the card unless asked for the CPU,
@@ -51,7 +46,6 @@ import argparse
 import copy
 import dataclasses
 import json
-import os
 import statistics
 import sys
 import time
@@ -110,37 +104,18 @@ def _card_state(device: str):
     ).stdout.strip().splitlines()[0]
 
 
-def run_cell(scene: str, res, batch: int, reps: int, rep_seconds: float, device: str,
-             fold) -> dict:
-    """One cell at `batch` rays a batch under IHT_FOLD=`fold` (None: the
-    knob as it is). Raises what the engine raises."""
+def run_cell(scene: str, res, batch: int, reps: int, rep_seconds: float,
+             device: str) -> dict:
+    """One cell at `batch` rays a batch. Raises what the engine raises."""
     from ice_halo_sim_tpu_torch.engine.simulator import Engine
 
-    old = os.environ.get("IHT_FOLD")
-    if fold is not None:
-        os.environ["IHT_FOLD"] = fold
-    try:
-        engine = Engine(_cfg(scene, res), seed=3, batch_size=batch, device=device)
-    finally:
-        if fold is not None:
-            if old is None:
-                del os.environ["IHT_FOLD"]
-            else:
-                os.environ["IHT_FOLD"] = old
+    engine = Engine(_cfg(scene, res), seed=3, batch_size=batch, device=device)
     spd = engine.steps_per_dispatch
     cell = {
         "scene": scene, "stand_in": SCENE_DOCS[scene][1], "resolution": list(res),
         "batch_size": engine.batch_size, "steps_per_dispatch": spd,
-        "iht_fold": fold or os.environ.get("IHT_FOLD"), "trace_path": engine.trace_path,
+        "trace_path": engine.trace_path,
     }
-    if fold in ("auto", "sandwich") and engine.fold_decision.startswith(
-            "sort fold (sandwich ineligible"):
-        cell.update(skipped=engine.fold_decision, fold=engine.fold_kind,
-                    fold_decision=engine.fold_decision, fold_costs=None,
-                    graph_mode=None, rays_per_rep=None, reps=0, rates=[],
-                    median_rays_per_sec=None, cov=None, host_reads_per_dispatch=None,
-                    overflow_replays=0, vs_baseline_cpu=None)
-        return cell
     engine.run(n_batches=1)
     _sync(engine)
     engine.run(n_batches=spd)
@@ -162,7 +137,7 @@ def run_cell(scene: str, res, batch: int, reps: int, rep_seconds: float, device:
     med = statistics.median(rates)
     cell.update(
         fold=engine.fold_kind, fold_decision=engine.fold_decision,
-        fold_costs=engine.fold_costs, graph_mode=engine.graph_mode,
+        graph_mode=engine.graph_mode,
         rays_per_rep=n_batches * engine.batch_size, reps=reps, rates=rates,
         median_rays_per_sec=med, cov=statistics.pstdev(rates) / statistics.fmean(rates),
         host_reads_per_dispatch=(engine.host_syncs - syncs) / (reps * n_dispatches),
@@ -171,8 +146,8 @@ def run_cell(scene: str, res, batch: int, reps: int, rep_seconds: float, device:
     return cell
 
 
-def measure_cell(scene: str, res, batch: int, reps: int, rep_seconds: float, device: str,
-                 fold) -> dict:
+def measure_cell(scene: str, res, batch: int, reps: int, rep_seconds: float,
+                 device: str) -> dict:
     """run_cell at `batch`, halved after each out-of-memory error (at most
     three times, not below MIN_BATCH), as the JAX script measures a fit;
     any other error raises. A cell that never fits says so in ``error``."""
@@ -181,7 +156,7 @@ def measure_cell(scene: str, res, batch: int, reps: int, rep_seconds: float, dev
     b = batch
     for attempt in range(4):
         try:
-            cell = run_cell(scene, res, b, reps, rep_seconds, device, fold)
+            cell = run_cell(scene, res, b, reps, rep_seconds, device)
             cell["batch_decision"] = (
                 "requested" if b == batch else
                 f"measured fit: halved from {batch} after {attempt} out-of-memory error(s)")
@@ -196,7 +171,7 @@ def measure_cell(scene: str, res, batch: int, reps: int, rep_seconds: float, dev
             break
         b //= 2
     return {"scene": scene, "stand_in": SCENE_DOCS[scene][1], "resolution": list(res),
-            "batch_size": b, "iht_fold": fold, "error": msg[:300],
+            "batch_size": b, "error": msg[:300],
             "batch_decision": f"no fit down to {b} ({attempt} halvings from {batch})"}
 
 
@@ -207,9 +182,6 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--batch", type=int, default=None,
                     help=f"rays per batch (default {CARD_BATCH} on the card, 4096 on the CPU)")
-    ap.add_argument("--fold", default=None,
-                    help="comma-separated IHT_FOLD values, each cell under each (sort, "
-                         "auto, sandwich); default: the knob as it is")
     ap.add_argument("--rep-seconds", type=float, default=2.0,
                     help="wall seconds a repetition aims at, in whole dispatches")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
@@ -222,9 +194,6 @@ def main(argv=None) -> int:
     unknown = [s for s in scenes if s not in SCENE_DOCS]
     if unknown:
         raise SystemExit(f"unknown scenes {unknown}; known: {', '.join(SCENES)}")
-    folds = [None] if args.fold is None else [f.strip() for f in args.fold.split(",")]
-    if any(f not in (None, "sort", "auto", "sandwich") for f in folds):
-        raise SystemExit(f"--fold takes sort, auto and sandwich, got {args.fold!r}")
     if args.reps < 1:
         raise SystemExit("--reps must be at least 1")
 
@@ -242,13 +211,12 @@ def main(argv=None) -> int:
     for scene in scenes:
         for res_s in args.res.split(","):
             w, h = (int(x) for x in res_s.split("x"))
-            for fold in folds:
-                cell = measure_cell(scene, (w, h), batch, args.reps, args.rep_seconds,
-                                    args.device, fold)
-                cell.update(platform=args.device, card=card)
-                print(json.dumps(cell), flush=True)
-                if args.device == "cuda":
-                    torch.cuda.empty_cache()
+            cell = measure_cell(scene, (w, h), batch, args.reps, args.rep_seconds,
+                                args.device)
+            cell.update(platform=args.device, card=card)
+            print(json.dumps(cell), flush=True)
+            if args.device == "cuda":
+                torch.cuda.empty_cache()
     return 0
 
 

@@ -14,12 +14,12 @@ rounded to bf16 (about 0.4% per row, unbiased), or split into two bf16 terms
 (``precise``, about 2^-16 relative), as the TPU kernels' one-hot product
 rounds it. Sums are float32.
 
-The cost grows with NC, so the engine runs a cascade of passes
-(engine/simulator.py): the chunks that hold most rows over all rows, then the
-remaining chunks over only the rows the earlier passes missed, compacted
-first. A row matches exactly one list across a cascade whose last list covers
-the image, so the result is exact for any split of the chunks; the lists
-change the speed, never the image.
+The cost grows with NC, so the TPU engine runs a cascade of passes: the
+chunks that hold most rows over all rows, then the remaining chunks over only
+the rows the earlier passes missed. The port's engine folds by sort only (on
+the H100 the cascade never beat it by more than its spread), so these kernels
+are on no path of the engine; the tests and ``chip_smoke.py`` hold them
+against their plain versions.
 
 ``sandwich_pass`` launches the CUDA kernels of csrc/sandwich.cu on CUDA
 tensors and runs ``sandwich_pass_plain`` on CPU tensors; it never falls back.
@@ -52,7 +52,6 @@ import torch
 
 from ice_halo_sim_tpu_torch.core.bits import F32, I32, I64
 from ice_halo_sim_tpu_torch.kernels import build
-from ice_halo_sim_tpu_torch.utils import env_knobs
 
 NLO = 128               # lo width; chunk = pix // NLO
 MAX_POOL = 128          # wavelength-pool entries the kernels' table holds
@@ -64,24 +63,8 @@ _MAX_SLICES = 64        # K8: slices of the list (kMaxSlices)
 _MAX_SORTED = 8192      # K8: list entries its one-block sort takes (kMaxSorted)
 
 # The kernel a pass launches when its caller names no layout: "lane" is K7,
-# "sublane" is K8, the A/B form (the TPU module's LAYOUT). The engine names
-# none, so setting this before a run sends the whole fold through K8.
+# "sublane" is K8, the A/B form (the TPU module's LAYOUT).
 LAYOUT = "lane"
-
-# Test hook: treat the sandwich fold as available on CPU tensors, where the
-# plain version runs (the counterpart of the TPU module's INTERPRET).
-CPU_TEST_HOOK = False
-
-
-def available(device) -> bool:
-    """Whether an engine on `device` may fold by sandwich: not switched off
-    (IHT_PALLAS / IHT_SANDWICH), and a CUDA device; on the CPU only under
-    the test hook."""
-    if str(env_knobs.get("IHT_PALLAS", "1")).lower() in ("0", "off"):
-        return False
-    if str(env_knobs.get("IHT_SANDWICH", "1")).lower() in ("0", "off"):
-        return False
-    return CPU_TEST_HOOK or torch.device(device).type == "cuda"
 
 
 def _bf16_terms(vals, precise: bool):

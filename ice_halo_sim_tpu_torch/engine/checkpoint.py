@@ -5,15 +5,14 @@ resumes the other's file.
 The file is an .npz with a JSON ``header`` (format_version, project, seed,
 batch_size, geom_clock, batch_counter, stats, n_accum, slot_cap) and
 ``accum_0..accum_{n-1}``: one [P, 3 + L] image per render (XYZ and one Y
-lane per colour class; float64 [P, 3] when a sandwich engine saved it, its
-dense form, portable across folds), then the [R] landed weights. It is
-written and read with numpy alone.
+lane per colour class; float64 [P, 3] when a JAX sandwich engine saved it,
+its dense form), then the [R] landed weights. It is written and read with
+numpy alone.
 
 A loaded engine continues the same random streams from the saved batch
 counter (the host count, from which each dispatch sets the device counter).
 The images go into the engine's accumulators in place, which keep their
-addresses (a captured CUDA graph writes there); a port engine on the
-sandwich fold takes them into its settled host images instead. A JAX engine
+addresses (a captured CUDA graph writes there). A JAX engine
 that raised its geom_clock to 128 for a stochastic shape saved 128, so the
 resumed engine samples the same pool. The saved exit-slot cap changes which
 (accounted) exit rows accumulate, so the resumed engine takes it instead of
@@ -38,10 +37,7 @@ def save_checkpoint(path: str, engine: Engine) -> None:
     """Write the engine's resumable state to ``path`` (.npz)."""
     stats = engine.drain_stats()
     R = len(engine.proj_plans)
-    if engine._sandwich_on:
-        images = [engine._sandwich_dense64(r) for r in range(R)]
-    else:
-        images = [a.cpu().numpy() for a in engine.accum[:-1]]
+    images = [a.cpu().numpy() for a in engine.accum[:-1]]
     arrays = {f"accum_{i}": a for i, a in enumerate(images)}
     arrays[f"accum_{R}"] = engine.accum[-1].cpu().numpy()
     header = {
@@ -76,25 +72,13 @@ def load_checkpoint(path: str, device="cuda", kernels=None) -> Engine:
     if landed.shape != tuple(engine.accum[-1].shape):
         raise ValueError(f"checkpoint landed shape {landed.shape} mismatch")
     landed = torch.as_tensor(landed.astype(np.float32))
-    if engine._sandwich_on:
-        # Dense images into a sandwich engine: the mass goes to the settled
-        # host images (float64, as a sandwich engine saves them); the tiles
-        # on the device stay zero.
-        if len(arrays) != len(engine.proj_plans) + 1:
-            raise ValueError("checkpoint accumulator count mismatch")
-        for saved, p in zip(arrays[:-1], engine.proj_plans):
-            want = (p.height * p.width, 3)
-            if tuple(saved.shape[:2]) != want:
-                raise ValueError(f"checkpoint accumulator shape {saved.shape} != {want}")
-        engine._settled = [np.asarray(a, np.float64)[:, :3] for a in arrays[:-1]]
-    else:
-        if len(arrays) != len(engine.accum):
-            raise ValueError("checkpoint accumulator count mismatch")
-        for saved, acc in zip(arrays[:-1], engine.accum[:-1]):
-            if saved.shape != tuple(acc.shape):
-                raise ValueError(
-                    f"checkpoint accumulator shape {saved.shape} != {tuple(acc.shape)}")
-            acc.copy_(torch.as_tensor(saved.astype(np.float32)))
+    if len(arrays) != len(engine.accum):
+        raise ValueError("checkpoint accumulator count mismatch")
+    for saved, acc in zip(arrays[:-1], engine.accum[:-1]):
+        if saved.shape != tuple(acc.shape):
+            raise ValueError(
+                f"checkpoint accumulator shape {saved.shape} != {tuple(acc.shape)}")
+        acc.copy_(torch.as_tensor(saved.astype(np.float32)))
     engine.accum[-1].copy_(landed)
     engine.batch_counter = int(header["batch_counter"])
     fields = set(Stats._fields)

@@ -19,21 +19,13 @@ A scene takes one of two trace paths, as in the JAX engine:
     ``accum.compact_valid`` (one pass of ``block_ops.compact_rows``) shortens
     the rows to ``keep`` first.
 ``Engine.trace_path`` says which one ran, ``Engine.fold_kind`` and
-``Engine.fold_decision`` which fold. On the general path a scene with
-packable keys, no colour class, at most 128 pool entries and at most 4096
-pixel chunks per render starts on the sandwich fold (core/sandwich.py, K7)
-when the device has it: per render a cascade of chunk lists, each pass over
-the compacted misses of the one before, the tiles kept on the device and the
-dense image assembled on the host at read-out. The first batch also counts
-rows per chunk; calibration plans the cascade from that histogram and, under
-IHT_FOLD=auto, keeps it or demotes to the sort fold by a cost model measured
-on the card. On a CUDA device the sort fold is the default: the cascade runs
-under IHT_FOLD=sandwich or auto. Keys that do not pack take the dense-value fold
-``accum.sort_accumulate`` (``sort-legacy``). The two trace paths differ on purpose, as in
-the JAX package: the emit-floor scale is analytic on the kernel path and the
-batch mean of the initial weights on the general path, and only the general
-path has a slot cap. With IHT_MIN_EMIT_W=0 and IHT_SLOT_CAP=off they give
-the same image.
+``Engine.fold_decision`` which fold: the sort fold on both paths, or, for
+keys that do not pack into 32 bits, the dense-value fold
+``accum.sort_accumulate`` (``sort-legacy``). The two trace paths differ on
+purpose, as in the JAX package: the emit-floor scale is analytic on the
+kernel path and the batch mean of the initial weights on the general path,
+and only the general path has a slot cap. With IHT_MIN_EMIT_W=0 and
+IHT_SLOT_CAP=off they give the same image.
 
 The host loop is the JAX engine's: ``run`` runs IHT_STEPS_PER_DISPATCH
 batches (default 64) per dispatch, full batches first and an exact-budget
@@ -68,16 +60,15 @@ the crystal shapes and the continuation salt of the plain counter c.
 
 Differences from the JAX engine, all deliberate:
   - no silent degrade: a failing kernel raises, the engine never moves to
-    another device or path; the JAX engine's run-time escape from a failing
-    sandwich kernel to the sort fold (``+degraded``) is absent;
+    another device or path;
   - the overflow choice is the replay above, not a branch inside the
-    step, on the sandwich fold's levels as on the sort fold's prepass and
-    the continuation (JAX: ``lax.cond`` per level): a level whose entrants
-    overflow its keep sends the batch to the replay, which diverts them to
-    the full-coverage tile;
-  - the sort-size snap of ``keep`` and the scatter-output row budget of the
-    sandwich levels' ``keep``, both tuned to another accelerator's memory,
-    are gone; the fold dispatch's cost constants are measured on the H100;
+    step (JAX: ``lax.cond``);
+  - the sort-size snap of ``keep``, tuned to another accelerator's memory,
+    is gone;
+  - the JAX engine's sandwich cascade and its choice between folds are not
+    carried over: on the H100 the cascade never beat the sort fold by more
+    than its spread. Its kernels stay in core/sandwich.py, held by the
+    tests, on no path of the engine;
   - the continuation's order inside a block is a function of the rows (the
     JAX block sort is unstable), so the CPU and the card agree with each
     other; against JAX a multi-layer image agrees statistically, not ray
@@ -105,7 +96,6 @@ from ice_halo_sim_tpu_torch.config.schema import (
 from ice_halo_sim_tpu_torch.core import latlut
 from ice_halo_sim_tpu_torch.utils import env_knobs
 from ice_halo_sim_tpu_torch.core import accum as accum_mod
-from ice_halo_sim_tpu_torch.core import sandwich as sandwich_mod
 from ice_halo_sim_tpu_torch.core import (
     color,
     filters,
@@ -318,7 +308,6 @@ class Engine:
         # Stage marks (utils/profiling.py, the tracer on): of the last batch
         # run, and of the batch the current graph replays.
         self._marks = self._graph_marks = None
-        self._sandwich_setup()
         self.reset()
 
     def _choose_trace_path(self) -> None:
@@ -558,367 +547,15 @@ class Engine:
             for p in self.proj_plans
         ]
 
-    # ------------------------------------------------------------------
-    # Sandwich fold (host side)
-    # ------------------------------------------------------------------
-
-    _SANDWICH_NHI = 256          # chunks of the first level before calibration
-    _SANDWICH_MAX_CHUNKS = 4096  # chunks per render the fold takes
-    # Cost model of the fold dispatch, ms per unit, measured with
-    # `python -m ice_halo_sim_tpu_torch.probe_sandwich` (3342336 rows over
-    # 131072 pixels, a quarter dead) on an NVIDIA H100 80GB HBM3 at a power
-    # limit of 700.00 W, device time by torch.profiler: K7 (the scatter-add
-    # into shared memory) 0.1477 ms at 256 listed chunks and 0.5421 ms at
-    # 1024, the sort fold 0.2681 ms at 835584 rows and 0.8071 ms at 3342336;
-    # compact_valid (one launch of compact_rows) 0.0274 ms, refitted with
-    # _C_PREP on the same card and limit when compact_rows replaced K6 and
-    # two K3' (0.0947 ms in the same run). _C_PREP is fitted to the engine's
-    # own sandwich fold on MS_CFG, BENCH_CFG (general path) and SUNDOG_CFG
-    # (`fold_prep`: what the fold takes beyond K7, the compactions and the key
-    # pack it shares with the sort fold, per row of its levels: the decode,
-    # the routing and their torch glue). They choose the level structure and
-    # between the folds; exactness never depends on them.
-    _C_PREP = 1.62e-7      # per row: decode, routing of the misses, glue
-    _C_BASE = 4.86e-9      # per row: K7 extrapolated to an empty list (loads, slot search)
-    _C_CHUNKROW = 1.54e-10  # per row and listed chunk: K7 reading the row once per slice
-    _C_PACK = 8.19e-9      # per input row: compact_valid (one compact_rows)
-    _C_SORT_FIX = 0.0602   # the sort fold of keep + P rows: fixed part
-    _C_SORT_ROW = 2.15e-7  # and per row
-
-    def _sandwich_setup(self) -> None:
-        """Decide whether the sandwich fold (core/sandwich.py) replaces the
-        sort fold, and build its per-render state.
-
-        The fold is a cascade of chunk lists per render (``self._levels[r]``:
-        (chunk list, keep) pairs, the last list covering every chunk): each
-        level folds the rows whose chunk it lists and routes the misses,
-        compacted to the next level's ``keep`` rows, onward. Exactness never
-        depends on the lists or budgets: a row matches exactly one list, and
-        a batch in which a level's entrants overflow its ``keep`` is run
-        again with the host's choice, which folds them all into the
-        full-coverage tile instead (slower, never wrong).
-
-        The conditions are the JAX engine's, in its order; the first that
-        holds is the reason in ``fold_decision``."""
-        nlo = sandwich_mod.NLO
-        self._n_chunks = [-(-(p.height * p.width) // nlo) for p in self.proj_plans]
-        # "auto" calibrates between the cascade and the sort fold from the
-        # measured rows per chunk; "sandwich" and "sort" pin the fold. With
-        # the knob unset a CUDA device folds by sort: on the H100 the cascade
-        # gained under 0.1 ms per batch even on the scene that favours it most,
-        # and the model chose it where it lost (PERF.md §7). Elsewhere the
-        # JAX engine's default, "auto", holds.
-        knob = env_knobs.get("IHT_FOLD")
-        default = "sort" if torch.device(self.device).type == "cuda" else "auto"
-        self._fold_choice = str(knob if knob is not None else default).lower()
-        self.fold_decision = "startup"
-        self.fold_costs = None     # the dispatch's modeled ms per batch, once calibrated
-        self.last_level_rows = []  # on the cascade: [R] int64 on the device, see below
-        method = self._resolved_accum_method()
-        reason = None
-        if self._trace_plan is not None:
-            reason = "the trace kernel emits packed sort keys"
-        elif self._fold_choice == "sort":
-            reason = ("pinned by IHT_FOLD=sort" if knob is not None else
-                      "the default on a CUDA device; IHT_FOLD=auto or sandwich turns it on")
-        elif method != "sort":
-            reason = f"accum method {method!r}"
-        elif not self.spectral_ok:
-            reason = "spectral keys do not pack into u32"
-        elif self.color_classes:
-            reason = ("raypath_color classes need per-class Y lanes, which the tile "
-                      "layout does not carry")
-        elif self.k_pool > sandwich_mod.MAX_POOL:
-            reason = f"wavelength pool {self.k_pool} > {sandwich_mod.MAX_POOL}"
-        elif any(nc > self._SANDWICH_MAX_CHUNKS for nc in self._n_chunks):
-            reason = (f"image chunks {max(self._n_chunks)} > {self._SANDWICH_MAX_CHUNKS}")
-        elif not sandwich_mod.available(self.device):
-            reason = "sandwich kernel unavailable on this device"
-        self._sandwich_on = reason is None
-        self._calibrating = False
-        if not self._sandwich_on:
-            self.fold_decision = f"sort fold (sandwich ineligible: {reason})"
-            return
-        # Before calibration: [the first NHI chunks, every chunk], or one
-        # full-coverage level for a small image. The first list is a guess;
-        # its misses route onward and calibration replaces it.
-        blk = accum_mod.BLOCK
-        dev = self.device
-        self._levels = []
-        self._calibrating = True
-        for nc, n_rows in zip(self._n_chunks, self._rows_per_render):
-            full = torch.arange(nc, dtype=I32, device=dev)
-            if nc <= self._SANDWICH_NHI:
-                self._levels.append([(full, None)])
-                continue
-            kl = min(n_rows, -(-int(n_rows * 0.6) // blk) * blk)
-            kc = max(2048, -(-int(n_rows * 0.125) // 2048) * 2048)
-            self._levels.append([
-                (torch.arange(self._SANDWICH_NHI, dtype=I32, device=dev), kl),
-                (full, min(kc, n_rows)),
-            ])
-        self._set_tile_slices()
-        self._settled = [np.zeros((p.height * p.width, 3), np.float64)
-                         for p in self.proj_plans]
-        self._ones_tbl = torch.ones((self.k_pool, 1), dtype=F32, device=dev)
-        # Per render, the rows that entered the last level in the last batch,
-        # written in place on the device (read by whoever reads them, never
-        # by the engine).
-        self.last_level_rows = torch.zeros(len(self.proj_plans), dtype=I64, device=dev)
-
-    def _set_tile_slices(self) -> None:
-        """Where each render's level tiles lie in self.accum."""
-        self._tile_slices = []
-        off = 0
-        for levels in self._levels:
-            self._tile_slices.append((off, off + len(levels)))
-            off += len(levels)
-
-    def _count_tile_index(self, r: int):
-        """Index of render r's calibration count tile in self.accum, or None
-        (a render with one level needs no histogram)."""
-        if not self._calibrating or len(self._levels[r]) == 1:
-            return None
-        return self._tile_slices[-1][1] + sum(
-            1 for q in range(r) if len(self._levels[q]) > 1)
-
-    def _host_count(self, x) -> int:
-        """A count as a host int; reading a device tensor is a host sync."""
-        if isinstance(x, torch.Tensor):
-            self.host_syncs += 1
-            return int(x)
-        return x
-
-    def _sandwich_fold_r(self, r: int, tiles, key, wz, n_live, count_rows=None,
-                         host_choice: bool = False):
-        """One render's cascade over the packed rows (key, wz) of a batch.
-
-        tiles: one [NC_l, 3*128] tile per level. n_live: the live rows (a
-        device scalar, or a host int where the host read it). count_rows
-        (the calibration batches only): (count tile, pix, wl_idx); the tile
-        [chunks, 128] takes a one-channel pass of the live flags over every
-        chunk, the histogram calibration plans from. Returns (tiles', count
-        tile', rows that entered the last level, over).
-
-        Without host_choice every level whose keep is below its rows takes
-        its compacted branch, with no host read, and ``over`` (a device
-        bool, or None where no level compacts) says whether some level's
-        entrants overflowed its keep: the caller records it and the batch is
-        run again with host_choice. With it (JAX's ``lax.cond``, read on the
-        host) a compacted level reads its entrants' count, and where they
-        overflow its keep they all go, uncompacted, into the full-coverage
-        last tile. Either way exact for any lists and budgets."""
-        K = self.k_pool
-        shift = accum_mod.key_shift(K)
-        levels = self._levels[r]
-        full_list = levels[-1][0]
-        tiles = list(tiles)
-        tbl = self.basis_tbl
-
-        def level_pass(tile, clist, k, w_in):
-            # The dead key 0xFFFFFFFF decodes to a pixel past every chunk and
-            # carries weight 0.
-            kk = from_bits(k)
-            return self.ks.sandwich_pass(
-                tile, clist, (kk >> shift).to(I32), w_in, ((kk >> 1) & (K - 1)).to(I32),
-                tbl, k_pool=K)
-
-        count_tile = None
-        if count_rows is not None:
-            count_tile, pix, wl_idx = count_rows
-            count_tile, _ = self.ks.sandwich_pass(
-                count_tile, full_list, pix.to(I32), (wz > 0.0).to(F32), wl_idx.to(I32),
-                self._ones_tbl, k_pool=K)
-
-        carry_key, carry_w = key, wz
-        n_in = n_live
-        n_last = n_live
-        over = None
-        for li, (clist, keep) in enumerate(levels):
-            is_last = li == len(levels) - 1
-            if is_last:
-                n_last = n_in
-            ck, cw = carry_key, carry_w
-            if keep is not None and keep < carry_key.shape[0]:
-                if host_choice:
-                    n_in = self._host_count(n_in)
-                    if n_in > keep:
-                        tiles[-1], _ = level_pass(tiles[-1], full_list, carry_key, carry_w)
-                        n_last = n_in
-                        break
-                else:
-                    over = _or(over, n_in > keep)
-                (ck, cw), _ = accum_mod.compact_valid(carry_key, [carry_w], keep, self.ks)
-            tiles[li], m = level_pass(tiles[li], clist, ck, cw)
-            if is_last:
-                break
-            miss = m == 0
-            carry_key = torch.where(miss & (cw > 0.0), ck, -1)
-            carry_w = torch.where(miss, cw, 0.0)
-            n_in = (carry_w > 0.0).sum()
-        return tiles, count_tile, n_last, over
-
-    def _sandwich_dense64(self, r: int) -> np.ndarray:
-        """Host side: render r's dense [P, 3] float64 image, the settled mass
-        plus the level tiles."""
-        P = self.proj_plans[r].height * self.proj_plans[r].width
-        s0, _s1 = self._tile_slices[r]
-        return self._settled[r] + sandwich_mod.assemble_image(
-            [(self.accum[s0 + li], clist)
-             for li, (clist, _keep) in enumerate(self._levels[r])], P, 3)
-
-    def _sandwich_dense(self, r: int) -> np.ndarray:
-        return self._sandwich_dense64(r).astype(np.float32)
-
-    def _sandwich_plan_levels(self, nc: int, n_rows: int, live_rows: float,
-                              rows_per_chunk: np.ndarray):
-        """Choose one render's cascade from its measured rows per chunk:
-        enumerate (first list length, second list length or none) and take
-        the least modeled cost, a level costing its row budget times (row
-        cost + listed chunks times chunk-row cost) plus its compaction.
-        Returns ([(chunk list, keep)], cost in ms per batch); the last list
-        covers every chunk. A pure function of its arguments and the cost
-        constants."""
-        blk = accum_mod.BLOCK
-
-        def ceil_to(x, m):
-            return -(-int(x) // m) * m
-
-        order = np.argsort(rows_per_chunk)[::-1]
-        prefix = np.concatenate([[0.0], np.cumsum(rows_per_chunk[order])])
-        keep0 = min(n_rows, max(blk, ceil_to(live_rows * self._KEEP_MARGIN, blk)))
-        if keep0 > 0.75 * n_rows:
-            keep0 = None          # mostly live rows: level 0 takes them raw
-
-        def level_cost(keep, ncj):
-            rows = n_rows if keep is None else keep
-            return rows * (self._C_PREP + self._C_BASE + ncj * self._C_CHUNKROW)
-
-        best = None
-        for nc0 in (128, 256):
-            if nc0 >= nc:
-                continue
-            rows1 = max(0.0, live_rows - prefix[min(nc0, len(order))])
-            for nc1 in (0, 256, 512):
-                if nc1 and nc0 + nc1 >= nc:
-                    continue
-                plan = [(nc0, keep0)]
-                if nc1:
-                    keep1 = min(n_rows, max(blk, ceil_to(rows1 * 1.3, blk)))
-                    rows2 = max(0.0, live_rows - prefix[min(nc0 + nc1, len(order))])
-                    keep2 = min(n_rows, max(2048, ceil_to(rows2 * 1.5, 2048)))
-                    plan += [(nc1, keep1), (nc, keep2)]
-                else:
-                    keep1 = min(n_rows, max(2048, ceil_to(rows1 * 1.5, 2048)))
-                    plan += [(nc, keep1)]
-                cost = 0.0 if keep0 is None else self._C_PACK * n_rows
-                prev = n_rows if keep0 is None else keep0
-                for j, (ncj, keepj) in enumerate(plan):
-                    if j > 0:
-                        cost += self._C_PACK * prev
-                        prev = keepj
-                    cost += level_cost(keepj, ncj)
-                if best is None or cost < best[0]:
-                    best = (cost, plan)
-
-        cost, plan = best
-        levels = []
-        covered = 0
-        for j, (ncj, keepj) in enumerate(plan):
-            if j == len(plan) - 1:
-                clist = np.arange(nc, dtype=np.int32)
-            else:
-                clist = np.sort(order[covered:covered + ncj]).astype(np.int32)
-                covered += ncj
-            levels.append((torch.as_tensor(clist, device=self.device),
-                           None if keepj is None else int(keepj)))
-        return levels, cost
-
-    def _sandwich_recalibrate(self, live_avg, n_steps: int = 1) -> bool:
-        """Plan every render's cascade from the calibration batch's rows per
-        chunk, after settling the tiles into the float64 host images; the
-        count tiles go (calibration happens once).
-
-        The dispatch compares the planned cascades' modeled cost per batch
-        with the sort fold's on the same live rows. Where the sort fold wins
-        and IHT_FOLD is "auto" the engine demotes to it: the settled images
-        become the dense accumulators, once. Returns True if demoted (the
-        caller then calibrates the sort fold's prepass)."""
-        R = len(self.proj_plans)
-        nlo = sandwich_mod.NLO
-        for r in range(R):
-            self._settled[r] = self._sandwich_dense64(r)
-        new_levels = []
-        sandwich_ms = sort_ms = 0.0
-        for r in range(R):
-            nc = self._n_chunks[r]
-            n_rows = self._rows_per_render[r]
-            live = float(live_avg[r])
-            ci = self._count_tile_index(r)
-            if ci is None:
-                new_levels.append(self._levels[r])
-                sandwich_ms += n_rows * (self._C_PREP + self._C_BASE + nc * self._C_CHUNKROW)
-            else:
-                counts = self.accum[ci].cpu().numpy().astype(np.float64)     # [nc, 128]
-                levels, cost = self._sandwich_plan_levels(
-                    nc, n_rows, live, counts.sum(axis=1) / max(1, n_steps))
-                new_levels.append(levels)
-                sandwich_ms += cost
-            keep_s = min(n_rows, max(1.0, live * self._KEEP_MARGIN))
-            sort_ms += (self._C_PACK * n_rows + self._C_SORT_FIX
-                        + (keep_s + nc * nlo) * self._C_SORT_ROW)
-        self.fold_costs = {"sandwich_ms": sandwich_ms, "sort_ms": sort_ms}
-        landed = self.accum[-1]
-        self._calibrating = False
-        if self._fold_choice == "auto" and sort_ms < sandwich_ms:
-            self.fold_decision = (
-                f"calibrated: sort fold (modeled sort {sort_ms:.3f} ms < "
-                f"sandwich {sandwich_ms:.3f} ms per batch)")
-            # The tiles are already in _settled: it is the image, taken once.
-            self._sandwich_on = False
-            self.accum = [torch.as_tensor(img.astype(np.float32)).to(self.device)
-                          for img in self._settled] + [landed]
-            return True
-        self.fold_decision = (
-            f"calibrated: sandwich cascade (modeled sandwich {sandwich_ms:.3f} ms <= "
-            f"sort {sort_ms:.3f} ms per batch)"
-            if self._fold_choice == "auto" else f"pinned by IHT_FOLD={self._fold_choice}")
-        self._levels = new_levels
-        self._set_tile_slices()
-        # New tiles in the new layout; the mass so far lives in _settled.
-        self.accum = [
-            torch.zeros((int(clist.shape[0]), 3 * nlo), dtype=F32, device=self.device)
-            for levels in self._levels for clist, _keep in levels
-        ] + [landed]
-        return False
-
     def reset(self) -> None:
         """One accumulator per render, [H*W, 3 + n_classes] (XYZ plus one Y
-        lane per colour class), then the [R] landed weights. On the sandwich
-        fold: per render one [NC, 3*128] tile per level, then (while
-        calibrating) one [chunks, 128] row-count tile per render with several
-        levels, then the landed weights; the dense image is assembled on the
-        host at read-out."""
+        lane per colour class), then the [R] landed weights."""
         dev = self.device
-        if self._sandwich_on:
-            nlo = sandwich_mod.NLO
-            self.accum = [
-                torch.zeros((int(clist.shape[0]), 3 * nlo), dtype=F32, device=dev)
-                for levels in self._levels for clist, _keep in levels
-            ]
-            if self._calibrating:
-                self.accum += [
-                    torch.zeros((self._n_chunks[r], nlo), dtype=F32, device=dev)
-                    for r in range(len(self.proj_plans)) if len(self._levels[r]) > 1
-                ]
-            self._settled = [np.zeros((p.height * p.width, 3), np.float64)
-                             for p in self.proj_plans]
-        else:
-            n_ch = 3 + len(self.color_classes)
-            self.accum = [
-                torch.zeros((p.height * p.width, n_ch), dtype=F32, device=dev)
-                for p in self.proj_plans
-            ]
+        n_ch = 3 + len(self.color_classes)
+        self.accum = [
+            torch.zeros((p.height * p.width, n_ch), dtype=F32, device=dev)
+            for p in self.proj_plans
+        ]
         self.accum.append(torch.zeros(len(self.proj_plans), dtype=F32, device=dev))
         self.stats = Stats(
             deterministic_crystal_count=self.det_crystal_count,
@@ -954,19 +591,26 @@ class Engine:
             return "cuda-trace-kernel" if path == "trace-kernel" else "general"
         return "plain-torch" if path == "trace-kernel" else "plain-torch (general)"
 
-    def _resolved_accum_method(self) -> str:
-        """'sort', 'scatter', or 'sort-legacy' when the sort fold was asked
-        for and the (pixel, wavelength) keys do not pack into 32 bits."""
+    @property
+    def fold_kind(self) -> str:
+        """The fold this engine runs: 'sort', 'scatter', or 'sort-legacy'
+        when the sort fold was asked for and the (pixel, wavelength) keys do
+        not pack into 32 bits."""
         if self.accum_method == "sort" and not self.spectral_ok:
             return "sort-legacy"
         return self.accum_method
 
     @property
-    def fold_kind(self) -> str:
-        """The fold this engine runs now: 'sandwich', 'sort', 'sort-legacy'
-        or 'scatter'. An engine that started on the sandwich and was demoted
-        at calibration says 'sort'; ``fold_decision`` says why."""
-        return "sandwich" if self._sandwich_on else self._resolved_accum_method()
+    def fold_decision(self) -> str:
+        """Why the engine folds as ``fold_kind`` says."""
+        method = self.fold_kind
+        if method == "sort-legacy":
+            return "sort-legacy: (pixel, wavelength) keys do not pack into 32 bits"
+        if method != "sort":
+            return f"accum method {method!r}"
+        if self._trace_plan is not None:
+            return "sort fold: the trace kernel emits packed sort keys"
+        return "sort fold"
 
     # ------------------------------------------------------------------
     # Pool sampler
@@ -1334,9 +978,7 @@ class Engine:
         overflow; else always the compacted fold."""
         n_classes = len(self.color_classes)
         lanes = tuple(self.color_classes)
-        if self._sandwich_on:
-            return self._fold_batch_sandwich(contribs, host_choice)
-        method = self._resolved_accum_method()
+        method = self.fold_kind
         if method != "sort":
             # Dense value rows: the scatter oracle, or the sort fold of keys
             # that do not pack.
@@ -1379,45 +1021,6 @@ class Engine:
             return [True] * len(lives)
         self.host_syncs += 1
         return [k is None or n <= k for n, k in zip(lives.tolist(), keep)]
-
-    def _fold_batch_sandwich(self, contribs, host_choice: bool = False):
-        """The sandwich fold of one batch: per render the cascade of
-        `_sandwich_fold_r`, its level tiles, count tile and
-        ``last_level_rows`` updated in place. Without host_choice no host
-        read (what a CUDA graph captures); with it the live counts are read
-        once for all renders where some first level compacts, and each
-        compacted level's entrants once. Returns (live rows per render [R]
-        on the device, over: a device bool or None, as _fold_batch)."""
-        dev = self.device
-        packed = []
-        for r, (pix, w, wl_idx, _mask) in enumerate(contribs):
-            P = self.proj_plans[r].height * self.proj_plans[r].width
-            packed.append(accum_mod.pack_spectral_keys(pix, w, wl_idx, P, self.k_pool))
-        lives = torch.stack([wz.gt(0.0).sum() for _key, wz in packed])
-        n_live = list(lives)
-        if host_choice and any(levels[0][1] is not None and levels[0][1] < key.shape[0]
-                               for levels, (key, _wz) in zip(self._levels, packed)):
-            n_live = lives.tolist()
-            self.host_syncs += 1
-        over = None
-        lasts = []
-        for r, (key, wz) in enumerate(packed):
-            s0, s1 = self._tile_slices[r]
-            ci = self._count_tile_index(r)
-            pix, _w, wl_idx, _mask = contribs[r]
-            tiles, ct, n_last, o = self._sandwich_fold_r(
-                r, self.accum[s0:s1], key, wz, n_live[r],
-                None if ci is None else (self.accum[ci], pix, wl_idx), host_choice)
-            for acc, tile in zip(self.accum[s0:s1], tiles):
-                if tile is not acc:
-                    acc.copy_(tile)
-            if ci is not None:
-                self.accum[ci].copy_(ct)
-            over = _or(over, o)
-            lasts.append(n_last if isinstance(n_last, torch.Tensor)
-                         else torch.full((), n_last, dtype=I64, device=dev))
-        self.last_level_rows.copy_(torch.stack(lasts))
-        return lives, over
 
     # ------------------------------------------------------------------
     # Kernel trace path
@@ -1547,25 +1150,21 @@ class Engine:
         if not self.graphs:
             return "eager (graphs off)"
         if not self._calibrated:
-            # Its plan, and on the sandwich fold its count tile, go at
-            # calibration: a capture would be used by this dispatch alone and
-            # would hold a second copy of the batch's memory beside the
-            # warm-up's.
+            # Its plan goes at calibration: a capture would be used by this
+            # dispatch alone and would hold a second copy of the batch's
+            # memory beside the warm-up's.
             return "eager (the calibrating dispatch; captured once calibrated)"
-        if self._resolved_accum_method() != "sort":
-            return f"eager (the {self._resolved_accum_method()} fold does not capture)"
+        if self.fold_kind != "sort":
+            return f"eager (the {self.fold_kind} fold does not capture)"
         return "cuda graph"
 
     def _graph_key(self):
-        """What a captured batch assumed: the plan it was built under (on the
-        sandwich fold each level's chunk list, by address, and keep), the
+        """What a captured batch assumed: the plan it was built under, the
         shard (its ray base is a constant of the graph), the addresses it
         reads and writes, and whether the tracer was on (its stage timers
         are nodes of the graph)."""
-        levels = (tuple((clist.data_ptr(), keep) for lv in self._levels for clist, keep in lv)
-                  if self._sandwich_on else None)
         return (self._compact_keep, self._slot_cap, tuple(l.cont_cap for l in self.layers),
-                self.fold_kind, levels, self.shard, tuple(t.data_ptr() for t in self.accum),
+                self.fold_kind, self.shard, tuple(t.data_ptr() for t in self.accum),
                 tuple(t.data_ptr() for t in self._dev), profiling.is_tracing())
 
     def _step(self, graph: bool, traced: bool = False) -> None:
@@ -1599,12 +1198,10 @@ class Engine:
 
     def _overflow_possible(self) -> bool:
         """Whether a batch can take a compacted branch that its rows
-        overflow: a render with keep, a sandwich level with keep, or a
-        continuation between layers."""
+        overflow: a render with keep, or a continuation between layers."""
         keep = self._compact_keep
         return (keep is not None and any(k is not None for k in keep)) or (
-            self._trace_plan is None and len(self.layers) > 1) or (
-            self._sandwich_on and any(k is not None for lv in self._levels for _cl, k in lv))
+            self._trace_plan is None and len(self.layers) > 1)
 
     def _state(self) -> list:
         """The tensors a dispatch updates, besides the counter."""
@@ -1783,12 +1380,7 @@ class Engine:
             if any(c is not None for c in caps):
                 self._build_plan(cont_caps=caps)
         self._recompute_rows_per_render()
-        if self._sandwich_on:
-            if not self._sandwich_recalibrate(live_avg, n_steps):
-                return
-            # Demoted to the sort fold: its prepass is calibrated from the
-            # same live counts.
-        if not self._compact_enabled or self._resolved_accum_method() != "sort":
+        if not self._compact_enabled or self.fold_kind != "sort":
             return
         block = accum_mod.BLOCK
         keep = []
@@ -1807,21 +1399,15 @@ class Engine:
         """int64 [DIGEST_LEN] digest of the calibrated plan, which every
         shard of a data-parallel run must share (JAX
         ``ShardedEngine._calibration_digest``): the slot cap, keep per
-        render, the continuation lanes per layer, the sandwich levels' chunk
-        counts and keeps, the fold and the trace path (CRC-32 of their
-        names). Fixed length, so that an all-gather of digests cannot
-        mismatch in shape where the plans diverged; the last entry counts
-        the fields."""
+        render, the continuation lanes per layer, the fold and the trace path
+        (CRC-32 of their names). Fixed length, so that an all-gather of
+        digests cannot mismatch in shape where the plans diverged; the last
+        entry counts the fields."""
         parts = [-1 if self._slot_cap is None else self._slot_cap,
                  zlib.crc32(self.fold_kind.encode()), zlib.crc32(self.trace_path.encode())]
         keep = self._compact_keep or (None,) * len(self.proj_plans)
         parts += [len(keep)] + [-1 if k is None else k for k in keep]
         parts += [len(self.layers)] + [plan.cont_cap for plan in self.layers]
-        if self._sandwich_on:
-            for levels in self._levels:
-                parts.append(len(levels))
-                for clist, kb in levels:
-                    parts += [int(clist.shape[0]), -1 if kb is None else kb]
         out = np.zeros(DIGEST_LEN, np.int64)
         n = min(DIGEST_LEN - 1, len(parts))
         out[:n] = parts[:n]
@@ -1846,16 +1432,12 @@ class Engine:
         return self.stats
 
     def raw_xyz(self, render_idx: int = 0) -> np.ndarray:
-        xyz = self._xyz(render_idx)
-        return xyz if isinstance(xyz, np.ndarray) else xyz.cpu().numpy()
+        return self._xyz(render_idx).cpu().numpy()
 
     def _xyz(self, render_idx: int = 0):
-        """``raw_xyz`` where the image lies: a float32 [H, W, 3] view of the
-        accumulator on the engine's device, or on the sandwich fold the
-        numpy image assembled on the host."""
+        """``raw_xyz`` on the engine's device: a float32 [H, W, 3] view of
+        the accumulator."""
         p = self.proj_plans[render_idx]
-        if self._sandwich_on:
-            return self._sandwich_dense(render_idx).reshape(p.height, p.width, 3)
         return self.accum[render_idx][:, :3].reshape(p.height, p.width, 3)
 
     def lane_y(self, render_idx: int = 0) -> Optional[np.ndarray]:
@@ -1883,13 +1465,12 @@ class Engine:
 
     def snapshot(self):
         """uint8 sRGB image per render, post-processed on the engine's
-        device (the sandwich fold's host image uploaded, as JAX's snapshot
-        does); only the uint8 image comes to the host."""
+        device; only the uint8 image comes to the host."""
         landed = self.accum[-1].cpu().numpy()
         images = []
         for r, rcfg in enumerate(self.cfg.renders):
             images.append(color.post_process(
-                torch.as_tensor(self._xyz(r)).to(self.device), rcfg.intensity_factor,
+                self._xyz(r), rcfg.intensity_factor,
                 float(landed[r]),
                 rcfg.background, rcfg.ray_color,
                 use_real_color=rcfg.ray_color[0] < 0,

@@ -26,8 +26,7 @@ Differences from the JAX module, all deliberate:
     sequential oracle of its slow tests);
   - the dropped weight and the segments are read once per ``run`` (JAX sums
     them over devices per batch and reads once);
-  - the drain sums the shards in shard order on the first shard's device;
-    on the sandwich fold ``raw_xyz`` sums each shard's dense float64 image.
+  - the drain sums the shards in shard order on the first shard's device.
 """
 
 from __future__ import annotations
@@ -66,7 +65,7 @@ class ShardedEngine:
     as JAX's one inner engine does (one batch at shard (0, 1), then
     ``reset()``, which keeps the plan), then takes its shard; the shards'
     calibration digests must agree. calibrate=False: uncapped, uncompacted
-    and exact (the sandwich fold keeps its levels from before calibration).
+    and exact.
     """
 
     def __init__(self, cfg: ProjectConfig, mesh: Optional[list] = None, seed: int = 1,
@@ -82,13 +81,6 @@ class ShardedEngine:
                 eng.run(n_batches=1)
                 eng.reset()
             else:
-                if eng._sandwich_on:
-                    # The levels from before calibration, which are exact by
-                    # construction (misses cascade to the full-coverage
-                    # level); no count tiles.
-                    eng._calibrating = False
-                    eng._calibrated = True
-                    eng.reset()
                 if eng._slot_cap is None:
                     eng._slot_cap = eng.max_hits
                 eng._calibrated = True
@@ -187,8 +179,7 @@ class ShardedEngine:
 
     def drained_accum(self) -> list:
         """The accumulators summed over shards in shard order, on the first
-        shard's device. (On the sandwich fold these are the level tiles and
-        the landed weights; ``raw_xyz`` gives the image.)"""
+        shard's device."""
         dev0 = self.engine.device
         out = [a.to(dev0, copy=True) for a in self.engine.accum]
         for eng in self.engines[1:]:
@@ -197,23 +188,15 @@ class ShardedEngine:
         return [self._reduce(o) for o in out]
 
     def _xyz(self, r: int, drained=None):
-        """Render r's summed XYZ image [H, W, 3] float32 where it lies: on
-        the first shard's device, or on the sandwich fold the numpy image
-        summed on the host in float64."""
+        """Render r's summed XYZ image [H, W, 3] float32 on the first
+        shard's device."""
         p = self.engine.proj_plans[r]
-        if self.engine._sandwich_on:
-            img = self.engines[0]._sandwich_dense64(r)
-            for eng in self.engines[1:]:
-                img = img + eng._sandwich_dense64(r)
-            img = self._reduce(torch.from_numpy(img)).numpy().astype(np.float32)
-            return img.reshape(p.height, p.width, 3)
         if drained is None:
             drained = self.drained_accum()
         return drained[r][:, :3].reshape(p.height, p.width, 3)
 
     def raw_xyz(self, render_idx: int = 0) -> np.ndarray:
-        xyz = self._xyz(render_idx)
-        return xyz if isinstance(xyz, np.ndarray) else xyz.cpu().numpy()
+        return self._xyz(render_idx).cpu().numpy()
 
     def snapshot(self):
         """uint8 sRGB image per render, from the drained accumulators,
@@ -223,7 +206,7 @@ class ShardedEngine:
         images = []
         for r, rcfg in enumerate(self.cfg.renders):
             images.append(color.post_process(
-                torch.as_tensor(self._xyz(r, drained)).to(self.engine.device),
+                self._xyz(r, drained),
                 rcfg.intensity_factor, float(landed[r]),
                 rcfg.background, rcfg.ray_color, use_real_color=rcfg.ray_color[0] < 0,
             ))

@@ -24,9 +24,10 @@ Two kinds of experiment:
   as it did when it crashed; the run passes when it gets past that verdict.
   `--before DIR` is a checkout of the port before the repair (its
   ``_fold_verdict`` timed with CUDA events, and the cut run puts it back
-  under the profiler), `--parent DIR` one of that checkout's parent, and
-  without either the cut runs use this checkout. An experiment whose
-  checkout was not given is listed as not run.
+  under the profiler), `--parent DIR` one of that checkout's parent. The
+  verdict left ``chip_smoke.py`` with the fold it timed, so a cut runs only
+  on such a checkout; an experiment whose checkout was not given is listed
+  as not run.
 
 Environment settings are given to a child explicitly, the old value where
 an experiment repeats the state before the repair.
@@ -99,7 +100,6 @@ EXPERIMENTS = {
     "before-no-teardown": ("before the repair, TEARDOWN_CUPTI=0 and "
                            "DISABLE_CUPTI_LAZY_REINIT=1", "cut", "before",
                            {"TEARDOWN_CUPTI": "0", "DISABLE_CUPTI_LAZY_REINIT": "1"}),
-    "this": ("the cut run on this checkout", "cut", "this", {}),
 }
 
 
@@ -159,7 +159,7 @@ def _command(kind: str, where: str, trees: dict):
         return [sys.executable, "-m", "ice_halo_sim_tpu_torch.probe_profiler",
                 "--toy", where], ROOT
     tree_name, _, extra = where.partition("+")
-    tree = ROOT if tree_name == "this" else trees.get(tree_name)
+    tree = trees.get(tree_name)
     if tree is None:
         return None
     code = (f"TREE = {tree!r}\nFRESH = {extra == 'fresh'}\n"

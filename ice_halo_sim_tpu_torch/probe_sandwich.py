@@ -1,6 +1,5 @@
-"""Probe: the sandwich scatter-add against the sort fold, and the constants
-of the engine's fold dispatch (port of ``scripts/probe_sandwich.py``, whose
-kernel is P1).
+"""Probe: the sandwich scatter-add against index_add_ and the sort fold
+(port of ``scripts/probe_sandwich.py``, whose kernel is P1).
 
     python -m ice_halo_sim_tpu_torch.probe_sandwich
 
@@ -19,19 +18,13 @@ On one CUDA device the probe measures, at the TPU probe's row count
 (N = 3342336 rows over P = 131072 pixels, K = 64, a quarter of them dead):
   1. ``sandwich_iota`` at NHI = 256 (32768 pixels) and 1024 (the whole
      image), with its bf16 rounding error against an exact float64 bincount;
-  2. the port's sort fold (``accum.fold_spectral_keys``) on the same rows;
-  3. the constants of ``Engine._sandwich_plan_levels`` and
-     ``_sandwich_recalibrate``: K7 (``sandwich_pass``, layout "lane") per row
-     and per row and listed chunk from its times at NC = 256 and 1024,
-     ``compact_valid`` (one launch of ``block_ops.compact_rows``) per input
-     row, and the sort fold's fixed and per-row parts from two row counts;
-     then the per-row cost of a
-     level's decode, routing and torch glue, ``_C_PREP``, fitted to the
-     engine's own sandwich fold on three scenes (``fold_prep``; the probe's
-     own decode-and-routing figure stays beside it as ``_C_PREP_probe``).
+  2. K7 (``sandwich_pass``, layout "lane") over the 256 chunks that hold most
+     rows and over every chunk, beside one ``index_add_`` of the same rows
+     into the image;
+  3. the port's sort fold (``accum.fold_spectral_keys``) on the same rows.
 All times are device time (torch.profiler), printed with the card's name and
-power limit; the last line is one JSON object with the constants in ms, the
-times they were computed from and how those were taken (``timed_by``).
+power limit; the last line is one JSON object with the times and how they
+were taken (``timed_by``).
 """
 
 from __future__ import annotations
@@ -44,7 +37,7 @@ import numpy as np
 import torch
 
 from ice_halo_sim_tpu_torch.core import accum, sandwich
-from ice_halo_sim_tpu_torch.core.bits import F32, I32, from_bits
+from ice_halo_sim_tpu_torch.core.bits import F32, I32
 from ice_halo_sim_tpu_torch.kernels import build, kernel_set
 from ice_halo_sim_tpu_torch.utils.profiling import device_profile
 
@@ -160,166 +153,6 @@ def bincount_image(pix, w, wl, tbl, n_pixels: int) -> np.ndarray:
                      for c in range(tbl.shape[1])], axis=1)
 
 
-def measure_constants(dev, pix, w, wl, tbl, n_pixels: int, k_pool: int) -> dict:
-    """The fold dispatch's cost constants, in ms, from this card, and the
-    times they come from."""
-    ks = kernel_set("cuda")
-    n = pix.shape[0]
-    nc_all = n_pixels // NLO
-    chunk = torch.div(pix, NLO, rounding_mode="floor")
-    rows_per_chunk = torch.bincount(chunk[chunk >= 0], minlength=nc_all)
-    top = torch.argsort(rows_per_chunk, descending=True)
-
-    def k7(nc):
-        cl = torch.sort(top[:nc])[0].to(I32) if nc < nc_all else \
-            torch.arange(nc_all, dtype=I32, device=dev)
-        tile = torch.zeros((nc, 3 * NLO), dtype=F32, device=dev)
-        return device_ms(lambda: sandwich.sandwich_pass(tile, cl, pix, w, wl, tbl,
-                                                        k_pool=k_pool))
-
-    t256, t1024 = k7(256), k7(min(1024, nc_all))
-    chunkrow = (t1024 - t256) / (n * (min(1024, nc_all) - 256))
-    base = t256 / n - 256 * chunkrow
-
-    key, wz = accum.pack_spectral_keys(pix, w, wl, n_pixels, k_pool)
-    shift = accum.key_shift(k_pool)
-    m = (torch.arange(n, device=dev) % 3 == 0).to(I32)
-
-    def prep():
-        kk = from_bits(key)
-        p, l = (kk >> shift).to(I32), ((kk >> 1) & (k_pool - 1)).to(I32)
-        miss = m == 0
-        nk = torch.where(miss & (wz > 0.0), key, -1)
-        nw = torch.where(miss, wz, 0.0)
-        return p, l, nk, nw, (nw > 0.0).sum()
-
-    t_prep = device_ms(prep)
-    live = int((wz > 0.0).sum())
-    keep = -(-int(live * 1.06) // accum.BLOCK) * accum.BLOCK
-    t_pack = device_ms(lambda: accum.compact_valid(key, [wz], keep, ks))
-
-    acc0 = torch.zeros((n_pixels, 3), dtype=F32, device=dev)
-
-    def sort_fold(rows):
-        return device_ms(lambda: accum.fold_spectral_keys(
-            acc0, key[:rows], wz[:rows], k_pool, tbl, ks))
-
-    n1, n2 = n // 4, n
-    s1, s2 = sort_fold(n1), sort_fold(n2)
-    sort_row = (s2 - s1) / (n2 - n1)
-    sort_fix = s1 - (n1 + n_pixels) * sort_row
-    print(f"K7 lane at N = {n}: NC 256 {t256:.4f} ms, NC {min(1024, nc_all)} {t1024:.4f} ms; "
-          f"decode and routing {t_prep:.4f} ms; compact_valid to keep {keep} {t_pack:.4f} ms; "
-          f"sort fold {n1} rows {s1:.4f} ms, {n2} rows {s2:.4f} ms", flush=True)
-    return {"_C_PREP": t_prep / n, "_C_BASE": base, "_C_CHUNKROW": chunkrow,
-            "_C_PACK": t_pack / n, "_C_SORT_FIX": sort_fix, "_C_SORT_ROW": sort_row,
-            "from_ms": {"rows": n, "k7_nc256": t256, f"k7_nc{min(1024, nc_all)}": t1024,
-                        "prep": t_prep, "compact_valid": t_pack, "sort_rows": [n1, n2],
-                        "sort": [s1, s2]}}
-
-
-def _calibrated_engine(doc, fold: str, dev, batch: int = 112 * 2048):
-    """A general-path engine of `doc` under IHT_FOLD=`fold`, after its
-    calibration batch and two steady ones."""
-    import os
-
-    from ice_halo_sim_tpu_torch.config.loader import load_project
-    from ice_halo_sim_tpu_torch.engine.simulator import Engine
-
-    knobs = {"IHT_FOLD": fold, "IHT_PALLAS_TRACE": "0"}
-    old = {k: os.environ.get(k) for k in knobs}
-    os.environ.update(knobs)
-    try:
-        eng = Engine(load_project(doc), seed=7, batch_size=batch, device=dev)
-    finally:
-        for k, v in old.items():
-            if v is None:
-                del os.environ[k]
-            else:
-                os.environ[k] = v
-    eng.run(n_batches=1)
-    eng.run(n_batches=2)
-    return eng
-
-
-def _steady_contribs(eng, batch_counter: int = 100):
-    return eng._trace_batch_impl(batch_counter)[0]
-
-
-def fold_prep(dev, consts: dict) -> dict:
-    """_C_PREP against the engine's own sandwich fold, glue included.
-
-    On MS_CFG, BENCH_CFG (general path) and SUNDOG_CFG, one steady batch's
-    contribution rows go through the calibrated engine's sandwich fold
-    (IHT_FOLD=sandwich) and through the sort fold of an IHT_FOLD=sort engine,
-    each timed whole (device time). Both folds first pack the rows' keys;
-    that shared part (timed alone) cancels in the dispatch's comparison and
-    is taken off both. What is left of the sandwich fold, less the terms the
-    K7 and compact_valid constants model (chunk rows, compacted rows), is per
-    row of the levels the dispatch's row cost _C_PREP + _C_BASE: the fit is
-    their sums over the three scenes, and _C_PREP the rest after _C_BASE.
-    Returns the fitted constant, with each scene's times, the model's terms
-    and the costs the dispatch models with the fit beside the measured ones."""
-    from ice_halo_sim_tpu_torch import scenes
-
-    per_scene = []
-    for name, doc in (("ms", scenes.MS_CFG), ("bench (general path)", scenes.BENCH_CFG),
-                      ("sundog", scenes.SUNDOG_CFG)):
-        sw = _calibrated_engine(doc, "sandwich", dev)
-        so = _calibrated_engine(doc, "sort", dev)
-        c_sw, c_so = _steady_contribs(sw), _steady_contribs(so)
-
-        def pack_keys(eng=sw, contribs=c_sw):
-            for r, (pix, w, wl_idx, _mask) in enumerate(contribs):
-                P = eng.proj_plans[r].height * eng.proj_plans[r].width
-                _key, wz = accum.pack_spectral_keys(pix, w, wl_idx, P, eng.k_pool)
-                (wz > 0.0).sum()
-
-        t_glue = device_ms(pack_keys, 5)
-        t_sw = device_ms(lambda: sw._fold_batch_sandwich(c_sw), 5)
-        t_so = device_ms(lambda: so._fold_batch(c_so, so._compact_keep), 5)
-        rows_t = chunk_t = pack_t = sort_rows = 0.0
-        for r, levels in enumerate(sw._levels):
-            n = sw._rows_per_render[r]
-            for clist, keep in levels:
-                if keep is not None and keep < n:
-                    pack_t += n
-                    n = keep
-                rows_t += n
-                chunk_t += n * int(clist.shape[0])
-        n_renders = len(so.proj_plans)
-        for r in range(n_renders):
-            keep = so._compact_keep[r] if so._compact_keep else None
-            n = so._rows_per_render[r]
-            sort_rows += (keep if keep is not None and keep < n else n) + \
-                so.proj_plans[r].height * so.proj_plans[r].width
-        per_scene.append({
-            "scene": name, "fold_sandwich_ms": t_sw, "fold_sort_ms": t_so,
-            "shared_key_pack_ms": t_glue, "level_rows": rows_t, "chunk_rows": chunk_t,
-            "compacted_rows": pack_t, "sort_rows": sort_rows, "renders": n_renders,
-            "rows": float(sum(so._rows_per_render)),
-            "levels": [[(int(cl.shape[0]), keep) for cl, keep in lv] for lv in sw._levels]})
-        del sw, so
-        torch.cuda.empty_cache()
-    rest = sum(x["fold_sandwich_ms"] - x["shared_key_pack_ms"]
-               - consts["_C_CHUNKROW"] * x["chunk_rows"] - consts["_C_PACK"] * x["compacted_rows"]
-               for x in per_scene)
-    row_cost = max(rest / sum(x["level_rows"] for x in per_scene), consts["_C_BASE"])
-    prep = row_cost - consts["_C_BASE"]
-    for x in per_scene:
-        x["modeled_sandwich_ms"] = (row_cost * x["level_rows"] + consts["_C_CHUNKROW"]
-                                    * x["chunk_rows"] + consts["_C_PACK"] * x["compacted_rows"])
-        x["modeled_sort_ms"] = (consts["_C_PACK"] * x["rows"] + consts["_C_SORT_FIX"]
-                                * x["renders"] + consts["_C_SORT_ROW"] * x["sort_rows"])
-        x["measured_less_shared_ms"] = [x["fold_sandwich_ms"] - x["shared_key_pack_ms"],
-                                        x["fold_sort_ms"] - x["shared_key_pack_ms"]]
-        print(f"engine fold on {x['scene']}: sandwich {x['fold_sandwich_ms']:.4f} ms, sort "
-              f"{x['fold_sort_ms']:.4f} ms, their shared key pack {x['shared_key_pack_ms']:.4f} ms;"
-              f" modeled (without it) sandwich {x['modeled_sandwich_ms']:.4f}, sort "
-              f"{x['modeled_sort_ms']:.4f}; levels {x['levels']}", flush=True)
-    return {"_C_PREP": prep, "scenes": per_scene}
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("probe_sandwich: no CUDA device", file=sys.stderr)
@@ -342,19 +175,33 @@ def main() -> int:
         err = np.abs(img - ref).sum() / max(ref.sum(), 1e-9)
         print(f"sandwich_iota NHI={nhi:5d}: {ms:8.4f} ms  relL1={err:.2e}", flush=True)
 
+    times = {}
+    nc_all = P // NLO
+    chunk = torch.div(pix, NLO, rounding_mode="floor")
+    top = torch.argsort(torch.bincount(chunk[chunk >= 0], minlength=nc_all), descending=True)
+    for nc in (256, nc_all):
+        cl = (torch.sort(top[:nc])[0].to(I32) if nc < nc_all
+              else torch.arange(nc_all, dtype=I32, device=dev))
+        tile = torch.zeros((nc, 3 * NLO), dtype=F32, device=dev)
+        times[f"k7_nc{nc}"] = device_ms(
+            lambda: sandwich.sandwich_pass(tile, cl, pix, w, wl, tbl, k_pool=K))
+    # A dead row adds its zero to a pixel of its own, not to one pixel on
+    # which a quarter of the rows' atomic adds would queue.
+    idx = torch.where(pix >= 0, pix.long(), torch.arange(N, device=dev) % P)
+    vals = tbl[wl.long()] * w[:, None]
+    image = torch.zeros((P, 3), dtype=F32, device=dev)
+    times["index_add"] = device_ms(lambda: image.index_add_(0, idx, vals))
+    print(f"K7 lane: NC 256 {times['k7_nc256']:8.4f} ms, NC {nc_all} "
+          f"{times[f'k7_nc{nc_all}']:8.4f} ms; index_add_ {times['index_add']:8.4f} ms",
+          flush=True)
+
     key, wz = accum.pack_spectral_keys(pix, w, wl, P, K)
     acc0 = torch.zeros((P, 3), dtype=F32, device=dev)
     ks = kernel_set("cuda")
-    ms = device_ms(lambda: accum.fold_spectral_keys(acc0, key, wz, K, tbl, ks))
-    print(f"fold_spectral_keys (sort):  {ms:8.4f} ms", flush=True)
-
-    timed_by()
-    consts = measure_constants(dev, pix, w, wl, tbl, P, K)
-    fit = fold_prep(dev, consts)
-    consts["_C_PREP_probe"] = consts["_C_PREP"]
-    consts["_C_PREP"] = fit["_C_PREP"]
-    consts["engine_folds"] = fit["scenes"]
-    print(json.dumps({"card": card, "constants_ms": consts, "timed_by": timed_by()}))
+    times["sort_fold"] = device_ms(lambda: accum.fold_spectral_keys(acc0, key, wz, K, tbl, ks))
+    print(f"fold_spectral_keys (sort):  {times['sort_fold']:8.4f} ms", flush=True)
+    print(json.dumps({"card": card, "rows": N, "pixels": P, "ms": times,
+                      "timed_by": timed_by()}))
     return 0
 
 

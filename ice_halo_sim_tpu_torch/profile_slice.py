@@ -4,19 +4,14 @@ fits, as the bench matrix fits it), calibrated steady state, under
 torch.profiler (``utils.profiling``).
 
     python -m ice_halo_sim_tpu_torch.profile_slice [--scene bench,pool,...|all]
-        [--fold sort,sandwich] [--batches 10] [--graphs on|off] [--out FILE]
-        [--device cuda|cpu]
+        [--batches 10] [--graphs on|off] [--out FILE] [--device cuda|cpu]
 
 Scenes: bench (BENCH_CFG, the static trace mode), pool (POOL_CFG, the
 blocked-pool mode with its per-batch pool sampler), ms, color, sundog
 (MS_CFG, COLOR_CFG, SUNDOG_CFG: the general trace path), multi, complex,
-bd, pyramid (the stand-ins of the reference's bench scenes). ``--fold``
-gives IHT_FOLD to each engine (it touches the general path only; the
-trace kernel path has no fold to choose); every scene runs under every
-fold named, and a scene the sandwich cascade does not take is reported as
-skipped there.
+bd, pyramid (the stand-ins of the reference's bench scenes).
 
-Per window (scene x fold) the report prints the card (nvidia-smi name and
+Per window (one scene) the report prints the card (nvidia-smi name and
 power limit), the wall time per batch, the device time per operation name
 (CUDA time summed over the window) and the device idle share = 1 - (sum of
 device time) / wall time (the operations of one stream do not overlap
@@ -27,9 +22,8 @@ no kernel of the port are also run alone under the profiler, so that each
 reads off one line: the pool sampler (every layer's), and on the general
 path the whole general trace (samplers, trace, gates, projection,
 continuation) and the continuation alone (on the inputs of a captured
-batch); the folds are the rest. On the general path the report names the
-fold (``Engine.fold_kind`` and ``fold_decision``) and, on the sandwich
-fold, its levels. Each window also
+batch); the fold is the rest. On the general path the report names the
+fold (``Engine.fold_kind`` and ``fold_decision``). Each window also
 prints one JSON line: wall (and wall in the window), busy, kernels and
 idle share per batch, the five operations that took the most device
 time, host reads per dispatch.
@@ -75,7 +69,7 @@ def _knobs(kv: dict):
                 os.environ[k] = v
 
 
-def _engine(doc, batch: int, fold, device: str, graphs: bool, batches: int):
+def _engine(doc, batch: int, device: str, graphs: bool, batches: int):
     """A calibrated Engine in steady state (one calibrating batch, then a
     dispatch of three), at `batch` halved after each out-of-memory error
     (bench_matrix.measure_cell's rule). Returns (engine, batch, how the batch
@@ -87,8 +81,6 @@ def _engine(doc, batch: int, fold, device: str, graphs: bool, batches: int):
     from ice_halo_sim_tpu_torch.engine.simulator import Engine
 
     knobs = {"IHT_STEPS_PER_DISPATCH": str(batches)}
-    if fold is not None:
-        knobs["IHT_FOLD"] = fold
     b = batch
     for attempt in range(4):
         eng = None
@@ -111,9 +103,9 @@ def _engine(doc, batch: int, fold, device: str, graphs: bool, batches: int):
     raise AssertionError("unreachable")
 
 
-def profile_window(scene: str, fold, batches: int, batch: int, graphs: bool, device: str,
+def profile_window(scene: str, batches: int, batch: int, graphs: bool, device: str,
                    card: str):
-    """(report lines, summary dict) of one scene under one fold."""
+    """(report lines, summary dict) of one scene."""
     import torch
 
     from ice_halo_sim_tpu_torch import scenes
@@ -121,15 +113,11 @@ def profile_window(scene: str, fold, batches: int, batch: int, graphs: bool, dev
 
     cuda = device != "cpu"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    eng, batch, decided = _engine(getattr(scenes, SCENES[scene]), batch, fold, device,
-                                  graphs, batches)
-    head = {"scene": scene, "iht_fold": fold, "fold": eng.fold_kind,
-            "fold_decision": eng.fold_decision, "batch": batch, "batch_decision": decided,
-            "graph_mode": eng.graph_mode, "card": card}
-    if fold == "sandwich" and eng.fold_kind != "sandwich":
-        eng = None
-        return [f"scene {scene}, IHT_FOLD={fold}: skipped ({head['fold_decision']})"], {
-            **head, "skipped": True}
+    eng, batch, decided = _engine(getattr(scenes, SCENES[scene]), batch, device, graphs,
+                                  batches)
+    head = {"scene": scene, "fold": eng.fold_kind, "fold_decision": eng.fold_decision,
+            "batch": batch, "batch_decision": decided, "graph_mode": eng.graph_mode,
+            "card": card}
     # The wall: one dispatch of `batches` timed outside the profiler, which
     # adds host time to every launch; the window then profiles the next one.
     eng.run(n_batches=1)
@@ -186,14 +174,7 @@ def profile_window(scene: str, fold, batches: int, batch: int, graphs: bool, dev
             eng._continuation = inner
             label_lines.append(line(f"continuation ({len(got)} per batch)", *alone(
                 lambda i: [inner(*a) for a in got])))
-        costs = "" if eng.fold_costs is None else (
-            f"; modeled ms per batch: sandwich {eng.fold_costs['sandwich_ms']:.4f}, sort "
-            f"{eng.fold_costs['sort_ms']:.4f}")
-        label_lines.append(f"fold {eng.fold_kind} ({eng.fold_decision}){costs}")
-        if eng.fold_kind == "sandwich":
-            label_lines.append("sandwich levels (listed chunks, keep) per render: " + str(
-                [[(int(cl.shape[0]), keep) for cl, keep in lv] for lv in eng._levels])
-                + f"; rows into the last level {[int(n) for n in eng.last_level_rows]}")
+        label_lines.append(f"fold {eng.fold_kind} ({eng.fold_decision})")
         label_lines.append(
             f"trace path {eng.trace_path}: slot cap {eng._slot_cap}, keep {eng._compact_keep}, "
             f"lanes per layer {[l.cont_cap for l in eng.layers]}")
@@ -210,7 +191,7 @@ def profile_window(scene: str, fold, batches: int, batch: int, graphs: bool, dev
     not_measured = "not measured"
     lines = [
         f"card: {card}",
-        f"scene {scene} (IHT_FOLD={fold}), batch {batch} ({decided}), {batches} batches, "
+        f"scene {scene}, batch {batch} ({decided}), {batches} batches, "
         f"wall {wall * 1e3 / batches:.4f} ms/batch, {batches * batch / wall:.6g} rays/s "
         f"(in the profiled window {wall_in_window * 1e3 / batches:.4f} ms/batch)",
         f"device busy {not_measured if busy is None else f'{busy:.4f}'} ms/batch, idle share "
@@ -234,9 +215,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scene", default="bench",
                     help=f"comma-separated, of {', '.join(SCENES)}; or all")
-    ap.add_argument("--fold", default=None,
-                    help="comma-separated IHT_FOLD values (sort, auto, sandwich); default: "
-                         "the knob as it is")
     ap.add_argument("--batches", type=int, default=10)
     ap.add_argument("--batch-size", type=int, default=BATCH)
     ap.add_argument("--graphs", choices=("on", "off"), default="on")
@@ -247,9 +225,6 @@ def main(argv=None) -> int:
     unknown = [s for s in names if s not in SCENES]
     if unknown:
         ap.error(f"unknown scenes {unknown}; known: {', '.join(SCENES)}")
-    folds = [None] if args.fold is None else args.fold.split(",")
-    if any(f not in (None, "sort", "auto", "sandwich") for f in folds):
-        ap.error(f"--fold takes sort, auto and sandwich, got {args.fold!r}")
 
     import torch
 
@@ -261,13 +236,12 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     reports = []
-    for fold in folds:
-        for scene in names:
-            lines, summary = profile_window(scene, fold, args.batches, args.batch_size,
-                                            args.graphs == "on", args.device, card)
-            lines.append(json.dumps(summary))
-            print("\n".join(lines), flush=True)
-            reports += lines + [""]
+    for scene in names:
+        lines, summary = profile_window(scene, args.batches, args.batch_size,
+                                        args.graphs == "on", args.device, card)
+        lines.append(json.dumps(summary))
+        print("\n".join(lines), flush=True)
+        reports += lines + [""]
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

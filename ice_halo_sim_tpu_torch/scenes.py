@@ -32,8 +32,7 @@ leaves the compaction prepass off and the mask column would never ride it.
 
 ``SUNDOG_CFG``: ``BENCH_CFG``'s light and render with ``MS_CFG``'s plates
 and its ray-path filter ([3, 5], the parhelia) on the one layer: few
-contribution rows, crowded into few image chunks, the scene on which the
-fold dispatch's model favours the sandwich cascade most.
+contribution rows, crowded into few image chunks.
 
 The reference bench scenes: ``MULTI_CFG``, ``COMPLEX_CFG``, ``BD_CFG`` and
 ``PYRAMID3_CFG`` are stand-ins built from the repo's description of the

@@ -4,41 +4,39 @@ The reference funnels every ``LUMICE_*`` getenv through one registered site
 (reference/src/util/env_knobs.hpp:34-115) and CI bans stray getenv
 calls (scripts/check_policies.py:12-15). Same discipline here: all
 environment-variable reads in this package go through this module, every
-knob is declared in ``KNOBS`` with a docstring, and tests can enumerate the
-registry.
+knob is declared in ``KNOBS`` with a docstring and read somewhere in the
+package, and tests enumerate the registry (tests/test_torch_policies.py).
 
 Knobs (all optional; unset means "use the code default"):
-  IHT_BATCH_SIZE     rays per device step (the dispatch grain,
-                     reference LUMICE_DISPATCH_RAY_NUM).
-  IHT_GEOM_CLOCK     rays sharing one sampled crystal shape
-                     (reference LUMICE_GEOM_CLOCK, default 32, safe [1, 64]).
-  IHT_PLATFORM       force a JAX platform ("cpu", "tpu").
-  IHT_SEED           default RNG seed for CLI/server entry points.
-  IHT_SNAPSHOT_EVERY server pump batches between implicit stat drains.
-  IHT_WL_POOL        per-batch wavelength-pool size for continuous spectra
-                     (power of two; reference LUMICE_WL_POOL_SIZE analog —
-                     the accumulation sort packs the pool index into its key).
-  IHT_COMPACT        "0"/"off" disables the calibrated dead-row compaction
-                     prepass before the accumulation fold.
-  IHT_PALLAS         "0"/"off" disables ALL Pallas TPU kernels (the fold
-                     falls back to the pure-XLA formulation) — the runtime
-                     escape hatch for a Mosaic lowering regression.
+  IHT_BATCH_SIZE     rays a batch for the CLI and the Server when the caller
+                     gives none (reference LUMICE_DISPATCH_RAY_NUM).
+  IHT_GEOM_CLOCK     rays sharing one sampled crystal shape, for the CLI and
+                     the Server (reference LUMICE_GEOM_CLOCK, default 32).
+  IHT_PLATFORM       the torch device ("cpu" or "cuda", default "cuda") the
+                     Server, and so the C API, builds its engines on.
+  IHT_SEED           default RNG seed of the CLI and the Server.
+  IHT_SNAPSHOT_EVERY Server pump batches between implicit stat drains.
+  IHT_WL_POOL        wavelength-pool entries for a continuous spectrum
+                     (power of two, reference LUMICE_WL_POOL_SIZE analog;
+                     halved until the fold's (pixel, wavelength) keys pack
+                     into 32 bits).
+  IHT_COMPACT        "0"/"off" disables the calibrated compaction of the
+                     live rows before the sort fold (``keep``).
   IHT_MIN_EMIT_W     emit-time weight floor (fraction of the batch's mean
                      initial ray weight); 0 disables.
   IHT_EMIT_FLOOR     floor mechanism: "rr" (default, unbiased Russian
                      roulette) or "drop" (biased hard drop).
-  IHT_PALLAS_TRACE   "auto" (default) uses the fused Pallas trace
-                     megakernel on qualifying scenes; "0"/"off" forces the
-                     XLA trace path.
-  IHT_SLOT_CAP       per-ray exit-slot cap for the accumulation fold:
-                     "auto" (calibrated; dropped tail < 1e-4 of emitted
-                     mass), "off", or an integer pin. Dropped mass is
-                     accounted into dropped_cont_weight.
-  IHT_SANDWICH       "0"/"off" disables the matmul-sandwich MXU fold (the
-                     renderer falls back to the sort fold).
-  IHT_FOLD           fold dispatch: "auto" (default — calibrate between the
-                     sandwich cascade and the sort fold from the measured
-                     per-chunk row histogram), "sandwich", or "sort".
+  IHT_PALLAS_TRACE   "auto" (default) takes the trace kernel (K2, K2b) on
+                     the scenes it takes; "0"/"off" sends every scene down
+                     the general path. The name is the JAX package's.
+  IHT_SLOT_CAP       per-ray exit-slot cap of the general path: "auto"
+                     (calibrated; dropped tail < 1e-4 of emitted mass),
+                     "off", or an integer pin. Dropped mass is accounted
+                     into dropped_cont_weight.
+  IHT_STEPS_PER_DISPATCH
+                     batches per dispatch (default 64): the engine reads the
+                     host once a dispatch, and on a CUDA device replays each
+                     steady batch from a CUDA graph.
 """
 
 from __future__ import annotations
@@ -68,51 +66,35 @@ def _clamp(v, lo, hi):
 KNOBS: Dict[str, Knob] = {
     k.name: k
     for k in [
-        Knob("IHT_BATCH_SIZE", "rays per device step", int, lo=4096, hi=1 << 24),
-        Knob("IHT_GEOM_CLOCK", "rays per sampled crystal shape", int, lo=1, hi=64),
-        Knob("IHT_PLATFORM", "force a JAX platform", str),
-        Knob("IHT_SEED", "default RNG seed", int, lo=0),
-        Knob("IHT_SNAPSHOT_EVERY", "pump batches between stat drains", int, lo=1),
+        Knob("IHT_BATCH_SIZE", "rays a batch for the CLI and the Server when the caller "
+             "gives none", int, lo=4096, hi=1 << 24),
+        Knob("IHT_GEOM_CLOCK", "rays per sampled crystal shape for the CLI and the Server",
+             int, lo=1, hi=64),
+        Knob("IHT_PLATFORM", "the torch device ('cpu' or 'cuda') the Server and the C API "
+             "build their engines on", str),
+        Knob("IHT_SEED", "default RNG seed of the CLI and the Server", int, lo=0),
+        Knob("IHT_SNAPSHOT_EVERY", "Server pump batches between stat drains", int, lo=1),
         Knob(
             "IHT_COMPACT",
-            "disable ('0'/'off') the calibrated dead-row compaction prepass "
-            "before the accumulation fold",
-            str,
-        ),
-        Knob(
-            "IHT_PALLAS",
-            "disable ('0'/'off') all Pallas TPU kernels; the renderer "
-            "degrades to the pure-XLA fold instead of crashing on a "
-            "Mosaic lowering regression",
+            "disable ('0'/'off') the calibrated compaction of the live rows "
+            "before the sort fold",
             str,
         ),
         Knob(
             "IHT_WL_POOL",
-            "per-batch wavelength-pool size for continuous spectra "
-            "(power of two; reference LUMICE_WL_POOL_SIZE analog)",
+            "wavelength-pool entries for a continuous spectrum (power of "
+            "two; reference LUMICE_WL_POOL_SIZE analog), halved until the "
+            "fold's (pixel, wavelength) keys pack into 32 bits",
             int,
             lo=1,
             hi=1 << 16,
         ),
         Knob(
-            "IHT_SANDWICH",
-            "disable ('0'/'off') the matmul-sandwich MXU fold; the "
-            "renderer falls back to the sort fold (the pre-round-2 path)",
-            str,
-        ),
-        Knob(
-            "IHT_FOLD",
-            "fold dispatch: 'auto' (calibrated sandwich-vs-sort choice "
-            "from the measured per-chunk row histogram), 'sandwich', or "
-            "'sort'",
-            str,
-        ),
-        Knob(
             "IHT_SLOT_CAP",
-            "per-ray exit-slot cap for the accumulation fold: 'auto' "
-            "(default — calibrate the smallest cap whose dropped live-rank "
-            "tail is < 1e-4 of emitted mass), 'off' (keep all max_hits "
-            "slots), or an integer pin. Dropped mass is accounted into "
+            "per-ray exit-slot cap of the general path: 'auto' (default — "
+            "calibrate the smallest cap whose dropped live-rank tail is "
+            "< 1e-4 of emitted mass), 'off' (keep all max_hits slots), or "
+            "an integer pin. Dropped mass is accounted into "
             "dropped_cont_weight either way.",
             str,
         ),
@@ -120,29 +102,26 @@ KNOBS: Dict[str, Knob] = {
             "IHT_MIN_EMIT_W",
             "emit-time weight floor as a fraction of the batch's mean "
             "initial ray weight; exits below it are thinned from the "
-            "accumulation fold (see IHT_EMIT_FLOOR for the mechanism; net "
-            "mass delta accounted into dropped weight). 0 disables. "
-            "Default 1e-3: measured on the bench scene this cuts ~20% of "
-            "live fold rows.",
+            "fold (see IHT_EMIT_FLOOR for the mechanism; net mass delta "
+            "accounted into dropped weight). 0 disables. Default 1e-3.",
             float,
             lo=0.0,
             hi=0.1,
         ),
         Knob(
             "IHT_PALLAS_TRACE",
-            "fused Pallas trace megakernel: 'auto' (default — used when "
-            "the scene qualifies: single layer, deterministic K==1 "
-            "geometry, no filters/color classes, non-inverse-trig lens), "
-            "'0'/'off' to force the XLA trace path.",
+            "trace kernel (K2, K2b): 'auto' (default — taken when the scene "
+            "qualifies: one layer, one crystal setting, no filter or colour "
+            "class, a lens the kernel takes), '0'/'off' to send every scene "
+            "down the general path",
             str,
         ),
         Knob(
             "IHT_STEPS_PER_DISPATCH",
-            "batches fused into one device execution (fori_loop over the "
-            "step). Each host->device dispatch costs fixed latency — "
-            "severe over tunneled device links — so the grain is the "
-            "dispatch-overhead amortizer (reference "
-            "LUMICE_DISPATCH_RAY_NUM analog). Default 64.",
+            "batches per dispatch. The engine reads the host once a "
+            "dispatch (its overflow check) and, on a CUDA device, replays "
+            "each steady batch from a CUDA graph, so the grain amortises "
+            "the read (reference LUMICE_DISPATCH_RAY_NUM analog). Default 64.",
             int,
             lo=1,
             hi=1024,

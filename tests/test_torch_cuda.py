@@ -359,7 +359,6 @@ def test_radix_sort_kernel(dev, case, monkeypatch):
 
     if case == "graph":
         monkeypatch.setenv("IHT_STEPS_PER_DISPATCH", "4")
-        monkeypatch.setenv("IHT_FOLD", "sort")
         imgs = []
         for graphs in (False, True):
             eng = Engine(load_project(BENCH_CFG), seed=7, batch_size=65536, device=dev,
@@ -453,13 +452,12 @@ def test_pack_valid_blocks_kernel(dev, ncols, thresh):
     assert all(_eq(p, q) for p, q in zip(x[0], y[0][1:])) and len(x[0]) == ncols
 
 
-def test_general_path_engine_cuda_matches_plain(dev, monkeypatch):
+def test_general_path_engine_cuda_matches_plain(dev):
     """The general trace path (two layers, two settings, a filter; then
     colour classes) through the CUDA kernel set against the plain set on the
     card: the same torch trace, so segments and images agree."""
     from ice_halo_sim_tpu_torch.scenes import COLOR_CFG, MS_CFG
 
-    monkeypatch.setenv("IHT_FOLD", "sort")
     for doc in (MS_CFG, COLOR_CFG):
         a = Engine(load_project(doc), seed=3, batch_size=16384, device=dev)
         b = Engine(load_project(doc), seed=3, batch_size=16384, device=dev, kernels="plain")
@@ -655,56 +653,6 @@ def test_extract_blocks_kernel(dev):
                probe_scatter.extract_blocks_plain(vals, start, n_out, block))
 
 
-@pytest.mark.parametrize("fold", ["sandwich", "auto"])
-def test_sandwich_engine_cuda_matches_plain_and_sort(dev, monkeypatch, fold):
-    """MS_CFG through the sandwich cascade (K7, with K6 + K3' before each
-    compacted level) against the plain kernel set on the card (the tile
-    tolerance) and against the sort fold (bf16 rounding of each row's values:
-    image mass within 2e-3, L1 within 6e-3; landed weight and segments
-    equal). Under IHT_FOLD=auto the engine may demote at calibration; both
-    kernel sets then decide alike."""
-    from ice_halo_sim_tpu_torch.kernels import build
-    from ice_halo_sim_tpu_torch.scenes import MS_CFG
-
-    monkeypatch.setenv("IHT_FOLD", fold)
-    a = Engine(load_project(MS_CFG), seed=3, batch_size=16384, device=dev)
-    b = Engine(load_project(MS_CFG), seed=3, batch_size=16384, device=dev, kernels="plain")
-    monkeypatch.setenv("IHT_FOLD", "sort")
-    s = Engine(load_project(MS_CFG), seed=3, batch_size=16384, device=dev)
-    assert a.fold_kind == b.fold_kind == "sandwich" and s.fold_kind == "sort"
-    before = build.LAUNCHES["sandwich_lane"]
-    for eng in (a, b, s):
-        eng.run(n_batches=1)
-        eng.run(n_batches=2)
-    assert build.LAUNCHES["sandwich_lane"] > before
-    assert a.fold_kind == b.fold_kind and a.fold_decision == b.fold_decision
-    if fold == "sandwich":
-        assert a.fold_kind == "sandwich" and a.fold_decision == "pinned by IHT_FOLD=sandwich"
-    sa, sb, ss = a.drain_stats(), b.drain_stats(), s.drain_stats()
-    assert sa.ray_segments == sb.ray_segments == ss.ray_segments
-    np.testing.assert_allclose(sa.landed_weight, ss.landed_weight, rtol=1e-6)
-    for r in range(len(a.proj_plans)):
-        x, y, z = a.raw_xyz(r), b.raw_xyz(r), s.raw_xyz(r)
-        np.testing.assert_allclose(x, y, rtol=TILE_RTOL, atol=TILE_ATOL_FRAC * float(y.max()))
-        assert abs(float(x.sum()) - float(z.sum())) / float(z.sum()) < 2e-3
-        assert np.abs(x - z).sum() / np.abs(z).sum() < 6e-3
-
-
-def test_fold_default_on_the_card_is_sort(dev, monkeypatch):
-    """With IHT_FOLD unset a CUDA engine folds by sort and says why; the
-    cascade stays one knob away (auto starts on it, sandwich pins it)."""
-    from ice_halo_sim_tpu_torch.scenes import MS_CFG
-
-    monkeypatch.delenv("IHT_FOLD", raising=False)
-    e = Engine(load_project(MS_CFG), seed=3, batch_size=16384, device=dev)
-    assert e.fold_kind == "sort" and not e._sandwich_on
-    assert "the default on a CUDA device" in e.fold_decision
-    for knob, decision in (("auto", "startup"), ("sandwich", "startup")):
-        monkeypatch.setenv("IHT_FOLD", knob)
-        e = Engine(load_project(MS_CFG), seed=3, batch_size=16384, device=dev)
-        assert e.fold_kind == "sandwich" and e.fold_decision == decision
-
-
 def test_trace_emit_reads_base_from_device(dev):
     """K2 and K2b read the ray base from device memory: the kernel with the
     words tensor equals the twin at a base whose low word wraps inside the
@@ -727,19 +675,15 @@ def test_trace_emit_reads_base_from_device(dev):
         assert not _same_bits(again, a)
 
 
-@pytest.mark.parametrize("scene", ["bench", "ms", "ms-sandwich", "filtered_bd-sandwich"])
+@pytest.mark.parametrize("scene", ["bench", "ms"])
 def test_graph_replay_equals_eager(dev, monkeypatch, scene):
     """Batches replayed from a CUDA graph give the eager batches' bits:
     one calibrating dispatch and two steady dispatches of four, images,
-    landed weight and stats; one host read per steady dispatch. On the
-    sandwich fold the calibrating dispatch runs eagerly in both engines and
-    the steady ones are captured."""
-    from ice_halo_sim_tpu_torch.scenes import BD_CFG, MS_CFG
+    landed weight and stats; one host read per steady dispatch."""
+    from ice_halo_sim_tpu_torch.scenes import MS_CFG
 
     monkeypatch.setenv("IHT_STEPS_PER_DISPATCH", "4")
-    monkeypatch.setenv("IHT_FOLD", "sandwich" if scene.endswith("-sandwich") else "sort")
-    doc = {"bench": BENCH_CFG, "ms": MS_CFG, "ms-sandwich": MS_CFG,
-           "filtered_bd-sandwich": BD_CFG}[scene]
+    doc = {"bench": BENCH_CFG, "ms": MS_CFG}[scene]
     out = []
     for graphs in (False, True):
         eng = Engine(load_project(doc), seed=7, batch_size=16384, device=dev, graphs=graphs)
@@ -755,10 +699,6 @@ def test_graph_replay_equals_eager(dev, monkeypatch, scene):
     assert se == sg and e.overflow_replays == g.overflow_replays
     for a, b in zip(e.accum, g.accum):
         assert _eq(a, b)
-    if scene.endswith("-sandwich"):
-        assert g.fold_kind == "sandwich"
-        for r in range(len(g.proj_plans)):
-            assert np.array_equal(e._sandwich_dense64(r), g._sandwich_dense64(r))
 
 
 @pytest.mark.parametrize("what", ["compact_rows", "marker tail", "compact_by_key"])
@@ -964,7 +904,6 @@ def test_graph_replays_inside_profiler_windows(dev, monkeypatch):
     from ice_halo_sim_tpu_torch.utils.profiling import device_profile
 
     monkeypatch.setenv("IHT_STEPS_PER_DISPATCH", "2")
-    monkeypatch.setenv("IHT_FOLD", "sort")
     eng = Engine(load_project(MS_CFG), seed=7, batch_size=16384, device=dev)
     eng.run(n_batches=2)
     eng.run(n_batches=2)

@@ -1,8 +1,9 @@
 """The port's general trace path end to end against the JAX engine's XLA
 path: single-layer scenes with two crystal settings, a ray-path filter, a
 stochastic shape, discrete and D65 light, the slot cap pinned and
-calibrated, and colour classes; and the port's general path against its own
-trace-kernel path.
+calibrated, and colour classes; the port's general path against its own
+trace-kernel path; and the fold each engine takes, and why, on the scenes
+that once chose between the JAX engine's folds.
 
 Both engines run at batch 4096 with the sort fold; the JAX side has
 IHT_PALLAS_TRACE=0 (which the port reads too), IHT_FOLD=sort and
@@ -35,6 +36,7 @@ from ice_halo_sim_tpu_torch import scenes
 from ice_halo_sim_tpu_torch.config.loader import load_project
 from ice_halo_sim_tpu_torch.engine import compositor
 from ice_halo_sim_tpu_torch.engine.simulator import Engine
+from tests.test_torch_sandwich import _mini_cfg
 
 # Tier-1 runs six workers; keep each one to two torch threads.
 torch.set_num_threads(2)
@@ -344,3 +346,57 @@ def test_cli_renders_a_built_in_general_scene(tmp_path, monkeypatch):
     assert cli.main(["--scene", "ms", "-o", str(tmp_path), "--ray-num", "2048",
                      "--device", "cpu"]) == 0
     assert cli.main(["-o", str(tmp_path)]) == 2
+
+
+def _colour_mini():
+    doc = _mini_cfg((96, 96))
+    doc["raypath_color"] = {"mode": "dominant", "classes": [
+        {"name": "35", "color": [1.0, 0.3, 0.2],
+         "match": [{"crystal": 1, "raypath": [3, 5], "symmetry": "P"}]}]}
+    return doc
+
+
+# case: (document, environment, engine keywords, the port's fold_decision)
+FOLD_CASES = {
+    "kernel-path": (scenes.BENCH_CFG, {"IHT_MIN_EMIT_W": "0", "IHT_SLOT_CAP": "off"}, {},
+                    "sort fold: the trace kernel emits packed sort keys"),
+    "general-96": (_mini_cfg((96, 96)), {}, {}, "sort fold"),
+    "general-256": (_mini_cfg((256, 256)), {}, {}, "sort fold"),
+    "colour-classes": (_colour_mini(), {}, {}, "sort fold"),
+    "scatter": (_mini_cfg((96, 96)), {}, {"accum_method": "scatter"}, "accum method 'scatter'"),
+    "pool-256": (_mini_cfg((96, 96)), {"IHT_WL_POOL": "256"}, {}, "sort fold"),
+    "chunks-1024": (_mini_cfg((1024, 1024)), {}, {}, "sort fold"),
+}
+
+
+@pytest.mark.parametrize("case", list(FOLD_CASES))
+def test_fold_and_image_match_jax(monkeypatch, case):
+    """The scenes on which the JAX engine chose between its folds (the trace
+    kernel's path, small and large renders, colour classes, the scatter
+    oracle, a pool of 256 wavelengths, 8192 image chunks), each on the
+    port's one packed-key fold against the JAX engine with IHT_FOLD=sort:
+    the same fold_kind, the port's reason in fold_decision, and after two
+    batches the image, landed weight and segments at this file's
+    tolerances."""
+    doc, env, kw, decision = FOLD_CASES[case]
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    j = JEngine(jax_load_project(doc), seed=5, batch_size=4096,
+                **{"accum_method": "sort", **kw})
+    with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("IHT_STEPS_PER_DISPATCH")
+        if case == "kernel-path":
+            mp.delenv("IHT_PALLAS_TRACE")
+        t = Engine(load_project(doc), seed=5, batch_size=4096, device="cpu", **kw)
+    assert j.trace_path == "xla"
+    assert t.trace_path == ("plain-torch" if case == "kernel-path" else GENERAL)
+    assert t.fold_kind == j.fold_kind == kw.get("accum_method", "sort")
+    assert t.fold_decision == decision
+    assert t.k_pool == j.k_pool == (256 if case == "pool-256" else 64)
+    for eng in (j, t):
+        eng.run(n_batches=1)
+        eng.run(n_batches=1)
+    _assert_stats(j, t)
+    assert _pixels_off(t.raw_xyz(0), np.asarray(j.raw_xyz(0))) <= FLIP_PIXELS
+    if t.color_classes:
+        assert _lanes_off(t.lane_y(0), j.lane_y(0)) <= FLIP_PIXELS

@@ -264,69 +264,26 @@ def test_continuation_overflow_without_host_choice_stays_in_bounds():
     assert t.host_syncs == 0
 
 
-# --------------------------------------------------------------------------
-# The sandwich fold inside the dispatch: its levels choose on the device.
-# --------------------------------------------------------------------------
-
-def _sandwich_engine(monkeypatch):
-    """BENCH_CFG through the general path, folded by the sandwich cascade
-    (the plain version of K7 under the CPU test hook)."""
-    from ice_halo_sim_tpu_torch.core import sandwich
-
-    monkeypatch.setattr(sandwich, "CPU_TEST_HOOK", True)
-    monkeypatch.setenv("IHT_PALLAS_TRACE", "0")
-    monkeypatch.setenv("IHT_FOLD", "sandwich")
-    t = Engine(load_project(BENCH_CFG), seed=7, batch_size=B, device="cpu")
-    assert t.fold_kind == "sandwich"
-    return t
-
-
-def test_steady_sandwich_dispatch_reads_the_host_once(monkeypatch):
-    """A calibrated cascade (three levels, two of them compacted) folds a
-    dispatch of four batches with one host read, the dispatch's, and none
-    per batch or level; its tiles, landed weights and rows into the last
-    level equal four eager batches with the host's choice bit for bit."""
-    t, ref = _sandwich_engine(monkeypatch), _sandwich_engine(monkeypatch)
-    for e in (t, ref):
-        e.run(n_batches=1)
-    assert [k for _cl, k in t._levels[0]].count(None) < len(t._levels[0]) - 1
-    assert t._overflow_possible() and t._compact_keep is None
-    syncs, replays = t.host_syncs, t.overflow_replays
-    t.run(n_batches=K_STEPS)
-    assert t.host_syncs == syncs + 1 and t.overflow_replays == replays
-    ref_syncs = ref.host_syncs
-    _lives_of_next(ref, K_STEPS)
-    assert ref.host_syncs - ref_syncs >= K_STEPS           # the per-batch reads
-    assert len(t.accum) == len(ref.accum) == len(t._levels[0]) + 1
-    for a, b in zip(t.accum, ref.accum):
-        assert np.array_equal(_bits(a), _bits(b))
-    assert torch.equal(t.last_level_rows, ref.last_level_rows)
-    assert t.last_level_rows.dtype == torch.int64 and int(t.last_level_rows[0]) > 0
-
-
-@pytest.mark.parametrize("fold", ["sort", "sandwich"])
-def test_graph_mode_and_key(monkeypatch, fold):
-    """The calibrating dispatch runs eagerly on either fold (its plan, and
-    the sandwich fold's count tile, go at calibration); once calibrated the
-    batch is captured. On the sandwich fold the graph key covers the level
-    plan: each chunk list by address, and each keep."""
-    if fold == "sandwich":
-        t = _sandwich_engine(monkeypatch)
-    else:
+@pytest.mark.parametrize("path", ["sort", "kernel"])
+def test_graph_mode_and_key(monkeypatch, path):
+    """The calibrating dispatch runs eagerly on either trace path (its plan
+    goes at calibration); once calibrated the batch is captured. On the
+    trace kernel's path the graph key covers the calibrated keep, which the
+    captured compaction and marker tail are built for."""
+    if path == "sort":
         monkeypatch.setenv("IHT_PALLAS_TRACE", "0")
-        t = Engine(load_project(BENCH_CFG), seed=7, batch_size=B, device="cpu")
+    t = Engine(load_project(BENCH_CFG), seed=7, batch_size=B, device="cpu")
+    assert (t._trace_plan is not None) == (path == "kernel") and t.fold_kind == "sort"
     t.graphs = True          # the mode's words only: nothing is captured on the CPU
     assert t.graph_mode == "eager (the calibrating dispatch; captured once calibrated)"
     t.run(n_batches=1)
     assert t.graph_mode == "cuda graph"
-    if fold == "sort":
+    if path == "sort":
         return
     key = t._graph_key()
-    levels = list(t._levels[0])
-    clist, keep = levels[0]
-    t._levels[0] = [(clist.clone(), keep)] + levels[1:]
+    keep = t._compact_keep
+    assert keep is not None
+    t._compact_keep = (keep[0] + 4096,)
     assert t._graph_key() != key
-    t._levels[0] = [(clist, keep + 4096)] + levels[1:]
-    assert t._graph_key() != key
-    t._levels[0] = levels
+    t._compact_keep = keep
     assert t._graph_key() == key

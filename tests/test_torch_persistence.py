@@ -1,8 +1,7 @@
 """The port's checkpoint (engine/checkpoint.py, the JAX package's format 1)
 and crystal mesh (core/mesh.py) on the CPU: twins of the checkpoint and mesh
 tests of tests/test_persistence.py, each package resuming the other's file,
-a sandwich engine's dense float64 file read by a sort engine, and the mesh
-against the JAX package's.
+and the mesh against the JAX package's.
 
 Tolerances: within the port a resume is bit for bit. Across the packages,
 the traced segments and ray count exact, landed weight rtol 1e-5, and the
@@ -23,7 +22,6 @@ from ice_halo_sim_tpu.config.loader import load_project as jax_load_project
 from ice_halo_sim_tpu.core import mesh as jax_mesh
 from ice_halo_sim_tpu.engine import checkpoint as jax_checkpoint
 from ice_halo_sim_tpu_torch.config.loader import load_project
-from ice_halo_sim_tpu_torch.core import sandwich
 from ice_halo_sim_tpu_torch.core.mesh import (
     crystal_mesh,
     crystal_mesh_from_json,
@@ -37,7 +35,6 @@ from ice_halo_sim_tpu_torch.engine.checkpoint import (
 )
 from ice_halo_sim_tpu_torch.engine.simulator import Engine
 from tests.test_persistence import CFG
-from tests.test_torch_sandwich import _mini_cfg
 from tests.test_torch_server import SUM_RTOL, assert_images_close
 
 # Tier-1 runs six workers; keep each one to two torch threads.
@@ -147,35 +144,6 @@ def test_jax_file_resumes_in_port(tmp_path, cross_env):
     for eng in (t, j):
         eng.run(n_batches=2)
     _assert_same_run(t, j)
-
-
-def test_sandwich_file_read_by_sort_engine(tmp_path, monkeypatch):
-    """A port sandwich engine saves its dense float64 images; a sort engine
-    takes them into its accumulators (rounded once to float32), a sandwich
-    engine into its settled images (unrounded), and both go on."""
-    monkeypatch.setenv("IHT_PALLAS_TRACE", "0")
-    monkeypatch.setenv("IHT_STEPS_PER_DISPATCH", "1")
-    monkeypatch.setattr(sandwich, "CPU_TEST_HOOK", True)
-    cfg = load_project(_mini_cfg((96, 96)))
-    s = Engine(cfg, seed=4, batch_size=1 << 12, device="cpu")
-    assert s._sandwich_on
-    s.run(n_batches=2)
-    path = str(tmp_path / "sandwich.npz")
-    save_checkpoint(path, s)
-    dense = s._sandwich_dense64(0)
-    with np.load(path) as data:
-        assert data["accum_0"].dtype == np.float64 and data["accum_0"].shape == (96 * 96, 3)
-        np.testing.assert_array_equal(data["accum_0"], dense)
-    again = load_checkpoint(path, device="cpu")
-    assert again._sandwich_on
-    np.testing.assert_array_equal(again._settled[0], dense)
-    monkeypatch.setattr(sandwich, "CPU_TEST_HOOK", False)
-    b = load_checkpoint(path, device="cpu")
-    assert not b._sandwich_on and b.fold_kind == "sort" and b.batch_counter == 2
-    np.testing.assert_array_equal(b.raw_xyz(0).reshape(-1, 3), dense.astype(np.float32))
-    assert torch.equal(b.accum[-1], s.accum[-1])
-    b.run(n_batches=1)
-    assert b.batch_counter == 3 and b.raw_xyz(0).sum() > dense.sum()
 
 
 def test_prism_mesh_is_closed():

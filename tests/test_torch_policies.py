@@ -6,7 +6,9 @@
   - no file of the port refers to the reference checkout's absolute path;
   - every CUDA entry point returns cudaGetLastError() after its launches,
     and every wrapper checks the code it returns;
-  - each kernel's launch counter is bumped in exactly one place.
+  - each kernel's launch counter is bumped in exactly one place;
+  - every knob of utils/env_knobs.py is documented for the port and read in
+    it, and every knob the port names is registered.
 """
 
 import os
@@ -19,6 +21,7 @@ import pytest
 import torch
 
 import ice_halo_sim_tpu_torch
+from ice_halo_sim_tpu_torch.utils import env_knobs
 
 # The suite runs under several xdist workers; keep each to two torch threads.
 torch.set_num_threads(2)
@@ -74,7 +77,7 @@ def test_port_imports_no_jax():
 COPIED_MODULES = [
     "config/__init__.py", "config/schema.py", "config/loader.py", "config/builder.py",
     "config/serialize.py", "config/validation.py", "core/latlut.py",
-    "utils/__init__.py", "utils/env_knobs.py", "utils/log.py", "utils/png.py",
+    "utils/__init__.py", "utils/log.py", "utils/png.py",
     "engine/ev_auto.py",
 ]
 
@@ -448,3 +451,62 @@ def test_the_helper_is_where_the_profiler_is_reached():
                                                           "torch.autograd.profiler"]
     finally:
         os.unlink(f.name)
+
+
+# --------------------------------------------------------------------------
+# The knob registry (utils/env_knobs.py)
+# --------------------------------------------------------------------------
+
+# Mechanisms of the TPU package that no knob of the port may describe.
+TPU_ONLY = ("Pallas", "Mosaic", "MXU", "fori_loop", "JAX platform")
+_READ = re.compile(r"env_knobs\.get\(\s*[\"'](\w+)[\"']")
+
+
+def _port_sources(with_chip_smoke: bool = False) -> dict:
+    files = _port_files((".py",))
+    if with_chip_smoke:
+        files.append(os.path.join(ROOT, "chip_smoke.py"))
+    out = {}
+    for f in files:
+        with open(f) as fh:
+            out[os.path.relpath(f, ROOT)] = fh.read()
+    return out
+
+
+def _docstring_entry(name: str) -> str:
+    """The lines of the module docstring's knob list that describe `name`."""
+    lines = env_knobs.__doc__.splitlines()
+    start = next(i for i, line in enumerate(lines) if line.split()[:1] == [name])
+    end = next((i for i in range(start + 1, len(lines))
+                if lines[i].startswith("  IHT_")), len(lines))
+    return "\n".join(lines[start:end])
+
+
+@pytest.mark.parametrize("name", sorted(env_knobs.KNOBS))
+def test_knob_is_documented_and_read(name):
+    """Each registered knob is listed in the module docstring, read by an
+    env_knobs.get call somewhere in the port, and described by what the port
+    does with it: no TPU-only mechanism in its doc or its docstring entry."""
+    entry = _docstring_entry(name)
+    readers = [f for f, src in _port_sources().items()
+               if name in _READ.findall(src) and not f.endswith("env_knobs.py")]
+    assert readers, f"{name} is registered but nothing in the port reads it"
+    for text in (env_knobs.KNOBS[name].doc, entry):
+        bad = [w for w in TPU_ONLY if w in text]
+        assert not bad, (name, bad, text)
+
+
+def test_every_knob_read_is_registered():
+    """Every env_knobs.get call of the port and chip_smoke.py names a
+    registered knob (get raises on one that is not, but only when the line
+    runs), and every IHT_* word in their Python sources is a registered
+    knob: a knob that left the registry leaves no reader, option or
+    setting behind."""
+    srcs = _port_sources(with_chip_smoke=True)
+    reads = {(f, n) for f, src in srcs.items() for n in _READ.findall(src)}
+    assert len(reads) >= 12
+    assert not {r for r in reads if r[1] not in env_knobs.KNOBS}
+    words = {(f, w) for f, src in srcs.items()
+             for w in re.findall(r"\bIHT_[A-Z0-9_]+\b", src)}
+    assert not {w for w in words if w[1] not in env_knobs.KNOBS}
+    assert len(env_knobs.KNOBS) == len(set(env_knobs.__doc__.split()) & set(env_knobs.KNOBS))

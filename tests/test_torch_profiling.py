@@ -49,7 +49,7 @@ def test_probe_profiler_lists_its_experiments(capsys):
     out = capsys.readouterr().out.splitlines()
     assert [line.split(":")[0] for line in out] == list(probe_profiler.EXPERIMENTS)
     for name in ("toy", "toy-destroy", "before", "parent", "before-eager-modules",
-                 "before-window-first", "before-fresh-capture", "this"):
+                 "before-window-first", "before-fresh-capture"):
         assert name in probe_profiler.EXPERIMENTS
     with pytest.raises(SystemExit):
         probe_profiler.main(["--list", "--only", "no-such-experiment"])
@@ -73,16 +73,14 @@ def test_probe_profiler_cut_runs_and_missing_checkouts():
 def test_profile_slice_reports_without_device_time_on_the_cpu(capsys):
     """The per-scene profile on the CPU at a small batch: one report and one
     JSON line per window, no device time ("not measured"), one host read a
-    dispatch; a scene the cascade does not take is skipped under the
-    sandwich fold."""
-    assert profile_slice.main(["--device", "cpu", "--scene", "bench", "--fold",
-                               "sort,sandwich", "--batch-size", "2048", "--batches", "2",
-                               "--graphs", "off"]) == 0
+    dispatch, the fold and why."""
+    assert profile_slice.main(["--device", "cpu", "--scene", "bench", "--batch-size", "2048",
+                               "--batches", "2", "--graphs", "off"]) == 0
     rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()
             if line.startswith("{")]
-    assert [(r["scene"], r["iht_fold"], r.get("skipped", False)) for r in rows] == [
-        ("bench", "sort", False), ("bench", "sandwich", True)]
+    assert [(r["scene"], r["fold"]) for r in rows] == [("bench", "sort")]
     r = rows[0]
+    assert r["fold_decision"] == "sort fold: the trace kernel emits packed sort keys"
     assert r["busy_ms"] is None and r["idle_share"] is None and r["top5"] == []
     assert r["host_reads_per_dispatch"] == 1.0 and r["batch"] == 2048
     assert r["wall_ms"] > 0 and r["wall_in_window_ms"] > 0 and r["card"] == "cpu"

@@ -1,25 +1,21 @@
-"""The port's sandwich fold against the JAX package's, on the CPU.
+"""The port's sandwich kernels against the JAX package's, on the CPU.
 
 Kernel level: ``sandwich_pass_plain`` (the plain version of K7 and K8, with
 the kernels' bf16 rounding) against the JAX Pallas kernels in interpret mode,
 both layouts, ``precise`` on and off; against the exact oracle and a bincount
-at the JAX tests' tolerances; the probe forms P1 and P2.
+at the JAX tests' tolerances; the probe forms P1 and P2. The port's engine
+runs none of them (it folds by sort).
 
-Engine level: with the CPU test hook on (the counterpart of the JAX module's
-INTERPRET), the port's engine folds by sandwich through the plain version and
-is held against its own scatter oracle and against the JAX engine under
-interpret mode: equal startup levels, equal rows-per-chunk histogram at
-calibration, equal planned levels with the JAX cost constants patched in, an
-image within the bf16 tolerance; demotion and level overflow; every
-condition that makes a scene ineligible; checkpoints of a JAX sandwich
-engine; and the dense-value fold of keys that do not pack.
+Engine level: a checkpoint of a JAX engine that folded by sandwich (the
+Pallas interpreter) resumes in the port, and the dense-value fold of keys
+that do not pack.
 
 Tolerances. Tile entries against the JAX kernel: rtol 1e-5, atol 1e-5 of the
 maximum (float32 sums in another order; both sides round to bf16 at the same
 place); ``matched`` equal. Against the exact oracle: 6e-3 (one bf16 term),
-1e-4 (two). Engine against the scatter oracle: image mass 2e-3, L1 6e-3 (bf16
-rounding of each row's values, about 0.4% per row, averaging down per pixel),
-landed weight rtol 1e-6.
+1e-4 (two). The port's sort fold against the JAX sandwich fold: image mass
+2e-3, L1 6e-3 (bf16 rounding of each row's values, about 0.4% per row,
+averaging down per pixel).
 """
 
 import functools
@@ -46,21 +42,20 @@ torch.set_num_threads(2)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NLO = sandwich.NLO
-COST_NAMES = ("_C_PREP", "_C_BASE", "_C_CHUNKROW", "_C_PACK", "_C_SORT_FIX", "_C_SORT_ROW")
 
 
 @pytest.fixture()
 def interpret(monkeypatch):
-    """Both packages fold by sandwich on the CPU: the JAX kernels through the
-    Pallas interpreter, the port through its plain version."""
+    """The JAX package's sandwich kernels run on the CPU, through the Pallas
+    interpreter."""
     monkeypatch.setattr(ps, "INTERPRET", True)
-    monkeypatch.setattr(sandwich, "CPU_TEST_HOOK", True)
 
 
 @pytest.fixture(autouse=True)
 def _env(monkeypatch):
-    # The general trace path in both packages; the JAX engine calibrates after
-    # its first batch, as the port does.
+    # The general trace path in both packages (the JAX engine's sandwich fold
+    # takes no other); the JAX engine calibrates after its first batch, as
+    # the port does.
     monkeypatch.setenv("IHT_PALLAS_TRACE", "0")
     monkeypatch.setenv("IHT_STEPS_PER_DISPATCH", "1")
     monkeypatch.delenv("IHT_FOLD", raising=False)
@@ -330,24 +325,6 @@ def _mini_cfg(res):
     }
 
 
-def _port(res, seed=3, **kw):
-    return Engine(load_project(_mini_cfg(res)), seed=seed, batch_size=1 << 12, device="cpu",
-                  **kw)
-
-
-def _levels_np(eng):
-    return [[(np.asarray(cl.cpu() if isinstance(cl, torch.Tensor) else cl), keep)
-             for cl, keep in levels] for levels in eng._levels]
-
-
-def _assert_levels_equal(a, b):
-    la, lb = _levels_np(a), _levels_np(b)
-    assert [[k for _, k in lv] for lv in la] == [[k for _, k in lv] for lv in lb]
-    for lv_a, lv_b in zip(la, lb):
-        for (ca, _), (cb, _) in zip(lv_a, lv_b):
-            np.testing.assert_array_equal(ca, cb)
-
-
 def _assert_images_close(ia, ib):
     mass_a, mass_b = float(ia.sum()), float(ib.sum())
     assert mass_b > 0
@@ -355,286 +332,11 @@ def _assert_images_close(ia, ib):
     assert np.abs(ia - ib).sum() / np.abs(ib).sum() < 6e-3
 
 
-@pytest.mark.parametrize("res", [(96, 96), (256, 256)])
-def test_engine_sandwich_matches_scatter_oracle(interpret, res):
-    """One full-coverage level for the small render, a cascade for the large
-    one; across calibration (new lists, tiles settled) the image equals the
-    scatter fold's to bf16 rounding."""
-    a = _port(res)
-    assert a._sandwich_on and a.fold_kind == "sandwich" and a.fold_decision == "startup"
-    assert (len(a._levels[0]) == 1) == (res == (96, 96))
-    b = _port(res, accum_method="scatter")
-    assert b.fold_kind == "scatter" and "accum method 'scatter'" in b.fold_decision
-    for eng in (a, b):
-        eng.run(n_batches=2)
-        eng.run(n_batches=2)
-    assert a._calibrated and not a._calibrating and a.fold_kind == "sandwich"
-    assert a.fold_decision.startswith("calibrated: sandwich cascade")
-    assert set(a.fold_costs) == {"sandwich_ms", "sort_ms"}
-    _assert_images_close(a.raw_xyz(0), b.raw_xyz(0))
-    np.testing.assert_allclose(a.accum[-1].numpy(), b.accum[-1].numpy(), rtol=1e-6)
-    assert a.snapshot()[0].max() > 0
-    assert a.drain_stats().ray_segments == b.drain_stats().ray_segments
-    # reset() gives zero tiles in the calibrated layout and no count tile.
-    a.reset()
-    assert len(a.accum) == len(a._levels[0]) + 1 and not a.raw_xyz(0).any()
-
-
-def test_sandwich_is_off_on_the_cpu_without_the_hook():
-    a = _port((96, 96))
-    assert not a._sandwich_on and a.fold_kind == "sort"
-    assert a.fold_decision == ("sort fold (sandwich ineligible: sandwich kernel unavailable "
-                               "on this device)")
-
-
-@pytest.mark.parametrize("res", [(96, 96), (256, 256)])
-def test_engine_matches_jax_engine(interpret, res):
-    """Startup levels, the calibration histogram, the planned levels (with
-    the JAX cost constants in the port's model) and the image, against the
-    JAX engine under the Pallas interpreter."""
-    j = JEngine(jax_load_project(_mini_cfg(res)), seed=3, batch_size=1 << 12,
-                accum_method="sort")
-    t = _port(res)
-    assert j._sandwich_on and t._sandwich_on
-    assert j.fold_decision == t.fold_decision == "startup"
-    assert j._n_chunks == t._n_chunks and j._rows_per_render == t._rows_per_render
-    _assert_levels_equal(t, j)
-    for name in COST_NAMES:
-        setattr(t, name, getattr(j, name))
-    hist = {}
-    for tag, eng in (("jax", j), ("port", t)):
-        inner = eng._sandwich_recalibrate
-
-        def spy(*a, _eng=eng, _tag=tag, _inner=inner, **kw):
-            ci = _eng._count_tile_index(0)
-            if ci is not None:
-                x = _eng.accum[ci]
-                hist[_tag] = np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
-            return _inner(*a, **kw)
-
-        eng._sandwich_recalibrate = spy
-        eng.run(n_batches=1)
-    if res == (256, 256):
-        assert hist["jax"].shape == hist["port"].shape == (512, NLO)
-        np.testing.assert_array_equal(hist["port"], hist["jax"])
-        assert hist["port"].sum() > 0
-    else:
-        assert not hist                                  # one level: no histogram
-    assert j._slot_cap == t._slot_cap and j._rows_per_render == t._rows_per_render
-    _assert_levels_equal(t, j)
-    assert len(t._levels[0]) == (1 if res == (96, 96) else len(j._levels[0]))
-    assert t.fold_decision.startswith("calibrated: sandwich cascade")
-    assert j.fold_decision.startswith("calibrated: sandwich cascade")
-    for eng in (j, t):
-        eng.run(n_batches=2)
-    ia, ib = t.raw_xyz(0), np.asarray(j.raw_xyz(0))
-    _assert_images_close(ia, ib)
-    # Both round each row to bf16 at the same place: far inside that bound,
-    # up to a ray on a pixel edge that lands one pixel over (XLA and torch
-    # round the projection's last bit differently).
-    assert np.abs(ia - ib).sum() / np.abs(ib).sum() < 1e-3
-    np.testing.assert_allclose(t.accum[-1].numpy(), np.asarray(j.accum[-1]), rtol=1e-6)
-    assert t.drain_stats().ray_segments == j.drain_stats().ray_segments
-
-
-@pytest.mark.parametrize("seed, nc, n_rows, live_frac", [
-    (0, 512, 81920, 0.2), (1, 1024, 655360, 0.5), (2, 300, 40960, 0.9), (3, 2048, 327680, 0.05)])
-def test_plan_levels_matches_jax(interpret, seed, nc, n_rows, live_frac):
-    """`_sandwich_plan_levels` as a pure function of (nc, n_rows, live rows,
-    rows per chunk), with the JAX constants patched in: equal lists, budgets
-    and cost."""
-    j = JEngine(jax_load_project(_mini_cfg((96, 96))), seed=3, batch_size=1 << 12,
-                accum_method="sort")
-    t = _port((96, 96))
-    for name in COST_NAMES:
-        setattr(t, name, getattr(j, name))
-    g = np.random.default_rng(seed)
-    live = n_rows * live_frac
-    share = g.dirichlet(np.full(nc, 0.05))           # a few chunks hold most rows
-    rows_per_chunk = np.floor(share * live)
-    lj, cj = j._sandwich_plan_levels(nc, n_rows, live, rows_per_chunk)
-    lt, ct = t._sandwich_plan_levels(nc, n_rows, live, rows_per_chunk)
-    assert [k for _, k in lt] == [k for _, k in lj] and len(lt) >= 2
-    for (a, _), (b, _) in zip(lt, lj):
-        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-        assert a.dtype == torch.int32
-    np.testing.assert_array_equal(lt[-1][0].numpy(), np.arange(nc))
-    assert ct == pytest.approx(cj, rel=1e-12)
-
-
-def test_demotion_preserves_mass(interpret):
-    """With the sort fold's modeled cost forced low, calibration demotes to
-    it; the settled tile mass is carried into the dense accumulator once."""
-    a = _port((96, 96), seed=5)
-    assert a._sandwich_on
-    a._C_SORT_FIX = -1e9
-    b = _port((96, 96), seed=5, accum_method="scatter")
-    a.run(n_batches=2)
-    assert not a._sandwich_on and a.fold_kind == "sort"
-    assert "sort fold" in a.fold_decision and a.fold_decision.startswith("calibrated")
-    assert tuple(a.accum[0].shape) == (96 * 96, 3)
-    a.run(n_batches=2)
-    b.run(n_batches=2)
-    b.run(n_batches=2)
-    _assert_images_close(a.raw_xyz(0), b.raw_xyz(0))
-    np.testing.assert_allclose(a.accum[-1].numpy(), b.accum[-1].numpy(), rtol=1e-6)
-    # Two of the four batches were folded exactly (sort): closer than bf16 alone.
-    c = _port((96, 96), seed=5)
-    c.run(n_batches=2)
-    c.run(n_batches=2)
-    assert c._sandwich_on
-    ia, ib, ic = a.raw_xyz(0), b.raw_xyz(0), c.raw_xyz(0)
-    assert np.abs(ia - ib).sum() < np.abs(ic - ib).sum()
-
-
-def test_level_overflow_is_exact(interpret):
-    """A keep forced too small at either level: the entrants all go into the
-    full-coverage tile, and the image is the one of the untouched cascade."""
-    ref = _port((256, 256))
-    ref.run(n_batches=1)
-    ref.run(n_batches=2)
-    assert len(ref._levels[0]) >= 2
-    for li in range(len(ref._levels[0])):
-        a = _port((256, 256))
-        a.run(n_batches=1)
-        levels = list(a._levels[0])
-        if levels[li][1] is None:
-            continue
-        levels[li] = (levels[li][0], 4096 if li == 0 else 2048)
-        a._levels[0] = levels
-        syncs = a.host_syncs
-        a.run(n_batches=2)
-        assert a.host_syncs > syncs
-        assert all(n > levels[li][1] for n in a.last_level_rows)     # diverted whole
-        ia, ib = a.raw_xyz(0), ref.raw_xyz(0)
-        np.testing.assert_allclose(ia, ib, rtol=1e-5, atol=1e-6 * float(ib.max()))
-        np.testing.assert_array_equal(a.accum[-1].numpy(), ref.accum[-1].numpy())
-
-
-@pytest.mark.parametrize("level", ["first", "last"])
-def test_level_overflow_in_dispatches_equals_host_choice_and_jax(interpret, monkeypatch, level):
-    """A keep forced below the first or the last level's entrants on every
-    batch. The port folds
-    a dispatch of four batches without the host's choice: every level takes
-    its compacted branch, the overflow is recorded on the device, and each
-    batch is run again with the host's choice, which diverts the entrants to
-    the full-coverage tile. Tiles, landed weights and rows into the last
-    level equal four batches with the host's choice bit for bit, and the
-    image equals the JAX engine's cascade, whose lax.cond diverts inside its
-    step, at the bf16 tolerance of test_engine_matches_jax_engine."""
-    res = (256, 256)
-    j = JEngine(jax_load_project(_mini_cfg(res)), seed=3, batch_size=1 << 12,
-                accum_method="sort")
-    monkeypatch.setenv("IHT_STEPS_PER_DISPATCH", "4")
-    a, b = _port(res), _port(res)
-    for eng in (a, b):
-        for name in COST_NAMES:
-            setattr(eng, name, getattr(j, name))
-    for eng in (j, a, b):
-        eng.run(n_batches=1)
-    _assert_levels_equal(a, j)
-    li = 0 if level == "first" else len(a._levels[0]) - 1
-    assert len(a._levels[0]) >= 2 and a._levels[0][li][1] is not None
-    small = 4096 if level == "first" else 2048
-    for eng in (j, a, b):
-        levels = list(eng._levels[0])
-        levels[li] = (levels[li][0], small)
-        eng._levels[0] = levels
-    j._plan_version += 1                       # the JAX step retraces with the new plan
-    syncs = a.host_syncs
-    a.run(n_batches=4)
-    assert a.overflow_replays == 4 and a.batch_counter == 5
-    assert a.host_syncs > syncs + 4
-    for _ in range(4):
-        b._dev.counter.fill_(b.batch_counter)
-        b._batch(host_choice=True)
-        b.batch_counter += 1
-    assert b.overflow_replays == 0
-    assert all(int(n) > small for n in a.last_level_rows)          # diverted whole
-    assert torch.equal(a.last_level_rows, b.last_level_rows)
-    for x, y in zip(a.accum, b.accum):
-        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
-    j.run(n_batches=4)
-    ia, ib = a.raw_xyz(0), np.asarray(j.raw_xyz(0))
-    _assert_images_close(ia, ib)
-    assert np.abs(ia - ib).sum() / np.abs(ib).sum() < 1e-3
-    np.testing.assert_allclose(a.accum[-1].numpy(), np.asarray(j.accum[-1]), rtol=1e-6)
-    assert a.drain_stats().ray_segments == j.drain_stats().ray_segments
-
-
-def _colour_doc():
-    doc = _mini_cfg((96, 96))
-    doc["raypath_color"] = {"mode": "dominant", "classes": [
-        {"name": "35", "color": [1.0, 0.3, 0.2],
-         "match": [{"crystal": 1, "raypath": [3, 5], "symmetry": "P"}]}]}
-    return doc
-
-
-INELIGIBLE = {
-    # name: (document, environment, engine keywords, words of the reason in either package)
-    "pinned-sort": (_mini_cfg((96, 96)), {"IHT_FOLD": "sort"}, {}, "pinned by IHT_FOLD=sort"),
-    "accum-method": (_mini_cfg((96, 96)), {}, {"accum_method": "scatter"}, "accum method"),
-    "pool-size": (_mini_cfg((96, 96)), {"IHT_WL_POOL": "256"}, {}, "wavelength pool 256 > 128"),
-    "chunks": (_mini_cfg((1024, 1024)), {}, {}, "image chunks 8192 > 4096"),
-    "switched-off": (_mini_cfg((96, 96)), {"IHT_SANDWICH": "0"}, {}, "unavailable"),
-    "pallas-off": (_mini_cfg((96, 96)), {"IHT_PALLAS": "off"}, {}, "unavailable"),
-}
-
-
-@pytest.mark.parametrize("case", sorted(INELIGIBLE))
-def test_ineligibility_matches_jax(interpret, monkeypatch, case):
-    """Every condition of `_sandwich_setup`: both engines leave the sandwich
-    off and name the same condition first."""
-    doc, env, kw, words = INELIGIBLE[case]
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    j = JEngine(jax_load_project(doc), seed=3, batch_size=1 << 12,
-                **{"accum_method": "sort", **kw})
-    t = Engine(load_project(doc), seed=3, batch_size=1 << 12, device="cpu", **kw)
-    assert not j._sandwich_on and not t._sandwich_on
-    for eng in (j, t):
-        assert eng.fold_decision.startswith("sort fold (sandwich ineligible: ")
-        assert words in eng.fold_decision, eng.fold_decision
-    assert t.fold_kind == j.fold_kind
-
-
-def test_ineligibility_colour_classes_and_kernel_path(interpret, monkeypatch):
-    """The two conditions that need another scene or path: colour classes,
-    and the trace kernel path (which comes first of all)."""
-    doc = _colour_doc()
-    j = JEngine(jax_load_project(doc), seed=3, batch_size=1 << 12, accum_method="sort")
-    t = Engine(load_project(doc), seed=3, batch_size=1 << 12, device="cpu")
-    for eng in (j, t):
-        assert eng.color_classes and not eng._sandwich_on
-        assert "raypath_color classes" in eng.fold_decision
-    # The order: a pinned sort fold is named before the colour classes.
-    monkeypatch.setenv("IHT_FOLD", "sort")
-    t = Engine(load_project(doc), seed=3, batch_size=1 << 12, device="cpu")
-    assert "pinned by IHT_FOLD=sort" in t.fold_decision
-    monkeypatch.delenv("IHT_PALLAS_TRACE")
-    k = Engine(load_project(_mini_cfg((96, 96))), seed=3, batch_size=1 << 12, device="cpu")
-    assert k._trace_plan is not None and not k._sandwich_on
-    assert "trace kernel emits packed sort keys" in k.fold_decision
-
-
-def test_engine_takes_the_layout_from_the_module(interpret, monkeypatch):
-    """The engine names no layout in any pass of its fold, the calibration
-    count pass among them, so the wrapper's choice is sandwich.LAYOUT, as
-    the JAX engine follows pallas_sandwich.LAYOUT. A layout that does not
-    exist raises in the wrapper, from the module as from the argument."""
-    seen = []
-    real = sandwich.sandwich_pass_plain
-
-    def spy(*args, **kw):
-        seen.append(kw.get("layout"))
-        return real(*args, **kw)
-
-    monkeypatch.setattr(sandwich, "sandwich_pass_plain", spy)
-    eng = Engine(load_project(_mini_cfg((256, 256))), seed=3, batch_size=1 << 12, device="cpu")
-    assert eng._sandwich_on
-    eng.run(n_batches=2)
-    assert len(seen) >= 4 and set(seen) == {None}
-    monkeypatch.setattr(sandwich, "sandwich_pass_plain", real)
+def test_wrapper_takes_the_layout_from_the_module(monkeypatch):
+    """A pass whose caller names no layout launches the kernel that
+    sandwich.LAYOUT names, as the JAX module follows pallas_sandwich.LAYOUT.
+    A layout that does not exist raises in the wrapper, from the module as
+    from the argument."""
     K = 16
     pix, w, wl, tbl = _rows(1000, 16 * NLO, K)
     cl = np.arange(8, dtype=np.int32)
@@ -670,28 +372,25 @@ def jax_sandwich_checkpoint(interpret, tmp_path):
     return path, j
 
 
-def test_load_jax_sandwich_checkpoint(jax_sandwich_checkpoint, monkeypatch):
+def test_load_jax_sandwich_checkpoint(jax_sandwich_checkpoint):
     """A checkpoint a JAX sandwich engine saved (dense float64 images) into a
-    port sandwich engine (settled images, zero tiles) and into a port sort
-    engine (dense accumulators); both go on from the saved batch counter."""
+    port engine, which folds by sort: its accumulators take the images
+    (rounded once to float32), and it goes on from the saved batch counter."""
     path, j = jax_sandwich_checkpoint
     want = np.asarray(j.raw_xyz(0))
     with np.load(path) as data:
         assert data["accum_0"].dtype == np.float64 and data["accum_0"].shape == (96 * 96, 3)
-    a = load_jax_checkpoint(path, device="cpu")
-    assert a._sandwich_on and a.batch_counter == 2
-    assert a._settled[0].dtype == np.float64 and not any(t.any() for t in a.accum[:-1])
-    np.testing.assert_allclose(a.raw_xyz(0), want, rtol=1e-6, atol=0)
-    np.testing.assert_allclose(a.accum[-1].numpy(), np.asarray(j.accum[-1]), rtol=1e-6)
-    monkeypatch.setattr(sandwich, "CPU_TEST_HOOK", False)
     b = load_jax_checkpoint(path, device="cpu")
-    assert not b._sandwich_on and b.fold_kind == "sort" and b.batch_counter == 2
+    assert b.fold_kind == "sort" and b.batch_counter == 2
+    assert tuple(b.accum[0].shape) == (96 * 96, 3) and b.accum[0].dtype == torch.float32
     np.testing.assert_allclose(b.raw_xyz(0), want, rtol=1e-6, atol=0)
-    # Both resume: two more batches give the same image to bf16 rounding.
-    for eng in (a, b, j):
+    np.testing.assert_allclose(b.accum[-1].numpy(), np.asarray(j.accum[-1]), rtol=1e-6)
+    # It resumes: two more batches in each give the same image to bf16
+    # rounding (the JAX engine goes on folding by sandwich).
+    for eng in (b, j):
         eng.run(n_batches=2)
-    _assert_images_close(a.raw_xyz(0), b.raw_xyz(0))
-    assert np.abs(a.raw_xyz(0) - np.asarray(j.raw_xyz(0))).sum() / want.sum() < 1e-3
+    _assert_images_close(b.raw_xyz(0), np.asarray(j.raw_xyz(0)))
+    assert b.batch_counter == 4 and b.raw_xyz(0).sum() > want.sum()
 
 
 def test_load_jax_sandwich_checkpoint_wrong_shape(jax_sandwich_checkpoint, tmp_path):
@@ -716,6 +415,7 @@ def test_keys_that_do_not_pack_take_the_dense_value_fold():
     for eng in (j, t):
         eng.spectral_ok = False
         assert eng.fold_kind == "sort-legacy"
+    assert t.fold_decision.startswith("sort-legacy: (pixel, wavelength) keys do not pack")
     for eng in (j, t, s):
         eng.run(n_batches=1)
         eng.run(n_batches=1)

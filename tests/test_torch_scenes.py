@@ -51,7 +51,7 @@ TIE_RAYS = 16
 MATRIX_FIELDS = {
     "scene", "stand_in", "resolution", "batch_size", "batch_decision", "rays_per_rep",
     "reps", "median_rays_per_sec", "cov", "platform", "card", "fold", "fold_decision",
-    "fold_costs", "trace_path", "graph_mode", "host_reads_per_dispatch", "vs_baseline_cpu"}
+    "trace_path", "graph_mode", "host_reads_per_dispatch", "vs_baseline_cpu"}
 
 
 @pytest.fixture(autouse=True)
@@ -173,7 +173,6 @@ def test_bench_matrix_quick_line(monkeypatch, capsys):
     """`--quick` on the CPU: one JSON line for light at 512 x 256, one
     repetition, with every field of a cell."""
     monkeypatch.delenv("IHT_PALLAS_TRACE")
-    monkeypatch.delenv("IHT_FOLD")
     monkeypatch.setenv("IHT_STEPS_PER_DISPATCH", "2")
     rc = bench_matrix.main(["--quick", "--device", "cpu", "--batch", "4096",
                             "--rep-seconds", "0.1"])
@@ -208,7 +207,7 @@ def test_bench_matrix_halves_only_on_out_of_memory(monkeypatch, error):
         return {"scene": scene, "batch_size": batch}
 
     monkeypatch.setattr(bench_matrix, "run_cell", run_cell)
-    args = ("pyramid", (512, 256), 229376, 5, 2.0, "cpu", None)
+    args = ("pyramid", (512, 256), 229376, 5, 2.0, "cpu")
     if error == "another error":
         with pytest.raises(RuntimeError, match="index out of range"):
             bench_matrix.measure_cell(*args)
@@ -218,16 +217,3 @@ def test_bench_matrix_halves_only_on_out_of_memory(monkeypatch, error):
     assert tried == [229376, 114688, 57344] and cell["batch_size"] == 57344
     assert cell["batch_decision"] == ("measured fit: halved from 229376 after 2 "
                                       "out-of-memory error(s)")
-
-
-def test_bench_matrix_skips_a_fold_the_scene_does_not_take(monkeypatch, capsys):
-    """`--fold auto` on light: the trace kernel emits packed sort keys, so the
-    cascade never runs there; the cell says why and times nothing (it would
-    time the sort fold again)."""
-    monkeypatch.delenv("IHT_PALLAS_TRACE")
-    rc = bench_matrix.main(["--quick", "--device", "cpu", "--batch", "4096", "--fold", "auto"])
-    assert rc == 0
-    cell = json.loads(capsys.readouterr().out.strip())
-    assert cell["iht_fold"] == "auto" and cell["fold"] == "sort"
-    assert cell["skipped"].startswith("sort fold (sandwich ineligible: the trace kernel")
-    assert cell["median_rays_per_sec"] is None and cell["reps"] == 0 and cell["rates"] == []

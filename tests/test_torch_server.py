@@ -503,43 +503,3 @@ def test_snapshot_post_processes_the_accumulator():
         (img,) = e.snapshot()
         assert img.max() > 0 and np.array_equal(img, want)
     assert eng._xyz(0).data_ptr() == eng.accum[0].data_ptr()
-
-
-def test_sandwich_snapshot_post_processes_the_host_image(monkeypatch):
-    """On the sandwich fold the XYZ image is assembled on the host: raw_xyz
-    returns that numpy image as it is (no trip through the device), and
-    Engine.snapshot and ShardedEngine.snapshot hand post_process its values
-    as a tensor on the engine's device, as JAX's snapshot does."""
-    from ice_halo_sim_tpu_torch.core import color, sandwich
-    from ice_halo_sim_tpu_torch.parallel import ShardedEngine
-
-    monkeypatch.setattr(sandwich, "CPU_TEST_HOOK", True)
-    monkeypatch.setenv("IHT_FOLD", "sandwich")
-    monkeypatch.setenv("IHT_PALLAS_TRACE", "0")
-    cfg = load_project(CFG)
-    eng = Engine(cfg, seed=9, batch_size=1 << 12, device="cpu")
-    se = ShardedEngine(cfg, ["cpu"] * 2, seed=9, per_device_batch=1 << 12, calibrate=False)
-    eng.run(n_batches=2)
-    se.run(n_batches=1)
-    real, handed = color.post_process, []
-
-    def spy(xyz, *args, **kw):
-        handed.append(xyz)
-        return real(xyz, *args, **kw)
-
-    monkeypatch.setattr(color, "post_process", spy)
-    for e in (eng, se):
-        assert e._sandwich_on if e is eng else e.engine._sandwich_on
-        handed.clear()
-        (img,) = e.snapshot()
-        (xyz,) = handed
-        assert isinstance(xyz, torch.Tensor) and xyz.device == torch.device("cpu")
-        host = e._xyz(0)
-        assert isinstance(host, np.ndarray) and host.dtype == np.float32
-        assert np.array_equal(e.raw_xyz(0), host) and host.sum() > 0
-        assert np.array_equal(xyz.numpy(), host)
-        rc = cfg.renders[0]
-        want = real(e.raw_xyz(0), rc.intensity_factor,
-                    float((e.accum if e is eng else e.drained_accum())[-1][0]),
-                    rc.background, rc.ray_color, use_real_color=rc.ray_color[0] < 0)
-        assert img.max() > 0 and np.array_equal(img, want)

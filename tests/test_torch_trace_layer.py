@@ -52,7 +52,7 @@ def _recorded_calls(monkeypatch, name, batch, device, check=False):
     call first goes through KL's input check."""
     doc, pallas = SCENES[name]
     monkeypatch.setenv("IHT_STEPS_PER_DISPATCH", "1")
-    for knob in ("IHT_PALLAS_TRACE", "IHT_FOLD", "IHT_SLOT_CAP", "IHT_MIN_EMIT_W"):
+    for knob in ("IHT_PALLAS_TRACE", "IHT_SLOT_CAP", "IHT_MIN_EMIT_W"):
         monkeypatch.delenv(knob, raising=False)
     if pallas is not None:
         monkeypatch.setenv("IHT_PALLAS_TRACE", pallas)

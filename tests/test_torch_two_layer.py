@@ -51,7 +51,7 @@ LIMITS = dict(_load("workloads", "light_two_layer.r512.json")["limits"], image_g
 @pytest.fixture(autouse=True)
 def _env(monkeypatch):
     monkeypatch.setenv("IHT_STEPS_PER_DISPATCH", str(STEPS))
-    for knob in ("IHT_PALLAS_TRACE", "IHT_FOLD", "IHT_SLOT_CAP", "IHT_MIN_EMIT_W"):
+    for knob in ("IHT_PALLAS_TRACE", "IHT_SLOT_CAP", "IHT_MIN_EMIT_W"):
         monkeypatch.delenv(knob, raising=False)
 
 
