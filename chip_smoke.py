@@ -26,7 +26,9 @@ Phases (any failure raises; the exit code is then non-zero):
      permutation, at MS_CFG's steady continuation; the layer trace KL at
      the two calls of a steady batch of light_two_layer.r512's configuration
      (229376 and some 1.4 M lanes), its six outputs bit-equal to
-     trace_layer_soa's, the entry summing both layers; the fold's radix sort at
+     trace_layer_soa's, and KL's emit mode at the same calls, its outputs
+     bit-equal to its plain twin's (trace_layer_soa, then layer_epilogue),
+     each entry summing both layers; the fold's radix sort at
      BENCH_CFG's premerged rows at 512 x 256 and 2048 x 1024, beside
      torch.sort of the packed int64 word it replaced; the sandwich kernels (K7 lane, K8
      sublane), on no path of the engine, at 1388544 generated rows over a
@@ -39,21 +41,25 @@ Phases (any failure raises; the exit code is then non-zero):
      one pixel and spread, each timed with its bound ("crowded" in its
      entry); the probe forms P1 and P2 at their probes' shapes;
   4. slices: Engine(cfg, device="cuda") renders BENCH_CFG and POOL_CFG (the
-     trace kernel path), then MS_CFG and COLOR_CFG (the general trace
-     path), each with the launch counters reset just before and read just
+     trace kernel path), then MS_CFG, COLOR_CFG and light_two_layer.r512's
+     configuration (the general trace path), each with the launch counters
+     reset just before and read just
      after; every kernel of the path must have launched, on its steady
      batches too, and none that the path no longer runs (K1 after the trace
      kernel, K5 and the per-row scan on the spectral folds, K6 after
-     compact_rows; K3' runs only in MS_CFG's continuation, one launch per
+     compact_rows; K3' runs only in the continuations, one launch per
      layer boundary), the compactions' launches per steady batch printed
      for every slice, and KL's (one a layer on the general path, none on
-     the trace kernel's); image, lanes and stats must match kernels="plain" on the
+     the trace kernel's: its emit mode on the two-layer document's layers,
+     its render mode with the plain epilogue on MS_CFG's and COLOR_CFG's,
+     each layer's epilogue and reason as Engine.layer_epilogue records
+     them); image, lanes and stats must match kernels="plain" on the
      card; each fixture configuration must match its committed JAX render
      (tests/data/torch_port_*_ref.npz) within the CPU tests' tolerances;
      and BENCH_CFG through the general path must match the kernel path
      (emit floor and slot cap off). Then the two probes' own main paths
      (P1, P2);
-  5. steady rays/s of the four slices (informational); then per scene
+  5. steady rays/s of the five slices (informational); then per scene
      (BENCH_CFG, POOL_CFG, MS_CFG, COLOR_CFG) the host loop: an eager and a
      CUDA-graph engine at IHT_STEPS_PER_DISPATCH=8, one calibrating and two
      steady dispatches each, bit for bit equal, one host read per steady
@@ -575,71 +581,119 @@ def layer_work(B: int, H: int, nf: int, T: int):
     return nbytes, ops * B, sfu * B
 
 
+def layer_emit_bytes(B: int, H: int, rows: int, n_rp: int, last: bool, nf: int, T: int) -> int:
+    """Bytes of one call of KL's emit mode over B lanes: the render mode's
+    inputs and shape tables once; per lane a pixel and a weight per kept row
+    of each (render, pass) column, its segment count and dropped mass, and,
+    on a layer that is not the last, the continuation's direction and
+    weight per exit slot."""
+    return B * (72 + 8 * rows * n_rp + 8 + (0 if last else 16 * H)) + 4 * (5 * nf + 13 * T)
+
+
+def _two_layer_doc() -> dict:
+    with open(os.path.join(ROOT, "portbench", "configs", "light_two_layer_ms.json")) as f:
+        return json.load(f)["document"]
+
+
 def phase_kernel_layer(device, res: list):
     """KL (csrc/trace_layer.cu) at light_two_layer.r512's shapes: the two
     layer-trace calls of a steady batch of the cell's configuration
     (portbench/configs/light_two_layer_ms.json, batch 229376), recorded from
-    an engine on the plain kernel set. Each call's six outputs bit-equal to
-    trace_layer_soa's and the same bits twice; the kernel, its bound and the
-    plain function timed per layer; the entry sums both layers."""
+    an engine on the plain kernel set (the emit mode's calls). Per call, the
+    render mode's six outputs bit-equal to trace_layer_soa's and the emit
+    mode's to its plain twin's (trace_layer_soa, then layer_epilogue), each
+    the same bits twice; each kernel, its bound and the plain function timed
+    per layer; each entry sums both layers."""
     import torch
 
     from ice_halo_sim_tpu_torch.config.loader import load_project
     from ice_halo_sim_tpu_torch.core import trace_soa
     from ice_halo_sim_tpu_torch.engine.simulator import Engine
 
-    with open(os.path.join(ROOT, "portbench", "configs", "light_two_layer_ms.json")) as f:
-        doc = json.load(f)["document"]
-    eng = Engine(load_project(doc), seed=7, batch_size=BATCH, device=device, kernels="plain")
+    eng = Engine(load_project(_two_layer_doc()), seed=7, batch_size=BATCH, device=device,
+                 kernels="plain")
     calls = []
+    real = eng.ks.trace_layer_emit
 
     def record(*args, **kw):
         calls.append((args, kw))
-        return trace_soa.trace_layer_soa(*args, **kw)
+        return real(*args, **kw)
 
-    eng.ks = eng.ks._replace(trace_layer=record)
+    eng.ks = eng.ks._replace(trace_layer_emit=record)
     eng.run(n_batches=1)                         # calibrates cap and lanes
     calls.clear()
     eng.run(n_batches=1)
-    if len(calls) != 2:
-        raise AssertionError(f"two_layer: {len(calls)} layer-trace calls in a steady batch")
-    layers, tot = [], {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0, "sfu": 0}
-    by = []
+    if len(calls) != 2 or eng.layer_epilogue != ["kernel", "kernel"]:
+        raise AssertionError(f"two_layer: {len(calls)} emit-mode calls in a steady batch, "
+                             f"epilogues {eng.layer_epilogue}")
+
+    def raw(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    def same(what, outs):
+        for field, *xs in outs:
+            if not all(torch.equal(raw(xs[0]), raw(x)) for x in xs[1:]):
+                raise AssertionError(f"{what}: {field} differs from the plain function or "
+                                     f"between two launches")
+
+    def rows_fields(r):
+        return ([("pix", x) for x in r.pix] + [("w", x) for x in r.w]
+                + [("seg", r.seg), ("dropped", r.dropped)] + [("cont", x) for x in r.cont or ()])
+
+    tot = {m: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0, "sfu": 0, "by": [],
+               "layers": []} for m in ("trace_layer", "trace_layer_emit")}
     for li, (args, kw) in enumerate(calls):
-        got = trace_soa.trace_layer_cuda(*args, **kw)
-        again = trace_soa.trace_layer_cuda(*args, **kw)
+        blocks = kw["setting_blocks"]
+        got = trace_soa.trace_layer_cuda(*args, setting_blocks=blocks)
+        again = trace_soa.trace_layer_cuda(*args, setting_blocks=blocks)
         torch.cuda.synchronize()
-        want = trace_soa.trace_layer_soa(*args, **kw)
-        for field, a, b, c in zip(want._fields, got, want, again):
-            raw = [x.view(torch.int32) if x.dtype == torch.float32 else x for x in (a, b, c)]
-            if not (torch.equal(raw[0], raw[1]) and torch.equal(raw[0], raw[2])):
-                raise AssertionError(f"trace_layer layer {li + 1}: {field} differs from "
-                                     f"trace_layer_soa or between two launches")
+        want = trace_soa.trace_layer_soa(*args, setting_blocks=blocks)
+        same(f"trace_layer layer {li + 1}", zip(want._fields, got, want, again))
+        e_got = trace_soa.trace_layer_emit_cuda(*args, **kw)
+        e_again = trace_soa.trace_layer_emit_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        e_want = trace_soa.trace_layer_emit_plain(*args, **kw)
+        same(f"trace_layer_emit layer {li + 1}",
+             [(f, a, b, c) for (f, a), (_, b), (_, c) in
+              zip(rows_fields(e_got), rows_fields(e_want), rows_fields(e_again))])
         B, H = args[1].shape[0], args[7]
         nf, T = args[5].plane_n.shape[1], args[5].tri_face.shape[1]
+        spec = kw["spec"]
         nbytes, ops, sfu = layer_work(B, H, nf, T)
-        ms = _time_ms(lambda: trace_soa.trace_layer_cuda(*args, **kw), 10,
-                      f"trace_layer layer {li + 1}")
-        plain_ms = _time_ms(lambda: trace_soa.trace_layer_soa(*args, **kw), 3)
-        bound = least_seconds(nbytes, ops, sfu)
+        emit_bytes = layer_emit_bytes(B, H, spec.cap, len(e_got.pix), spec.last, nf, T)
         live = int((args[3] > 0).sum())
-        print(f"  trace_layer (KL) layer {li + 1}: {B} lanes ({live} of weight > 0), "
-              f"max_hits {H}, NF {nf}, T {T}: bit-equal, the same bits twice; kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {1e3 * bound[0]:.5f} ms by {bound[1]} "
-              f"({nbytes} bytes, {ops // B} operations and {sfu // B} special-function "
-              f"operations a lane)", flush=True)
-        layers.append({"lanes": B, "ms": ms, "plain_ms": plain_ms, "bound_ms": 1e3 * bound[0]})
-        by.append(ms)
-        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bytes", nbytes), ("ops", ops),
-                     ("sfu", sfu)):
-            tot[k] += v
-    ms = _Ms(tot["ms"])
-    ms.by = _timed_by(*by)
-    _add(res, "trace_layer", "ice_halo_sim_tpu_torch/csrc/trace_layer.cu",
-         "none (the JAX general trace is XLA: ice_halo_sim_tpu/core/trace_soa.py)", 0.0, ms,
-         tot["plain_ms"], least_seconds(tot["bytes"], tot["ops"], tot["sfu"]),
-         "a per-lane Monte-Carlo trace loop is no library function")
-    res[-1]["layers"] = layers
+        for mode, fn, plain, nb in (
+                ("trace_layer", lambda: trace_soa.trace_layer_cuda(*args, setting_blocks=blocks),
+                 lambda: trace_soa.trace_layer_soa(*args, setting_blocks=blocks), nbytes),
+                ("trace_layer_emit", lambda: trace_soa.trace_layer_emit_cuda(*args, **kw),
+                 lambda: trace_soa.trace_layer_emit_plain(*args, **kw), emit_bytes)):
+            ms = _time_ms(fn, 10, f"{mode} layer {li + 1}")
+            plain_ms = _time_ms(plain, 3)
+            bound = least_seconds(nb, ops, sfu)
+            print(f"  {mode} layer {li + 1}: {B} lanes ({live} of weight > 0), max_hits {H}, "
+                  f"NF {nf}, T {T}, cap {spec.cap}, prob {spec.prob}, last {spec.last}: "
+                  f"bit-equal, the same bits twice; kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {1e3 * bound[0]:.5f} ms by {bound[1]} ({nb} bytes, "
+                  f"{ops // B} operations and {sfu // B} special-function operations a lane)",
+                  flush=True)
+            t = tot[mode]
+            t["layers"].append({"lanes": B, "ms": ms, "plain_ms": plain_ms,
+                                "bound_ms": 1e3 * bound[0]})
+            t["by"].append(ms)
+            for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bytes", nb), ("ops", ops),
+                         ("sfu", sfu)):
+                t[k] += v
+    for mode, replaces in (
+            ("trace_layer", "none (the JAX general trace is XLA: ice_halo_sim_tpu/core/trace_soa.py)"),
+            ("trace_layer_emit", "none (the JAX general trace and its gates, slot cap and "
+             "projection are XLA: ice_halo_sim_tpu/engine/simulator.py)")):
+        t = tot[mode]
+        ms = _Ms(t["ms"])
+        ms.by = _timed_by(*t["by"])
+        _add(res, mode, "ice_halo_sim_tpu_torch/csrc/trace_layer.cu", replaces, 0.0, ms,
+             t["plain_ms"], least_seconds(t["bytes"], t["ops"], t["sfu"]),
+             "a per-lane Monte-Carlo trace loop is no library function")
+        res[-1]["layers"] = t["layers"]
     del eng, calls
     torch.cuda.empty_cache()
 
@@ -2932,7 +2986,7 @@ def main() -> int:
     build.lib()
     print(f"[2] build: {time.time() - t0:.1f} s -> {os.path.relpath(path, ROOT)}",
           flush=True)
-    for kernel in ("trace_emit_kernel", "scan_kernel", "sandwich_"):
+    for kernel in ("trace_emit_kernel", "trace_layer", "scan_kernel", "sandwich_"):
         for line in build.ptxas_report(kernel):
             print(f"  {line}", flush=True)
     lib = build.lib()
@@ -2941,6 +2995,7 @@ def main() -> int:
 
     bench, pool = load_project(BENCH_CFG), load_project(POOL_CFG)
     ms, colour = load_project(MS_CFG), load_project(COLOR_CFG)
+    two_layer = load_project(_two_layer_doc())
     ms_first = copy.deepcopy(MS_CFG)
     ms_first["scene"]["scattering"] = ms_first["scene"]["scattering"][:1]
     ms_first["filter"] = []
@@ -2971,7 +3026,11 @@ def main() -> int:
               "scatter_blocks_multi"]),
             ("color", colour, prepass + ["pack_payload_blocks", "scatter_blocks_multi"], 2,
              "general", ["pack_rows", "fused_scan", "fused_scan_extract",
-                         "pack_valid_blocks", "scatter_blocks"])):
+                         "pack_valid_blocks", "scatter_blocks"]),
+            ("two_layer", two_layer, prepass + ["trace_layer_emit", "scatter_blocks",
+                                                "radix_sort", "fused_scan_extract"], 2,
+             "general", ["pack_rows", "pack_payload_blocks", "fused_scan", "pack_valid_blocks",
+                         "scatter_blocks_multi"])):
         engines[name], counts[name], per_batch[name] = phase_slice(
             name, cfg, device, kernels, steady, path, absent)
         if name == "bench":
@@ -2994,16 +3053,22 @@ def main() -> int:
             "compact_rows": "ms",
             "pack_payload_blocks": "color",
             "sandwich_iota": "probe_sandwich", "extract_blocks": "probe_scatter",
-            "trace_layer": "ms"}
+            "trace_layer": "ms", "trace_layer_emit": "two_layer"}
     # KL: one launch a layer on the general path's steady batches, none on
-    # the trace kernel's.
-    kl = {n: per_batch[n]["trace_layer"] for n in per_batch}
-    kl_want = {n: float(len(engines[n].layers)) if engines[n].trace_path == "general" else 0.0
-               for n in per_batch}
-    print(f"  trace_layer (KL) launches per steady batch: {kl} (one a layer on the general "
-          f"path: {kl_want})", flush=True)
-    if kl != kl_want:
-        raise AssertionError(f"trace_layer launches per steady batch {kl}, not {kl_want}")
+    # the trace kernel's: its emit mode where the layer's epilogue is the
+    # kernel's (the two-layer document), the render mode where it is plain
+    # (MS_CFG's filter and fisheye equidistant, COLOR_CFG's colour classes).
+    epilogues = {n: engines[n].layer_epilogue for n in per_batch}
+    epi_want = {"bench": [None], "pool": [None], "ms": ["plain: lens 2", "plain: filter"],
+                "color": ["plain: colour"], "two_layer": ["kernel", "kernel"]}
+    kl = {n: (per_batch[n]["trace_layer"], per_batch[n]["trace_layer_emit"]) for n in per_batch}
+    kl_want = {n: (float(sum(e not in (None, "kernel") for e in epi_want[n])),
+                   float(epi_want[n].count("kernel"))) for n in per_batch}
+    print(f"  trace_layer (KL) and its emit mode, launches per steady batch: {kl} (one a "
+          f"layer on the general path: {kl_want}); epilogues {epilogues}", flush=True)
+    if kl != kl_want or epilogues != epi_want:
+        raise AssertionError(f"KL launches per steady batch {kl}, not {kl_want}; epilogues "
+                             f"{epilogues}, not {epi_want}")
     for k in res:
         k["launches"] = counts[home.get(k["name"], "bench")][k["name"]]
         k["launches_per_steady_batch"] = {n: per_batch[n][k["name"]] for n in per_batch}

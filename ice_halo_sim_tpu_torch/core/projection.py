@@ -22,6 +22,7 @@ scatter-add, through which autograd reaches the ray directions.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple
 
@@ -43,6 +44,9 @@ SUPPORTED_LENSES = frozenset(
         LensType.GLOBE,
     )
 )
+
+# Renders a CUDA kernel projects into at once (csrc/projection.cuh kMaxR).
+MAX_RENDERS = 4
 
 GLOBE_CAMERA_D = 4.0
 PI_F = float(np.float32(np.pi))
@@ -142,6 +146,48 @@ def make_proj_plan(cfg: RenderConfig) -> ProjPlan:
         max_abs_dz=float(max_abs_dz),
         rot=rot.astype(np.float32),
     )
+
+
+class RenderConsts(ctypes.Structure):
+    """Mirror of struct Renders in csrc/projection.cuh: the per-render
+    constants the CUDA kernels project with."""
+
+    _fields_ = [("n", ctypes.c_int32)] + [
+        (n, ctypes.c_int32 * MAX_RENDERS) for n in ("lens", "width", "height", "visible")] + [
+        (n, ctypes.c_float * MAX_RENDERS) for n in (
+            "r_scale", "max_abs_dz", "scale", "shift_x", "shift_y")] + [
+        ("rot", ctypes.c_float * (9 * MAX_RENDERS))] + [
+        (n, ctypes.c_float * MAX_RENDERS) for n in (
+            "half_w", "half_h", "dual_r", "dual_cy", "dual_cxu", "dual_cxl")] + [
+        ("passes", ctypes.c_int32 * MAX_RENDERS)]
+
+
+def render_consts(plans) -> RenderConsts:
+    """The kernels' projection constants of up to MAX_RENDERS plans (lenses of
+    SUPPORTED_LENSES): the plan's fields as float32, and W / 2, H / 2 and of
+    the dual lenses short_res / 2, H / 2, W / 2 -+ short_res / 2 computed in
+    double and rounded once, as ``project_components`` adds them."""
+    if len(plans) > MAX_RENDERS:
+        raise ValueError(f"the kernels project into at most {MAX_RENDERS} renders, "
+                         f"not {len(plans)}")
+    f32 = np.float32
+    c = RenderConsts()
+    c.n = len(plans)
+    for r, pp in enumerate(plans):
+        W, H = pp.width, pp.height
+        c.lens[r], c.width[r], c.height[r] = pp.lens_type, W, H
+        c.visible[r] = pp.visible
+        c.r_scale[r], c.max_abs_dz[r] = pp.r_scale, pp.max_abs_dz
+        c.scale[r], c.shift_x[r], c.shift_y[r] = pp.scale, pp.shift_x, pp.shift_y
+        for i in range(9):
+            c.rot[9 * r + i] = float(pp.rot[i // 3, i % 3])
+        short = min(W // 2, H)
+        c.half_w[r], c.half_h[r] = f32(W / 2.0), f32(H / 2.0)
+        c.dual_r[r], c.dual_cy[r] = f32(short / 2.0), f32(H / 2.0)
+        c.dual_cxu[r] = f32(W / 2.0 - short / 2.0)
+        c.dual_cxl[r] = f32(W / 2.0 + short / 2.0)
+        c.passes[r] = 2 if pp.max_abs_dz > 0.0 else 1
+    return c
 
 
 def _fisheye_forward(lens_type: int, dx, dy, dz, r_scale: float):

@@ -46,7 +46,7 @@ from ice_halo_sim_tpu_torch.kernels import build
 from ice_halo_sim_tpu_torch.utils import profiling
 
 LAYER_NONCE = 0xA5A5
-MAX_RENDERS = 4
+MAX_RENDERS = projection.MAX_RENDERS
 _THREADS = 128  # trace kernel block size (csrc/trace_emit.cu kThreads)
 _MAX_ENTRIES = 32  # (slot, render, pass) entries the kernel stages at once (kMaxEntries)
 # Blocked-pool mode: one shape per thread block, so the engine's geom_clock
@@ -523,23 +523,12 @@ class TraceParams(ctypes.Structure):
         "lut_t0", "lut_dt", "lut_tspan0", "lut_span", "lut_c_first", "lut_c_last")] + [
         ("lut_n", ctypes.c_int32), ("lut_has_span", ctypes.c_int32),
         ("nf", ctypes.c_int32), ("n_tris", ctypes.c_int32),
-        ("pool", ctypes.c_int32), ("n_renders", ctypes.c_int32),
-        ("lens", ctypes.c_int32 * MAX_RENDERS), ("width", ctypes.c_int32 * MAX_RENDERS),
-        ("height", ctypes.c_int32 * MAX_RENDERS),
+        ("pool", ctypes.c_int32), ("ren", projection.RenderConsts),
         ("rows_block", ctypes.c_int32 * MAX_RENDERS),
-        ("visible", ctypes.c_int32 * MAX_RENDERS),
-        ("r_scale", ctypes.c_float * MAX_RENDERS),
-        ("max_abs_dz", ctypes.c_float * MAX_RENDERS),
-        ("scale", ctypes.c_float * MAX_RENDERS),
-        ("shift_x", ctypes.c_float * MAX_RENDERS),
-        ("shift_y", ctypes.c_float * MAX_RENDERS),
-        ("rot", ctypes.c_float * (9 * MAX_RENDERS)),
     ] + [(n, ctypes.c_int32) for n in (
         "off_planes", "off_tris", "off_spd", "off_wl", "off_wlw", "off_cdf",
         "off_flip", "n_ftab")] + [
-        (n, ctypes.c_float * MAX_RENDERS) for n in (
-            "half_w", "half_h", "dual_r", "dual_cy", "dual_cxu", "dual_cxl")] + [
-        ("passes", ctypes.c_int32 * MAX_RENDERS), ("rp_off", ctypes.c_int32 * MAX_RENDERS),
+        ("rp_off", ctypes.c_int32 * MAX_RENDERS),
     ] + [(n, ctypes.c_int32) for n in ("rp", "hg", "ncta", "key_shift", "grid_blocks")]
 
 
@@ -591,31 +580,17 @@ def _plan_params(plan: TracePlan):
     p.nf = plan.nf
     p.n_tris = plan.n_tris if plan.pool_k else len(plan.tris)
     p.pool = int(plan.pool_k > 0)
-    p.n_renders = len(plan.renders)
-    for r, (pp, rb) in enumerate(zip(plan.renders, plan.rows_block)):
-        p.lens[r], p.width[r], p.height[r] = pp.lens_type, pp.width, pp.height
+    p.ren = projection.render_consts(plan.renders)
+    for r, rb in enumerate(plan.rows_block):
         p.rows_block[r] = rb
-        p.visible[r] = pp.visible
-        p.r_scale[r], p.max_abs_dz[r] = pp.r_scale, pp.max_abs_dz
-        p.scale[r], p.shift_x[r], p.shift_y[r] = pp.scale, pp.shift_x, pp.shift_y
-        for i in range(9):
-            p.rot[9 * r + i] = float(pp.rot[i // 3, i % 3])
     p.off_planes, p.off_tris, p.off_spd = offs["planes"], offs["tris"], offs["spd"]
     p.off_wl, p.off_wlw = offs["wl"], offs["wlw"]
     p.off_cdf, p.off_flip = offs["cdf"], offs["flip"]
     p.n_ftab = int(ftab.size)
-    f32 = np.float32
     rp = 0
-    for r, pp in enumerate(plan.renders):
-        W, H = pp.width, pp.height
-        short = min(W // 2, H)
-        p.half_w[r], p.half_h[r] = f32(W / 2.0), f32(H / 2.0)
-        p.dual_r[r], p.dual_cy[r] = f32(short / 2.0), f32(H / 2.0)
-        p.dual_cxu[r] = f32(W / 2.0 - short / 2.0)
-        p.dual_cxl[r] = f32(W / 2.0 + short / 2.0)
-        p.passes[r] = 2 if pp.max_abs_dz > 0.0 else 1
+    for r in range(len(plan.renders)):
         p.rp_off[r] = rp
-        rp += p.passes[r]
+        rp += p.ren.passes[r]
     p.rp = rp
     p.hg = max(1, min(plan.h, _MAX_ENTRIES // rp))
     p.ncta = -(-plan.nr // _THREADS)

@@ -22,6 +22,14 @@ TPU workarounds dropped, values kept:
 on the card. The engine's "cuda" kernel set takes it; the "plain" set and
 the gradient path take ``trace_layer_soa``.
 
+``layer_epilogue`` is what the general path does with a layer's exits: the
+filter, probability and emit-floor gates, colour bits, the slot cap and the
+projection into every render, as contribution rows (``LayerRows``).
+``trace_layer_emit_cuda`` is KL's emit mode, the trace and that epilogue in
+one launch where the layer has no filter and no colour class and the
+renders' lenses are the trace kernel's (``emit_refusal``); its plain twin
+``trace_layer_emit_plain`` is ``trace_layer_soa`` then ``layer_epilogue``.
+
 The gradient modes (``score_grad``, ``frozen``, ``record``, ``soft_tau``;
 engine/gradient.py) run on torch autograd. Without them the ops are the
 render mode's: the face index carry and indexed reads. ``soft_tau`` alone
@@ -32,12 +40,13 @@ sums, as the JAX function does in every mode: a soft weight is not an index.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
-from ice_halo_sim_tpu_torch.core import optics, rng
-from ice_halo_sim_tpu_torch.core.bits import F32, I32, I64, divs, sdiv
+from ice_halo_sim_tpu_torch.core import optics, projection, rng
+from ice_halo_sim_tpu_torch.core.bits import F32, I32, I64, MASK32, divs, sdiv
 from ice_halo_sim_tpu_torch.core.sampling import HALF_PI_F, PI_F, _rot9
 from ice_halo_sim_tpu_torch.core.trace import GeomPool
 from ice_halo_sim_tpu_torch.kernels import build
@@ -346,6 +355,180 @@ def trace_layer_soa(seed, ray_idx, d_world, w0, rot, pool: GeomPool, n_ior,
     return exits, FrozenChoices(sel.to(I32), entry_ok, *(torch.stack(c) for c in zip(*rec)))
 
 
+def uniform_slots(seed_vec, ray_idx, slots):
+    """One uniform draw per (slot, ray): stream (seed, ray index), draw slot
+    slots[h] ([H, 1] int64). Returns [H, B]."""
+    idx = rng._t(ray_idx)[None, :]
+    inner = rng.pcg_hash((idx * 1000003 + slots) & MASK32)
+    return rng.u01(rng.pcg_hash(rng._t(seed_vec)[None, :] ^ inner))
+
+
+class EmitSpec(NamedTuple):
+    """The epilogue of one layer: its probability gate (``prob``; on the
+    ``last`` layer what would continue is dropped), the emit floor
+    (``emit_frac`` of the batch's mean initial weight, 0: off; ``rr``:
+    Russian roulette, else a drop), the slot cap (None: the calibrating
+    batch, which keeps every slot and measures the mass per live rank) and
+    the renders (ProjPlans) the kept exits are projected into."""
+
+    prob: float
+    last: bool
+    emit_frac: float
+    rr: bool
+    cap: Optional[int]
+    renders: tuple
+
+
+class LayerRows(NamedTuple):
+    """One layer's contribution rows and the per-lane parts of its stats.
+
+    pix, w: per (render, pass) -- each render's main pass, then its overlap
+      pass where it has one -- [rows, B] int32 pixels (-1: nothing lands)
+      and float32 weights (0 there); rows = the cap, each lane's live exits
+      first in slot order, or every slot in its own row when the cap is
+      max_hits;
+    mask: [rows, B] int64 component masks (colour classes), else None (0);
+    seg: [B] int32 deepest live raw exit slot + 1 (0: none);
+    dropped: [B] float32 mass the emit floor changed and the cap dropped, a
+      running sum in slot order;
+    cont: (w, dx, dy, dz) [H, B], the continuation's inputs (the continuing
+      weight of every exit slot, uncapped); None on the last layer;
+    exit_mask: [H, B] int64 component masks of every exit (colour classes),
+      the continuation's, else None;
+    slot_mass: [H] float32 mass per live rank (the calibrating batch), else
+      None."""
+
+    pix: tuple
+    w: tuple
+    mask: Optional[torch.Tensor]
+    seg: torch.Tensor
+    dropped: torch.Tensor
+    cont: Optional[tuple]
+    exit_mask: Optional[torch.Tensor]
+    slot_mass: Optional[torch.Tensor]
+
+
+def layer_epilogue(exits: SoAExits, seed, ray_idx, w_scale, spec: EmitSpec,
+                   filter_gate: Optional[Callable] = None,
+                   color_bits: Optional[Callable] = None,
+                   carried_mask=None) -> LayerRows:
+    """The general path's epilogue of one layer's exits (plain PyTorch; the
+    twin of KL's emit mode, bit for bit where that mode applies).
+
+    seed: the layer's per-ray seed [B] (int64-held u32); ray_idx [B];
+    w_scale: the batch's mean initial weight (a 0-dim float32 tensor), the
+    emit floor's scale. filter_gate(live [H, B] bool) -> [H, B] bool: the
+    raypath filters' verdict, a failing exit neither accumulates nor
+    continues; color_bits(live) -> [H, B] int64: this layer's colour
+    predicate bits; carried_mask [B] int64: the component bits carried in,
+    given whenever the scene has colour classes."""
+    exit_w = exits.w
+    H, B = exit_w.shape
+    dev = exit_w.device
+    slot_ids = torch.arange(H, dtype=I64, device=dev)[:, None]
+    # Traced segments: the deepest live raw exit slot of each lane.
+    seg = torch.where(exit_w > 0.0, slot_ids + 1, 0).amax(dim=0).to(I32)
+    if filter_gate is not None:
+        exit_w = torch.where(filter_gate(exit_w > 0.0), exit_w, 0.0)
+
+    # Probability gate per exit slot (stream: ray index, slot 100 + h).
+    to_continue = acc_mask = None
+    if spec.prob > 0.0:
+        u = uniform_slots(seed ^ rng.NONCE_GATE, ray_idx, 100 + slot_ids)
+        if spec.last:
+            acc_mask = u >= spec.prob      # would-continue rays are dropped
+        else:
+            to_continue = (u < spec.prob) & (exit_w > 0.0)
+            acc_mask = ~to_continue
+
+    # Component mask per exit: the carried bits OR this layer's predicates'.
+    exit_mask = None
+    if carried_mask is not None:
+        exit_mask = carried_mask[None, :].expand(H, B)
+        if color_bits is not None:
+            exit_mask = exit_mask | color_bits(exit_w > 0.0)
+
+    acc_w = exit_w if acc_mask is None else torch.where(acc_mask, exit_w, 0.0)
+    floor_drop = None
+    if spec.emit_frac > 0.0:
+        # Emit-time weight floor: sub-threshold exits are thinned from
+        # accumulation only, never from continuation.
+        w_cut = w_scale * float(np.float32(spec.emit_frac))
+        tiny = (acc_w > 0.0) & (acc_w < w_cut)
+        if spec.rr:
+            u_rr = uniform_slots(seed ^ rng.NONCE_EMIT, ray_idx, slot_ids)
+            new_w = torch.where(tiny, torch.where(u_rr * w_cut < acc_w, w_cut, 0.0), acc_w)
+        else:
+            new_w = torch.where(tiny, 0.0, acc_w)
+        floor_drop = acc_w - new_w
+        acc_w = new_w
+    lv = acc_w > 0.0
+    rank = torch.cumsum(lv.to(I64), dim=0) - lv.to(I64)
+    slot_mass = None
+    if spec.cap is None:
+        # Calibrating: mass per live rank; rank c's mass is what a cap of c
+        # would drop from that slot downward.
+        slot_mass = torch.stack([
+            torch.sum(torch.where(lv & (rank == c), acc_w, 0.0)) for c in range(H)])
+    cap = H if spec.cap is None else spec.cap
+    # The dropped mass per lane, in slot order: the floor's net change, then
+    # the live exits past the cap.
+    dropped = torch.zeros(B, dtype=F32, device=dev)
+    for h in range(H):
+        if floor_drop is not None:
+            dropped = dropped + floor_drop[h]
+        if cap < H:
+            dropped = dropped + torch.where(lv[h] & (rank[h] >= cap), acc_w[h], 0.0)
+
+    if cap < H:
+        # Per-lane live-first slot compaction; lanes with more than `cap`
+        # live exits lose their deepest ones (accounted above).
+        cols = [acc_w, exits.dx, exits.dy, exits.dz]
+        comp, keep_m, _ = compact_slots(
+            lv, cols + ([exit_mask] if exit_mask is not None else []), cap)
+        row_w = torch.where(keep_m, comp[0], 0.0)
+        row_d = comp[1:4]
+        row_mask = torch.where(keep_m, comp[4], 0) if exit_mask is not None else None
+    else:
+        row_w, row_d, row_mask = acc_w, (exits.dx, exits.dy, exits.dz), exit_mask
+    pix, w = [], []
+    for pp in spec.renders:
+        hits = projection.project_components(pp, *row_d)
+        passes = [hits.main] + ([hits.overlap] if pp.max_abs_dz > 0.0 else [])
+        for hit in passes:
+            ok = (hit >= 0) & (row_w > 0.0)
+            pix.append(torch.where(ok, hit, -1))
+            w.append(torch.where(ok, row_w, 0.0))
+    cont = None
+    if not spec.last:
+        cont_w = (torch.zeros((H, B), dtype=F32, device=dev) if to_continue is None
+                  else torch.where(to_continue, exit_w, 0.0))
+        cont = (cont_w, exits.dx, exits.dy, exits.dz)
+    return LayerRows(tuple(pix), tuple(w), row_mask, seg, dropped, cont, exit_mask, slot_mass)
+
+
+def emit_refusal(renders) -> Optional[str]:
+    """Why KL's emit mode cannot project into these renders (ProjPlans), or
+    None: it takes the trace kernel's lenses (projection.SUPPORTED_LENSES,
+    no inverse trig) and at most projection.MAX_RENDERS renders."""
+    for pp in renders:
+        if pp.lens_type not in projection.SUPPORTED_LENSES:
+            return f"lens {pp.lens_type}"
+    if len(renders) > projection.MAX_RENDERS:
+        return f"{len(renders)} renders"
+    return None
+
+
+def trace_layer_emit_plain(seed, ray_idx, d_world, w0, rot, pool: GeomPool, n_ior,
+                           max_hits: int, setting_blocks: Optional[tuple] = None, *,
+                           w_scale, spec: EmitSpec) -> LayerRows:
+    """The emit mode's plain twin: ``trace_layer_soa``, then
+    ``layer_epilogue`` with no filter and no colour class."""
+    exits = trace_layer_soa(seed, ray_idx, d_world, w0, rot, pool, n_ior, max_hits,
+                            setting_blocks)
+    return layer_epilogue(exits, seed, ray_idx, w_scale, spec)
+
+
 _VP = ctypes.c_void_p
 
 
@@ -413,6 +596,36 @@ def check_layer_inputs(seed, ray_idx, d_world, w0, rot, pool: GeomPool, n_ior,
     return B
 
 
+def _layer_args(seed, ray_idx, d_world, w0, rot, pool: GeomPool, n_ior, max_hits: int,
+                setting_blocks, out, path, entry_ok):
+    """KL's argument block of a checked call; out: the exits' (dx, dy, dz,
+    w), [H, B] each, or None; path and entry_ok or None."""
+    B = ray_idx.shape[0]
+    dev = ray_idx.device
+    K, NF = pool.plane_n.shape[0], pool.plane_n.shape[1]
+    shared = K == 1 and (setting_blocks is None or len(setting_blocks) == 1)
+    if not shared and setting_blocks is None:
+        raise ValueError("a pool of several shapes needs setting_blocks")
+    rows = None if shared else lane_pool_rows(setting_blocks, B, dev)
+    tabs = [getattr(pool, f).contiguous() for f, _, _ in _POOL_TABLES]
+    ptr = build.ptr
+    a = _LayerArgs()
+    a.seed, a.ray_idx, a.w0, a.n_ior = ptr(seed), ptr(ray_idx), ptr(w0), ptr(n_ior)
+    for c in range(3):
+        a.d[c] = ptr(d_world[c])
+        a.out_d[c] = ptr(None if out is None else out[c])
+    for c in range(9):
+        a.rot[c] = ptr(rot[c])
+    a.rows = ptr(rows)
+    (a.plane_n, a.plane_d, a.present, a.face_num, a.tri_ch, a.tri_v0, a.tri_e1, a.tri_e2,
+     a.tri_face) = (ptr(t) for t in tabs)
+    a.out_w = ptr(None if out is None else out[3])
+    a.out_path, a.entry_ok = ptr(path), ptr(entry_ok)
+    a.b, a.h, a.nf, a.t = B, int(max_hits), NF, pool.tri_face.shape[1]
+    # The block keeps the pool tables and the row index alive until launch.
+    return a, (tabs, rows)
+
+
 def trace_layer_cuda(seed, ray_idx, d_world, w0, rot, pool: GeomPool, n_ior,
                      max_hits: int, setting_blocks: Optional[tuple] = None) -> SoAExits:
     """KL (csrc/trace_layer.cu): the render mode of ``trace_layer_soa`` in
@@ -425,32 +638,96 @@ def trace_layer_cuda(seed, ray_idx, d_world, w0, rot, pool: GeomPool, n_ior,
     dev = ray_idx.device
     if dev.type == "cpu":
         raise ValueError("KL runs on CUDA tensors; trace_layer_soa is the CPU's trace")
-    K, NF = pool.plane_n.shape[0], pool.plane_n.shape[1]
-    shared = K == 1 and (setting_blocks is None or len(setting_blocks) == 1)
-    if not shared and setting_blocks is None:
-        raise ValueError("a pool of several shapes needs setting_blocks")
     H = int(max_hits)
-    lib = build.lib()
-    rows = None if shared else lane_pool_rows(setting_blocks, B, dev)
-    tabs = [getattr(pool, f).contiguous() for f, _, _ in _POOL_TABLES]
-    out = torch.empty((4, H, B), dtype=F32, device=dev)
+    out = torch.empty((4, H, B), dtype=F32, device=dev).unbind(0)
     path = torch.empty((H, B), dtype=I32, device=dev)
     entry_ok = torch.empty(B, dtype=torch.bool, device=dev)
-    ptr = build.ptr
-    a = _LayerArgs()
-    a.seed, a.ray_idx, a.w0, a.n_ior = ptr(seed), ptr(ray_idx), ptr(w0), ptr(n_ior)
-    for c in range(3):
-        a.d[c] = ptr(d_world[c])
-        a.out_d[c] = ptr(out[c])
-    for c in range(9):
-        a.rot[c] = ptr(rot[c])
-    a.rows = ptr(rows)
-    (a.plane_n, a.plane_d, a.present, a.face_num, a.tri_ch, a.tri_v0, a.tri_e1, a.tri_e2,
-     a.tri_face) = (ptr(t) for t in tabs)
-    a.out_w, a.out_path, a.entry_ok = ptr(out[3]), ptr(path), ptr(entry_ok)
-    a.b, a.h, a.nf, a.t = B, H, NF, pool.tri_face.shape[1]
+    a, _keep = _layer_args(seed, ray_idx, d_world, w0, rot, pool, n_ior, H, setting_blocks,
+                           out, path, entry_ok)
+    lib = build.lib()
     with torch.cuda.device(dev):
         code = lib.iht_trace_layer(ctypes.addressof(a), build.stream_ptr(dev))
     build.check(code, "trace_layer")
     build.LAUNCHES["trace_layer"] += 1
     return SoAExits(dx=out[0], dy=out[1], dz=out[2], w=out[3], path=path, entry_ok=entry_ok)
+
+
+class _EmitArgs(ctypes.Structure):
+    """The emit mode's argument block (csrc/trace_layer.cu EmitArgs)."""
+
+    _fields_ = [
+        ("w_scale", _VP), ("out_pix", _VP * (2 * projection.MAX_RENDERS)),
+        ("out_w", _VP * (2 * projection.MAX_RENDERS)), ("out_seg", _VP), ("out_drop", _VP),
+        ("prob", ctypes.c_float), ("emit_frac", ctypes.c_float), ("emit_mode", ctypes.c_int32),
+        ("last", ctypes.c_int32), ("cap", ctypes.c_int32), ("ren", projection.RenderConsts),
+    ]
+
+
+def check_emit_spec(spec: EmitSpec, w_scale, max_hits: int, device) -> None:
+    """Raise ValueError where KL's emit mode cannot take this epilogue: the
+    calibrating batch (no cap), a cap outside 1..max_hits, renders it does
+    not project into (``emit_refusal``), an emit floor without its scale as
+    a 0-dim float32 tensor on the lanes' device."""
+    if spec.cap is None:
+        raise ValueError("the emit mode needs a slot cap; the calibrating batch takes "
+                         "layer_epilogue")
+    if not 1 <= int(spec.cap) <= int(max_hits):
+        raise ValueError(f"the slot cap {spec.cap} is outside 1..{max_hits}")
+    if not spec.renders:
+        raise ValueError("the emit mode projects into at least one render")
+    reason = emit_refusal(spec.renders)
+    if reason is not None:
+        raise ValueError(f"the emit mode cannot project here: {reason}")
+    if spec.emit_frac > 0.0 and not (
+            isinstance(w_scale, torch.Tensor) and w_scale.shape == () and w_scale.dtype == F32
+            and w_scale.device == device):
+        raise ValueError(f"the emit floor's scale must be a 0-dim float32 tensor on {device}")
+
+
+def trace_layer_emit_cuda(seed, ray_idx, d_world, w0, rot, pool: GeomPool, n_ior,
+                          max_hits: int, setting_blocks: Optional[tuple] = None, *,
+                          w_scale, spec: EmitSpec) -> LayerRows:
+    """KL's emit mode: the layer's trace and ``layer_epilogue`` (no filter,
+    no colour class) in one launch on CUDA tensors, every output bit-equal
+    to ``trace_layer_emit_plain``'s. Raises ValueError where
+    ``check_layer_inputs`` or ``check_emit_spec`` does, or on CPU tensors.
+    The emit floor's scale is read from device memory at launch, so a
+    captured graph replays the batch's own."""
+    B = check_layer_inputs(seed, ray_idx, d_world, w0, rot, pool, n_ior, max_hits)
+    dev = ray_idx.device
+    check_emit_spec(spec, w_scale, max_hits, dev)
+    if dev.type == "cpu":
+        raise ValueError("KL runs on CUDA tensors; trace_layer_emit_plain is the CPU's")
+    H, rows = int(max_hits), int(spec.cap)
+    ren = projection.render_consts(spec.renders)
+    n_rp = sum(ren.passes[r] for r in range(ren.n))
+    # One tensor a (render, pass), as the plain twin's: the fold and the
+    # landed weight's torch.sum read each column from its own allocation.
+    pix = [torch.empty((rows, B), dtype=I32, device=dev) for _ in range(n_rp)]
+    wts = [torch.empty((rows, B), dtype=F32, device=dev) for _ in range(n_rp)]
+    seg = torch.empty(B, dtype=I32, device=dev)
+    dropped = torch.empty(B, dtype=F32, device=dev)
+    out = None
+    if not spec.last:
+        # The continuing weight in its own allocation, as the plain twin's:
+        # the engine sums it.
+        out = (*torch.empty((3, H, B), dtype=F32, device=dev).unbind(0),
+               torch.empty((H, B), dtype=F32, device=dev))
+    a, _keep = _layer_args(seed, ray_idx, d_world, w0, rot, pool, n_ior, H, setting_blocks,
+                           out, None, None)
+    e = _EmitArgs()
+    e.w_scale = build.ptr(w_scale if spec.emit_frac > 0.0 else None)
+    for k in range(n_rp):
+        e.out_pix[k], e.out_w[k] = build.ptr(pix[k]), build.ptr(wts[k])
+    e.out_seg, e.out_drop = build.ptr(seg), build.ptr(dropped)
+    e.prob, e.emit_frac = float(spec.prob), float(np.float32(spec.emit_frac))
+    e.emit_mode = 0 if spec.emit_frac <= 0.0 else (1 if spec.rr else 2)
+    e.last, e.cap, e.ren = int(spec.last), rows, ren
+    lib = build.lib()
+    with torch.cuda.device(dev):
+        code = lib.iht_trace_layer_emit(ctypes.addressof(a), ctypes.addressof(e),
+                                        build.stream_ptr(dev))
+    build.check(code, "trace_layer_emit")
+    build.LAUNCHES["trace_layer_emit"] += 1
+    cont = None if out is None else (out[3], out[0], out[1], out[2])
+    return LayerRows(tuple(pix), tuple(wts), None, seg, dropped, cont, None, None)

@@ -67,19 +67,18 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "projection.cuh"
 #include "trace_common.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxR = 4;
 constexpr int kMaxF = 20;     // face slots of the pyramid layout
 constexpr int kThreads = 128;  // == the pool's geom clock
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxCta = 16;   // blocks of a cluster: 2048 rays
 constexpr int kMaxEntries = 32;  // (slot, render, pass) entries staged at once
-constexpr float GLOBE_CAMERA_D = 4.0f;
 
 constexpr uint32_t NONCE_WL = 0x9E3779B9u;
 constexpr uint32_t NONCE_ORIENT = 0xC2B2AE35u;
@@ -115,20 +114,10 @@ struct TraceParams {
   int32_t lut_n, lut_has_span;
   int32_t nf, n_tris;  // face slots (8 or 20); triangle rows of the table
   int32_t pool;        // 1: blocked-pool mode (block b reads row b of ptbl/ttbl)
-  int32_t n_renders;
-  int32_t lens[kMaxR], width[kMaxR], height[kMaxR], rows_block[kMaxR];
-  int32_t visible[kMaxR];  // 0 upper, 1 lower, 2 full (single-lens family)
-  float r_scale[kMaxR], max_abs_dz[kMaxR];
-  float scale[kMaxR], shift_x[kMaxR], shift_y[kMaxR];
-  float rot[kMaxR][9];     // camera rotation, row-major
+  Renders ren;         // the projection's constants (projection.cuh)
+  int32_t rows_block[kMaxR];
   int32_t off_planes, off_tris, off_spd, off_wl, off_wlw, off_cdf, off_flip;
   int32_t n_ftab;
-  // Per-render constants of the projection, computed on the host as the
-  // kernel would (double, then float): W / 2, H / 2, and of the dual lenses
-  // short_res / 2, H / 2, W / 2 -+ short_res / 2.
-  float half_w[kMaxR], half_h[kMaxR];
-  float dual_r[kMaxR], dual_cy[kMaxR], dual_cxu[kMaxR], dual_cxl[kMaxR];
-  int32_t passes[kMaxR];  // 2 with the overlap pass, else 1
   int32_t rp_off[kMaxR];  // first (render, pass) index of each render
   int32_t rp;             // (render, pass) pairs: sum of passes
   int32_t hg;             // slots staged at once (hg * rp <= kMaxEntries)
@@ -177,77 +166,6 @@ __device__ __forceinline__ float ice_n(float wl) {
   return (wl < 350.0f || wl > 900.0f) ? 1.0f : n;
 }
 
-__device__ __forceinline__ int in_bounds(int px, int py, bool valid, int W, int H) {
-  return (valid && px >= 0 && px < W && py >= 0 && py < H) ? py * W + px : -1;
-}
-
-// Equal-area / orthographic fisheye forward of a direction with z = zc.
-__device__ __forceinline__ void fisheye_xy(bool equal_area, float dx, float dy, float dz,
-                                           float r_scale, float& x, float& y) {
-  if (equal_area) {
-    const float zc = fminf(fmaxf(dz, (float)(-1.0 + 1e-6)), 1.0f);
-    const float k = r_scale / sqrtf(1.0f + zc);
-    x = k * dx;
-    y = k * dy;
-  } else {
-    x = r_scale * dx;
-    y = r_scale * dy;
-  }
-}
-
-// Dual-fisheye pixel of sky direction (sx, sy, +-z_hemi) on one hemisphere.
-__device__ __forceinline__ int dual_pixel(const TraceParams& p, int r, float sx, float sy,
-                                          float zh, bool upper, bool valid) {
-  float x, y;
-  fisheye_xy(p.lens[r] == 4, sx, sy, zh, p.r_scale[r], x, y);
-  const float rr = p.dual_r[r];
-  const float fx = upper ? (-y) * rr + p.dual_cxu[r] : y * rr + p.dual_cxl[r];
-  const float fy = x * rr + p.dual_cy[r];
-  return in_bounds((int)floorf(fx + 0.5f), (int)floorf(fy + 0.5f), valid, p.width[r],
-                   p.height[r]);
-}
-
-// Single-lens family (0 linear, 1 fisheye equal-area, 8 fisheye
-// orthographic) and globe (10): flattened pixel of exit direction
-// (ex, ey, ez), or -1.
-__device__ __forceinline__ int single_pixel(const TraceParams& p, int r, float ex,
-                                            float ey, float ez) {
-  const int lens = p.lens[r], W = p.width[r], H = p.height[r];
-  const float* m = p.rot[r];
-  // Camera frame c = R^T (-w).
-  const float cx = -(m[0] * ex + m[3] * ey + m[6] * ez);
-  const float cy = -(m[1] * ex + m[4] * ey + m[7] * ez);
-  const float cz = -(m[2] * ex + m[5] * ey + m[8] * ez);
-  bool valid;
-  float x, y;
-  if (lens == 10) {
-    // Valid rays have cz in [-1, -1/D): their denominator is positive. An
-    // invalid ray's quotient may be inf; `valid` masks its pixel.
-    valid = cz < (float)(-1.0 / GLOBE_CAMERA_D);
-    const float denom = GLOBE_CAMERA_D + cz;
-    x = -cx / denom;
-    y = cy / denom;
-  } else {
-    valid = true;
-    if (p.visible[r] == 0) valid = ez <= 0.0f;
-    else if (p.visible[r] == 1) valid = ez >= 0.0f;
-    valid = valid && cz > 0.0f;
-    if (lens == 0) {
-      // An invalid ray divides by 1, never by a non-positive cz.
-      const float safe_cz = cz > 0.0f ? cz : 1.0f;
-      x = cx / safe_cz;
-      y = cy / safe_cz;
-    } else {
-      fisheye_xy(lens == 1, cx, cy, cz, 1.0f, x, y);
-      if (lens == 8) valid = valid && cz >= 0.0f;
-    }
-    x = -x;  // screen handedness
-  }
-  const float fx = x * p.scale[r] + p.half_w[r] + 0.5f + p.shift_x[r];
-  const float fy = y * p.scale[r] + p.half_h[r] + 0.5f + p.shift_y[r];
-  return in_bounds((int)floorf(fx), (int)floorf(fy), valid, W, H);
-}
-
 __device__ __forceinline__ uint32_t pack_key(int pix, float w, uint32_t wl_idx,
                                              int P, int K, int shift, float& wz) {
   const bool valid = pix >= 0 && pix < P && w > 0.0f;
@@ -293,15 +211,11 @@ __device__ void emit_slot(const TraceParams& p, int h, float ex, float ey, float
     st.dropped += acc_w - new_w;
     acc_w = new_w;
   }
-  const float sx = -ex, sy = -ey, sz = -ez;
-  const bool upper = sz >= 0.0f;
-  const float zh = fabsf(sz);
   const int e0 = (h % p.hg) * p.rp;
-  for (int r = 0; r < p.n_renders; ++r) {
-    const int P = p.width[r] * p.height[r];
-    const bool dual = p.lens[r] == 4 || p.lens[r] == 9;
-    const int main_pix = dual ? dual_pixel(p, r, sx, sy, zh, upper, true)
-                              : single_pixel(p, r, ex, ey, ez);
+  for (int r = 0; r < p.ren.n; ++r) {
+    const int P = p.ren.width[r] * p.ren.height[r];
+    int main_pix, ov;
+    project_exit(p.ren, r, ex, ey, ez, main_pix, ov);
     const bool main_ok = main_pix >= 0 && acc_w > 0.0f;
     float wz;
     const uint32_t key = pack_key(main_ok ? main_pix : -1, main_ok ? acc_w : 0.0f,
@@ -310,9 +224,7 @@ __device__ void emit_slot(const TraceParams& p, int h, float ex, float ey, float
     const int e = (e0 + p.rp_off[r]) * kThreads + threadIdx.x;
     sg.key[e] = key;
     sg.w[e] = wz;
-    if (p.passes[r] == 2) {
-      const bool band = fabsf(sz) < p.max_abs_dz[r];
-      const int ov = dual_pixel(p, r, sx, sy, -zh, !upper, band);
+    if (p.ren.passes[r] == 2) {
       const bool ov_ok = ov >= 0 && acc_w > 0.0f;
       float wo;
       const uint32_t kov = pack_key(ov_ok ? ov : -1, ov_ok ? acc_w : 0.0f, wl_idx,
@@ -372,8 +284,8 @@ __device__ void flush(const TraceParams& p, const Stage& sg, PackShared& ps, int
     // Entries in order: slot within the group, then render, then pass; a
     // render's entries are its slots in the JAX order.
     for (int hl = 0; hl < nh; ++hl) {
-      for (int r = 0; r < p.n_renders; ++r) {
-        for (int q = 0; q < p.passes[r]; ++q) {
+      for (int r = 0; r < p.ren.n; ++r) {
+        for (int q = 0; q < p.ren.passes[r]; ++q) {
           const int e = hl * p.rp + p.rp_off[r] + q;
           ps.start[e] += ps.run[r];
           ps.run[r] += ps.tot[e];
@@ -384,9 +296,9 @@ __device__ void flush(const TraceParams& p, const Stage& sg, PackShared& ps, int
   __syncthreads();
   const unsigned lt = (1u << lane) - 1u;
   for (int hl = 0; hl < nh; ++hl) {
-    for (int r = 0; r < p.n_renders; ++r) {
+    for (int r = 0; r < p.ren.n; ++r) {
       const long long base = p.slab_off[r] + (long long)g * p.rows_block[r];
-      for (int q = 0; q < p.passes[r]; ++q) {
+      for (int q = 0; q < p.ren.passes[r]; ++q) {
         const int e = hl * p.rp + p.rp_off[r] + q;
         const uint32_t k = sg.key[e * kThreads + tid];
         const bool live = k != 0xFFFFFFFFu;
@@ -666,7 +578,7 @@ trace_emit_kernel(const TraceParams p, const uint32_t* __restrict__ base,
   // The tail of each render's block, past its live rows, shared among the
   // cluster's blocks; the live count.
   const int rank = (int)cluster.block_rank();
-  for (int r = 0; r < p.n_renders; ++r) {
+  for (int r = 0; r < p.ren.n; ++r) {
     const long long base = p.slab_off[r] + (long long)g * p.rows_block[r];
     for (int row = ps.run[r] + rank * kThreads + tid; row < p.rows_block[r];
          row += p.ncta * kThreads) {
@@ -689,8 +601,8 @@ trace_emit_kernel(const TraceParams p, const uint32_t* __restrict__ base,
     __syncthreads();
   }
   if (tid == 0) {
-    for (int r = 0; r <= p.n_renders; ++r)
-      fpart[(long long)blockIdx.x * (p.n_renders + 1) + r] = red_f[r][0];
+    for (int r = 0; r <= p.ren.n; ++r)
+      fpart[(long long)blockIdx.x * (p.ren.n + 1) + r] = red_f[r][0];
     spart[blockIdx.x] = red_s[0];
   }
   // No block leaves while another may still read its counts.

@@ -32,19 +32,39 @@
 // lane is traced, zero-weight ones included, as the plain function traces
 // them.
 //
+// The emit mode (iht_trace_layer_emit) runs the layer's epilogue in the
+// same thread, after each exit slot is traced: the probability gate
+// (stream 100 + h of the layer seed ^ NONCE_GATE), the emit floor on the
+// accumulated weight (cut = the batch's mean initial weight, read from
+// device memory, times the floor fraction; Russian roulette on stream h
+// of the layer seed ^ NONCE_EMIT), the slot cap in slot order (a lane's
+// live exits go to rows 0, 1, ... of its column, those past the cap are
+// dropped; with the cap at max_hits each slot keeps its own row) and the
+// projection into every render (projection.cuh, K2's). It writes per
+// (render, pass) the pixel and weight of each kept row [rows, B], -1 and 0
+// past the lane's live rows; per lane the deepest live raw exit slot and
+// the dropped mass (the floor's net change and the cap's drop, a float32
+// running sum in slot order); and, on a layer that is not the last, the
+// continuation's inputs [H, B] (exit directions and the continuing
+// weight). No path, no entry flag. Its plain twin is
+// core/trace_soa.py layer_epilogue after trace_layer_soa, bit for bit.
+//
 // The kernel is a template on the face-slot count NF (8 prism, 20 with a
-// pyramid): the plane distances are NF registers. The entry point returns
-// cudaGetLastError() after its launch.
+// pyramid): the plane distances are NF registers. The entry points return
+// cudaGetLastError() after their launch.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "projection.cuh"
 #include "trace_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr uint32_t NONCE_ENTRY = 0x165667B1u;
+constexpr uint32_t NONCE_GATE = 0xD3A2646Cu;
+constexpr uint32_t NONCE_EMIT = 0x94D049BBu;
 constexpr float SLAB_EPS = 1e-5f;
 constexpr float BIG = 1e30f;
 
@@ -76,6 +96,21 @@ struct LayerArgs {
   uint8_t* entry_ok;         // [B] bool
   long long b;
   int32_t h, nf, t;
+};
+
+// The emit mode's arguments; mirrored by _EmitArgs in
+// ice_halo_sim_tpu_torch/core/trace_soa.py.
+struct EmitArgs {
+  const float* w_scale;  // [] the batch's mean initial weight
+  int32_t* out_pix[2 * kMaxR];  // [rows, B] per (render, pass)
+  float* out_w[2 * kMaxR];      // [rows, B]
+  int32_t* out_seg;      // [B] deepest live raw exit slot + 1 (0: none)
+  float* out_drop;       // [B] dropped mass
+  float prob, emit_frac;
+  int32_t emit_mode;     // 0 off, 1 Russian roulette, 2 drop
+  int32_t last;          // 1: the last layer (no continuation written)
+  int32_t cap;           // rows a lane keeps (< h: live-first compaction)
+  Renders ren;
 };
 
 namespace {
@@ -142,20 +177,116 @@ __device__ Shape shape_row(const LayerArgs& a, long long row) {
   return s;
 }
 
-template <int NF>
-__global__ void __launch_bounds__(kThreads) trace_layer_kernel(const LayerArgs a) {
-  extern __shared__ float sm[];
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  Shape g;
-  if (a.rows == nullptr) {
-    g = stage_shared<NF>(a, sm);  // every thread of the block, then a barrier
-    if (i >= a.b) return;
-  } else {
-    if (i >= a.b) return;
-    g = shape_row<NF>(a, a.rows[i]);
+// The render mode's writes: slot-major exits [H, B] and the entry flag.
+struct RenderOut {
+  const LayerArgs& a;
+  long long i;
+
+  __device__ __forceinline__ void entry(bool ok) { a.entry_ok[i] = ok ? 1 : 0; }
+
+  __device__ __forceinline__ void exit(int h, float ex, float ey, float ez, float w,
+                                       int32_t path) {
+    const long long o = h * a.b + i;
+    a.out_d[0][o] = ex;
+    a.out_d[1][o] = ey;
+    a.out_d[2][o] = ez;
+    a.out_w[o] = w;
+    a.out_path[o] = path;
   }
+
+  __device__ __forceinline__ void finish() {}
+};
+
+// The emit mode's epilogue of one lane (see the file comment).
+struct EmitOut {
+  const LayerArgs& a;
+  const EmitArgs& e;
+  long long i;
+  uint32_t idx, gate_seed, rr_seed;
+  float cut;
+  float drop = 0.0f;
+  int rank = 0, seg = 0;
+
+  __device__ __forceinline__ void entry(bool) {}
+
+  // Row `row` of every (render, pass) column: the pixels of the exit
+  // direction, or -1 and 0 where the weight is 0.
+  __device__ __forceinline__ void put(int row, float ex, float ey, float ez, float w) {
+    const long long o = row * a.b + i;
+    int rp = 0;
+    for (int r = 0; r < e.ren.n; ++r) {
+      int main_pix = -1, ov = -1;
+      if (w > 0.0f) project_exit(e.ren, r, ex, ey, ez, main_pix, ov);
+      const bool main_ok = main_pix >= 0 && w > 0.0f;
+      e.out_pix[rp][o] = main_ok ? main_pix : -1;
+      e.out_w[rp][o] = main_ok ? w : 0.0f;
+      ++rp;
+      if (e.ren.passes[r] == 2) {
+        const bool ov_ok = ov >= 0 && w > 0.0f;
+        e.out_pix[rp][o] = ov_ok ? ov : -1;
+        e.out_w[rp][o] = ov_ok ? w : 0.0f;
+        ++rp;
+      }
+    }
+  }
+
+  __device__ __forceinline__ void exit(int h, float ex, float ey, float ez, float w_raw,
+                                       int32_t) {
+    if (w_raw > 0.0f) seg = h + 1;
+    float acc = w_raw;
+    bool cont = false;
+    if (e.prob > 0.0f) {
+      const float u = uniform(gate_seed, idx, 100u + (uint32_t)h);
+      if (e.last) {
+        acc = (u >= e.prob) ? w_raw : 0.0f;
+      } else {
+        cont = u < e.prob && w_raw > 0.0f;
+        acc = cont ? 0.0f : w_raw;
+      }
+    }
+    if (!e.last) {
+      const long long o = h * a.b + i;
+      a.out_d[0][o] = ex;
+      a.out_d[1][o] = ey;
+      a.out_d[2][o] = ez;
+      a.out_w[o] = cont ? w_raw : 0.0f;
+    }
+    if (e.emit_mode != 0) {
+      const bool tiny = acc > 0.0f && acc < cut;
+      float nw;
+      if (e.emit_mode == 1) {
+        const float urr = uniform(rr_seed, idx, (uint32_t)h);
+        nw = tiny ? ((urr * cut < acc) ? cut : 0.0f) : acc;
+      } else {
+        nw = tiny ? 0.0f : acc;
+      }
+      drop = drop + (acc - nw);
+      acc = nw;
+    }
+    const bool live = acc > 0.0f;
+    if (e.cap < a.h) {
+      const bool kept = live && rank < e.cap;
+      drop = drop + ((live && !kept) ? acc : 0.0f);
+      if (kept) put(rank, ex, ey, ez, acc);
+      rank += live ? 1 : 0;
+    } else {
+      put(h, ex, ey, ez, acc);
+    }
+  }
+
+  __device__ __forceinline__ void finish() {
+    if (e.cap < a.h)
+      for (int row = rank; row < e.cap; ++row) put(row, 0.0f, 0.0f, 0.0f, 0.0f);
+    e.out_seg[i] = seg;
+    e.out_drop[i] = drop;
+  }
+};
+
+// One lane's trace; `out` takes its entry flag and each exit slot in order.
+template <int NF, class Out>
+__device__ __forceinline__ void trace_lane(const LayerArgs& a, const Shape& g, long long i,
+                                           Out& out) {
   const int T = a.t;
-  const long long B = a.b;
   const uint32_t idx = (uint32_t)a.ray_idx[i];
   const uint32_t eseed = (uint32_t)a.seed[i] ^ NONCE_ENTRY;
   const float wx = a.d[0][i], wy = a.d[1][i], wz = a.d[2][i];
@@ -205,12 +336,9 @@ __global__ void __launch_bounds__(kThreads) trace_layer_kernel(const LayerArgs a
   // Entry Fresnel (air -> ice): the reflected child exits as slot 0.
   const Split s0 = fresnel(dx, dy, dz, g.pn[3 * f0], g.pn[3 * f0 + 1], g.pn[3 * f0 + 2], w,
                            n_ior);
-  a.out_d[0][i] = r00 * s0.rx + r01 * s0.ry + r02 * s0.rz;
-  a.out_d[1][i] = r10 * s0.rx + r11 * s0.ry + r12 * s0.rz;
-  a.out_d[2][i] = r20 * s0.rx + r21 * s0.ry + r22 * s0.rz;
-  a.out_w[i] = entry_ok ? s0.wr : 0.0f;
-  a.out_path[i] = g.fnum[f0];
-  a.entry_ok[i] = entry_ok ? 1 : 0;
+  out.entry(entry_ok);
+  out.exit(0, r00 * s0.rx + r01 * s0.ry + r02 * s0.rz, r10 * s0.rx + r11 * s0.ry + r12 * s0.rz,
+           r20 * s0.rx + r21 * s0.ry + r22 * s0.rz, entry_ok ? s0.wr : 0.0f, g.fnum[f0]);
 
   float dist[NF];
 #pragma unroll
@@ -247,12 +375,9 @@ __global__ void __launch_bounds__(kThreads) trace_layer_kernel(const LayerArgs a
     const Split sp = fresnel(cx, cy, cz, nfx, nfy, nfz, cw, n_ior);
     const float cos_exit = sp.tx * nfx + sp.ty * nfy + sp.tz * nfz;
     const bool emit_ok = alive && !sp.tir && cos_exit > 0.0f;
-    const long long o = h * B + i;
-    a.out_d[0][o] = r00 * sp.tx + r01 * sp.ty + r02 * sp.tz;
-    a.out_d[1][o] = r10 * sp.tx + r11 * sp.ty + r12 * sp.tz;
-    a.out_d[2][o] = r20 * sp.tx + r21 * sp.ty + r22 * sp.tz;
-    a.out_w[o] = emit_ok ? sp.wt : 0.0f;
-    a.out_path[o] = alive ? g.fnum[fi] : 0;
+    out.exit(h, r00 * sp.tx + r01 * sp.ty + r02 * sp.tz, r10 * sp.tx + r11 * sp.ty + r12 * sp.tz,
+             r20 * sp.tx + r21 * sp.ty + r22 * sp.tz, emit_ok ? sp.wt : 0.0f,
+             alive ? g.fnum[fi] : 0);
     if (alive) {
       cx = sp.rx; cy = sp.ry; cz = sp.rz;
       cw = sp.wr;
@@ -261,13 +386,61 @@ __global__ void __launch_bounds__(kThreads) trace_layer_kernel(const LayerArgs a
       cw = 0.0f;
     }
   }
+  out.finish();
+}
+
+// The lane's shape: staged in shared memory by every thread of the block
+// (then a barrier) for one shared shape, else its own pool row. False for
+// a thread past the last lane.
+template <int NF>
+__device__ __forceinline__ bool lane_shape(const LayerArgs& a, float* sm, long long i,
+                                           Shape& g) {
+  if (a.rows == nullptr) {
+    g = stage_shared<NF>(a, sm);
+    return i < a.b;
+  }
+  if (i >= a.b) return false;
+  g = shape_row<NF>(a, a.rows[i]);
+  return true;
 }
 
 template <int NF>
-void launch_nf(const LayerArgs& a, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads) trace_layer_kernel(
+    const __grid_constant__ LayerArgs a) {
+  extern __shared__ float sm[];
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  Shape g;
+  if (!lane_shape<NF>(a, sm, i, g)) return;
+  RenderOut out{a, i};
+  trace_lane<NF>(a, g, i, out);
+}
+
+template <int NF>
+__global__ void __launch_bounds__(kThreads) trace_layer_emit_kernel(
+    const __grid_constant__ LayerArgs a, const __grid_constant__ EmitArgs e) {
+  extern __shared__ float sm[];
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  Shape g;
+  if (!lane_shape<NF>(a, sm, i, g)) return;
+  const uint32_t seed = (uint32_t)a.seed[i];
+  EmitOut out{a, e, i, (uint32_t)a.ray_idx[i], seed ^ NONCE_GATE, seed ^ NONCE_EMIT,
+              e.emit_mode != 0 ? *e.w_scale * e.emit_frac : 0.0f};
+  trace_lane<NF>(a, g, i, out);
+}
+
+template <int NF>
+void launch_nf(const LayerArgs& a, const EmitArgs* e, cudaStream_t stream) {
   const unsigned grid = (unsigned)((a.b + kThreads - 1) / kThreads);
   const size_t smem = a.rows == nullptr ? (size_t)stage_words(NF, a.t) * 4 : 0;
-  trace_layer_kernel<NF><<<grid, kThreads, smem, stream>>>(a);
+  if (e == nullptr)
+    trace_layer_kernel<NF><<<grid, kThreads, smem, stream>>>(a);
+  else
+    trace_layer_emit_kernel<NF><<<grid, kThreads, smem, stream>>>(a, *e);
+}
+
+bool layer_args_ok(const LayerArgs& a) {
+  return (a.nf == 8 || a.nf == 20) && a.t >= 1 && a.h >= 1 && a.b >= 1 &&
+         (size_t)stage_words(a.nf, a.t) * 4 <= 48 * 1024;
 }
 
 }  // namespace
@@ -277,12 +450,25 @@ void launch_nf(const LayerArgs& a, cudaStream_t stream) {
 // default 48 KB of shared memory (no shape of the port comes near it).
 extern "C" int iht_trace_layer(const void* args, void* stream) {
   const LayerArgs& a = *(const LayerArgs*)args;
-  if ((a.nf != 8 && a.nf != 20) || a.t < 1 || a.h < 1 || a.b < 1 ||
-      (size_t)stage_words(a.nf, a.t) * 4 > 48 * 1024)
+  if (!layer_args_ok(a)) return (int)cudaErrorInvalidValue;
+  if (a.nf == 8)
+    launch_nf<8>(a, nullptr, (cudaStream_t)stream);
+  else
+    launch_nf<20>(a, nullptr, (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
+// The emit mode: one launch over the call's B lanes. Refuses what
+// iht_trace_layer refuses, and a cap outside 1..h or a render count
+// outside 1..kMaxR.
+extern "C" int iht_trace_layer_emit(const void* args, const void* emit, void* stream) {
+  const LayerArgs& a = *(const LayerArgs*)args;
+  const EmitArgs& e = *(const EmitArgs*)emit;
+  if (!layer_args_ok(a) || e.cap < 1 || e.cap > a.h || e.ren.n < 1 || e.ren.n > kMaxR)
     return (int)cudaErrorInvalidValue;
   if (a.nf == 8)
-    launch_nf<8>(a, (cudaStream_t)stream);
+    launch_nf<8>(a, &e, (cudaStream_t)stream);
   else
-    launch_nf<20>(a, (cudaStream_t)stream);
+    launch_nf<20>(a, &e, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

@@ -12,9 +12,11 @@ A scene takes one of two trace paths, as in the JAX engine:
     layer's pool sampler in plain torch on the device and its trace
     ``ks.trace_layer`` (KL, one launch a layer, on the CUDA kernel set;
     ``trace_soa.trace_layer_soa`` on the plain one: both are XLA, not
-    Pallas, in the JAX package), the filter,
-    probability and emit-floor gates, colour bits, the slot cap, projection
-    into every render, the continuation between layers, then per render
+    Pallas, in the JAX package), its epilogue ``trace_soa.layer_epilogue``
+    (the filter, probability and emit-floor gates, colour bits, the slot
+    cap, projection into every render) -- both in KL's emit mode
+    (``ks.trace_layer_emit``) where ``_epilogue_reason`` finds none -- the
+    continuation between layers, then per render
     ``pack_spectral_keys`` and the sort fold; after calibration
     ``accum.compact_valid`` (one pass of ``block_ops.compact_rows``) shortens
     the rows to ``keep`` first.
@@ -183,14 +185,6 @@ class Stats(NamedTuple):
     deterministic_orientation_count: int = 0
 
 
-def _uniform_slots(seed_vec, ray_idx, slots):
-    """One uniform draw per (slot, ray): stream (seed, ray index), draw slot
-    slots[h] ([H, 1] int64). Returns [H, B]."""
-    idx = rng._t(ray_idx)[None, :]
-    inner = rng.pcg_hash((idx * 1000003 + slots) & MASK32)
-    return rng.u01(rng.pcg_hash(rng._t(seed_vec)[None, :] ^ inner))
-
-
 def weight_bucket(w):
     """clip(floor(log2(max(w, 1e-30))) + 130, 2, 255) of float32 weights, as
     int64: the continuation's weight bucket. floor(log2) of a positive
@@ -308,6 +302,9 @@ class Engine:
         # Stage marks (utils/profiling.py, the tracer on): of the last batch
         # run, and of the batch the current graph replays.
         self._marks = self._graph_marks = None
+        # Per layer, the epilogue the last general-path batch took: "kernel"
+        # (KL's emit mode) or "plain: <first reason>" (_epilogue_reason).
+        self.layer_epilogue = [None] * len(self.layers)
         self.reset()
 
     def _choose_trace_path(self) -> None:
@@ -691,6 +688,54 @@ class Engine:
         base = (batch_counter * count + index) * self.span
         return base & MASK32, (base >> 32) & MASK32
 
+    def _epilogue_reason(self, plan: LayerPlan) -> Optional[str]:
+        """Why layer `plan` takes the plain epilogue after its trace
+        (trace_soa.layer_epilogue) rather than KL's emit mode, or None (the
+        emit mode; its plain twin on the "plain" kernel set): the
+        calibrating batch measures the slot mass, and the kernel has no
+        raypath filter, no colour bits, no lens with inverse trig and at most
+        four renders."""
+        if self._slot_cap is None:
+            return "calibrating"
+        if any(fp is not None for fp in plan.filter_plans):
+            return "filter"
+        if self.color_classes:
+            return "colour"
+        return trace_soa.emit_refusal(self.proj_plans)
+
+    def _plain_epilogue(self, plan: LayerPlan, exits, spec, layer_seed_vec, ray_idx,
+                        w_scale, carried_mask):
+        """trace_soa.layer_epilogue of one layer's exits with the layer's
+        raypath filters and colour predicates, matched per setting on each
+        exit's path."""
+        H = exits.w.shape[0]
+
+        def check(fplan, sl, live_slots):
+            return filters.check_exits_prefix_soa(
+                fplan, exits.path[:, sl], live_slots[:, sl],
+                (exits.dx[:, sl], exits.dy[:, sl], exits.dz[:, sl]))
+
+        filter_gate = color_bits = None
+        if any(fp is not None for fp in plan.filter_plans):
+            def filter_gate(live_slots):
+                def verdict(s, sl, c):
+                    fp = plan.filter_plans[s]
+                    if fp is None:
+                        return torch.ones((H, c), dtype=torch.bool, device=self.device)
+                    return check(fp, sl, live_slots)
+                return self._segment_masks(plan, verdict, H)
+        if self.color_classes and any(plan.color_plans):
+            def color_bits(live_slots):
+                def bits_of(s, sl, c):
+                    bits = torch.zeros((H, c), dtype=I64, device=self.device)
+                    for bit_idx, cplan in plan.color_plans[s]:
+                        bits = bits | torch.where(check(cplan, sl, live_slots), 1 << bit_idx, 0)
+                    return bits
+                return self._segment_masks(plan, bits_of, H)
+        return trace_soa.layer_epilogue(
+            exits, layer_seed_vec, ray_idx, w_scale, spec, filter_gate=filter_gate,
+            color_bits=color_bits, carried_mask=carried_mask if self.color_classes else None)
+
     def _trace_batch_impl(self, batch_counter, n_active: Optional[int] = None,
                           host_choice: bool = False):
         """One batch through every layer: sample -> trace -> gates ->
@@ -738,8 +783,6 @@ class Engine:
         cont_demand = []
         overflow = None
         n_layers = len(self.layers)
-        slot_ids = torch.arange(H, dtype=I64, device=dev)[:, None]
-        slot_len = torch.arange(1, H + 1, dtype=I64, device=dev)[:, None]
         for li, plan in enumerate(self.layers):
             with profiling.span("iht.layer"):
                 layer_nonce = (LAYER_NONCE * (li + 1)) & MASK32
@@ -760,131 +803,56 @@ class Engine:
                 rot = tuple(rot_parts[0][i] if len(rot_parts) == 1
                             else torch.cat([p[i] for p in rot_parts]) for i in range(9))
 
-                exits = self.ks.trace_layer(
-                    layer_seed_vec, ray_idx, d_world, w0, rot, pool, n_ior, H,
-                    setting_blocks=tuple(zip(plan.k_per_setting, plan.setting_counts)))
-                exit_w = exits.w                                   # [H, B_l]
-                b_l = exit_w.shape[1]
-                # Traced segments = the deepest live exit slot of each ray.
-                seg_count = seg_count + torch.where(exit_w > 0.0, slot_len, 0).amax(dim=0).sum()
-
-                def check(fplan, sl, live_slots):
-                    return filters.check_exits_prefix_soa(
-                        fplan, exits.path[:, sl], live_slots[:, sl],
-                        (exits.dx[:, sl], exits.dy[:, sl], exits.dz[:, sl]))
-
-                # Filter gate: a failing exit neither accumulates nor continues.
-                if any(fp is not None for fp in plan.filter_plans):
-                    live_slots = exit_w > 0.0
-
-                    def verdict(s, sl, c, live_slots=live_slots):
-                        fp = plan.filter_plans[s]
-                        if fp is None:
-                            return torch.ones((H, c), dtype=torch.bool, device=dev)
-                        return check(fp, sl, live_slots)
-
-                    exit_w = torch.where(self._segment_masks(plan, verdict, H), exit_w, 0.0)
-
-                # Probability gate per exit slot (stream: ray index, slot 100 + h).
                 is_last = li == n_layers - 1
-                to_continue = None
-                acc_mask = None
-                if plan.prob > 0.0:
-                    u = _uniform_slots(layer_seed_vec ^ rng.NONCE_GATE, ray_idx, 100 + slot_ids)
-                    if is_last:
-                        acc_mask = u >= plan.prob      # would-continue rays are dropped
-                    else:
-                        to_continue = (u < plan.prob) & (exit_w > 0.0)
-                        acc_mask = ~to_continue
-
-                # Component mask per exit: the carried bits OR the bits of this
-                # layer's colour predicates, matched per setting on the exit's path.
-                exit_mask = carried_mask[None, :].expand(H, b_l)
-                if n_classes and any(plan.color_plans):
-                    live_slots = exit_w > 0.0
-
-                    def bits_of(s, sl, c, live_slots=live_slots):
-                        bits = torch.zeros((H, c), dtype=I64, device=dev)
-                        for bit_idx, cplan in plan.color_plans[s]:
-                            bits = bits | torch.where(check(cplan, sl, live_slots),
-                                                      1 << bit_idx, 0)
-                        return bits
-
-                    exit_mask = exit_mask | self._segment_masks(plan, bits_of, H)
-
-                acc_w = exit_w if acc_mask is None else torch.where(acc_mask, exit_w, 0.0)
-                if self.min_emit_frac > 0.0:
-                    # Emit-time weight floor: sub-threshold exits are thinned from
-                    # accumulation only, never from continuation; the net mass
-                    # change goes into the dropped weight.
-                    w_cut = w_scale * float(np.float32(self.min_emit_frac))
-                    tiny = (acc_w > 0.0) & (acc_w < w_cut)
-                    if self.emit_floor_mode == "rr":
-                        u_rr = _uniform_slots(layer_seed_vec ^ rng.NONCE_EMIT, ray_idx, slot_ids)
-                        new_w = torch.where(
-                            tiny, torch.where(u_rr * w_cut < acc_w, w_cut, 0.0), acc_w)
-                    else:
-                        new_w = torch.where(tiny, 0.0, acc_w)
-                    dropped_w = dropped_w + torch.sum(acc_w) - torch.sum(new_w)
-                    acc_w = new_w
-                cap = self._slot_cap if self._slot_cap is not None else H
-                if self._slot_cap is None:
-                    # Calibrating: mass per live rank; rank c's mass is what a cap
-                    # of c would drop from that slot downward.
-                    lv = acc_w > 0.0
-                    rank = torch.cumsum(lv.to(I64), dim=0) - lv.to(I64)
-                    slot_mass = slot_mass + torch.stack([
-                        torch.sum(torch.where(lv & (rank == c), acc_w, 0.0)) for c in range(H)])
-                wl_rows = wl_idx[None, :]
-                if cap < H:
-                    # Per-ray live-first slot compaction; rays with more than
-                    # `cap` live exits lose their deepest ones, accounted below.
-                    comp, keep_m, _ = trace_soa.compact_slots(
-                        acc_w > 0.0,
-                        [acc_w, exits.dx, exits.dy, exits.dz] + ([exit_mask] if n_classes else []),
-                        cap)
-                    cw = torch.where(keep_m, comp[0], 0.0)
-                    dropped_w = dropped_w + torch.sum(acc_w) - torch.sum(cw)
-                    flat_w = cw.reshape(-1)
-                    flat_dx, flat_dy, flat_dz = (comp[i].reshape(-1) for i in (1, 2, 3))
-                    flat_mask = (torch.where(keep_m, comp[4], 0).reshape(-1) if n_classes
-                                 else torch.zeros_like(flat_w, dtype=I64))
-                    flat_idx = wl_rows.expand(cap, b_l).reshape(-1)
+                spec = trace_soa.EmitSpec(
+                    prob=plan.prob, last=is_last, emit_frac=self.min_emit_frac,
+                    rr=self.emit_floor_mode == "rr", cap=self._slot_cap,
+                    renders=tuple(self.proj_plans))
+                args = (layer_seed_vec, ray_idx, d_world, w0, rot, pool, n_ior, H)
+                blocks = tuple(zip(plan.k_per_setting, plan.setting_counts))
+                reason = self._epilogue_reason(plan)
+                self.layer_epilogue[li] = "kernel" if reason is None else f"plain: {reason}"
+                if reason is None:
+                    # KL's emit mode: the trace and the epilogue in one launch.
+                    rows = self.ks.trace_layer_emit(*args, setting_blocks=blocks,
+                                                    w_scale=w_scale, spec=spec)
                 else:
-                    flat_w = acc_w.reshape(-1)
-                    flat_dx, flat_dy, flat_dz = (x.reshape(-1) for x in
-                                                 (exits.dx, exits.dy, exits.dz))
-                    flat_mask = exit_mask.reshape(-1)
-                    flat_idx = wl_rows.expand(H, b_l).reshape(-1)
-
+                    rows = self._plain_epilogue(
+                        plan, self.ks.trace_layer(*args, setting_blocks=blocks), spec,
+                        layer_seed_vec, ray_idx, w_scale, carried_mask)
+                b_l = ray_idx.shape[0]
+                seg_count = seg_count + rows.seg.sum()
+                dropped_w = dropped_w + torch.sum(rows.dropped)
+                if rows.slot_mass is not None:
+                    slot_mass = slot_mass + rows.slot_mass
+                n_rows = rows.w[0].shape[0]
+                flat_idx = wl_idx[None, :].expand(n_rows, b_l).reshape(-1)
+                flat_mask = (rows.mask.reshape(-1) if rows.mask is not None
+                             else torch.zeros(n_rows * b_l, dtype=I64, device=dev))
+                k = 0
                 for r, pplan in enumerate(self.proj_plans):
-                    hits = projection.project_components(pplan, flat_dx, flat_dy, flat_dz)
-                    main_ok = (hits.main >= 0) & (flat_w > 0.0)
-                    w_row = torch.where(main_ok, flat_w, 0.0)
-                    contrib_rows[r].append(
-                        (torch.where(main_ok, hits.main, -1), w_row, flat_idx, flat_mask))
-                    landed_add[r] = landed_add[r] + torch.sum(w_row)
-                    # Overlap writes do not enter the landed weight.
-                    if pplan.max_abs_dz > 0.0:
-                        ov_ok = (hits.overlap >= 0) & (flat_w > 0.0)
+                    # The main pass, then the overlap pass, whose writes do
+                    # not enter the landed weight.
+                    for p in range(2 if pplan.max_abs_dz > 0.0 else 1):
+                        w_row = rows.w[k].reshape(-1)
                         contrib_rows[r].append(
-                            (torch.where(ov_ok, hits.overlap, -1),
-                             torch.where(ov_ok, flat_w, 0.0), flat_idx, flat_mask))
+                            (rows.pix[k].reshape(-1), w_row, flat_idx, flat_mask))
+                        if p == 0:
+                            landed_add[r] = landed_add[r] + torch.sum(w_row)
+                        k += 1
 
             if not is_last:
                 profiling.stage(f"continuation.{li + 1}")
                 cap_next = self.layers[li + 1].cont_cap
-                if to_continue is None:
-                    cont_w_all = torch.zeros(H * b_l, dtype=F32, device=dev)
-                else:
-                    cont_w_all = torch.where(to_continue, exit_w, 0.0).reshape(-1)
+                cont_w, cdx, cdy, cdz = rows.cont
+                cont_w_all = cont_w.reshape(-1)
                 # The columns come from the uncapped [H, B] exits: the slot
                 # cap trims accumulation rows only.
                 # (32-bit columns: the block scatter moves 32-bit payloads.)
-                cols = [cont_w_all, wl_rows.expand(H, b_l).reshape(-1).to(I32)]
+                cols = [cont_w_all, wl_idx[None, :].expand(H, b_l).reshape(-1).to(I32)]
                 if n_classes:
-                    cols.append(to_bits(exit_mask.reshape(-1)))
-                cols += [exits.dx.reshape(-1), exits.dy.reshape(-1), exits.dz.reshape(-1)]
+                    cols.append(to_bits(rows.exit_mask.reshape(-1)))
+                cols += [cdx.reshape(-1), cdy.reshape(-1), cdz.reshape(-1)]
                 picked, n_live = self._continuation(
                     cont_w_all, cols, cap_next, layer_seed, batch_counter, host_choice)
                 cont_demand.append(n_live)

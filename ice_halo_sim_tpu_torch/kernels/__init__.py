@@ -18,6 +18,7 @@ class KernelSet(NamedTuple):
     sandwich_pass: Callable
     sort_pairs: Callable
     trace_layer: Callable
+    trace_layer_emit: Callable
 
 
 def kernel_set(kind: str) -> KernelSet:
@@ -33,7 +34,8 @@ def kernel_set(kind: str) -> KernelSet:
                          seg_scan.fused_scan_extract,
                          sandwich.sandwich_pass,
                          radix_sort.sort_pairs,
-                         trace_soa.trace_layer_cuda)
+                         trace_soa.trace_layer_cuda,
+                         trace_soa.trace_layer_emit_cuda)
     if kind == "plain":
         return KernelSet("plain", trace_emit.trace_emit_plain,
                          block_ops.pack_payload_blocks_plain,
@@ -43,5 +45,6 @@ def kernel_set(kind: str) -> KernelSet:
                          seg_scan.fused_scan_extract_plain,
                          sandwich.sandwich_pass_plain,
                          radix_sort.sort_pairs_plain,
-                         trace_soa.trace_layer_soa)
+                         trace_soa.trace_layer_soa,
+                         trace_soa.trace_layer_emit_plain)
     raise ValueError(f"kernels must be 'cuda' or 'plain', got {kind!r}")

@@ -60,6 +60,7 @@ LAUNCHES = {
     "radix_sort": 0,
     "radix_sort_pass": 0,  # the digit passes of those launches
     "trace_layer": 0,
+    "trace_layer_emit": 0,  # KL's emit mode
 }
 
 _lib = None
@@ -172,6 +173,7 @@ _SIGNATURES = {
     "iht_sandwich_iota": [_VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _I, _VP, _VP, _VP, _LL, _VP],
     "iht_radix_sort_pairs": [_VP, _VP, _LL, _I, _I, _VP, _VP, _VP, _VP, _VP, _LL, _VP],
     "iht_trace_layer": [_VP, _VP],
+    "iht_trace_layer_emit": [_VP, _VP, _VP],
 }
 
 

@@ -331,8 +331,10 @@ def snapshot(*engines) -> dict:
     ``stages`` [(dispatch, {stage: seconds})], ``capacity`` (of the ring:
     a ring this full has let older spans go), ``launches``
     (``kernels.build.LAUNCHES``), ``build_seconds``, and per engine given
-    its ``host_syncs``, ``overflow_replays``, ``batch_counter`` and, per
-    layer boundary, ``cont_live`` (live continuation rows, summed over every
+    its ``host_syncs``, ``overflow_replays``, ``batch_counter``, per layer
+    ``layer_epilogue`` (the epilogue its last general-path batch took:
+    "kernel", KL's emit mode, or "plain: <reason>") and, per layer
+    boundary, ``cont_live`` (live continuation rows, summed over every
     batch) and ``cont_lanes`` (the lanes offered, summed over the batches
     run while traced): a host read of each engine's counters."""
     from ice_halo_sim_tpu_torch.kernels import build
@@ -342,5 +344,7 @@ def snapshot(*engines) -> dict:
             "launches": dict(build.LAUNCHES),
             "build_seconds": build.build_seconds,
             "engines": [{"host_syncs": e.host_syncs, "overflow_replays": e.overflow_replays,
-                         "batch_counter": e.batch_counter, "cont_live": e._dev.cont.tolist(),
+                         "batch_counter": e.batch_counter,
+                         "layer_epilogue": list(e.layer_epilogue),
+                         "cont_live": e._dev.cont.tolist(),
                          "cont_lanes": e._dev.lanes.tolist()} for e in engines]}

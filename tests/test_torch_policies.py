@@ -174,7 +174,7 @@ def test_cuda_entry_points_return_launch_error():
             parts = body.split("<<<")
             for after in parts[1:]:
                 assert "cudaGetLastError()" in after, m.group(1)
-    assert entries == 12
+    assert entries == 13
 
 
 def test_wrappers_check_every_kernel_call():
@@ -185,7 +185,7 @@ def test_wrappers_check_every_kernel_call():
             calls += 1
             assert re.search(r"build\.check\(code, ", src[m.end():m.end() + 600]), (
                 path, m.group(1))
-    assert calls == 12
+    assert calls == 13
 
 
 def test_every_kernel_call_runs_on_its_tensors_device():
@@ -203,7 +203,7 @@ def test_every_kernel_call_runs_on_its_tensors_device():
                 calls += 1
                 assert re.search(r"with torch\.cuda\.device\(\w+(\.device)?\):$",
                                  lines[i - 1].strip()), (path, i + 1)
-    assert calls == 12
+    assert calls == 13
     # engine/graph.py: each of its two captures (BatchGraph, GradGraph) and
     # its one replay helper under the graph's device.
     graph = open(os.path.join(PKG, "engine", "graph.py")).read()
@@ -217,7 +217,8 @@ def test_each_launch_counter_bumped_once():
     from ice_halo_sim_tpu_torch.kernels import build
 
     srcs = "".join(open(p).read() for p in _port_files((".py",)))
-    assert len(build.LAUNCHES) == 17 and {"trace_emit_pool", "trace_layer"} <= set(build.LAUNCHES)
+    assert len(build.LAUNCHES) == 18 and {"trace_emit_pool", "trace_layer",
+                                          "trace_layer_emit"} <= set(build.LAUNCHES)
     assert {"sandwich_lane", "sandwich_sublane", "sandwich_iota", "extract_blocks"} <= \
         set(build.LAUNCHES)
     assert {"pack_valid_blocks", "scatter_blocks", "compact_rows"} <= set(build.LAUNCHES)

@@ -229,7 +229,8 @@ def test_snapshot_reads_the_counters_in_place():
     snap = profiling.snapshot(eng)
     assert snap["engines"] == [{"host_syncs": eng.host_syncs,
                                 "overflow_replays": eng.overflow_replays,
-                                "batch_counter": 2 * K, "cont_live": [], "cont_lanes": []}]
+                                "batch_counter": 2 * K, "layer_epilogue": [None],
+                                "cont_live": [], "cont_lanes": []}]
     assert set(snap["launches"]) >= {"trace_emit", "fused_scan_extract"}
 
 
