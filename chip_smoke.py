@@ -701,18 +701,13 @@ def phase_kernel_layer(device, res: list):
 def _fold_rows(eng, render: int, batch_counter: int):
     """One steady batch's packed fold rows of a general-path engine: (key,
     weight, mask or None), padded to the 4096-row block."""
-    import torch
-
     from ice_halo_sim_tpu_torch.core import accum
-    from ice_halo_sim_tpu_torch.core.bits import to_bits
+    from ice_halo_sim_tpu_torch.engine.simulator import pack_rows
 
     contribs = eng._trace_batch_impl(batch_counter)[0]
-    pix, w, wl_idx, mask = contribs[render]
     P = eng.accum[render].shape[0]
-    key, wz = accum.pack_spectral_keys(pix, w, wl_idx, P, eng.k_pool)
-    cols = [wz]
-    if eng.color_classes:
-        cols.append(to_bits(torch.where(key != -1, mask, 0)))
+    key, wz, mcol = pack_rows(contribs[render], P, eng.k_pool, bool(eng.color_classes))
+    cols = [wz] + ([mcol] if mcol is not None else [])
     key, cols = accum._pad_cols(key, cols, accum.BLOCK)
     return key, cols
 

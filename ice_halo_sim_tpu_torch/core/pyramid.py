@@ -45,6 +45,11 @@ from ice_halo_sim_tpu_torch.core.geometry import (
 )
 
 _INSET_K = SQRT3_4
+# Shapes of one pass of the vertex enumeration, by device type: its
+# [K, 20, 171] candidate tensors hold some 0.7 MB a shape at their peak, so
+# on a card a pool of 300 K pyramids (a layer of 14 M lanes) goes through in
+# passes of 8192; on the CPU a pass of 256 stays in the caches.
+GEOM_CHUNK = {"cuda": 8192, "cpu": 256}
 _MIN_ALPHA = 0.1
 _MAX_ALPHA = 89.9
 _EPS = 1e-5
@@ -106,42 +111,50 @@ def _apex_lp(dist_scaled):
 def _face_polygons(plane_n, plane_d, ref_scale):
     """Exact convex-face polygons from the 20-plane set.
 
-    plane_n [K, NF, 3] unit outward normals, plane_d [K, NF], ref_scale [K].
-    Returns (face_vtx [K, NF, MV, 3], face_vtx_cnt [K, NF], areas [K, NF]).
+    plane_n [K, NF, 3] unit outward normals, the same for every shape (a
+    pyramid's planes differ by their constants alone), plane_d [K, NF],
+    ref_scale [K]. Returns (face_vtx [K, NF, MV, 3], face_vtx_cnt [K, NF],
+    areas [K, NF]).
+
+    What depends on the normals alone (each candidate's cross products and
+    determinant) is worked out once for the pool, and each candidate
+    vertex's three components are separate [K, NF, C] tensors until the
+    feasibility test is done: the same float32 operations on the same
+    values as a pass per shape over [K, NF, C, 3].
     """
     dev = plane_n.device
     K = plane_n.shape[0]
     pairs = const(_FACE_PAIRS, dev)                               # [NF, C, 2]
     n_f = plane_n                                                 # [K, NF, 3]
-    n_g = plane_n[:, pairs[..., 0]]                               # [K, NF, C, 3]
-    d_g = plane_d[:, pairs[..., 0]]
-    n_h = plane_n[:, pairs[..., 1]]
+    normals = plane_n[0]                                          # [NF, 3]
+    n_g = normals[pairs[..., 0]]                                  # [NF, C, 3]
+    d_g = plane_d[:, pairs[..., 0]]                               # [K, NF, C]
+    n_h = normals[pairs[..., 1]]
     d_h = plane_d[:, pairs[..., 1]]
 
     # Solve the 3-plane system [n_f; n_g; n_h] x = -[d_f; d_g; d_h] by Cramer.
-    a = n_f[:, :, None, :].expand_as(n_g)
+    a = normals[:, None, :].expand_as(n_g)
     cross_gh = _cross(n_g, n_h)
-    det = torch.sum(a * cross_gh, dim=-1)                         # [K, NF, C]
+    det = torch.sum(a * cross_gh, dim=-1)                         # [NF, C]
     ok_det = torch.abs(det) > 1e-7
     safe_det = torch.where(ok_det, det, 1.0)
-    b0 = -plane_d[:, :, None].expand_as(det)
+    b0 = -plane_d[:, :, None]                                     # [K, NF, 1]
     b1, b2 = -d_g, -d_h
     cross_ha = _cross(n_h, a)
     cross_ag = _cross(a, n_g)
-    x = (b0[..., None] * cross_gh + b1[..., None] * cross_ha
-         + b2[..., None] * cross_ag) / safe_det[..., None]        # [K, NF, C, 3]
+    x0, x1, x2 = ((b0 * cross_gh[..., c] + b1 * cross_ha[..., c]
+                   + b2 * cross_ag[..., c]) / safe_det for c in range(3))   # [K, NF, C]
 
     # Feasibility: inside every half-space (slack <= tol), componentwise
     # float32, one plane at a time (the running max is exact).
     tol = (5e-5 * torch.clamp_min(ref_scale, 0.1))[:, None]       # [K, 1]
-    x0, x1, x2 = x[..., 0], x[..., 1], x[..., 2]
     max_slack = torch.full_like(x0, -torch.inf)
     for p in range(_NF):
-        pn = plane_n[:, p, :]
-        slack = (x0 * pn[:, 0, None, None] + x1 * pn[:, 1, None, None]
-                 + x2 * pn[:, 2, None, None] + plane_d[:, p, None, None])
+        pn = normals[p]
+        slack = x0 * pn[0] + x1 * pn[1] + x2 * pn[2] + plane_d[:, p, None, None]
         max_slack = torch.maximum(max_slack, slack)
     feasible = ok_det & (max_slack <= tol[:, :, None])            # [K, NF, C]
+    x = torch.stack([x0, x1, x2], dim=-1)                         # [K, NF, C, 3]
 
     # Angular sort in the face plane around the feasible centroid.
     ex = const(_EX, dev)
@@ -245,13 +258,29 @@ def pyramid_geom_batch(h1, h2, h3, alpha_u_deg: float, alpha_l_deg: float,
 
     h1/h3 [K]: relative cone heights in [0, 1]; h2 [K]: prism height ratio;
     alpha_*: wedge angles in degrees (python floats; outside [0.1, 89.9] the
-    cone is skipped); dist [K, 6]: signed face distances.
+    cone is skipped); dist [K, 6]: signed face distances. Every shape is
+    built alone, so a pool is built in passes of GEOM_CHUNK shapes (the
+    device's), with the same values.
     """
     h1 = torch.clamp(torch.as_tensor(h1, dtype=F32), 0.0, 1.0)
     dev = h1.device
     h3 = torch.clamp(torch.as_tensor(h3, dtype=F32, device=dev), 0.0, 1.0)
     h2 = torch.as_tensor(h2, dtype=F32, device=dev)
     dist = torch.as_tensor(dist, dtype=F32, device=dev)
+    n = GEOM_CHUNK.get(dev.type, GEOM_CHUNK["cuda"])
+    if h1.shape[0] <= n:
+        return _pyramid_geoms(h1, h2, h3, alpha_u_deg, alpha_l_deg, dist)
+    parts = [_pyramid_geoms(h1[i:i + n], h2[i:i + n], h3[i:i + n], alpha_u_deg, alpha_l_deg,
+                            dist[i:i + n])
+             for i in range(0, h1.shape[0], n)]
+    return CrystalGeom(*(torch.cat(xs) for xs in zip(*parts)))
+
+
+def _pyramid_geoms(h1, h2, h3, alpha_u_deg: float, alpha_l_deg: float,
+                   dist) -> CrystalGeom:
+    """pyramid_geom_batch of one pass: float32 [K] and [K, 6] tensors on one
+    device, h1 and h3 clamped."""
+    dev = h1.device
     K = h1.shape[0]
 
     cs = const(HEX_COS, dev)

@@ -124,9 +124,19 @@ def normalize_latitude(phi):
     return HALF_PI_F - theta, flip
 
 
+# Rays of one [B, N] pass of the latitude lookup: its temporaries hold some
+# 2.5 KB a ray, so a layer of 20 M lanes goes through in passes of this many.
+LUT_CHUNK = 1 << 20
+
+
 def _invert_lat_lut_loop(xi, theta_nodes, cdf_nodes):
     """Inverse-CDF latitude lookup; the values of the JAX node loop (the
-    masked max/min over the monotone CDF), evaluated as one [B, N] pass."""
+    masked max/min over the monotone CDF), evaluated as one [B, N] pass, or
+    for more than LUT_CHUNK rays one pass of each LUT_CHUNK (each ray's
+    value is its own)."""
+    if xi.shape[0] > LUT_CHUNK:
+        return torch.cat([_invert_lat_lut_loop(x, theta_nodes, cdf_nodes)
+                          for x in xi.split(LUT_CHUNK)])
     cdf = const(np.asarray(cdf_nodes, np.float32), xi.device)
     n = cdf.shape[0]
     c_first, c_last = float(cdf_nodes[0]), float(cdf_nodes[-1])

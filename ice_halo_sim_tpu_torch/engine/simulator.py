@@ -16,8 +16,9 @@ A scene takes one of two trace paths, as in the JAX engine:
     (the filter, probability and emit-floor gates, colour bits, the slot
     cap, projection into every render) -- both in KL's emit mode
     (``ks.trace_layer_emit``) where ``_epilogue_reason`` finds none -- the
-    continuation between layers, then per render
-    ``pack_spectral_keys`` and the sort fold; after calibration
+    continuation between layers, then per render ``pack_rows`` (each
+    layer's rows packed straight into the fold's key and weight columns,
+    ``accum.pack_spectral_keys``) and the sort fold; after calibration
     ``accum.compact_valid`` (one pass of ``block_ops.compact_rows``) shortens
     the rows to ``keep`` first.
 ``Engine.trace_path`` says which one ran, ``Engine.fold_kind`` and
@@ -203,6 +204,51 @@ def shuffle_hash(n_rows: int, layer_seed: int, batch_counter, device):
     salt = rng.pcg_hash(rng._t(batch_counter) & MASK32) ^ (
         (int(layer_seed) ^ rng.NONCE_SHUFFLE) & MASK32)
     return rng.pcg_hash(torch.arange(n_rows, dtype=I64, device=device) ^ salt)
+
+
+class BatchRows(NamedTuple):
+    """One render's contribution rows of a batch as the layers wrote them,
+    never concatenated: a part per (layer, pass), in layer order with each
+    layer's main pass first. A part is (pix [n, b] int32, -1 where nothing
+    lands; w [n, b] float32; wl_idx [b] int64, each lane's wavelength-pool
+    entry; mask [n, b] int64 component bits, or None without colour
+    classes); row j * b + lane of a part is the lane's j-th row."""
+
+    parts: tuple
+
+    def flat(self) -> tuple:
+        """The rows as four flat columns in row order: (pix, w, wl_idx,
+        mask), mask None without colour classes."""
+        cols = [torch.cat([p[0].reshape(-1) for p in self.parts]),
+                torch.cat([p[1].reshape(-1) for p in self.parts]),
+                torch.cat([p[2][None, :].expand(p[0].shape[0], -1).reshape(-1)
+                           for p in self.parts])]
+        masks = None if self.parts[0][3] is None else torch.cat(
+            [p[3].reshape(-1) for p in self.parts])
+        return (*cols, masks)
+
+
+def pack_rows(rows: BatchRows, n_pixels: int, k_pool: int, masks: bool) -> tuple:
+    """The fold's columns of every row of `rows`, in row order: (u32 key bits,
+    weight with dead rows zeroed, and with `masks` the mask column as int32
+    bits, 0 on dead rows), each part packed straight into its slice
+    (``accum.pack_spectral_keys``, the wavelength entry broadcast over the
+    part's rows)."""
+    n = sum(p[0].numel() for p in rows.parts)
+    dev = rows.parts[0][0].device
+    key = torch.empty(n, dtype=I32, device=dev)
+    wz = torch.empty(n, dtype=F32, device=dev)
+    mcol = torch.empty(n, dtype=I32, device=dev) if masks else None
+    o = 0
+    for pix, w, wl_idx, mask in rows.parts:
+        m = pix.numel()
+        k, z = accum_mod.pack_spectral_keys(pix, w, wl_idx[None, :], n_pixels, k_pool)
+        key[o:o + m] = k.reshape(-1)
+        wz[o:o + m] = z.reshape(-1)
+        if masks:
+            mcol[o:o + m] = to_bits(torch.where(k != -1, mask, 0)).reshape(-1)
+        o += m
+    return key, wz, mcol
 
 
 class DeviceState(NamedTuple):
@@ -742,7 +788,7 @@ class Engine:
         project. batch_counter: a python int or the engine's counter tensor.
         Returns (contribs, landed_add [R], dropped_w, seg_count, cont_demand,
         slot_mass, overflow); contribs holds per render the spectral
-        contribution rows (pix int32, w, wl_idx, mask), cont_demand the live
+        contribution rows (a BatchRows), cont_demand the live
         continuation count of every layer boundary (device tensors), and
         overflow a device bool (None for one layer): some boundary's live
         rows exceeded its lanes. host_choice: read each boundary's count and
@@ -750,8 +796,9 @@ class Engine:
         compaction (exact when overflow is False). Lanes >= n_active start
         with zero weight (the exact-budget tail batch). With the tracer on
         (utils/profiling.py) layer li is the stage ``layer_trace.<li>`` (its
-        ray draws, pool sampler, trace, gates and projection) and an
-        ``iht.layer`` span, the continuation into it ``continuation.<li>``."""
+        ray draws, pool sampler, trace, gates and projection; the pool
+        sampler alone ``layer_trace.<li>.pool``) and an ``iht.layer`` span,
+        the continuation into it ``continuation.<li>``."""
         dev = self.device
         B = self.batch_size
         H = self.max_hits
@@ -787,7 +834,9 @@ class Engine:
             with profiling.span("iht.layer"):
                 layer_nonce = (LAYER_NONCE * (li + 1)) & MASK32
                 layer_seed = seed0 ^ layer_nonce          # scalar: the shuffle hash
+                profiling.stage(f"layer_trace.{li}.pool")
                 pool = self._sample_layer_pool(batch_counter, li=li)
+                profiling.stage(f"layer_trace.{li}")
                 layer_seed_vec = seed_vec ^ layer_nonce
 
                 # Orientation: one contiguous segment of lanes per setting.
@@ -825,20 +874,14 @@ class Engine:
                 dropped_w = dropped_w + torch.sum(rows.dropped)
                 if rows.slot_mass is not None:
                     slot_mass = slot_mass + rows.slot_mass
-                n_rows = rows.w[0].shape[0]
-                flat_idx = wl_idx[None, :].expand(n_rows, b_l).reshape(-1)
-                flat_mask = (rows.mask.reshape(-1) if rows.mask is not None
-                             else torch.zeros(n_rows * b_l, dtype=I64, device=dev))
                 k = 0
                 for r, pplan in enumerate(self.proj_plans):
                     # The main pass, then the overlap pass, whose writes do
                     # not enter the landed weight.
                     for p in range(2 if pplan.max_abs_dz > 0.0 else 1):
-                        w_row = rows.w[k].reshape(-1)
-                        contrib_rows[r].append(
-                            (rows.pix[k].reshape(-1), w_row, flat_idx, flat_mask))
+                        contrib_rows[r].append((rows.pix[k], rows.w[k], wl_idx, rows.mask))
                         if p == 0:
-                            landed_add[r] = landed_add[r] + torch.sum(w_row)
+                            landed_add[r] = landed_add[r] + torch.sum(rows.w[k].reshape(-1))
                         k += 1
 
             if not is_last:
@@ -849,7 +892,7 @@ class Engine:
                 # The columns come from the uncapped [H, B] exits: the slot
                 # cap trims accumulation rows only.
                 # (32-bit columns: the block scatter moves 32-bit payloads.)
-                cols = [cont_w_all, wl_idx[None, :].expand(H, b_l).reshape(-1).to(I32)]
+                cols = [cont_w_all, wl_idx.to(I32)[None, :].expand(H, b_l).reshape(-1)]
                 if n_classes:
                     cols.append(to_bits(rows.exit_mask.reshape(-1)))
                 cols += [cdx.reshape(-1), cdy.reshape(-1), cdz.reshape(-1)]
@@ -876,10 +919,7 @@ class Engine:
                 n_ior = optics.ice_refractive_index(self._wl_from_idx(wl_idx))
 
         profiling.stage("rest")
-        contribs = []
-        for parts in contrib_rows:
-            contribs.append(parts[0] if len(parts) == 1 else tuple(
-                torch.cat([p[c] for p in parts]) for c in range(4)))
+        contribs = [BatchRows(tuple(parts)) for parts in contrib_rows]
         return (contribs, torch.stack(landed_add), dropped_w, seg_count,
                 cont_demand, slot_mass, overflow)
 
@@ -951,18 +991,15 @@ class Engine:
             # Dense value rows: the scatter oracle, or the sort fold of keys
             # that do not pack.
             lives = []
-            for r, (pix, w, wl_idx, mask) in enumerate(contribs):
+            for r, rows in enumerate(contribs):
+                pix, w, wl_idx, mask = rows.flat()
                 lives.append((w > 0.0).sum())
                 self.accum[r].copy_(accum_mod.accumulate(
                     self.accum[r], pix, self._expand_vals(w, wl_idx, mask),
                     "sort" if method == "sort-legacy" else method, self.ks))
             return torch.stack(lives), None
-        packed = []
-        for r, (pix, w, wl_idx, mask) in enumerate(contribs):
-            P = self.accum[r].shape[0]
-            key, wz = accum_mod.pack_spectral_keys(pix, w, wl_idx, P, self.k_pool)
-            mcol = to_bits(torch.where(key != -1, mask, 0)) if n_classes else None
-            packed.append((key, wz, mcol))
+        packed = [pack_rows(rows, self.accum[r].shape[0], self.k_pool, n_classes > 0)
+                  for r, rows in enumerate(contribs)]
         lives = torch.stack([p[1].gt(0.0).sum() for p in packed])
         fits = self._fits(lives, keep, host_choice)
         over = None

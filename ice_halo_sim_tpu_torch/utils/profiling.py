@@ -60,9 +60,11 @@ the marker tail), ``sort`` (the sort with its pack and unpack), ``scan``
 (the fused scan and extraction) and ``rest`` (everything between: the ray
 base, the trace's sums, the accumulator update, the running sums). On the
 general path: ``layer_trace.<li>`` (layer li's ray draws, pool sampler,
-trace, gates and projection), ``continuation.<li>`` (the continuation into
-layer li, its own sort included), then the fold's ``sort``, ``scan`` and
-``rest``. A stage named ``family.<n>`` counts under ``family`` too. Captured,
+trace, gates and projection), within it ``layer_trace.<li>.pool`` (the pool
+sampler), ``continuation.<li>`` (the continuation into layer li, its own
+sort included), then the fold's ``sort``, ``scan`` and ``rest``. A stage
+counts under each of its dotted prefixes too: ``layer_trace.1.pool`` under
+``layer_trace.1`` and ``layer_trace``. Captured,
 they are nodes of the batch's graph (so the engine captures again when the
 tracer is switched: ``Engine._graph_key``); with the tracer off the graph
 has none. A dispatch records its last batch's stage seconds after its own
@@ -317,10 +319,10 @@ def record_stages(marks, synced: bool) -> None:
     seconds = {}
     for (name, a), (_, b) in zip(marks, marks[1:]):
         dt = a.elapsed_time(b) * 1e-3
-        family = name.split(".")[0]
-        seconds[family] = seconds.get(family, 0.0) + dt
-        if family != name:
-            seconds[name] = seconds.get(name, 0.0) + dt
+        parts = name.split(".")
+        for i in range(1, len(parts) + 1):
+            key = ".".join(parts[:i])
+            seconds[key] = seconds.get(key, 0.0) + dt
     stack = _T.open()
     _T.stages.append((stack[-1][1] if stack else -1, seconds))
 
@@ -333,10 +335,12 @@ def snapshot(*engines) -> dict:
     (``kernels.build.LAUNCHES``), ``build_seconds``, and per engine given
     its ``host_syncs``, ``overflow_replays``, ``batch_counter``, per layer
     ``layer_epilogue`` (the epilogue its last general-path batch took:
-    "kernel", KL's emit mode, or "plain: <reason>") and, per layer
-    boundary, ``cont_live`` (live continuation rows, summed over every
-    batch) and ``cont_lanes`` (the lanes offered, summed over the batches
-    run while traced): a host read of each engine's counters."""
+    "kernel", KL's emit mode, or "plain: <reason>"), per layer
+    ``pool_shapes`` (the crystal shapes its pool sampler makes a batch, in
+    the engine's current plan) and, per layer boundary, ``cont_live`` (live
+    continuation rows, summed over every batch) and ``cont_lanes`` (the
+    lanes offered, summed over the batches run while traced): a host read
+    of each engine's counters."""
     from ice_halo_sim_tpu_torch.kernels import build
 
     spans = sorted(list(_T.spans) + list(_T.setup), key=lambda s: s.start)
@@ -346,5 +350,6 @@ def snapshot(*engines) -> dict:
             "engines": [{"host_syncs": e.host_syncs, "overflow_replays": e.overflow_replays,
                          "batch_counter": e.batch_counter,
                          "layer_epilogue": list(e.layer_epilogue),
+                         "pool_shapes": [sum(l.k_per_setting) for l in e.layers],
                          "cont_live": e._dev.cont.tolist(),
                          "cont_lanes": e._dev.lanes.tolist()} for e in engines]}

@@ -198,6 +198,45 @@ def test_batched_pyramid():
     assert bool(g.face_present.all())
 
 
+def _random_pyramids(k, seed=3):
+    g = torch.Generator().manual_seed(seed)
+    h1, h3 = (torch.rand(k, generator=g) * 0.6 for _ in range(2))
+    h2 = torch.rand(k, generator=g) * 1.5 + 0.05
+    dist = torch.rand(k, 6, generator=g) * 0.5 + 0.75
+    dist[: k // 4] = 1.0
+    return h1, h2, h3, dist
+
+
+def _geom_bits(g):
+    return [x.contiguous().view(torch.int32) if x.dtype == torch.float32 else x for x in g]
+
+
+@pytest.mark.parametrize("angles", [(28.0, 28.0), (28.0, 0.0), (60.0, 10.0)])
+def test_pyramid_pool_equals_the_frozen_plain_copy(angles):
+    """The vertex enumeration with the normals' work done once for the pool
+    and the vertex components apart gives the frozen plain copy's geometry
+    (portbench/reference/plain/core/pyramid.py: a pass over [K, 20, 171, 3]
+    per shape) bit for bit."""
+    from portbench.reference.plain.core import pyramid as frozen
+
+    h1, h2, h3, dist = _random_pyramids(200)
+    got = pyr.pyramid_geom_batch(h1, h2, h3, *angles, dist)
+    want = frozen.pyramid_geom_batch(h1, h2, h3, *angles, dist)
+    for a, b in zip(_geom_bits(got), _geom_bits(want)):
+        assert torch.equal(a, b)
+
+
+def test_pyramid_pool_in_passes_equals_one_pass(monkeypatch):
+    """A pool built in passes of GEOM_CHUNK shapes equals it built in one."""
+    h1, h2, h3, dist = _random_pyramids(100, seed=5)
+    monkeypatch.setitem(pyr.GEOM_CHUNK, "cpu", 1 << 30)
+    whole = pyr.pyramid_geom_batch(h1, h2, h3, 28.0, 28.0, dist)
+    monkeypatch.setitem(pyr.GEOM_CHUNK, "cpu", 16)
+    passes = pyr.pyramid_geom_batch(h1, h2, h3, 28.0, 28.0, dist)
+    for a, b in zip(_geom_bits(passes), _geom_bits(whole)):
+        assert torch.equal(a, b)
+
+
 def test_pyramid_traces():
     """A pyramid plugs into the AoS trace; energy behaves; pyramid face
     numbers appear in the paths."""

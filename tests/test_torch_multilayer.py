@@ -165,7 +165,8 @@ def test_first_layer_rows_and_continuation_count_exact():
     for r, pp in enumerate(t.proj_plans):
         n1 = B * H * (2 if pp.max_abs_dz > 0 else 1)    # rows of the first layer
         jp, jw = np.asarray(jout[0][r][0]), np.asarray(jout[0][r][1])
-        tp, tw = tout[0][r][0].numpy(), tout[0][r][1].numpy()
+        tp, tw, _wl, mask = (x.numpy() if x is not None else x for x in tout[0][r].flat())
+        assert mask is None                             # no colour class: no mask column
         assert tp.shape == jp.shape
         np.testing.assert_array_equal(tp[:n1], jp[:n1])
         np.testing.assert_allclose(tw[:n1], jw[:n1], rtol=1e-5, atol=2e-5 * w_ray)

@@ -95,6 +95,17 @@ def test_no_random_latitude():
     np.testing.assert_allclose(lat.numpy(), np.pi / 2, atol=1e-6)
 
 
+def test_latitude_lookup_in_passes_equals_one_pass(monkeypatch):
+    """The inverse-CDF latitude lookup over more than LUT_CHUNK rays, in
+    passes, gives each ray the value of one pass."""
+    lut = build_lat_lut(Distribution(DistType.GAUSS, 90.0, 1.2))
+    xi = torch.rand(5000, generator=torch.Generator().manual_seed(2))
+    whole = smp._invert_lat_lut_loop(xi, lut.theta, lut.cdf)
+    monkeypatch.setattr(smp, "LUT_CHUNK", 700)
+    passes = smp._invert_lat_lut_loop(xi, lut.theta, lut.cdf)
+    assert torch.equal(whole.view(torch.int32), passes.view(torch.int32))
+
+
 def _tris(geom, n):
     tris = smp.build_entry_tris(geom)
     return smp.EntryTris(*[a.expand((n,) + tuple(a.shape)) for a in tris])

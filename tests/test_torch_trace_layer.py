@@ -24,8 +24,9 @@ import pytest
 import torch
 
 from ice_halo_sim_tpu_torch.config.loader import load_project
-from ice_halo_sim_tpu_torch.core import projection, rng, trace_soa
-from ice_halo_sim_tpu_torch.core.bits import F32, I64, MASK32
+from ice_halo_sim_tpu_torch.core import accum, projection, rng, trace_soa
+from ice_halo_sim_tpu_torch.core.bits import F32, I64, MASK32, to_bits
+from ice_halo_sim_tpu_torch.engine import simulator
 from ice_halo_sim_tpu_torch.engine.simulator import Engine
 from ice_halo_sim_tpu_torch.kernels import build, kernel_set
 from ice_halo_sim_tpu_torch.scenes import (BENCH_CFG, COLOR_CFG, MS_CFG, MULTI_CFG, POOL_CFG,
@@ -384,6 +385,63 @@ def test_layer_epilogue_equals_the_inline_epilogue(monkeypatch, case):
         got = float(rows.dropped.double().sum())
         assert abs(got - float(dropped)) <= 1e-5 * float(exits.w.double().sum()), (
             got, float(dropped))
+
+
+def _fold_columns_as_before(rows, n_pixels, k_pool, masks):
+    """The fold's columns as the engine made them before it packed each part
+    straight into its slice (frozen): every part flattened, the wavelength
+    entry expanded to an int64 column and, without colour classes, an int64
+    zero mask column, the parts concatenated, then packed."""
+    cols = []
+    for pix, w, wl_idx, mask in rows.parts:
+        n, b = pix.shape
+        cols.append((pix.reshape(-1), w.reshape(-1), wl_idx[None, :].expand(n, b).reshape(-1),
+                     mask.reshape(-1) if mask is not None else torch.zeros(n * b, dtype=I64)))
+    pix, w, wl_idx, mask = (cols[0][c] if len(cols) == 1 else torch.cat([p[c] for p in cols])
+                            for c in range(4))
+    key, wz = accum.pack_spectral_keys(pix, w, wl_idx, n_pixels, k_pool)
+    return key, wz, to_bits(torch.where(key != -1, mask, 0)) if masks else None
+
+
+def _run_plan(monkeypatch, name, pack):
+    """A run of scene `name` (a calibrating batch, then two) folding the
+    columns `pack` makes: (calibration, image bits, stats)."""
+    monkeypatch.setattr(simulator, "pack_rows", pack)
+    eng = _engine(monkeypatch, name, 4096)
+    eng.run(n_batches=1)
+    eng.run(n_batches=2)
+    cal = (eng._slot_cap, [l.cont_cap for l in eng.layers], eng._compact_keep)
+    image = [_bits(torch.from_numpy(eng.raw_xyz(r).copy())) for r in range(len(eng.proj_plans))]
+    return cal, image, eng.drain_stats()
+
+
+@pytest.mark.parametrize("name", ["two_layer", "ms", "color"])
+def test_fold_rows_and_calibration_as_before(monkeypatch, name):
+    """The fold's columns that simulator.pack_rows makes a part at a time
+    equal, bit for bit, those the engine concatenated before (frozen above)
+    on every batch of a run, the calibrating one included; and a run that
+    folds the columns made as before lands on the same calibration (slot
+    cap, lanes, keep), image and stats."""
+    real = simulator.pack_rows
+    packs = []
+
+    def both(rows, n_pixels, k_pool, masks):
+        got = real(rows, n_pixels, k_pool, masks)
+        want = _fold_columns_as_before(rows, n_pixels, k_pool, masks)
+        assert (got[2] is None) == (want[2] is None) == (not masks)
+        for a, b in zip(got, want):
+            assert a is None or torch.equal(_bits(a), _bits(b))
+        packs.append(rows)
+        return got
+
+    cal, image, stats = _run_plan(monkeypatch, name, both)
+    assert len(packs) == 3 * len(SCENES[name][0]["render"])
+    masks = [p[3] is not None for rows in packs for p in rows.parts]
+    assert all(masks) if name == "color" else not any(masks)
+    want_cal, want_image, want_stats = _run_plan(monkeypatch, name, _fold_columns_as_before)
+    assert cal == want_cal
+    assert all(torch.equal(a, b) for a, b in zip(image, want_image))
+    assert stats == want_stats
 
 
 # ---------------------------------------------------------------------------

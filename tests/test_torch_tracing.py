@@ -230,7 +230,7 @@ def test_snapshot_reads_the_counters_in_place():
     assert snap["engines"] == [{"host_syncs": eng.host_syncs,
                                 "overflow_replays": eng.overflow_replays,
                                 "batch_counter": 2 * K, "layer_epilogue": [None],
-                                "cont_live": [], "cont_lanes": []}]
+                                "pool_shapes": [1], "cont_live": [], "cont_lanes": []}]
     assert set(snap["launches"]) >= {"trace_emit", "fused_scan_extract"}
 
 
@@ -259,6 +259,83 @@ def test_a_traced_general_batch_records_its_layers_and_lanes():
     assert 0.5 < (e["cont_live"][0] - live0) / e["cont_lanes"][0] <= 1.0
     eng.run(n_batches=K)
     assert profiling.snapshot(eng)["engines"][0]["cont_lanes"] == e["cont_lanes"]
+
+
+def test_a_general_batch_times_each_layers_pool_sampler(monkeypatch):
+    """A general-path batch starts the stage ``layer_trace.<li>.pool`` just
+    before layer li's pool sampler and goes back to ``layer_trace.<li>``
+    after it, and the snapshot gives each layer's pool shapes a batch."""
+    names = []
+    monkeypatch.setattr(profiling, "stage", names.append)
+    eng = _two_layers()
+    eng.run(n_batches=1)
+    assert names[:7] == ["layer_trace.0", "layer_trace.0.pool", "layer_trace.0",
+                         "continuation.1", "layer_trace.1", "layer_trace.1.pool",
+                         "layer_trace.1"]
+    assert profiling.snapshot(eng)["engines"][0]["pool_shapes"] == [
+        sum(l.k_per_setting) for l in eng.layers] == [1, 1]
+
+
+class _Event:
+    """A stage mark's event at `t` seconds."""
+
+    def __init__(self, t):
+        self.t = t
+
+    def elapsed_time(self, other):
+        return (other.t - self.t) * 1e3
+
+    def synchronize(self):
+        pass
+
+
+def test_a_stage_counts_under_each_of_its_prefixes():
+    marks = [(n, _Event(t)) for n, t in (
+        ("rest", 0.0), ("layer_trace.0", 1e-3), ("layer_trace.0.pool", 2e-3),
+        ("layer_trace.0", 5e-3), ("layer_trace.1", 6e-3), ("layer_trace.1.pool", 7e-3),
+        ("layer_trace.1", 7.5e-3), (profiling.END, 9e-3))]
+    with profiling.tracing():
+        profiling.record_stages(marks, synced=True)
+        _dispatch, got = profiling.snapshot()["stages"][-1]
+    want = {"rest": 1e-3, "layer_trace": 8e-3, "layer_trace.0": 5e-3,
+            "layer_trace.0.pool": 3e-3, "layer_trace.1": 3e-3, "layer_trace.1.pool": 0.5e-3}
+    assert got == pytest.approx(want)
+
+
+def _general_record(stages, pool_shapes=True, card=True):
+    """``_general.measure``'s stash of a card run: three dispatches of the
+    stretch (after a first one), each with its last batch's `stages`."""
+    spans = [profiling.Span("iht.dispatch", 2_000_000 + i, 3_000_000, -1, d, i)
+             for i, d in enumerate((8, 16, 24))]
+    engine = {"cont_live": [0], "cont_lanes": [0]}
+    if pool_shapes:
+        engine["pool_shapes"] = [7168, 70144, 431360]
+    snap = {"spans": spans, "stages": [(d, st) for d, st in zip((8, 16, 24), stages)],
+            "engines": [engine]}
+    return {"snapshot": snap, "since": 1_000_000, "card": card,
+            "counters": (([0], [0]), ([1], [1]))}
+
+
+def test_pool_sample_us_reads_the_pool_stages():
+    """pool_sample_us: the median over the stretch of each dispatch's pool
+    stages summed over the layers; None for a program without pool stages
+    (no ``pool_shapes``) or off the card; a failed run on the card where the
+    program has them and recorded none."""
+    from types import SimpleNamespace
+
+    from portbench.metrics import _general, pool_sample_us
+
+    def read(rec):
+        return pool_sample_us.read(SimpleNamespace(stash={_general.KEY: rec}))
+
+    stages = [{"layer_trace.0.pool": 1e-3 * i, "layer_trace.1.pool": 2e-3, "layer_trace": 9e-3,
+               "rest": 1e-3} for i in (1, 2, 3)]
+    assert read(_general_record(stages)) == pytest.approx(4e3)
+    assert read(_general_record(stages, pool_shapes=False)) is None
+    bare = [{"layer_trace": 9e-3, "rest": 1e-3}] * 3
+    assert read(_general_record(bare, card=False)) is None
+    with pytest.raises(RuntimeError, match="no pool stage"):
+        read(_general_record(bare))
 
 
 @pytest.fixture
@@ -342,7 +419,10 @@ def test_stage_timers_of_a_captured_general_batch(card, monkeypatch):
         _dispatch, stages = snap["stages"][n]
         families = ("layer_trace", "continuation", "sort", "scan", "rest")
         assert set(stages) == set(families) | {"layer_trace.0", "layer_trace.1",
+                                               "layer_trace.0.pool", "layer_trace.1.pool",
                                                "continuation.1"}
+        assert all(0 < stages[f"layer_trace.{i}.pool"] < stages[f"layer_trace.{i}"]
+                   for i in range(2))
         assert all(stages[f] > 0 for f in families), stages
         assert stages["layer_trace"] == pytest.approx(stages["layer_trace.0"]
                                                       + stages["layer_trace.1"])
